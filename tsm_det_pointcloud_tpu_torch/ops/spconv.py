@@ -1,0 +1,301 @@
+"""Sparse 3D convolution on sorted voxel keys.
+
+Counterpart of tsm_det_pointcloud_tpu/ops/spconv.py:49-543. A sparse tensor
+is fixed-capacity (features (B, V, C), coords (B, V, 3) int zyx with -1 pad,
+valid (B, V)) with rows sorted by linearized voxel key.
+
+Every 27-tap conv takes the by-key route: the rulebook is never
+materialised; a `LazyRulebook` carries the sorted source keys and the
+per-tap target keys, and the conv matches them inside the gather-GEMM. On a
+CUDA tensor:
+  * `_lookup_batched` launches kernel K3 (csrc/probe.cu, replacing the
+    Pallas `_kernel` of ops/searchsorted_pallas.py:55);
+  * `gather_matmul_bykey` launches kernel K4 (csrc/spconv_bykey.cu,
+    replacing the Pallas `_bykey_kernel` of ops/spconv_pallas.py:132).
+On a CPU tensor both run their plain versions below. A 1x1x1 conv stays a
+plain GEMM.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import _kernels
+
+
+class LazyRulebook(NamedTuple):
+    """Probe inputs of a conv: source keys (B, V) ascending with a sentinel
+    tail, and target keys (B, K, Q) with sentinel = contributes nothing."""
+    skeys: torch.Tensor
+    qkeys: torch.Tensor
+
+
+def _triple(v):
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
+
+
+def linearize(coords_zyx, grid, valid=None):
+    """(..., 3) zyx -> int32 keys; invalid / out-of-grid -> sentinel. Both
+    bounds are checked, so a neighbour past the grid edge cannot alias."""
+    gz, gy, gx = grid
+    c = coords_zyx.long()
+    key = (c[..., 0] * gy + c[..., 1]) * gx + c[..., 2]
+    sentinel = gz * gy * gx
+    hi = torch.tensor([gz, gy, gx], device=c.device)
+    bad = (c < 0).any(-1) | (c >= hi).any(-1)
+    if valid is not None:
+        bad = bad | ~valid
+    return torch.where(bad, torch.full_like(key, sentinel), key).to(torch.int32)
+
+
+def kernel_offsets(kernel_size):
+    """Static (K, 3) zyx offsets, centred (k odd) or from 0 (k even)."""
+    ranges = []
+    for k in _triple(kernel_size):
+        lo = -(k // 2) if k % 2 == 1 else 0
+        ranges.append(np.arange(lo, lo + k))
+    off = np.stack(np.meshgrid(*ranges, indexing="ij"), axis=-1).reshape(-1, 3)
+    return off.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# K3: the rulebook probe
+# ---------------------------------------------------------------------------
+
+def probe_plain(skeys, queries, sentinel):
+    """skeys (B, V) int32 ascending, queries (B, Q) int32 -> idx (B, Q)
+    int32 = max(#{skeys <= q} - 1, 0) and found (B, Q) bool."""
+    rank = torch.searchsorted(skeys.contiguous(), queries.contiguous(), right=True)
+    idx = torch.clamp(rank - 1, min=0)
+    hit = torch.gather(skeys, 1, idx) == queries
+    found = (rank > 0) & hit & (queries < sentinel)
+    return idx.to(torch.int32), found
+
+
+def probe(skeys, queries, sentinel):
+    """Rank-and-membership probe (see probe_plain); kernel K3 on the card."""
+    if not skeys.is_cuda:
+        return probe_plain(skeys, queries, sentinel)
+    sk = skeys.contiguous().to(torch.int32)
+    q = queries.contiguous().to(torch.int32)
+    _kernels.require_cuda(sk, q)
+    B, V = sk.shape
+    Q = q.shape[1]
+    _kernels.check_shape(q, (B, Q), "probe queries")
+    idx = torch.empty((B, Q), dtype=torch.int32, device=sk.device)
+    found = torch.empty((B, Q), dtype=torch.uint8, device=sk.device)
+    err = _kernels.func("probe")(sk.data_ptr(), q.data_ptr(), B, V, Q,
+                                 int(min(sentinel, 2**31 - 1)), idx.data_ptr(),
+                                 found.data_ptr(), _kernels.stream_ptr(sk.device))
+    _kernels.check(err, "probe")
+    _kernels.count("probe")
+    return idx, found.bool()
+
+
+def _lookup_batched(skeys, query_keys, sentinel):
+    """Batched rulebook probe. skeys (B, V); query_keys (B, K, Q); returns
+    idx / found (B, K, Q). `idx` is the slot where found."""
+    B, K, Q = query_keys.shape
+    idx, found = probe(skeys, query_keys.reshape(B, K * Q), sentinel)
+    return idx.reshape(B, K, Q), found.reshape(B, K, Q)
+
+
+# ---------------------------------------------------------------------------
+# K4: the by-key gather-GEMM
+# ---------------------------------------------------------------------------
+
+def gather_matmul_bykey_plain(features, skeys, qkeys, weight, sentinel):
+    """out[b, q] = sum_k weight[k]^T f[b, row(skeys == qkeys[b, k, q])]:
+    the probe, a gather and a per-tap product."""
+    B, V, C = features.shape
+    _, K, Q = qkeys.shape
+    idx, found = _lookup_plain(skeys, qkeys, sentinel)
+    out = torch.zeros((B, Q, weight.shape[-1]), dtype=features.dtype,
+                      device=features.device)
+    for k in range(K):
+        g = torch.gather(features, 1, idx[:, k].long()[..., None].expand(-1, -1, C))
+        g = torch.where(found[:, k, :, None], g, torch.zeros_like(g))
+        out = out + torch.matmul(g, weight[k])
+    return out
+
+
+def _lookup_plain(skeys, qkeys, sentinel):
+    B, K, Q = qkeys.shape
+    idx, found = probe_plain(skeys, qkeys.reshape(B, K * Q), sentinel)
+    return idx.reshape(B, K, Q), found.reshape(B, K, Q)
+
+
+def gather_matmul_bykey(features, skeys, qkeys, weight, sentinel):
+    """Fused probe + gather + GEMM; kernel K4 on the card. features
+    (B, V, C) key-sorted, skeys (B, V), qkeys (B, K, Q), weight (K, C, Co)
+    -> (B, Q, Co)."""
+    if not features.is_cuda:
+        return gather_matmul_bykey_plain(features, skeys, qkeys, weight, sentinel)
+    f = features.contiguous().float()
+    sk = skeys.contiguous().to(torch.int32)
+    qk = qkeys.contiguous().to(torch.int32)
+    w = weight.contiguous().float()
+    _kernels.require_cuda(f, sk, qk, w)
+    B, V, C = f.shape
+    K, Q, Co = qk.shape[1], qk.shape[2], w.shape[-1]
+    _kernels.check_shape(sk, (B, V), "bykey skeys")
+    _kernels.check_shape(qk, (B, K, Q), "bykey qkeys")
+    _kernels.check_shape(w, (K, C, Co), "bykey weight")
+    out = torch.empty((B, Q, Co), dtype=torch.float32, device=f.device)
+    err = _kernels.func("spconv_bykey")(
+        f.data_ptr(), sk.data_ptr(), qk.data_ptr(), w.data_ptr(), B, V, C, K,
+        Q, Co, int(min(sentinel, 2**31 - 1)), out.data_ptr(),
+        _kernels.stream_ptr(f.device))
+    _kernels.check(err, "spconv_bykey")
+    _kernels.count("spconv_bykey")
+    return out
+
+
+def _gather_conv_bykey(features, rulebook, weight, out_valid, grid):
+    out = gather_matmul_bykey(features, rulebook.skeys, rulebook.qkeys,
+                              weight, int(np.prod(grid)))
+    return torch.where(out_valid[..., None], out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# rulebooks and convs
+# ---------------------------------------------------------------------------
+
+def build_subm_rulebook(coords, valid, grid, kernel_size=3):
+    offs = torch.as_tensor(kernel_offsets(kernel_size), device=coords.device)
+    keys = linearize(coords, grid, valid)                          # (B, V)
+    qc = coords[:, None, :, :].long() + offs[None, :, None, :]     # (B, K, V, 3)
+    qk = linearize(qc, grid, valid[:, None, :])
+    return LazyRulebook(keys, qk)
+
+
+def subm_conv3d(features, coords, valid, weight, grid, rulebook=None):
+    """Submanifold sparse conv: output at the input positions. weight
+    (K, Cin, Cout), taps ordered like kernel_offsets(). Returns (B, V, Cout)."""
+    K = weight.shape[0]
+    if K == 1:
+        out = torch.matmul(features, weight[0])
+        return torch.where(valid[..., None], out, torch.zeros_like(out))
+    if rulebook is None:
+        rulebook = build_subm_rulebook(coords, valid, grid, round(K ** (1 / 3)))
+    return _gather_conv_bykey(features, rulebook, weight, valid, grid)
+
+
+def _downsample_out_coords(coords, valid, grid, out_grid, kernel_size, stride,
+                           padding, out_capacity):
+    """Exact strided-conv output set: the union over inputs of every output
+    whose receptive field covers them, sorted-unique to `out_capacity`.
+    coords (B, V, 3). Returns out_coords (B, Vo, 3) int32, out_valid (B, Vo)."""
+    dev = coords.device
+    ks = np.asarray(_triple(kernel_size))
+    st = np.asarray(_triple(stride))
+    pd = np.asarray(_triple(padding))
+    n_cand = [int(np.ceil(k / s)) for k, s in zip(ks, st)]
+    cand_offsets = np.stack(
+        np.meshgrid(*[np.arange(n) for n in n_cand], indexing="ij"), axis=-1
+    ).reshape(-1, 3)
+    st_t = torch.as_tensor(st, device=dev)
+    pd_t = torch.as_tensor(pd, device=dev)
+    ks_t = torch.as_tensor(ks, device=dev)
+    c = coords.long()
+    num = c + pd_t - ks_t + 1
+    o_min = torch.where(num >= 0, (num + st_t - 1) // st_t, -((-num) // st_t))
+    o_max = (c + pd_t) // st_t
+    cands = o_min[:, :, None, :] + torch.as_tensor(cand_offsets, device=dev)
+    og = torch.as_tensor(out_grid, device=dev)
+    ok = (valid[:, :, None] & (cands <= o_max[:, :, None, :]).all(-1)
+          & (cands >= 0).all(-1) & (cands < og).all(-1))
+    B = coords.shape[0]
+    cands = cands.reshape(B, -1, 3)
+    ok = ok.reshape(B, -1)
+
+    keys = linearize(cands, out_grid, ok).long()
+    skeys, order = torch.sort(keys, dim=1, stable=True)
+    scoords = torch.gather(cands, 1, order[..., None].expand(-1, -1, 3))
+    sentinel = int(np.prod(out_grid))
+    svalid = skeys < sentinel
+    is_start = torch.cat(
+        [svalid[:, :1], (skeys[:, 1:] != skeys[:, :-1]) & svalid[:, 1:]], 1)
+    slot = torch.cumsum(is_start.long(), 1) - 1
+    big = 2**31 - 1
+    ckey = torch.where(is_start, slot, torch.full_like(slot, big))
+    if ckey.shape[1] < out_capacity:
+        pad = out_capacity - ckey.shape[1]
+        ckey = torch.cat([ckey, torch.full((B, pad), big, dtype=ckey.dtype,
+                                           device=dev)], 1)
+        scoords = torch.cat([scoords, torch.zeros((B, pad, 3),
+                                                  dtype=scoords.dtype,
+                                                  device=dev)], 1)
+    _, corder = torch.sort(ckey, dim=1, stable=True)
+    corder = corder[:, :out_capacity]
+    out_coords = torch.gather(scoords, 1, corder[..., None].expand(-1, -1, 3))
+    n_out = torch.clamp(is_start.sum(1), max=out_capacity)
+    out_valid = torch.arange(out_capacity, device=dev)[None, :] < n_out[:, None]
+    out_coords = torch.where(out_valid[..., None], out_coords,
+                             torch.full_like(out_coords, -1))
+    return out_coords.to(torch.int32), out_valid
+
+
+def build_conv_plan(coords, valid, grid, out_grid, kernel_size, stride,
+                    padding, out_capacity):
+    """Weight-independent part of a strided conv: (out_coords (B, Vo, 3),
+    out_valid (B, Vo), LazyRulebook)."""
+    dev = coords.device
+    offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev).long()
+    ks = _triple(kernel_size)
+    st = torch.as_tensor(_triple(stride), device=dev)
+    pd = torch.as_tensor(_triple(padding), device=dev)
+    lo = torch.as_tensor([-(k // 2) if k % 2 == 1 else 0 for k in ks], device=dev)
+    oc, ov = _downsample_out_coords(coords, valid, grid, out_grid, kernel_size,
+                                    stride, padding, out_capacity)
+    in_keys = linearize(coords, grid, valid)
+    # input position for tap t at output o: i = o*s - p + tap, tap in [0, k)
+    taps = offs - lo[None, :]
+    qc = oc[:, None, :, :].long() * st - pd + taps[None, :, None, :]
+    qk = linearize(qc, grid, ov[:, None, :])
+    return oc, ov, LazyRulebook(in_keys, qk)
+
+
+def sparse_conv3d(features, coords, valid, weight, grid, out_grid,
+                  kernel_size, stride, padding, out_capacity, plan=None):
+    """Strided sparse conv. Returns (features (B, Vo, Cout), out_coords,
+    out_valid) with out coords in out_grid units, sorted."""
+    if plan is None:
+        plan = build_conv_plan(coords, valid, grid, out_grid, kernel_size,
+                               stride, padding, out_capacity)
+    oc, ov, rulebook = plan
+    return _gather_conv_bykey(features, rulebook, weight, ov, grid), oc, ov
+
+
+def build_inverse_rulebook(coarse_coords, coarse_valid, fine_coords,
+                           fine_valid, coarse_grid, kernel_size, stride,
+                           padding):
+    """Fine o receives coarse c with tap = o - (c*s - p) when 0 <= tap < k."""
+    dev = coarse_coords.device
+    ks = _triple(kernel_size)
+    offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev).long()
+    lo = torch.as_tensor([-(k // 2) if k % 2 == 1 else 0 for k in ks], device=dev)
+    st = torch.as_tensor(_triple(stride), device=dev)
+    pd = torch.as_tensor(_triple(padding), device=dev)
+    ckeys = linearize(coarse_coords, coarse_grid, coarse_valid)
+    taps = offs - lo[None, :]
+    num = fine_coords[:, None, :, :].long() + pd - taps[None, :, None, :]
+    c_cand = num // st
+    exact = (c_cand * st == num).all(-1)
+    qk = linearize(c_cand, coarse_grid, fine_valid[:, None, :] & exact)
+    return LazyRulebook(ckeys, qk)
+
+
+def inverse_conv3d(coarse_features, coarse_coords, coarse_valid, weight,
+                   fine_coords, fine_valid, coarse_grid, kernel_size, stride,
+                   padding, rulebook=None):
+    """Sparse inverse conv back onto a known fine position set. Returns
+    (B, Vf, Cout)."""
+    if rulebook is None:
+        rulebook = build_inverse_rulebook(
+            coarse_coords, coarse_valid, fine_coords, fine_valid,
+            coarse_grid, kernel_size, stride, padding)
+    return _gather_conv_bykey(coarse_features, rulebook, weight, fine_valid,
+                              coarse_grid)
