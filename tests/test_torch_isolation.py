@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX package;
 its entry points refuse CUDA on a host without a card unless device="cpu"
-is given; the weight converter consumes every leaf of the eval path."""
+is given; the weight converter consumes every leaf of a training init."""
 import pathlib
 import re
 import subprocess
@@ -49,7 +49,7 @@ def test_no_jax_import_in_source(path):
 
 
 def test_entry_points_refuse_cuda_without_card(monkeypatch):
-    from tsm_det_pointcloud_tpu_torch import infer, tiny
+    from tsm_det_pointcloud_tpu_torch import infer, tiny, train
     from tsm_det_pointcloud_tpu_torch.models import build_network
     from tsm_det_pointcloud_tpu_torch.utils.common_utils import resolve_device
 
@@ -60,6 +60,8 @@ def test_entry_points_refuse_cuda_without_card(monkeypatch):
         build_network(tiny.tiny_model_cfg(), 3, tiny.META)
     with pytest.raises(RuntimeError, match="CUDA"):
         infer.main(["--batch", "1", "--points", "64", "--iters", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--batch", "1", "--points", "64", "--steps", "1"])
     model = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 
@@ -72,10 +74,11 @@ def test_other_models_raise():
     cfg["NAME"] = "PointPillar"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
+    # train mode is ported, and asks for the gt boxes it trains on
     model = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device="cpu")
     model.train()
-    with pytest.raises(NotImplementedError):
-        model({"points": torch.zeros(1, 256, 4),
+    with pytest.raises(ValueError, match="gt_boxes"):
+        model({"points": torch.from_numpy(tiny.synth_points(1)),
                "points_mask": torch.ones(1, 256, dtype=torch.bool)})
 
 
@@ -91,13 +94,15 @@ def test_converter_consumes_every_eval_leaf():
         lambda b: model.init(jax.random.PRNGKey(0), b, training=True), dict(batch))
     variables = jax.tree_util.tree_map(
         lambda s: np.full(s.shape, 0.5, np.float32), shapes)
-    state, unused = from_flax_variables(variables, return_unused=True)
+    state = from_flax_variables(variables)
+    n_leaves = len(jax.tree_util.tree_leaves(variables))
+    assert len(state) == n_leaves
     port = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device="cpu")
-    # strict: every port tensor is given and every converted leaf is used
+    # strict: every port tensor is given and every converted leaf is used,
+    # the teacher's SA layer 1 and head included
     port.load_state_dict(state, strict=True)
-    assert unused and all(
-        re.match(r"^(params|batch_stats)/module_list_(1/head|0/sa1)/", u)
-        for u in unused), unused
+    assert any(k.startswith("module_list.0.sa1.") for k in state)
+    assert "module_list.1.head.reg_weight" in state
     with pytest.raises(ValueError):
         from_flax_variables({"params": {"module_list_0": {"sa0": {"odd": {
             "leaf": np.zeros((2, 2, 2, 2), np.float32)}}}}})

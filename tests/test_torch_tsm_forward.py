@@ -31,13 +31,13 @@ def _assert_golden_close(got, want, what):
 
 @pytest.fixture(scope="module")
 def jax_shapes():
-    """The eval-path flax variables of the tiny model, as shapes only (an
-    eval init creates exactly the modules the eval forward runs)."""
-    batch = {k: v for k, v in ge._synth_batch(2, with_gt=False, seed=0).items()
+    """The flax variables of the tiny model, as shapes only: a training
+    init, which creates the teacher's layers too, as the port holds them."""
+    batch = {k: v for k, v in ge._synth_batch(2, with_gt=True, seed=0).items()
              if k != "batch_size"}
     return jax.eval_shape(
         lambda b: _JMODEL.init(jax.random.PRNGKey(0), dict(b, batch_size=2),
-                               training=False), batch)
+                               training=True), batch)
 
 
 def _port_model(variables, cfg):
@@ -64,6 +64,21 @@ def write_tiny_state(path=tiny.STATE_PATH):
     sd = from_flax_variables(jax.tree_util.tree_map(np.asarray, v))
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **{k: t.numpy() for k, t in sd.items()})
+
+
+def test_committed_state_is_the_converted_init():
+    """The committed state is a fresh conversion of the JAX tiny model's
+    PRNGKey(0) training init, leaf for leaf (rtol 1e-6, atol 1e-7: the
+    init's float32 arithmetic may round differently on another CPU)."""
+    model = ge._tsm_model()
+    v = jax.jit(lambda r, b: model.init(r, b, training=True))(
+        jax.random.PRNGKey(0), dict(ge._synth_batch(2, with_gt=True, seed=0)))
+    want = from_flax_variables(jax.tree_util.tree_map(np.asarray, v))
+    got = tiny.load_state()
+    assert set(got) == set(want)
+    for k, t in want.items():
+        np.testing.assert_allclose(got[k].numpy(), t.numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
 
 
 def test_reproduces_committed_golden():

@@ -8,15 +8,15 @@ that `model.init(..., training=True)` returns (collections `params`,
   * a Dense `kernel` (in, out) is transposed to `weight` (out, in); its
     `bias` is copied;
   * BatchNorm `scale` / `bias` become `weight` / `bias`, `batch_stats`
-    `mean` / `var` become `running_mean` / `running_var` (each BN's eps is
-    fixed by the layer it belongs to: 1e-3 on the eval path);
+    `mean` / `var` become `running_mean` / `running_var` (each BN's eps and
+    momentum are fixed by the layer it belongs to: 1e-3 / 0.99, and 1e-5 /
+    0.9 for the teacher head's gate BNs);
   * sparse-conv kernels (K, Cin, Cout) keep their layout as `weight`;
+  * the teacher head's `reg_weight` (1, 1, 64, code) is copied;
   * `statistics/*` become buffers of the head.
 
-Leaves of the teacher head (`module_list_1/head/...`) and of teacher SA
-layers past layer 0 (`module_list_0/sa1/...`) are not on the eval path:
-they are listed, not converted. Any other leaf that no rule consumes
-raises.
+Every leaf of the training init is consumed (teacher and student, eval and
+training path); a leaf that no rule consumes raises.
 """
 from __future__ import annotations
 
@@ -25,9 +25,6 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
-
-_UNUSED = (re.compile(r"^module_list_1/head/"),
-           re.compile(r"^module_list_0/sa([1-9]\d*)/"))
 
 
 def _flatten(tree, prefix=""):
@@ -55,6 +52,8 @@ def _convert_leaf(collection, path, arr):
             return f"{tmod}.weight", arr
         if leaf == "bias" and arr.ndim == 1:
             return f"{tmod}.bias", arr
+        if leaf == "reg_weight" and arr.ndim == 4:
+            return f"{tmod}.reg_weight", arr
     elif collection == "batch_stats":
         if leaf == "mean":
             return f"{tmod}.running_mean", arr
@@ -66,17 +65,12 @@ def _convert_leaf(collection, path, arr):
                      f"{arr.shape}")
 
 
-def from_flax_variables(variables_np, return_unused=False):
-    """flax variables (numpy leaves) -> torch state_dict (and, with
-    return_unused, the sorted list of leaves off the eval path)."""
+def from_flax_variables(variables_np):
+    """flax variables (numpy leaves) -> torch state_dict."""
     state = OrderedDict()
-    unused = []
     for collection in ("params", "batch_stats", "statistics"):
         tree = variables_np.get(collection, {})
         for path, arr in _flatten(tree):
-            if any(p.match(path) for p in _UNUSED):
-                unused.append(f"{collection}/{path}")
-                continue
             key, val = _convert_leaf(collection, path, arr)
             if key in state:
                 raise ValueError(f"two flax leaves map to {key}")
@@ -84,6 +78,4 @@ def from_flax_variables(variables_np, return_unused=False):
     other = set(variables_np) - {"params", "batch_stats", "statistics"}
     if other:
         raise ValueError(f"unknown flax collections {sorted(other)}")
-    if return_unused:
-        return state, sorted(unused)
     return state

@@ -31,22 +31,31 @@ from .utils.edict import EDict
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def synth_points(batch, n, seed=0):
+def synth_scene(batch, n, seed=0):
     """Synthetic KITTI-range scans (B, n, 4) with eight car-like clusters
-    each, so NMS has real work (the same recipe as the JAX bench)."""
+    each (x within 2 m, y within 1 m of its centre, z in [-1.6, -0.2]), and
+    the clusters' (x, y) centres (B, 8, 2)."""
     rng = np.random.RandomState(seed)
     pts = np.zeros((batch, n, 4), np.float32)
     pts[..., 0] = rng.uniform(0.0, 69.0, (batch, n))
     pts[..., 1] = rng.uniform(-39.0, 39.0, (batch, n))
     pts[..., 2] = rng.uniform(-2.0, 0.5, (batch, n))
     pts[..., 3] = rng.uniform(0, 1, (batch, n))
+    centres = np.zeros((batch, 8, 2), np.float32)
     for b in range(batch):
         for k in range(8):
             cx, cy = rng.uniform(5, 60), rng.uniform(-30, 30)
+            centres[b, k] = cx, cy
             pts[b, k * 200:(k + 1) * 200, 0] = rng.uniform(cx - 2, cx + 2, 200)
             pts[b, k * 200:(k + 1) * 200, 1] = rng.uniform(cy - 1, cy + 1, 200)
             pts[b, k * 200:(k + 1) * 200, 2] = rng.uniform(-1.6, -0.2, 200)
-    return pts
+    return pts, centres
+
+
+def synth_points(batch, n, seed=0):
+    """Synthetic KITTI-range scans (B, n, 4) with eight car-like clusters
+    each, so NMS has real work (the same recipe as the JAX bench)."""
+    return synth_scene(batch, n, seed)[0]
 
 
 def load_cfg(cfg_file):
@@ -79,10 +88,17 @@ def randomize_eval_state(model, seed):
             m.running_var.copy_((0.5 + torch.rand(n, generator=g)).to(dev))
         if name.rsplit(".", 1)[-1] in ("cls0_out", "cls1_out", "cls2_out"):
             m.bias.fill_(1.0)
+    seed_statistics(model, g)
+
+
+@torch.no_grad()
+def seed_statistics(model, g):
+    """The head's class-statistics buffers N(0, 0.25) from generator g (a
+    real run transfers them from the teacher checkpoint)."""
     head = model.module_list[1]
     for buf in ("object_statistic_features", "object_momentum", "object_mean"):
         t = getattr(head, buf)
-        t.copy_((torch.randn(t.shape, generator=g) * 0.5).to(dev))
+        t.copy_((torch.randn(t.shape, generator=g) * 0.5).to(t.device))
 
 
 def build_detector(cfg_file, device="cuda", seed=0, n_points=16384):
@@ -115,18 +131,26 @@ def _self_device_us(evt):
 def profile_batch(model, points, mask, top=20):
     """Trace one batch on the card; print the device busy share and the
     kernels with the most device time."""
+    profile_call(lambda: detect(model, points, mask), top)
+
+
+def profile_call(fn, top=20):
+    """Trace one call of `fn` on the card; print the device busy share of
+    its wall time and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        detect(model, points, mask)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side kernel events only: an aten op's device time is also its
-    # kernels' time, so counting both would count it twice
+    # kernels' time, and a user annotation's (Optimizer.step) spans its
+    # kernels' too, so counting either would count them twice
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
               and _self_device_us(e) > 0]
     busy_us = sum(_self_device_us(e) for e in events)
     print(f"profile: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "

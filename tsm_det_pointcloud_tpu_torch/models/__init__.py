@@ -2,8 +2,9 @@
 
 `build_network(model_cfg, num_class, dataset, device="cuda", seed=0)` builds
 the ported detector — NAME 3DSSD with the VoxelPointNet2FSMSGDistillation
-backbone and the PointHeadVoteSASAStatisticDistillation head — with seeded
-random weights, in eval mode, on `device`. Any other configuration raises.
+backbone and the PointHeadVoteSASAStatisticDistillation head, teacher and
+student — with seeded random weights, in eval mode, on `device`; `.train()`
+turns on the distillation training path. Any other configuration raises.
 Matmuls and convolutions run in full float32: TF32 is switched off here.
 """
 from __future__ import annotations
@@ -16,7 +17,10 @@ from ..utils.common_utils import resolve_device
 from .backbones_3d.pointnet2_modules import BatchNorm
 from .backbones_3d.spconv_backbone import _ConvBase
 from .backbones_3d.voxel_pointnet2_backbone import VoxelPointNet2FSMSGDistillation
-from .dense_heads.point_head_vote import PointHeadVoteSASAStatisticDistillation
+from .dense_heads.point_head_vote import (
+    PointHeadVoteSASAStatisticDistillation,
+    VoteHeadBranch,
+)
 from .detectors import DatasetMeta, __all__ as detector_registry
 
 _NEG_LOG99 = -float(np.log(99.0))
@@ -26,8 +30,9 @@ _PORTED_SECTIONS = {"NAME", "BACKBONE_3D", "POINT_HEAD", "POST_PROCESSING",
 
 def init_weights(model, seed=0):
     """Seeded random weights from a torch.Generator: Dense kernels lecun
-    normal, sparse-conv kernels N(0, 2 / (K * Cin)), biases 0 except the
-    confidence / cls output biases at -log(99), BN at the identity."""
+    normal, sparse-conv kernels N(0, 2 / (K * Cin)), the teacher's
+    dynamic regression weight N(0, 2 / 64), biases 0 except the confidence /
+    cls output biases at -log(99), BN at the identity."""
     g = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
@@ -50,11 +55,14 @@ def init_weights(model, seed=0):
             m.bias.data.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, VoteHeadBranch) and m.gated_reg:
+            w = torch.randn(m.reg_weight.shape, generator=g) * np.sqrt(2.0 / 64)
+            m.reg_weight.data.copy_(w)
     return model
 
 
 def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
-    """Build the eval-path detector. `dataset` is a DatasetMeta."""
+    """Build the detector (eval mode). `dataset` is a DatasetMeta."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -77,7 +85,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
         dict(b3d), input_channels=dataset.num_point_features, meta=dataset)
     head = PointHeadVoteSASAStatisticDistillation(
         dict(head_cfg), num_class=num_class,
-        input_channels=backbone.num_point_features, meta=dataset)
+        input_channels=backbone.num_point_features, meta=dataset,
+        teacher_channels=backbone.teacher_point_features)
     model = detector_registry[name](model_cfg, num_class, dataset, [backbone, head])
     init_weights(model, seed)
     return model.to(dev).eval()

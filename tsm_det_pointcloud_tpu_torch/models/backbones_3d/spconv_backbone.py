@@ -2,7 +2,8 @@
 tsm_det_pointcloud_tpu/models/backbones_3d/spconv_backbone.py:27-163).
 
 A conv's `weight` keeps the JAX layout (K, Cin, Cout), taps ordered like
-ops.spconv.kernel_offsets(). BN is eps 1e-3 on the running stats.
+ops.spconv.kernel_offsets(). BN is eps 1e-3, momentum 0.99; in train mode
+its batch stats count the output's valid rows only.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ class _ConvBase(nn.Module):
             self.bias = nn.Parameter(torch.zeros(int(out_channels)))
 
     def _post(self, feats, valid):
-        feats = self.bn(feats) if self.use_norm else feats + self.bias
+        feats = self.bn(feats, valid) if self.use_norm else feats + self.bias
         if self.use_relu:
             feats = torch.relu(feats)
         return torch.where(valid[..., None], feats, torch.zeros_like(feats))

@@ -1,4 +1,4 @@
-"""Voxel-hash PointNet++ backbone of the TSM model, eval path.
+"""Voxel-hash PointNet++ backbone of the TSM model.
 
 Counterpart of
 tsm_det_pointcloud_tpu/models/backbones_3d/voxel_pointnet2_backbone.py.
@@ -9,7 +9,8 @@ tsm_det_pointcloud_tpu/models/backbones_3d/voxel_pointnet2_backbone.py.
            MLPs, the 3-level sparse mini U-Net and the confidence;
    >= 3  : voxel-query aggregation only (the head's VSA, new_xyz given).
 Layers are built with explicit channel counts (flax infers them); the
-parameter names follow the flax module names.
+parameter names follow the flax module names. In train mode every BN takes
+its batch stats over the elements the JAX call masks (`mask=`).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from torch import nn
 
 from ...ops import grouping, sampling, spconv as sp_ops
 from ...ops.voxel import voxel_centroids
-from .pointnet2_modules import BatchNorm, SharedMLP
+from .pointnet2_modules import BatchNorm, SharedMLP, safe_bn_mask
 from .spconv_backbone import (
     SparseConv,
     SparseInverseConv,
@@ -77,9 +78,10 @@ class _MLPNoFinalRelu(nn.Module):
             setattr(self, f"bn{i}", BatchNorm(int(c), eps=1e-3))
             c_in = int(c)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
+        mask = safe_bn_mask(mask)
         for i in range(self.n):
-            x = getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x))
+            x = getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x), mask)
             if i < self.n - 1:
                 x = torch.relu(x)
         return x
@@ -233,7 +235,7 @@ class VoxelSAModule(nn.Module):
                 g = torch.cat([grouped[..., :3] - new_xyz[:, :, None, :],
                                grouped[..., 3:]], -1)
                 g = torch.where(slot_ok[..., None], g, torch.zeros_like(g))
-                h = getattr(self, f"point_mlp{i}")(g)
+                h = getattr(self, f"point_mlp{i}")(g, slot_ok)
                 outs.append(_masked_max(h, slot_ok, new_valid & (cnt > 0)))
         else:
             new_coords = points_to_voxel_coords(new_xyz, self.point_cloud_range,
@@ -250,14 +252,14 @@ class VoxelSAModule(nn.Module):
                 g_xyz = torch.where(slot_ok[..., None],
                                     grouped[..., :3] - new_xyz[:, :, None, :], zero)
                 g_feat = torch.where(slot_ok[..., None], grouped[..., 3:], zero)
-                hf = getattr(self, f"point_mlp{i}")(g_feat)
-                hx = getattr(self, f"pos_mlp{i}")(g_xyz)
+                hf = getattr(self, f"point_mlp{i}")(g_feat, slot_ok)
+                hx = getattr(self, f"pos_mlp{i}")(g_xyz, slot_ok)
                 h = torch.relu(hf + hx)
                 outs.append(_masked_max(h, slot_ok, new_valid & (cnt > 0)))
 
         new_features = torch.cat(outs, -1)
         if self.has_aggregation:
-            new_features = self.aggregation(new_features)
+            new_features = self.aggregation(new_features, new_valid)
             new_features = torch.where(new_valid[..., None], new_features,
                                        torch.zeros_like(new_features))
 
@@ -281,7 +283,8 @@ class VoxelSAModule(nn.Module):
         # ---- per-voxel confidence ----
         new_scores_voxel = None
         if self.has_confidence:
-            logits = self.confidence_out(self.confidence(sp_out.features))
+            logits = self.confidence_out(self.confidence(sp_out.features,
+                                                         sp_out.valid))
             new_scores_voxel = torch.where(sp_out.valid[..., None], logits,
                                            torch.full_like(logits, -1e9))
 
@@ -442,15 +445,18 @@ class _VoxelFSBase(nn.Module):
 
 
 class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
-    """Frozen-teacher / student backbone, eval path: the teacher runs its
-    first len(SA_CONFIG.NPOINT_LIST) - 1 layers (layer 0 for the TSM
-    configs), then the student layer `s_sa1` runs on teacher layer 0's
-    outputs."""
+    """Frozen-teacher / student backbone. Eval: the teacher runs its first
+    len(SA_CONFIG.NPOINT_LIST) - 1 layers (layer 0 for the TSM configs),
+    then the student layer `s_sa1` runs on teacher layer 0's outputs.
+    Train: the teacher runs all its layers in train mode (batch-stat BN,
+    running stats updated) under `torch.no_grad()` — the counterpart of the
+    JAX `stop_gradient` (voxel_pointnet2_backbone.py:734-738) — and
+    `s_sa1` reuses the teacher's U-Net plan."""
 
     def __init__(self, model_cfg, input_channels, meta=None):
         super().__init__(model_cfg, input_channels, meta)
-        self.n_teacher = len(model_cfg["SA_CONFIG"]["NPOINT_LIST"]) - 1
-        if self.n_teacher != 1:
+        self.n_teacher = len(model_cfg["SA_CONFIG"]["NPOINT_LIST"])
+        if self.n_teacher != 2:
             raise NotImplementedError(
                 "only configs whose eval teacher is SA layer 0 alone are ported")
         self._build_layers("SA_CONFIG", self.n_teacher)
@@ -465,17 +471,36 @@ class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
     def num_point_features(self):
         return int(self.model_cfg["S_SA_CONFIG"]["AGGREGATION_MLPS"][-1][-1])
 
+    @property
+    def teacher_point_features(self):
+        return _out_channels(self.model_cfg["SA_CONFIG"], self.n_teacher - 1)
+
     def forward(self, batch_dict):
         if self.training:
-            raise NotImplementedError("training is not ported; call .eval()")
-        t_outs, _ = self._run_layers("SA_CONFIG", batch_dict, self.n_teacher)
+            with torch.no_grad():
+                t_outs, unet_plan = self._run_layers("SA_CONFIG", batch_dict,
+                                                     self.n_teacher)
+        else:
+            t_outs, unet_plan = self._run_layers("SA_CONFIG", batch_dict,
+                                                 self.n_teacher - 1)
         t0 = t_outs[0]
-        capacity = self.s_sa1.voxel_capacity
-        unet_plan = build_unet_plan(t0["sp"], capacity)
+        if unet_plan is None:
+            unet_plan = build_unet_plan(t0["sp"], self.s_sa1.voxel_capacity)
         s_out = self.s_sa1(
             t0["new_xyz"], t0["new_features"], t0["new_valid"],
             scores_voxel=t0["scores_voxel"], point_slot=t0["point_slot"],
             sp=t0["sp"], centroid_xyz=t0["centroid_xyz"], unet_plan=unet_plan)
+
+        if self.training:
+            tl = t_outs[-1]
+            batch_dict["point_features"] = tl["new_features"]
+            batch_dict["point_coords"] = tl["new_xyz"]
+            batch_dict["point_valid"] = tl["new_valid"]
+            batch_dict["point_scores"] = tl["scores_voxel"]
+            batch_dict["last_sp_tensor"] = tl["sp"]
+            batch_dict["last_centroid_xyz"] = tl["centroid_xyz"]
+            batch_dict["last_point_slot"] = tl["point_slot"]
+            batch_dict["statistic_feature"] = tl["sp"].features
 
         batch_dict["s_point_features"] = s_out["new_features"]
         batch_dict["s_point_coords"] = s_out["new_xyz"]

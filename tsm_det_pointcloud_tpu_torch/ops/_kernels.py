@@ -35,6 +35,7 @@ SOURCES = {
     "query_group": "group.cu",
     "probe": "probe.cu",
     "spconv_bykey": "spconv_bykey.cu",
+    "spconv_bykey_bwd": "spconv_bykey_bwd.cu",
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -66,6 +67,9 @@ _SIGNATURES = {
     "probe": ("probe_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "spconv_bykey": ("bykey_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "spconv_bykey_bwd": ("bykey_bwd_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P]),
 }
 
 _lock = threading.Lock()

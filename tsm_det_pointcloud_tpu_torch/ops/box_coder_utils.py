@@ -1,8 +1,9 @@
-"""Box decoding for the point heads.
+"""Box coding for the point heads.
 
 Counterpart of tsm_det_pointcloud_tpu/ops/box_coder_utils.py:144
-(`PointBinResidualCoder.decode`): xyz offsets + log sizes + a binned angle
-(bin logits + normalized residuals); decode is (bin + residual) * delta.
+(`PointBinResidualCoder`): xyz offsets + log sizes + a binned angle (bin
+one-hot / logits + residuals normalised to [-0.5, 0.5) within the bin);
+decode is (bin + residual) * delta.
 """
 from __future__ import annotations
 
@@ -24,6 +25,24 @@ class PointBinResidualCoder:
         self.angle_bin_num = angle_bin_num
         self.use_mean_size = use_mean_size
         self.code_size = 6 + 2 * self.angle_bin_num
+
+    def encode_angle(self, angle):
+        """(...,) angles -> bin one-hot (..., bins) and the residual on the
+        hot bin (..., bins)."""
+        angle = torch.remainder(angle, 2 * np.pi)
+        delta = 2 * np.pi / self.angle_bin_num
+        shifted = torch.remainder(angle + delta / 2, 2 * np.pi)
+        bin_id = torch.floor(shifted / delta).to(torch.int64)
+        res = shifted / delta - bin_id.to(angle.dtype) - 0.5
+        one_hot = torch.nn.functional.one_hot(bin_id, self.angle_bin_num).to(angle.dtype)
+        return one_hot, one_hot * res[..., None]
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt_boxes (..., 7+), points (..., 3+) -> (..., code_size)."""
+        sizes = torch.clamp(gt_boxes[..., 3:6], min=1e-5)
+        xyz = gt_boxes[..., 0:3] - points[..., 0:3]
+        bin_oh, res_oh = self.encode_angle(gt_boxes[..., 6])
+        return torch.cat([xyz, torch.log(sizes), bin_oh, res_oh], -1)
 
     def decode_angle(self, angle_cls, angle_res):
         bin_id = torch.argmax(angle_cls, dim=-1, keepdim=True)

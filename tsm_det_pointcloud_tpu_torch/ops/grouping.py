@@ -17,7 +17,9 @@ Counterpart of tsm_det_pointcloud_tpu/ops/grouping.py (`ball_query_multi`
 
 On a CUDA tensor `query_group` launches kernel K2 (csrc/group.cu, replacing
 the Pallas `_kernel` of ops/group_pallas.py:108), which also gathers the
-payload rows (xyz and features, exact f32) of the chosen slots.
+payload rows (xyz and features, exact f32) of the chosen slots. The
+gathered payload is differentiable (`_GroupPayload`); the kernel output
+alone has no `grad_fn`.
 """
 from __future__ import annotations
 
@@ -49,7 +51,9 @@ def _norm_scales(scales):
 
 def query_group_plain(src_xyz, src_valid, q_xyz, scales, payload=None,
                       src_coords=None, q_coords=None):
-    """Plain PyTorch version of K2 (same contract as `query_group`)."""
+    """Plain PyTorch version of K2. Returns the scales side by side, as
+    the kernel fills them: idx (B, M, T) int32 with T the sum of the ns,
+    cnt (B, M, S) int32 and grouped (B, M, T, D) or None."""
     scales = _norm_scales(scales)
     B, N, _ = src_xyz.shape
     M = q_xyz.shape[1]
@@ -97,13 +101,10 @@ def query_group_plain(src_xyz, src_valid, q_xyz, scales, payload=None,
             idx = torch.where(filled, top_idx, top_idx[..., :1])
             idx_parts[si].append(idx)
             cnt_parts[si].append(cnt)
-    out = []
-    for si in range(len(scales)):
-        idx = torch.cat(idx_parts[si], 1)
-        cnt = torch.cat(cnt_parts[si], 1)
-        grouped = group_points(payload, idx) if payload is not None else None
-        out.append((idx, cnt, grouped))
-    return out
+    idx = torch.cat([torch.cat(p, 1) for p in idx_parts], -1)
+    cnt = torch.stack([torch.cat(p, 1) for p in cnt_parts], -1)
+    grouped = group_points(payload, idx) if payload is not None else None
+    return idx, cnt, grouped
 
 
 def _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
@@ -164,12 +165,43 @@ def _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
              _kernels.ptr(grouped), _kernels.stream_ptr(dev))
     _kernels.check(err, "query_group")
     _kernels.count("query_group")
-    out = []
-    for i, (_, _, ns, _) in enumerate(scales):
-        o = sc.offset[i]
-        out.append((idx[..., o:o + ns], cnt[..., i],
-                    grouped[:, :, o:o + ns] if grouped is not None else None))
-    return out
+    return idx, cnt, grouped
+
+
+def _query_group_any(src_xyz, src_valid, q_xyz, scales, payload, src_coords,
+                     q_coords):
+    if src_xyz.is_cuda:
+        return _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
+                                   src_coords, q_coords)
+    return query_group_plain(src_xyz, src_valid, q_xyz, scales, payload,
+                             src_coords, q_coords)
+
+
+class _GroupPayload(torch.autograd.Function):
+    """query_group whose gathered payload has a gradient (counterpart of the
+    JAX `_fused_core` VJP, ops/group_pallas.py:918-965): the payload's
+    cotangent is scattered back onto the chosen source rows with
+    index_add_; xyz and the selection get none."""
+
+    @staticmethod
+    def forward(ctx, payload, src_xyz, src_valid, q_xyz, scales, src_coords,
+                q_coords):
+        idx, cnt, grouped = _query_group_any(src_xyz, src_valid, q_xyz, scales,
+                                             payload, src_coords, q_coords)
+        ctx.mark_non_differentiable(idx, cnt)
+        ctx.save_for_backward(idx)
+        ctx.n_src = src_xyz.shape[1]
+        return grouped, idx, cnt
+
+    @staticmethod
+    def backward(ctx, d_grouped, _d_idx, _d_cnt):
+        idx, = ctx.saved_tensors
+        B, N, D = idx.shape[0], ctx.n_src, d_grouped.shape[-1]
+        rows = idx.long() + torch.arange(B, device=idx.device)[:, None, None] * N
+        d_payload = torch.zeros((B * N, D), dtype=d_grouped.dtype,
+                                device=d_grouped.device)
+        d_payload.index_add_(0, rows.reshape(-1), d_grouped.reshape(-1, D))
+        return d_payload.reshape(B, N, D), None, None, None, None, None, None
 
 
 def query_group(src_xyz, src_valid, q_xyz, scales, payload=None,
@@ -181,12 +213,16 @@ def query_group(src_xyz, src_valid, q_xyz, scales, payload=None,
     payload (B, N, D) rows to gather (or None); src_coords / q_coords
     (B, ·, 3) int voxel coords for window queries. Returns one
     (idx (B, M, ns) int32, cnt (B, M) int32, grouped (B, M, ns, D) or None)
-    per scale."""
-    if src_xyz.is_cuda:
-        return _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
-                                   src_coords, q_coords)
-    return query_group_plain(src_xyz, src_valid, q_xyz, scales, payload,
-                             src_coords, q_coords)
+    per scale. The gathered payload has a gradient (`_GroupPayload`)."""
+    grouped, idx, cnt = _GroupPayload.apply(payload, src_xyz, src_valid, q_xyz,
+                                            scales, src_coords, q_coords)
+    out, off = [], 0
+    for i, s in enumerate(scales):
+        ns = int(s[2])
+        out.append((idx[..., off:off + ns], cnt[..., i],
+                    grouped[:, :, off:off + ns] if grouped is not None else None))
+        off += ns
+    return out
 
 
 def ball_query_multi(radius_pairs, nsamples, xyz, new_xyz, valid_mask=None):

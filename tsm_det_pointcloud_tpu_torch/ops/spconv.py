@@ -12,8 +12,13 @@ CUDA tensor:
     Pallas `_kernel` of ops/searchsorted_pallas.py:55);
   * `gather_matmul_bykey` launches kernel K4 (csrc/spconv_bykey.cu,
     replacing the Pallas `_bykey_kernel` of ops/spconv_pallas.py:132).
-On a CPU tensor both run their plain versions below. A 1x1x1 conv stays a
-plain GEMM.
+  * the backward of the by-key conv, `gather_matmul_bykey_bwd`, launches
+    kernel K5 (csrc/spconv_bykey_bwd.cu, replacing the Pallas
+    `_bykey_bwd_kernel` of ops/spconv_pallas.py:383).
+On a CPU tensor all three run their plain versions below. Every 27-tap conv
+goes through `_ByKeyConv`, the autograd counterpart of the JAX `_bykey_conv`
+custom VJP (ops/spconv.py:149-193): K4 forward, K5 backward, no gradient
+for the keys. A 1x1x1 conv stays a plain GEMM.
 """
 from __future__ import annotations
 
@@ -153,9 +158,83 @@ def gather_matmul_bykey(features, skeys, qkeys, weight, sentinel):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5: the by-key gather-GEMM backward
+# ---------------------------------------------------------------------------
+
+def gather_matmul_bykey_bwd_plain(features, skeys, qkeys, weight, g, sentinel):
+    """(df, dW) of gather_matmul_bykey given the output cotangent g
+    (B, Q, Co): per tap, the probe, a gather, dW[k] = G^T g and an
+    index_add_ of g W[k]^T onto the found rows."""
+    B, V, C = features.shape
+    _, K, Q = qkeys.shape
+    idx, found = _lookup_plain(skeys, qkeys, sentinel)
+    rows = idx.long() + torch.arange(B, device=idx.device)[:, None, None] * V
+    df = torch.zeros((B * V, C), dtype=g.dtype, device=g.device)
+    dw = torch.zeros_like(weight, dtype=g.dtype)
+    for k in range(K):
+        hit = found[:, k, :, None]
+        gk = torch.where(hit, g, torch.zeros_like(g))
+        gath = torch.gather(features, 1, idx[:, k].long()[..., None].expand(-1, -1, C))
+        gath = torch.where(hit, gath, torch.zeros_like(gath))
+        dw[k] = torch.einsum("bqc,bqo->co", gath, gk)
+        df.index_add_(0, rows[:, k].reshape(-1),
+                      torch.matmul(gk, weight[k].t()).reshape(-1, C))
+    return df.reshape(B, V, C), dw
+
+
+def gather_matmul_bykey_bwd(features, skeys, qkeys, weight, g, sentinel):
+    """Backward of gather_matmul_bykey; kernel K5 on the card. Returns
+    df (B, V, C) and dW (K, C, Co), both f32."""
+    if not features.is_cuda:
+        return gather_matmul_bykey_bwd_plain(features, skeys, qkeys, weight, g,
+                                             sentinel)
+    f = features.contiguous().float()
+    sk = skeys.contiguous().to(torch.int32)
+    qk = qkeys.contiguous().to(torch.int32)
+    w = weight.contiguous().float()
+    gg = g.contiguous().float()
+    _kernels.require_cuda(f, sk, qk, w, gg)
+    B, V, C = f.shape
+    K, Q, Co = qk.shape[1], qk.shape[2], w.shape[-1]
+    _kernels.check_shape(sk, (B, V), "bykey_bwd skeys")
+    _kernels.check_shape(qk, (B, K, Q), "bykey_bwd qkeys")
+    _kernels.check_shape(w, (K, C, Co), "bykey_bwd weight")
+    _kernels.check_shape(gg, (B, Q, Co), "bykey_bwd g")
+    # both outputs are sums of atomic adds: they start at zero
+    df = torch.zeros((B, V, C), dtype=torch.float32, device=f.device)
+    dw = torch.zeros((K, C, Co), dtype=torch.float32, device=f.device)
+    err = _kernels.func("spconv_bykey_bwd")(
+        f.data_ptr(), sk.data_ptr(), qk.data_ptr(), w.data_ptr(), gg.data_ptr(),
+        B, V, C, K, Q, Co, int(min(sentinel, 2**31 - 1)), df.data_ptr(),
+        dw.data_ptr(), _kernels.stream_ptr(f.device))
+    _kernels.check(err, "spconv_bykey_bwd")
+    _kernels.count("spconv_bykey_bwd")
+    return df, dw
+
+
+class _ByKeyConv(torch.autograd.Function):
+    """gather_matmul_bykey with its gradient: K4 forward and K5 backward on
+    the card, the plain versions on the CPU (each wrapper dispatches on the
+    tensor's device). The keys get no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, weight, skeys, qkeys, sentinel):
+        ctx.save_for_backward(features, weight, skeys, qkeys)
+        ctx.sentinel = sentinel
+        return gather_matmul_bykey(features, skeys, qkeys, weight, sentinel)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, weight, skeys, qkeys = ctx.saved_tensors
+        df, dw = gather_matmul_bykey_bwd(features, skeys, qkeys, weight, g,
+                                         ctx.sentinel)
+        return df.to(features.dtype), dw.to(weight.dtype), None, None, None
+
+
 def _gather_conv_bykey(features, rulebook, weight, out_valid, grid):
-    out = gather_matmul_bykey(features, rulebook.skeys, rulebook.qkeys,
-                              weight, int(np.prod(grid)))
+    out = _ByKeyConv.apply(features, weight, rulebook.skeys, rulebook.qkeys,
+                           int(np.prod(grid)))
     return torch.where(out_valid[..., None], out, torch.zeros_like(out))
 
 

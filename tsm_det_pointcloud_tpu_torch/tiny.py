@@ -82,6 +82,26 @@ def tiny_model_cfg():
                 "BOX_CODER": "PointBinResidualCoder",
                 "BOX_CODER_CONFIG": {"use_mean_size": False, "angle_bin_num": 12},
             },
+            "LOSS_CONFIG": {
+                "LOSS_CLS": "WeightedBinaryCrossEntropyWithCenterness",
+                "LOSS_REG": "WeightedSmoothL1Loss",
+                "LOSS_SASA_CONFIG": {
+                    "func": "Focal", "set_ignore_flag": True,
+                    "extra_width": [1.0, 1.0, 1.0],
+                    "layer_weights": [0.1, 0.1, 0.1], "num_class": 3,
+                },
+                "AXIS_ALIGNED_IOU_LOSS_REGULARIZATION": False,
+                "CORNER_LOSS_REGULARIZATION": True,
+                "RDIOU_REGRESS_REGULARIZATION": True,
+                "LOSS_WEIGHTS": {
+                    "vote_reg_weight": 1.0, "point_cls_weight": 1.0,
+                    "point_offset_reg_weight": 0.1,
+                    "point_angle_cls_weight": 0.1,
+                    "point_angle_reg_weight": 0.1,
+                    "point_similarity_weight": 0.1,
+                    "point_iou_weight": 1.0, "point_corner_weight": 1.0,
+                },
+            },
         },
         "POST_PROCESSING": {
             "RECALL_THRESH_LIST": [0.3, 0.5, 0.7],
@@ -103,6 +123,39 @@ def synth_points(batch_size, n=256, seed=0):
     pts[..., 2] = rng.uniform(-1.5, 1.5, (batch_size, n))
     pts[..., 3] = rng.uniform(0, 1, (batch_size, n))
     return pts
+
+
+# gt boxes (x, y, z, dx, dy, dz, heading, class) of the tiny training batch:
+# "sparse" is the reference's own pair of small boxes, which no vote reaches
+# (no positives); "wide" adds boxes over most of the range, so that the box,
+# rdiou and corner losses have positives
+GT_BOXES = {
+    "sparse": [[8, 0, -0.5, 3.9, 1.6, 1.56, 0.3, 1],
+               [4, 3, -0.5, 0.8, 0.6, 1.7, -0.5, 2]],
+    "wide": [[4, -4, 0, 7, 7, 3.5, 0.2, 1], [11, -3, 0, 7, 8, 3.5, -0.4, 2],
+             [5, 4, 0, 8, 7, 3.5, 1.1, 3], [12, 4, 0, 7, 7, 3.5, 2.5, 1]],
+}
+
+
+def synth_gt(batch_size, which="sparse"):
+    """gt_boxes (B, 4, 8) float32 and gt_boxes_mask (B, 4) bool: the boxes
+    of GT_BOXES[which] in every scan, padded to 4 slots."""
+    boxes = np.asarray(GT_BOXES[which], np.float32)
+    gt = np.zeros((batch_size, 4, 8), np.float32)
+    gt[:, :len(boxes)] = boxes
+    mask = np.zeros((batch_size, 4), bool)
+    mask[:, :len(boxes)] = True
+    return gt, mask
+
+
+def train_statistics(seed=5):
+    """Seeded (3, SHARED_FC[-1]) class-statistics buffers for the tiny
+    training checks (a real distillation run transfers them from the teacher
+    checkpoint; the init's zeros would switch the cls conditioning off)."""
+    rng = np.random.RandomState(seed)
+    return {name: rng.randn(3, 48).astype(np.float32)
+            for name in ("object_mean", "object_momentum",
+                         "object_statistic_features")}
 
 
 def load_state(path=STATE_PATH):
