@@ -39,11 +39,44 @@ Phases (any failure exits non-zero before the result line):
   8. training main path: launch counts are zeroed, 3 timed steps run, the
      counts are read; every loss must be finite, the teacher's parameters
      bit-identical, every s_* parameter changed and every kernel, K5
-     included, launched. Prints train scans/s and the peak device memory.
+     included, launched. Prints train scans/s and the peak device memory;
+  9. Waymo capture: one eval forward of the waymo_fast_cpc detector
+     (b8 x 122880 x 5 features, seeded weights and eval state) records every
+     kernel call's inputs;
+ 10. kernels at Waymo shapes: K6 (block-pruned exact d-fps, 122880 ->
+     16384) index-equal to the plain lockstep FPS over all 8 x 16384 picks,
+     on the clustered scans and on an input whose mask empties whole Morton
+     blocks, one scan and all but 100 points of another; K1 (s-fps 16384 ->
+     3072), K2, K3, K4 against their plain versions at the tolerances of
+     phase 3 (K2's layer-0 call, 16 G pair tests, is held against the plain
+     version on every 15th query, all sources, and `plain_ms` is that
+     subset's time; `plain_note` says so). Each is timed, with its
+     bound; K6's counts the block visits the pruning rule required;
+ 11. Waymo main path: launch counts are zeroed, 3 batches of forward + NMS
+     run, the counts are read; outputs finite, box preds (8, 3072, 7),
+     count <= 512, and K6, K1, K2, K3, K4 all launched. Prints Waymo scans/s
+     and the peak device memory;
+ 12. Waymo training step: a warm-up step (which records every kernel
+     call's inputs) and 2 timed steps at b8 x 122880 with a vehicle box
+     around each of the 16 clusters, counted; each recorded call (K6, K1-K4
+     at the training path's own shapes: the teacher's sa1 window query with
+     its VSA payload and its U-Net, and K5 at all ten convs) runs through
+     its kernel and its plain version at the tolerances of phases 3 and 6,
+     timed, with its bound (K2's layer-0 call on a stride of queries as in
+     phase 10); losses finite, teacher bit-identical, every s_* parameter
+     changed, all six kernels launched. Prints train scans/s and the peak
+     device memory.
 The line before the last is the kernels JSON: each row's numbers are those
-of the training path (per step of phase 6, `launches` from phase 8) and its
-`eval` object those of the eval path (per forward of phase 3, `launches`
-from phase 5; null for K5). The last line is the result.
+of the KITTI training path (per step of phase 6, `launches` from phase 8),
+its `eval` object those of the KITTI eval path (per forward of phase 3,
+`launches` from phase 5; null for K5), its `waymo` object those of the
+Waymo eval path (per forward of phase 10, `launches` from phase 11; null
+for K5) and `waymo_train` those of the Waymo training path (per step of
+phase 12, `launches` from its 2 timed steps). K6 is on no KITTI path: its
+row's own numbers are the Waymo eval path's (`path` says which path a row's
+own numbers are from). K6's `ms` is its launch alone; `prep_ms` beside it is
+the PyTorch prep (Morton sort, gathers, boxes) that precedes each launch.
+The last line is the result.
 """
 from __future__ import annotations
 
@@ -59,10 +92,18 @@ ROOT = Path(__file__).resolve().parent
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 MAIN_BATCH, MAIN_POINTS, MAIN_ITERS, TRAIN_ITERS = 16, 16384, 3, 3
+WAYMO_BATCH, WAYMO_POINTS, WAYMO_ITERS, WAYMO_TRAIN_ITERS = 8, 122880, 3, 2
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
+KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
+WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
+PAIR_TESTS_PLAIN = 1 << 30   # K2's plain version is run on at most this many pairs
+PLAIN_NOTES = {}             # kernel -> what its plain version ran on, when not everything
+PREP_MS = {}                 # kernel -> ms of the PyTorch prep before its last compared launch
 KERNELS = {
     "fps": ("tsm_det_pointcloud_tpu_torch/csrc/fps.cu",
             "tsm_det_pointcloud_tpu/ops/fps_pallas.py:28"),
+    "fps_block": ("tsm_det_pointcloud_tpu_torch/csrc/fps_block.cu",
+                  "tsm_det_pointcloud_tpu/ops/fps_pallas.py:197 (and :490, :633)"),
     "query_group": ("tsm_det_pointcloud_tpu_torch/csrc/group.cu",
                     "tsm_det_pointcloud_tpu/ops/group_pallas.py:108"),
     "probe": ("tsm_det_pointcloud_tpu_torch/csrc/probe.cu",
@@ -146,6 +187,41 @@ def compare_fps(args):
             None, ops, nbytes, 5, 1)
 
 
+def compare_fps_block(args):
+    from tsm_det_pointcloud_tpu_torch.ops import sampling
+
+    xyz, npoint, valid = args
+    got, visits = sampling._fps_block_kernel(xyz, npoint, valid)
+    want = sampling.furthest_point_sample_plain(xyz, npoint, valid)
+    n_diff = int((got != want).sum())
+    check(n_diff == 0, f"K6 fps_block differs from the plain FPS at {tuple(xyz.shape)}: "
+                       f"{n_diff} of {got.numel()} picks")
+    B, N, _ = xyz.shape
+    nb = -(-N // sampling.FPS_BLOCK)
+    n_visits = int(visits.sum())
+    ops = n_visits * sampling.FPS_BLOCK * 9
+    nbytes = B * N * 12 + B * npoint * 4 + (B * N if valid is not None else 0)
+    # beside the bound: the visited blocks' 24 bytes a point (x, y, z, index
+    # and mind read, mind written; they come from L2, not device memory) and
+    # the full sweep K1's formula would count
+    visit_ms = n_visits * sampling.FPS_BLOCK * 24 / BYTES_PER_S * 1e3
+    sweep_ms = (npoint - 1) * B * N * 9 / F32_OPS_PER_S * 1e3
+    # `ms` is the launch alone; the PyTorch prep (Morton sort, gathers, boxes)
+    # is timed apart as `prep_ms`. A launch consumes its prepared state (it
+    # updates mind in place), so one state is prepared for each timed launch
+    reps = 3
+    xyz = xyz.detach().contiguous().float()
+    PREP_MS["fps_block"] = cuda_time_ms(lambda: sampling.block_prep(xyz, valid), reps)
+    states = iter([sampling.block_prep(xyz, valid) for _ in range(reps + 1)])
+    print(f"  K6 visited {n_visits} of {(npoint - 1) * nb * B} (step, block) pairs "
+          f"({100 * n_visits / ((npoint - 1) * nb * B):.2f}%); their bytes at the memory "
+          f"rate {visit_ms:.4f} ms; a full sweep's operations {sweep_ms:.4f} ms; the "
+          f"prep alone {PREP_MS['fps_block']:.4f} ms")
+    return (0.0, lambda: sampling._fps_block_launch(xyz, next(states), npoint),
+            lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid),
+            None, ops, nbytes, reps, 1)
+
+
 def compare_query_group(args):
     import torch
 
@@ -153,7 +229,21 @@ def compare_query_group(args):
 
     src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coords = args
     gi, gc, gg = grouping._query_group_kernel(*args)
-    wi, wc, wg = grouping.query_group_plain(*args)
+    # the plain version materialises every (query, source) pair: above
+    # PAIR_TESTS_PLAIN pairs it runs on every `stride`-th query (all sources)
+    # and the kernel's full-shape result is held against it on those
+    stride = -(-src_xyz.shape[0] * src_xyz.shape[1] * q_xyz.shape[1] // PAIR_TESTS_PLAIN)
+    plain_args = args
+    if stride > 1:
+        PLAIN_NOTES["query_group"] = (f"plain version run and timed on every {stride}th "
+                                      f"query of the {q_xyz.shape[1]}-query call")
+        print(f"  K2 {PLAIN_NOTES['query_group']}")
+        plain_args = (src_xyz, src_valid, q_xyz[:, ::stride].contiguous(), scales, payload,
+                      src_coords,
+                      None if q_coords is None else q_coords[:, ::stride].contiguous())
+        gi, gc = gi[:, ::stride], gc[:, ::stride]
+        gg = None if gg is None else gg[:, ::stride]
+    wi, wc, wg = grouping.query_group_plain(*plain_args)
     check(bool((gc == wc).all()), "K2 cnt differs from its plain version")
     # slot j of scale s is filled when j < min(cnt_s, ns_s)
     filled = torch.cat([torch.arange(int(sc[2]), device=gc.device)
@@ -176,7 +266,7 @@ def compare_query_group(args):
               + B * M * (12 + (12 if window else 0))
               + B * M * (4 * T + 4 * S + 4 * T * D))
     return (err, lambda: grouping._query_group_kernel(*args),
-            lambda: grouping.query_group_plain(*args), None, ops, nbytes, 5, 1)
+            lambda: grouping.query_group_plain(*plain_args), None, ops, nbytes, 5, 1)
 
 
 def compare_probe(args):
@@ -247,7 +337,8 @@ def compare_bykey_bwd(args):
             None, ops, nbytes, 5, 2)
 
 
-COMPARE = {"fps": compare_fps, "query_group": compare_query_group,
+COMPARE = {"fps": compare_fps, "fps_block": compare_fps_block,
+           "query_group": compare_query_group,
            "probe": compare_probe, "spconv_bykey": compare_bykey,
            "spconv_bykey_bwd": compare_bykey_bwd}
 
@@ -278,11 +369,14 @@ def compare_recorded(calls, label):
             agg["nbytes"] += nbytes
             if l_ms is not None:
                 agg["lib_ms"] = (agg["lib_ms"] or 0.0) + l_ms
+            if name in PREP_MS:
+                agg["prep_ms"] = agg.get("prep_ms", 0.0) + PREP_MS.pop(name)
         agg["bound"], agg["bound_by"] = bound_ms(agg["ops"], agg["nbytes"])
         report[name] = agg
         print(f"{label} {name}: {len(args_list)} calls per pass, kernel {agg['ms']:.4f} ms, "
               f"plain {agg['plain_ms']:.4f} ms, bound {agg['bound']:.4f} ms "
-              f"({agg['bound_by']}), max abs err {agg['err']:g}")
+              f"({agg['bound_by']}), max abs err {agg['err']:g}"
+              + (f", prep {agg['prep_ms']:.4f} ms" if "prep_ms" in agg else ""))
     return report
 
 
@@ -291,6 +385,7 @@ def record_kernels(names):
     from tsm_det_pointcloud_tpu_torch.ops import grouping, sampling, spconv
 
     where = {"fps": (sampling, "_fps_kernel"),
+             "fps_block": (sampling, "_fps_block_kernel"),
              "query_group": (grouping, "_query_group_kernel"),
              "probe": (spconv, "probe"),
              "spconv_bykey": (spconv, "gather_matmul_bykey"),
@@ -312,7 +407,8 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs the card")
     sys.path.insert(0, str(ROOT))
     from tsm_det_pointcloud_tpu_torch import tiny
-    from tsm_det_pointcloud_tpu_torch.infer import build_detector, detect, synth_points
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_points,
+                                                    synth_waymo)
     from tsm_det_pointcloud_tpu_torch.models import build_network
     from tsm_det_pointcloud_tpu_torch.ops import _kernels
     from tsm_det_pointcloud_tpu_torch.runtime.train_state import is_student, train_step
@@ -404,7 +500,7 @@ def main():
                                      total_steps=TRAIN_ITERS + 1)
     tbatches = [synth_train_batch(MAIN_BATCH, MAIN_POINTS, seed=s, device=dev)
                 for s in range(TRAIN_ITERS + 1)]
-    rec = record_kernels(list(KERNELS))
+    rec = record_kernels(KITTI_KERNELS)
     # train_step's work, with the gradients read between backward and the
     # update: every s_* parameter gets one from backward (the kernels'
     # outputs are wired into autograd), every sparse-conv weight a nonzero one
@@ -484,7 +580,7 @@ def main():
             check(not torch.equal(p, before[n]), f"student parameter {n} did not change")
         else:
             check(torch.equal(p, before[n]), f"teacher parameter {n} changed")
-    for name in KERNELS:
+    for name in KITTI_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the training path")
     print(f"training main path: {TRAIN_ITERS} steps x {MAIN_BATCH} scans x {MAIN_POINTS} "
           f"points in {dt:.3f} s = {TRAIN_ITERS * MAIN_BATCH / dt:.3f} train scans/s "
@@ -492,18 +588,137 @@ def main():
           f"{[round(float(l), 4) for l in losses]}; {n_student} student tensors changed, "
           f"teacher unchanged; launches {launches}; peak memory {peak:.2f} GiB")
 
+    del tr_model, opt, tbatches, before, losses
+    torch.cuda.empty_cache()
+
+    # ---- 9. capture the Waymo eval forward's kernel calls ----
+    wcfg_file = ROOT / "tools/cfgs/waymo_models/waymo_fast_cpc.yaml"
+    wcfg, wmodel = build_detector(wcfg_file, dev, seed=0, n_points=WAYMO_POINTS)
+    wpost_max = int(wcfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    wlo, whi = wcfg.MODEL.POINT_HEAD.SAMPLE_RANGE
+    wbatches = [torch.from_numpy(synth_waymo(WAYMO_BATCH, WAYMO_POINTS, seed=s)).to(dev)
+                for s in range(WAYMO_ITERS)]
+    wmask = torch.ones((WAYMO_BATCH, WAYMO_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(WAYMO_EVAL_KERNELS)
+    detect(wmodel, wbatches[0], wmask)
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the Waymo capture forward made no {name} call")
+
+    # ---- 10. each kernel against its plain version at Waymo shapes ----
+    PLAIN_NOTES.clear()
+    report_waymo = compare_recorded(rec.calls, "waymo")
+    notes_waymo = dict(PLAIN_NOTES)
+    # K6 again on a mask that empties whole Morton blocks (x <= 0 beyond the
+    # first 40000 points), a whole scan, and all but 100 points of another
+    xyz = rec.calls["fps_block"][0][0]
+    hard = torch.ones_like(wmask)
+    hard[:, 40000:] = xyz[:, 40000:, 0] > 0
+    hard[1] = False
+    hard[2, 100:] = False
+    compare_fps_block((xyz, rec.calls["fps_block"][0][1], hard))
+    print("waymo fps_block: masked input (empty blocks, an empty scan, a 100-point "
+          "scan) index-equal to the plain FPS")
+    del rec, xyz, hard
+
+    # ---- 11. the Waymo main path, counted ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(wmodel, pts, wmask) for pts in wbatches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_waymo = dict(_kernels.LAUNCHES)
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(out[key]).all()), f"Waymo: non-finite {key}")
+        check(tuple(out["batch_box_preds"].shape) == (WAYMO_BATCH, whi - wlo, 7),
+              f"Waymo box preds shape {tuple(out['batch_box_preds'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"Waymo: non-finite {key}")
+        check(bool((pred["count"] <= wpost_max).all()), "Waymo: count > NMS_POST_MAXSIZE")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    for name in WAYMO_EVAL_KERNELS:
+        check(launches_waymo[name] > 0,
+              f"kernel {name} was not launched on the Waymo eval path")
+    print(f"Waymo main path: {WAYMO_ITERS} batches x {WAYMO_BATCH} scans x {WAYMO_POINTS} "
+          f"points in {dt:.3f} s = {WAYMO_ITERS * WAYMO_BATCH / dt:.3f} scans/s; "
+          f"detections per scan (last batch) {counts}; launches {launches_waymo}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del wmodel, preds, wbatches, out, pred
+    torch.cuda.empty_cache()
+
+    # ---- 12. the Waymo training step, counted ----
+    _, wtr_model, wopt = build_trainer(wcfg_file, dev, seed=0, n_points=WAYMO_POINTS,
+                                       total_steps=WAYMO_TRAIN_ITERS + 1)
+    wmeta = wtr_model.dataset_meta
+    wtbatches = [synth_train_batch(WAYMO_BATCH, WAYMO_POINTS, s, dev,
+                                   wmeta.point_cloud_range, wmeta.num_point_features)
+                 for s in range(WAYMO_TRAIN_ITERS + 1)]
+    rec = record_kernels(list(KERNELS))
+    warm_loss, _ = train_step(wtr_model, wopt, wtbatches[0])   # warm-up
+    torch.cuda.synchronize()
+    rec.restore()
+    check(bool(torch.isfinite(warm_loss)), "Waymo warm-up step loss is not finite")
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the Waymo warm-up step made no {name} call")
+    # every kernel call of the step against its plain version, at this
+    # path's shapes (the teacher's sa1 and U-Net, every conv's backward)
+    PLAIN_NOTES.clear()
+    report_wtrain = compare_recorded(rec.calls, "waymo train")
+    notes_wtrain = dict(PLAIN_NOTES)
+    del rec
+    before = {n: p.detach().clone() for n, p in wtr_model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [train_step(wtr_model, wopt, b)[0] for b in wtbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_wtrain = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, l in enumerate(losses):
+        check(bool(torch.isfinite(l)), f"Waymo training step {i} loss is not finite")
+    n_student = 0
+    for n, p in wtr_model.named_parameters():
+        if is_student(n):
+            n_student += 1
+            check(not torch.equal(p, before[n]), f"Waymo: student parameter {n} did not change")
+        else:
+            check(torch.equal(p, before[n]), f"Waymo: teacher parameter {n} changed")
+    for name in KERNELS:
+        check(launches_wtrain[name] > 0,
+              f"kernel {name} was not launched on the Waymo training path")
+    print(f"Waymo training main path: {WAYMO_TRAIN_ITERS} steps x {WAYMO_BATCH} scans x "
+          f"{WAYMO_POINTS} points in {dt:.3f} s = "
+          f"{WAYMO_TRAIN_ITERS * WAYMO_BATCH / dt:.3f} train scans/s "
+          f"({1e3 * dt / WAYMO_TRAIN_ITERS:.1f} ms/step); losses "
+          f"{[round(float(l), 4) for l in losses]}; {n_student} student tensors changed, "
+          f"teacher unchanged; launches {launches_wtrain}; peak memory {peak:.2f} GiB")
+
     def numbers(a, n):
         return {"launches": n, "max_abs_err": a["err"], "ms": a["ms"],
                 "plain_ms": a["plain_ms"], "bound_ms": a["bound"],
-                "bound_by": a["bound_by"], "library_ms": a["lib_ms"]}
+                "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
+                **({"prep_ms": a["prep_ms"]} if "prep_ms" in a else {})}
 
     rows = []
     for name, (src, replaces) in KERNELS.items():
+        waymo = ({**numbers(report_waymo[name], launches_waymo[name]),
+                  "plain_note": notes_waymo.get(name)}
+                 if name in report_waymo else None)
+        waymo_train = {**numbers(report_wtrain[name], launches_wtrain[name]),
+                       "plain_note": notes_wtrain.get(name)}
+        own = numbers(report[name], launches[name]) if name in report else waymo
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            **numbers(report[name], launches[name]),
+            "path": "kitti_train" if name in report else "waymo_eval", **own,
             "eval": (numbers(report_eval[name], launches_eval[name])
                      if name in report_eval else None),
+            "waymo": waymo, "waymo_train": waymo_train,
         })
     print(card)
     print(json.dumps({"kernels": rows}))

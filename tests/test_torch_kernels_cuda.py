@@ -1,7 +1,7 @@
 """Each hand-written kernel against its plain PyTorch version on the card
 (skipped on hosts without one). Run there with
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
-K1 / K2 / K3 are exact; K4 sums in another f32 order and K5 with float
+K1 / K2 / K3 / K6 are exact; K4 sums in another f32 order and K5 with float
 atomics in a varying one (both rtol 1e-4, atol 1e-4 * max|out|)."""
 import numpy as np
 import pytest
@@ -37,6 +37,57 @@ def test_fps_kernel(dev, weighted):
     got = _counted("fps", lambda: sampling._fps_kernel(xyz, 256, valid, w))
     want = sampling.furthest_point_sample_plain(xyz, 256, valid, w)
     assert torch.equal(got, want)
+
+
+def _fps_block_case(name):
+    """(xyz (B, N, 3), npoint, valid or None) on the CPU, from numpy seeds."""
+    rng = np.random.RandomState(20)
+    if name == "clustered":
+        xyz = rng.uniform(-60, 60, (3, 5000, 3)).astype(np.float32)
+        for k in range(6):
+            c = rng.uniform(-50, 50, 3).astype(np.float32)
+            xyz[:, k * 500:(k + 1) * 500] = c + rng.uniform(-2, 2, (3, 500, 3))
+        return xyz, 700, rng.uniform(size=(3, 5000)) > 0.2
+    if name == "ties":
+        base = rng.uniform(-10, 10, (2, 1500, 3)).astype(np.float32)
+        return np.concatenate([base, base[:, ::2], base[:, :300]], 1), 400, None
+    if name == "empty_row":
+        xyz = rng.uniform(-20, 20, (2, 2100, 3)).astype(np.float32)
+        valid = np.ones((2, 2100), bool)
+        valid[0] = False
+        return xyz, 64, valid
+    if name == "empty_blocks_and_short":
+        xyz = rng.uniform(-20, 20, (2, 4096, 3)).astype(np.float32)
+        valid = np.zeros((2, 4096), bool)
+        valid[:, 5:90] = True
+        return xyz, 128, valid
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["clustered", "ties", "empty_row",
+                                  "empty_blocks_and_short"])
+def test_fps_block_kernel(dev, name):
+    xyz, npoint, valid = _fps_block_case(name)
+    xyz = torch.from_numpy(xyz).to(dev)
+    valid = None if valid is None else torch.from_numpy(valid).to(dev)
+    got = _counted("fps_block", lambda: sampling.furthest_point_sample_block_pruned(
+        xyz, npoint, valid))
+    want = sampling.furthest_point_sample_plain(xyz, npoint, valid)
+    assert torch.equal(got, want)
+    # the plain block-pruned version visits the same (step, block) pairs
+    _, visits = sampling._fps_block_kernel(xyz, npoint, valid)
+    _, want_visits = sampling._block_pruned_plain(xyz, npoint, valid)
+    assert torch.equal(visits, want_visits)
+
+
+def test_fps_dispatch_above_k1_limit(dev):
+    """d-fps over more than 16384 points a row launches K6, not K1."""
+    rng = np.random.RandomState(21)
+    xyz = torch.from_numpy(rng.uniform(-40, 40, (2, 20000, 3)).astype(np.float32)).to(dev)
+    before = _kernels.LAUNCHES["fps"]
+    got = _counted("fps_block", lambda: sampling.furthest_point_sample(xyz, 300))
+    assert _kernels.LAUNCHES["fps"] == before
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 300))
 
 
 @pytest.mark.parametrize("window", [False, True])

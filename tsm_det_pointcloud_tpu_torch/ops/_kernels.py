@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> source file
 SOURCES = {
     "fps": "fps.cu",
+    "fps_block": "fps_block.cu",
     "query_group": "group.cu",
     "probe": "probe.cu",
     "spconv_bykey": "spconv_bykey.cu",
@@ -61,6 +62,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fps": ("fps_launch", [_P, _P, _P, _I, _I, _I, _P, _P]),
+    "fps_block": ("fps_block_launch",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "query_group": ("query_group_launch",
                     [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, GroupScales, _I,
                      _P, _P, _P, _P]),

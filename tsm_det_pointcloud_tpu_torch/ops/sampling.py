@@ -6,17 +6,33 @@ while a valid lane remains; s-fps carries the raw min-distance and applies
 the weight only at the argmax; ties go to the first maximum.
 
 On a CUDA tensor both samplers launch kernel K1 (csrc/fps.cu, replacing the
-Pallas `_fps_kernel_batched` / `_fps_kernel`, ops/fps_pallas.py:28, :67);
-on a CPU tensor they run the plain version below, which repeats the
-kernel's arithmetic step by step.
+Pallas `_fps_kernel_batched` / `_fps_kernel`, ops/fps_pallas.py:28, :67)
+up to 16384 points a row; d-fps over more points launches kernel K6
+(csrc/fps_block.cu, replacing the three block-pruned Pallas kernels
+`_fps_block_kernel`, `_fps_block_kernel_2row` and `_fps_block_kernel_nrow`,
+ops/fps_pallas.py:197, :490, :633). On a CPU tensor they run the plain
+version below, which repeats the kernel's arithmetic step by step.
+
+Block-pruned d-fps (counterpart of ops/fps_pallas.py:171-487) is exact: the
+points are Morton-sorted into blocks of 1024, each block keeps its bounding
+box, the maximum of its running min-distance and the least original index
+that attains it, and a step updates only the blocks whose squared gap to
+the picked point is below their maximum. The running min-distance only
+falls, and the gap is rounded the same way as d2, so a skipped block could
+not have changed; the picks equal `furthest_point_sample_plain`'s.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import _kernels
 
 FPS_MAX_POINTS = 16384  # one row's xyz must fit one block's shared memory
+FPS_BLOCK = 1024        # points per Morton block of the block-pruned d-fps
+_BIG_IDX = 1 << 30      # original index of a pad lane: never the least
+FPS_BLOCK_MAX_POINTS = 1024 * FPS_BLOCK  # K6 keeps 128 bytes a block in shared memory
 
 
 def _sq_dist(xyz, sel):
@@ -64,8 +80,9 @@ def _fps_kernel(xyz, npoint, valid_mask, weights):
     if N > FPS_MAX_POINTS:
         raise NotImplementedError(
             f"FPS kernel K1 takes at most {FPS_MAX_POINTS} points per row "
-            f"(got {N}); larger clouds need the block-pruned FPS kernel, "
-            f"which is not ported yet")
+            f"(got {N}); d-fps over more points goes to the block-pruned "
+            f"kernel K6, but a weighted (s-fps) block-pruned kernel does "
+            f"not exist")
     xyz = xyz.contiguous().float()
     w = None if weights is None else weights.contiguous().float()
     v = None if valid_mask is None else valid_mask.contiguous().to(torch.uint8)
@@ -79,9 +96,173 @@ def _fps_kernel(xyz, npoint, valid_mask, weights):
     return out
 
 
-def furthest_point_sample(xyz, npoint, valid_mask=None):
-    """(B, N, 3) -> (B, npoint) int32 indices (d-fps)."""
+def morton_code(xyz, origin, cell=1.0, bits=10):
+    """(..., 3) f32 -> int32 Morton codes on a `cell`-metre grid (own copy
+    of ops/group_pallas.py:91-105). Close points get close codes, which is
+    what gives the blocks tight bounding boxes; the picks of the
+    block-pruned d-fps do not depend on it, only its speed does."""
+    q = ((xyz - origin) / cell).clamp(0, (1 << bits) - 1).to(torch.int32)
+
+    def spread(v):
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return spread(q[..., 0]) | (spread(q[..., 1]) << 1) | (spread(q[..., 2]) << 2)
+
+
+class BlockState(NamedTuple):
+    """A batch of scans prepared for block-pruned d-fps. P = NB * 1024 is N
+    rounded up to whole blocks; pad lanes hold xyz 0, original index 2**30
+    and min-distance -2, so they never win and never widen a box."""
+    xs: torch.Tensor      # (B, P) f32, Morton order, invalid rows last
+    ys: torch.Tensor
+    zs: torch.Tensor
+    ois: torch.Tensor     # (B, P) i32 original index
+    mind: torch.Tensor    # (B, P) f32 running min-distance: 1e10 / -1 / -2
+    bbox: torch.Tensor    # (B, 6, NB) f32 lox, hix, loy, hiy, loz, hiz (valid points)
+    bmax: torch.Tensor    # (B, NB) f32 block maximum of mind
+    barg: torch.Tensor    # (B, NB) i32 least original index attaining it
+
+
+def block_prep(xyz, valid_mask=None):
+    """Morton sort, blocks, boxes and the initial block maxima: the
+    counterpart of ops/fps_pallas.py:361-428 with integer indices and no
+    TPU packing. Runs wherever `xyz` lies."""
+    B, N, _ = xyz.shape
+    dev = xyz.device
+    xyz = xyz.detach().float()
+    valid = (torch.ones((B, N), dtype=torch.bool, device=dev) if valid_mask is None
+             else valid_mask.bool())
+    vxyz = torch.where(valid[..., None], xyz, torch.full_like(xyz, 1e30))
+    origin = vxyz.amin(dim=1, keepdim=True)
+    code = torch.where(valid, morton_code(vxyz, origin),
+                       torch.full((), 2 ** 31 - 1, dtype=torch.int32, device=dev))
+    order = torch.sort(code, dim=1, stable=True).indices
+    nb = -(-N // FPS_BLOCK)
+    pad = nb * FPS_BLOCK - N
+
+    def sorted_padded(a, fill):
+        a = torch.gather(a, 1, order)
+        return torch.nn.functional.pad(a, (0, pad), value=fill) if pad else a
+
+    xs, ys, zs = (sorted_padded(xyz[..., a].contiguous(), 0.0) for a in range(3))
+    ois = sorted_padded(torch.arange(N, dtype=torch.int32, device=dev).expand(B, N),
+                        _BIG_IDX)
+    mind = sorted_padded(torch.where(valid, 1e10, -1.0).to(torch.float32), -2.0)
+    vb = (mind > 0).reshape(B, nb, FPS_BLOCK)
+
+    def bounds(a):
+        ab = a.reshape(B, nb, FPS_BLOCK)
+        return (torch.where(vb, ab, torch.full_like(ab, 1e30)).amin(2),
+                torch.where(vb, ab, torch.full_like(ab, -1e30)).amax(2))
+
+    bbox = torch.stack([*bounds(xs), *bounds(ys), *bounds(zs)], dim=1)
+    bmax, barg = _block_max(mind.reshape(B, nb, FPS_BLOCK), ois.reshape(B, nb, FPS_BLOCK))
+    return BlockState(xs, ys, zs, ois, mind, bbox.contiguous(), bmax, barg)
+
+
+def _block_max(mind, ois):
+    """(..., 1024) -> the maximum and the least original index attaining it."""
+    bmax = mind.amax(-1)
+    barg = torch.where(mind == bmax[..., None], ois, torch.full_like(ois, _BIG_IDX)).amin(-1)
+    return bmax, barg
+
+
+def _gap(lo, hi, q):
+    return torch.clamp(torch.maximum(lo - q, q - hi), min=0.0)
+
+
+def _block_pruned_plain(xyz, npoint, valid_mask):
+    """The pruned update step by step on tensors. Returns (idx (B, npoint)
+    i32, visits (B,) i64: the (step, block) updates each scan made)."""
+    B, N, _ = xyz.shape
+    dev = xyz.device
+    st = block_prep(xyz, valid_mask)
+    nb = st.bmax.shape[1]
+    xs, ys, zs, ois, mind = (a.reshape(B, nb, FPS_BLOCK)
+                             for a in (st.xs, st.ys, st.zs, st.ois, st.mind.clone()))
+    lox, hix, loy, hiy, loz, hiz = st.bbox.unbind(1)
+    bmax, barg = st.bmax.clone(), st.barg.clone()
+    idxs = torch.zeros((B, npoint), dtype=torch.int32, device=dev)
+    visits = torch.zeros((B,), dtype=torch.int64, device=dev)
+    last = torch.zeros((B,), dtype=torch.long, device=dev)
+    rows = torch.arange(B, device=dev)
+    xyz = xyz.detach().float()
+    for i in range(1, npoint):
+        q = xyz[rows, last]                                       # (B, 3)
+        gx = _gap(lox, hix, q[:, 0:1])
+        gy = _gap(loy, hiy, q[:, 1:2])
+        gz = _gap(loz, hiz, q[:, 2:3])
+        act = ((gx * gx + gy * gy) + gz * gz) < bmax              # (B, NB)
+        visits += act.sum(1)
+        bi, gi = act.nonzero(as_tuple=True)
+        sel = q[bi][:, None, :]
+        d2 = _sq_dist(torch.stack([xs[bi, gi], ys[bi, gi], zs[bi, gi]], -1), sel)
+        m = mind[bi, gi]
+        m = torch.where(m >= 0, torch.minimum(m, d2), m)          # -1 / -2 stay pinned
+        mind[bi, gi] = m
+        bmax[bi, gi], barg[bi, gi] = _block_max(m, ois[bi, gi])
+        kmax = bmax.amax(1, keepdim=True)
+        last = torch.where(bmax == kmax, barg, torch.full_like(barg, _BIG_IDX)
+                           ).amin(1).long()
+        idxs[:, i] = last.to(torch.int32)
+    return idxs, visits
+
+
+def _fps_block_launch(xyz, st, npoint):
+    """K6's one launch on a prepared `BlockState` (whose `mind` it updates in
+    place). Returns (idx (B, npoint) i32, visits (B,) i64)."""
+    B, N = xyz.shape[:2]
+    _kernels.require_cuda(xyz, *st)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    visits = torch.empty((B,), dtype=torch.int64, device=xyz.device)
+    fn = _kernels.func("fps_block")
+    err = fn(xyz.data_ptr(), st.xs.data_ptr(), st.ys.data_ptr(), st.zs.data_ptr(),
+             st.ois.data_ptr(), st.mind.data_ptr(), st.bbox.data_ptr(),
+             st.bmax.data_ptr(), st.barg.data_ptr(), B, N, st.bmax.shape[1], npoint,
+             out.data_ptr(), visits.data_ptr(), _kernels.stream_ptr(xyz.device))
+    _kernels.check(err, "fps_block")
+    _kernels.count("fps_block")
+    return out, visits
+
+
+def _fps_block_kernel(xyz, npoint, valid_mask):
+    """K6 on a CUDA tensor: the prep in PyTorch on the card, then one launch.
+    Returns (idx (B, npoint) i32, visits (B,) i64)."""
+    B, N = xyz.shape[:2]
+    _kernels.check_shape(xyz, (B, N, 3), "fps_block xyz")
+    _kernels.check_shape(valid_mask, (B, N), "fps_block valid_mask")
+    if N > FPS_BLOCK_MAX_POINTS:
+        raise ValueError(f"fps_block takes at most {FPS_BLOCK_MAX_POINTS} points per "
+                         f"row (got {N}): the per-block state must fit shared memory")
+    xyz = xyz.detach().contiguous().float()
+    _kernels.require_cuda(xyz)
+    return _fps_block_launch(xyz, block_prep(xyz, valid_mask), npoint)
+
+
+def furthest_point_sample_block_pruned_plain(xyz, npoint, valid_mask=None):
+    """Plain PyTorch block-pruned exact d-fps: (B, N, 3) -> (B, npoint) i32."""
+    return _block_pruned_plain(xyz, npoint, valid_mask)[0]
+
+
+def furthest_point_sample_block_pruned(xyz, npoint, valid_mask=None):
+    """Exact d-fps by Morton-block pruning, any N: (B, N, 3) -> (B, npoint)
+    i32, index-equal to `furthest_point_sample_plain`. Kernel K6 on a CUDA
+    tensor, the plain block-pruned version on a CPU tensor."""
     if xyz.is_cuda:
+        return _fps_block_kernel(xyz, npoint, valid_mask)[0]
+    return furthest_point_sample_block_pruned_plain(xyz, npoint, valid_mask)
+
+
+def furthest_point_sample(xyz, npoint, valid_mask=None):
+    """(B, N, 3) -> (B, npoint) int32 indices (d-fps). On the card K1 takes
+    rows of up to 16384 points and K6 longer ones."""
+    if xyz.is_cuda:
+        if xyz.shape[1] > FPS_MAX_POINTS:
+            return _fps_block_kernel(xyz, npoint, valid_mask)[0]
         return _fps_kernel(xyz, npoint, valid_mask, None)
     return furthest_point_sample_plain(xyz, npoint, valid_mask)
 

@@ -43,8 +43,12 @@ def _triple(v):
 
 def linearize(coords_zyx, grid, valid=None):
     """(..., 3) zyx -> int32 keys; invalid / out-of-grid -> sentinel. Both
-    bounds are checked, so a neighbour past the grid edge cannot alias."""
+    bounds are checked, so a neighbour past the grid edge cannot alias. Keys
+    are per scan (the batch is a leading axis, not folded into the key)."""
     gz, gy, gx = grid
+    if gz * gy * gx >= 2 ** 31:
+        raise ValueError(f"grid {tuple(grid)} has {gz * gy * gx} cells: its keys and "
+                         f"sentinel do not fit int32")
     c = coords_zyx.long()
     key = (c[..., 0] * gy + c[..., 1]) * gx + c[..., 2]
     sentinel = gz * gy * gx

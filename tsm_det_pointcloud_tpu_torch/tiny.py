@@ -114,6 +114,44 @@ def tiny_model_cfg():
     })
 
 
+# A Waymo-flavoured tiny configuration: 5 point features, a range symmetric
+# about 0, 384 points sampled 96 / 24, and the Waymo config's NMS settings
+# (NMS_THRESH 0.5, SCORE_THRESH 0.01 for every class).
+WAYMO_PCR = [-8.0, -8.0, -2.0, 8.0, 8.0, 2.0]
+WAYMO_POINTS = 384
+WAYMO_META = DatasetMeta(
+    class_names=("Vehicle", "Pedestrian", "Cyclist"),
+    point_cloud_range=tuple(WAYMO_PCR), voxel_size=tuple(VOXEL),
+    grid_size=(64, 64, 16), max_voxels=256, max_points_per_voxel=5,
+    num_point_features=5, max_points=WAYMO_POINTS,
+)
+
+
+def tiny_waymo_model_cfg():
+    cfg = tiny_model_cfg()
+    for sa in (cfg.BACKBONE_3D.SA_CONFIG, cfg.BACKBONE_3D.S_SA_CONFIG):
+        sa["NPOINT_LIST"] = [[96], [24]]
+        sa["SAMPLE_RANGE_LIST"] = [[[0, WAYMO_POINTS]], [[0, 96]]]
+    cfg.BACKBONE_3D.VOXEL_CONFIG["POINT_CLOUD_RANGE"] = WAYMO_PCR
+    cfg.POINT_HEAD.VOXEL_CONFIG["POINT_CLOUD_RANGE"] = WAYMO_PCR
+    cfg.POINT_HEAD["SAMPLE_RANGE"] = [0, 24]
+    cfg.POST_PROCESSING["SCORE_THRESH"] = [0.01, 0.01, 0.01]
+    cfg.POST_PROCESSING.NMS_CONFIG.update(
+        {"NMS_THRESH": 0.5, "NMS_PRE_MAXSIZE": 24, "NMS_POST_MAXSIZE": 8})
+    return cfg
+
+
+def synth_waymo_points(batch_size, n=WAYMO_POINTS, seed=0):
+    """(B, n, 5) float32 points in the tiny Waymo-flavoured range."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((batch_size, n, 5), np.float32)
+    pts[..., 0] = rng.uniform(-7.5, 7.5, (batch_size, n))
+    pts[..., 1] = rng.uniform(-7.5, 7.5, (batch_size, n))
+    pts[..., 2] = rng.uniform(-1.5, 1.5, (batch_size, n))
+    pts[..., 3:] = rng.uniform(0, 1, (batch_size, n, 2))
+    return pts
+
+
 def synth_points(batch_size, n=256, seed=0):
     """(B, n, 4) float32 points in the tiny range."""
     rng = np.random.RandomState(seed)

@@ -4,6 +4,9 @@
         --cfg_file tools/cfgs/kitti_models/fast_cpc.yaml [--batch 16] \\
         [--points 16384] [--steps 3] [--seed 0] [--device cuda] \\
         [--ckpt_dir DIR] [--profile]
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --batch 8 \\
+        --points 122880 --steps 3
 
 Builds the detector with seeded random weights (teacher and student), seeds
 the class-statistics buffers (a real run transfers them from the teacher
@@ -12,7 +15,8 @@ adam_onecycle over one warm-up step (which builds the kernels) plus --steps
 timed steps (`runtime.train_loop.train_one_epoch`, which reads the loss on
 the host at the first and the last of them), each on its own synthetic
 scan batch with one car box around each of the scan's eight point
-clusters. Prints the losses, the train scans/s over the timed steps (host
+clusters (KITTI configs) or one vehicle box around each of its sixteen
+(Waymo configs). Prints the losses, the train scans/s over the timed steps (host
 clock around work that ends in a synchronize) and the peak device memory;
 with --ckpt_dir it then writes a checkpoint. --profile then traces one more
 step with torch.profiler and prints the device's busy share and the top
@@ -27,7 +31,8 @@ import time
 import numpy as np
 import torch
 
-from .infer import ROOT, kitti_meta, load_cfg, profile_call, seed_statistics, synth_scene
+from .infer import (KITTI_RANGE, ROOT, dataset_meta, load_cfg, profile_call, scan_recipe,
+                    seed_statistics, synth_scene)
 from .models import build_network
 from .runtime.checkpoint import save_checkpoint
 from .runtime.optimization import build_optimizer
@@ -35,32 +40,32 @@ from .runtime.train_loop import train_one_epoch
 from .runtime.train_state import freeze_teacher, train_step
 from .utils.common_utils import resolve_device
 
-# a car box around each synthetic cluster (x +-2 m, y +-1 m, z in [-1.6,
-# -0.2]): (z centre, dx, dy, dz), heading 0, class 1
-_CAR_BOX = (-0.9, 4.2, 2.2, 1.6)
 
-
-def synth_train_batch(batch, n, seed=0, device="cpu"):
-    """infer.synth_points' scans (B, n, 4) plus gt_boxes (B, 8, 8), one car
-    box (class 1) around each cluster, and masks, as device tensors."""
-    pts, centres = synth_scene(batch, n, seed)
-    gt = np.zeros((batch, 8, 8), np.float32)
+def synth_train_batch(batch, n, seed=0, device="cpu", point_cloud_range=KITTI_RANGE,
+                      n_features=4):
+    """Synthetic scans (infer.synth_scene: by default the KITTI range's
+    (B, n, 4) with 8 clusters; the Waymo range's have 16) plus gt_boxes with
+    the recipe's box of class 1, heading 0, around each cluster, and masks,
+    as device tensors."""
+    pts, centres = synth_scene(batch, n, seed, point_cloud_range, n_features)
+    n_box = centres.shape[1]
+    gt = np.zeros((batch, n_box, 8), np.float32)
     gt[..., 0:2] = centres
-    gt[..., 2:6] = _CAR_BOX
+    gt[..., 2:6] = scan_recipe(point_cloud_range).box
     gt[..., 7] = 1
     dev = torch.device(device)
     return {"points": torch.from_numpy(pts).to(dev),
             "points_mask": torch.ones((batch, n), dtype=torch.bool, device=dev),
             "batch_size": batch,
             "gt_boxes": torch.from_numpy(gt).to(dev),
-            "gt_boxes_mask": torch.ones((batch, 8), dtype=torch.bool, device=dev)}
+            "gt_boxes_mask": torch.ones((batch, n_box), dtype=torch.bool, device=dev)}
 
 
 def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1):
     """(cfg, model in train mode, optimizer over the student's parameters)."""
     cfg = load_cfg(cfg_file)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
-                          dataset=kitti_meta(cfg, n_points), device=device,
+                          dataset=dataset_meta(cfg, n_points), device=device,
                           seed=seed)
     seed_statistics(model, torch.Generator().manual_seed(seed + 1))
     student = freeze_teacher(model)
@@ -82,8 +87,10 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     total = args.steps + 1 + int(args.profile)
-    _, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total)
-    batches = [synth_train_batch(args.batch, args.points, args.seed + i, dev)
+    cfg, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total)
+    meta = model.dataset_meta
+    batches = [synth_train_batch(args.batch, args.points, args.seed + i, dev,
+                                 meta.point_cloud_range, meta.num_point_features)
                for i in range(total)]
     loss, _ = train_step(model, opt, batches[0])  # warm-up: builds the kernels
     print(f"warm-up step: loss {float(loss):.4f}")
