@@ -65,16 +65,35 @@ Phases (any failure exits non-zero before the result line):
      timed, with its bound (K2's layer-0 call on a stride of queries as in
      phase 10); losses finite, teacher bit-identical, every s_* parameter
      changed, all six kernels launched. Prints train scans/s and the peak
-     device memory.
+     device memory;
+ 13. SECOND capture: one eval forward + class-agnostic NMS of the second.yaml
+     detector (b4 x 20000, 40000 voxels a level, 211,200 anchors a scan;
+     seeded weights and eval state, as infer.build_detector makes them)
+     records every K3 and K7 call's inputs (8 and 12 a forward); prints the
+     voxels a scan and the anchors over SCORE_THRESH;
+ 14. kernels at SECOND shapes: every recorded K7 call against its plain
+     version (rtol 1e-4, atol 1e-4 * max|out|, K4's tolerance), every K3
+     call bitwise against probe_plain; each timed with its bound, K3 also
+     beside torch.searchsorted;
+ 15. SECOND reference: the tiny SECOND with
+     tsm_det_pointcloud_tpu_torch/data/second_tiny_state.npz (the JAX
+     package's converted PRNGKey(0) init) reproduces
+     tests/goldens/second_forward.npz on the card at the golden tolerance;
+ 16. SECOND main path: launch counts are zeroed, 3 batches of forward +
+     class-agnostic NMS run, the counts are read; outputs finite, box preds
+     (4, 211200, 7), count <= 500, K3 and K7 launched 8 and 12 times a
+     forward. Prints SECOND scans/s and the peak device memory.
 The line before the last is the kernels JSON: each row's numbers are those
 of the KITTI training path (per step of phase 6, `launches` from phase 8),
 its `eval` object those of the KITTI eval path (per forward of phase 3,
 `launches` from phase 5; null for K5), its `waymo` object those of the
 Waymo eval path (per forward of phase 10, `launches` from phase 11; null
 for K5) and `waymo_train` those of the Waymo training path (per step of
-phase 12, `launches` from its 2 timed steps). K6 is on no KITTI path: its
-row's own numbers are the Waymo eval path's (`path` says which path a row's
-own numbers are from). K6's `ms` is its launch alone; `prep_ms` beside it is
+phase 12, `launches` from its 2 timed steps), its `second` object those of
+the SECOND eval path (per forward of phase 14, `launches` from phase 16;
+null but for K3 and K7). K6 is on no KITTI path: its row's own numbers are
+the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
+are that path's (`path` says which path a row's own numbers are from). K6's `ms` is its launch alone; `prep_ms` beside it is
 the PyTorch prep (Morton sort, gathers, boxes) that precedes each launch.
 The last line is the result.
 """
@@ -93,9 +112,13 @@ F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 MAIN_BATCH, MAIN_POINTS, MAIN_ITERS, TRAIN_ITERS = 16, 16384, 3, 3
 WAYMO_BATCH, WAYMO_POINTS, WAYMO_ITERS, WAYMO_TRAIN_ITERS = 8, 122880, 3, 2
+SECOND_BATCH, SECOND_POINTS, SECOND_ITERS = 4, 20000, 3
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
 KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
 WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
+TSM_KERNELS = ("fps_block",) + KITTI_KERNELS
+SECOND_KERNELS = ("probe", "spconv_gather")
+SECOND_CALLS = {"probe": 8, "spconv_gather": 12}   # a forward: 4 rulebooks + 4 plans, 12 convs
 PAIR_TESTS_PLAIN = 1 << 30   # K2's plain version is run on at most this many pairs
 PLAIN_NOTES = {}             # kernel -> what its plain version ran on, when not everything
 PREP_MS = {}                 # kernel -> ms of the PyTorch prep before its last compared launch
@@ -112,6 +135,8 @@ KERNELS = {
                      "tsm_det_pointcloud_tpu/ops/spconv_pallas.py:132"),
     "spconv_bykey_bwd": ("tsm_det_pointcloud_tpu_torch/csrc/spconv_bykey_bwd.cu",
                          "tsm_det_pointcloud_tpu/ops/spconv_pallas.py:383"),
+    "spconv_gather": ("tsm_det_pointcloud_tpu_torch/csrc/spconv_gather.cu",
+                      "tsm_det_pointcloud_tpu/ops/spconv_pallas.py:45"),
 }
 
 
@@ -337,10 +362,35 @@ def compare_bykey_bwd(args):
             None, ops, nbytes, 5, 2)
 
 
+def compare_gather(args):
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.ops import spconv
+
+    f, idx, w = args
+    got = spconv.gather_matmul(f, idx, w)
+    want = spconv.gather_matmul_plain(f, idx, w)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()),
+          f"K7 differs from its plain version: max abs err {err} (scale {scale})")
+    B, V, C = f.shape
+    _, K, Q = idx.shape
+    Co = w.shape[-1]
+    hit = idx >= 0
+    hits = int(hit.sum())
+    # bytes: the indices, each row that some index names read once, W, out
+    rows = sum(int(torch.unique(idx[b][hit[b]]).numel()) for b in range(B))
+    ops = 2 * C * Co * hits
+    nbytes = 4 * (B * K * Q + rows * C + K * C * Co + B * Q * Co)
+    return (err, lambda: spconv.gather_matmul(f, idx, w),
+            lambda: spconv.gather_matmul_plain(f, idx, w), None, ops, nbytes, 5, 2)
+
+
 COMPARE = {"fps": compare_fps, "fps_block": compare_fps_block,
            "query_group": compare_query_group,
            "probe": compare_probe, "spconv_bykey": compare_bykey,
-           "spconv_bykey_bwd": compare_bykey_bwd}
+           "spconv_bykey_bwd": compare_bykey_bwd, "spconv_gather": compare_gather}
 
 
 def compare_recorded(calls, label):
@@ -389,7 +439,8 @@ def record_kernels(names):
              "query_group": (grouping, "_query_group_kernel"),
              "probe": (spconv, "probe"),
              "spconv_bykey": (spconv, "gather_matmul_bykey"),
-             "spconv_bykey_bwd": (spconv, "gather_matmul_bykey_bwd")}
+             "spconv_bykey_bwd": (spconv, "gather_matmul_bykey_bwd"),
+             "spconv_gather": (spconv, "gather_matmul")}
     rec = Recorder(names)
     for name in names:
         rec.wrap(*where[name], name)
@@ -398,6 +449,90 @@ def record_kernels(names):
 
 def close_scalar(got, want):
     return abs(got - want) <= 1e-4 * max(1.0, abs(want)) + 1e-4 * abs(want)
+
+
+def second_phases(dev):
+    """Phases 13-16: the SECOND eval path. Returns the per-kernel report of
+    phase 14 and the launch counts of phase 16."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    # ---- 13. capture the SECOND eval forward's kernel calls ----
+    scfg_file = ROOT / "tools/cfgs/kitti_models/second.yaml"
+    scfg, smodel = build_detector(scfg_file, dev, seed=0, n_points=SECOND_POINTS)
+    spost = scfg.MODEL.POST_PROCESSING
+    spost_max = int(spost.NMS_CONFIG.NMS_POST_MAXSIZE)
+    sbatches = [torch.from_numpy(synth_scans(smodel.dataset_meta, SECOND_BATCH, SECOND_POINTS,
+                                             seed=s)).to(dev)
+                for s in range(SECOND_ITERS)]
+    smask = torch.ones((SECOND_BATCH, SECOND_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(SECOND_KERNELS)
+    sout, _ = detect(smodel, sbatches[0], smask)
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in SECOND_CALLS.items():
+        check(len(rec.calls[name]) == n,
+              f"the SECOND capture forward made {len(rec.calls[name])} {name} calls, not {n}")
+    voxels, over = voxel_anchor_counts(smodel, sout)
+    print(f"SECOND capture: voxel capacity {smodel.dataset_meta.max_voxels}; voxels a scan "
+          f"{voxels}; anchors over SCORE_THRESH {spost.SCORE_THRESH} a scan {over} of "
+          f"{sout['batch_cls_preds'].shape[1]}")
+    del sout
+
+    # ---- 14. each kernel against its plain version at SECOND shapes ----
+    report_second = compare_recorded(rec.calls, "second")
+    del rec
+
+    # ---- 15. SECOND reference: the tiny SECOND reproduces its JAX golden ----
+    stiny = build_network(tiny.second_model_cfg(), 1, tiny.SECOND_META, device=dev)
+    stiny.load_state_dict(tiny.load_state(tiny.SECOND_STATE_PATH), strict=True)
+    stpts = torch.from_numpy(tiny.second_points(2)).to(dev)
+    stout, _ = detect(stiny, stpts, torch.ones(stpts.shape[:2], dtype=torch.bool, device=dev))
+    golden = np.load(ROOT / "tests/goldens/second_forward.npz")
+    for key in golden.files:
+        want = golden[key]
+        got = stout[key].cpu().numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        diff = float(np.abs(got - want).max())
+        check(got.shape == want.shape and np.allclose(got, want, atol=1e-3 * scale, rtol=1e-3),
+              f"tiny SECOND {key} differs from the golden: max abs diff {diff}")
+        print(f"SECOND reference: tiny {key} {got.shape} max abs diff vs golden {diff:.3g}")
+    del stiny, stout
+
+    # ---- 16. the SECOND main path, counted ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(smodel, pts, smask) for pts in sbatches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_second = dict(_kernels.LAUNCHES)
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(out[key]).all()), f"SECOND: non-finite {key}")
+        check(tuple(out["batch_box_preds"].shape) == (SECOND_BATCH, 211200, 7),
+              f"SECOND box preds shape {tuple(out['batch_box_preds'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"SECOND: non-finite {key}")
+        check(bool((pred["count"] <= spost_max).all()), "SECOND: count > NMS_POST_MAXSIZE")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    for name, n in SECOND_CALLS.items():
+        check(launches_second[name] == n * SECOND_ITERS,
+              f"kernel {name} launched {launches_second[name]} times on the SECOND path, "
+              f"not {n} a forward")
+    print(f"SECOND main path: {SECOND_ITERS} batches x {SECOND_BATCH} scans x {SECOND_POINTS} "
+          f"points (211200 anchors a scan) in {dt:.3f} s = "
+          f"{SECOND_ITERS * SECOND_BATCH / dt:.3f} scans/s; detections per scan (last batch) "
+          f"{counts}; launches {launches_second}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del smodel, preds, sbatches, out, pred
+    return report_second, launches_second
 
 
 def main():
@@ -657,7 +792,7 @@ def main():
     wtbatches = [synth_train_batch(WAYMO_BATCH, WAYMO_POINTS, s, dev,
                                    wmeta.point_cloud_range, wmeta.num_point_features)
                  for s in range(WAYMO_TRAIN_ITERS + 1)]
-    rec = record_kernels(list(KERNELS))
+    rec = record_kernels(TSM_KERNELS)
     warm_loss, _ = train_step(wtr_model, wopt, wtbatches[0])   # warm-up
     torch.cuda.synchronize()
     rec.restore()
@@ -689,7 +824,7 @@ def main():
             check(not torch.equal(p, before[n]), f"Waymo: student parameter {n} did not change")
         else:
             check(torch.equal(p, before[n]), f"Waymo: teacher parameter {n} changed")
-    for name in KERNELS:
+    for name in TSM_KERNELS:
         check(launches_wtrain[name] > 0,
               f"kernel {name} was not launched on the Waymo training path")
     print(f"Waymo training main path: {WAYMO_TRAIN_ITERS} steps x {WAYMO_BATCH} scans x "
@@ -698,6 +833,10 @@ def main():
           f"({1e3 * dt / WAYMO_TRAIN_ITERS:.1f} ms/step); losses "
           f"{[round(float(l), 4) for l in losses]}; {n_student} student tensors changed, "
           f"teacher unchanged; launches {launches_wtrain}; peak memory {peak:.2f} GiB")
+    del wtr_model, wopt, wtbatches, before, losses
+    torch.cuda.empty_cache()
+
+    report_second, launches_second = second_phases(dev)
 
     def numbers(a, n):
         return {"launches": n, "max_abs_err": a["err"], "ms": a["ms"],
@@ -710,15 +849,23 @@ def main():
         waymo = ({**numbers(report_waymo[name], launches_waymo[name]),
                   "plain_note": notes_waymo.get(name)}
                  if name in report_waymo else None)
-        waymo_train = {**numbers(report_wtrain[name], launches_wtrain[name]),
-                       "plain_note": notes_wtrain.get(name)}
-        own = numbers(report[name], launches[name]) if name in report else waymo
+        waymo_train = ({**numbers(report_wtrain[name], launches_wtrain[name]),
+                        "plain_note": notes_wtrain.get(name)}
+                       if name in report_wtrain else None)
+        second = (numbers(report_second[name], launches_second[name])
+                  if name in report_second else None)
+        if name in report:
+            own, path = numbers(report[name], launches[name]), "kitti_train"
+        elif waymo is not None:
+            own, path = waymo, "waymo_eval"
+        else:
+            own, path = second, "second_eval"
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "path": "kitti_train" if name in report else "waymo_eval", **own,
+            "path": path, **own,
             "eval": (numbers(report_eval[name], launches_eval[name])
                      if name in report_eval else None),
-            "waymo": waymo, "waymo_train": waymo_train,
+            "waymo": waymo, "waymo_train": waymo_train, "second": second,
         })
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -106,3 +106,29 @@ def test_converter_consumes_every_eval_leaf():
     with pytest.raises(ValueError):
         from_flax_variables({"params": {"module_list_0": {"sa0": {"odd": {
             "leaf": np.zeros((2, 2, 2, 2), np.float32)}}}}})
+
+
+def test_second_builds_and_training_raises():
+    """SECOND (eval) builds on the CPU; its training forward and the
+    PointPillars topology are not ported and raise."""
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    model = build_network(tiny.second_model_cfg(), 1, tiny.SECOND_META, device="cpu")
+    assert [type(m).__name__ for m in model.module_list] == [
+        "MeanVFE", "VoxelBackBone8x", "HeightCompression", "BaseBEVBackbone",
+        "AnchorHeadSingle"]
+    batch = {"points": torch.from_numpy(tiny.second_points(1)),
+             "points_mask": torch.ones(1, 512, dtype=torch.bool)}
+    with pytest.raises(NotImplementedError, match="training"):
+        model.train()(batch)
+    cfg = tiny.second_model_cfg()
+    cfg["NAME"] = "PointPillar"
+    cfg["VFE"] = {"NAME": "PillarVFE"}
+    cfg["MAP_TO_BEV"] = {"NAME": "PointPillarScatter", "NUM_BEV_FEATURES": 64}
+    with pytest.raises(NotImplementedError):
+        build_network(cfg, 1, tiny.SECOND_META, device="cpu")
+    cfg = tiny.second_model_cfg()
+    cfg["VFE"] = {"NAME": "PillarVFE"}
+    with pytest.raises(NotImplementedError, match="PillarVFE"):
+        build_network(cfg, 1, tiny.SECOND_META, device="cpu")

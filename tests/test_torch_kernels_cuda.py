@@ -1,8 +1,8 @@
 """Each hand-written kernel against its plain PyTorch version on the card
 (skipped on hosts without one). Run there with
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
-K1 / K2 / K3 / K6 are exact; K4 sums in another f32 order and K5 with float
-atomics in a varying one (both rtol 1e-4, atol 1e-4 * max|out|)."""
+K1 / K2 / K3 / K6 are exact; K4 and K7 sum in another f32 order and K5 with
+float atomics in a varying one (all rtol 1e-4, atol 1e-4 * max|out|)."""
 import numpy as np
 import pytest
 import torch
@@ -176,3 +176,50 @@ def test_bykey_bwd_kernel(dev, kind, c, co):
         scale = float(wt.abs().max())
         assert scale > 0
         assert ((gt - wt).abs() <= 1e-4 * wt.abs() + 1e-4 * scale).all()
+
+
+@pytest.mark.parametrize("c,co,k,q", [(4, 16, 27, 300), (16, 32, 27, 1000),
+                                      (64, 128, 3, 777), (130, 70, 27, 257)])
+def test_gather_kernel(dev, c, co, k, q):
+    """Ragged widths and Q, K = 3, unsorted indices with misses, and a whole
+    tap of -1."""
+    rng = np.random.RandomState(c + k)
+    B, V = 2, 900
+    idx = rng.randint(0, V, (B, k, q)).astype(np.int32)
+    idx[rng.rand(B, k, q) < 0.3] = -1
+    idx[:, 1] = -1
+    idx = torch.from_numpy(idx).to(dev)
+    f = torch.randn(B, V, c, device=dev)
+    w = torch.randn(k, c, co, device=dev) * 0.1
+    got = _counted("spconv_gather", lambda: spconv.gather_matmul(f, idx, w))
+    want = spconv.gather_matmul_plain(f, idx, w)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()
+
+
+def test_gather_kernel_all_misses(dev):
+    idx = torch.full((1, 27, 500), -1, dtype=torch.int32, device=dev)
+    got = _counted("spconv_gather", lambda: spconv.gather_matmul(
+        torch.randn(1, 40, 4, device=dev), idx, torch.randn(27, 4, 16, device=dev)))
+    assert not got.any()
+
+
+def test_materialised_convs_launch_probe_and_gather(dev):
+    """A materialised subm rulebook probes once (K3) and serves two convs (K7)."""
+    rng = np.random.RandomState(9)
+    B, V, grid = 2, 600, (8, 30, 30)
+    cells = np.stack([np.sort(rng.choice(np.prod(grid), V, replace=False)) for _ in range(B)])
+    cz = torch.from_numpy(np.stack([cells // 900, cells // 30 % 30, cells % 30],
+                                   -1).astype(np.int32)).to(dev)
+    valid = torch.ones(B, V, dtype=torch.bool, device=dev)
+    rb = _counted("probe", lambda: spconv.build_subm_rulebook(cz, valid, grid, lazy=False))
+    f = torch.randn(B, V, 16, device=dev)
+    w = torch.randn(27, 16, 16, device=dev) * 0.1
+    for _ in range(2):
+        got = _counted("spconv_gather", lambda: spconv.subm_conv3d(f, cz, valid, w, grid,
+                                                                   rulebook=rb))
+    lazy = spconv.build_subm_rulebook(cz, valid, grid)
+    want = spconv.gather_matmul_bykey_plain(f, lazy.skeys, lazy.qkeys, w, int(np.prod(grid)))
+    scale = float(want.abs().max())
+    assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()

@@ -12,11 +12,18 @@ that `model.init(..., training=True)` returns (collections `params`,
     momentum are fixed by the layer it belongs to: 1e-3 / 0.99, and 1e-5 /
     0.9 for the teacher head's gate BNs);
   * sparse-conv kernels (K, Cin, Cout) keep their layout as `weight`;
+  * a 2D `nn.Conv` kernel (kh, kw, Cin, Cout) becomes the `nn.Conv2d`
+    `weight` (Cout, Cin, kh, kw);
+  * a 2D `nn.ConvTranspose` kernel (the BEV backbone's `deblock*`),
+    (kh, kw, Cin, Cout), becomes the `nn.ConvTranspose2d` `weight`
+    (Cin, Cout, kh, kw) flipped in both spatial axes: flax's default
+    `transpose_kernel=False` does not flip the kernel, torch's transposed
+    convolution does;
   * the teacher head's `reg_weight` (1, 1, 64, code) is copied;
   * `statistics/*` become buffers of the head.
 
-Every leaf of the training init is consumed (teacher and student, eval and
-training path); a leaf that no rule consumes raises.
+Every leaf of a TSM training init and of a SECOND init is consumed; a leaf
+that no rule consumes raises.
 """
 from __future__ import annotations
 
@@ -48,6 +55,10 @@ def _convert_leaf(collection, path, arr):
             return f"{tmod}.weight", arr.T
         if leaf == "kernel" and arr.ndim == 3:
             return f"{tmod}.weight", arr
+        if leaf == "kernel" and arr.ndim == 4:
+            if re.fullmatch(r"deblock(\d+|_final)", mod.rpartition("/")[2]):
+                return f"{tmod}.weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            return f"{tmod}.weight", arr.transpose(3, 2, 0, 1)
         if leaf == "scale" and arr.ndim == 1:
             return f"{tmod}.weight", arr
         if leaf == "bias" and arr.ndim == 1:
@@ -74,7 +85,7 @@ def from_flax_variables(variables_np):
             key, val = _convert_leaf(collection, path, arr)
             if key in state:
                 raise ValueError(f"two flax leaves map to {key}")
-            state[key] = torch.tensor(np.asarray(val, np.float32))
+            state[key] = torch.tensor(np.array(val, np.float32, order="C"))
     other = set(variables_np) - {"params", "batch_stats", "statistics"}
     if other:
         raise ValueError(f"unknown flax collections {sorted(other)}")

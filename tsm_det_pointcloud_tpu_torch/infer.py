@@ -7,12 +7,15 @@ scans.
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --batch 8 \
         --points 122880
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/second.yaml --batch 4 --points 20000
 
-The dataset's geometry is read from the config's DATA_CONFIG and the
-synthetic scans follow it: KITTI (4 point features) or Waymo (5 point
-features, a +-75.2 m range). Prints the detections per scan of the last
-batch and the scans/s over the timed batches (host clock around work that ends in a synchronize). Weights,
-BN running stats and the head's statistics buffers are random, made from
+The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
+of the test mode) and the synthetic scans follow it: KITTI (4 point
+features) or Waymo (5 point features, a +-75.2 m range). Prints the
+detections per scan of the last batch and the scans/s over the timed
+batches (host clock around work that ends in a synchronize). Weights, BN
+running stats and the TSM head's statistics buffers are random, made from
 --seed, with the cls priors lifted so that NMS has boxes to work on.
 --profile then traces one more batch with
 torch.profiler and prints the device's busy share of that batch's wall time
@@ -121,23 +124,35 @@ def load_cfg(cfg_file):
     return cfg_from_yaml_file(str(cfg_file), EDict({"ROOT_DIR": ROOT, "LOCAL_RANK": 0}))
 
 
+# SECOND's conv_cls bias in place of the -log(99) prior: with the seeded
+# weights and eval state a few thousand of a scan's 211,200 anchors then
+# score above the config's SCORE_THRESH 0.1 (calibrated on the synthetic
+# KITTI scans at 20000 points; infer prints the count)
+SECOND_CLS_BIAS = -2.575
+
+
 @torch.no_grad()
 def randomize_eval_state(model, seed):
-    """Seeded non-trivial BN running stats and statistics buffers (a real
-    deployment loads them from a checkpoint), and cls output biases at 1.0
-    instead of the -log(99) prior, so that boxes reach NMS."""
+    """Seeded non-trivial BN running stats and, for TSM, statistics buffers
+    (a real deployment loads them from a checkpoint), and cls output biases
+    lifted from the -log(99) prior so that boxes reach NMS: TSM's cls heads
+    at 1.0, SECOND's conv_cls at SECOND_CLS_BIAS."""
     from .models.backbones_3d.pointnet2_modules import BatchNorm
 
     g = torch.Generator().manual_seed(int(seed))
     dev = next(model.parameters()).device
     for name, m in model.named_modules():
-        if isinstance(m, BatchNorm):
+        if isinstance(m, (BatchNorm, torch.nn.BatchNorm2d)):
             n = m.running_mean.shape[0]
             m.running_mean.copy_((torch.randn(n, generator=g) * 0.2).to(dev))
             m.running_var.copy_((0.5 + torch.rand(n, generator=g)).to(dev))
-        if name.rsplit(".", 1)[-1] in ("cls0_out", "cls1_out", "cls2_out"):
+        tail = name.rsplit(".", 1)[-1]
+        if tail in ("cls0_out", "cls1_out", "cls2_out"):
             m.bias.fill_(1.0)
-    seed_statistics(model, g)
+        elif tail == "conv_cls":
+            m.bias.fill_(SECOND_CLS_BIAS)
+    if hasattr(model.module_list[-1], "object_statistic_features"):
+        seed_statistics(model, g)
 
 
 @torch.no_grad()
@@ -150,11 +165,13 @@ def seed_statistics(model, g):
         t.copy_((torch.randn(t.shape, generator=g) * 0.5).to(t.device))
 
 
-def dataset_meta(cfg, n_points):
+def dataset_meta(cfg, n_points, mode="test"):
     """The static geometry of the config's dataset, read from its
     DATA_CONFIG: the range, the point features, the voxel size of the first
     DATA_PROCESSOR entry that states one (and its voxel limits, where it has
-    them), and the grid they give."""
+    them: MAX_NUMBER_OF_VOXELS of `mode`, "test" for eval and "train" for
+    training, as the JAX data processor picks them), and the grid they
+    give."""
     data = cfg.DATA_CONFIG
     pcr = tuple(data.POINT_CLOUD_RANGE)
     voxel = next(p for p in data.DATA_PROCESSOR if "VOXEL_SIZE" in p)
@@ -162,7 +179,7 @@ def dataset_meta(cfg, n_points):
     grid = np.round(np.subtract(pcr[3:], pcr[:3]) / np.asarray(size)).astype(int)
     limits = {}
     if "MAX_NUMBER_OF_VOXELS" in voxel:
-        limits["max_voxels"] = int(voxel.MAX_NUMBER_OF_VOXELS["train"])
+        limits["max_voxels"] = int(voxel.MAX_NUMBER_OF_VOXELS[mode])
     if "MAX_POINTS_PER_VOXEL" in voxel:
         limits["max_points_per_voxel"] = int(voxel.MAX_POINTS_PER_VOXEL)
     return DatasetMeta(
@@ -191,6 +208,20 @@ def detect(model, points, mask):
                  "batch_size": points.shape[0]})
     pred, _ = model.post_processing(out)
     return out, pred
+
+
+def voxel_anchor_counts(model, out):
+    """Per scan, the voxels a voxel-based detector kept and the anchors
+    (predictions) whose best class score reaches a scalar SCORE_THRESH; None
+    where the model or the config has neither."""
+    post = model.model_cfg["POST_PROCESSING"]
+    voxels = out["voxel_mask"].sum(1).tolist() if "voxel_mask" in out else None
+    thresh = post.get("SCORE_THRESH", 0.1)
+    over = None
+    if not isinstance(thresh, (list, tuple)):
+        scores = torch.sigmoid(out["batch_cls_preds"]).amax(-1)
+        over = (scores >= float(thresh)).sum(1).tolist()
+    return voxels, over
 
 
 def _self_device_us(evt):
@@ -231,8 +262,8 @@ def profile_call(fn, top=20):
     busy_us = sum(_self_device_us(e) for e in events)
     print(f"profile: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}%), idle {100 - 100 * busy_us / wall_us:.1f}%")
-    # each iteration of the NMS keep fixpoint ends in one torch.equal, which
-    # the host waits for
+    # each iteration of an NMS keep fixpoint (nms_bev's or the suppression
+    # matrix route's) ends in one torch.equal, which the host waits for
     n_equal = sum(e.count for e in prof.key_averages() if e.key == "aten::equal")
     if n_equal:
         print(f"profile: {n_equal} aten::equal calls (NMS keep-fixpoint iterations, one "
@@ -262,12 +293,15 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        _, pred = detect(model, pts, mask)
+        out, pred = detect(model, pts, mask)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    voxels, over = voxel_anchor_counts(model, out)
     for b, c in enumerate(pred["count"].tolist()):
-        print(f"scan {b}: {c} detections")
+        extra = "" if voxels is None else f", {voxels[b]} voxels"
+        extra += "" if over is None else f", {over[b]} predictions over SCORE_THRESH"
+        print(f"scan {b}: {c} detections{extra}")
     print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "
           f"(batch {args.batch} x {args.points} points, {args.iters} batches)")
     if args.profile:

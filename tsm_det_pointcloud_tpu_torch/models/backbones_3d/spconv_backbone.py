@@ -1,9 +1,11 @@
-"""Sparse conv layers (counterpart of
-tsm_det_pointcloud_tpu/models/backbones_3d/spconv_backbone.py:27-163).
+"""Sparse conv layers and SECOND's sparse stem (counterpart of
+tsm_det_pointcloud_tpu/models/backbones_3d/spconv_backbone.py:27-249).
 
 A conv's `weight` keeps the JAX layout (K, Cin, Cout), taps ordered like
 ops.spconv.kernel_offsets(). BN is eps 1e-3, momentum 0.99; in train mode
-its batch stats count the output's valid rows only.
+its batch stats count the output's valid rows only. A conv takes the route
+of the rulebook or plan it is handed (ops/spconv.py): the TSM U-Nets hand
+by-key ones, `VoxelBackBone8x` materialised ones.
 """
 from __future__ import annotations
 
@@ -107,3 +109,79 @@ class SparseInverseConv(_ConvBase):
             stride=self.stride, padding=self.padding, rulebook=rulebook)
         return SparseTensor(self._post(feats, fine.valid), fine.coords,
                             fine.valid, fine.grid, fine.stride)
+
+
+def sparse_shape_from_meta(meta):
+    """The reference adds +1 on z: sparse_shape = grid_size[::-1] + [1, 0, 0]."""
+    nx, ny, nz = meta.grid_size
+    return (int(nz) + 1, int(ny), int(nx))
+
+
+class VoxelBackBone8x(nn.Module):
+    """SECOND's sparse stem: conv_input + conv1..4 (strides 1, 2, 4, 8) +
+    conv_out, 12 sparse convs on 4 submanifold rulebooks and 4 strided
+    plans. Every rulebook and plan is materialised (`lazy=False`): each
+    probes once (K3 on the card), each subm rulebook serves two convs, and
+    every conv gathers by index (K7).
+
+    batch_dict in: voxel_features (B, V, C), voxel_coords (B, V, 3) zyx
+    sorted, voxel_mask (B, V); out: encoded_spconv_tensor (dense
+    (B, nz', ny/8, nx/8, 128)), encoded_spconv_tensor_stride 8,
+    multi_scale_3d_features {x_conv1..4: SparseTensor},
+    multi_scale_3d_strides {1, 2, 4, 8}. The voxel capacity of every level
+    is VOXEL_CAPACITIES, or V."""
+
+    def __init__(self, model_cfg, input_channels, meta):
+        super().__init__()
+        self.grid0 = sparse_shape_from_meta(meta)
+        self.capacities = model_cfg.get("VOXEL_CAPACITIES", None)
+        self.conv_input = SubMConv(input_channels, 16)
+        self.conv1 = SubMConv(16, 16)
+        self.conv2_down = SparseConv(16, 32)
+        self.conv2_a = SubMConv(32, 32)
+        self.conv2_b = SubMConv(32, 32)
+        self.conv3_down = SparseConv(32, 64)
+        self.conv3_a = SubMConv(64, 64)
+        self.conv3_b = SubMConv(64, 64)
+        self.conv4_down = SparseConv(64, 64, padding=(0, 1, 1))
+        self.conv4_a = SubMConv(64, 64)
+        self.conv4_b = SubMConv(64, 64)
+        self.conv_out = SparseConv(64, 128, kernel_size=(3, 1, 1), stride=(2, 1, 1),
+                                   padding=0)
+
+    @staticmethod
+    def _down(conv, st, capacity):
+        """A strided conv through its materialised plan."""
+        out_grid = _out_grid(st.grid, conv.kernel_size, conv.stride, conv.padding)
+        plan = sp.build_conv_plan(st.coords, st.valid, st.grid, out_grid,
+                                  conv.kernel_size, conv.stride, conv.padding,
+                                  capacity, lazy=False)
+        return conv(st, plan=plan)
+
+    @staticmethod
+    def _subm_pair(conv_a, conv_b, st):
+        """Two submanifold convs on one materialised rulebook."""
+        rb = sp.build_subm_rulebook(st.coords, st.valid, st.grid, lazy=False)
+        return conv_b(conv_a(st, rulebook=rb), rulebook=rb)
+
+    def forward(self, batch_dict):
+        st = SparseTensor(batch_dict["voxel_features"], batch_dict["voxel_coords"],
+                          batch_dict["voxel_mask"], self.grid0, 1)
+        V = st.features.shape[1]
+        caps = self.capacities or [V] * 4
+        x1 = self._subm_pair(self.conv_input, self.conv1, st)
+        x2 = self._subm_pair(self.conv2_a, self.conv2_b,
+                             self._down(self.conv2_down, x1, caps[0]))
+        x3 = self._subm_pair(self.conv3_a, self.conv3_b,
+                             self._down(self.conv3_down, x2, caps[1]))
+        x4 = self._subm_pair(self.conv4_a, self.conv4_b,
+                             self._down(self.conv4_down, x3, caps[2]))
+        out = self._down(self.conv_out, x4, caps[3])
+        batch_dict["encoded_spconv_tensor"] = sp.sparse_to_dense(
+            out.features, out.coords, out.valid, out.grid)
+        batch_dict["encoded_spconv_tensor_stride"] = 8
+        batch_dict["multi_scale_3d_features"] = {
+            "x_conv1": x1, "x_conv2": x2, "x_conv3": x3, "x_conv4": x4}
+        batch_dict["multi_scale_3d_strides"] = {
+            "x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
+        return batch_dict

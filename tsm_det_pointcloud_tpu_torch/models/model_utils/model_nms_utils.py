@@ -2,9 +2,11 @@
 tsm_det_pointcloud_tpu/models/model_utils/model_nms_utils.py).
 
 Scores below threshold are masked to -inf so they never enter the kept set;
-`count` reports real detections. The rotated (nms_gpu) suppression-matrix
-route is ported: the polygon-clip IoU grid is built once per sample and the
-per-class and global passes replay keep fixpoints on it.
+`count` reports real detections. Rotated (nms_gpu) NMS only. The
+class-agnostic route takes the top NMS_PRE_MAXSIZE first and clips only
+their pairs (`iou3d.nms_bev`); the multi-threshold route builds the
+polygon-clip IoU grid once per sample and replays the per-class and global
+keep fixpoints on it.
 """
 from __future__ import annotations
 
@@ -20,11 +22,11 @@ def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None):
     if score_thresh is not None:
         scores = torch.where(box_scores >= score_thresh, box_scores,
                              torch.full_like(box_scores, -float("inf")))
-    s_mat = iou3d.suppression_matrix(
-        box_preds, float(nms_config["NMS_THRESH"]),
-        rotated=nms_config["NMS_TYPE"] == "nms_gpu")
-    return iou3d.nms_from_matrix(
-        s_mat, scores, pre_maxsize=int(nms_config["NMS_PRE_MAXSIZE"]),
+    if nms_config["NMS_TYPE"] != "nms_gpu":
+        raise NotImplementedError("only the rotated (nms_gpu) NMS is ported")
+    return iou3d.nms_bev(
+        box_preds, scores, thresh=float(nms_config["NMS_THRESH"]),
+        pre_maxsize=int(nms_config["NMS_PRE_MAXSIZE"]),
         post_maxsize=int(nms_config["NMS_POST_MAXSIZE"]))
 
 

@@ -37,6 +37,7 @@ SOURCES = {
     "probe": "probe.cu",
     "spconv_bykey": "spconv_bykey.cu",
     "spconv_bykey_bwd": "spconv_bykey_bwd.cu",
+    "spconv_gather": "spconv_gather.cu",
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -73,6 +74,7 @@ _SIGNATURES = {
     "spconv_bykey_bwd": ("bykey_bwd_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                           _P]),
+    "spconv_gather": ("gather_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,13 @@
-"""Box coding for the point heads.
+"""Box coding for the heads.
 
-Counterpart of tsm_det_pointcloud_tpu/ops/box_coder_utils.py:144
-(`PointBinResidualCoder`): xyz offsets + log sizes + a binned angle (bin
-one-hot / logits + residuals normalised to [-0.5, 0.5) within the bin);
-decode is (bin + residual) * delta.
+Counterpart of tsm_det_pointcloud_tpu/ops/box_coder_utils.py:
+  * `ResidualCoder` (:31-90), the anchor head's: xyz residuals over the
+    anchor's BEV diagonal / height, log size ratios, the heading residual;
+    decode only (the eval path);
+  * `PointBinResidualCoder` (:144): xyz offsets + log sizes + a binned
+    angle (bin one-hot / logits + residuals normalised to [-0.5, 0.5)
+    within the bin); decode is (bin + residual) * delta.
+Decoded log sizes are clamped to [-4, 4] before exp, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -15,6 +19,28 @@ LOG_SIZE_CLAMP = 4.0
 
 def _safe_exp(t):
     return torch.exp(torch.clamp(t, -LOG_SIZE_CLAMP, LOG_SIZE_CLAMP))
+
+
+class ResidualCoder:
+    def __init__(self, code_size=7, encode_angle_by_sincos=False, **kwargs):
+        if encode_angle_by_sincos:
+            raise NotImplementedError("encode_angle_by_sincos is not on a ported path")
+        self.code_size = code_size
+
+    def decode(self, box_encodings, anchors):
+        """box_encodings (..., 7 + E), anchors (..., 7 + E) -> boxes."""
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, dim=-1)
+        xt, yt, zt, dxt, dyt, dzt, rt = torch.split(box_encodings[..., :7], 1, dim=-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xg = xt * diagonal + xa
+        yg = yt * diagonal + ya
+        zg = zt * dza + za
+        dxg = _safe_exp(dxt) * dxa
+        dyg = _safe_exp(dyt) * dya
+        dzg = _safe_exp(dzt) * dza
+        rg = rt + ra
+        extra = box_encodings[..., 7:] + anchors[..., 7:]
+        return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, extra], dim=-1)
 
 
 class PointBinResidualCoder:

@@ -1,11 +1,14 @@
-"""Rotated BEV IoU and suppression-matrix NMS.
+"""Rotated BEV IoU and NMS.
 
 Counterpart of tsm_det_pointcloud_tpu/ops/iou3d.py: the intersection area of
 two convex quads is a boundary integral (each edge of A clipped to B plus
 each edge of B clipped to A), pure elementwise math on the (N, M) pair
-grid; NMS replays a keep fixpoint on a precomputed suppression matrix.
-Top-k selections are stable sorts, so ties go to the lower index, as
-`jax.lax.top_k`.
+grid. Two NMS routes, as in the JAX package: `nms_bev` takes the top
+`pre_maxsize` boxes first and clips only their k x k pairs (class-agnostic
+NMS over SECOND's 211,200 anchors a scan); the suppression-matrix route
+builds the N x N grid once and replays keep fixpoints on it
+(`multi_thresh_nms`, whose passes share one set of boxes). Top-k selections
+are stable sorts, so ties go to the lower index, as `jax.lax.top_k`.
 """
 from __future__ import annotations
 
@@ -127,6 +130,29 @@ def _select_kept(order, top_scores, keep, post_maxsize):
     keep_idx = order[kept_pos]
     keep_count = torch.clamp(keep.sum(), max=post)
     return keep_idx, keep_count, kept_scores
+
+
+def nms_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=512,
+            score_thresh=None):
+    """Rotated BEV NMS over the top `pre_maxsize` scores (JAX
+    ops/iou3d.py:227-244): the k x k suppression grid of the score-sorted
+    boxes, the keep fixpoint, fixed-size outputs. Returns (keep_idx (post,),
+    keep_count, kept scores (post,))."""
+    n = scores.shape[0]
+    k = min(pre_maxsize, n)
+    top_scores, order = stable_top_k(scores, k)
+    boxes_s = boxes[order]
+    floor = -float("inf") if score_thresh is None else score_thresh
+    valid = torch.isfinite(top_scores) & (top_scores > floor)
+    areas = boxes_s[:, 3] * boxes_s[:, 4]
+    corners = boxes_to_corners_bev(boxes_s)
+    inter = _pair_intersection_area_grid(corners, corners)
+    iou = inter / torch.clamp(areas[:, None] + areas[None, :] - inter, min=1e-6)
+    rank = torch.arange(k, device=scores.device)
+    S = ((iou > thresh) & (rank[:, None] < rank[None, :])
+         & valid[:, None] & valid[None, :])
+    keep = _suppression_fixpoint(S, valid)
+    return _select_kept(order, top_scores, keep, post_maxsize)
 
 
 def nms_from_matrix(s_mat, scores, pre_maxsize=4096, post_maxsize=512):

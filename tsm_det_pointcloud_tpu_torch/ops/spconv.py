@@ -4,21 +4,30 @@ Counterpart of tsm_det_pointcloud_tpu/ops/spconv.py:49-543. A sparse tensor
 is fixed-capacity (features (B, V, C), coords (B, V, 3) int zyx with -1 pad,
 valid (B, V)) with rows sorted by linearized voxel key.
 
-Every 27-tap conv takes the by-key route: the rulebook is never
-materialised; a `LazyRulebook` carries the sorted source keys and the
-per-tap target keys, and the conv matches them inside the gather-GEMM. On a
-CUDA tensor:
+A conv takes one of two routes, chosen by the rulebook it is handed (the
+rulebook builders' `lazy` keyword), as the JAX package dispatches on
+`isinstance(rulebook, LazyRulebook)`:
+  * by key (`lazy=True`, the default; the TSM U-Nets): the rulebook is never
+    materialised; a `LazyRulebook` carries the sorted source keys and the
+    per-tap target keys, and the conv matches them inside the gather-GEMM;
+  * materialised (`lazy=False`; SECOND's VoxelBackBone8x, where one subm
+    rulebook serves two convs): the builder probes once and returns
+    `(idx, found)`; the conv gathers by index (`_gather_conv`).
+On a CUDA tensor:
   * `_lookup_batched` launches kernel K3 (csrc/probe.cu, replacing the
     Pallas `_kernel` of ops/searchsorted_pallas.py:55);
   * `gather_matmul_bykey` launches kernel K4 (csrc/spconv_bykey.cu,
-    replacing the Pallas `_bykey_kernel` of ops/spconv_pallas.py:132).
+    replacing the Pallas `_bykey_kernel` of ops/spconv_pallas.py:132);
   * the backward of the by-key conv, `gather_matmul_bykey_bwd`, launches
     kernel K5 (csrc/spconv_bykey_bwd.cu, replacing the Pallas
-    `_bykey_bwd_kernel` of ops/spconv_pallas.py:383).
-On a CPU tensor all three run their plain versions below. Every 27-tap conv
+    `_bykey_bwd_kernel` of ops/spconv_pallas.py:383);
+  * `gather_matmul` launches kernel K7 (csrc/spconv_gather.cu, replacing the
+    Pallas `_kernel` of ops/spconv_pallas.py:45).
+On a CPU tensor all four run their plain versions below. Every by-key conv
 goes through `_ByKeyConv`, the autograd counterpart of the JAX `_bykey_conv`
 custom VJP (ops/spconv.py:149-193): K4 forward, K5 backward, no gradient
-for the keys. A 1x1x1 conv stays a plain GEMM.
+for the keys. The materialised route is eval only on the card: K7 has no
+backward yet, and asking for one raises. A 1x1x1 conv stays a plain GEMM.
 """
 from __future__ import annotations
 
@@ -243,15 +252,82 @@ def _gather_conv_bykey(features, rulebook, weight, out_valid, grid):
 
 
 # ---------------------------------------------------------------------------
+# K7: the index gather-GEMM (materialised rulebooks)
+# ---------------------------------------------------------------------------
+
+def gather_matmul_plain(features, idx, weight):
+    """out[b, q] = sum_k weight[k]^T features[b, idx[b, k, q]], an index of
+    -1 contributing zero (the JAX `_xla_reference`, ops/spconv_pallas.py:576):
+    per tap a gather and a product. features (B, V, C), idx (B, K, Q) int,
+    weight (K, C, Co) -> (B, Q, Co)."""
+    B, V, C = features.shape
+    _, K, Q = idx.shape
+    out = torch.zeros((B, Q, weight.shape[-1]), dtype=features.dtype,
+                      device=features.device)
+    for k in range(K):
+        i = idx[:, k].long()
+        g = torch.gather(features, 1, torch.clamp(i, min=0)[..., None].expand(-1, -1, C))
+        g = torch.where((i >= 0)[..., None], g, torch.zeros_like(g))
+        out = out + torch.matmul(g, weight[k])
+    return out
+
+
+def gather_matmul(features, idx, weight):
+    """Index gather + GEMM; kernel K7 on the card. features (B, V, C), idx
+    (B, K, Q) int32 in [0, V) or -1, weight (K, C, Co) -> (B, Q, Co) f32."""
+    if not features.is_cuda:
+        return gather_matmul_plain(features, idx, weight)
+    if torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad):
+        raise NotImplementedError("kernel K7 (spconv_gather) has no backward yet: "
+                                  "the materialised route runs under no_grad")
+    f = features.contiguous().float()
+    ix = idx.contiguous().to(torch.int32)
+    w = weight.contiguous().float()
+    _kernels.require_cuda(f, ix, w)
+    B, V, C = f.shape
+    K, Q, Co = ix.shape[1], ix.shape[2], w.shape[-1]
+    _kernels.check_shape(ix, (B, K, Q), "gather idx")
+    _kernels.check_shape(w, (K, C, Co), "gather weight")
+    out = torch.empty((B, Q, Co), dtype=torch.float32, device=f.device)
+    err = _kernels.func("spconv_gather")(
+        f.data_ptr(), ix.data_ptr(), w.data_ptr(), B, V, C, K, Q, Co,
+        out.data_ptr(), _kernels.stream_ptr(f.device))
+    _kernels.check(err, "spconv_gather")
+    _kernels.count("spconv_gather")
+    return out
+
+
+def _gather_conv(features, idx, found, weight, out_valid):
+    """The materialised route (JAX ops/spconv.py:209-219): the rulebook's
+    misses become -1, then K7, then the output mask."""
+    idxm = torch.where(found, idx, torch.full_like(idx, -1))
+    out = gather_matmul(features, idxm, weight)
+    return torch.where(out_valid[..., None], out, torch.zeros_like(out))
+
+
+def _conv(features, rulebook, weight, out_valid, grid):
+    """Dispatch on the rulebook's kind, as the JAX package does."""
+    if isinstance(rulebook, LazyRulebook):
+        return _gather_conv_bykey(features, rulebook, weight, out_valid, grid)
+    idx, found = rulebook
+    return _gather_conv(features, idx, found, weight, out_valid)
+
+
+# ---------------------------------------------------------------------------
 # rulebooks and convs
 # ---------------------------------------------------------------------------
 
-def build_subm_rulebook(coords, valid, grid, kernel_size=3):
+def build_subm_rulebook(coords, valid, grid, kernel_size=3, lazy=True):
+    """The rulebook of a submanifold conv: a `LazyRulebook`, or with
+    lazy=False the probed (idx, found) (B, K, V), found & valid."""
     offs = torch.as_tensor(kernel_offsets(kernel_size), device=coords.device)
     keys = linearize(coords, grid, valid)                          # (B, V)
     qc = coords[:, None, :, :].long() + offs[None, :, None, :]     # (B, K, V, 3)
     qk = linearize(qc, grid, valid[:, None, :])
-    return LazyRulebook(keys, qk)
+    if lazy:
+        return LazyRulebook(keys, qk)
+    idx, found = _lookup_batched(keys, qk, int(np.prod(grid)))
+    return idx, found & valid[:, None, :]
 
 
 def subm_conv3d(features, coords, valid, weight, grid, rulebook=None):
@@ -263,7 +339,7 @@ def subm_conv3d(features, coords, valid, weight, grid, rulebook=None):
         return torch.where(valid[..., None], out, torch.zeros_like(out))
     if rulebook is None:
         rulebook = build_subm_rulebook(coords, valid, grid, round(K ** (1 / 3)))
-    return _gather_conv_bykey(features, rulebook, weight, valid, grid)
+    return _conv(features, rulebook, weight, valid, grid)
 
 
 def _downsample_out_coords(coords, valid, grid, out_grid, kernel_size, stride,
@@ -322,9 +398,10 @@ def _downsample_out_coords(coords, valid, grid, out_grid, kernel_size, stride,
 
 
 def build_conv_plan(coords, valid, grid, out_grid, kernel_size, stride,
-                    padding, out_capacity):
+                    padding, out_capacity, lazy=True):
     """Weight-independent part of a strided conv: (out_coords (B, Vo, 3),
-    out_valid (B, Vo), LazyRulebook)."""
+    out_valid (B, Vo), rulebook): a LazyRulebook, or with lazy=False the
+    probed (idx, found) (B, K, Vo), found & out_valid."""
     dev = coords.device
     offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev).long()
     ks = _triple(kernel_size)
@@ -338,7 +415,10 @@ def build_conv_plan(coords, valid, grid, out_grid, kernel_size, stride,
     taps = offs - lo[None, :]
     qc = oc[:, None, :, :].long() * st - pd + taps[None, :, None, :]
     qk = linearize(qc, grid, ov[:, None, :])
-    return oc, ov, LazyRulebook(in_keys, qk)
+    if lazy:
+        return oc, ov, LazyRulebook(in_keys, qk)
+    idx, found = _lookup_batched(in_keys, qk, int(np.prod(grid)))
+    return oc, ov, (idx, found & ov[:, None, :])
 
 
 def sparse_conv3d(features, coords, valid, weight, grid, out_grid,
@@ -349,13 +429,15 @@ def sparse_conv3d(features, coords, valid, weight, grid, out_grid,
         plan = build_conv_plan(coords, valid, grid, out_grid, kernel_size,
                                stride, padding, out_capacity)
     oc, ov, rulebook = plan
-    return _gather_conv_bykey(features, rulebook, weight, ov, grid), oc, ov
+    return _conv(features, rulebook, weight, ov, grid), oc, ov
 
 
 def build_inverse_rulebook(coarse_coords, coarse_valid, fine_coords,
                            fine_valid, coarse_grid, kernel_size, stride,
-                           padding):
-    """Fine o receives coarse c with tap = o - (c*s - p) when 0 <= tap < k."""
+                           padding, lazy=True):
+    """Fine o receives coarse c with tap = o - (c*s - p) when 0 <= tap < k.
+    A LazyRulebook, or with lazy=False the probed (idx, found) (B, K, Vf),
+    found & fine_valid & exact."""
     dev = coarse_coords.device
     ks = _triple(kernel_size)
     offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev).long()
@@ -368,7 +450,10 @@ def build_inverse_rulebook(coarse_coords, coarse_valid, fine_coords,
     c_cand = num // st
     exact = (c_cand * st == num).all(-1)
     qk = linearize(c_cand, coarse_grid, fine_valid[:, None, :] & exact)
-    return LazyRulebook(ckeys, qk)
+    if lazy:
+        return LazyRulebook(ckeys, qk)
+    idx, found = _lookup_batched(ckeys, qk, int(np.prod(coarse_grid)))
+    return idx, found & fine_valid[:, None, :] & exact
 
 
 def inverse_conv3d(coarse_features, coarse_coords, coarse_valid, weight,
@@ -380,5 +465,19 @@ def inverse_conv3d(coarse_features, coarse_coords, coarse_valid, weight,
         rulebook = build_inverse_rulebook(
             coarse_coords, coarse_valid, fine_coords, fine_valid,
             coarse_grid, kernel_size, stride, padding)
-    return _gather_conv_bykey(coarse_features, rulebook, weight, fine_valid,
-                              coarse_grid)
+    return _conv(coarse_features, rulebook, weight, fine_valid, coarse_grid)
+
+
+def sparse_to_dense(features, coords, valid, grid):
+    """(B, V, C) sparse -> (B, gz, gy, gx, C) dense (spconv's .dense()); the
+    invalid rows are dropped, not written."""
+    gz, gy, gx = grid
+    B, V, C = features.shape
+    cells = gz * gy * gx
+    key = linearize(coords, grid, valid).long()                   # sentinel = cells
+    flat = key + torch.arange(B, device=key.device)[:, None] * (cells + 1)
+    dense = torch.zeros((B * (cells + 1), C), dtype=features.dtype,
+                        device=features.device)
+    # every invalid row lands on its scan's drop row (cells), which is cut off
+    dense.index_copy_(0, flat.reshape(-1), features.reshape(-1, C))
+    return dense.reshape(B, cells + 1, C)[:, :cells].reshape(B, gz, gy, gx, C)

@@ -1,14 +1,88 @@
-"""Voxel centroids and the voxel (window) query.
+"""Voxelisation, voxel centroids and the voxel (window) query.
 
-Counterpart of tsm_det_pointcloud_tpu/ops/voxel.py:123-231. The functions
+Counterpart of tsm_det_pointcloud_tpu/ops/voxel.py:31-231. The functions
 here take a leading batch axis (the JAX versions are per sample and vmapped
 by their callers).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .grouping import query_group
+
+
+def grid_size(point_cloud_range, voxel_size, stride=1):
+    """Static (z, y, x) grid extents (python ints)."""
+    pc = np.asarray(point_cloud_range, np.float64)
+    vs = np.asarray(voxel_size, np.float64) * stride
+    g = np.round((pc[3:6] - pc[0:3]) / vs).astype(np.int64)   # (x, y, z)
+    return int(g[2]), int(g[1]), int(g[0])
+
+
+def compute_voxel_coords(points_xyz, point_cloud_range, voxel_size, stride=1):
+    """(..., 3) xyz -> (..., 3) int32 voxel coords in (z, y, x) order and the
+    bool in-range mask. `stride` scales voxel_size."""
+    dev = points_xyz.device
+    lo = torch.tensor(np.asarray(point_cloud_range[:3], np.float32), device=dev)
+    vs = torch.tensor(np.asarray(voxel_size, np.float32), device=dev) * stride
+    cxyz = torch.floor((points_xyz - lo) / vs).to(torch.int32)
+    gz, gy, gx = grid_size(point_cloud_range, voxel_size, stride)
+    ext = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
+    in_range = ((cxyz >= 0) & (cxyz < ext)).all(-1)
+    return cxyz.flip(-1), in_range
+
+
+def voxelize(points, coords_zyx, valid, num_voxels, max_points, grid_dims):
+    """Group points into fixed-capacity voxels, sorted by voxel key.
+
+    points (B, N, C), coords_zyx (B, N, 3) int, valid (B, N). The sort is
+    stable, so a voxel keeps its first `max_points` points in input order;
+    overflow voxels (largest keys) are dropped. Returns dict: voxels
+    (B, V, max_points, C) zero-padded, coordinates (B, V, 3) int32 (-1 pad),
+    num_points (B, V) int32 (<= max_points), num_voxels (B,), point_voxel_idx
+    (B, N) int32 (-1 invalid / dropped)."""
+    gz, gy, gx = grid_dims
+    B, N, C = points.shape
+    V, P = int(num_voxels), int(max_points)
+    dev = points.device
+    key = _linearize(coords_zyx, grid_dims, valid)
+    skey, order = torch.sort(key, dim=1, stable=True)
+    spts = torch.gather(points, 1, order[..., None].expand(-1, -1, C))
+    scoords = torch.gather(coords_zyx.to(torch.int32), 1, order[..., None].expand(-1, -1, 3))
+    svalid = skey < gz * gy * gx
+    is_start = torch.cat(
+        [svalid[:, :1], (skey[:, 1:] != skey[:, :-1]) & svalid[:, 1:]], 1)
+    slot = torch.cumsum(is_start.long(), 1) - 1
+    # rank of each point inside its voxel: its position minus its run's start
+    pos = torch.arange(N, device=dev).expand(B, N)
+    run_start = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)), 1).values
+    rank = pos - run_start
+    ok = svalid & (slot < V) & (rank < P)
+    boff = torch.arange(B, device=dev)[:, None]
+
+    cell = torch.where(ok, slot * P + rank, torch.full_like(slot, V * P))
+    vox = torch.zeros((B * (V * P + 1), C), dtype=points.dtype, device=dev)
+    vox[(cell + boff * (V * P + 1)).reshape(-1)] = spts.reshape(-1, C)
+    vox = vox.reshape(B, V * P + 1, C)[:, :V * P].reshape(B, V, P, C)
+
+    head = torch.where(is_start & (slot < V), slot, torch.full_like(slot, V))
+    vcoords = torch.full((B * (V + 1), 3), -1, dtype=torch.int32, device=dev)
+    vcoords[(head + boff * (V + 1)).reshape(-1)] = scoords.reshape(-1, 3)
+    vcoords = vcoords.reshape(B, V + 1, 3)[:, :V]
+
+    seg = torch.where(ok, slot, torch.full_like(slot, V))
+    counts = torch.zeros((B * (V + 1),), dtype=torch.int32, device=dev)
+    counts.index_add_(0, (seg + boff * (V + 1)).reshape(-1),
+                      torch.ones(B * N, dtype=torch.int32, device=dev))
+    counts = counts.reshape(B, V + 1)[:, :V]
+
+    pslot = torch.where(svalid & (slot < V), slot, torch.full_like(slot, -1)).to(torch.int32)
+    point_voxel_idx = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    point_voxel_idx.scatter_(1, order, pslot)
+    return dict(voxels=vox, coordinates=vcoords, num_points=counts,
+                num_voxels=torch.clamp(is_start.sum(1), max=V),
+                point_voxel_idx=point_voxel_idx)
 
 
 def _linearize(coords_zyx, grid_dims, valid):

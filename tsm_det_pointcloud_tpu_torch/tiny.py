@@ -1,4 +1,4 @@
-"""The tiny TSM configuration used to hold the port against the JAX package.
+"""The tiny configurations used to hold the port against the JAX package.
 
 A copy of the repository's flagship tiny config (`_tsm_model_cfg` and
 `_synth_batch` of `__graft_entry__.py`): the distilled TSM detector at
@@ -6,6 +6,13 @@ narrow widths on a 16 x 16 x 4 m range. `data/tsm_tiny_state.npz` holds
 that model's weights as the JAX package initialises them (PRNGKey(0)),
 converted by `convert.from_flax_variables`; with them the eval forward on
 `synth_batch(2)` must reproduce `tests/goldens/tsm_forward.npz`.
+
+Also a copy of the tiny SECOND of the JAX package's tests
+(`second_model_cfg`, `META` and `synthetic_batch` of
+tests/test_second_e2e.py): the real 8x-stride topology on a 32 x 32 x 40
+grid, one class. `data/second_tiny_state.npz` holds its converted
+PRNGKey(0) eval init; with it the eval forward on `second_points(2)` must
+reproduce `tests/goldens/second_forward.npz`.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from .utils.edict import EDict
 PCR = [0.0, -8.0, -2.0, 16.0, 8.0, 2.0]
 VOXEL = [0.25, 0.25, 0.25]
 STATE_PATH = Path(__file__).resolve().parent / "data" / "tsm_tiny_state.npz"
+SECOND_STATE_PATH = STATE_PATH.parent / "second_tiny_state.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -194,6 +202,67 @@ def train_statistics(seed=5):
     return {name: rng.randn(3, 48).astype(np.float32)
             for name in ("object_mean", "object_momentum",
                          "object_statistic_features")}
+
+
+SECOND_META = DatasetMeta(
+    class_names=("Car",),
+    point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+    voxel_size=(0.5, 0.5, 0.1), grid_size=(32, 32, 40), max_voxels=512,
+    max_points_per_voxel=5, num_point_features=4, max_points=512,
+)
+
+
+def second_model_cfg():
+    return EDict({
+        "NAME": "SECONDNet",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelBackBone8x"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": {
+            "NAME": "BaseBEVBackbone",
+            "LAYER_NUMS": [1, 1], "LAYER_STRIDES": [1, 2],
+            "NUM_FILTERS": [32, 64], "UPSAMPLE_STRIDES": [1, 2],
+            "NUM_UPSAMPLE_FILTERS": [32, 32],
+        },
+        "DENSE_HEAD": {
+            "NAME": "AnchorHeadSingle", "CLASS_AGNOSTIC": False,
+            "USE_DIRECTION_CLASSIFIER": True, "DIR_OFFSET": 0.78539,
+            "DIR_LIMIT_OFFSET": 0.0, "NUM_DIR_BINS": 2,
+            "ANCHOR_GENERATOR_CONFIG": [{
+                "class_name": "Car", "anchor_sizes": [[3.9, 1.6, 1.56]],
+                "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-1.78],
+                "align_center": False, "feature_map_stride": 8,
+                "matched_threshold": 0.6, "unmatched_threshold": 0.45,
+            }],
+            "TARGET_ASSIGNER_CONFIG": {"MATCH_HEIGHT": False},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {
+                "cls_weight": 1.0, "loc_weight": 2.0, "dir_weight": 0.2,
+                "code_weights": [1.0] * 7}},
+        },
+        "POST_PROCESSING": {
+            "RECALL_THRESH_LIST": [0.3, 0.5, 0.7],
+            "SCORE_THRESH": 0.1, "EVAL_METRIC": "kitti",
+            "NMS_CONFIG": {"MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu",
+                           "NMS_THRESH": 0.01, "NMS_PRE_MAXSIZE": 64,
+                           "NMS_POST_MAXSIZE": 8},
+        },
+    })
+
+
+def second_points(batch_size=2, n=512, seed=0):
+    """(B, n, 4) float32 points of the tiny SECOND batch: uniform in its
+    range, the first 50 of each scan in a car-sized box at (8, 0, -1)."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((batch_size, n, 4), np.float32)
+    pts[..., 0] = rng.uniform(0.5, 15.5, (batch_size, n))
+    pts[..., 1] = rng.uniform(-7.5, 7.5, (batch_size, n))
+    pts[..., 2] = rng.uniform(-2.5, 0.5, (batch_size, n))
+    pts[..., 3] = rng.uniform(0, 1, (batch_size, n))
+    for b in range(batch_size):
+        pts[b, :50, 0] = rng.uniform(6.5, 9.5, 50)
+        pts[b, :50, 1] = rng.uniform(-0.7, 0.7, 50)
+        pts[b, :50, 2] = rng.uniform(-1.7, -0.3, 50)
+    return pts
 
 
 def load_state(path=STATE_PATH):

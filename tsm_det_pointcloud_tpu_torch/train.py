@@ -65,7 +65,7 @@ def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1
     """(cfg, model in train mode, optimizer over the student's parameters)."""
     cfg = load_cfg(cfg_file)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
-                          dataset=dataset_meta(cfg, n_points), device=device,
+                          dataset=dataset_meta(cfg, n_points, "train"), device=device,
                           seed=seed)
     seed_statistics(model, torch.Generator().manual_seed(seed + 1))
     student = freeze_teacher(model)

@@ -1,7 +1,14 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and angle wrapping
+(counterpart of tsm_det_pointcloud_tpu/utils/common_utils.py:24)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def limit_period(val, offset=0.5, period=np.pi):
+    """Wrap angles into [-offset * period, (1 - offset) * period)."""
+    return val - torch.floor(val / period + offset) * period
 
 
 def resolve_device(device="cuda"):
