@@ -13,7 +13,22 @@ Phases (any failure exits non-zero before the result line):
      PyTorch version — K1 FPS index-equal, K2 query+group cnt / filled idx /
      gathered rows equal, K3 probe bitwise, K4 gather-GEMM allclose
      (rtol 1e-4, atol 1e-4 * max|out|: f32 sums in another order) — and
-     both are timed with CUDA events, with the bound from the inputs;
+     both are timed with CUDA events around a host loop of launches, with
+     the bound from the inputs. K2's `ms` is its launch alone on prepared
+     sources, `prep_ms` beside it the PyTorch prep on the same host loop
+     (grouping.tile_sources: Morton sort, gathers, tile boxes, which K2
+     calls on the same sources share, so only a pass's first call on them
+     pays it; and grouping.query_order) and `prep_device_ms` the prep's
+     device time alone; its bound counts the pair tests of the (query, tile)
+     pairs the pruning rule visited (`visits`). The phase's log line also
+     gives the (query, tile) pairs there are and what every query against
+     every source would take at the bound's rate: a derived figure, not a
+     time, and not in the kernels line. K3 and torch.searchsorted are also
+     traced with torch.profiler: `device_ms` and `library_device_ms` are
+     their kernels' device time alone, without the host's dispatch gaps.
+     Every such device time is taken at the end, after phase 16: a
+     profiler window slows the host's later launches, and no path is timed
+     after one;
   4. reference: the tiny TSM config with the JAX package's converted
      PRNGKey(0) weights reproduces tests/goldens/tsm_forward.npz on the card
      (golden tolerance: atol 1e-3 * max(1, max|want|), rtol 1e-3);
@@ -63,7 +78,8 @@ Phases (any failure exits non-zero before the result line):
      its VSA payload and its U-Net, and K5 at all ten convs) runs through
      its kernel and its plain version at the tolerances of phases 3 and 6,
      timed, with its bound (K2's layer-0 call on a stride of queries as in
-     phase 10); losses finite, teacher bit-identical, every s_* parameter
+     phase 10; K2's and K3's extra figures as in phase 3); losses finite,
+     teacher bit-identical, every s_* parameter
      changed, all six kernels launched. Prints train scans/s and the peak
      device memory;
  13. SECOND capture: one eval forward + class-agnostic NMS of the second.yaml
@@ -74,7 +90,7 @@ Phases (any failure exits non-zero before the result line):
  14. kernels at SECOND shapes: every recorded K7 call against its plain
      version (rtol 1e-4, atol 1e-4 * max|out|, K4's tolerance), every K3
      call bitwise against probe_plain; each timed with its bound, K3 also
-     beside torch.searchsorted;
+     beside torch.searchsorted, both also by device time alone;
  15. SECOND reference: the tiny SECOND with
      tsm_det_pointcloud_tpu_torch/data/second_tiny_state.npz (the JAX
      package's converted PRNGKey(0) init) reproduces
@@ -93,8 +109,10 @@ phase 12, `launches` from its 2 timed steps), its `second` object those of
 the SECOND eval path (per forward of phase 14, `launches` from phase 16;
 null but for K3 and K7). K6 is on no KITTI path: its row's own numbers are
 the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
-are that path's (`path` says which path a row's own numbers are from). K6's `ms` is its launch alone; `prep_ms` beside it is
-the PyTorch prep (Morton sort, gathers, boxes) that precedes each launch.
+are that path's (`path` says which path a row's own numbers are from).
+K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
+PyTorch prep (Morton sort, gathers, boxes) that precedes each launch (K2's
+tiles counted once a pass for the calls that share them).
 The last line is the result.
 """
 from __future__ import annotations
@@ -104,6 +122,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -121,7 +140,29 @@ SECOND_KERNELS = ("probe", "spconv_gather")
 SECOND_CALLS = {"probe": 8, "spconv_gather": 12}   # a forward: 4 rulebooks + 4 plans, 12 convs
 PAIR_TESTS_PLAIN = 1 << 30   # K2's plain version is run on at most this many pairs
 PLAIN_NOTES = {}             # kernel -> what its plain version ran on, when not everything
-PREP_MS = {}                 # kernel -> ms of the PyTorch prep before its last compared launch
+EXTRAS = {}                  # kernel -> figures of its last compared call that a pass sums
+EXTRA_KEYS = ("prep_ms", "prep_device_ms", "visits", "device_ms", "library_device_ms")
+TILED = []                   # K2 tiles whose making a compared call of the pass has timed
+
+
+class Deferred(NamedTuple):
+    """A device-time measurement of fn(*args, **kwargs) (`device_ms`),
+    taken after every timed path: one torch.profiler window slows the
+    host's later launches for the rest of the process, so no path may be
+    timed after one. The tensor arguments wait in host memory, so that they
+    hold no device memory while the paths run."""
+    fn: object
+    args: tuple
+    reps: int
+    kernels: object = None
+    kwargs: object = None
+
+
+def deferred(fn, args, reps, kernels=None, **kwargs):
+    import torch
+
+    return Deferred(fn, tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args),
+                    reps, kernels, kwargs)
 KERNELS = {
     "fps": ("tsm_det_pointcloud_tpu_torch/csrc/fps.cu",
             "tsm_det_pointcloud_tpu/ops/fps_pallas.py:28"),
@@ -163,6 +204,37 @@ def cuda_time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, kernels=None):
+    """Device time of `fn`'s kernels alone, per call, from a torch.profiler
+    window of `reps` calls: for each kernel, its mean time times the
+    launches it makes a call. Unlike cuda_time_ms it leaves out the host's
+    dispatch gaps between launches. The profiler at times hands back a
+    window short of a kernel record or two, which the means ride out; a
+    window with no device time, or (given `kernels`) another number of
+    launches a call, is taken again, up to five times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsm_det_pointcloud_tpu_torch.infer import _self_device_us
+
+    fn()  # warm-up
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False) and e.count > 0]
+        per_call = [round(e.count / reps) for e in events]
+        us = sum(_self_device_us(e) / e.count * k for e, k in zip(events, per_call))
+        if us > 0 and (kernels is None or sum(per_call) == kernels):
+            return us / 1e3
+    fail(f"torch.profiler recorded {[e.count for e in events]} launches for {reps} calls, "
+         f"five times")
 
 
 def bound_ms(ops, nbytes):
@@ -236,12 +308,13 @@ def compare_fps_block(args):
     # updates mind in place), so one state is prepared for each timed launch
     reps = 3
     xyz = xyz.detach().contiguous().float()
-    PREP_MS["fps_block"] = cuda_time_ms(lambda: sampling.block_prep(xyz, valid), reps)
+    prep_ms = cuda_time_ms(lambda: sampling.block_prep(xyz, valid), reps)
+    EXTRAS["fps_block"] = {"prep_ms": prep_ms}
     states = iter([sampling.block_prep(xyz, valid) for _ in range(reps + 1)])
     print(f"  K6 visited {n_visits} of {(npoint - 1) * nb * B} (step, block) pairs "
           f"({100 * n_visits / ((npoint - 1) * nb * B):.2f}%); their bytes at the memory "
           f"rate {visit_ms:.4f} ms; a full sweep's operations {sweep_ms:.4f} ms; the "
-          f"prep alone {PREP_MS['fps_block']:.4f} ms")
+          f"prep alone {prep_ms:.4f} ms")
     return (0.0, lambda: sampling._fps_block_launch(xyz, next(states), npoint),
             lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid),
             None, ops, nbytes, reps, 1)
@@ -252,13 +325,13 @@ def compare_query_group(args):
 
     from tsm_det_pointcloud_tpu_torch.ops import grouping
 
-    src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coords = args
+    src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coords, tiles = args
     gi, gc, gg = grouping._query_group_kernel(*args)
     # the plain version materialises every (query, source) pair: above
     # PAIR_TESTS_PLAIN pairs it runs on every `stride`-th query (all sources)
     # and the kernel's full-shape result is held against it on those
     stride = -(-src_xyz.shape[0] * src_xyz.shape[1] * q_xyz.shape[1] // PAIR_TESTS_PLAIN)
-    plain_args = args
+    plain_args = args[:7]
     if stride > 1:
         PLAIN_NOTES["query_group"] = (f"plain version run and timed on every {stride}th "
                                       f"query of the {q_xyz.shape[1]}-query call")
@@ -286,11 +359,39 @@ def compare_query_group(args):
     T = sum(int(s[2]) for s in scales)
     D = 0 if payload is None else payload.shape[-1]
     window = src_coords is not None
-    ops = B * M * N * (8 + 2 * S + (6 if window else 0))
+    # `ms` is the launch alone, on prepared sources; the PyTorch prep is
+    # timed apart as `prep_ms`: the query sort, and the tiles where this
+    # call made them (tiles shared with an earlier call of the pass were
+    # made there). The bound counts the pair tests of the tiles the rule
+    # visited (the launch's `visits`); `sweep_ms`, what every query against
+    # every source would take at the same rate, is derived, for the log
+    scales_n, sx, sv, qx, pl, scc, qcc = grouping._kernel_inputs(*args[:7])
+    shared = any(t is tiles for t in TILED)
+    if tiles is not None and not shared:
+        TILED.append(tiles)
+    prep = grouping.GroupPrep(*(tiles or grouping.tile_sources(sx, sv, scc)),
+                              grouping.query_order(qx))
+    visits = grouping._query_group_launch(prep, qx, scales_n, pl, qcc)[3]
+    per_pair = 8 + 2 * S + (6 if window else 0)
+    n_visits = int(visits.sum())
+    nt = prep.tbox.shape[1]
+    ops = n_visits * grouping.GROUP_TILE * per_pair
+    sweep_ms = B * M * N * per_pair / F32_OPS_PER_S * 1e3
+    prep_fn, prep_args = ((grouping.query_order, (qx,)) if shared
+                          else (grouping.group_prep, (sx, sv, qx, scc)))
+    prep_ms = cuda_time_ms(lambda: prep_fn(*prep_args), 5)
+    EXTRAS["query_group"] = {"prep_ms": prep_ms,
+                             "prep_device_ms": deferred(prep_fn, prep_args, 5),
+                             "sweep_ms": sweep_ms, "visits": n_visits, "tile_pairs": B * M * nt}
+    print(f"  K2 tested {n_visits} of {B * M * nt} (query, tile) pairs "
+          f"({100 * n_visits / (B * M * nt):.2f}%); all pairs at the same rate "
+          f"{sweep_ms:.4f} ms (derived, not timed); the prep alone {prep_ms:.4f} ms"
+          + (" (the tiles were made by an earlier call, only the queries sorted here)"
+             if shared else ""))
     nbytes = (B * N * (12 + 1 + (12 if window else 0) + 4 * D)
               + B * M * (12 + (12 if window else 0))
               + B * M * (4 * T + 4 * S + 4 * T * D))
-    return (err, lambda: grouping._query_group_kernel(*args),
+    return (err, lambda: grouping._query_group_launch(prep, qx, scales_n, pl, qcc),
             lambda: grouping.query_group_plain(*plain_args), None, ops, nbytes, 5, 1)
 
 
@@ -300,6 +401,13 @@ def compare_probe(args):
     from tsm_det_pointcloud_tpu_torch.ops import spconv
 
     skeys, queries, sentinel = args
+    # the kernel's and the library call's device time alone, beside the
+    # host-loop figures, taken at the end
+    EXTRAS["probe"] = {
+        "device_ms": deferred(spconv.probe, (skeys, queries, sentinel), 20, 1),
+        "library_device_ms": deferred(torch.searchsorted, (skeys.contiguous(),
+                                                           queries.contiguous()), 20, 1,
+                                      right=True)}
     gi, gf = spconv.probe(skeys, queries, sentinel)
     wi, wf = spconv.probe_plain(skeys, queries, sentinel)
     check(bool((gi == wi).all()) and bool((gf == wf).all()),
@@ -419,15 +527,39 @@ def compare_recorded(calls, label):
             agg["nbytes"] += nbytes
             if l_ms is not None:
                 agg["lib_ms"] = (agg["lib_ms"] or 0.0) + l_ms
-            if name in PREP_MS:
-                agg["prep_ms"] = agg.get("prep_ms", 0.0) + PREP_MS.pop(name)
+            for k, v in EXTRAS.pop(name, {}).items():
+                if isinstance(v, Deferred):
+                    agg.setdefault("deferred", []).append((k, v))
+                else:
+                    agg[k] = agg.get(k, 0) + v
         agg["bound"], agg["bound_by"] = bound_ms(agg["ops"], agg["nbytes"])
         report[name] = agg
         print(f"{label} {name}: {len(args_list)} calls per pass, kernel {agg['ms']:.4f} ms, "
               f"plain {agg['plain_ms']:.4f} ms, bound {agg['bound']:.4f} ms "
               f"({agg['bound_by']}), max abs err {agg['err']:g}"
-              + (f", prep {agg['prep_ms']:.4f} ms" if "prep_ms" in agg else ""))
+              + (f", prep {agg['prep_ms']:.4f} ms" if "prep_ms" in agg else "")
+              + (f", (query, tile) pairs tested {agg['visits']} of {agg['tile_pairs']}, "
+                 f"all pairs at the bound's rate {agg['sweep_ms']:.4f} ms (derived)"
+                 if "sweep_ms" in agg else ""))
+    TILED.clear()
     return report
+
+
+def take_device_times(reports):
+    """The deferred device times (see Deferred), summed over each pass."""
+    import torch
+
+    for label, report in reports.items():
+        for name, agg in report.items():
+            for k, d in agg.pop("deferred", []):
+                args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in d.args]
+                agg[k] = agg.get(k, 0.0) + device_ms(lambda: d.fn(*args, **d.kwargs),
+                                                     d.reps, d.kernels)
+            got = {k: agg[k] for k in ("device_ms", "library_device_ms", "prep_device_ms")
+                   if k in agg}
+            if got:
+                print(f"{label} {name}: device time alone, per pass: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in got.items()))
 
 
 def record_kernels(names):
@@ -837,12 +969,14 @@ def main():
     torch.cuda.empty_cache()
 
     report_second, launches_second = second_phases(dev)
+    take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
+                       "waymo train": report_wtrain, "second": report_second})
 
     def numbers(a, n):
         return {"launches": n, "max_abs_err": a["err"], "ms": a["ms"],
                 "plain_ms": a["plain_ms"], "bound_ms": a["bound"],
                 "bound_by": a["bound_by"], "library_ms": a["lib_ms"],
-                **({"prep_ms": a["prep_ms"]} if "prep_ms" in a else {})}
+                **{k: a[k] for k in EXTRA_KEYS if k in a}}
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

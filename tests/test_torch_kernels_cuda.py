@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_group_cases import ADV_R, adversarial, on_grid
 from tsm_det_pointcloud_tpu_torch.ops import _kernels, grouping, sampling, spconv
 
 pytestmark = pytest.mark.cuda
@@ -109,6 +110,131 @@ def test_query_group_kernel(dev, window):
     want = grouping.query_group_plain(*args)
     for g, w in zip(got, want):   # idx, cnt, grouped
         assert torch.equal(g, w)
+
+
+def _pruned_case(name):
+    """K2 inputs on the CPU: more sources than one tile and more queries
+    than one thread block."""
+    if name == "adversarial":     # sources at r^2 +- a few ulp at |q| ~ 80 m
+        xyz, valid, q = adversarial()
+        return xyz, valid, q, [(0.0, ADV_R, 32)], None, None
+    rng = np.random.RandomState(5)
+    B, N, M = 2, 5000, 600
+    xyz = on_grid(rng.uniform((-25, -25, -2), (25, 25, 1), (B, N, 3)))
+    xyz[:, 2500:] = xyz[:, :2500]                  # every point twice: d2 ties
+    valid = rng.uniform(size=(B, N)) > 0.1
+    q = on_grid(xyz[:, rng.choice(N, M, replace=False)] + rng.normal(0, 0.2, (B, M, 3)))
+    if name == "duplicates":
+        return xyz, valid, q, [(0.0, 0.8, 16), (0.8, 1.6, 32), (1.6, 2.4, 8)], None, None
+    coords = np.floor(xyz / 0.2).astype(np.int32)[..., ::-1].copy()
+    qc = np.floor(q / 0.2).astype(np.int32)[..., ::-1].copy()
+    return xyz, valid, q, [(0.0, 0.8, 16, (2, 3, 3)), (0.4, 1.6, 32, (4, 6, 6))], coords, qc
+
+
+@pytest.mark.parametrize("name", ["adversarial", "duplicates", "window"])
+def test_query_group_kernel_pruned(dev, name):
+    """The pruned K2 equals the plain version exactly (idx, cnt, gathered
+    rows), and tests the (query, tile) pairs of the plain visit rule."""
+    xyz, valid, q, scales, coords, qc = _pruned_case(name)
+    payload = np.concatenate([xyz, np.random.RandomState(6).randn(
+        *xyz.shape[:2], 5).astype(np.float32)], -1)
+    cpu = [None if a is None else torch.from_numpy(a) for a in (xyz, valid, q, payload,
+                                                                coords, qc)]
+    on = [None if a is None else a.to(dev) for a in cpu]
+    args = (on[0], on[1], on[2], scales, on[3], on[4], on[5])
+    got = _counted("query_group", lambda: grouping._query_group_kernel(*args))
+    want = grouping.query_group_plain(*args)
+    for g, w in zip(got, want):   # idx, cnt, grouped
+        assert torch.equal(g, w)
+    assert int(want[1].max()) > 0
+    scales_n, sx, sv, qx, pl, scc, qcc = grouping._kernel_inputs(*args)
+    visits = grouping._query_group_launch(grouping.group_prep(sx, sv, qx, scc), qx,
+                                          scales_n, pl, qcc)[3]
+    want_visits = grouping.query_group_pruned_plain(cpu[0], cpu[1], cpu[2], scales, None,
+                                                    cpu[4], cpu[5])[3]
+    assert torch.equal(visits.cpu(), want_visits)
+
+
+def test_query_group_shared_tiles(dev):
+    """Two window queries on the same sources through one TileCache: the
+    sources are tiled once, and both results equal the plain version's."""
+    xyz, valid, q, scales, coords, qc = _pruned_case("window")
+    src = [torch.from_numpy(a).to(dev) for a in (xyz, valid, coords)]
+    payload = src[0] * 2.0
+    cache = grouping.TileCache()
+    tiles = []
+    for qq, qqc in ((q, qc), (q[:, ::-1], qc[:, ::-1])):
+        qq, qqc = (torch.from_numpy(a.copy()).to(dev) for a in (qq, qqc))
+        got = _counted("query_group", lambda: grouping.query_group(
+            src[0], src[1], qq, scales, payload, src[2], qqc, cache=cache))
+        want = grouping.query_group(src[0].cpu(), src[1].cpu(), qq.cpu(), scales,
+                                    payload.cpu(), src[2].cpu(), qqc.cpu())
+        for g, w in zip(got, want):   # per scale: idx, cnt, grouped
+            for gt, wt in zip(g, w):
+                assert torch.equal(gt.cpu(), wt)
+        tiles.append(cache.get(src[0], src[1], src[2]))
+    assert tiles[0] is tiles[1]
+
+
+def _probe_case(name):
+    """(skeys (B, V), queries (B, Q), sentinel) int32 on the CPU."""
+    rng = np.random.RandomState(12)
+    sent = 2_000_000
+
+    def rows(lengths, V):
+        out = np.full((len(lengths), V), sent, np.int64)
+        for b, n in enumerate(lengths):
+            out[b, :n] = np.sort(rng.choice(sent, n, replace=False))
+        return out
+
+    if name == "window_overflow":     # queries spread over a 40000-key row
+        sk = rows([40000, 39000], 40000)
+        q = rng.randint(0, sent + 1, (2, 9000))
+        q[:, ::3] = sk[:, rng.randint(0, 39000, 3000)]
+    elif name == "all_sentinel_blocks":   # tap rows: a key offset, whole blocks out of grid
+        sk = rows([4000, 3500], 4096)
+        q = np.concatenate([sk, sk + 1, sk - 3], 1)
+        q[:, 512:1536] = sent
+        q[:, 3000:3100] = sent + 5    # above the sentinel: a whole-row search
+    elif name == "fps_order":             # the s_sa1 point keys: unsorted
+        sk = rows([4096, 3000], 4096)
+        q = np.stack([rng.permutation(np.concatenate([sk[b, :2000], rng.randint(0, sent, 1000)]))
+                      for b in range(2)])
+    elif name == "ragged_rows":           # valid lengths 0, 1, 1000, 4096
+        sk = rows([0, 1, 1000, 4096], 4096)
+        q = np.concatenate([sk, rng.randint(0, sent, (4, 700))], 1)
+    else:
+        raise KeyError(name)
+    return (torch.from_numpy(sk.astype(np.int32)), torch.from_numpy(q.astype(np.int32)), sent)
+
+
+@pytest.mark.parametrize("name", ["window_overflow", "all_sentinel_blocks", "fps_order",
+                                  "ragged_rows"])
+def test_probe_kernel_windows(dev, name):
+    sk, q, sent = _probe_case(name)
+    sk, q = sk.to(dev), q.to(dev)
+    gi, gf = _counted("probe", lambda: spconv.probe(sk, q, sent))
+    wi, wf = spconv.probe_plain(sk, q, sent)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
+    assert bool(wf.any())
+
+
+def test_probe_one_launch_bool_found(dev):
+    """`found` comes back as torch.bool from the kernel's one launch: no
+    second kernel converts it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sk, q, sent = _probe_case("all_sentinel_blocks")
+    sk, q = sk.to(dev), q.to(dev)
+    spconv.probe(sk, q, sent)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, found = spconv.probe(sk, q, sent)
+        torch.cuda.synchronize()
+    assert found.dtype == torch.bool
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "probe" in kernels[0], kernels
 
 
 def test_probe_kernel(dev):

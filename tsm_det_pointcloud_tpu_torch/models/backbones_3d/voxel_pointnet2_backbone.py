@@ -97,7 +97,8 @@ class VoxelSAModule(nn.Module):
 
     point_channels: feature channels of the input points (layer 0);
     sp_in_channels: feature channels of the input sparse tensor (layers
-    > 0)."""
+    > 0). `forward`'s `cache` (a grouping.TileCache) lets the voxel query
+    reuse K2's tiles of the same centroids."""
 
     def __init__(self, sa_layer_idx, radii, nsamples, mlps, query_ranges=None,
                  npoint_list=None, sample_range_list=None,
@@ -197,7 +198,7 @@ class VoxelSAModule(nn.Module):
         return scales
 
     def forward(self, xyz, features, valid, scores_voxel=None, point_slot=None,
-                sp=None, centroid_xyz=None, new_xyz=None, unet_plan=None):
+                sp=None, centroid_xyz=None, new_xyz=None, unet_plan=None, cache=None):
         # ---- per-point scores from the previous layer's voxel confidence ----
         scores_point = None
         ori_scores_voxel = None
@@ -243,7 +244,7 @@ class VoxelSAModule(nn.Module):
             payload = torch.cat([centroid_xyz, sp.features], -1)
             groups = grouping.query_group(
                 centroid_xyz, sp.valid, new_xyz, self._voxel_scales(),
-                payload=payload, src_coords=sp.coords, q_coords=new_coords)
+                payload=payload, src_coords=sp.coords, q_coords=new_coords, cache=cache)
             for i, (_, cnt, grouped) in enumerate(groups):
                 ns = self.nsamples[i]
                 slot_ok = ((torch.arange(ns, device=xyz.device) < cnt[..., None])
@@ -418,7 +419,7 @@ class _VoxelFSBase(nn.Module):
             setattr(self, f"{prefix}{k}", m)
             sp_ch = _out_channels(cfg, 0) if k == 0 else int(kw["sp_channels"][-1])
 
-    def _run_layers(self, cfg_key, batch_dict, n_layers, unet_plan=None):
+    def _run_layers(self, cfg_key, batch_dict, n_layers, unet_plan=None, cache=None):
         cfg = self.model_cfg[cfg_key]
         points = batch_dict["points"]
         xyz = points[..., :3]
@@ -435,7 +436,7 @@ class _VoxelFSBase(nn.Module):
                 state["xyz"], state["features"], state["valid"],
                 scores_voxel=state["scores_voxel"], point_slot=state["point_slot"],
                 sp=state["sp"], centroid_xyz=state["centroid_xyz"],
-                unet_plan=unet_plan if 0 < k < 3 else None)
+                unet_plan=unet_plan if 0 < k < 3 else None, cache=cache)
             state = dict(xyz=r["new_xyz"], features=r["new_features"],
                          valid=r["new_valid"], scores_voxel=r["scores_voxel"],
                          point_slot=r["point_slot"], sp=r["sp"],
@@ -476,20 +477,24 @@ class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
         return _out_channels(self.model_cfg["SA_CONFIG"], self.n_teacher - 1)
 
     def forward(self, batch_dict):
+        # every voxel query of the forward (teacher layer 1, s_sa1, both
+        # heads' VSA) runs on layer 0's centroids: K2 tiles them once
+        cache = grouping.TileCache()
         if self.training:
             with torch.no_grad():
                 t_outs, unet_plan = self._run_layers("SA_CONFIG", batch_dict,
-                                                     self.n_teacher)
+                                                     self.n_teacher, cache=cache)
         else:
             t_outs, unet_plan = self._run_layers("SA_CONFIG", batch_dict,
-                                                 self.n_teacher - 1)
+                                                 self.n_teacher - 1, cache=cache)
         t0 = t_outs[0]
         if unet_plan is None:
             unet_plan = build_unet_plan(t0["sp"], self.s_sa1.voxel_capacity)
         s_out = self.s_sa1(
             t0["new_xyz"], t0["new_features"], t0["new_valid"],
             scores_voxel=t0["scores_voxel"], point_slot=t0["point_slot"],
-            sp=t0["sp"], centroid_xyz=t0["centroid_xyz"], unet_plan=unet_plan)
+            sp=t0["sp"], centroid_xyz=t0["centroid_xyz"], unet_plan=unet_plan,
+            cache=cache)
 
         if self.training:
             tl = t_outs[-1]
@@ -502,6 +507,7 @@ class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
             batch_dict["last_point_slot"] = tl["point_slot"]
             batch_dict["statistic_feature"] = tl["sp"].features
 
+        batch_dict["group_cache"] = cache
         batch_dict["s_point_features"] = s_out["new_features"]
         batch_dict["s_point_coords"] = s_out["new_xyz"]
         batch_dict["s_point_valid"] = s_out["new_valid"]

@@ -140,7 +140,7 @@ class VoteHeadBranch(nn.Module):
         self.reg_weight = nn.Parameter(torch.zeros(1, 1, 64, code))
 
     def forward(self, point_coords, point_features, point_valid, sp,
-                centroid_xyz, statistics):
+                centroid_xyz, statistics, cache=None):
         lo, hi = self.sample_range
         cand_xyz = point_coords[:, lo:hi]
         cand_feat = point_features[:, lo:hi]
@@ -152,7 +152,8 @@ class VoteHeadBranch(nn.Module):
         vote_xyz = cand_xyz + offsets
 
         feats = self.vsa(vote_xyz, None, cand_valid, sp=sp,
-                         centroid_xyz=centroid_xyz, new_xyz=vote_xyz)["new_features"]
+                         centroid_xyz=centroid_xyz, new_xyz=vote_xyz,
+                         cache=cache)["new_features"]
         shared = self.shared_fc(feats, cand_valid)
 
         cls_list = []
@@ -354,7 +355,7 @@ class PointHeadVoteSASAStatisticDistillation(nn.Module):
         s_out = self.s_head(
             batch_dict["s_point_coords"], batch_dict["s_point_features"],
             batch_dict["s_point_valid"], batch_dict["s_last_sp_tensor"],
-            batch_dict["s_last_centroid_xyz"], stats)
+            batch_dict["s_last_centroid_xyz"], stats, batch_dict.get("group_cache"))
         batch_dict["batch_cls_preds"] = s_out["cls_preds"]
         batch_dict["batch_box_preds"] = s_out["box_preds"]
         batch_dict["cls_preds_normalized"] = False
@@ -368,7 +369,7 @@ class PointHeadVoteSASAStatisticDistillation(nn.Module):
             t_out = self.head(
                 batch_dict["point_coords"], batch_dict["point_features"],
                 batch_dict["point_valid"], batch_dict["last_sp_tensor"],
-                batch_dict["last_centroid_xyz"], stats)
+                batch_dict["last_centroid_xyz"], stats, batch_dict.get("group_cache"))
         gt, gv = batch_dict["gt_boxes"], batch_dict["gt_boxes_mask"]
         _, s_loss, tb = _branch_losses(s_out, t_out, gt, gv, self.box_coder,
                                        self.model_cfg, self.num_class)

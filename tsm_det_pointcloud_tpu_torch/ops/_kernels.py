@@ -66,8 +66,8 @@ _SIGNATURES = {
     "fps_block": ("fps_block_launch",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "query_group": ("query_group_launch",
-                    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, GroupScales, _I,
-                     _P, _P, _P, _P]),
+                    [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, GroupScales,
+                     _I, _P, _P, _P, _P, _P]),
     "probe": ("probe_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "spconv_bykey": ("bykey_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
@@ -163,9 +163,21 @@ def check(err, name):
 
 
 def stream_ptr(device):
+    """The raw cudaStream_t of `device`'s current stream: one C call, no
+    Stream object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def as_int32(t):
+    """`t` itself when it already is contiguous int32, else a contiguous
+    int32 copy."""
+    import torch
+
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.contiguous().to(torch.int32)
 
 
 def ptr(t):

@@ -17,18 +17,39 @@ Counterpart of tsm_det_pointcloud_tpu/ops/grouping.py (`ball_query_multi`
 
 On a CUDA tensor `query_group` launches kernel K2 (csrc/group.cu, replacing
 the Pallas `_kernel` of ops/group_pallas.py:108), which also gathers the
-payload rows (xyz and features, exact f32) of the chosen slots. The
-gathered payload is differentiable (`_GroupPayload`); the kernel output
-alone has no `grad_fn`.
+payload rows (xyz and features, exact f32) of the chosen slots. K2 visits
+only the sources that can be hit, as the Pallas kernel does. Its prep is
+PyTorch, on any device: `tile_sources` Morton-sorts each scan's sources
+into tiles of `GROUP_TILE` rows with per-tile boxes (xyz of the valid rows,
+their voxel coordinates, their largest |x|^2), by the sort and boxes K6's
+blocks use (`sampling.morton_tiles`, `sampling.tile_boxes`), and
+`query_order` Morton-sorts the queries. A thread block of `GROUP_QBLOCK`
+consecutive sorted queries then visits only the tiles within reach of its
+query box, by `_visit_rule` plus a rounding margin that provably keeps
+every hit (derived in csrc/group.cu), and orders its candidates by (d2,
+original index), so the result equals `query_group_plain`'s. K2 calls on
+the same sources share their tiles through a `TileCache`.
+`query_group_pruned_plain` is that route in PyTorch (visit rule, then
+nearest-k over the visited pairs), the kernel's CPU twin with the same
+visit counts. The gathered payload is differentiable (`_GroupPayload`);
+the kernel output alone has no `grad_fn`.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _kernels
+from .sampling import morton_code, morton_tiles, pad_rows, tile_boxes
 
 _INF_BITS = 0x7F800000
+GROUP_TILE = 256       # sources per Morton tile: kTile of csrc/group.cu
+GROUP_QBLOCK = 8       # sorted queries per K2 thread block: its kWarps
+_MARGIN_SCALE = 2.0 ** -19   # the pruning margin's factor: its kMarginScale
+_EMPTY = 1e30          # box of an all-invalid tile: never within reach
+_EMPTY_COORD = 1 << 29
 
 
 def _r2(r):
@@ -37,7 +58,9 @@ def _r2(r):
 
 
 def _sq_norm(p):
-    return (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) + p[..., 2] * p[..., 2]
+    """((x*x + y*y) + z*z), each operation rounded, in three launches."""
+    s = p * p
+    return (s[..., 0] + s[..., 1]) + s[..., 2]
 
 
 def _norm_scales(scales):
@@ -107,8 +130,257 @@ def query_group_plain(src_xyz, src_valid, q_xyz, scales, payload=None,
     return idx, cnt, grouped
 
 
-def _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
-                        src_coords, q_coords):
+class SourceTiles(NamedTuple):
+    """A batch of scans' sources prepared for K2. P = NT * GROUP_TILE is N
+    rounded up to whole tiles; rows are in Morton order, invalid rows last;
+    the pad and invalid rows carry index -1 and no meaning else."""
+    pts: torch.Tensor     # (B, P, 4) f32 x, y, z, |x|^2
+    oi: torch.Tensor      # (B, P) i32 original row, -1 on invalid and pad rows
+    crd: torch.Tensor     # (B, P, 4) i32 voxel coords (zyx, 0), or None
+    tbox: torch.Tensor    # (B, NT, 8) f32 lo xyz, hi xyz, max |x|^2, - of the valid rows
+    cbox: torch.Tensor    # (B, NT, 8) i32 lo zyx, hi zyx, -, - of the valid rows, or None
+
+
+class GroupPrep(NamedTuple):
+    """What one K2 launch reads: the fields of a SourceTiles and the Morton
+    order of the call's queries."""
+    pts: torch.Tensor
+    oi: torch.Tensor
+    crd: torch.Tensor
+    tbox: torch.Tensor
+    cbox: torch.Tensor
+    qperm: torch.Tensor   # (B, M) i32 Morton order of the queries: sorted position -> row
+
+
+def _box8(lo, hi):
+    """(lo, hi) (B, NT, 4) -> (B, NT, 8): lo of columns 0-2, hi of all four
+    (column 3 is the fourth value's largest), then lo of column 3."""
+    return torch.cat([lo[..., :3], hi, lo[..., 3:]], -1)
+
+
+def tile_sources(src_xyz, src_valid, src_coords=None):
+    """Morton tiles of each scan's sources and the boxes of their valid rows:
+    the counterpart of ops/group_pallas.py's `prepare_sources` (:604) with
+    f32 xyz and integer indices, by the sort K6's blocks use
+    (`sampling.morton_tiles`). Runs wherever the inputs lie. An all-invalid
+    tile gets an empty box (lo 1e30, hi -1e30), so it is never visited."""
+    xyz = src_xyz.detach().float()
+    order, live = morton_tiles(xyz, src_valid.bool(), GROUP_TILE)
+    rows = pad_rows(order, GROUP_TILE, 0)[..., None]     # pad rows read row 0, index -1
+    pts = torch.gather(torch.cat([xyz, _sq_norm(xyz)[..., None]], -1), 1,
+                       rows.expand(-1, -1, 4))
+    oi = rows[..., 0].to(torch.int32).masked_fill_(~live, -1)
+    tbox = _box8(*tile_boxes(pts, live, GROUP_TILE, _EMPTY))
+    crd = cbox = None
+    if src_coords is not None:
+        crd = torch.nn.functional.pad(
+            torch.gather(src_coords.to(torch.int32), 1, rows.expand(-1, -1, 3)), (0, 1))
+        cbox = _box8(*tile_boxes(crd, live, GROUP_TILE, _EMPTY_COORD))
+    return SourceTiles(pts, oi, crd, tbox, cbox)
+
+
+def query_order(q_xyz):
+    """(B, M, 3) -> (B, M) i32: each scan's queries in stable Morton order,
+    so that a K2 thread block's queries are spatially compact."""
+    q = q_xyz.detach().float()
+    code = morton_code(q, q.amin(1, keepdim=True))
+    return torch.sort(code, dim=1, stable=True).indices.to(torch.int32)
+
+
+def group_prep(src_xyz, src_valid, q_xyz, src_coords=None):
+    """`tile_sources` and `query_order` in one GroupPrep."""
+    return GroupPrep(*tile_sources(src_xyz, src_valid, src_coords), query_order(q_xyz))
+
+
+class TileCache:
+    """K2's prepared sources, kept for the next K2 calls on the same source
+    tensors. In a TSM forward the teacher's SA layer 1, `s_sa1` and both
+    heads' VSA queries all query SA layer 0's voxel centroids: one cache
+    passed to them tiles those sources once. A call whose sources are other
+    tensors (by identity), or were written since (by version), tiles them
+    anew. Used on the card only; the plain version takes no tiles."""
+
+    def __init__(self):
+        self._srcs = ()
+        self._versions = ()
+        self._tiles = None
+
+    def get(self, src_xyz, src_valid, src_coords=None):
+        srcs = (src_xyz, src_valid, src_coords)
+        versions = tuple(None if t is None else t._version for t in srcs)
+        if (len(self._srcs) != 3 or any(a is not b for a, b in zip(srcs, self._srcs))
+                or versions != self._versions):
+            self._tiles = tile_sources(src_xyz, src_valid, src_coords)
+            self._srcs, self._versions = srcs, versions
+        return self._tiles
+
+
+def _reach(scales):
+    """The call's largest max_r**2 (f32) and, per axis, its largest query
+    window (None without window queries)."""
+    r2 = max(_r2(mx) for _, mx, _, _ in scales)
+    qrs = [qr for *_, qr in scales]
+    if all(qr is None for qr in qrs):
+        return r2, None
+    big = 1 << 30
+    return r2, tuple(max(big if qr is None else int(qr[a]) for qr in qrs) for a in range(3))
+
+
+def _within_reach(tb, qlo, qhi, q2max, r2):
+    """K2's tile test (csrc/group.cu `within_reach`), the same f32
+    operations in the same order: gap2 <= r2 + 2**-19 ((q2max + x2max) + r2).
+    tb (..., 8) tile boxes; qlo / qhi (..., 3) and q2max (...) broadcast."""
+    g = torch.clamp(torch.maximum(tb[..., 0:3] - qhi, qlo - tb[..., 3:6]), min=0.0)
+    gap2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+    r2 = torch.tensor(r2, dtype=torch.float32, device=tb.device)
+    return gap2 <= r2 + ((q2max + tb[..., 6]) + r2) * _MARGIN_SCALE
+
+
+def _within_window(cb, qclo, qchi, qrmax):
+    qr = torch.tensor(qrmax, dtype=torch.int64, device=cb.device)
+    cb = cb.long()
+    return ((cb[..., 0:3] - qchi <= qr) & (qclo - cb[..., 3:6] <= qr)).all(-1)
+
+
+def _visit_rule(prep, q_xyz, q_coords, scales):
+    """The tiles K2 tests for each query. Returns visited (B, M, NT) bool
+    with queries in Morton order (row i is query qperm[:, i]) and visits
+    (B, ceil(M / GROUP_QBLOCK)) i32, the (query, tile) pairs each thread
+    block tests: a tile within reach of the block's query box and of the
+    query itself."""
+    B, M = prep.qperm.shape
+    nb = -(-M // GROUP_QBLOCK)
+    r2, qrmax = _reach(scales)
+    perm = prep.qperm.long()
+    qs = torch.gather(q_xyz.detach().float(), 1, perm[..., None].expand(-1, -1, 3))
+    q2 = _sq_norm(qs)
+    pad = nb * GROUP_QBLOCK - M
+    live = torch.nn.functional.pad(torch.ones((B, M), dtype=torch.bool, device=qs.device),
+                                   (0, pad)).reshape(B, nb, GROUP_QBLOCK, 1)
+    qb = torch.nn.functional.pad(qs, (0, 0, 0, pad)).reshape(B, nb, GROUP_QBLOCK, 3)
+    qlo = torch.where(live, qb, torch.full_like(qb, float("inf"))).amin(2)   # (B, nb, 3)
+    qhi = torch.where(live, qb, torch.full_like(qb, -float("inf"))).amax(2)
+    q2max = torch.nn.functional.pad(q2, (0, pad)).reshape(B, nb, GROUP_QBLOCK).amax(2)
+    tb = prep.tbox[:, None]                                                  # (B, 1, NT, 8)
+    block = _within_reach(tb, qlo[:, :, None], qhi[:, :, None], q2max[..., None], r2)
+    own = _within_reach(tb, qs[:, :, None], qs[:, :, None], q2[..., None], r2)
+    if qrmax is not None:
+        qc = torch.gather(q_coords.long(), 1, perm[..., None].expand(-1, -1, 3))
+        qcb = torch.nn.functional.pad(qc, (0, 0, 0, pad)).reshape(B, nb, GROUP_QBLOCK, 3)
+        qclo = torch.where(live, qcb, torch.full_like(qcb, 2 ** 40)).amin(2)
+        qchi = torch.where(live, qcb, torch.full_like(qcb, -2 ** 40)).amax(2)
+        cb = prep.cbox[:, None]
+        block = block & _within_window(cb, qclo[:, :, None], qchi[:, :, None], qrmax)
+        own = own & _within_window(cb, qc[:, :, None], qc[:, :, None], qrmax)
+    visited = own & block.repeat_interleave(GROUP_QBLOCK, 1)[:, :M]
+    visits = torch.nn.functional.pad(visited.sum(-1), (0, pad)).reshape(
+        B, nb, GROUP_QBLOCK).sum(-1).to(torch.int32)
+    return visited, visits
+
+
+def query_group_pruned_plain(src_xyz, src_valid, q_xyz, scales, payload=None,
+                             src_coords=None, q_coords=None):
+    """K2's route in plain PyTorch: `group_prep`, the visit rule, then the
+    nearest k by (d2, original index) over the visited pairs alone. Equal to
+    `query_group_plain` (idx, cnt, grouped), and also returns K2's visits
+    (B, ceil(M / GROUP_QBLOCK)). Materialises every (query, row) pair: for
+    tests at small sizes."""
+    scales = _norm_scales(scales)
+    window = any(qr is not None for *_, qr in scales)
+    prep = group_prep(src_xyz, src_valid, q_xyz, src_coords if window else None)
+    visited, visits = _visit_rule(prep, q_xyz, q_coords, scales)
+    B, M = prep.qperm.shape
+    P = prep.oi.shape[1]
+    perm = prep.qperm.long()
+    qs = torch.gather(q_xyz.detach().float(), 1, perm[..., None].expand(-1, -1, 3))
+    x = prep.pts
+    cross = (qs[..., 0:1] * x[:, None, :, 0] + qs[..., 1:2] * x[:, None, :, 1]) \
+        + qs[..., 2:3] * x[:, None, :, 2]
+    d2 = (_sq_norm(qs)[..., None] + x[:, None, :, 3]) - 2.0 * cross
+    d2 = torch.where(d2 > 0, d2, torch.zeros_like(d2))                   # (B, M, P)
+    base = (prep.oi >= 0)[:, None, :] & visited.repeat_interleave(GROUP_TILE, -1)
+    dc = None
+    if window:
+        qc = torch.gather(q_coords.long(), 1, perm[..., None].expand(-1, -1, 3))
+        dc = (qc[:, :, None, :] - prep.crd[:, None, :, :3].long()).abs()
+    oi = prep.oi.to(torch.int64)[:, None, :].expand(B, M, P)
+    dbits = d2.contiguous().view(torch.int32).to(torch.int64) << 32
+    idx_parts, cnt_parts = [], []
+    for mn, mx, ns, qr in scales:
+        hit = base & (d2 < _r2(mx))
+        if mn > 0:
+            hit = hit & (d2 >= _r2(mn))
+        if qr is not None:
+            hit = hit & (dc[..., 0] <= qr[0]) & (dc[..., 1] <= qr[1]) & (dc[..., 2] <= qr[2])
+        key = torch.where(hit, dbits | oi, torch.full_like(dbits, _INF_BITS << 32))
+        top = torch.topk(key, ns, dim=-1, largest=False, sorted=True).values
+        top_idx = (top & 0xFFFFFFFF).to(torch.int32)
+        cnt = hit.sum(-1, dtype=torch.int32)
+        first = torch.where(cnt > 0, top_idx[..., 0], torch.zeros_like(cnt))
+        filled = torch.arange(ns, device=d2.device) < cnt[..., None]
+        idx_parts.append(torch.where(filled, top_idx, first[..., None]))
+        cnt_parts.append(cnt)
+    # back to the original query rows
+    idx = torch.empty_like(torch.cat(idx_parts, -1)).scatter_(
+        1, perm[..., None].expand(-1, -1, sum(s[2] for s in scales)), torch.cat(idx_parts, -1))
+    cnt = torch.empty_like(torch.stack(cnt_parts, -1)).scatter_(
+        1, perm[..., None].expand(-1, -1, len(scales)), torch.stack(cnt_parts, -1))
+    grouped = group_points(payload, idx) if payload is not None else None
+    return idx, cnt, grouped, visits
+
+
+def _group_scales(scales):
+    """The kernel's `GroupScales` struct from normalised scales."""
+    sc = _kernels.GroupScales()
+    sc.n_scales = len(scales)
+    sc.use_window = int(any(qr is not None for *_, qr in scales))
+    off = 0
+    for i, (mn, mx, ns, qr) in enumerate(scales):
+        sc.ns[i] = ns
+        sc.offset[i] = off
+        sc.has_min[i] = int(mn > 0)
+        sc.min_r2[i] = _r2(mn)
+        sc.max_r2[i] = _r2(mx)
+        big = 1 << 30
+        q3 = qr if qr is not None else (big, big, big)
+        for a in range(3):
+            sc.qr[i][a] = int(q3[a])
+        off += ns
+    return sc, off
+
+
+def _query_group_launch(prep, q_xyz, scales, payload=None, q_coords=None):
+    """K2's one launch on prepared sources. q_xyz / q_coords / payload in
+    their original row order (contiguous f32 / i32 / f32 on the card).
+    Returns idx, cnt, grouped (or None) and visits (B, ceil(M / 8)) i32."""
+    scales = _norm_scales(scales)
+    sc, total = _group_scales(scales)
+    B, M = prep.qperm.shape
+    nt = prep.tbox.shape[1]
+    N = 1 if payload is None else payload.shape[1]   # payload rows (unused without one)
+    D = 0 if payload is None else payload.shape[-1]
+    _kernels.require_cuda(*prep, q_xyz, q_coords, payload)
+    dev = q_xyz.device
+    idx = torch.empty((B, M, total), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, M, len(scales)), dtype=torch.int32, device=dev)
+    grouped = (torch.empty((B, M, total, D), dtype=torch.float32, device=dev)
+               if payload is not None else None)
+    visits = torch.empty((B, -(-M // GROUP_QBLOCK)), dtype=torch.int32, device=dev)
+    err = _kernels.func("query_group")(
+        prep.pts.data_ptr(), prep.oi.data_ptr(), _kernels.ptr(prep.crd),
+        prep.tbox.data_ptr(), _kernels.ptr(prep.cbox), nt, _kernels.ptr(payload), B,
+        N, D, q_xyz.data_ptr(), _kernels.ptr(q_coords), prep.qperm.data_ptr(), M, sc,
+        total, idx.data_ptr(), cnt.data_ptr(), _kernels.ptr(grouped), visits.data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.check(err, "query_group")
+    _kernels.count("query_group")
+    return idx, cnt, grouped, visits
+
+
+def _kernel_inputs(src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coords):
+    """Checks and normalises K2's inputs; returns (scales, src_xyz, src_valid,
+    q_xyz, payload, src_coords, q_coords) ready for the prep and the launch
+    (the coords None without window queries)."""
     scales = _norm_scales(scales)
     if not 1 <= len(scales) <= 4:
         raise ValueError("K2 takes 1 to 4 scales per call")
@@ -123,56 +395,38 @@ def _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
     _kernels.check_shape(src_valid, (B, N), "query_group src_valid")
     _kernels.check_shape(q_xyz, (B, M, 3), "query_group q_xyz")
     _kernels.check_shape(payload, (B, N, None), "query_group payload")
+    sc_c = q_c = None
     if window:
         _kernels.check_shape(src_coords, (B, N, 3), "query_group src_coords")
         _kernels.check_shape(q_coords, (B, M, 3), "query_group q_coords")
-    src_xyz = src_xyz.contiguous().float()
-    q_xyz = q_xyz.contiguous().float()
-    src_valid = src_valid.contiguous().to(torch.uint8)
-    sc_c = q_c = None
-    if window:
-        sc_c = src_coords.contiguous().to(torch.int32)
-        q_c = q_coords.contiguous().to(torch.int32)
-    pl = None if payload is None else payload.contiguous().float()
+        sc_c = _kernels.as_int32(src_coords)
+        q_c = _kernels.as_int32(q_coords)
+    pl = None if payload is None else payload.detach().contiguous().float()
+    src_xyz = src_xyz.detach().contiguous().float()
+    src_valid = src_valid.contiguous()
+    q_xyz = q_xyz.detach().contiguous().float()
     _kernels.require_cuda(src_xyz, src_valid, q_xyz, sc_c, q_c, pl)
-    D = 0 if pl is None else pl.shape[-1]
+    return scales, src_xyz, src_valid, q_xyz, pl, sc_c, q_c
 
-    sc = _kernels.GroupScales()
-    sc.n_scales = len(scales)
-    sc.use_window = int(window)
-    off = 0
-    for i, (mn, mx, ns, qr) in enumerate(scales):
-        sc.ns[i] = ns
-        sc.offset[i] = off
-        sc.has_min[i] = int(mn > 0)
-        sc.min_r2[i] = _r2(mn)
-        sc.max_r2[i] = _r2(mx)
-        big = 1 << 30
-        q3 = qr if qr is not None else (big, big, big)
-        for a in range(3):
-            sc.qr[i][a] = int(q3[a])
-        off += ns
-    total = off
-    dev = src_xyz.device
-    idx = torch.empty((B, M, total), dtype=torch.int32, device=dev)
-    cnt = torch.empty((B, M, len(scales)), dtype=torch.int32, device=dev)
-    grouped = (torch.empty((B, M, total, D), dtype=torch.float32, device=dev)
-               if pl is not None else None)
-    fn = _kernels.func("query_group")
-    err = fn(src_xyz.data_ptr(), src_valid.data_ptr(), _kernels.ptr(sc_c),
-             _kernels.ptr(pl), B, N, D, q_xyz.data_ptr(), _kernels.ptr(q_c),
-             M, sc, total, idx.data_ptr(), cnt.data_ptr(),
-             _kernels.ptr(grouped), _kernels.stream_ptr(dev))
-    _kernels.check(err, "query_group")
-    _kernels.count("query_group")
-    return idx, cnt, grouped
+
+def _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
+                        src_coords, q_coords, tiles=None):
+    """K2 on CUDA tensors: the prep on the card (`tile_sources`, unless
+    `tiles` of these sources are given, and `query_order`), then one
+    launch. Returns idx, cnt, grouped (or None)."""
+    scales, src_xyz, src_valid, q_xyz, pl, sc_c, q_c = _kernel_inputs(
+        src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coords)
+    if tiles is None:
+        tiles = tile_sources(src_xyz, src_valid, sc_c)
+    prep = GroupPrep(*tiles, query_order(q_xyz))
+    return _query_group_launch(prep, q_xyz, scales, pl, q_c)[:3]
 
 
 def _query_group_any(src_xyz, src_valid, q_xyz, scales, payload, src_coords,
-                     q_coords):
+                     q_coords, tiles):
     if src_xyz.is_cuda:
         return _query_group_kernel(src_xyz, src_valid, q_xyz, scales, payload,
-                                   src_coords, q_coords)
+                                   src_coords, q_coords, tiles)
     return query_group_plain(src_xyz, src_valid, q_xyz, scales, payload,
                              src_coords, q_coords)
 
@@ -185,9 +439,9 @@ class _GroupPayload(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, payload, src_xyz, src_valid, q_xyz, scales, src_coords,
-                q_coords):
+                q_coords, tiles):
         idx, cnt, grouped = _query_group_any(src_xyz, src_valid, q_xyz, scales,
-                                             payload, src_coords, q_coords)
+                                             payload, src_coords, q_coords, tiles)
         ctx.mark_non_differentiable(idx, cnt)
         ctx.save_for_backward(idx)
         ctx.n_src = src_xyz.shape[1]
@@ -201,21 +455,26 @@ class _GroupPayload(torch.autograd.Function):
         d_payload = torch.zeros((B * N, D), dtype=d_grouped.dtype,
                                 device=d_grouped.device)
         d_payload.index_add_(0, rows.reshape(-1), d_grouped.reshape(-1, D))
-        return d_payload.reshape(B, N, D), None, None, None, None, None, None
+        return d_payload.reshape(B, N, D), None, None, None, None, None, None, None
 
 
 def query_group(src_xyz, src_valid, q_xyz, scales, payload=None,
-                src_coords=None, q_coords=None):
+                src_coords=None, q_coords=None, cache=None):
     """Multi-scale nearest-k query + gather in one pass over the sources.
 
     src_xyz (B, N, 3), src_valid (B, N) bool, q_xyz (B, M, 3); scales: a
     sequence of (min_r, max_r, ns) or (min_r, max_r, ns, query_range);
     payload (B, N, D) rows to gather (or None); src_coords / q_coords
-    (B, ·, 3) int voxel coords for window queries. Returns one
+    (B, ·, 3) int voxel coords for window queries; cache: a TileCache
+    shared by the K2 calls on the same sources, or None. Returns one
     (idx (B, M, ns) int32, cnt (B, M) int32, grouped (B, M, ns, D) or None)
     per scale. The gathered payload has a gradient (`_GroupPayload`)."""
+    tiles = None
+    if cache is not None and src_xyz.is_cuda:
+        window = any(qr is not None for *_, qr in _norm_scales(scales))
+        tiles = cache.get(src_xyz, src_valid, src_coords if window else None)
     grouped, idx, cnt = _GroupPayload.apply(payload, src_xyz, src_valid, q_xyz,
-                                            scales, src_coords, q_coords)
+                                            scales, src_coords, q_coords, tiles)
     out, off = [], 0
     for i, s in enumerate(scales):
         ns = int(s[2])

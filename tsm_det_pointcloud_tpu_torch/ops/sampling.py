@@ -23,8 +23,10 @@ not have changed; the picks equal `furthest_point_sample_plain`'s.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -33,6 +35,8 @@ FPS_MAX_POINTS = 16384  # one row's xyz must fit one block's shared memory
 FPS_BLOCK = 1024        # points per Morton block of the block-pruned d-fps
 _BIG_IDX = 1 << 30      # original index of a pad lane: never the least
 FPS_BLOCK_MAX_POINTS = 1024 * FPS_BLOCK  # K6 keeps 128 bytes a block in shared memory
+_FAR = 1e30             # xyz of an invalid row when sorting; empty boxes
+_LAST = 2 ** 31 - 1     # sort key of an invalid row: above every Morton code
 
 
 def _sq_dist(xyz, sel):
@@ -96,21 +100,57 @@ def _fps_kernel(xyz, npoint, valid_mask, weights):
     return out
 
 
-def morton_code(xyz, origin, cell=1.0, bits=10):
-    """(..., 3) f32 -> int32 Morton codes on a `cell`-metre grid (own copy
-    of ops/group_pallas.py:91-105). Close points get close codes, which is
-    what gives the blocks tight bounding boxes; the picks of the
-    block-pruned d-fps do not depend on it, only its speed does."""
-    q = ((xyz - origin) / cell).clamp(0, (1 << bits) - 1).to(torch.int32)
+@functools.lru_cache(maxsize=None)
+def _spread_table(device):
+    """(3, 1024) i32 rows: bit i of v moved to bit 3 i + axis, for axis 0, 1
+    and 2; and the (3,) axis column that picks a row. One pair a device."""
+    v = np.arange(1024, dtype=np.int64)
+    s = sum(((v >> i) & 1) << (3 * i) for i in range(10))
+    table = np.stack([s, s << 1, s << 2]).astype(np.int32)
+    return torch.from_numpy(table).to(device), torch.arange(3, device=device)
 
-    def spread(v):
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
 
-    return spread(q[..., 0]) | (spread(q[..., 1]) << 1) | (spread(q[..., 2]) << 2)
+def morton_code(xyz, origin, cell=1.0):
+    """(..., 3) f32 -> int32 Morton codes on a `cell`-metre grid, 10 bits an
+    axis (own copy of ops/group_pallas.py:91-105). Close points get close
+    codes, which is what gives the blocks tight bounding boxes; the picks of
+    the block-pruned d-fps do not depend on it, only its speed does. The
+    bits are spread by a table (few launches on the card); the three
+    spread axes share no bit, so their sum is their union."""
+    v = ((xyz - origin) / cell).clamp(0, 1023).to(torch.int64)
+    table, axis = _spread_table(xyz.device)
+    return table[axis, v].sum(-1, dtype=torch.int32)
+
+
+def pad_rows(a, width, fill):
+    """(B, N, ...) -> (B, P, ...), P = N rounded up to whole `width`s; the
+    new rows hold `fill`."""
+    pad = -a.shape[1] % width
+    if not pad:
+        return a
+    return torch.cat([a, a.new_full((a.shape[0], pad) + tuple(a.shape[2:]), fill)], 1)
+
+
+def morton_tiles(xyz, valid, width):
+    """The sort that K6's blocks and K2's tiles share: per scan, the stable
+    Morton order of the rows, invalid rows last, and which rows of that
+    order, padded to whole tiles of `width`, are valid. xyz (B, N, 3) f32,
+    valid (B, N) bool -> order (B, N) i64, live (B, P) bool."""
+    inv = ~valid
+    vxyz = xyz.masked_fill(inv[..., None], _FAR)
+    code = morton_code(vxyz, vxyz.amin(1, keepdim=True)).masked_fill(inv, _LAST)
+    key, order = torch.sort(code, dim=1, stable=True)
+    return order, pad_rows(key != _LAST, width, False)
+
+
+def tile_boxes(a, live, width, far):
+    """Per tile of `width` rows of a (B, P, C), the least and the largest
+    value of each column over the live rows: lo, hi (B, P / width, C). A
+    tile with no live row gets lo `far`, hi `-far`, a box nothing reaches."""
+    B, P, C = a.shape
+    t = a.reshape(B, P // width, width, C)
+    dead = ~live.reshape(B, P // width, width, 1)
+    return t.masked_fill(dead, far).amin(2), t.masked_fill(dead, -far).amax(2)
 
 
 class BlockState(NamedTuple):
@@ -136,30 +176,14 @@ def block_prep(xyz, valid_mask=None):
     xyz = xyz.detach().float()
     valid = (torch.ones((B, N), dtype=torch.bool, device=dev) if valid_mask is None
              else valid_mask.bool())
-    vxyz = torch.where(valid[..., None], xyz, torch.full_like(xyz, 1e30))
-    origin = vxyz.amin(dim=1, keepdim=True)
-    code = torch.where(valid, morton_code(vxyz, origin),
-                       torch.full((), 2 ** 31 - 1, dtype=torch.int32, device=dev))
-    order = torch.sort(code, dim=1, stable=True).indices
-    nb = -(-N // FPS_BLOCK)
-    pad = nb * FPS_BLOCK - N
-
-    def sorted_padded(a, fill):
-        a = torch.gather(a, 1, order)
-        return torch.nn.functional.pad(a, (0, pad), value=fill) if pad else a
-
-    xs, ys, zs = (sorted_padded(xyz[..., a].contiguous(), 0.0) for a in range(3))
-    ois = sorted_padded(torch.arange(N, dtype=torch.int32, device=dev).expand(B, N),
-                        _BIG_IDX)
-    mind = sorted_padded(torch.where(valid, 1e10, -1.0).to(torch.float32), -2.0)
-    vb = (mind > 0).reshape(B, nb, FPS_BLOCK)
-
-    def bounds(a):
-        ab = a.reshape(B, nb, FPS_BLOCK)
-        return (torch.where(vb, ab, torch.full_like(ab, 1e30)).amin(2),
-                torch.where(vb, ab, torch.full_like(ab, -1e30)).amax(2))
-
-    bbox = torch.stack([*bounds(xs), *bounds(ys), *bounds(zs)], dim=1)
+    order, live = morton_tiles(xyz, valid, FPS_BLOCK)
+    nb = live.shape[1] // FPS_BLOCK
+    xs, ys, zs = (pad_rows(torch.gather(xyz[..., a], 1, order), FPS_BLOCK, 0.0)
+                  for a in range(3))
+    ois = pad_rows(order.to(torch.int32), FPS_BLOCK, _BIG_IDX)
+    mind = pad_rows(torch.where(live[:, :N], 1e10, -1.0).to(torch.float32), FPS_BLOCK, -2.0)
+    lo, hi = tile_boxes(torch.stack([xs, ys, zs], -1), live, FPS_BLOCK, _FAR)
+    bbox = torch.stack([lo, hi], -1).reshape(B, nb, 6).transpose(1, 2)
     bmax, barg = _block_max(mind.reshape(B, nb, FPS_BLOCK), ois.reshape(B, nb, FPS_BLOCK))
     return BlockState(xs, ys, zs, ois, mind, bbox.contiguous(), bmax, barg)
 

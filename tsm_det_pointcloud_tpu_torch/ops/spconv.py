@@ -93,23 +93,24 @@ def probe_plain(skeys, queries, sentinel):
 
 
 def probe(skeys, queries, sentinel):
-    """Rank-and-membership probe (see probe_plain); kernel K3 on the card."""
+    """Rank-and-membership probe (see probe_plain); kernel K3 on the card,
+    one launch: it writes `found` straight into a bool tensor."""
     if not skeys.is_cuda:
         return probe_plain(skeys, queries, sentinel)
-    sk = skeys.contiguous().to(torch.int32)
-    q = queries.contiguous().to(torch.int32)
+    sk = _kernels.as_int32(skeys)
+    q = _kernels.as_int32(queries)
     _kernels.require_cuda(sk, q)
     B, V = sk.shape
     Q = q.shape[1]
     _kernels.check_shape(q, (B, Q), "probe queries")
     idx = torch.empty((B, Q), dtype=torch.int32, device=sk.device)
-    found = torch.empty((B, Q), dtype=torch.uint8, device=sk.device)
+    found = torch.empty((B, Q), dtype=torch.bool, device=sk.device)
     err = _kernels.func("probe")(sk.data_ptr(), q.data_ptr(), B, V, Q,
                                  int(min(sentinel, 2**31 - 1)), idx.data_ptr(),
                                  found.data_ptr(), _kernels.stream_ptr(sk.device))
     _kernels.check(err, "probe")
     _kernels.count("probe")
-    return idx, found.bool()
+    return idx, found
 
 
 def _lookup_batched(skeys, query_keys, sentinel):
