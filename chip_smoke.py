@@ -12,10 +12,14 @@ Phases (any failure exits non-zero before the result line):
   3. kernels: each recorded call runs through its kernel and its plain
      PyTorch version — K1 FPS index-equal, K2 query+group cnt / filled idx /
      gathered rows equal, K3 probe bitwise, K4 gather-GEMM allclose
-     (rtol 1e-4, atol 1e-4 * max|out|: f32 sums in another order) — and
-     both are timed with CUDA events around a host loop of launches, with
-     the bound from the inputs. K2's `ms` is its launch alone on prepared
-     sources, `prep_ms` beside it the PyTorch prep on the same host loop
+     (rtol 1e-4, atol 1e-4 * max|out|: f32 sums in another order, and
+     K4's split-precision 3xTF32 products) — and both are timed with CUDA
+     events around a host loop of launches, with the bound from the inputs.
+     K4's log line also gives a second bound, its hits at the 3xTF32 rate
+     (495 / 3 TFLOP/s, not in the kernels line), and its hit share of
+     staged rows: the hits over the rows of the (64-row block, tap) pairs
+     with at least one hit (`hits`, `staged_rows`). K2's `ms` is its launch
+     alone on prepared sources, `prep_ms` beside it the PyTorch prep on the same host loop
      (grouping.tile_sources: Morton sort, gathers, tile boxes, which K2
      calls on the same sources share, so only a pass's first call on them
      pays it; and grouping.query_order) and `prep_device_ms` the prep's
@@ -66,7 +70,13 @@ Phases (any failure exits non-zero before the result line):
      phase 3 (K2's layer-0 call, 16 G pair tests, is held against the plain
      version on every 15th query, all sources, and `plain_ms` is that
      subset's time; `plain_note` says so). Each is timed, with its
-     bound; K6's counts the block visits the pruning rule required;
+     bound; K6's counts the block visits the pruning rule required, and
+     its plain version (seconds a call) is timed on one run without a
+     warm-up. K6 also prints its plan (cluster size,
+     cudaOccupancyMaxActiveClusters, shared memory a CTA), its time a step,
+     and a latency floor (its steps times one exchange round of its
+     clusters, timed alone by csrc/fps_block.cu's `cluster_round_kernel`;
+     on the log line, not in the kernels line);
  11. Waymo main path: launch counts are zeroed, 3 batches of forward + NMS
      run, the counts are read; outputs finite, box preds (8, 3072, 7),
      count <= 512, and K6, K1, K2, K3, K4 all launched. Prints Waymo scans/s
@@ -128,6 +138,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32X3_OPS_PER_S = 495e12 / 3   # H100 SXM TF32 tensor cores, three products (3xTF32)
 BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 MAIN_BATCH, MAIN_POINTS, MAIN_ITERS, TRAIN_ITERS = 16, 16384, 3, 3
 WAYMO_BATCH, WAYMO_POINTS, WAYMO_ITERS, WAYMO_TRAIN_ITERS = 8, 122880, 3, 2
@@ -138,10 +149,12 @@ WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
 TSM_KERNELS = ("fps_block",) + KITTI_KERNELS
 SECOND_KERNELS = ("probe", "spconv_gather")
 SECOND_CALLS = {"probe": 8, "spconv_gather": 12}   # a forward: 4 rulebooks + 4 plans, 12 convs
+BYKEY_ROWS = 64              # K4's row block (csrc/spconv_bykey.cu kRows)
 PAIR_TESTS_PLAIN = 1 << 30   # K2's plain version is run on at most this many pairs
 PLAIN_NOTES = {}             # kernel -> what its plain version ran on, when not everything
 EXTRAS = {}                  # kernel -> figures of its last compared call that a pass sums
-EXTRA_KEYS = ("prep_ms", "prep_device_ms", "visits", "device_ms", "library_device_ms")
+EXTRA_KEYS = ("prep_ms", "prep_device_ms", "visits", "device_ms", "library_device_ms",
+              "hits", "staged_rows")
 TILED = []                   # K2 tiles whose making a compared call of the pass has timed
 
 
@@ -192,18 +205,21 @@ def check(cond, msg):
 
 
 def cuda_time_ms(fn, reps):
+    """ms a call over `reps` calls between two CUDA events, after a warm-up
+    call; reps 0: one call and no warm-up, for what takes seconds."""
     import torch
 
-    fn()  # warm-up
+    if reps:
+        fn()  # warm-up
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
+    for _ in range(max(reps, 1)):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / max(reps, 1)
 
 
 def device_ms(fn, reps, kernels=None):
@@ -304,20 +320,49 @@ def compare_fps_block(args):
     visit_ms = n_visits * sampling.FPS_BLOCK * 24 / BYTES_PER_S * 1e3
     sweep_ms = (npoint - 1) * B * N * 9 / F32_OPS_PER_S * 1e3
     # `ms` is the launch alone; the PyTorch prep (Morton sort, gathers, boxes)
-    # is timed apart as `prep_ms`. A launch consumes its prepared state (it
-    # updates mind in place), so one state is prepared for each timed launch
+    # is timed apart as `prep_ms`. The launch only reads its prepared state.
+    # Beside the operations bound, a latency floor: the steps times one
+    # exchange round (every warp's candidate pushed to every CTA of its
+    # cluster, awaited and reduced), timed alone by a probe kernel
     reps = 3
     xyz = xyz.detach().contiguous().float()
     prep_ms = cuda_time_ms(lambda: sampling.block_prep(xyz, valid), reps)
-    EXTRAS["fps_block"] = {"prep_ms": prep_ms}
-    states = iter([sampling.block_prep(xyz, valid) for _ in range(reps + 1)])
+    state = sampling.block_prep(xyz, valid)
+    plan = sampling.fps_block_plan(nb)
+    round_us = exchange_round_us(min(B, plan["active_clusters"]))
+    floor_ms = (npoint - 1) * round_us / 1e3
+    EXTRAS["fps_block"] = {"prep_ms": prep_ms, "floor_ms": floor_ms, "steps": npoint - 1}
     print(f"  K6 visited {n_visits} of {(npoint - 1) * nb * B} (step, block) pairs "
           f"({100 * n_visits / ((npoint - 1) * nb * B):.2f}%); their bytes at the memory "
           f"rate {visit_ms:.4f} ms; a full sweep's operations {sweep_ms:.4f} ms; the "
           f"prep alone {prep_ms:.4f} ms")
-    return (0.0, lambda: sampling._fps_block_launch(xyz, next(states), npoint),
+    print(f"  K6 plan at b{B} x {nb} blocks: cluster size {plan['cluster_size']}, "
+          f"cudaOccupancyMaxActiveClusters {plan['active_clusters']}, "
+          f"{plan['smem_bytes']} B shared memory a CTA; one exchange round "
+          f"{round_us:.4f} us, so a latency floor of {floor_ms:.4f} ms for {npoint - 1} steps")
+    # the plain lockstep FPS takes seconds at Waymo shapes: timed on one
+    # run, no warm-up
+    return (0.0, lambda: sampling._fps_block_launch(xyz, state, npoint),
             lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid),
-            None, ops, nbytes, reps, 1)
+            None, ops, nbytes, reps, 0)
+
+
+def exchange_round_us(clusters, rounds=16384):
+    """Time of one K6 exchange round (csrc/fps_block.cu
+    `cluster_round_kernel`: every warp's candidate pushed to every CTA of
+    its cluster, awaited and reduced) with `clusters` clusters at once."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    sink = torch.empty(clusters * 8, device="cuda")
+    fn = _kernels.func("fps_block_round_probe")
+
+    def run():
+        _kernels.check(fn(clusters, rounds, sink.data_ptr(),
+                          _kernels.stream_ptr(sink.device)), "fps_block_round_probe")
+
+    return cuda_time_ms(run, 3) * 1e3 / rounds
 
 
 def compare_query_group(args):
@@ -423,6 +468,20 @@ def compare_probe(args):
             lambda: torch.searchsorted(sk, q, right=True), ops, nbytes, 20, 5)
 
 
+def staged_rows(found):
+    """The rows (q < Q) of the (BYKEY_ROWS-row block, tap) pairs in which
+    at least one row's key is found: what a kernel that stages whole row
+    blocks for every tap with a hit stages. found (B, K, Q) bool."""
+    import torch
+
+    B, K, Q = found.shape
+    pad = -Q % BYKEY_ROWS
+    f = torch.cat([found, found.new_zeros((B, K, pad))], -1).reshape(B, K, -1, BYKEY_ROWS)
+    rows = torch.clamp(Q - torch.arange(f.shape[2], device=found.device) * BYKEY_ROWS,
+                       max=BYKEY_ROWS)
+    return int((f.any(-1) * rows).sum())
+
+
 def compare_bykey(args):
     from tsm_det_pointcloud_tpu_torch.ops import spconv
 
@@ -438,6 +497,11 @@ def compare_bykey(args):
     Co = w.shape[-1]
     _, found = spconv._lookup_plain(skeys, qkeys, sentinel)
     hits = int(found.sum())
+    staged = staged_rows(found)
+    EXTRAS["spconv_bykey"] = {"hits": hits, "staged_rows": staged,
+                              "bound_tf32x3_ms": 2 * C * Co * hits / TF32X3_OPS_PER_S * 1e3}
+    print(f"  K4 hit share of staged rows {hits / max(staged, 1):.4f} ({hits} hits, {staged} "
+          f"rows in the ({BYKEY_ROWS}-row block, tap) pairs with a hit)")
     ops = 2 * C * Co * hits
     nbytes = 4 * (B * V * C + B * V + B * K * Q + K * C * Co + B * Q * Co)
     return (err, lambda: spconv.gather_matmul_bykey(f, skeys, qkeys, w, sentinel),
@@ -538,6 +602,10 @@ def compare_recorded(calls, label):
               f"plain {agg['plain_ms']:.4f} ms, bound {agg['bound']:.4f} ms "
               f"({agg['bound_by']}), max abs err {agg['err']:g}"
               + (f", prep {agg['prep_ms']:.4f} ms" if "prep_ms" in agg else "")
+              + (f", hit share of staged rows {agg['hits'] / max(agg['staged_rows'], 1):.4f}"
+                 f", 3xTF32 bound {agg['bound_tf32x3_ms']:.4f} ms" if "staged_rows" in agg else "")
+              + (f", {1e3 * agg['ms'] / agg['steps']:.4f} us a step, latency floor "
+                 f"{agg['floor_ms']:.4f} ms" if "steps" in agg else "")
               + (f", (query, tile) pairs tested {agg['visits']} of {agg['tile_pairs']}, "
                  f"all pairs at the bound's rate {agg['sweep_ms']:.4f} ms (derived)"
                  if "sweep_ms" in agg else ""))

@@ -148,14 +148,15 @@ def test_invalid_seed_point():
 
 
 def test_block_prep_layout():
-    """Blocks of 1024 in Morton order with invalid rows last; pad lanes and
-    invalid rows never widen a box; the block arg is the least original
+    """Blocks of FPS_BLOCK in Morton order with invalid rows last; pad lanes
+    and invalid rows never widen a box; the block arg is the least original
     index among the block's valid points."""
     xyz, _, mask = _case("random_mask")
     st = sampling.block_prep(torch.from_numpy(xyz), torch.from_numpy(mask))
     B, N = mask.shape
-    nb = -(-N // 1024)
-    assert st.xs.shape == (B, nb * 1024) and st.bbox.shape == (B, 6, nb)
+    w = sampling.FPS_BLOCK
+    nb = -(-N // w)
+    assert st.xs.shape == (B, nb * w) and st.bbox.shape == (B, 6, nb)
     ois = st.ois.numpy()
     for b in range(B):
         real = ois[b] < N
@@ -165,7 +166,7 @@ def test_block_prep_layout():
         assert v[:n_valid].all() and not v[n_valid:].any()
         np.testing.assert_array_equal(st.xs.numpy()[b][real], xyz[b, ois[b][real], 0])
         for g in range(nb):
-            sl = slice(g * 1024, (g + 1) * 1024)
+            sl = slice(g * w, (g + 1) * w)
             vg = st.mind.numpy()[b, sl] > 0
             if vg.any():
                 assert st.bbox[b, 0, g] == st.xs.numpy()[b, sl][vg].min()

@@ -1,8 +1,9 @@
 """Each hand-written kernel against its plain PyTorch version on the card
 (skipped on hosts without one). Run there with
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
-K1 / K2 / K3 / K6 are exact; K4 and K7 sum in another f32 order and K5 with
-float atomics in a varying one (all rtol 1e-4, atol 1e-4 * max|out|)."""
+K1 / K2 / K3 / K6 are exact; K4 multiplies in split precision (3xTF32) and
+sums in another f32 order, K7 sums in another order and K5 with float
+atomics in a varying one (all rtol 1e-4, atol 1e-4 * max|out|)."""
 import numpy as np
 import pytest
 import torch
@@ -79,6 +80,55 @@ def test_fps_block_kernel(dev, name):
     _, visits = sampling._fps_block_kernel(xyz, npoint, valid)
     _, want_visits = sampling._block_pruned_plain(xyz, npoint, valid)
     assert torch.equal(visits, want_visits)
+
+
+def _waymo_xyz(batch, seed=0):
+    from tsm_det_pointcloud_tpu_torch.infer import synth_waymo
+    return torch.from_numpy(np.ascontiguousarray(synth_waymo(batch, 122880, seed)[..., :3]))
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16])
+def test_fps_block_kernel_waymo_shapes(dev, batch):
+    """122880 -> 16384 picks index for index; b16 is more scans than one
+    wave of clusters holds on an H100 at cluster size 16 or 8."""
+    xyz = _waymo_xyz(batch, seed=batch).to(dev)
+    plan = sampling.fps_block_plan(122880 // sampling.FPS_BLOCK)
+    assert plan["active_clusters"] > 0
+    got = _counted("fps_block", lambda: sampling.furthest_point_sample_block_pruned(
+        xyz, 16384))
+    want = sampling.furthest_point_sample_plain(xyz, 16384)
+    assert torch.equal(got, want)
+
+
+def test_fps_block_kernel_ties_across_ctas(dev):
+    """A lattice of integer points (exact distances) around a seed at its
+    centre, a sixth of them duplicated elsewhere in the row: nearly every
+    step ties between blocks that different CTAs own, and the least
+    original index must win."""
+    rng = np.random.RandomState(22)
+    g = np.stack(np.meshgrid(np.arange(64), np.arange(48), np.arange(40), indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32) - [32, 24, 20]
+    xyz = np.stack([g[rng.permutation(len(g))] for _ in range(2)])
+    xyz[:, 0] = 0.0                                   # the seed: the lattice centre
+    xyz[:, -20480:] = xyz[:, 1:20481]                 # duplicates, far apart in the row
+    xyz = torch.from_numpy(xyz).to(dev)
+    got = _counted("fps_block", lambda: sampling.furthest_point_sample_block_pruned(
+        xyz, 4096))
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 4096))
+
+
+def test_fps_block_kernel_masked_waymo(dev):
+    """The masked input of chip_smoke.py's phase 10: whole Morton blocks
+    empty (x <= 0 past the first 40000 points), an empty scan, a scan of
+    100 points."""
+    xyz = _waymo_xyz(4).to(dev)
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    valid[:, 40000:] = xyz[:, 40000:, 0] > 0
+    valid[1] = False
+    valid[2, 100:] = False
+    got = _counted("fps_block", lambda: sampling.furthest_point_sample_block_pruned(
+        xyz, 16384, valid))
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 16384, valid))
 
 
 def test_fps_dispatch_above_k1_limit(dev):
@@ -267,6 +317,72 @@ def test_bykey_kernel(dev, c, co):
     want = spconv.gather_matmul_bykey_plain(f, rb.skeys, rb.qkeys, w, sent)
     scale = float(want.abs().max())
     assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()
+
+
+def _bykey_case(c, co, dev, scale_range=0.0, seed=5):
+    """Keys and features made so that: row block 1 (rows 64-127) misses at
+    every tap, tap 5 has exactly one hit in row block 0, tap 7 misses
+    everywhere, and Q = 333 is not a multiple of 64. With `scale_range` r,
+    the features and weights span 10**-r .. 10**r in magnitude."""
+    rng = np.random.RandomState(seed)
+    B, V, K, Q, sent = 2, 700, 27, 333, 100000
+    keys = np.sort(np.stack([rng.choice(sent, V - 20, replace=False) for _ in range(B)]), 1)
+    sk = np.concatenate([keys, np.full((B, 20), sent)], 1).astype(np.int32)
+    absent = np.stack([np.setdiff1d(np.arange(sent), k)[:5000] for k in keys])
+    qk = np.empty((B, K, Q), np.int32)
+    for b in range(B):
+        hit = rng.uniform(size=(K, Q)) < 0.3
+        qk[b] = np.where(hit, rng.choice(keys[b], (K, Q)), rng.choice(absent[b], (K, Q)))
+        qk[b, :, 64:128] = rng.choice(absent[b], (K, 64))
+        qk[b, 5, :64] = rng.choice(absent[b], 64)
+        qk[b, 5, 17] = keys[b, 3]
+        qk[b, 7] = sent
+    qk[:, 3, ::7] = sent + 5                      # beyond the sentinel: a miss too
+
+    def spread(shape):
+        x = rng.randn(*shape)
+        return (x * 10.0 ** rng.uniform(-scale_range, scale_range, shape)).astype(np.float32)
+
+    f = spread((B, V, c))
+    w = (spread((K, c, co)) / np.sqrt(c)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (f, sk, qk, w)) + (sent,)
+
+
+def _bykey_close(got, want):
+    scale = float(want.abs().max())
+    return bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("c,co", [(40, 64), (64, 64), (64, 128), (128, 128), (128, 256)])
+def test_bykey_kernel_edges(dev, c, co):
+    """All-miss row block, a one-hit tap, an all-miss tap, ragged Q and C;
+    two launches bit-equal."""
+    f, sk, qk, w, sent = _bykey_case(c, co, dev)
+    got = _counted("spconv_bykey", lambda: spconv.gather_matmul_bykey(f, sk, qk, w, sent))
+    want = spconv.gather_matmul_bykey_plain(f, sk, qk, w, sent)
+    assert _bykey_close(got, want)
+    assert not got[:, 64:128].any()               # the all-miss row block
+    assert torch.equal(got, spconv.gather_matmul_bykey(f, sk, qk, w, sent))
+
+
+def test_bykey_kernel_split_precision(dev):
+    """Inputs spanning 1e3 in magnitude: the 3xTF32 product holds the f32
+    tolerance, where a TF32 product does not."""
+    f, sk, qk, w, sent = _bykey_case(64, 128, dev, scale_range=1.5)
+    got = _counted("spconv_bykey", lambda: spconv.gather_matmul_bykey(f, sk, qk, w, sent))
+    want = spconv.gather_matmul_bykey_plain(f, sk, qk, w, sent)
+    assert _bykey_close(got, want)
+    idx, found = spconv._lookup_plain(sk, qk, sent)
+    g = torch.gather(f[:, None].expand(-1, qk.shape[1], -1, -1), 2,
+                     idx.long()[..., None].expand(-1, -1, -1, f.shape[-1]))
+    g = torch.where(found[..., None], g, torch.zeros_like(g))
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.einsum("bkqc,kco->bqo", g, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert not _bykey_close(tf32, want)
 
 
 def _rulebooks(dev, rng, B=2, V=600, grid=(8, 30, 30)):

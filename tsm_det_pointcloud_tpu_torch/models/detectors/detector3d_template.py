@@ -9,6 +9,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ...ops import iou3d
 from ..model_utils import model_nms_utils
 
 
@@ -45,8 +46,10 @@ class Detector3DTemplate(nn.Module):
     @torch.no_grad()
     def post_processing(self, batch_dict):
         """batch_cls_preds (B, N, C) + batch_box_preds (B, N, 7+) ->
-        dict(pred_boxes (B, P, 7), pred_scores (B, P), pred_labels (B, P),
-        count (B,)) with P = NMS_POST_MAXSIZE; slots >= count are zero."""
+        (dict(pred_boxes (B, P, 7), pred_scores (B, P), pred_labels (B, P),
+        count (B,)) with P = NMS_POST_MAXSIZE, slots >= count zero; and the
+        recall dict, which `generate_recall_record` fills when `batch_dict`
+        holds "gt_boxes" and which is {} otherwise)."""
         post_cfg = self.model_cfg["POST_PROCESSING"]
         nms_cfg = post_cfg["NMS_CONFIG"]
         score_thresh = post_cfg.get("SCORE_THRESH", 0.1)
@@ -78,4 +81,35 @@ class Detector3DTemplate(nn.Module):
             "pred_boxes": torch.stack(boxes), "pred_scores": torch.stack(scores),
             "pred_labels": torch.stack(labels), "count": torch.stack(counts),
         }
-        return pred, {}
+        recall_dict = {}
+        if "gt_boxes" in batch_dict:
+            recall_dict = self.generate_recall_record(
+                pred["pred_boxes"], pred["count"], batch_dict,
+                post_cfg.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7]))
+        return pred, recall_dict
+
+    @staticmethod
+    def generate_recall_record(pred_boxes, counts, batch_dict, thresh_list):
+        """Recall counters of the JAX `generate_recall_record`
+        (detector3d_template.py:140-160): for each threshold th, `roi_<th>`
+        (0.0: one stage), `rcnn_<th>` (the valid gt boxes whose best 3D IoU
+        with a kept prediction exceeds th) and `gt` (the valid gt boxes),
+        each a 0-d float32 sum over the batch. Runs on the predictions'
+        device; `infer`'s synthetic eval batches carry no gt boxes, so the
+        timed eval path never reaches it."""
+        gt_boxes = batch_dict["gt_boxes"]
+        gt_valid = batch_dict["gt_boxes_mask"]
+        out = {}
+        for th in thresh_list:
+            out["roi_%s" % str(th)] = pred_boxes.new_zeros(())
+            out["rcnn_%s" % str(th)] = pred_boxes.new_zeros(())
+        out["gt"] = pred_boxes.new_zeros(())
+        for pb, cnt, gts, gv in zip(pred_boxes, counts, gt_boxes, gt_valid):
+            iou = iou3d.boxes_iou3d(gts[:, :7], pb)                   # (M, P)
+            slot_ok = torch.arange(pb.shape[0], device=pb.device)[None, :] < cnt
+            iou = torch.where(slot_ok & gv[:, None], iou, torch.zeros_like(iou))
+            best = iou.amax(dim=1)
+            for th in thresh_list:
+                out["rcnn_%s" % str(th)] += ((best > th) & gv).sum().float()
+            out["gt"] += gv.sum().float()
+        return out

@@ -77,6 +77,13 @@ _SIGNATURES = {
     "spconv_gather": ("gather_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
 }
 
+# entries beside a kernel's launch: name -> (kernel whose library holds it,
+# symbol, argtypes)
+_ENTRIES = {
+    "fps_block_plan": ("fps_block", "fps_block_plan", [_I, _P]),
+    "fps_block_round_probe": ("fps_block", "fps_block_round_probe", [_I, _I, _P, _P]),
+}
+
 _lock = threading.Lock()
 _funcs = {}
 BUILD_LOG = {}   # kernel -> nvcc's output (registers, spills)
@@ -140,17 +147,18 @@ def build_all():
 
 
 def func(name):
-    """The ctypes entry of kernel `name`, building the libraries at first
-    use."""
+    """The ctypes entry of kernel `name` (or of a name in `_ENTRIES`),
+    building the libraries at first use."""
     f = _funcs.get(name)
     if f is not None:
         return f
     with _lock:
         if name not in _funcs:
             build_all()
-            for k, (sym, argtypes) in _SIGNATURES.items():
-                lib = ctypes.CDLL(str(_lib_path(k)))
-                fn = getattr(lib, sym)
+            entries = {**{k: (k, sym, at) for k, (sym, at) in _SIGNATURES.items()},
+                       **_ENTRIES}
+            for k, (kernel, sym, argtypes) in entries.items():
+                fn = getattr(ctypes.CDLL(str(_lib_path(kernel))), sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _funcs[k] = fn

@@ -78,6 +78,23 @@ def boxes_iou_bev(boxes_a, boxes_b):
     return overlap / torch.clamp(area_a + area_b - overlap, min=1e-6)
 
 
+def boxes_iou3d(boxes_a, boxes_b):
+    """(N, 7) x (M, 7) -> (N, M) 3D IoU: rotated BEV overlap times height
+    overlap over the volume union (JAX ops/iou3d.py:108)."""
+    overlap_bev = _pair_intersection_area_grid(boxes_to_corners_bev(boxes_a),
+                                               boxes_to_corners_bev(boxes_b))
+    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    overlap_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min),
+                            min=0.0)
+    inter = overlap_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)
+
+
 def suppression_matrix(boxes, thresh, rotated=True):
     """(N, 7) boxes -> (N, N) bool: IoU(i, j) > thresh, original order."""
     if not rotated:

@@ -14,7 +14,7 @@ ops/fps_pallas.py:197, :490, :633). On a CPU tensor they run the plain
 version below, which repeats the kernel's arithmetic step by step.
 
 Block-pruned d-fps (counterpart of ops/fps_pallas.py:171-487) is exact: the
-points are Morton-sorted into blocks of 1024, each block keeps its bounding
+points are Morton-sorted into blocks of 128, each block keeps its bounding
 box, the maximum of its running min-distance and the least original index
 that attains it, and a step updates only the blocks whose squared gap to
 the picked point is below their maximum. The running min-distance only
@@ -23,6 +23,7 @@ not have changed; the picks equal `furthest_point_sample_plain`'s.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -32,9 +33,9 @@ import torch
 from . import _kernels
 
 FPS_MAX_POINTS = 16384  # one row's xyz must fit one block's shared memory
-FPS_BLOCK = 1024        # points per Morton block of the block-pruned d-fps
+FPS_BLOCK = 128         # points per Morton block of the block-pruned d-fps
 _BIG_IDX = 1 << 30      # original index of a pad lane: never the least
-FPS_BLOCK_MAX_POINTS = 1024 * FPS_BLOCK  # K6 keeps 128 bytes a block in shared memory
+FPS_BLOCK_MAX_POINTS = 16 * 64 * FPS_BLOCK  # K6: 16 blocks a warp, 64 warps a cluster
 _FAR = 1e30             # xyz of an invalid row when sorting; empty boxes
 _LAST = 2 ** 31 - 1     # sort key of an invalid row: above every Morton code
 
@@ -154,7 +155,7 @@ def tile_boxes(a, live, width, far):
 
 
 class BlockState(NamedTuple):
-    """A batch of scans prepared for block-pruned d-fps. P = NB * 1024 is N
+    """A batch of scans prepared for block-pruned d-fps. P = NB * 128 is N
     rounded up to whole blocks; pad lanes hold xyz 0, original index 2**30
     and min-distance -2, so they never win and never widen a box."""
     xs: torch.Tensor      # (B, P) f32, Morton order, invalid rows last
@@ -189,7 +190,7 @@ def block_prep(xyz, valid_mask=None):
 
 
 def _block_max(mind, ois):
-    """(..., 1024) -> the maximum and the least original index attaining it."""
+    """(..., FPS_BLOCK) -> the maximum and the least original index attaining it."""
     bmax = mind.amax(-1)
     barg = torch.where(mind == bmax[..., None], ois, torch.full_like(ois, _BIG_IDX)).amin(-1)
     return bmax, barg
@@ -236,13 +237,24 @@ def _block_pruned_plain(xyz, npoint, valid_mask):
     return idxs, visits
 
 
+def fps_block_plan(n_blocks):
+    """K6's launch plan for rows of `n_blocks` Morton blocks on the current
+    card: cluster size (CTAs a scan), the most clusters resident at once
+    (cudaOccupancyMaxActiveClusters; a larger batch runs in waves) and the
+    dynamic shared memory of a CTA."""
+    out = (ctypes.c_int * 3)()
+    _kernels.check(_kernels.func("fps_block_plan")(n_blocks, ctypes.addressof(out)),
+                   "fps_block_plan")
+    return {"cluster_size": out[0], "active_clusters": out[1], "smem_bytes": out[2]}
+
+
 def _fps_block_launch(xyz, st, npoint):
-    """K6's one launch on a prepared `BlockState` (whose `mind` it updates in
-    place). Returns (idx (B, npoint) i32, visits (B,) i64)."""
+    """K6's one launch on a prepared `BlockState` (read, not written).
+    Returns (idx (B, npoint) i32, visits (B,) i64)."""
     B, N = xyz.shape[:2]
     _kernels.require_cuda(xyz, *st)
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    visits = torch.empty((B,), dtype=torch.int64, device=xyz.device)
+    visits = torch.zeros((B,), dtype=torch.int64, device=xyz.device)  # summed by atomics
     fn = _kernels.func("fps_block")
     err = fn(xyz.data_ptr(), st.xs.data_ptr(), st.ys.data_ptr(), st.zs.data_ptr(),
              st.ois.data_ptr(), st.mind.data_ptr(), st.bbox.data_ptr(),
@@ -261,7 +273,7 @@ def _fps_block_kernel(xyz, npoint, valid_mask):
     _kernels.check_shape(valid_mask, (B, N), "fps_block valid_mask")
     if N > FPS_BLOCK_MAX_POINTS:
         raise ValueError(f"fps_block takes at most {FPS_BLOCK_MAX_POINTS} points per "
-                         f"row (got {N}): the per-block state must fit shared memory")
+                         f"row (got {N}): K6 holds a scan in one cluster, 16 blocks a warp")
     xyz = xyz.detach().contiguous().float()
     _kernels.require_cuda(xyz)
     return _fps_block_launch(xyz, block_prep(xyz, valid_mask), npoint)
@@ -273,9 +285,10 @@ def furthest_point_sample_block_pruned_plain(xyz, npoint, valid_mask=None):
 
 
 def furthest_point_sample_block_pruned(xyz, npoint, valid_mask=None):
-    """Exact d-fps by Morton-block pruning, any N: (B, N, 3) -> (B, npoint)
-    i32, index-equal to `furthest_point_sample_plain`. Kernel K6 on a CUDA
-    tensor, the plain block-pruned version on a CPU tensor."""
+    """Exact d-fps by Morton-block pruning: (B, N, 3) -> (B, npoint) i32,
+    index-equal to `furthest_point_sample_plain`. Kernel K6 on a CUDA tensor
+    (rows above FPS_BLOCK_MAX_POINTS raise), the plain block-pruned version,
+    any N, on a CPU tensor."""
     if xyz.is_cuda:
         return _fps_block_kernel(xyz, npoint, valid_mask)[0]
     return furthest_point_sample_block_pruned_plain(xyz, npoint, valid_mask)
@@ -283,7 +296,8 @@ def furthest_point_sample_block_pruned(xyz, npoint, valid_mask=None):
 
 def furthest_point_sample(xyz, npoint, valid_mask=None):
     """(B, N, 3) -> (B, npoint) int32 indices (d-fps). On the card K1 takes
-    rows of up to 16384 points and K6 longer ones."""
+    rows of up to 16384 points and K6 longer ones up to FPS_BLOCK_MAX_POINTS;
+    longer rows raise."""
     if xyz.is_cuda:
         if xyz.shape[1] > FPS_MAX_POINTS:
             return _fps_block_kernel(xyz, npoint, valid_mask)[0]
