@@ -32,7 +32,11 @@ Phases (any failure exits non-zero before the result line):
      their kernels' device time alone, without the host's dispatch gaps.
      Every such device time is taken at the end, after phase 16: a
      profiler window slows the host's later launches, and no path is timed
-     after one;
+     after one. K1's log line gives its plan (cluster size,
+     cudaOccupancyMaxActiveClusters, shared memory a CTA), its time a step
+     and a latency floor: its steps times one exchange round of its cluster
+     layout, timed alone by csrc/fps.cu's `fps_round_probe` (on the log
+     line, not in the kernels line);
   4. reference: the tiny TSM config with the JAX package's converted
      PRNGKey(0) weights reproduces tests/goldens/tsm_forward.npz on the card
      (golden tolerance: atol 1e-3 * max(1, max|want|), rtol 1e-3);
@@ -47,8 +51,9 @@ Phases (any failure exits non-zero before the result line):
      backward gave every s_* parameter a gradient (every sparse-conv weight
      a nonzero one) and the teacher none; each call runs through its kernel
      and its plain version at the tolerances of phase 3, K5 (df and dW) at
-     K4's (float atomics sum in a varying order), and both are timed with
-     the bound;
+     K4's (3xTF32 products, sums in another fixed order) and bit-equal
+     between two launches, and both are timed with the bound (K5's log line
+     also gives its 3xTF32 bound, as K4's does);
   7. training reference: the tiny config's training step on the card (the
      committed PRNGKey(0) state, tiny.train_statistics, the "wide" boxes)
      reproduces tsm_det_pointcloud_tpu_torch/data/tsm_tiny_train_golden.npz
@@ -66,17 +71,18 @@ Phases (any failure exits non-zero before the result line):
      16384) index-equal to the plain lockstep FPS over all 8 x 16384 picks,
      on the clustered scans and on an input whose mask empties whole Morton
      blocks, one scan and all but 100 points of another; K1 (s-fps 16384 ->
-     3072), K2, K3, K4 against their plain versions at the tolerances of
-     phase 3 (K2's layer-0 call, 16 G pair tests, is held against the plain
-     version on every 15th query, all sources, and `plain_ms` is that
-     subset's time; `plain_note` says so). Each is timed, with its
+     3072; its plan and latency floor as in phase 3), K2, K3, K4 against
+     their plain versions at the tolerances of phase 3 (K2's layer-0 call,
+     16 G pair tests, is held against the plain version on every 15th
+     query, all sources, and `plain_ms` is that subset's time;
+     `plain_note` says so). Each is timed, with its
      bound; K6's counts the block visits the pruning rule required, and
      its plain version (seconds a call) is timed on one run without a
      warm-up. K6 also prints its plan (cluster size,
      cudaOccupancyMaxActiveClusters, shared memory a CTA), its time a step,
      and a latency floor (its steps times one exchange round of its
-     clusters, timed alone by csrc/fps_block.cu's `cluster_round_kernel`;
-     on the log line, not in the kernels line);
+     clusters, timed alone by csrc/fps.cu's `fps_round_probe` on clusters
+     of 8; on the log line, not in the kernels line);
  11. Waymo main path: launch counts are zeroed, 3 batches of forward + NMS
      run, the counts are read; outputs finite, box preds (8, 3072, 7),
      count <= 512, and K6, K1, K2, K3, K4 all launched. Prints Waymo scans/s
@@ -233,7 +239,7 @@ def device_ms(fn, reps, kernels=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tsm_det_pointcloud_tpu_torch.infer import _self_device_us
+    from tsm_det_pointcloud_tpu_torch.infer import self_device_us
 
     fn()  # warm-up
     for _ in range(5):
@@ -246,7 +252,7 @@ def device_ms(fn, reps, kernels=None):
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False) and e.count > 0]
         per_call = [round(e.count / reps) for e in events]
-        us = sum(_self_device_us(e) / e.count * k for e, k in zip(events, per_call))
+        us = sum(self_device_us(e) / e.count * k for e, k in zip(events, per_call))
         if us > 0 and (kernels is None or sum(per_call) == kernels):
             return us / 1e3
     fail(f"torch.profiler recorded {[e.count for e in events]} launches for {reps} calls, "
@@ -295,6 +301,17 @@ def compare_fps(args):
     ops = (npoint - 1) * B * N * (10 if weights is not None else 9)
     nbytes = B * N * 12 + B * npoint * 4 + (B * N if valid is not None else 0) \
         + (B * N * 4 if weights is not None else 0)
+    # beside the bound, a latency floor: the steps times one exchange round
+    # of this call's cluster layout, timed alone by a probe kernel
+    plan = sampling.fps_plan(N, weights is not None)
+    round_us = exchange_round_us(min(B, plan["active_clusters"]), plan["cluster_size"])
+    floor_ms = (npoint - 1) * round_us / 1e3
+    EXTRAS["fps"] = {"floor_ms": floor_ms, "steps": npoint - 1}
+    print(f"  K1 plan at b{B} x {N} ({'s-fps' if weights is not None else 'd-fps'}): "
+          f"cluster size {plan['cluster_size']}, cudaOccupancyMaxActiveClusters "
+          f"{plan['active_clusters']}, {plan['smem_bytes']} B shared memory a CTA; one "
+          f"exchange round {round_us:.4f} us, so a latency floor of {floor_ms:.4f} ms for "
+          f"{npoint - 1} steps")
     return (0.0, lambda: sampling._fps_kernel(xyz, npoint, valid, weights),
             lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid, weights),
             None, ops, nbytes, 5, 1)
@@ -329,7 +346,7 @@ def compare_fps_block(args):
     prep_ms = cuda_time_ms(lambda: sampling.block_prep(xyz, valid), reps)
     state = sampling.block_prep(xyz, valid)
     plan = sampling.fps_block_plan(nb)
-    round_us = exchange_round_us(min(B, plan["active_clusters"]))
+    round_us = exchange_round_us(min(B, plan["active_clusters"]), plan["cluster_size"])
     floor_ms = (npoint - 1) * round_us / 1e3
     EXTRAS["fps_block"] = {"prep_ms": prep_ms, "floor_ms": floor_ms, "steps": npoint - 1}
     print(f"  K6 visited {n_visits} of {(npoint - 1) * nb * B} (step, block) pairs "
@@ -347,20 +364,22 @@ def compare_fps_block(args):
             None, ops, nbytes, reps, 0)
 
 
-def exchange_round_us(clusters, rounds=16384):
-    """Time of one K6 exchange round (csrc/fps_block.cu
-    `cluster_round_kernel`: every warp's candidate pushed to every CTA of
-    its cluster, awaited and reduced) with `clusters` clusters at once."""
+def exchange_round_us(clusters, cluster_size, rounds=16384):
+    """Time of one FPS exchange round (csrc/cluster_exchange.cuh
+    `round_kernel`, launched by csrc/fps.cu's `fps_round_probe`: every
+    warp's candidate pushed to every CTA of its cluster, awaited and reduced)
+    with `clusters` clusters of `cluster_size` CTAs of 8 warps at once: K1's
+    layouts (4 or 8 CTAs) and K6's (8)."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch.ops import _kernels
 
     sink = torch.empty(clusters * 8, device="cuda")
-    fn = _kernels.func("fps_block_round_probe")
+    fn = _kernels.func("fps_round_probe")
 
     def run():
-        _kernels.check(fn(clusters, rounds, sink.data_ptr(),
-                          _kernels.stream_ptr(sink.device)), "fps_block_round_probe")
+        _kernels.check(fn(cluster_size, clusters, rounds, sink.data_ptr(),
+                          _kernels.stream_ptr(sink.device)), "fps_round_probe")
 
     return cuda_time_ms(run, 3) * 1e3 / rounds
 
@@ -510,17 +529,21 @@ def compare_bykey(args):
 
 
 def compare_bykey_bwd(args):
+    import torch
+
     from tsm_det_pointcloud_tpu_torch.ops import spconv
 
     f, skeys, qkeys, w, g, sentinel = args
     got = spconv.gather_matmul_bykey_bwd(f, skeys, qkeys, w, g, sentinel)
+    again = spconv.gather_matmul_bykey_bwd(f, skeys, qkeys, w, g, sentinel)
     want = spconv.gather_matmul_bykey_bwd_plain(f, skeys, qkeys, w, g, sentinel)
     err = 0.0
-    for what, gt, wt in zip(("df", "dW"), got, want):
+    for what, gt, g2, wt in zip(("df", "dW"), got, again, want):
         scale = float(wt.abs().max())
         e = float((gt - wt).abs().max())
         check(bool(((gt - wt).abs() <= 1e-4 * wt.abs() + 1e-4 * scale).all()),
               f"K5 {what} differs from its plain version: max abs err {e} (scale {scale})")
+        check(torch.equal(gt, g2), f"K5 {what} differs between two launches")
         err = max(err, e)
     B, V, C = f.shape
     _, K, Q = qkeys.shape
@@ -528,6 +551,7 @@ def compare_bykey_bwd(args):
     _, found = spconv._lookup_plain(skeys, qkeys, sentinel)
     hits = int(found.sum())
     ops = 4 * C * Co * hits
+    EXTRAS["spconv_bykey_bwd"] = {"bound_tf32x3_ms": ops / TF32X3_OPS_PER_S * 1e3}
     nbytes = 4 * (2 * B * V * C + B * Q * Co + 2 * K * C * Co + B * V + B * K * Q)
     return (err, lambda: spconv.gather_matmul_bykey_bwd(f, skeys, qkeys, w, g, sentinel),
             lambda: spconv.gather_matmul_bykey_bwd_plain(f, skeys, qkeys, w, g, sentinel),
@@ -603,7 +627,9 @@ def compare_recorded(calls, label):
               f"({agg['bound_by']}), max abs err {agg['err']:g}"
               + (f", prep {agg['prep_ms']:.4f} ms" if "prep_ms" in agg else "")
               + (f", hit share of staged rows {agg['hits'] / max(agg['staged_rows'], 1):.4f}"
-                 f", 3xTF32 bound {agg['bound_tf32x3_ms']:.4f} ms" if "staged_rows" in agg else "")
+                 if "staged_rows" in agg else "")
+              + (f", 3xTF32 bound {agg['bound_tf32x3_ms']:.4f} ms"
+                 if "bound_tf32x3_ms" in agg else "")
               + (f", {1e3 * agg['ms'] / agg['steps']:.4f} us a step, latency floor "
                  f"{agg['floor_ms']:.4f} ms" if "steps" in agg else "")
               + (f", (query, tile) pairs tested {agg['visits']} of {agg['tile_pairs']}, "

@@ -1,9 +1,10 @@
 """Each hand-written kernel against its plain PyTorch version on the card
 (skipped on hosts without one). Run there with
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
-K1 / K2 / K3 / K6 are exact; K4 multiplies in split precision (3xTF32) and
-sums in another f32 order, K7 sums in another order and K5 with float
-atomics in a varying one (all rtol 1e-4, atol 1e-4 * max|out|)."""
+K1 / K2 / K3 / K6 are exact; K4 and K5 multiply in split precision
+(3xTF32) and sum in another f32 order, fixed from launch to launch (both
+bit-equal on repeat), K7 sums in another order (all rtol 1e-4,
+atol 1e-4 * max|out|)."""
 import numpy as np
 import pytest
 import torch
@@ -39,6 +40,50 @@ def test_fps_kernel(dev, weighted):
     got = _counted("fps", lambda: sampling._fps_kernel(xyz, 256, valid, w))
     want = sampling.furthest_point_sample_plain(xyz, 256, valid, w)
     assert torch.equal(got, want)
+
+
+def _lattice(shape, rng):
+    """The integer points of a box of `shape` around the origin, shuffled:
+    every d2 is exact, so nearly every step ties."""
+    g = np.stack(np.meshgrid(*[np.arange(n) for n in shape], indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32) - np.asarray(shape, np.float32) // 2
+    return g[rng.permutation(len(g))]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fps_kernel_ties_across_ctas(dev, weighted):
+    """A lattice row of 16384 integer points around a seed at its centre, a
+    quarter of them duplicated elsewhere in the row: the steps tie between
+    points that different warps and CTAs of the cluster own, and the least
+    index must win. The weights are powers of two, so w * mindist ties too."""
+    rng = np.random.RandomState(23)
+    xyz = np.stack([_lattice((32, 32, 16), rng) for _ in range(2)])
+    xyz[:, 0] = 0.0                                   # the seed: the lattice centre
+    xyz[:, -4096:] = xyz[:, 1:4097]                   # duplicates, far apart in the row
+    xyz = torch.from_numpy(xyz).to(dev)
+    w = (torch.from_numpy(2.0 ** rng.randint(-1, 2, (2, 16384))).float().to(dev)
+         if weighted else None)
+    got = _counted("fps", lambda: sampling._fps_kernel(xyz, 2048, None, w))
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 2048, None, w))
+
+
+@pytest.mark.parametrize("batch,npoint,weighted", [(16, 4096, False), (8, 3072, True)])
+def test_fps_kernel_full_batch_one_wave(dev, batch, npoint, weighted):
+    """K1 at the TSM paths' widest calls (KITTI d-fps b16 x 16384 -> 4096,
+    Waymo s-fps b8 x 16384 -> 3072), every row's cluster resident at once,
+    with a row whose mask is empty and one of 100 valid points."""
+    from tsm_det_pointcloud_tpu_torch.infer import synth_points
+
+    plan = sampling.fps_plan(16384, weighted)
+    assert plan["cluster_size"] in (4, 8) and plan["active_clusters"] >= batch
+    xyz = torch.from_numpy(np.ascontiguousarray(
+        synth_points(batch, 16384, seed=batch)[..., :3])).to(dev)
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    valid[3] = False
+    valid[5, 100:] = False
+    w = torch.rand(xyz.shape[:2], device=dev) if weighted else None
+    got = _counted("fps", lambda: sampling._fps_kernel(xyz, npoint, valid, w))
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, npoint, valid, w))
 
 
 def _fps_block_case(name):
@@ -418,6 +463,75 @@ def test_bykey_bwd_kernel(dev, kind, c, co):
         scale = float(wt.abs().max())
         assert scale > 0
         assert ((gt - wt).abs() <= 1e-4 * wt.abs() + 1e-4 * scale).all()
+
+
+def _to_tf32(x):
+    """x rounded to TF32 (10 mantissa bits; to nearest, ties away from 0)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])
+@pytest.mark.parametrize("c,co", [(64, 128), (130, 70)])
+def test_bykey_bwd_kernel_split_precision(dev, kind, c, co):
+    """f, W and g spanning 1e3 in magnitude: both 3xTF32 products (dW in
+    its own kernel, df through K4's) hold the f32 tolerance, where TF32
+    products do not: the plain version on operands rounded to TF32's 10-bit
+    mantissa, as a tensor core takes them (their products are exact in f32,
+    so this is TF32 at any width, where cuBLAS may not take TF32 for a
+    ragged one)."""
+    rng = np.random.RandomState(10)
+    rb, V, sent = _rulebooks(dev, rng)[kind]
+    B, K, Q = rb.qkeys.shape
+
+    def spread(*shape):
+        x = rng.randn(*shape) * 10.0 ** rng.uniform(-1.5, 1.5, shape)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    f = spread(B, rb.skeys.shape[1], c)
+    w = spread(K, c, co) / np.sqrt(c)
+    g = spread(B, Q, co)
+    got = _counted("spconv_bykey_bwd", lambda: spconv.gather_matmul_bykey_bwd(
+        f, rb.skeys, rb.qkeys, w, g, sent))
+    want = spconv.gather_matmul_bykey_bwd_plain(f, rb.skeys, rb.qkeys, w, g, sent)
+    tf32 = spconv.gather_matmul_bykey_bwd_plain(_to_tf32(f), rb.skeys, rb.qkeys,
+                                                _to_tf32(w), _to_tf32(g), sent)
+    for gt, t, wt in zip(got, tf32, want):
+        assert _bykey_close(gt, wt)
+        assert not _bykey_close(t, wt)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])
+@pytest.mark.parametrize("c,co", [(64, 64), (64, 128), (130, 70)])
+def test_bykey_bwd_kernel_repeat_bit_equal(dev, kind, c, co):
+    """No float atomics: two launches give the same df and dW bit for bit."""
+    rng = np.random.RandomState(8)
+    rb, V, sent = _rulebooks(dev, rng, V=1500)[kind]
+    B, K, Q = rb.qkeys.shape
+    f = torch.randn(B, rb.skeys.shape[1], c, device=dev)
+    w = torch.randn(K, c, co, device=dev) * 0.1
+    g = torch.randn(B, Q, co, device=dev)
+    df, dw = spconv.gather_matmul_bykey_bwd(f, rb.skeys, rb.qkeys, w, g, sent)
+    df2, dw2 = spconv.gather_matmul_bykey_bwd(f, rb.skeys, rb.qkeys, w, g, sent)
+    assert torch.equal(df, df2) and torch.equal(dw, dw2)
+    assert df.abs().max() > 0 and dw.abs().max() > 0
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])
+def test_bykey_bwd_df_matches_inverse_plain(dev, kind):
+    """K5's df against its route's CPU twin (the per-tap inverse table, the
+    gather in tap order) run on the card."""
+    rng = np.random.RandomState(9)
+    rb, V, sent = _rulebooks(dev, rng)[kind]
+    B, K, Q = rb.qkeys.shape
+    f = torch.randn(B, rb.skeys.shape[1], 64, device=dev)
+    w = torch.randn(K, 64, 128, device=dev) * 0.1
+    g = torch.randn(B, Q, 128, device=dev)
+    df, _ = _counted("spconv_bykey_bwd", lambda: spconv.gather_matmul_bykey_bwd(
+        f, rb.skeys, rb.qkeys, w, g, sent))
+    want = spconv.gather_matmul_bykey_df_plain(rb.skeys, rb.qkeys, w, g, sent)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert ((df - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()
 
 
 @pytest.mark.parametrize("c,co,k,q", [(4, 16, 27, 300), (16, 32, 27, 1000),

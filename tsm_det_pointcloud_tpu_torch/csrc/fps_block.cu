@@ -33,15 +33,9 @@
 // and original indices in registers (4 points a lane), and their state (box,
 // max, its index and coordinates) one block a lane. So a step needs no CTA
 // barrier: each warp tests its boxes (a ballot), updates its visited blocks
-// and reduces its candidate (max, least index, x, y, z), then pushes it
-// into every CTA's shared memory with st.async, which completes bytes on
-// that CTA's mbarrier; each warp waits on its own CTA's mbarrier for all 64
-// candidates and reduces them in the same order, so every warp of the
-// cluster agrees on the pick. Slots and mbarriers alternate by step parity:
-// a warp can push step s + 2's candidate only after every warp has pushed
-// step s + 1's, that is, after every warp has read step s's. Warp reductions
-// use redux.sync on the order-preserving bits of the value, and on the
-// index only when values tie.
+// and reduces its candidate (max, least index, x, y, z); the cluster then
+// agrees on the pick by csrc/cluster_exchange.cuh's exchange (st.async
+// pushes onto every CTA's mbarrier, no CTA or cluster barrier).
 //
 // Cluster size 8: 16 or 12 CTAs a cluster would fit a scan's state in fewer
 // SMs' shared memory, but cudaOccupancyMaxActiveClusters gives 7 resident
@@ -49,10 +43,11 @@
 // waves; at 8, `plan` reports how many clusters are resident (a larger
 // batch runs in waves, exactly). The layout caps a row at 16 blocks a warp:
 // 16 * 64 * 128 = 131072 points.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cluster_exchange.cuh"
 
 namespace {
+
+using namespace fpsx;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -61,53 +56,9 @@ constexpr int kClusterWarps = kCluster * kWarps;  // 64 candidates a step
 constexpr int kBlock = 128;                     // points per Morton block
 constexpr int kPer = kBlock / 32;               // points a lane of each block
 constexpr int kMaxLocal = 16;                   // blocks a warp
-constexpr int kSlot = 8;                        // floats a candidate slot
-constexpr int kSlotBytes = 5 * 4;               // bytes st.async writes a slot
-constexpr long long kSpinLimit = 1ll << 20;     // try_waits before the launch fails
-constexpr unsigned kFull = 0xffffffffu;
-
-// a candidate pick: its min-distance, original index and coordinates
-struct Cand {
-  float v;
-  int i;
-  float x, y, z;
-};
-
-__device__ __forceinline__ Cand none() {
-  return Cand{__int_as_float(0xff800000), 0x7fffffff, 0.f, 0.f, 0.f};  // -inf
-}
-
-__device__ __forceinline__ void take_better(Cand& a, const Cand& o) {
-  if (o.v > a.v || (o.v == a.v && o.i < a.i)) a = o;
-}
-
-// the float's order as an unsigned integer (no NaN here; mind is never -0)
-__device__ __forceinline__ unsigned ordered(float v) {
-  const unsigned u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// (max value, least index) over the warp, in every lane
-__device__ __forceinline__ Cand warp_best(const Cand& c) {
-  const unsigned key = ordered(c.v);
-  const unsigned kmax = __reduce_max_sync(kFull, key);
-  const unsigned tied = __ballot_sync(kFull, key == kmax);
-  int src = __ffs(tied) - 1;
-  if (tied & (tied - 1)) {  // more than one lane holds the maximum: the least index wins
-    const unsigned imin = __reduce_min_sync(kFull, key == kmax ? (unsigned)c.i : 0xffffffffu);
-    src = __ffs(__ballot_sync(kFull, key == kmax && (unsigned)c.i == imin)) - 1;
-  }
-  return Cand{__shfl_sync(kFull, c.v, src), __shfl_sync(kFull, c.i, src),
-              __shfl_sync(kFull, c.x, src), __shfl_sync(kFull, c.y, src),
-              __shfl_sync(kFull, c.z, src)};
-}
 
 __device__ __forceinline__ float gap(float lo, float hi, float q) {
   return fmaxf(fmaxf(__fsub_rn(lo, q), __fsub_rn(q, hi)), 0.f);
-}
-
-__device__ __forceinline__ float sq3(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
 __device__ __forceinline__ void visit(float x, float y, float z, int oi, float& m,
@@ -116,107 +67,6 @@ __device__ __forceinline__ void visit(float x, float y, float z, int oi, float& 
   if (m >= 0.f)
     m = fminf(m, sq3(__fsub_rn(x, qx), __fsub_rn(y, qy), __fsub_rn(z, qz)));
   take_better(best, Cand{m, oi, x, y, z});
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// expect this step's candidates: one arrival and their bytes
-__device__ __forceinline__ void arm(uint64_t* mbar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(mbar)),
-               "r"(kClusterWarps * kSlotBytes)
-               : "memory");
-}
-
-// wait for the mbarrier's phase of this parity. A cluster's CTAs are
-// resident together, so every candidate arrives unless the kernel is wrong;
-// after kSpinLimit tries the launch fails (__trap, an error at the caller's
-// next check) rather than hang the card or hand on a wrong pick.
-__device__ __forceinline__ void wait_phase(uint64_t* mbar, unsigned parity) {
-  const uint32_t addr = smem_u32(mbar);
-  for (long long spin = 0; spin < kSpinLimit; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-  __trap();
-}
-
-// this warp's candidate into slot `slot` of every CTA (lane r writes CTA r's)
-__device__ __forceinline__ void push(const Cand& c, float* s_slots, uint64_t* mbar, int slot,
-                                     int lane) {
-  if (lane < kCluster) {
-    uint32_t dst, bar;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(dst)
-                 : "r"(smem_u32(s_slots + slot * kSlot)), "r"(lane));
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(bar) : "r"(smem_u32(mbar)), "r"(lane));
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
-        "[%5];\n" ::"r"(dst),
-        "r"(__float_as_uint(c.v)), "r"((unsigned)c.i), "r"(__float_as_uint(c.x)),
-        "r"(__float_as_uint(c.y)), "r"(bar)
-        : "memory");
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
-            dst + 16),
-        "r"(__float_as_uint(c.z)), "r"(bar)
-        : "memory");
-  }
-}
-
-// the 64 candidates of a step, reduced in the same order by every warp
-__device__ __forceinline__ Cand gather_best(const float* s_slots, int lane) {
-  Cand c = none();
-#pragma unroll
-  for (int k = lane; k < kClusterWarps; k += 32) {
-    const float4 a = *reinterpret_cast<const float4*>(s_slots + k * kSlot);
-    take_better(c, Cand{a.x, __float_as_int(a.y), a.z, a.w, s_slots[k * kSlot + 4]});
-  }
-  return warp_best(c);
-}
-
-// a step's exchange, shared by the kernel and the round probe: push, wait,
-// reduce; returns the step's pick
-__device__ __forceinline__ Cand exchange(const Cand& mine, int step, float (*s_slots)[kClusterWarps * kSlot],
-                                         uint64_t* s_mbar, int gwarp, int t) {
-  const int par = step & 1;
-  const int lane = t & 31;
-  push(mine, s_slots[par], s_mbar + par, gwarp, lane);
-  wait_phase(s_mbar + par, ((step - 1) >> 1) & 1);
-  // re-arm this parity for step + 2: every push of that step comes after
-  // every warp's push of step + 1, and this thread pushes step + 1 later
-  if (t == 0) arm(s_mbar + par);
-  return gather_best(s_slots[par], lane);
-}
-
-__device__ __forceinline__ void init_exchange(uint64_t* s_mbar, int t) {
-  if (t == 0) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(s_mbar + p)));
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    arm(s_mbar);
-    arm(s_mbar + 1);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -284,7 +134,7 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
                xyz[3 * arg + 2]};
   }
   if (rank == 0 && t == 0) out[(size_t)b * npoint] = 0;
-  init_exchange(s_mbar, t);
+  init_exchange<kClusterWarps>(s_mbar, t);
   cluster_sync();  // every CTA's mbarriers are armed before the first push
 
   // every warp of the cluster keeps the last pick; the seed pick is point 0
@@ -315,7 +165,8 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
         take_better(mine, best);
       }
     }
-    const Cand pick = exchange(mine, step, s_slots, s_mbar, gwarp, t);
+    const Cand pick =
+        exchange<kCluster, kClusterWarps>(mine, step, s_slots, s_mbar, gwarp, t);
     px = pick.x;
     py = pick.y;
     pz = pick.z;
@@ -325,44 +176,13 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
   cluster_sync();  // every push has landed before any CTA leaves
 }
 
-// One step's exchange and nothing else, `rounds` times: the floor of K6's
-// step. sink (clusters * 8,) f32.
-__global__ void __launch_bounds__(kThreads) cluster_round_kernel(int rounds, float* __restrict__ sink) {
-  __shared__ __align__(16) float s_slots[2][kClusterWarps * kSlot];
-  __shared__ __align__(8) uint64_t s_mbar[2];
-  const int t = threadIdx.x;
-  const int gwarp = (int)cluster_rank() * kWarps + (t >> 5);
-  init_exchange(s_mbar, t);
-  cluster_sync();
-  float acc = 0.f;
-  for (int step = 1; step <= rounds; ++step) {
-    acc += exchange(Cand{acc + gwarp, gwarp, acc, 0.f, 0.f}, step, s_slots, s_mbar, gwarp, t).x;
-  }
-  if (t == 0) sink[blockIdx.x] = acc;
-  cluster_sync();
-}
-
 int coord_smem(int nb) {
   return kWarps * 3 * ((nb + kClusterWarps - 1) / kClusterWarps) * kBlock * (int)sizeof(float);
 }
 
 cudaError_t launch_config(const void* kernel, int clusters, int smem, cudaStream_t stream,
                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return err;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(clusters * kCluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaSuccess;
+  return cluster_config(kernel, kCluster, clusters, kThreads, smem, stream, cfg, attr);
 }
 
 }  // namespace
@@ -411,20 +231,6 @@ extern "C" int fps_block_launch(const void* xyz, const void* xs, const void* ys,
                            static_cast<const float*>(bmax), static_cast<const int32_t*>(barg), n,
                            nb, npoint, static_cast<int32_t*>(out),
                            static_cast<unsigned long long*>(visits));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// `clusters` clusters run `rounds` exchange rounds; sink (clusters * 8,) f32.
-// For timing the floor of a K6 step.
-extern "C" int fps_block_round_probe(int clusters, int rounds, void* sink, void* stream) {
-  if (clusters <= 0 || rounds <= 0) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = launch_config(reinterpret_cast<const void*>(cluster_round_kernel), clusters,
-                                  0, static_cast<cudaStream_t>(stream), cfg, attr);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, cluster_round_kernel, rounds, static_cast<float*>(sink));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

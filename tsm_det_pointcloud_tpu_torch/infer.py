@@ -224,7 +224,9 @@ def voxel_anchor_counts(model, out):
     return voxels, over
 
 
-def _self_device_us(evt):
+def self_device_us(evt):
+    """A torch.profiler event's own device time, µs (the attribute's name
+    differs between PyTorch versions; 0 when it has none)."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
@@ -258,8 +260,8 @@ def profile_call(fn, top=20):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)
-              and _self_device_us(e) > 0]
-    busy_us = sum(_self_device_us(e) for e in events)
+              and self_device_us(e) > 0]
+    busy_us = sum(self_device_us(e) for e in events)
     print(f"profile: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}%), idle {100 - 100 * busy_us / wall_us:.1f}%")
     # each iteration of an NMS keep fixpoint (nms_bev's or the suppression
@@ -268,9 +270,9 @@ def profile_call(fn, top=20):
     if n_equal:
         print(f"profile: {n_equal} aten::equal calls (NMS keep-fixpoint iterations, one "
               f"host sync each)")
-    events.sort(key=_self_device_us, reverse=True)
+    events.sort(key=self_device_us, reverse=True)
     for e in events[:top]:
-        print(f"  {_self_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+        print(f"  {self_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
 
 def main(argv=None):

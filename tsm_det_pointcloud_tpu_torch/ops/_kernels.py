@@ -3,9 +3,10 @@
 Each `csrc/*.cu` file has a plain C interface. At first use every source is
 compiled by `nvcc` for `sm_90a` into a shared library under
 `tsm_det_pointcloud_tpu_torch/_build/` (one `nvcc` per source, all started
-together), keyed by a hash of the source and the flags, and loaded with
-`ctypes`. Pointers and the stream are passed as `c_void_p`; every C entry
-returns the launch's `cudaError_t`, and `check` raises when it is not 0.
+together), keyed by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, and loaded with `ctypes`. Pointers and the
+stream are passed as `c_void_p`; every C entry returns the launch's
+`cudaError_t`, and `check` raises when it is not 0.
 
 `LAUNCHES` counts kernel launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels the
@@ -72,16 +73,18 @@ _SIGNATURES = {
     "spconv_bykey": ("bykey_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "spconv_bykey_bwd": ("bykey_bwd_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                          _P]),
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P]),
     "spconv_gather": ("gather_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
 }
 
 # entries beside a kernel's launch: name -> (kernel whose library holds it,
 # symbol, argtypes)
 _ENTRIES = {
+    "fps_plan": ("fps", "fps_plan", [_I, _I, _P]),
+    "fps_round_probe": ("fps", "fps_round_probe", [_I, _I, _I, _P, _P]),
+    "spconv_bykey_bwd_plan": ("spconv_bykey_bwd", "bykey_bwd_plan", [_I, _I, _I, _I, _I, _P]),
     "fps_block_plan": ("fps_block", "fps_block_plan", [_I, _P]),
-    "fps_block_round_probe": ("fps_block", "fps_block_round_probe", [_I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -112,7 +115,8 @@ def _nvcc():
 
 def _lib_path(name):
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 

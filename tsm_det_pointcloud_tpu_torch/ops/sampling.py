@@ -6,12 +6,13 @@ while a valid lane remains; s-fps carries the raw min-distance and applies
 the weight only at the argmax; ties go to the first maximum.
 
 On a CUDA tensor both samplers launch kernel K1 (csrc/fps.cu, replacing the
-Pallas `_fps_kernel_batched` / `_fps_kernel`, ops/fps_pallas.py:28, :67)
-up to 16384 points a row; d-fps over more points launches kernel K6
-(csrc/fps_block.cu, replacing the three block-pruned Pallas kernels
-`_fps_block_kernel`, `_fps_block_kernel_2row` and `_fps_block_kernel_nrow`,
-ops/fps_pallas.py:197, :490, :633). On a CPU tensor they run the plain
-version below, which repeats the kernel's arithmetic step by step.
+Pallas `_fps_kernel_batched` / `_fps_kernel`, ops/fps_pallas.py:28, :67;
+a row on a thread-block cluster) up to 16384 points a row; d-fps over more
+points launches kernel K6 (csrc/fps_block.cu, replacing the three
+block-pruned Pallas kernels `_fps_block_kernel`, `_fps_block_kernel_2row`
+and `_fps_block_kernel_nrow`, ops/fps_pallas.py:197, :490, :633). On a
+CPU tensor they run the plain version below, which repeats the kernel's
+arithmetic step by step.
 
 Block-pruned d-fps (counterpart of ops/fps_pallas.py:171-487) is exact: the
 points are Morton-sorted into blocks of 128, each block keeps its bounding
@@ -32,7 +33,7 @@ import torch
 
 from . import _kernels
 
-FPS_MAX_POINTS = 16384  # one row's xyz must fit one block's shared memory
+FPS_MAX_POINTS = 16384  # K1's widest layout: 8 points a lane, a cluster of 8 CTAs
 FPS_BLOCK = 128         # points per Morton block of the block-pruned d-fps
 _BIG_IDX = 1 << 30      # original index of a pad lane: never the least
 FPS_BLOCK_MAX_POINTS = 16 * 64 * FPS_BLOCK  # K6: 16 blocks a warp, 64 warps a cluster
@@ -75,6 +76,18 @@ def furthest_point_sample_plain(xyz, npoint, valid_mask=None, weights=None):
         last = torch.where(key == kmax, lanes, N).min(dim=-1).values
         idxs[:, i] = last.to(torch.int32)
     return idxs
+
+
+def fps_plan(n, weighted=False):
+    """K1's launch plan for rows of `n` points on the current card: cluster
+    size (CTAs a row: 4 for rows of up to 4096 points, else 8), the most
+    clusters of that layout resident at once (cudaOccupancyMaxActiveClusters;
+    a larger batch runs in waves) and the shared memory of a CTA (its
+    exchange slots)."""
+    out = (ctypes.c_int * 3)()
+    _kernels.check(_kernels.func("fps_plan")(n, int(weighted), ctypes.addressof(out)),
+                   "fps_plan")
+    return {"cluster_size": out[0], "active_clusters": out[1], "smem_bytes": out[2]}
 
 
 def _fps_kernel(xyz, npoint, valid_mask, weights):

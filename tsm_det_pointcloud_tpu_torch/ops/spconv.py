@@ -20,7 +20,9 @@ On a CUDA tensor:
     replacing the Pallas `_bykey_kernel` of ops/spconv_pallas.py:132);
   * the backward of the by-key conv, `gather_matmul_bykey_bwd`, launches
     kernel K5 (csrc/spconv_bykey_bwd.cu, replacing the Pallas
-    `_bykey_bwd_kernel` of ops/spconv_pallas.py:383);
+    `_bykey_bwd_kernel` of ops/spconv_pallas.py:383); it takes maps that are
+    injective per tap, and computes df through each tap's inverse, whose CPU
+    twin is `gather_matmul_bykey_df_plain`;
   * `gather_matmul` launches kernel K7 (csrc/spconv_gather.cu, replacing the
     Pallas `_kernel` of ops/spconv_pallas.py:45).
 On a CPU tensor all four run their plain versions below. Every by-key conv
@@ -31,6 +33,7 @@ backward yet, and asking for one raises. A 1x1x1 conv stays a plain GEMM.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -197,9 +200,51 @@ def gather_matmul_bykey_bwd_plain(features, skeys, qkeys, weight, g, sentinel):
     return df.reshape(B, V, C), dw
 
 
+def bykey_inverse_plain(skeys, qkeys, sentinel):
+    """The per-tap inverse of a by-key map: inv (B, K, V) int64 with
+    inv[b, k, row] = the target q whose key qkeys[b, k, q] names source row
+    `row` of skeys[b], or -1 where none does. Raises ValueError if a tap names
+    a row twice: K5's df route takes only maps that are injective per tap,
+    as every rulebook the builders below make is."""
+    B, K, Q = qkeys.shape
+    V = skeys.shape[1]
+    idx, found = _lookup_plain(skeys, qkeys, sentinel)
+    dev = qkeys.device
+    slot = (torch.arange(B * K, device=dev).reshape(B, K, 1) * V + idx.long())[found]
+    if torch.unique(slot).numel() != slot.numel():
+        raise ValueError("a tap of the map names a source row twice: the map is not "
+                         "injective per tap")
+    inv = torch.full((B * K * V,), -1, dtype=torch.int64, device=dev)
+    inv[slot] = torch.arange(Q, device=dev).expand(B, K, Q)[found]
+    return inv.reshape(B, K, V)
+
+
+def gather_matmul_bykey_df_plain(skeys, qkeys, weight, g, sentinel):
+    """df of gather_matmul_bykey as K5 computes it on the card: the per-tap
+    inverse table (`bykey_inverse_plain`, which raises on a map that is not
+    injective per tap), then df[b, row] = sum_k g[b, inv[b, k, row]] W[k]^T,
+    summed in tap order, zero where no tap names the row. g (B, Q, Co),
+    weight (K, C, Co) -> (B, V, C)."""
+    inv = bykey_inverse_plain(skeys, qkeys, sentinel)
+    B, K, V = inv.shape
+    Co = g.shape[-1]
+    df = torch.zeros((B, V, weight.shape[1]), dtype=g.dtype, device=g.device)
+    for k in range(K):
+        i = inv[:, k]
+        gk = torch.gather(g, 1, torch.clamp(i, min=0)[..., None].expand(-1, -1, Co))
+        gk = torch.where((i >= 0)[..., None], gk, torch.zeros_like(gk))
+        df = df + torch.matmul(gk, weight[k].t())
+    return df
+
+
 def gather_matmul_bykey_bwd(features, skeys, qkeys, weight, g, sentinel):
     """Backward of gather_matmul_bykey; kernel K5 on the card. Returns
-    df (B, V, C) and dW (K, C, Co), both f32."""
+    df (B, V, C) and dW (K, C, Co), both f32, bit-equal from launch to
+    launch. On the card the map must be injective per tap (no tap names a
+    source row twice), as every rulebook of `build_subm_rulebook`,
+    `build_conv_plan` and `build_inverse_rulebook` is: K5 inverts each tap's
+    map, and a map that is not injective fails its launch. The plain
+    version, taken for CPU tensors, accepts any map."""
     if not features.is_cuda:
         return gather_matmul_bykey_bwd_plain(features, skeys, qkeys, weight, g,
                                              sentinel)
@@ -215,13 +260,23 @@ def gather_matmul_bykey_bwd(features, skeys, qkeys, weight, g, sentinel):
     _kernels.check_shape(qk, (B, K, Q), "bykey_bwd qkeys")
     _kernels.check_shape(w, (K, C, Co), "bykey_bwd weight")
     _kernels.check_shape(gg, (B, Q, Co), "bykey_bwd g")
-    # both outputs are sums of atomic adds: they start at zero
-    df = torch.zeros((B, V, C), dtype=torch.float32, device=f.device)
-    dw = torch.zeros((K, C, Co), dtype=torch.float32, device=f.device)
+    slots = (ctypes.c_int * 1)()
+    _kernels.check(_kernels.func("spconv_bykey_bwd_plan")(B, V, C, K, Co,
+                                                          ctypes.addressof(slots)),
+                   "spconv_bykey_bwd_plan")
+    dev = f.device
+    wt = w.transpose(1, 2).contiguous()   # W^T (K, Co, C): df's weights
+    # scratch: the inverse table and, with several slots, dW's partial tiles;
+    # the kernel writes every element of df and dW
+    inv = torch.empty((B, K, V), dtype=torch.int32, device=dev)
+    part = (torch.empty((slots[0], K, C, Co), dtype=torch.float32, device=dev)
+            if slots[0] > 1 else None)
+    df = torch.empty((B, V, C), dtype=torch.float32, device=dev)
+    dw = torch.empty((K, C, Co), dtype=torch.float32, device=dev)
     err = _kernels.func("spconv_bykey_bwd")(
-        f.data_ptr(), sk.data_ptr(), qk.data_ptr(), w.data_ptr(), gg.data_ptr(),
-        B, V, C, K, Q, Co, int(min(sentinel, 2**31 - 1)), df.data_ptr(),
-        dw.data_ptr(), _kernels.stream_ptr(f.device))
+        f.data_ptr(), sk.data_ptr(), qk.data_ptr(), wt.data_ptr(), gg.data_ptr(), B, V, C,
+        K, Q, Co, int(min(sentinel, 2**31 - 1)), slots[0], inv.data_ptr(), _kernels.ptr(part),
+        df.data_ptr(), dw.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "spconv_bykey_bwd")
     _kernels.count("spconv_bykey_bwd")
     return df, dw
