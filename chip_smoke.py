@@ -104,9 +104,13 @@ Phases (any failure exits non-zero before the result line):
      records every K3 and K7 call's inputs (8 and 12 a forward); prints the
      voxels a scan and the anchors over SCORE_THRESH;
  14. kernels at SECOND shapes: every recorded K7 call against its plain
-     version (rtol 1e-4, atol 1e-4 * max|out|, K4's tolerance), every K3
-     call bitwise against probe_plain; each timed with its bound, K3 also
-     beside torch.searchsorted, both also by device time alone;
+     version (rtol 1e-4, atol 1e-4 * max|out|, K4's tolerance) and
+     bit-equal between two launches, every K3 call bitwise against
+     probe_plain; each timed with its bound, K3 also beside
+     torch.searchsorted, both also by device time alone. K7's log line
+     gives each call's (C, Co, K), its hits, their share of the staged rows
+     (as K4's) and its bound at the 3xTF32 rate beside the f32 one (not in
+     the kernels line);
  15. SECOND reference: the tiny SECOND with
      tsm_det_pointcloud_tpu_torch/data/second_tiny_state.npz (the JAX
      package's converted PRNGKey(0) init) reproduces
@@ -114,7 +118,19 @@ Phases (any failure exits non-zero before the result line):
  16. SECOND main path: launch counts are zeroed, 3 batches of forward +
      class-agnostic NMS run, the counts are read; outputs finite, box preds
      (4, 211200, 7), count <= 500, K3 and K7 launched 8 and 12 times a
-     forward. Prints SECOND scans/s and the peak device memory.
+     forward. Prints SECOND scans/s and the peak device memory;
+ 17. SECOND training capture: one training step of the second.yaml
+     detector (b4 x 20000, 16000 voxels a level, seeded weights, a class-1
+     box around each of the scan's 8 clusters, adam_onecycle over every
+     parameter; the warm-up of phase 18) records every K3 and K7 call
+     (8 and 12: the forward's, K7 under autograd) and checks that backward
+     gave every parameter a gradient (every sparse-conv weight a nonzero
+     one); each call runs through its kernel and its plain version at the
+     tolerances of phase 14, timed, with its bound;
+ 18. SECOND training main path: launch counts are zeroed, 2 timed steps
+     run, the counts are read; losses finite, every parameter changed, K3
+     and K7 launched 8 and 12 times a step. Prints train scans/s and the
+     peak device memory.
 The line before the last is the kernels JSON: each row's numbers are those
 of the KITTI training path (per step of phase 6, `launches` from phase 8),
 its `eval` object those of the KITTI eval path (per forward of phase 3,
@@ -123,7 +139,8 @@ Waymo eval path (per forward of phase 10, `launches` from phase 11; null
 for K5) and `waymo_train` those of the Waymo training path (per step of
 phase 12, `launches` from its 2 timed steps), its `second` object those of
 the SECOND eval path (per forward of phase 14, `launches` from phase 16;
-null but for K3 and K7). K6 is on no KITTI path: its row's own numbers are
+null but for K3 and K7) and `second_train` those of SECOND's training path
+(per step of phase 17, `launches` from phase 18). K6 is on no KITTI path: its row's own numbers are
 the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
 are that path's (`path` says which path a row's own numbers are from).
 K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
@@ -148,7 +165,7 @@ TF32X3_OPS_PER_S = 495e12 / 3   # H100 SXM TF32 tensor cores, three products (3x
 BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 MAIN_BATCH, MAIN_POINTS, MAIN_ITERS, TRAIN_ITERS = 16, 16384, 3, 3
 WAYMO_BATCH, WAYMO_POINTS, WAYMO_ITERS, WAYMO_TRAIN_ITERS = 8, 122880, 3, 2
-SECOND_BATCH, SECOND_POINTS, SECOND_ITERS = 4, 20000, 3
+SECOND_BATCH, SECOND_POINTS, SECOND_ITERS, SECOND_TRAIN_ITERS = 4, 20000, 3, 2
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
 KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
 WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
@@ -570,15 +587,24 @@ def compare_gather(args):
     err = float((got - want).abs().max())
     check(bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()),
           f"K7 differs from its plain version: max abs err {err} (scale {scale})")
+    check(torch.equal(got, spconv.gather_matmul(f, idx, w)), "K7 differs between two launches")
     B, V, C = f.shape
     _, K, Q = idx.shape
     Co = w.shape[-1]
-    hit = idx >= 0
+    hit = (idx >= 0) & (idx < V)
     hits = int(hit.sum())
+    staged = staged_rows(hit)
     # bytes: the indices, each row that some index names read once, W, out
     rows = sum(int(torch.unique(idx[b][hit[b]]).numel()) for b in range(B))
     ops = 2 * C * Co * hits
     nbytes = 4 * (B * K * Q + rows * C + K * C * Co + B * Q * Co)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    tf32x3_ms = max(ops / TF32X3_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
+    EXTRAS["spconv_gather"] = {"hits": hits, "staged_rows": staged, "bound_tf32x3_ms": tf32x3_ms}
+    print(f"  K7 (C, Co, K) = ({C}, {Co}, {K}): {hits} hits, hit share of staged rows "
+          f"{hits / max(staged, 1):.4f} ({staged} rows in the ({BYKEY_ROWS}-row block, tap) "
+          f"pairs with a hit); bound {b_ms:.4f} ms ({b_by}, f32), {tf32x3_ms:.4f} ms at "
+          f"3xTF32")
     return (err, lambda: spconv.gather_matmul(f, idx, w),
             lambda: spconv.gather_matmul_plain(f, idx, w), None, ops, nbytes, 5, 2)
 
@@ -759,6 +785,75 @@ def second_phases(dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del smodel, preds, sbatches, out, pred
     return report_second, launches_second
+
+
+def second_train_phases(dev):
+    """Phases 17-18: SECOND's training step. Returns the per-kernel report
+    of phase 17 and the launch counts of phase 18."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    # ---- 17. capture one training step's kernel calls (the warm-up) ----
+    scfg_file = ROOT / "tools/cfgs/kitti_models/second.yaml"
+    _, model, opt = build_trainer(scfg_file, dev, seed=0, n_points=SECOND_POINTS,
+                                  total_steps=SECOND_TRAIN_ITERS + 1)
+    meta = model.dataset_meta
+    batches = [synth_train_batch(SECOND_BATCH, SECOND_POINTS, s, dev, meta.point_cloud_range,
+                                 meta.num_point_features)
+               for s in range(SECOND_TRAIN_ITERS + 1)]
+    rec = record_kernels(SECOND_KERNELS)
+    opt.zero_grad(set_to_none=True)
+    out = model(dict(batches[0]))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in SECOND_CALLS.items():
+        check(len(rec.calls[name]) == n,
+              f"the SECOND training step made {len(rec.calls[name])} {name} calls, not {n}")
+    for n, p in model.named_parameters():
+        check(p.grad is not None, f"SECOND parameter {n} got no gradient")
+        if p.dim() == 3:
+            check(bool(p.grad.abs().sum() > 0), f"sparse-conv weight {n} got a zero gradient")
+    opt.step()
+    check(bool(torch.isfinite(out["loss"])), "SECOND warm-up step loss is not finite")
+    print(f"SECOND training capture: voxel capacity {meta.max_voxels}; loss "
+          f"{float(out['loss'].detach()):.4f}, "
+          + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in out["tb_dict"].items()))
+    del out
+    report = compare_recorded(rec.calls, "second train")
+    del rec
+
+    # ---- 18. the SECOND training main path, counted ----
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [train_step(model, opt, b)[0] for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, loss in enumerate(losses):
+        check(bool(torch.isfinite(loss)), f"SECOND training step {i} loss is not finite")
+    for n, p in model.named_parameters():
+        check(not torch.equal(p, before[n]), f"SECOND parameter {n} did not change")
+    for name, n in SECOND_CALLS.items():
+        check(launches[name] == n * SECOND_TRAIN_ITERS,
+              f"kernel {name} launched {launches[name]} times on the SECOND training path, "
+              f"not {n} a step")
+    print(f"SECOND training main path: {SECOND_TRAIN_ITERS} steps x {SECOND_BATCH} scans x "
+          f"{SECOND_POINTS} points in {dt:.3f} s = "
+          f"{SECOND_TRAIN_ITERS * SECOND_BATCH / dt:.3f} train scans/s "
+          f"({1e3 * dt / SECOND_TRAIN_ITERS:.1f} ms/step); losses "
+          f"{[round(float(v), 4) for v in losses]}; {len(before)} parameters changed; "
+          f"launches {launches}; peak memory {peak:.2f} GiB")
+    del model, opt, batches, before, losses
+    torch.cuda.empty_cache()
+    return report, launches
 
 
 def main():
@@ -1063,8 +1158,10 @@ def main():
     torch.cuda.empty_cache()
 
     report_second, launches_second = second_phases(dev)
+    report_strain, launches_strain = second_train_phases(dev)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
-                       "waymo train": report_wtrain, "second": report_second})
+                       "waymo train": report_wtrain, "second": report_second,
+                       "second train": report_strain})
 
     def numbers(a, n):
         return {"launches": n, "max_abs_err": a["err"], "ms": a["ms"],
@@ -1082,6 +1179,8 @@ def main():
                        if name in report_wtrain else None)
         second = (numbers(report_second[name], launches_second[name])
                   if name in report_second else None)
+        second_train = (numbers(report_strain[name], launches_strain[name])
+                        if name in report_strain else None)
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:
@@ -1094,6 +1193,7 @@ def main():
             "eval": (numbers(report_eval[name], launches_eval[name])
                      if name in report_eval else None),
             "waymo": waymo, "waymo_train": waymo_train, "second": second,
+            "second_train": second_train,
         })
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,9 @@
 """Each hand-written kernel against its plain PyTorch version on the card
 (skipped on hosts without one). Run there with
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
-K1 / K2 / K3 / K6 are exact; K4 and K5 multiply in split precision
-(3xTF32) and sum in another f32 order, fixed from launch to launch (both
-bit-equal on repeat), K7 sums in another order (all rtol 1e-4,
-atol 1e-4 * max|out|)."""
+K1 / K2 / K3 / K6 are exact; K4, K5 and K7 multiply in split precision
+(3xTF32) and sum in another f32 order, fixed from launch to launch (all
+bit-equal on repeat; rtol 1e-4, atol 1e-4 * max|out|)."""
 import numpy as np
 import pytest
 import torch
@@ -579,3 +578,110 @@ def test_materialised_convs_launch_probe_and_gather(dev):
     want = spconv.gather_matmul_bykey_plain(f, lazy.skeys, lazy.qkeys, w, int(np.prod(grid)))
     scale = float(want.abs().max())
     assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale).all()
+
+
+def _gather_case(c, co, k, dev, scale_range=0.0, seed=6):
+    """An index map made so that: row block 1 (rows 64-127) misses at every
+    tap, tap 1 has exactly one hit in row block 0, the last tap misses
+    everywhere, some entries are >= V (a miss too), indices repeat within a
+    tap, and Q = 333 is not a multiple of 64. With `scale_range` r, the
+    features and weights span 10**-r .. 10**r in magnitude."""
+    rng = np.random.RandomState(seed)
+    B, V, Q = 2, 700, 333
+    idx = rng.randint(0, V, (B, k, Q)).astype(np.int32)
+    idx[rng.uniform(size=(B, k, Q)) < 0.6] = -1
+    idx[:, :, 64:128] = -1
+    idx[:, 1, :64] = -1
+    idx[:, 1, 17] = 3
+    idx[:, k - 1] = -1
+    idx[:, 0, ::7] = V + 5
+
+    def spread(shape):
+        x = rng.randn(*shape)
+        return (x * 10.0 ** rng.uniform(-scale_range, scale_range, shape)).astype(np.float32)
+
+    f = spread((B, V, c))
+    w = (spread((k, c, co)) / np.sqrt(c)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (f, idx, w))
+
+
+@pytest.mark.parametrize("k", [3, 27])
+@pytest.mark.parametrize("co", [16, 32, 128])
+@pytest.mark.parametrize("c", [4, 16, 40])
+def test_gather_kernel_edges(dev, c, co, k):
+    """SECOND's widths and taps: an all-miss row block, a one-hit tap, an
+    all-miss tap, indices >= V, ragged Q; two launches bit-equal."""
+    f, idx, w = _gather_case(c, co, k, dev)
+    got = _counted("spconv_gather", lambda: spconv.gather_matmul(f, idx, w))
+    want = spconv.gather_matmul_plain(f, torch.where(idx < f.shape[1], idx, -1), w)
+    assert _bykey_close(got, want)
+    assert not got[:, 64:128].any()               # the all-miss row block
+    assert torch.equal(got, spconv.gather_matmul(f, idx, w))
+
+
+@pytest.mark.parametrize("c,co", [(16, 32), (64, 128)])
+def test_gather_kernel_split_precision(dev, c, co):
+    """Inputs spanning 1e3 in magnitude: K7 holds the f32 tolerance, where
+    the plain product on operands rounded to TF32 does not."""
+    f, idx, w = _gather_case(c, co, 27, dev, scale_range=1.5)
+    idx = torch.where(idx < f.shape[1], idx, -1)
+    got = _counted("spconv_gather", lambda: spconv.gather_matmul(f, idx, w))
+    want = spconv.gather_matmul_plain(f, idx, w)
+    assert _bykey_close(got, want)
+    assert not _bykey_close(spconv.gather_matmul_plain(_to_tf32(f), idx, _to_tf32(w)), want)
+
+
+def test_second_train_step_on_card(dev):
+    """The tiny SECOND's training step on the card (K3 and K7 forward, K7's
+    plain backward) against the same step on the CPU: loss and tb terms
+    rtol 1e-4, every parameter's gradient rtol 1e-3 with atol 1e-4 * the
+    largest |grad| of its tensor (the card's index_add_ sums in no fixed
+    order), BN running stats 1e-5; 12 K7 and 8 K3 launches."""
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.runtime.optimization import build_optimizer
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+
+    gt, gmask = tiny.second_gt(2)
+    state = tiny.load_state(tiny.SECOND_STATE_PATH)
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_network(tiny.second_model_cfg(), 1, tiny.SECOND_META, device=d)
+        model.load_state_dict(state, strict=True)
+        opt = build_optimizer({"OPTIMIZER": "adam_onecycle", "LR": 0.003,
+                               "WEIGHT_DECAY": 0.01, "GRAD_NORM_CLIP": 10},
+                              list(model.parameters()), 10)
+        batch = {"points": torch.from_numpy(tiny.second_points(2)).to(d),
+                 "points_mask": torch.ones(2, 512, dtype=torch.bool, device=d),
+                 "batch_size": 2, "gt_boxes": torch.from_numpy(gt).to(d),
+                 "gt_boxes_mask": torch.from_numpy(gmask).to(d)}
+        before = dict(_kernels.LAUNCHES)
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        out = model(dict(batch))
+        out["loss"].backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        launched = {k: _kernels.LAUNCHES[k] - before[k] for k in ("probe", "spconv_gather")}
+        runs[d.type] = (out, grads,
+                        {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                        launched)
+        loss, _ = train_step(model, opt, batch)
+        assert torch.isfinite(loss)
+    (cpu_out, cpu_g, cpu_sd, _), (out, g, sd, launched) = runs["cpu"], runs["cuda"]
+    assert launched == {"probe": 8, "spconv_gather": 12}
+    for key in ["loss"] + [f"tb/{k}" for k in cpu_out["tb_dict"]]:
+        got = out["loss"] if key == "loss" else out["tb_dict"][key[3:]]
+        want = cpu_out["loss"] if key == "loss" else cpu_out["tb_dict"][key[3:]]
+        np.testing.assert_allclose(float(got.detach()), float(want.detach()), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, abs(float(want.detach()))),
+                                   err_msg=key)
+    assert float(cpu_out["tb_dict"]["rpn_loss_loc"]) > 0
+    for n, want in cpu_g.items():
+        np.testing.assert_allclose(g[n].numpy(), want.numpy(), rtol=1e-3,
+                                   atol=1e-4 * float(want.abs().max()), err_msg=n)
+    for k, want in cpu_sd.items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(sd[k].numpy(), want.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=k)

@@ -3,10 +3,13 @@ CPU: K7's plain version (`gather_matmul_plain`) against the Pallas index
 gather-GEMM it replaces (ops/spconv_pallas.py `_kernel`, in interpret mode)
 and against its XLA formulation; the materialised rulebooks of the three
 builders against the JAX builders', element for element; the convs through
-the materialised route against the same convs by key.
+the materialised route against the same convs by key; K7's gradient
+(`_GatherConv`, whose backward is `gather_matmul_bwd_plain`) against
+`jax.vjp` of the XLA formulation, as the JAX custom VJP's `_bwd` takes it.
 
 Tolerance for sums: rtol 1e-5, atol 1e-5 * max|want| — f32 sums over taps
 and channels run in another order on the two sides."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,3 +174,72 @@ def test_sparse_to_dense_matches_jax():
     got = tsp.sparse_to_dense(torch.from_numpy(feats), torch.from_numpy(coords),
                               torch.from_numpy(valid), grid)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _vjp_case(kind):
+    """(features, idx, weight, g) numpy: a random map with -1 entries and
+    repeats, a strided conv's materialised plan, and conv_out's 3-tap one."""
+    rng = np.random.RandomState({"random": 7, "down": 8, "conv_out": 9}[kind])
+    if kind == "random":
+        B, V, Q, K, c, co = 2, 200, 150, 27, 16, 32
+        idx = rng.randint(0, V - 30, (B, K, Q)).astype(np.int32)   # rows >= V - 30 unnamed
+        idx[rng.rand(B, K, Q) < 0.4] = -1
+        idx[:, 2] = -1
+    else:
+        ks, st, pd = PLANS[kind]
+        coords, valid, grid = _voxels(10)
+        _, _, (i, found) = tsp.build_conv_plan(
+            torch.from_numpy(coords), torch.from_numpy(valid), grid,
+            _og(grid, ks, st, pd), ks, st, pd, 250, lazy=False)
+        idx = torch.where(found, i, torch.full_like(i, -1)).numpy()
+        B, K, Q = idx.shape
+        V, c, co = coords.shape[1], 64, 128 if kind == "conv_out" else 64
+    assert (idx >= 0).any() and (idx < 0).any()
+    f = rng.randn(B, V, c).astype(np.float32)
+    w = (rng.randn(K, c, co) / np.sqrt(K * c)).astype(np.float32)
+    g = rng.randn(B, Q, co).astype(np.float32)
+    return f, idx, w, g
+
+
+@pytest.mark.parametrize("kind", ["random", "down", "conv_out"])
+def test_gather_conv_gradient_matches_jax_vjp(kind):
+    """df and dW of the materialised conv's product (`_GatherConv`) against
+    jax.vjp of `_xla_reference` at the same cotangent; rows no index names
+    get a zero df on both sides."""
+    f, idx, w, g = _vjp_case(kind)
+    _, vjp = jax.vjp(lambda a, b: spconv_pallas._xla_reference(a, jnp.asarray(idx), b),
+                     jnp.asarray(f), jnp.asarray(w))
+    want_df, want_dw = vjp(jnp.asarray(g))
+    tf = torch.from_numpy(f).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    out = tsp._GatherConv.apply(tf, tw, torch.from_numpy(idx))
+    out.backward(torch.from_numpy(g))
+    _close(tf.grad.numpy(), want_df)
+    _close(tw.grad.numpy(), want_dw)
+    named = np.zeros(f.shape[:2], bool)
+    for b in range(f.shape[0]):
+        named[b, idx[b][idx[b] >= 0]] = True
+    assert not named.all() and not tf.grad.numpy()[~named].any()
+
+
+def test_materialised_conv_backward_reaches_features_and_weight():
+    """A subm conv on a materialised rulebook, masked output, under
+    autograd: its gradients equal the by-key route's (K5's plain version)."""
+    coords, valid, grid = _voxels(11)
+    rng = np.random.RandomState(12)
+    tc, tv = torch.from_numpy(coords), torch.from_numpy(valid)
+    f0 = rng.randn(2, 300, 16).astype(np.float32)
+    w0 = (rng.randn(27, 16, 16) * 0.1).astype(np.float32)
+    g = torch.from_numpy(rng.randn(2, 300, 16).astype(np.float32))
+    grads = []
+    for lazy in (False, True):
+        f = torch.from_numpy(f0).requires_grad_(True)
+        w = torch.from_numpy(w0).requires_grad_(True)
+        out = tsp.subm_conv3d(f, tc, tv, w, grid,
+                              rulebook=tsp.build_subm_rulebook(tc, tv, grid, lazy=lazy))
+        out.backward(g)
+        grads.append((f.grad.numpy(), w.grad.numpy()))
+    (mf, mw), (bf, bw) = grads
+    assert np.abs(mw).max() > 0
+    _close(mf, bf)
+    _close(mw, bw)

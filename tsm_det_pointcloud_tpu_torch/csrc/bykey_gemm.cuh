@@ -1,28 +1,47 @@
-// The by-key gather-GEMM on tensor cores, shared by K4 (csrc/spconv_bykey.cu)
-// and K5's df route (csrc/spconv_bykey_bwd.cu):
-//   out[b, q, :] = sum_k  W[k]^T . f[b, row(b, k, q), :]     (rows unique per tap)
+// The gather-GEMM on tensor cores, shared by K4 (csrc/spconv_bykey.cu), K5's
+// df route (csrc/spconv_bykey_bwd.cu) and K7 (csrc/spconv_gather.cu):
+//   out[b, q, :] = sum_k  W[k]^T . f[b, row(b, k, q), :]
 // where row(b, k, q) comes from a row source: K4 probes the sorted keys
-// (`ProbeRows`), K5's df reads a per-tap inverse table (`TableRows`).
+// (`ProbeRows`); K5's df reads a per-tap inverse table and K7 a materialised
+// rulebook, both a (b, k, q) table of rows (`TableRows`).
 //
-// Design (measured on K4 in its file's header). A block owns 64 output rows
-// and all output columns (up to 256; a grid column per further 256). The row
-// source fills every (tap, row) slot once; each warp then compacts its taps'
-// hit rows (a ballot and a prefix count), so that only hits are gathered.
-// The work is a list of (active tap, 32-channel chunk) items in tap order, on
-// a two-stage ring with one barrier an item: item i + 1's weight slice comes
-// by cp.async and its gathered rows are loaded into registers while item i is
-// multiplied. The product runs on the tensor cores in split precision
-// (3xTF32): each operand x is hi = tf32(x) plus lo = tf32(x - hi), and
-// hi.hi + hi.lo + lo.hi accumulates in f32 with mma.sync m16n8k8, which keeps
-// float32-level error. The gathered rows are split once, as they are stored,
-// into hi and lo planes that every warp reads with ldmatrix; a warp splits
-// only its own columns of the weight slice. A warp owns a fixed slice of the
-// columns and all (up to four) 16-row tiles of compacted hits; at a tap's
-// last chunk it adds its fragments to their own rows of an f32 output tile in
-// shared memory. Rows are unique within a tap and the slice is the warp's
-// alone, so the sums need no atomics and run in tap order: two launches give
-// bit-equal output. Rows q >= Q are never written; every other row is, zeros
-// where no tap hits.
+// Design. A block owns 64 output rows and all output columns (up to 256; a
+// grid column per further 256). The row source fills every (tap, row) slot
+// once; each warp then compacts its taps' hit rows (a ballot and a prefix
+// count), so that only hits are gathered. The work is a list of (active tap,
+// 32-channel chunk) items in tap order, on a two-stage ring with one barrier
+// an item: item i + 1's weight slice comes by cp.async, and its hit rows are
+// fetched, while item i is multiplied. The product runs on the tensor cores
+// in split precision (3xTF32): each operand x is hi = tf32(x) plus lo =
+// tf32(x - hi), and hi.hi + hi.lo + lo.hi accumulates in f32 with mma.sync
+// m16n8k8, which keeps float32-level error. A warp owns a slice of the
+// columns and its 16-row tiles of compacted hits, and at a tap's last chunk
+// adds its fragments to their own rows of an f32 output tile in shared
+// memory. Rows are unique within a tap and a (tile, slice) is one warp's
+// alone, so the sums need no atomics and run in tap order: two launches
+// give bit-equal output. Rows q >= Q are never written; every other row is,
+// zeros where no tap hits.
+//
+// How the rows reach the fragments follows the width of a block's columns
+// (`gemm_launch`; measured on an H100 on K4's, K5's and K7's main-path
+// calls, each call both ways; PERF.md):
+//  - up to 64 (`raw_kernel`, a warp owning one 8-column tile): the rows come
+//    raw by cp.async and each warp splits its A fragments into hi and lo as
+//    it loads them (a smaller stage, so more blocks an SM); a chunk runs
+//    only the 8-channel k-steps its channels fill (one at C = 4, two at
+//    C = 16), and at 16 or 32 columns the warps split the 16-row tiles four
+//    or two ways, so that all eight multiply. 0.72-0.98x the time of the
+//    planes on every call of 64 columns.
+//  - above 64 (`planes_kernel`, a warp owning two or four tiles, so all
+//    eight would split the same A fragments): the rows come through
+//    registers and are split once, as they are stored, into hi and lo planes
+//    that every warp reads with ldmatrix. Per-warp splits ran 1.05-1.23x its
+//    time with 128 or 256 channels into as many columns.
+// One kernel with the two routes as a template switch ran slower on both
+// (more registers at 64 columns: fewer blocks an SM). On SECOND's narrow
+// calls three stages were slower than two, and the per-item instructions
+// (fragment splits, index arithmetic, the tile adds), not the copies, take
+// most of the time.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,8 +64,8 @@ __host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
 // row stride of the staged weight slice: >= the columns, = 8 mod 32, so that
 // a warp's B fragments (8 columns x 4 rows) fall in 32 distinct banks
 __host__ __device__ inline int w_stride(int np) { return np + ((8 - np % 32) + 32) % 32; }
-// a stage: the rows' hi and lo planes, then the weight slice
-__host__ __device__ inline int stage_floats(int np) {
+// planes_kernel's stage: the rows' hi and lo planes, then the weight slice
+__host__ __device__ inline int planes_stage_floats(int np) {
   return 2 * kRows * kAStride + kChunk * w_stride(np);
 }
 __host__ __device__ inline int out_floats(int np, int k_taps) {
@@ -147,57 +166,38 @@ struct ProbeRows {
   }
 };
 
-// K5's df row source: a table (b, k, q) of the gathered row of output row q
-// at tap k, or -1.
+// K5's df and K7's row source: a table (b, k, q) of the gathered row of
+// output row q at tap k; an entry outside [0, v) (-1: a miss) gathers
+// nothing.
 struct TableRows {
   const int32_t* table;
+  int v;  // rows of the gathered matrix
 
   __device__ void fill(int* s_slot, int b, int q0, int q, int k_taps) const {
     for (int it = threadIdx.x; it < k_taps * kRows; it += kThreads) {
       const int r = it % kRows;
-      s_slot[it] = q0 + r < q ? __ldg(table + ((size_t)b * k_taps + it / kRows) * q + q0 + r) : -1;
+      const int sl =
+          q0 + r < q ? __ldg(table + ((size_t)b * k_taps + it / kRows) * q + q0 + r) : -1;
+      s_slot[it] = sl >= 0 && sl < v ? sl : -1;
     }
   }
 };
 
-// NT: 8-column tiles a warp owns (its slice is NT * 8 columns)
-template <int NT, class Rows>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const float* __restrict__ f, Rows rows, const float* __restrict__ w, int v, int c,
-            int k_taps, int q, int co, int vec_f, int vec_w, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int s_cnt[kMaxTaps];  // hits of each tap
-  __shared__ int s_act[kMaxTaps];  // the taps with a hit, in order
-  __shared__ int s_nact;
-
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kRows;
-  const int n_base = blockIdx.y * kMaxCols;
-  const int ncols = min(kMaxCols, co - n_base);
-  const int np = round8(ncols);
-  const int ostride = np + 4;
-  const int wstride = w_stride(np);
-  const int sfl = stage_floats(np);
-  const int n_chunks = (c + kChunk - 1) / kChunk;
+// Phases 1 and 2 of both kernels: every (tap, row) slot of the block's rows
+// once, each tap's hits compacted (a ballot and a prefix count a 32 rows)
+// into s_hslot / s_hrow with their count in s_cnt, the active taps in order
+// in s_act; the output tile zeroed (its space held the slots). Returns the
+// active taps. Ends on a barrier.
+template <class Rows>
+__device__ __forceinline__ int compact_hits(const Rows& rows, int* s_slot, int* s_hslot,
+                                            uint8_t* s_hrow, int* s_cnt, int* s_act,
+                                            int* s_nact, float* s_out, int out_len, int b,
+                                            int q0, int q, int k_taps) {
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int lane = t & 31;
-  const int g = lane >> 2;  // fragment row / column group
-  const int tq = lane & 3;  // fragment thread-in-group
-
-  float* s_stage = smem;                               // the ring's two stages
-  float* s_out = smem + 2 * sfl;                       // kRows x ostride output tile
-  int* s_slot = reinterpret_cast<int*>(s_out);         // (taps, kRows) row slots, first
-  int* s_hslot = reinterpret_cast<int*>(s_out + out_floats(np, k_taps));  // compacted slots
-  uint8_t* s_hrow = reinterpret_cast<uint8_t*>(s_hslot + k_taps * kRows);  // and their rows
-
-  const float* fb = f + (size_t)b * v * c;
-
-  // ---- 1. every (tap, row) slot once ----
   rows.fill(s_slot, b, q0, q, k_taps);
   __syncthreads();
-
-  // ---- 2. compact each tap's hits: a ballot and a prefix count a 32 rows ----
   for (int kk = warp; kk < k_taps; kk += kWarps) {
     int n = 0;
 #pragma unroll
@@ -223,11 +223,60 @@ gemm_kernel(const float* __restrict__ f, Rows rows, const float* __restrict__ w,
       if (act) s_act[n_act + __popc(m & ((1u << lane) - 1u))] = kk;
       n_act += __popc(m);
     }
-    if (lane == 0) s_nact = n_act;
+    if (lane == 0) *s_nact = n_act;
   }
-  for (int e = t; e < kRows * ostride; e += kThreads) s_out[e] = 0.f;  // the slots are spent
+  for (int e = t; e < out_len; e += kThreads) s_out[e] = 0.f;  // the slots are spent
   __syncthreads();
-  const int n_items = s_nact * n_chunks;
+  return *s_nact;
+}
+
+// Phase 4 of both kernels: the tile out, rows q < Q only.
+__device__ __forceinline__ void store_tile(const float* s_out, int ostride, float* out, int b,
+                                           int q0, int q, int co, int n_base, int ncols) {
+  for (int e = threadIdx.x; e < kRows * ncols; e += kThreads) {
+    const int r = e / ncols, n = e % ncols;
+    if (q0 + r < q) out[((size_t)b * q + q0 + r) * co + n_base + n] = s_out[r * ostride + n];
+  }
+}
+
+// Above 64 columns (see the header): the rows split once into hi and lo
+// planes. NT: 8-column tiles a warp owns (its slice is NT * 8 columns).
+template <int NT, class Rows>
+__global__ void __launch_bounds__(kThreads)
+planes_kernel(const float* __restrict__ f, Rows rows, const float* __restrict__ w, int v, int c,
+              int k_taps, int q, int co, int vec_f, int vec_w, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_cnt[kMaxTaps];  // hits of each tap
+  __shared__ int s_act[kMaxTaps];  // the taps with a hit, in order
+  __shared__ int s_nact;
+
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kRows;
+  const int n_base = blockIdx.y * kMaxCols;
+  const int ncols = min(kMaxCols, co - n_base);
+  const int np = round8(ncols);
+  const int ostride = np + 4;
+  const int wstride = w_stride(np);
+  const int sfl = planes_stage_floats(np);
+  const int n_chunks = (c + kChunk - 1) / kChunk;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;  // fragment row / column group
+  const int tq = lane & 3;  // fragment thread-in-group
+
+  float* s_stage = smem;                               // the ring's two stages
+  float* s_out = smem + 2 * sfl;                       // kRows x ostride output tile
+  int* s_slot = reinterpret_cast<int*>(s_out);         // (taps, kRows) row slots, first
+  int* s_hslot = reinterpret_cast<int*>(s_out + out_floats(np, k_taps));  // compacted slots
+  uint8_t* s_hrow = reinterpret_cast<uint8_t*>(s_hslot + k_taps * kRows);  // and their rows
+
+  const float* fb = f + (size_t)b * v * c;
+
+  // ---- 1, 2. every (tap, row) slot once; each tap's hits compacted ----
+  const int n_items = compact_hits(rows, s_slot, s_hslot, s_hrow, s_cnt, s_act, &s_nact, s_out,
+                                   kRows * ostride, b, q0, q, k_taps) *
+                      n_chunks;
 
   // ---- 3. the ring: stage item i + 1 while item i is multiplied ----
   // The weight slice comes by cp.async. The gathered rows come through
@@ -394,48 +443,250 @@ gemm_kernel(const float* __restrict__ f, Rows rows, const float* __restrict__ w,
   __syncthreads();  // every warp's last tap is in the tile
 
   // ---- 4. the tile out: rows q < Q only ----
-  for (int e = t; e < kRows * ncols; e += kThreads) {
-    const int r = e / ncols, n = e % ncols;
-    if (q0 + r < q) out[((size_t)b * q + q0 + r) * co + n_base + n] = s_out[r * ostride + n];
-  }
+  store_tile(s_out, ostride, out, b, q0, q, co, n_base, ncols);
 }
 
-template <int NT, class Rows>
-cudaError_t launch_nt(const float* f, Rows rows, const float* w, int b, int v, int c, int k_taps,
-                      int q, int co, float* out, cudaStream_t stream) {
+// Up to 64 columns (see the header): a ring of kRawStages stages, each the
+// raw gathered rows (kRows x kAStride) and the weight slice, both by
+// cp.async. NT: 8-column tiles a warp owns; MW: 16-row tiles a warp owns
+// (kMTiles / MW groups of warps split them).
+constexpr int kRawStages = 2;
+__host__ __device__ inline int raw_stage_floats(int np) {
+  return kRows * kAStride + kChunk * w_stride(np);
+}
+
+template <int NT, int MW, class Rows>
+__global__ void __launch_bounds__(kThreads)
+raw_kernel(const float* __restrict__ f, Rows rows, const float* __restrict__ w, int v, int c,
+           int k_taps, int q, int co, int vec_f, int vec_w, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_cnt[kMaxTaps];
+  __shared__ int s_act[kMaxTaps];
+  __shared__ int s_nact;
+
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kRows;
+  const int n_base = blockIdx.y * kMaxCols;
+  const int ncols = min(kMaxCols, co - n_base);
+  const int np = round8(ncols);
+  const int ostride = np + 4;
+  const int wstride = w_stride(np);
+  const int sfl = raw_stage_floats(np);
+  const int n_chunks = (c + kChunk - 1) / kChunk;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+
+  float* s_stage = smem;
+  float* s_out = smem + kRawStages * sfl;
+  int* s_slot = reinterpret_cast<int*>(s_out);
+  int* s_hslot = reinterpret_cast<int*>(s_out + out_floats(np, k_taps));
+  uint8_t* s_hrow = reinterpret_cast<uint8_t*>(s_hslot + k_taps * kRows);
+  const float* fb = f + (size_t)b * v * c;
+
+  const int n_items = compact_hits(rows, s_slot, s_hslot, s_hrow, s_cnt, s_act, &s_nact, s_out,
+                                   kRows * ostride, b, q0, q, k_taps) *
+                      n_chunks;
+
+  // item `item` into stage `buf`: its hit rows' chunk of channels and the
+  // weight slice, zeros past C and past the columns (rows past the hits are
+  // left as they are: their products are never added)
+  auto stage = [&](int item, int buf) {
+    const int kk = s_act[item / n_chunks];
+    const int c0 = (item % n_chunks) * kChunk;
+    const int cnt = s_cnt[kk];
+    const int* hs = s_hslot + kk * kRows;
+    float* sa = s_stage + buf * sfl;
+    float* sw = sa + kRows * kAStride;
+    if (vec_f) {
+      for (int e = t; e < cnt * (kChunk / 4); e += kThreads) {
+        const int j = e / (kChunk / 4), cv = (e % (kChunk / 4)) * 4;
+        const bool ok = c0 + cv < c;
+        cp_async16(sa + j * kAStride + cv, ok ? fb + (size_t)hs[j] * c + c0 + cv : f, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = t; e < cnt * kChunk; e += kThreads) {
+        const int j = e / kChunk, cc = e % kChunk;
+        const bool ok = c0 + cc < c;
+        cp_async4(sa + j * kAStride + cc, ok ? fb + (size_t)hs[j] * c + c0 + cc : f, ok ? 4 : 0);
+      }
+    }
+    const float* wk = w + (size_t)kk * c * co + n_base;
+    if (vec_w) {
+      const int nv = np / 4;
+      for (int e = t; e < kChunk * nv; e += kThreads) {
+        const int r = e / nv, nn = (e % nv) * 4;
+        const bool ok = c0 + r < c && nn < ncols;
+        cp_async16(sw + r * wstride + nn, ok ? wk + (size_t)(c0 + r) * co + nn : w, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = t; e < kChunk * np; e += kThreads) {
+        const int r = e / np, nn = e % np;
+        const bool ok = c0 + r < c && nn < ncols;
+        cp_async4(sw + r * wstride + nn, ok ? wk + (size_t)(c0 + r) * co + nn : w, ok ? 4 : 0);
+      }
+    }
+  };
+
+  constexpr int kColGroups = kWarps / (kMTiles / MW);
+  const int wcol = (warp % kColGroups) * NT * 8;  // this warp's first column
+  const int m0 = (warp / kColGroups) * MW;        // and its first 16-row tile
+  float acc[MW][NT][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+
+  // one commit group an item (empty past the last), so that the wait below
+  // counts the same on every thread
+#pragma unroll
+  for (int s = 0; s < kRawStages - 1; ++s) {
+    if (s < n_items) stage(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_items; ++it) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRawStages - 2) : "memory");
+    // item it is in; every warp is done with item it - 1, whose stage is
+    // refilled next
+    __syncthreads();
+    if (it + kRawStages - 1 < n_items)
+      stage(it + kRawStages - 1, (it + kRawStages - 1) % kRawStages);
+    cp_async_commit();
+    const int kk = s_act[it / n_chunks];
+    const int cnt = s_cnt[kk];
+    const int mt = (cnt + 15) >> 4;
+    const int nks = (min(kChunk, c - (it % n_chunks) * kChunk) + 7) >> 3;  // k-steps of 8
+    const float* sa = s_stage + (it % kRawStages) * sfl;
+    const float* sw = sa + kRows * kAStride;
+    if (wcol < np && m0 < mt) {
+      // rows cnt .. 16 mt - 1 of the stage hold stale values: their output
+      // rows are never added, and a row of the product depends on its own
+      // row of A alone. A fragments (rows g, g + 8; columns tq, tq + 4 of
+      // the k-step) are split as they are loaded; kAStride = 4 mod 32 keeps
+      // the loads conflict-free. Channels past C within the last k-step are
+      // zeros in both operands.
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 8; ++ks) {
+        if (ks < nks) {
+          uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float* bp = sw + (ks * 8 + tq) * wstride + wcol + nt * 8 + g;
+            split(bp[0], bh[nt][0], bl[nt][0]);
+            split(bp[4 * wstride], bh[nt][1], bl[nt][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < MW; ++i) {
+            if (m0 + i < mt) {
+              const float* ap = sa + ((m0 + i) * 16 + g) * kAStride + ks * 8 + tq;
+              uint32_t ah[4], al[4];
+              split(ap[0], ah[0], al[0]);
+              split(ap[8 * kAStride], ah[1], al[1]);
+              split(ap[4], ah[2], al[2]);
+              split(ap[8 * kAStride + 4], ah[3], al[3]);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) mma3(acc[i][nt], ah, al, bh[nt], bl[nt]);
+            }
+          }
+        }
+      }
+      if (it % n_chunks == n_chunks - 1) {  // the tap is done: add it to its rows
+        const uint8_t* hr = s_hrow + kk * kRows;
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int j = (m0 + i) * 16 + g;
+            const int col = wcol + nt * 8 + 2 * tq;
+            if (j < cnt && col < np) {
+              float2* o = reinterpret_cast<float2*>(s_out + hr[j] * ostride + col);
+              float2 x = *o;
+              x.x += acc[i][nt][0];
+              x.y += acc[i][nt][1];
+              *o = x;
+            }
+            if (j + 8 < cnt && col < np) {
+              float2* o = reinterpret_cast<float2*>(s_out + hr[j + 8] * ostride + col);
+              float2 x = *o;
+              x.x += acc[i][nt][2];
+              x.y += acc[i][nt][3];
+              *o = x;
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp's last tap is in the tile
+  store_tile(s_out, ostride, out, b, q0, q, co, n_base, ncols);
+}
+
+// Launch `kernel` (planes_kernel or raw_kernel) with `stages` stages of
+// `stage_fl` floats. The attribute is raised once per kernel, device and
+// size, not at every launch: `smem_allowed` is the instantiation's own.
+template <class Kernel, class Rows>
+cudaError_t launch_with(Kernel kernel, size_t* smem_allowed, int stages, int stage_fl,
+                        const float* f, Rows rows, const float* w, int b, int v, int c,
+                        int k_taps, int q, int co, float* out, cudaStream_t stream) {
   const int np = round8(co < kMaxCols ? co : kMaxCols);
-  const size_t smem = sizeof(float) * (2 * (size_t)stage_floats(np) + out_floats(np, k_taps)) +
+  const size_t smem = sizeof(float) * ((size_t)stages * stage_fl + out_floats(np, k_taps)) +
                       sizeof(int) * (size_t)k_taps * kRows + (size_t)k_taps * kRows;
-  // the attribute is raised once per device and size, not at every launch
-  static size_t smem_allowed[64] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64 || smem > smem_allowed[dev]) {
-    err = cudaFuncSetAttribute(gemm_kernel<NT, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     if (dev < 64) smem_allowed[dev] = smem;
   }
   const int vec_f = c % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0;
   const int vec_w = co % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   dim3 grid((q + kRows - 1) / kRows, (co + kMaxCols - 1) / kMaxCols, b);
-  gemm_kernel<NT, Rows><<<grid, kThreads, smem, stream>>>(f, rows, w, v, c, k_taps, q, co, vec_f,
-                                                          vec_w, out);
+  kernel<<<grid, kThreads, smem, stream>>>(f, rows, w, v, c, k_taps, q, co, vec_f, vec_w, out);
   return cudaGetLastError();
 }
 
+template <int NT, class Rows>
+cudaError_t launch_planes(const float* f, Rows rows, const float* w, int b, int v, int c,
+                          int k_taps, int q, int co, float* out, cudaStream_t stream) {
+  static size_t smem_allowed[64] = {0};
+  const int np = round8(co < kMaxCols ? co : kMaxCols);
+  return launch_with(planes_kernel<NT, Rows>, smem_allowed, 2, planes_stage_floats(np), f, rows,
+                     w, b, v, c, k_taps, q, co, out, stream);
+}
+
+template <int NT, int MW, class Rows>
+cudaError_t launch_raw(const float* f, Rows rows, const float* w, int b, int v, int c,
+                       int k_taps, int q, int co, float* out, cudaStream_t stream) {
+  static size_t smem_allowed[64] = {0};
+  const int np = round8(co < kMaxCols ? co : kMaxCols);
+  return launch_with(raw_kernel<NT, MW, Rows>, smem_allowed, kRawStages, raw_stage_floats(np), f,
+                     rows, w, b, v, c, k_taps, q, co, out, stream);
+}
+
 // out (b, q, co) = the gather-GEMM of f (b, v, c) by w (k_taps, c, co), rows
-// from `rows`. A warp owns NT 8-column tiles of the block's columns (up to 256).
+// from `rows`, by the width of a block's columns (see the header): up to 64,
+// raw_kernel, a warp owning one 8-column tile (at 16 or 32 columns the warps
+// split the four 16-row tiles four or two ways instead of idling); above,
+// planes_kernel, a warp owning two or four tiles.
 template <class Rows>
 cudaError_t gemm_launch(const float* f, Rows rows, const float* w, int b, int v, int c, int k_taps,
                         int q, int co, float* out, cudaStream_t stream) {
   if (b <= 0 || v <= 0 || c <= 0 || k_taps <= 0 || k_taps > kMaxTaps || q <= 0 || co <= 0)
     return cudaErrorInvalidValue;
   const int tiles = round8(co < kMaxCols ? co : kMaxCols) / 8;
-  if (tiles <= kWarps) return launch_nt<1>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
-  if (tiles <= 2 * kWarps) return launch_nt<2>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
-  return launch_nt<4>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
+  if (tiles <= 2) return launch_raw<1, 1>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
+  if (tiles <= 4) return launch_raw<1, 2>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
+  if (tiles <= kWarps) return launch_raw<1, 4>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
+  if (tiles <= 2 * kWarps) return launch_planes<2>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
+  return launch_planes<4>(f, rows, w, b, v, c, k_taps, q, co, out, stream);
 }
 
 }  // namespace

@@ -40,7 +40,7 @@
 //      slots in slot order into dW. Measured on the Waymo training step's
 //      calls (H100): more slots even out taps and passes whose hits differ
 //      (a subm conv's centre tap hits every row), and splitting the staged
-//      rows once, as K4 does, was no faster here.
+//      rows once, as K4 does above 64 columns, was no faster here.
 //   4. df is K4's gather-GEMM (csrc/bykey_gemm.cuh) with the roles swapped:
 //      g is the gathered matrix, W^T (K, Co, C) the weights and the inverse
 //      table the row source (`bykey::TableRows`), so every source row sums
@@ -366,6 +366,6 @@ extern "C" int bykey_bwd_launch(const void* f, const void* skeys, const void* qk
     if (err != cudaSuccess) return err;
   }
   // 4. df: K4's gather-GEMM of g by W^T, rows from the inverse table
-  return bykey::gemm_launch(gp, bykey::TableRows{tab}, static_cast<const float*>(wt), b, q, co,
+  return bykey::gemm_launch(gp, bykey::TableRows{tab, q}, static_cast<const float*>(wt), b, q, co,
                             k_taps, v, c, static_cast<float*>(df), st);
 }

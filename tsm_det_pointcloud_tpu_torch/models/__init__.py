@@ -7,8 +7,8 @@ one of the ported detectors with seeded random weights, in eval mode, on
     PointHeadVoteSASAStatisticDistillation head, teacher and student;
     `.train()` turns on the distillation training path;
   * NAME SECONDNet: MeanVFE, VoxelBackBone8x, HeightCompression,
-    BaseBEVBackbone, AnchorHeadSingle (eval only; a training forward
-    raises).
+    BaseBEVBackbone, AnchorHeadSingle; `.train()` turns on its training
+    forward (target assignment and the head's losses).
 Any other configuration raises. Matmuls and convolutions run in full
 float32: TF32 is switched off here. cuDNN times its algorithms for each
 convolution shape at first use (`cudnn.benchmark`): left to its heuristics,

@@ -7,10 +7,11 @@ Layout: `spatial_features` comes in and `spatial_features_2d` goes out NHWC,
 as in the JAX package; inside, the module works in NCHW, converting once in
 and once out (`permute`, which PyTorch's convolutions take as channels-last
 memory without a copy). Convs are `nn.Conv2d` / `nn.ConvTranspose2d`
-without bias and `nn.BatchNorm2d` (eps 1e-3); `build_network` keeps TF32
-off, so they run in full float32. The JAX package leaves these convs to
-XLA, outside any Pallas kernel. The `s < 1` deblock and the `deblock_final`
-branch are not on a ported path and raise.
+without bias and `nn.BatchNorm2d` (eps 1e-3, flax's batch statistics in
+train mode); `build_network` keeps TF32 off, so they run in full float32.
+The JAX package leaves these convs to XLA, outside any Pallas kernel. The
+`s < 1` deblock and the `deblock_final` branch are not on a ported path and
+raise.
 """
 from __future__ import annotations
 
@@ -21,11 +22,24 @@ from torch import nn
 class _BatchNorm2d(nn.BatchNorm2d):
     """flax's BatchNorm(epsilon=1e-3, momentum=0.99) in torch's terms,
     without torch's update counter: flax keeps none, so a converted state
-    has none to load."""
+    has none to load. In train mode it normalises by the batch's statistics
+    over (N, H, W) and moves the running ones as flax's `batch_stats` move:
+    `running = 0.99 * running + 0.01 * batch`, with the biased batch
+    variance (torch's own update takes the unbiased one)."""
 
     def __init__(self, c):
         super().__init__(int(c), eps=1e-3, momentum=0.01)
         self.register_buffer("num_batches_tracked", None)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                                        self.eps)
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata, *args):
         # a state without metadata reads as torch's version 1, whose loader

@@ -1,19 +1,24 @@
-"""Anchor-based dense head, eval path (counterpart of
-tsm_det_pointcloud_tpu/models/dense_heads/anchor_head.py:29-73, 152-238).
+"""Anchor-based dense head (counterpart of
+tsm_det_pointcloud_tpu/models/dense_heads/anchor_head.py:29-150, 152-313).
 
 `AnchorHeadSingle` runs three 1x1 convs (cls, box, direction) over the NHWC
 BEV features, permutes their outputs to NHWC before flattening, so that
-prediction i pairs with anchor i of `generate_anchors`' layout, and decodes
-the boxes with the direction correction. Target assignment and the losses
-(the training path) are not ported.
+prediction i pairs with anchor i of `generate_anchors`' layout. At eval it
+decodes the boxes with the direction correction; in training it leaves
+them out (the JAX head's `predict_boxes_when_training` is False), and
+`loss` assigns the targets (`assign_targets`, vectorised over anchors and
+boxes, a loop over the scans) and computes the focal cls, smooth-L1 box
+(with the sine difference on the heading) and direction losses.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ...ops import box_coder_utils
+from ...ops import box_coder_utils, loss_utils
+from ...ops.iou3d import boxes_iou3d
 from ...utils.common_utils import limit_period
 
 
@@ -51,11 +56,69 @@ def generate_anchors(anchor_range, grid_sizes, anchor_generator_configs):
     return np.concatenate(flat, axis=3).reshape(-1, 7), num_per_loc
 
 
+def nearest_bev_iou(boxes_a, boxes_b):
+    """(N, 7) x (M, 7) -> (N, M) axis-aligned IoU of the heading-snapped BEV
+    boxes (each box's dx, dy swapped where its |heading| wraps past pi / 4),
+    in the JAX expression order, so that equal IoUs stay equal."""
+
+    def to_aabb(b):
+        rot = limit_period(b[:, 6].abs(), 0.5, np.pi)
+        cond = (rot > np.pi / 4)[:, None]
+        dxy = torch.where(cond, b[:, [4, 3]], b[:, [3, 4]])
+        return torch.cat([b[:, :2] - dxy / 2, b[:, :2] + dxy / 2], -1)
+
+    aa, bb = to_aabb(boxes_a), to_aabb(boxes_b)
+    lt = torch.maximum(aa[:, None, :2], bb[None, :, :2])
+    rb = torch.minimum(aa[:, None, 2:], bb[None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (aa[:, 2] - aa[:, 0]) * (aa[:, 3] - aa[:, 1])
+    area_b = (bb[:, 2] - bb[:, 0]) * (bb[:, 3] - bb[:, 1])
+    return inter / torch.clamp(area_a[:, None] + area_b[None] - inter, min=1e-6)
+
+
+def assign_targets(anchors, gt_boxes, gt_valid, anchor_class_ids, matched_thresholds,
+                   unmatched_thresholds, box_coder, match_height=False):
+    """The axis-aligned target assignment (JAX anchor_head.py:98-150): each
+    scan in turn, over all anchors, boxes and classes at once. anchors
+    (A, 7); gt_boxes (B, M, 8)
+    with the 1-based class at [..., 7]; gt_valid (B, M); anchor_class_ids
+    (A,) 1-based; matched / unmatched_thresholds (A,). An anchor is positive
+    at IoU >= its matched threshold with a box of its class, or as a box's
+    best anchor (ties all taken); background below its unmatched threshold;
+    else ignored (-1). Returns box_cls_labels (B, A) int32, box_reg_targets
+    (B, A, code) and reg_weights (B, A)."""
+    labels, targets, weights = [], [], []
+    for gts, valid in zip(gt_boxes, gt_valid):
+        gt_cls = gts[:, 7].to(torch.int32)
+        iou = (boxes_iou3d if match_height else nearest_bev_iou)(anchors, gts[:, :7])
+        class_ok = anchor_class_ids[:, None] == gt_cls[None, :]
+        iou = torch.where(class_ok & valid[None, :], iou, torch.zeros_like(iou))
+        a2g_max = iou.amax(dim=1)
+        a2g_arg = torch.argmax(iou, dim=1)      # the first maximum, as jnp.argmax
+        g2a_max = torch.where(valid, iou.amax(dim=0), torch.full_like(a2g_max[:1], -1.0))
+        g2a_max = torch.where(g2a_max == 0, torch.full_like(g2a_max, -1.0), g2a_max)
+        force = (iou == g2a_max[None, :]).any(dim=1) & (a2g_max > 0)
+        pos = a2g_max >= matched_thresholds
+        bg = a2g_max < unmatched_thresholds
+        lab = torch.full_like(a2g_arg, -1, dtype=torch.int32)
+        lab = torch.where(bg, torch.zeros_like(lab), lab)
+        lab = torch.where(pos | force, gt_cls[a2g_arg], lab)
+        fg = lab > 0
+        reg = box_coder.encode(gts[a2g_arg][:, :7], anchors)
+        labels.append(lab)
+        targets.append(torch.where(fg[:, None], reg, torch.zeros_like(reg)))
+        weights.append(fg.to(anchors.dtype))
+    return {"box_cls_labels": torch.stack(labels), "box_reg_targets": torch.stack(targets),
+            "reg_weights": torch.stack(weights)}
+
+
 class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, class_names,
                  grid_size, point_cloud_range):
         super().__init__()
         cfg = model_cfg
+        self.model_cfg = cfg
         self.num_class = int(num_class)
         anchor_cfgs = cfg["ANCHOR_GENERATOR_CONFIG"]
         stride = anchor_cfgs[0].get("feature_map_stride", 2)
@@ -63,6 +126,21 @@ class AnchorHeadSingle(nn.Module):
         anchors, self.num_anchors_per_location = generate_anchors(
             point_cloud_range, grid_xy, anchor_cfgs)
         self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+        # per anchor, in generate_anchors' order: its 1-based class and the
+        # matched / unmatched IoU thresholds of its class
+        per_loc = []
+        for ci, acfg in enumerate(anchor_cfgs):
+            n = (len(acfg["anchor_sizes"]) * len(acfg["anchor_rotations"])
+                 * len(acfg["anchor_bottom_heights"]))
+            per_loc += [(ci + 1, acfg["matched_threshold"], acfg["unmatched_threshold"])] * n
+        n_loc = anchors.shape[0] // len(per_loc)
+        cls_ids, matched, unmatched = zip(*per_loc)
+        for name, vals, dtype in (("anchor_class_ids", cls_ids, torch.int32),
+                                  ("matched_thresholds", matched, torch.float32),
+                                  ("unmatched_thresholds", unmatched, torch.float32)):
+            self.register_buffer(name, torch.tensor(vals, dtype=dtype).repeat(n_loc),
+                                 persistent=False)
+        self.match_height = cfg.get("TARGET_ASSIGNER_CONFIG", {}).get("MATCH_HEIGHT", False)
         self.box_coder = getattr(box_coder_utils, cfg.get("BOX_CODER", "ResidualCoder"))(
             **cfg.get("BOX_CODER_CONFIG", {}))
         self.use_dir = cfg.get("USE_DIRECTION_CLASSIFIER", False)
@@ -92,6 +170,8 @@ class AnchorHeadSingle(nn.Module):
             batch_dict["dir_cls_preds"] = dir_preds
         batch_dict["cls_preds"] = cls_preds
         batch_dict["box_preds"] = box_preds
+        if self.training:
+            return batch_dict
         batch_cls, batch_box = self.generate_predicted_boxes(cls_preds, box_preds, dir_preds)
         batch_dict["batch_cls_preds"] = batch_cls
         batch_dict["batch_box_preds"] = batch_box
@@ -108,3 +188,68 @@ class AnchorHeadSingle(nn.Module):
             rot = val + self.dir_offset + period * dir_labels.to(boxes.dtype)
             boxes = torch.cat([boxes[..., :6], rot[..., None], boxes[..., 7:]], -1)
         return cls_preds, boxes
+
+    def assign(self, gt_boxes, gt_valid):
+        return assign_targets(self.anchors, gt_boxes, gt_valid, self.anchor_class_ids,
+                              self.matched_thresholds, self.unmatched_thresholds,
+                              self.box_coder, self.match_height)
+
+    def get_direction_target(self, reg_targets):
+        """The direction bin of each anchor's target heading (int64)."""
+        rot_gt = reg_targets[..., 6] + self.anchors[None, :, 6]
+        offset_rot = limit_period(rot_gt - self.dir_offset, 0, 2 * np.pi)
+        bins = torch.floor(offset_rot / (2 * np.pi / self.num_dir_bins))
+        return torch.clamp(bins, 0, self.num_dir_bins - 1).to(torch.int64)
+
+    def loss(self, batch_dict):
+        """(total head loss, tb_dict) of the batch's predictions against the
+        targets assigned from its gt boxes (JAX anchor_head.py:262-304):
+        focal cls over the cared anchors, smooth-L1 box over the positives
+        (sine difference on the heading, the config's code weights),
+        direction cross-entropy over the positives; each normalised by the
+        scan's positives and summed over the batch / batch_size."""
+        lw = self.model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+        bs = batch_dict["batch_size"]
+        targets = self.assign(batch_dict["gt_boxes"], batch_dict["gt_boxes_mask"])
+        cls_labels = targets["box_cls_labels"]
+        reg_targets = targets["box_reg_targets"]
+        cls_preds = batch_dict["cls_preds"]
+        box_preds = batch_dict["box_preds"]
+
+        cared = cls_labels >= 0
+        positives = (cls_labels > 0).to(cls_preds.dtype)
+        negatives = (cls_labels == 0).to(cls_preds.dtype)
+        pos_normalizer = torch.clamp(positives.sum(dim=1, keepdim=True), min=1.0)
+        cls_weights = (negatives + positives) / pos_normalizer
+        reg_weights = positives / pos_normalizer
+
+        cls_targets = torch.where(cared, cls_labels, torch.zeros_like(cls_labels))
+        one_hot = F.one_hot(cls_targets.long(), self.num_class + 1)[..., 1:].to(cls_preds.dtype)
+        cls_loss = loss_utils.sigmoid_focal_loss(cls_preds, one_hot, cls_weights).sum() / bs
+        cls_loss = cls_loss * lw["cls_weight"]
+
+        bp, rt = self._add_sin_difference(box_preds, reg_targets)
+        loc_loss = loss_utils.weighted_smooth_l1(
+            bp, rt, reg_weights, code_weights=lw.get("code_weights")).sum() / bs
+        loc_loss = loc_loss * lw["loc_weight"]
+
+        tb = {"rpn_loss_cls": cls_loss, "rpn_loss_loc": loc_loss}
+        total = cls_loss + loc_loss
+        if self.use_dir and "dir_cls_preds" in batch_dict:
+            dir_one_hot = F.one_hot(self.get_direction_target(reg_targets),
+                                    self.num_dir_bins).to(cls_preds.dtype)
+            dir_loss = loss_utils.weighted_cross_entropy(
+                batch_dict["dir_cls_preds"], dir_one_hot, positives / pos_normalizer).sum() / bs
+            dir_loss = dir_loss * lw["dir_weight"]
+            tb["rpn_loss_dir"] = dir_loss
+            total = total + dir_loss
+        tb["rpn_loss"] = total
+        return total, tb
+
+    @staticmethod
+    def _add_sin_difference(boxes1, boxes2):
+        rad_pred = torch.sin(boxes1[..., 6:7]) * torch.cos(boxes2[..., 6:7])
+        rad_tg = torch.cos(boxes1[..., 6:7]) * torch.sin(boxes2[..., 6:7])
+        b1 = torch.cat([boxes1[..., :6], rad_pred, boxes1[..., 7:]], -1)
+        b2 = torch.cat([boxes2[..., :6], rad_tg, boxes2[..., 7:]], -1)
+        return b1, b2

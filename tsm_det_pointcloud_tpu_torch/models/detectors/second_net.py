@@ -7,12 +7,13 @@ from .detector3d_template import Detector3DTemplate
 
 class SECONDNet(Detector3DTemplate):
     """MeanVFE -> VoxelBackBone8x -> HeightCompression -> BaseBEVBackbone ->
-    AnchorHeadSingle; the head's outputs feed the template's class-agnostic
-    post-processing. Eval only: the target assignment, the losses and K7's
-    backward are not ported, so a training forward raises."""
+    AnchorHeadSingle. At eval the head's decoded boxes feed the template's
+    class-agnostic post-processing; in training (`.train()`, a batch with
+    gt_boxes and gt_boxes_mask) the forward adds the head's `loss` and its
+    `tb_dict` to the batch dict, as the JAX PointPillar / SECONDNet do."""
 
     def forward(self, batch_dict):
+        batch_dict = self.forward_modules(batch_dict)
         if self.training:
-            raise NotImplementedError("SECOND training (target assignment, losses, "
-                                      "K7's backward) is not ported")
-        return self.forward_modules(batch_dict)
+            batch_dict["loss"], batch_dict["tb_dict"] = self.module_list[-1].loss(batch_dict)
+        return batch_dict

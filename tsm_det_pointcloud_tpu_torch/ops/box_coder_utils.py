@@ -2,8 +2,8 @@
 
 Counterpart of tsm_det_pointcloud_tpu/ops/box_coder_utils.py:
   * `ResidualCoder` (:31-90), the anchor head's: xyz residuals over the
-    anchor's BEV diagonal / height, log size ratios, the heading residual;
-    decode only (the eval path);
+    anchor's BEV diagonal / height, log size ratios, the heading residual
+    (encode for the training targets, decode for the boxes);
   * `PointBinResidualCoder` (:144): xyz offsets + log sizes + a binned
     angle (bin one-hot / logits + residuals normalised to [-0.5, 0.5)
     within the bin); decode is (bin + residual) * delta.
@@ -26,6 +26,25 @@ class ResidualCoder:
         if encode_angle_by_sincos:
             raise NotImplementedError("encode_angle_by_sincos is not on a ported path")
         self.code_size = code_size
+
+    def encode(self, boxes, anchors):
+        """boxes, anchors (..., 7 + E) -> box_encodings (..., 7 + E); sizes
+        clipped at 1e-5 on both sides first, as the JAX package does."""
+        anchors = torch.cat([anchors[..., :3], torch.clamp(anchors[..., 3:6], min=1e-5),
+                             anchors[..., 6:]], -1)
+        boxes = torch.cat([boxes[..., :3], torch.clamp(boxes[..., 3:6], min=1e-5),
+                           boxes[..., 6:]], -1)
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, dim=-1)
+        xg, yg, zg, dxg, dyg, dzg, rg = torch.split(boxes[..., :7], 1, dim=-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xt = (xg - xa) / diagonal
+        yt = (yg - ya) / diagonal
+        zt = (zg - za) / dza
+        dxt = torch.log(dxg / dxa)
+        dyt = torch.log(dyg / dya)
+        dzt = torch.log(dzg / dza)
+        extra = boxes[..., 7:] - anchors[..., 7:]
+        return torch.cat([xt, yt, zt, dxt, dyt, dzt, rg - ra, extra], dim=-1)
 
     def decode(self, box_encodings, anchors):
         """box_encodings (..., 7 + E), anchors (..., 7 + E) -> boxes."""

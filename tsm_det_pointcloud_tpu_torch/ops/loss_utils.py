@@ -1,5 +1,5 @@
-"""Losses of the TSM distillation step (counterpart of
-tsm_det_pointcloud_tpu/ops/loss_utils.py). Every function returns
+"""Losses of the TSM distillation step and of SECOND's anchor head
+(counterpart of tsm_det_pointcloud_tpu/ops/loss_utils.py). Every function returns
 per-element losses, unreduced, so callers normalise as the reference does;
 the functions take any leading batch axes."""
 from __future__ import annotations
@@ -33,15 +33,26 @@ def sigmoid_focal_loss(logits, targets, weights=None, gamma=2.0, alpha=0.25):
                   weights)
 
 
-def weighted_smooth_l1(preds, targets, weights=None, beta=1.0 / 9.0):
-    """Overflow-safe Huber: never squares an unbounded residual."""
-    n = (preds - targets).abs()
+def weighted_smooth_l1(preds, targets, weights=None, beta=1.0 / 9.0, code_weights=None):
+    """Overflow-safe Huber: never squares an unbounded residual. The
+    residual is scaled per code channel by `code_weights` first."""
+    diff = preds - targets
+    if code_weights is not None:
+        diff = diff * torch.as_tensor(code_weights, dtype=diff.dtype, device=diff.device)
+    n = diff.abs()
     if beta < 1e-5:
         loss = n
     else:
         c = torch.clamp(n, max=beta)
         loss = 0.5 * c * c / beta + (n - c)
     return _weigh(loss, weights)
+
+
+def weighted_cross_entropy(logits, one_hot_targets, weights=None):
+    """Softmax cross-entropy per element over the last axis (direction
+    bins), weighted per element."""
+    loss = -torch.sum(one_hot_targets * torch.log_softmax(logits, dim=-1), dim=-1)
+    return loss if weights is None else loss * weights
 
 
 def centerness_label(point_xyz, point_box_labels, pos_mask, epsilon=1e-6):

@@ -28,8 +28,11 @@ On a CUDA tensor:
 On a CPU tensor all four run their plain versions below. Every by-key conv
 goes through `_ByKeyConv`, the autograd counterpart of the JAX `_bykey_conv`
 custom VJP (ops/spconv.py:149-193): K4 forward, K5 backward, no gradient
-for the keys. The materialised route is eval only on the card: K7 has no
-backward yet, and asking for one raises. A 1x1x1 conv stays a plain GEMM.
+for the keys. Every materialised conv goes through `_GatherConv`, the
+counterpart of the JAX `gather_matmul` custom VJP
+(ops/spconv_pallas.py:618-648): K7 forward; its backward is the JAX `_bwd`,
+an XLA vjp of the gather formulation and not a Pallas kernel, and stays
+PyTorch here (`gather_matmul_bwd_plain`). A 1x1x1 conv stays a plain GEMM.
 """
 from __future__ import annotations
 
@@ -330,12 +333,10 @@ def gather_matmul_plain(features, idx, weight):
 
 def gather_matmul(features, idx, weight):
     """Index gather + GEMM; kernel K7 on the card. features (B, V, C), idx
-    (B, K, Q) int32 in [0, V) or -1, weight (K, C, Co) -> (B, Q, Co) f32."""
+    (B, K, Q) int32 in [0, V) or -1, weight (K, C, Co) with K <= 64 ->
+    (B, Q, Co) f32, bit-equal from launch to launch."""
     if not features.is_cuda:
         return gather_matmul_plain(features, idx, weight)
-    if torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad):
-        raise NotImplementedError("kernel K7 (spconv_gather) has no backward yet: "
-                                  "the materialised route runs under no_grad")
     f = features.contiguous().float()
     ix = idx.contiguous().to(torch.int32)
     w = weight.contiguous().float()
@@ -353,11 +354,55 @@ def gather_matmul(features, idx, weight):
     return out
 
 
+def gather_matmul_bwd_plain(features, idx, weight, g):
+    """(df, dW) of gather_matmul given the output cotangent g (B, Q, Co):
+    the JAX `_bwd` (ops/spconv_pallas.py:640-645, a vjp of `_xla_reference`).
+    Per tap one gather of the named rows for dW[k] = G^T g, and one
+    `index_add_` of g W[k]^T onto them for df (on the card its float sums
+    run in no fixed order). An index of -1 takes and gives nothing: its
+    zero row goes to row q mod V of its scan, so that the misses, most of a
+    tap at SECOND's sparse levels, do not all queue on one row's atomics."""
+    B, V, C = features.shape
+    K, Q = idx.shape[1], idx.shape[2]
+    Co = g.shape[-1]
+    base = torch.arange(B, device=idx.device)[:, None] * V
+    spread = base + torch.arange(Q, device=idx.device)[None, :] % V
+    df = torch.zeros((B * V, C), dtype=g.dtype, device=g.device)
+    dw = torch.empty((K, C, Co), dtype=g.dtype, device=g.device)
+    g2 = g.reshape(-1, Co)
+    zero = g.new_zeros(())
+    for k in range(K):
+        i = idx[:, k].long()
+        hit = (i >= 0).reshape(-1, 1)
+        rows = torch.where(i >= 0, i + base, spread).reshape(-1)
+        gath = torch.where(hit, features.reshape(B * V, C)[rows], zero)
+        dw[k] = torch.matmul(gath.t(), g2)
+        df.index_add_(0, rows, torch.where(hit, torch.matmul(g2, weight[k].t()), zero))
+    return df.reshape(B, V, C), dw
+
+
+class _GatherConv(torch.autograd.Function):
+    """gather_matmul with its gradient: K7 forward on the card (the plain
+    version on the CPU), the plain backward on both. The indices get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, features, weight, idx):
+        ctx.save_for_backward(features, weight, idx)
+        return gather_matmul(features, idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, weight, idx = ctx.saved_tensors
+        df, dw = gather_matmul_bwd_plain(features, idx, weight, g.contiguous())
+        return df.to(features.dtype), dw.to(weight.dtype), None
+
+
 def _gather_conv(features, idx, found, weight, out_valid):
     """The materialised route (JAX ops/spconv.py:209-219): the rulebook's
-    misses become -1, then K7, then the output mask."""
+    misses become -1, then K7 (with its gradient), then the output mask."""
     idxm = torch.where(found, idx, torch.full_like(idx, -1))
-    out = gather_matmul(features, idxm, weight)
+    out = _GatherConv.apply(features, weight, idxm)
     return torch.where(out_valid[..., None], out, torch.zeros_like(out))
 
 

@@ -1,16 +1,26 @@
-"""The distillation training step (counterpart of
+"""The training step (counterpart of
 tsm_det_pointcloud_tpu/parallel/train_state.py:73-151).
 
-The JAX package trains only the student namespace: `student_mask` marks the
-parameters with a path segment starting with `s_`, and `wrap_student_only`
-zeroes every other update. Here the teacher's parameters are frozen
-(`requires_grad_(False)`) and left out of the optimizer, which is given the
-student's alone. The BN running stats of teacher and student still update in
-the train-mode forward, as the JAX step mutates every `batch_stats` leaf.
+A distillation config (`is_distillation`) trains only the student
+namespace in the JAX package: `student_mask` marks the parameters with a
+path segment starting with `s_`, and `wrap_student_only` zeroes every other
+update. Here the teacher's parameters are frozen (`requires_grad_(False)`)
+and left out of the optimizer, which is given the student's alone. The BN
+running stats of teacher and student still update in the train-mode
+forward, as the JAX step mutates every `batch_stats` leaf. Any other config
+(SECOND) trains every parameter.
 """
 from __future__ import annotations
 
 import torch
+
+
+def is_distillation(model_cfg):
+    """True for a 3DSSD config with a distillation backbone or point head:
+    the configs whose teacher the JAX tools/train.py:153-159 freezes."""
+    return str(model_cfg.get("NAME", "")) == "3DSSD" and any(
+        "Distillation" in str(model_cfg.get(section, {}).get("NAME", ""))
+        for section in ("BACKBONE_3D", "POINT_HEAD"))
 
 
 def is_student(name):

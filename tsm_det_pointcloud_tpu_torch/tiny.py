@@ -12,7 +12,8 @@ Also a copy of the tiny SECOND of the JAX package's tests
 tests/test_second_e2e.py): the real 8x-stride topology on a 32 x 32 x 40
 grid, one class. `data/second_tiny_state.npz` holds its converted
 PRNGKey(0) eval init; with it the eval forward on `second_points(2)` must
-reproduce `tests/goldens/second_forward.npz`.
+reproduce `tests/goldens/second_forward.npz`. `second_gt` gives its
+training batches their gt boxes.
 """
 from __future__ import annotations
 
@@ -263,6 +264,42 @@ def second_points(batch_size=2, n=512, seed=0):
         pts[b, :50, 1] = rng.uniform(-0.7, 0.7, 50)
         pts[b, :50, 2] = rng.uniform(-1.7, -0.3, 50)
     return pts
+
+
+# gt boxes of the tiny SECOND's training checks, (x, y, z, dx, dy, dz,
+# heading, class), per scan: "ref" is the reference batch's own box, which its
+# anchors barely overlap (one forced match a scan); "anchored" has boxes on the anchors of both rotations (positives, both
+# direction bins, a heading past pi / 4 that swaps its BEV extent), a box
+# that only a forced match takes (its best IoU under 0.45, equal at two
+# anchors up to rounding), one on pi / 4 itself and a masked slot that would
+# match.
+SECOND_GT = {
+    "ref": [[[8.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1]],
+            [[8.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1]]],
+    "anchored": [[[5.5, -2.5, -1.0, 4.0, 1.7, 1.6, 0.2, 1],
+                  [10.5, 2.8, -0.9, 4.1, 1.7, 1.5, 1.6, 1],
+                  [10.6, -2.6, -1.0, 3.8, 1.5, 1.5, -1.5, 1]],
+                 [[8.0, -1.3, -1.0, 5.0, 2.0, 1.5, 0.1, 1],
+                  [2.0, 5.0, -1.0, 4.0, 1.8, 1.5, 0.7853982, 1],
+                  [5.5, 2.6, -1.0, 4.0, 1.7, 1.6, 0.0, 1]]],
+}
+SECOND_GT_MASKED = {"ref": (), "anchored": ((1, 2),)}   # (scan, slot) masked out
+
+
+def second_gt(batch_size, which="anchored"):
+    """gt_boxes (B, 4, 8) float32 and gt_boxes_mask (B, 4) bool of the tiny
+    SECOND: SECOND_GT[which]'s scans in turn, padded to 4 slots."""
+    gt = np.zeros((batch_size, 4, 8), np.float32)
+    mask = np.zeros((batch_size, 4), bool)
+    scans = SECOND_GT[which]
+    for b in range(batch_size):
+        boxes = np.asarray(scans[b % len(scans)], np.float32)
+        gt[b, :len(boxes)] = boxes
+        mask[b, :len(boxes)] = True
+    for b, slot in SECOND_GT_MASKED[which]:
+        if b < batch_size:
+            mask[b, slot] = False
+    return gt, mask
 
 
 def load_state(path=STATE_PATH):

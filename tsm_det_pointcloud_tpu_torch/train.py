@@ -1,4 +1,5 @@
-"""Training entry point: the fast_cpc distillation step on synthetic scans.
+"""Training entry point: the fast_cpc distillation step, or SECOND's step, on
+synthetic scans.
 
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/fast_cpc.yaml [--batch 16] \\
@@ -7,16 +8,20 @@
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --batch 8 \\
         --points 122880 --steps 3
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/kitti_models/second.yaml --batch 4 --points 20000
 
-Builds the detector with seeded random weights (teacher and student), seeds
-the class-statistics buffers (a real run transfers them from the teacher
-checkpoint), freezes the teacher and trains the student with the config's
-adam_onecycle over one warm-up step (which builds the kernels) plus --steps
-timed steps (`runtime.train_loop.train_one_epoch`, which reads the loss on
-the host at the first and the last of them), each on its own synthetic
-scan batch with one car box around each of the scan's eight point
-clusters (KITTI configs) or one vehicle box around each of its sixteen
-(Waymo configs). Prints the losses, the train scans/s over the timed steps (host
+Builds the detector with seeded random weights. A distillation config
+(`runtime.train_state.is_distillation`) also seeds the class-statistics
+buffers (a real run transfers them from the teacher checkpoint), freezes
+the teacher and trains the student; any other config trains every
+parameter. The optimizer is the config's adam_onecycle, over one warm-up
+step (which builds the kernels) plus --steps timed steps
+(`runtime.train_loop.train_one_epoch`, which reads the loss on the host at
+the first and the last of them), each on its own synthetic scan batch with
+one class-1 box (a car) around each of the scan's eight point clusters
+(KITTI-range configs) or one vehicle box around each of its sixteen (Waymo
+configs). Prints the losses, the train scans/s over the timed steps (host
 clock around work that ends in a synchronize) and the peak device memory;
 with --ckpt_dir it then writes a checkpoint. --profile then traces one more
 step with torch.profiler and prints the device's busy share and the top
@@ -37,7 +42,7 @@ from .models import build_network
 from .runtime.checkpoint import save_checkpoint
 from .runtime.optimization import build_optimizer
 from .runtime.train_loop import train_one_epoch
-from .runtime.train_state import freeze_teacher, train_step
+from .runtime.train_state import freeze_teacher, is_distillation, train_step
 from .utils.common_utils import resolve_device
 
 
@@ -62,14 +67,18 @@ def synth_train_batch(batch, n, seed=0, device="cpu", point_cloud_range=KITTI_RA
 
 
 def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1):
-    """(cfg, model in train mode, optimizer over the student's parameters)."""
+    """(cfg, model in train mode, optimizer over the parameters that train:
+    the student's for a distillation config, else all of them)."""
     cfg = load_cfg(cfg_file)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                           dataset=dataset_meta(cfg, n_points, "train"), device=device,
                           seed=seed)
-    seed_statistics(model, torch.Generator().manual_seed(seed + 1))
-    student = freeze_teacher(model)
-    opt = build_optimizer(cfg.OPTIMIZATION, student, total_steps)
+    if is_distillation(cfg.MODEL):
+        seed_statistics(model, torch.Generator().manual_seed(seed + 1))
+        params = freeze_teacher(model)
+    else:
+        params = list(model.parameters())
+    opt = build_optimizer(cfg.OPTIMIZATION, params, total_steps)
     return cfg, model.train(), opt
 
 
