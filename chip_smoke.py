@@ -130,7 +130,38 @@ Phases (any failure exits non-zero before the result line):
  18. SECOND training main path: launch counts are zeroed, 2 timed steps
      run, the counts are read; losses finite, every parameter changed, K3
      and K7 launched 8 and 12 times a step. Prints train scans/s and the
-     peak device memory.
+     peak device memory;
+ 19. teacher eval (fast_cpc_teacher.yaml, b16 x 16384, both SA layers, the
+     256-wide U-Net, the gated head; seeded weights and eval state): the
+     tiny teacher with tsm_det_pointcloud_tpu_torch/data/
+     tsm_teacher_tiny_state.npz and tiny.teacher_overrides reproduces
+     tsm_teacher_tiny_forward.npz at the golden tolerance; one recorded
+     forward holds every K1-K4 call against its plain version (phase 3's
+     tolerances), timed; launch counts are zeroed, 3 batches of forward +
+     multi-threshold NMS run, the counts are read; outputs finite, box preds
+     (16, 512, 7), count <= 512, K1-K4 launched. Prints scans/s and the peak
+     device memory;
+ 20. teacher training (b16 x 16384, adam_onecycle LR 0.01 over every
+     parameter): the tiny teacher's step reproduces
+     tsm_teacher_tiny_train_golden.npz (loss and tb terms as phase 7, every
+     gradient at phase 7's tolerance, the class statistics after the step
+     rtol 1e-5); then a recorded warm-up step at full width (layer 1's
+     confidence bias set to tiny.TEACHER_CONF_BIAS, so that the statistic
+     update counts points from the first step) gives every parameter a
+     gradient (every sparse-conv weight a nonzero one), prints the points
+     the update counted a class and checks the statistics buffers changed;
+     every K1-K5 call of it runs through its kernel and its plain version at
+     phases 3 and 6's tolerances (K5 at the U-Net's 128 / 256 widths, df and
+     dW bit-equal between two launches), timed; launch counts are zeroed, 2
+     timed steps run, the counts are read: losses finite, every parameter
+     changed but those with a zero gradient and value (`still_params`),
+     K1-K5 launched. Prints train scans/s and the peak memory;
+ 21. handoff: the trained teacher's checkpoint (runtime.checkpoint.
+     save_checkpoint) is loaded by a fast_cpc.yaml trainer through
+     train.build_trainer's pretrained_model (partial_load, then
+     transfer_statistics): its statistics equal the teacher's and every
+     teacher parameter is bit-equal; after one distillation step they still
+     are, and every student parameter moved (as phase 20, `still_params`).
 The line before the last is the kernels JSON: each row's numbers are those
 of the KITTI training path (per step of phase 6, `launches` from phase 8),
 its `eval` object those of the KITTI eval path (per forward of phase 3,
@@ -140,7 +171,11 @@ for K5) and `waymo_train` those of the Waymo training path (per step of
 phase 12, `launches` from its 2 timed steps), its `second` object those of
 the SECOND eval path (per forward of phase 14, `launches` from phase 16;
 null but for K3 and K7) and `second_train` those of SECOND's training path
-(per step of phase 17, `launches` from phase 18). K6 is on no KITTI path: its row's own numbers are
+(per step of phase 17, `launches` from phase 18), its `teacher` object those
+of the teacher's eval path (per forward of phase 19, `launches` from its 3
+counted batches; null for K5, K6, K7) and `teacher_train` those of the
+teacher's training path (per step of phase 20, `launches` from its 2 counted
+steps). K6 is on no KITTI path: its row's own numbers are
 the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
 are that path's (`path` says which path a row's own numbers are from).
 K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
@@ -166,6 +201,7 @@ BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 MAIN_BATCH, MAIN_POINTS, MAIN_ITERS, TRAIN_ITERS = 16, 16384, 3, 3
 WAYMO_BATCH, WAYMO_POINTS, WAYMO_ITERS, WAYMO_TRAIN_ITERS = 8, 122880, 3, 2
 SECOND_BATCH, SECOND_POINTS, SECOND_ITERS, SECOND_TRAIN_ITERS = 4, 20000, 3, 2
+TEACHER_TRAIN_ITERS = 2
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
 KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
 WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
@@ -856,6 +892,241 @@ def second_train_phases(dev):
     return report, launches
 
 
+def still_params(model, before, what):
+    """The parameters among `before` (name -> value before the steps) that
+    the steps left in place; fails unless each has a zero gradient in the
+    last step and a zero value, the only ones AdamW's decay leaves where they
+    are. On the synthetic scans layer 0's d-fps keeps its 4096 picks more
+    than 1.15 m apart (the plain FPS, scan seed 1), one a voxel: the teacher's
+    layer-1 first scale (0-0.4 m) finds only the query's own centroid, a
+    zero position input, and its second (0.4-0.8 m) none, so their MLPs
+    take no gradient; and no point scores class 2, whose statistics stay
+    zero and whose cls block sees a constant (the JAX package's gradients
+    are zero in such cases too, tests/test_torch_teacher.py)."""
+    import torch
+
+    still = []
+    for n, p in model.named_parameters():
+        if n in before and torch.equal(p, before[n]):
+            check(p.grad is not None and not bool(p.grad.abs().max())
+                  and not bool(p.abs().max()), f"{what} parameter {n} did not change")
+            still.append(n)
+    return still
+
+
+def teacher_phases(dev):
+    """Phases 19-21: the TSM teacher (fast_cpc_teacher.yaml) eval path, its
+    training step and the handoff of its checkpoint to a fast_cpc.yaml
+    distillation trainer. Returns the per-kernel reports of phases 19 and 20
+    and the launch counts of their counted runs."""
+    import tempfile
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import build_detector, detect, synth_points
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.models.dense_heads.point_head_vote import (
+        STATISTIC_BUFFERS as STATISTIC_NAMES,
+    )
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import save_checkpoint
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import is_student, train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    tcfg_file = ROOT / "tools/cfgs/kitti_models/fast_cpc_teacher.yaml"
+
+    # ---- 19. teacher eval: the tiny golden, one recorded forward, 3 counted ----
+    tmodel = build_network(tiny.tiny_teacher_model_cfg(), 3, tiny.META, device=dev)
+    tmodel.load_state_dict(tiny.load_state(tiny.TEACHER_STATE_PATH), strict=True)
+    tstate = tmodel.state_dict()
+    for k, v in tiny.teacher_overrides().items():
+        tstate[k].copy_(torch.from_numpy(v).to(dev))
+    tpts = torch.from_numpy(tiny.synth_points(2)).to(dev)
+    tmask = torch.ones(tpts.shape[:2], dtype=torch.bool, device=dev)
+    tout, _ = detect(tmodel, tpts, tmask)
+    with np.load(tiny.TEACHER_FORWARD_PATH) as golden:
+        for key in golden.files:
+            want = golden[key]
+            got = tout[key].cpu().numpy()
+            scale = max(1.0, float(np.abs(want).max()))
+            diff = float(np.abs(got - want).max())
+            check(got.shape == want.shape
+                  and np.allclose(got, want, atol=1e-3 * scale, rtol=1e-3),
+                  f"tiny teacher {key} differs from the golden: max abs diff {diff}")
+            print(f"teacher reference: tiny {key} {got.shape} max abs diff vs golden {diff:.3g}")
+
+    cfg, model = build_detector(tcfg_file, dev, seed=0, n_points=MAIN_POINTS)
+    post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    lo, hi = cfg.MODEL.POINT_HEAD.SAMPLE_RANGE
+    batches = [torch.from_numpy(synth_points(MAIN_BATCH, MAIN_POINTS, seed=s)).to(dev)
+               for s in range(MAIN_ITERS)]
+    mask = torch.ones((MAIN_BATCH, MAIN_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(EVAL_KERNELS)
+    detect(model, batches[0], mask)
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the teacher capture forward made no {name} call")
+    report_eval = compare_recorded(rec.calls, "teacher eval")
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(model, pts, mask) for pts in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_eval = dict(_kernels.LAUNCHES)
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(out[key]).all()), f"teacher: non-finite {key}")
+        check(tuple(out["batch_box_preds"].shape) == (MAIN_BATCH, hi - lo, 7),
+              f"teacher box preds shape {tuple(out['batch_box_preds'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"teacher: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()), "teacher: count > NMS_POST_MAXSIZE")
+    for name in EVAL_KERNELS:
+        check(launches_eval[name] > 0, f"kernel {name} was not launched on the teacher eval path")
+    print(f"teacher eval main path: {MAIN_ITERS} batches x {MAIN_BATCH} scans x {MAIN_POINTS} "
+          f"points in {dt:.3f} s = {MAIN_ITERS * MAIN_BATCH / dt:.3f} scans/s; detections "
+          f"per scan (last batch) {[int(c) for c in preds[-1][1]['count']]}; launches "
+          f"{launches_eval}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, preds, batches, out, pred
+
+    # ---- 20. teacher training: the tiny golden, a recorded warm-up step, 2 counted ----
+    gt, gt_mask = tiny.synth_gt(2, "wide")
+    tout = tmodel.train()({"points": tpts, "points_mask": tmask, "batch_size": 2,
+                           "gt_boxes": torch.from_numpy(gt).to(dev),
+                           "gt_boxes_mask": torch.from_numpy(gt_mask).to(dev)})
+    tout["loss"].backward()
+    params = dict(tmodel.named_parameters())
+    tstate = tmodel.state_dict()
+    with np.load(tiny.TEACHER_TRAIN_GOLDEN_PATH) as g:
+        gold = {k: g[k] for k in g.files}
+    gscale = max(float(np.abs(v).max()) for k, v in gold.items() if k.startswith("grad/"))
+    check({k[5:] for k in gold if k.startswith("grad/")} == set(params),
+          "the teacher train golden does not hold every parameter's gradient")
+    worst = 0.0
+    for key, want in gold.items():
+        if key.startswith(("grad/", "stat/")):
+            is_grad = key.startswith("grad/")
+            got = (params[key[5:]].grad if is_grad else tstate[key[5:]]).cpu().numpy()
+            diff = float(np.abs(got - want).max())
+            ok = (np.allclose(got, want, rtol=1e-3,
+                              atol=1e-4 * max(float(np.abs(want).max()), 1e-2 * gscale))
+                  if is_grad else np.allclose(got, want, rtol=1e-5,
+                                              atol=1e-5 * max(1.0, float(np.abs(want).max()))))
+            check(ok, f"tiny teacher training {key} differs from the golden: max abs diff {diff}")
+            worst = max(worst, diff) if is_grad else worst
+        else:
+            got = float((tout["loss"] if key == "loss" else tout["tb_dict"][key[3:]]).detach())
+            check(close_scalar(got, float(want)),
+                  f"tiny teacher training {key} {got} differs from the golden {float(want)}")
+    print(f"teacher training reference: tiny loss {float(tout['loss'].detach()):.6f} (golden "
+          f"{float(gold['loss']):.6f}), {len(params)} gradients, max abs diff {worst:.3g}; "
+          f"statistics counted {tout['statistic_counts'].tolist()} points a class")
+    del tmodel, tout, params, tstate
+
+    _, model, opt = build_trainer(tcfg_file, dev, seed=0, n_points=MAIN_POINTS,
+                                  total_steps=TEACHER_TRAIN_ITERS + 1)
+    # the confidence prior -log 99 scores every point near 0.01, under the
+    # statistic update's 0.3: layer 1's bias as the tiny checks set it, so
+    # that the update counts points from the first step
+    with torch.no_grad():
+        model.module_list[0].sa1.confidence_out.bias.copy_(
+            torch.tensor(tiny.TEACHER_CONF_BIAS, device=dev))
+    tbatches = [synth_train_batch(MAIN_BATCH, MAIN_POINTS, seed=s, device=dev)
+                for s in range(TEACHER_TRAIN_ITERS + 1)]
+    head = model.module_list[1].head
+    stats0 = [getattr(head, b).clone() for b in STATISTIC_NAMES]
+    rec = record_kernels(KITTI_KERNELS)
+    opt.zero_grad(set_to_none=True)
+    out = model(dict(tbatches[0]))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    rec.restore()
+    for n, p in model.named_parameters():
+        check(p.grad is not None, f"teacher parameter {n} got no gradient")
+        if p.dim() == 3:
+            check(bool(p.grad.abs().sum() > 0), f"sparse-conv weight {n} got a zero gradient")
+    opt.step()
+    check(bool(torch.isfinite(out["loss"])), "teacher warm-up step loss is not finite")
+    counts = out["statistic_counts"].tolist()
+    check(any(counts), f"the statistic update counted no point: {counts}")
+    for b, before in zip(STATISTIC_NAMES, stats0):
+        check(not torch.equal(getattr(head, b), before), f"teacher statistic {b} did not change")
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the teacher training capture step made no {name} call")
+    print(f"teacher training capture: loss {float(out['loss'].detach()):.4f}, "
+          + ", ".join(f"{k} {float(torch.as_tensor(v).detach()):.4f}"
+                      for k, v in out["tb_dict"].items())
+          + f"; statistic update counted {counts} points (class 0, 1, 2)")
+    k5 = sorted({(c[0].shape[-1], c[3].shape[-1], c[3].shape[0])
+                 for c in rec.calls["spconv_bykey_bwd"]})
+    print(f"teacher training capture: K5 (Cin, Cout, K) {k5}")
+    del out
+    report_train = compare_recorded(rec.calls, "teacher train")
+    del rec
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = [train_step(model, opt, b) for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_train = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [loss for loss, _ in steps]
+    for i, loss in enumerate(losses):
+        check(bool(torch.isfinite(loss)), f"teacher training step {i} loss is not finite")
+    unmoved = still_params(model, before, "teacher")
+    for name in KITTI_KERNELS:
+        check(launches_train[name] > 0,
+              f"kernel {name} was not launched on the teacher training path")
+    print(f"teacher training main path: {TEACHER_TRAIN_ITERS} steps x {MAIN_BATCH} scans x "
+          f"{MAIN_POINTS} points in {dt:.3f} s = {TEACHER_TRAIN_ITERS * MAIN_BATCH / dt:.3f} "
+          f"train scans/s ({1e3 * dt / TEACHER_TRAIN_ITERS:.1f} ms/step); losses "
+          f"{[round(float(v), 4) for v in losses]}; {len(before) - len(unmoved)} of "
+          f"{len(before)} parameters changed, the rest {unmoved} with a zero gradient and "
+          f"value; launches {launches_train}; peak memory {peak:.2f} GiB")
+    del before, steps, losses, tbatches
+
+    # ---- 21. the handoff: teacher checkpoint -> fast_cpc.yaml distillation ----
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        path = save_checkpoint(model, opt, ckpt_dir, 1, opt.state["count"])
+        t_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model, opt
+        torch.cuda.empty_cache()
+        _, dmodel, dopt = build_trainer(ROOT / "tools/cfgs/kitti_models/fast_cpc.yaml", dev,
+                                        seed=0, n_points=MAIN_POINTS, total_steps=1,
+                                        pretrained_model=path)
+    dhead = dmodel.module_list[1]
+    for b in STATISTIC_NAMES:
+        check(torch.equal(getattr(dhead, b), t_state[f"module_list.1.head.{b}"]),
+              f"the distillation head's {b} is not the teacher's")
+    dparams = dict(dmodel.named_parameters())
+    loaded = [n for n in dparams if not is_student(n)]
+    for n in loaded:
+        check(torch.equal(dparams[n], t_state[n]), f"teacher parameter {n} was not loaded")
+    student0 = {n: p.detach().clone() for n, p in dparams.items() if is_student(n)}
+    dbatch = synth_train_batch(MAIN_BATCH, MAIN_POINTS, seed=0, device=dev)
+    loss, _ = train_step(dmodel, dopt, dbatch)
+    check(bool(torch.isfinite(loss)), "the distillation step's loss is not finite")
+    for n in loaded:
+        check(torch.equal(dparams[n], t_state[n]), f"teacher parameter {n} changed")
+    unmoved = still_params(dmodel, student0, "student")
+    print(f"handoff: teacher checkpoint -> fast_cpc.yaml trainer: statistics equal, "
+          f"{len(loaded)} teacher parameters bit-equal before and after one distillation "
+          f"step (loss {float(loss):.4f}), {len(student0) - len(unmoved)} of "
+          f"{len(student0)} student parameters moved, the rest {unmoved} with a zero "
+          f"gradient and value")
+    del dmodel, dopt, dparams, t_state, student0, dbatch
+    torch.cuda.empty_cache()
+    return report_eval, launches_eval, report_train, launches_train
+
+
 def main():
     import torch
 
@@ -1159,9 +1430,11 @@ def main():
 
     report_second, launches_second = second_phases(dev)
     report_strain, launches_strain = second_train_phases(dev)
+    report_teval, launches_teval, report_ttrain, launches_ttrain = teacher_phases(dev)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
-                       "second train": report_strain})
+                       "second train": report_strain, "teacher eval": report_teval,
+                       "teacher train": report_ttrain})
 
     def numbers(a, n):
         return {"launches": n, "max_abs_err": a["err"], "ms": a["ms"],
@@ -1181,6 +1454,10 @@ def main():
                   if name in report_second else None)
         second_train = (numbers(report_strain[name], launches_strain[name])
                         if name in report_strain else None)
+        teacher = (numbers(report_teval[name], launches_teval[name])
+                   if name in report_teval else None)
+        teacher_train = (numbers(report_ttrain[name], launches_ttrain[name])
+                         if name in report_ttrain else None)
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:
@@ -1193,7 +1470,7 @@ def main():
             "eval": (numbers(report_eval[name], launches_eval[name])
                      if name in report_eval else None),
             "waymo": waymo, "waymo_train": waymo_train, "second": second,
-            "second_train": second_train,
+            "second_train": second_train, "teacher": teacher, "teacher_train": teacher_train,
         })
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -66,6 +66,19 @@ def test_entry_points_refuse_cuda_without_card(monkeypatch):
     assert next(model.parameters()).device.type == "cpu"
 
 
+def test_teacher_entry_points_refuse_cuda_without_card(monkeypatch):
+    """`infer` and `train` on fast_cpc_teacher.yaml default to the card
+    too, and refuse a host without one."""
+    from tsm_det_pointcloud_tpu_torch import infer, train
+
+    cfg = str(ROOT / "tools/cfgs/kitti_models/fast_cpc_teacher.yaml")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--steps", "1"])
+
+
 def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network

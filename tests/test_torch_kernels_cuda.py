@@ -206,6 +206,46 @@ def test_query_group_kernel(dev, window):
         assert torch.equal(g, w)
 
 
+def test_query_group_payload_gradient_teacher_scales(dev):
+    """K2's payload gradient (`_GroupPayload`: K2's forward, the cotangent
+    of the filled slots scattered back by `index_add_`) at the teacher's
+    layer-1 window scales (radii 0.4 / 0.8 / 1.6 / 3.2 m dilated, 32 samples,
+    query ranges 2 / 4 / 8 / 16 voxels of 0.2 x 0.2 x 0.4 m) on a layer-0
+    sized centroid set: the card's against the CPU's plain route, rtol 1e-5,
+    atol 1e-5 * max|grad| (index_add_ sums in no fixed order on the card)."""
+    rng = np.random.RandomState(11)
+    B, N, M, D = 2, 4096, 512, 64
+    xyz = on_grid(rng.uniform((0, -12, -2.5), (24, 12, 0.5), (B, N, 3)))
+    valid = rng.uniform(size=(B, N)) > 0.05
+    q = on_grid(xyz[:, :M] + rng.normal(0, 0.3, (B, M, 3)))
+    vs = np.array([0.2, 0.2, 0.4])
+    coords = np.floor((xyz - (0, -40, -3)) / vs).astype(np.int32)[..., ::-1].copy()
+    qc = np.floor((q - (0, -40, -3)) / vs).astype(np.int32)[..., ::-1].copy()
+    scales = [(0.0, 0.4, 32, (2, 2, 2)), (0.4, 0.8, 32, (4, 4, 4)),
+              (0.8, 1.6, 32, (8, 8, 8)), (1.6, 3.2, 32, (16, 16, 16))]
+    payload = np.concatenate([xyz, rng.randn(B, N, D).astype(np.float32)], -1)
+    cot = torch.from_numpy(rng.randn(B, M, 32, 3 + D).astype(np.float32))
+
+    def grad(d):
+        src, v, qq, cc, qqc, pl = (torch.from_numpy(a).to(d)
+                                   for a in (xyz, valid, q, coords, qc, payload))
+        pl.requires_grad_(True)
+        groups = grouping.query_group(src, v, qq, scales, pl, cc, qqc)
+        total = 0.0
+        for (_, cnt, g), (_, _, ns, _) in zip(groups, scales):
+            filled = torch.arange(ns, device=d) < cnt[..., None]
+            total = total + (torch.where(filled[..., None], g, 0.0) * cot.to(d)).sum()
+        total.backward()
+        return pl.grad.cpu(), [int(c.sum()) for _, c, _ in groups]
+
+    want, want_cnt = grad(torch.device("cpu"))
+    got, cnt = _counted("query_group", lambda: grad(dev))
+    assert cnt == want_cnt and min(cnt) > 0
+    scale = float(want.abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * scale)
+
+
 def _pruned_case(name):
     """K2 inputs on the CPU: more sources than one tile and more queries
     than one thread block."""
@@ -513,6 +553,95 @@ def test_bykey_bwd_kernel_repeat_bit_equal(dev, kind, c, co):
     df2, dw2 = spconv.gather_matmul_bykey_bwd(f, rb.skeys, rb.qkeys, w, g, sent)
     assert torch.equal(df, df2) and torch.equal(dw, dw2)
     assert df.abs().max() > 0 and dw.abs().max() > 0
+
+
+def _one_tap_rulebook(dev, rng, B=2, V=1500, grid=(8, 30, 30)):
+    """The 1x1x1 subm rulebook of a random voxel set (spconv4x, spconv_out,
+    sp_update)."""
+    coords = np.stack([np.sort(rng.choice(np.prod(grid), V, replace=False))
+                       for _ in range(B)])
+    cz = torch.from_numpy(np.stack([coords // 900, coords // 30 % 30, coords % 30],
+                                   -1).astype(np.int32)).to(dev)
+    valid = torch.ones(B, V, dtype=torch.bool, device=dev)
+    valid[:, -50:] = False
+    return spconv.build_subm_rulebook(cz, valid, grid, kernel_size=1), int(np.prod(grid))
+
+
+# the teacher U-Net's (kind, Cin, Cout): layer 1 of fast_cpc_teacher.yaml has
+# n_en 128 and 2 n_en 256 (inv8x_a/b, inv4x_a/b, inv16x_a/b; spconv8x,
+# spconv16x; inv8x, inv4x) and 1x1x1 convs 256 -> 128 (spconv4x), 128 -> 256
+# (spconv_out) and 64 -> 256 (sp_update)
+TEACHER_CONVS = [("subm", 128, 128), ("subm", 256, 256), ("strided", 128, 128),
+                 ("strided", 128, 256), ("inverse", 256, 128), ("inverse", 128, 128),
+                 ("one_tap", 256, 128), ("one_tap", 128, 256), ("one_tap", 64, 256)]
+
+
+@pytest.mark.parametrize("kind,c,co", TEACHER_CONVS)
+def test_bykey_bwd_kernel_teacher_widths(dev, kind, c, co):
+    """K5 at the teacher U-Net's widths: df and dW within K5's tolerance of
+    the plain version, and bit-equal between two launches."""
+    rng = np.random.RandomState(12)
+    if kind == "one_tap":
+        rb, sent = _one_tap_rulebook(dev, rng)
+    else:
+        rb, _, sent = _rulebooks(dev, rng, V=1500)[kind]
+    B, K, Q = rb.qkeys.shape
+    assert K == (1 if kind == "one_tap" else 27)
+    f = torch.randn(B, rb.skeys.shape[1], c, device=dev)
+    w = torch.randn(K, c, co, device=dev) / np.sqrt(K * c)
+    g = torch.randn(B, Q, co, device=dev)
+    got = _counted("spconv_bykey_bwd", lambda: spconv.gather_matmul_bykey_bwd(
+        f, rb.skeys, rb.qkeys, w, g, sent))
+    again = spconv.gather_matmul_bykey_bwd(f, rb.skeys, rb.qkeys, w, g, sent)
+    want = spconv.gather_matmul_bykey_bwd_plain(f, rb.skeys, rb.qkeys, w, g, sent)
+    for gt, g2, wt in zip(got, again, want):
+        assert torch.equal(gt, g2)
+        assert float(wt.abs().max()) > 0
+        assert _bykey_close(gt, wt)
+
+
+def test_teacher_train_step_on_card(dev):
+    """The tiny teacher's training step on the card (K1-K5, K2's payload
+    gradient) against the committed JAX golden, at the CPU test's
+    tolerances (tests/test_torch_teacher.py): loss and tb terms rtol 1e-4,
+    every gradient rtol 1e-3 with atol 1e-4 * max(max|want|, 1e-2 * the
+    largest), the statistics after the step rtol 1e-5."""
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    model = build_network(tiny.tiny_teacher_model_cfg(), 3, tiny.META, device=dev)
+    model.load_state_dict(tiny.load_state(tiny.TEACHER_STATE_PATH), strict=True)
+    state = model.state_dict()
+    for k, v in tiny.teacher_overrides().items():
+        state[k].copy_(torch.from_numpy(v).to(dev))
+    gt, gmask = tiny.synth_gt(2, "wide")
+    pts = torch.from_numpy(tiny.synth_points(2)).to(dev)
+    before = dict(_kernels.LAUNCHES)
+    out = model.train()({"points": pts, "batch_size": 2,
+                         "points_mask": torch.ones(2, 256, dtype=torch.bool, device=dev),
+                         "gt_boxes": torch.from_numpy(gt).to(dev),
+                         "gt_boxes_mask": torch.from_numpy(gmask).to(dev)})
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    for k in ("fps", "query_group", "probe", "spconv_bykey", "spconv_bykey_bwd"):
+        assert _kernels.LAUNCHES[k] > before[k], k
+    params = dict(model.named_parameters())
+    with np.load(tiny.TEACHER_TRAIN_GOLDEN_PATH) as golden:
+        gold = {k: golden[k] for k in golden.files}
+    scale = max(float(np.abs(v).max()) for k, v in gold.items() if k.startswith("grad/"))
+    for k, want in gold.items():
+        if k.startswith("grad/"):
+            np.testing.assert_allclose(
+                params[k[5:]].grad.cpu().numpy(), want, rtol=1e-3,
+                atol=1e-4 * max(float(np.abs(want).max()), 1e-2 * scale), err_msg=k)
+        elif k.startswith("stat/"):
+            np.testing.assert_allclose(state[k[5:]].cpu().numpy(), want, rtol=1e-5,
+                                       atol=1e-5 * max(1.0, float(np.abs(want).max())),
+                                       err_msg=k)
+        else:
+            got = out["loss"] if k == "loss" else out["tb_dict"][k[3:]]
+            np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-4,
+                                       atol=1e-4 * max(1.0, abs(float(want))), err_msg=k)
 
 
 @pytest.mark.parametrize("kind", ["subm", "strided", "inverse"])

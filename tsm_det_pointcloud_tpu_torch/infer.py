@@ -9,13 +9,15 @@ scans.
         --points 122880
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/second.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/fast_cpc_teacher.yaml
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
 features) or Waymo (5 point features, a +-75.2 m range). Prints the
 detections per scan of the last batch and the scans/s over the timed
 batches (host clock around work that ends in a synchronize). Weights, BN
-running stats and the TSM head's statistics buffers are random, made from
+running stats and the TSM heads' statistics buffers are random, made from
 --seed, with the cls priors lifted so that NMS has boxes to work on.
 --profile then traces one more batch with
 torch.profiler and prints the device's busy share of that batch's wall time
@@ -34,6 +36,7 @@ import torch
 
 from .config import cfg_from_yaml_file
 from .models import build_network
+from .models.dense_heads.point_head_vote import STATISTIC_BUFFERS
 from .models.detectors import DatasetMeta
 from .utils.common_utils import resolve_device
 from .utils.edict import EDict
@@ -151,18 +154,20 @@ def randomize_eval_state(model, seed):
             m.bias.fill_(1.0)
         elif tail == "conv_cls":
             m.bias.fill_(SECOND_CLS_BIAS)
-    if hasattr(model.module_list[-1], "object_statistic_features"):
-        seed_statistics(model, g)
+    seed_statistics(model, g)
 
 
 @torch.no_grad()
 def seed_statistics(model, g):
-    """The head's class-statistics buffers N(0, 0.25) from generator g (a
-    real run transfers them from the teacher checkpoint)."""
-    head = model.module_list[1]
-    for buf in ("object_statistic_features", "object_momentum", "object_mean"):
-        t = getattr(head, buf)
-        t.copy_((torch.randn(t.shape, generator=g) * 0.5).to(t.device))
+    """The class-statistics buffers N(0, 0.25) from generator g, wherever
+    the head keeps them (the distillation head at its own scope, the
+    teacher head in its branch); a real run transfers them from the teacher
+    checkpoint or, for the teacher, accumulates them in training."""
+    for m in model.modules():
+        if "object_statistic_features" in dict(m.named_buffers(recurse=False)):
+            for buf in STATISTIC_BUFFERS:
+                t = getattr(m, buf)
+                t.copy_((torch.randn(t.shape, generator=g) * 0.5).to(t.device))
 
 
 def dataset_meta(cfg, n_points, mode="test"):

@@ -6,6 +6,10 @@ one of the ported detectors with seeded random weights, in eval mode, on
   * NAME 3DSSD with the VoxelPointNet2FSMSGDistillation backbone and the
     PointHeadVoteSASAStatisticDistillation head, teacher and student;
     `.train()` turns on the distillation training path;
+  * NAME 3DSSD with the VoxelPointNet2FSMSG backbone and the
+    PointHeadVoteSASAStatistic head: the TSM teacher
+    (fast_cpc_teacher.yaml); `.train()` turns on its training path, which
+    updates the head's class statistics;
   * NAME SECONDNet: MeanVFE, VoxelBackBone8x, HeightCompression,
     BaseBEVBackbone, AnchorHeadSingle; `.train()` turns on its training
     forward (target assignment and the head's losses).
@@ -27,22 +31,35 @@ from .backbones_2d.map_to_bev import HeightCompression
 from .backbones_3d.pointnet2_modules import BatchNorm
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, _ConvBase
 from .backbones_3d.vfe import MeanVFE
-from .backbones_3d.voxel_pointnet2_backbone import VoxelPointNet2FSMSGDistillation
+from .backbones_3d.voxel_pointnet2_backbone import (
+    VoxelPointNet2FSMSG,
+    VoxelPointNet2FSMSGDistillation,
+)
 from .dense_heads.anchor_head import AnchorHeadSingle
 from .dense_heads.point_head_vote import (
+    PointHeadVoteSASAStatistic,
     PointHeadVoteSASAStatisticDistillation,
     VoteHeadBranch,
 )
 from .detectors import DatasetMeta, __all__ as detector_registry
 
 _NEG_LOG99 = -float(np.log(99.0))
-# the sections each ported detector reads, and the module NAME each must give
+# the sections each ported detector reads, and the module NAMEs each may give
+# (3DSSD's backbone and head come in pairs: `_TSM_PAIRS`)
 _PORTED = {
-    "3DSSD": {"BACKBONE_3D": "VoxelPointNet2FSMSGDistillation",
-              "POINT_HEAD": "PointHeadVoteSASAStatisticDistillation"},
-    "SECONDNet": {"VFE": "MeanVFE", "BACKBONE_3D": "VoxelBackBone8x",
-                  "MAP_TO_BEV": "HeightCompression", "BACKBONE_2D": "BaseBEVBackbone",
-                  "DENSE_HEAD": "AnchorHeadSingle"},
+    "3DSSD": {"BACKBONE_3D": ("VoxelPointNet2FSMSGDistillation", "VoxelPointNet2FSMSG"),
+              "POINT_HEAD": ("PointHeadVoteSASAStatisticDistillation",
+                             "PointHeadVoteSASAStatistic")},
+    "SECONDNet": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+                  "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
+                  "DENSE_HEAD": ("AnchorHeadSingle",)},
+}
+# (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
+_TSM_PAIRS = {
+    ("VoxelPointNet2FSMSGDistillation", "PointHeadVoteSASAStatisticDistillation"):
+        (VoxelPointNet2FSMSGDistillation, PointHeadVoteSASAStatisticDistillation),
+    ("VoxelPointNet2FSMSG", "PointHeadVoteSASAStatistic"):
+        (VoxelPointNet2FSMSG, PointHeadVoteSASAStatistic),
 }
 _PORTED["Point3DSSD"] = _PORTED["3DSSD"]
 _COMMON_SECTIONS = {"NAME", "POST_PROCESSING", "FACTOR"}
@@ -102,8 +119,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
     extra = set(model_cfg.keys()) - _COMMON_SECTIONS - set(sections)
     if extra:
         raise NotImplementedError(f"model sections {sorted(extra)} are not ported")
-    for section, module in sections.items():
-        if model_cfg[section]["NAME"] != module:
+    for section, modules in sections.items():
+        if model_cfg[section]["NAME"] not in modules:
             raise NotImplementedError(
                 f"{section} {model_cfg[section]['NAME']} is not ported")
     if not isinstance(dataset, DatasetMeta):
@@ -116,12 +133,16 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
 
 
 def _tsm_modules(model_cfg, num_class, meta):
-    backbone = VoxelPointNet2FSMSGDistillation(
+    names = (model_cfg["BACKBONE_3D"]["NAME"], model_cfg["POINT_HEAD"]["NAME"])
+    if names not in _TSM_PAIRS:
+        raise NotImplementedError(f"3DSSD backbone / head pair {names} is not ported")
+    backbone_cls, head_cls = _TSM_PAIRS[names]
+    backbone = backbone_cls(
         dict(model_cfg["BACKBONE_3D"]), input_channels=meta.num_point_features, meta=meta)
-    head = PointHeadVoteSASAStatisticDistillation(
-        dict(model_cfg["POINT_HEAD"]), num_class=num_class,
-        input_channels=backbone.num_point_features, meta=meta,
-        teacher_channels=backbone.teacher_point_features)
+    kw = ({"teacher_channels": backbone.teacher_point_features}
+          if head_cls is PointHeadVoteSASAStatisticDistillation else {})
+    head = head_cls(dict(model_cfg["POINT_HEAD"]), num_class=num_class,
+                    input_channels=backbone.num_point_features, meta=meta, **kw)
     return [backbone, head]
 
 

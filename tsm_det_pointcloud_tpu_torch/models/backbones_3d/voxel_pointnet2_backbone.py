@@ -445,6 +445,51 @@ class _VoxelFSBase(nn.Module):
         return outs, unet_plan
 
 
+def _fill_last(batch_dict, last):
+    """The keys the point heads read from a backbone's last SA layer."""
+    batch_dict["point_features"] = last["new_features"]
+    batch_dict["point_coords"] = last["new_xyz"]
+    batch_dict["point_valid"] = last["new_valid"]
+    batch_dict["point_scores"] = last["scores_voxel"]
+    batch_dict["last_sp_tensor"] = last["sp"]
+    batch_dict["last_centroid_xyz"] = last["centroid_xyz"]
+    batch_dict["last_point_slot"] = last["point_slot"]
+    batch_dict["statistic_feature"] = last["sp"].features
+
+
+def _fill_pyramid(batch_dict, outs):
+    """The SASA pyramid: per layer, centroid coords, voxel scores, valid."""
+    batch_dict["point_coords_list"] = [o["centroid_xyz"] for o in outs]
+    batch_dict["point_scores_list"] = [o["scores_voxel"] for o in outs]
+    batch_dict["point_valid_list"] = [o["sp"].valid for o in outs]
+
+
+class VoxelPointNet2FSMSG(_VoxelFSBase):
+    """Teacher-training backbone (counterpart of the JAX class at
+    voxel_pointnet2_backbone.py:670-694): every SA layer of SA_CONFIG runs,
+    at eval and in training, with the gradient through all of them; the
+    U-Net plan is built at layer 1. One grouping.TileCache a forward: every
+    voxel query (layer 1's scales, the head's VSA) runs on layer 0's
+    centroids, so K2 tiles them once."""
+
+    def __init__(self, model_cfg, input_channels, meta=None):
+        super().__init__(model_cfg, input_channels, meta)
+        self.n_layers = len(model_cfg["SA_CONFIG"]["NPOINT_LIST"])
+        self._build_layers("SA_CONFIG", self.n_layers)
+
+    @property
+    def num_point_features(self):
+        return _out_channels(self.model_cfg["SA_CONFIG"], self.n_layers - 1)
+
+    def forward(self, batch_dict):
+        cache = grouping.TileCache()
+        outs, _ = self._run_layers("SA_CONFIG", batch_dict, self.n_layers, cache=cache)
+        _fill_last(batch_dict, outs[-1])
+        batch_dict["group_cache"] = cache
+        _fill_pyramid(batch_dict, outs)
+        return batch_dict
+
+
 class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
     """Frozen-teacher / student backbone. Eval: the teacher runs its first
     len(SA_CONFIG.NPOINT_LIST) - 1 layers (layer 0 for the TSM configs),
@@ -497,15 +542,7 @@ class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
             cache=cache)
 
         if self.training:
-            tl = t_outs[-1]
-            batch_dict["point_features"] = tl["new_features"]
-            batch_dict["point_coords"] = tl["new_xyz"]
-            batch_dict["point_valid"] = tl["new_valid"]
-            batch_dict["point_scores"] = tl["scores_voxel"]
-            batch_dict["last_sp_tensor"] = tl["sp"]
-            batch_dict["last_centroid_xyz"] = tl["centroid_xyz"]
-            batch_dict["last_point_slot"] = tl["point_slot"]
-            batch_dict["statistic_feature"] = tl["sp"].features
+            _fill_last(batch_dict, t_outs[-1])
 
         batch_dict["group_cache"] = cache
         batch_dict["s_point_features"] = s_out["new_features"]
@@ -516,8 +553,5 @@ class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
         batch_dict["s_last_centroid_xyz"] = s_out["centroid_xyz"]
         batch_dict["s_last_point_slot"] = s_out["point_slot"]
         batch_dict["s_statistic_feature"] = s_out["sp"].features
-        outs = t_outs + [s_out]
-        batch_dict["point_coords_list"] = [o["centroid_xyz"] for o in outs]
-        batch_dict["point_scores_list"] = [o["scores_voxel"] for o in outs]
-        batch_dict["point_valid_list"] = [o["sp"].valid for o in outs]
+        _fill_pyramid(batch_dict, t_outs + [s_out])
         return batch_dict

@@ -1,10 +1,12 @@
-"""TSM vote head with transferable class statistics.
+"""TSM vote heads with transferable class statistics.
 
 Counterpart of tsm_det_pointcloud_tpu/models/dense_heads/point_head_vote.py:
 `VoteHeadBranch` (student route: plain REG_FC regression; teacher route:
-the statistic-gated dynamic-weight regression), the vectorised target
-assignment, the branch losses on their distillation route and the SASA
-loss, and `PointHeadVoteSASAStatisticDistillation` with its three shared
+the statistic-gated dynamic-weight regression; with no external statistics
+it owns the three class-statistics buffers and updates them in train mode),
+the vectorised target assignment, the branch losses on both routes and the
+SASA loss; `PointHeadVoteSASAStatistic`, the teacher-training head, and
+`PointHeadVoteSASAStatisticDistillation` with its three shared
 `statistics` buffers (transferred from the teacher checkpoint, never
 updated by this head). Every `stop_gradient` of the reference is a
 `.detach()` at the same place.
@@ -21,6 +23,10 @@ from ...ops.box_coder_utils import PointBinResidualCoder
 from ...ops.boxes import boxes_to_corners_3d, points_in_boxes
 from ..backbones_3d.pointnet2_modules import BatchNorm, SharedMLP
 from ..backbones_3d.voxel_pointnet2_backbone import VoxelSAModule, factored_grid
+
+
+# the class-statistics buffers, in the order the JAX package declares them
+STATISTIC_BUFFERS = ("object_statistic_features", "object_momentum", "object_mean")
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +93,16 @@ class VoteHeadBranch(nn.Module):
     centroid sparse tensor, statistic-conditioned cls, and the regression:
     a plain REG_FC MLP (student) or the statistic-gated dynamic-weight
     regression (teacher, gated_reg=True). in_channels: point feature
-    channels; sp_channels: the sparse tensor's feature channels."""
+    channels; sp_channels: the sparse tensor's feature channels.
+
+    own_statistics=True (the teacher-training head): the branch owns the
+    buffers `object_statistic_features`, `object_momentum` and
+    `object_mean`, (num_class, SHARED_FC[-1]), zeros at init, and in train
+    mode updates them from the backbone's point features before its cls
+    and regression read them (`_update_statistics`)."""
 
     def __init__(self, model_cfg, vote_cfg, vsa_cfg, num_class, box_coder,
-                 in_channels, sp_channels, gated_reg=False):
+                 in_channels, sp_channels, gated_reg=False, own_statistics=False):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
@@ -120,6 +132,14 @@ class VoteHeadBranch(nn.Module):
         )
         self.shared_fc = SharedMLP(self.vsa.out_channels, list(cfg["SHARED_FC"]))
         C = int(cfg["SHARED_FC"][-1])
+        if own_statistics:
+            # the update averages backbone point features into (C,) rows
+            # (the reference's implicit 256 == 256, code_board.py:93)
+            if int(in_channels) != C:
+                raise ValueError(f"statistic buffers need point features of SHARED_FC[-1] "
+                                 f"= {C} channels, not {in_channels}")
+            for name in STATISTIC_BUFFERS:
+                self.register_buffer(name, torch.zeros(num_class, C))
         for i in range(num_class):
             setattr(self, f"cls{i}_fc", nn.Linear(C, 64, bias=False))
             setattr(self, f"cls{i}_bn", BatchNorm(64, eps=1e-3))
@@ -140,7 +160,12 @@ class VoteHeadBranch(nn.Module):
         self.reg_weight = nn.Parameter(torch.zeros(1, 1, 64, code))
 
     def forward(self, point_coords, point_features, point_valid, sp,
-                centroid_xyz, statistics, cache=None):
+                centroid_xyz, statistics=None, cache=None, p_cls=None, p_val=None):
+        """statistics: the (num_class, C) class statistics of a head that
+        shares one set between its branches, or None for the branch's own
+        buffers; p_cls / p_val (B, N): each point's predicted class (-1
+        outside) and score, which the train-mode update of the branch's own
+        buffers reads."""
         lo, hi = self.sample_range
         cand_xyz = point_coords[:, lo:hi]
         cand_feat = point_features[:, lo:hi]
@@ -156,6 +181,13 @@ class VoteHeadBranch(nn.Module):
                          cache=cache)["new_features"]
         shared = self.shared_fc(feats, cand_valid)
 
+        counts = None
+        if statistics is None:
+            statistics = self.object_statistic_features
+            if self.training:
+                statistics, counts = self._update_statistics(
+                    point_features, p_cls, p_val, point_valid)
+
         cls_list = []
         for i in range(self.num_class):
             cond = shared * statistics[i][None, None, :]
@@ -170,7 +202,41 @@ class VoteHeadBranch(nn.Module):
         box_preds = self.box_coder.decode(reg_preds, vote_xyz)
         return dict(candidate_xyz=cand_xyz, candidate_valid=cand_valid,
                     vote_xyz=vote_xyz, cls_preds=cls_preds, reg_preds=reg_preds,
-                    box_preds=box_preds, shared=shared)
+                    box_preds=box_preds, shared=shared, statistic_counts=counts)
+
+    def _update_statistics(self, point_features, p_cls, p_val, point_valid):
+        """The momentum update of the branch's buffers (point_head_vote.py:
+        205-237; code_board.py:884-901): for each class i, the mean of the
+        backbone features of the valid points predicted i with a score of
+        at least 0.3; with no such point the old values stay. The new
+        statistics are computed in the graph and returned for this
+        forward's cls conditioning and gated regression, so the gradient
+        reaches the backbone through them, as `jax.grad` does through the
+        JAX package's traced update; the buffers keep detached copies.
+        Returns (statistics (num_class, C), counts (num_class,))."""
+        C = self.object_statistic_features.shape[1]
+        feats = point_features.reshape(-1, C)
+        cls = p_cls.reshape(-1)
+        val = p_val.reshape(-1)
+        ok = point_valid.reshape(-1)
+        stat, mom, mean = (getattr(self, name).clone() for name in STATISTIC_BUFFERS)
+        new_stat, new_mom, new_mean, counts = [], [], [], []
+        for i in range(self.num_class):
+            m = (cls == i) & (val >= 0.3) & ok
+            cnt = m.sum()
+            seen = cnt > 0
+            mu = torch.where(seen, (feats * m[:, None].to(feats.dtype)).sum(0)
+                             / torch.clamp(cnt, min=1), mean[i])
+            mom_i = torch.where(seen, 0.9 * mom[i] + (mu - mean[i]), mom[i])
+            new_stat.append(torch.where(seen, stat[i] + mom_i, stat[i]))
+            new_mom.append(mom_i)
+            new_mean.append(mu)
+            counts.append(cnt)
+        new = [torch.stack(t) for t in (new_stat, new_mom, new_mean)]
+        with torch.no_grad():
+            for name, t in zip(STATISTIC_BUFFERS, new):
+                getattr(self, name).copy_(t.detach())
+        return new[0], torch.stack(counts)
 
     def _gated_reg(self, shared, cls_preds, statistics, cand_valid):
         """Statistic-gated dynamic-weight regression (point_head_vote.py:
@@ -197,16 +263,23 @@ class VoteHeadBranch(nn.Module):
 def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
                    num_class):
     """Vote + cls (centerness x rdiou) + box (offset / angle / rdiou /
-    corner) losses of the student branch on the distillation route: quality
-    labels to the power 0.25, each loss blended with the teacher's outputs
-    (cls 0.5 / 0.5 with both logit sets tempered by /3, offsets 0.5 / 0.5,
-    rdiou 0.5 / 0.5, corner 0.3 gt + 0.7 teacher). Returns (targets, loss,
-    tb_dict), the tb keys prefixed "s_"."""
+    corner) losses of one branch. Returns (targets, loss, tb_dict).
+
+    teacher_out=None: the teacher-training route (code_board.py): quality
+    labels to the power 0.5, the gt terms at full weight; tb keys without a
+    prefix. teacher_out given: the distillation route of the student branch
+    (...distillation.py:682-882): quality labels to the power 0.25, each
+    loss blended with the teacher's outputs (cls 0.5 / 0.5 with both logit
+    sets tempered by /3, offsets 0.5 / 0.5, rdiou 0.5 / 0.5, corner 0.3 gt
+    + 0.7 teacher); tb keys prefixed "s_"."""
     w = cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
     tb = {}
+    distill = teacher_out is not None
+    qpow = 0.25 if distill else 0.5
+    prefix = "s_" if distill else ""
 
     def quality(x):
-        return (x + 1e-8) ** 0.25
+        return (x + 1e-8) ** qpow
 
     cand_valid = out["candidate_valid"]
     extra = cfg["TARGET_CONFIG"].get("VOTE_EXTRA_WIDTH")
@@ -216,7 +289,7 @@ def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
     vw = vw / torch.clamp(vw.sum(), min=1.0)
     vote_loss = loss_utils.weighted_smooth_l1(
         out["vote_xyz"], v_centers, weights=vw).sum() * w["vote_reg_weight"]
-    tb["s_vote_loss"] = vote_loss
+    tb[prefix + "vote_loss"] = vote_loss
 
     # the targets at vote positions are constants (stop_gradient on the
     # assignment input, point_head_vote.py:356-368)
@@ -236,23 +309,25 @@ def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
     one_hot = F.one_hot(torch.clamp(labels, min=0), num_class + 1)[..., 1:].float()
     one_hot = one_hot * cent[..., None]
     cls_loss_pt = loss_utils.bce_with_logits(out["cls_preds"], one_hot).sum(-1) * cls_w
-    t_soft = torch.sigmoid(teacher_out["cls_preds"].detach() / 3.0)
-    distill_pt = loss_utils.bce_with_logits(out["cls_preds"] / 3.0,
-                                            t_soft).sum(-1) * cls_w
-    cls_loss_pt = 0.5 * cls_loss_pt + 0.5 * distill_pt
+    if distill:
+        t_soft = torch.sigmoid(teacher_out["cls_preds"].detach() / 3.0)
+        distill_pt = loss_utils.bce_with_logits(out["cls_preds"] / 3.0,
+                                                t_soft).sum(-1) * cls_w
+        cls_loss_pt = 0.5 * cls_loss_pt + 0.5 * distill_pt
     cls_norm = torch.clamp(pos.sum().float(), min=1.0)
     cls_loss = cls_loss_pt.sum() / cls_norm * w["point_cls_weight"]
-    tb["s_cls_loss"] = cls_loss
+    tb[prefix + "cls_loss"] = cls_loss
 
     rw = pos.float()
     nbin = box_coder.angle_bin_num
     reg = out["reg_preds"]
     off_l = loss_utils.weighted_smooth_l1(reg[..., :6], reg_labels[..., :6],
                                           weights=rw).sum(-1)
-    t_off = loss_utils.weighted_smooth_l1(
-        reg[..., :6], teacher_out["reg_preds"][..., :6].detach(),
-        weights=rw).sum(-1)
-    off_l = 0.5 * off_l + 0.5 * t_off
+    if distill:
+        t_off = loss_utils.weighted_smooth_l1(
+            reg[..., :6], teacher_out["reg_preds"][..., :6].detach(),
+            weights=rw).sum(-1)
+        off_l = 0.5 * off_l + 0.5 * t_off
     off_l = off_l * w["point_offset_reg_weight"]
     ang_cls_lab = reg_labels[..., 6:6 + nbin]
     ce = -F.log_softmax(reg[..., 6:6 + nbin], dim=-1) * ang_cls_lab
@@ -270,27 +345,29 @@ def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
         cent2 = loss_utils.centerness_label(vote_c, box_labels, pos)
         _, rd2 = loss_utils.rdiou(out["box_preds"], box_labels)
         iou_l = 1.0 - quality(rd2 * cent2)
-        t_box = teacher_out["box_preds"].detach()
-        t_cent = loss_utils.centerness_label(vote_c, t_box, pos)
-        _, t_rd = loss_utils.rdiou(out["box_preds"], t_box)
-        iou_l = 0.5 * iou_l + 0.5 * (1.0 - quality(t_rd * t_cent))
+        if distill:
+            t_box = teacher_out["box_preds"].detach()
+            t_cent = loss_utils.centerness_label(vote_c, t_box, pos)
+            _, t_rd = loss_utils.rdiou(out["box_preds"], t_box)
+            iou_l = 0.5 * iou_l + 0.5 * (1.0 - quality(t_rd * t_cent))
         aux = aux + torch.where(pos, iou_l * w["point_iou_weight"],
                                 torch.zeros_like(iou_l))
     if lc.get("CORNER_LOSS_REGULARIZATION", False):
         corner = corner_loss_points(out["box_preds"], box_labels, rw) \
             * w["point_corner_weight"]
-        t_corner = corner_loss_points(out["box_preds"],
-                                      teacher_out["box_preds"].detach(),
-                                      rw) * w["point_corner_weight"]
-        corner = 0.3 * corner + 0.7 * t_corner
+        if distill:
+            t_corner = corner_loss_points(out["box_preds"],
+                                          teacher_out["box_preds"].detach(),
+                                          rw) * w["point_corner_weight"]
+            corner = 0.3 * corner + 0.7 * t_corner
         aux = aux + corner
     box_norm = torch.clamp(pos.sum().float(), min=1.0)
     box_loss = (box_loss_pt * rw + aux).sum() / box_norm
-    tb["s_box_loss"] = box_loss
-    tb["s_box_off"] = (off_l * rw).sum() / box_norm
-    tb["s_box_ang"] = ((ang_cls_l + ang_reg_l) * rw).sum() / box_norm
-    tb["s_box_aux"] = aux.sum() / box_norm
-    tb["s_n_pos"] = pos.sum().float()
+    tb[prefix + "box_loss"] = box_loss
+    tb[prefix + "box_off"] = (off_l * rw).sum() / box_norm
+    tb[prefix + "box_ang"] = ((ang_cls_l + ang_reg_l) * rw).sum() / box_norm
+    tb[prefix + "box_aux"] = aux.sum() / box_norm
+    tb[prefix + "n_pos"] = pos.sum().float()
 
     targets = dict(labels=labels, reg_labels=reg_labels, box_labels=box_labels,
                    pos=pos)
@@ -320,8 +397,74 @@ def _sasa_loss(batch_dict, gt_boxes, gt_valid, cfg, num_class):
 
 
 # ---------------------------------------------------------------------------
-# head
+# heads
 # ---------------------------------------------------------------------------
+
+def _point_scores(scores_voxel, slot):
+    """Each point's predicted class (argmax of its voxel's confidence) and
+    score (the largest sigmoid), through the backbone's point -> voxel slot:
+    (-1, 0) for a point without a voxel (point_head_vote.py:530-535). Only
+    compared, so without a gradient."""
+    scores_voxel = scores_voxel.detach()
+    smax = torch.sigmoid(scores_voxel).amax(-1)
+    scls = scores_voxel.argmax(-1)
+    safe = torch.clamp(slot.long(), 0, smax.shape[1] - 1)
+    inside = slot >= 0
+    p_val = torch.where(inside, torch.gather(smax, 1, safe), 0.0)
+    p_cls = torch.where(inside, torch.gather(scls, 1, safe), -1)
+    return p_cls, p_val
+
+
+def _need_gt(batch_dict):
+    if "gt_boxes" not in batch_dict or "gt_boxes_mask" not in batch_dict:
+        raise ValueError("training needs gt_boxes and gt_boxes_mask in the batch")
+    return batch_dict["gt_boxes"], batch_dict["gt_boxes_mask"]
+
+
+class PointHeadVoteSASAStatistic(nn.Module):
+    """Teacher-training head (counterpart of point_head_vote.py:514-561):
+    one gated branch `head` that owns and, in train mode, updates the class
+    statistics from the backbone's point features and per-point confidence.
+    In train mode the batch dict gains `loss` (the branch losses on the
+    teacher route plus the SASA loss), `tb_dict` and `statistic_counts`
+    (num_class,), the points each class's update averaged."""
+
+    def __init__(self, model_cfg, num_class, input_channels, meta=None):
+        super().__init__()
+        self.model_cfg = model_cfg
+        self.num_class = num_class
+        tc = model_cfg["TARGET_CONFIG"]
+        self.box_coder = PointBinResidualCoder(**dict(tc.get("BOX_CODER_CONFIG", {})))
+        ch = int(input_channels)
+        self.head = VoteHeadBranch(
+            model_cfg, dict(model_cfg["VOTE_CONFIG"]), dict(model_cfg["VSA_CONFIG"]),
+            num_class, self.box_coder, in_channels=ch, sp_channels=ch,
+            gated_reg=True, own_statistics=True)
+
+    def forward(self, batch_dict):
+        p_cls, p_val = _point_scores(batch_dict["point_scores"],
+                                     batch_dict["last_point_slot"])
+        out = self.head(
+            batch_dict["point_coords"], batch_dict["point_features"],
+            batch_dict["point_valid"], batch_dict["last_sp_tensor"],
+            batch_dict["last_centroid_xyz"], None, batch_dict.get("group_cache"),
+            p_cls=p_cls, p_val=p_val)
+        batch_dict["batch_cls_preds"] = out["cls_preds"]
+        batch_dict["batch_box_preds"] = out["box_preds"]
+        batch_dict["cls_preds_normalized"] = False
+        batch_dict["point_vote_coords"] = out["vote_xyz"]
+        if not self.training:
+            return batch_dict
+
+        gt, gv = _need_gt(batch_dict)
+        _, loss, tb = _branch_losses(out, None, gt, gv, self.box_coder,
+                                     self.model_cfg, self.num_class)
+        sasa, tb2 = _sasa_loss(batch_dict, gt, gv, self.model_cfg, self.num_class)
+        batch_dict["loss"] = loss + sasa
+        batch_dict["tb_dict"] = {**tb, **tb2}
+        batch_dict["statistic_counts"] = out["statistic_counts"]
+        return batch_dict
+
 
 class PointHeadVoteSASAStatisticDistillation(nn.Module):
     """Distillation head: the student branch `s_head` (the deployed model),
@@ -347,7 +490,7 @@ class PointHeadVoteSASAStatisticDistillation(nn.Module):
             dict(model_cfg["S_VSA_CONFIG"]), num_class, self.box_coder,
             in_channels=input_channels, sp_channels=input_channels)
         C = int(model_cfg["SHARED_FC"][-1])
-        for name in ("object_statistic_features", "object_momentum", "object_mean"):
+        for name in STATISTIC_BUFFERS:
             self.register_buffer(name, torch.zeros(num_class, C))
 
     def forward(self, batch_dict):
@@ -363,14 +506,12 @@ class PointHeadVoteSASAStatisticDistillation(nn.Module):
         if not self.training:
             return batch_dict
 
-        if "gt_boxes" not in batch_dict or "gt_boxes_mask" not in batch_dict:
-            raise ValueError("training needs gt_boxes and gt_boxes_mask in the batch")
+        gt, gv = _need_gt(batch_dict)
         with torch.no_grad():
             t_out = self.head(
                 batch_dict["point_coords"], batch_dict["point_features"],
                 batch_dict["point_valid"], batch_dict["last_sp_tensor"],
                 batch_dict["last_centroid_xyz"], stats, batch_dict.get("group_cache"))
-        gt, gv = batch_dict["gt_boxes"], batch_dict["gt_boxes_mask"]
         _, s_loss, tb = _branch_losses(s_out, t_out, gt, gv, self.box_coder,
                                        self.model_cfg, self.num_class)
         sasa, tb2 = _sasa_loss(batch_dict, gt, gv, self.model_cfg, self.num_class)

@@ -8,7 +8,8 @@ update. Here the teacher's parameters are frozen (`requires_grad_(False)`)
 and left out of the optimizer, which is given the student's alone. The BN
 running stats of teacher and student still update in the train-mode
 forward, as the JAX step mutates every `batch_stats` leaf. Any other config
-(SECOND) trains every parameter.
+(the TSM teacher, SECOND) trains every parameter; the teacher's head also
+updates its class statistics in the train-mode forward.
 """
 from __future__ import annotations
 

@@ -7,6 +7,17 @@ that model's weights as the JAX package initialises them (PRNGKey(0)),
 converted by `convert.from_flax_variables`; with them the eval forward on
 `synth_batch(2)` must reproduce `tests/goldens/tsm_forward.npz`.
 
+`tiny_teacher_model_cfg()` is the same model's teacher phase: the
+VoxelPointNet2FSMSG backbone (SA_CONFIG, both layers) and the
+PointHeadVoteSASAStatistic head (VOTE_CONFIG, VSA_CONFIG), without the
+student's S_* sections. `data/tsm_teacher_tiny_state.npz` holds its
+converted PRNGKey(0) training init; with it and `teacher_overrides()`
+(seeded class statistics and a confidence bias of layer 1 under which the
+statistic update counts points of two classes and none of the third) the
+eval forward on `synth_points(2)` must reproduce
+`data/tsm_teacher_tiny_forward.npz`, and one training step on it with the
+"wide" boxes `data/tsm_teacher_tiny_train_golden.npz`.
+
 Also a copy of the tiny SECOND of the JAX package's tests
 (`second_model_cfg`, `META` and `synthetic_batch` of
 tests/test_second_e2e.py): the real 8x-stride topology on a 32 x 32 x 40
@@ -29,6 +40,9 @@ PCR = [0.0, -8.0, -2.0, 16.0, 8.0, 2.0]
 VOXEL = [0.25, 0.25, 0.25]
 STATE_PATH = Path(__file__).resolve().parent / "data" / "tsm_tiny_state.npz"
 SECOND_STATE_PATH = STATE_PATH.parent / "second_tiny_state.npz"
+TEACHER_STATE_PATH = STATE_PATH.parent / "tsm_teacher_tiny_state.npz"
+TEACHER_FORWARD_PATH = STATE_PATH.parent / "tsm_teacher_tiny_forward.npz"
+TEACHER_TRAIN_GOLDEN_PATH = STATE_PATH.parent / "tsm_teacher_tiny_train_golden.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -121,6 +135,32 @@ def tiny_model_cfg():
                            "NMS_POST_MAXSIZE": 8},
         },
     })
+
+
+def tiny_teacher_model_cfg():
+    """The teacher phase of `tiny_model_cfg()`: its SA_CONFIG, VOTE_CONFIG
+    and VSA_CONFIG under the teacher's backbone and head, no S_* keys."""
+    cfg = tiny_model_cfg()
+    cfg.BACKBONE_3D["NAME"] = "VoxelPointNet2FSMSG"
+    del cfg.BACKBONE_3D["S_SA_CONFIG"]
+    cfg.POINT_HEAD["NAME"] = "PointHeadVoteSASAStatistic"
+    del cfg.POINT_HEAD["S_VOTE_CONFIG"], cfg.POINT_HEAD["S_VSA_CONFIG"]
+    return cfg
+
+
+# the tiny teacher's layer-1 confidence bias in the checks: with the init's
+# weights the points of synth_points(2) then fall to classes 0 and 1 with
+# scores over the update's 0.3, and none to class 2
+TEACHER_CONF_BIAS = (0.0, 0.0, -6.0)
+
+
+def teacher_overrides(seed=5):
+    """Port state entries that the tiny teacher's checks set over the
+    PRNGKey(0) init: seeded class statistics (zeros would make the cls
+    conditioning a constant) and TEACHER_CONF_BIAS."""
+    out = {f"module_list.1.head.{k}": v for k, v in train_statistics(seed).items()}
+    out["module_list.0.sa1.confidence_out.bias"] = np.asarray(TEACHER_CONF_BIAS, np.float32)
+    return out
 
 
 # A Waymo-flavoured tiny configuration: 5 point features, a range symmetric

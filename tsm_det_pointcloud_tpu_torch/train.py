@@ -1,21 +1,27 @@
-"""Training entry point: the fast_cpc distillation step, or SECOND's step, on
-synthetic scans.
+"""Training entry point: the fast_cpc distillation step, the TSM teacher's
+step or SECOND's step, on synthetic scans.
 
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/fast_cpc.yaml [--batch 16] \\
         [--points 16384] [--steps 3] [--seed 0] [--device cuda] \\
-        [--ckpt_dir DIR] [--profile]
+        [--ckpt_dir DIR] [--pretrained_model CKPT] [--profile]
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/kitti_models/fast_cpc_teacher.yaml --ckpt_dir DIR
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --batch 8 \\
         --points 122880 --steps 3
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/second.yaml --batch 4 --points 20000
 
-Builds the detector with seeded random weights. A distillation config
-(`runtime.train_state.is_distillation`) also seeds the class-statistics
-buffers (a real run transfers them from the teacher checkpoint), freezes
-the teacher and trains the student; any other config trains every
-parameter. The optimizer is the config's adam_onecycle, over one warm-up
+Builds the detector with seeded random weights. With --pretrained_model (a
+checkpoint this entry point wrote, e.g. the teacher's) the weights it holds
+are loaded by key and shape (`runtime.checkpoint.partial_load`) and its
+class statistics by name (`transfer_statistics`), the two phases of the TSM
+recipe; without it a distillation config
+(`runtime.train_state.is_distillation`) seeds the class-statistics buffers
+instead. A distillation config then freezes the teacher and trains the
+student; any other config (the TSM teacher, whose statistics start at
+zeros and accumulate in training, and SECOND) trains every parameter. The optimizer is the config's adam_onecycle, over one warm-up
 step (which builds the kernels) plus --steps timed steps
 (`runtime.train_loop.train_one_epoch`, which reads the loss on the host at
 the first and the last of them), each on its own synthetic scan batch with
@@ -39,7 +45,8 @@ import torch
 from .infer import (KITTI_RANGE, ROOT, dataset_meta, load_cfg, profile_call, scan_recipe,
                     seed_statistics, synth_scene)
 from .models import build_network
-from .runtime.checkpoint import save_checkpoint
+from .runtime.checkpoint import (load_model_state, partial_load, save_checkpoint,
+                                 transfer_statistics)
 from .runtime.optimization import build_optimizer
 from .runtime.train_loop import train_one_epoch
 from .runtime.train_state import freeze_teacher, is_distillation, train_step
@@ -66,15 +73,25 @@ def synth_train_batch(batch, n, seed=0, device="cpu", point_cloud_range=KITTI_RA
             "gt_boxes_mask": torch.ones((batch, n_box), dtype=torch.bool, device=dev)}
 
 
-def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1):
+def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1,
+                  pretrained_model=None):
     """(cfg, model in train mode, optimizer over the parameters that train:
-    the student's for a distillation config, else all of them)."""
+    the student's for a distillation config, else all of them).
+    pretrained_model: a checkpoint file whose weights and class statistics
+    are loaded first (as the JAX tools/train.py:161-171 does)."""
     cfg = load_cfg(cfg_file)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                           dataset=dataset_meta(cfg, n_points, "train"), device=device,
                           seed=seed)
-    if is_distillation(cfg.MODEL):
+    if pretrained_model is not None:
+        state = load_model_state(pretrained_model)
+        missed = partial_load(model, state)
+        moved = transfer_statistics(model, state)
+        print(f"pretrained model {pretrained_model}: {len(model.state_dict()) - len(missed)} "
+              f"entries loaded, {len(missed)} not in it; statistics {moved}")
+    elif is_distillation(cfg.MODEL):
         seed_statistics(model, torch.Generator().manual_seed(seed + 1))
+    if is_distillation(cfg.MODEL):
         params = freeze_teacher(model)
     else:
         params = list(model.parameters())
@@ -91,12 +108,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt_dir", default=None)
+    ap.add_argument("--pretrained_model", default=None,
+                    help="a checkpoint of this entry point (the teacher's, for a "
+                         "distillation config) to start from")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     total = args.steps + 1 + int(args.profile)
-    cfg, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total)
+    cfg, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total,
+                                    args.pretrained_model)
     meta = model.dataset_meta
     batches = [synth_train_batch(args.batch, args.points, args.seed + i, dev,
                                  meta.point_cloud_range, meta.num_point_features)
