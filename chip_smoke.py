@@ -161,7 +161,39 @@ Phases (any failure exits non-zero before the result line):
      train.build_trainer's pretrained_model (partial_load, then
      transfer_statistics): its statistics equal the teacher's and every
      teacher parameter is bit-equal; after one distillation step they still
-     are, and every student parameter moved (as phase 20, `still_params`).
+     are, and every student parameter moved (as phase 20, `still_params`);
+ 22. KITTI data: a synthetic KITTI root in a temporary directory
+     (datasets/kitti/synthetic.py: 48 train and 48 val frames of 120000
+     points over 360 degrees, ~25k of them in the camera's field of view;
+     four cars, two pedestrians and two cyclists a frame with road planes),
+     then `create_kitti_infos` (infos and gt database); the val gt echoed as
+     detections must score 100.0 on every AP of the official eval;
+ 23. KITTI data eval: fast_cpc.yaml's test split through the loader (4
+     forkserver workers, the FOV crop, 20000 points a scan) and
+     `runtime.eval_utils.eval_one_ckpt` at b16 (3 batches; seeded weights and
+     eval state as infer.build_detector makes them, the geometry from the
+     dataset): the first batch, loaded in the process, records every K1-K4
+     and K6 call (d-fps over 20000 points a scan, more than K1's 16384, runs
+     on K6), held against its plain version at phases 3 and 10's tolerances,
+     timed;
+     launch counts are zeroed, the eval loop runs, the counts are read;
+     predictions finite, 48 prediction dicts, an AP dict of 72 finite
+     entries. Prints eval scans/s (host clock, loader included),
+     sec_per_example, the loop's wait on the loader a batch, peak memory and
+     the AP dict; the device idle share of one profiled batch of it comes at
+     the end, after every timed path;
+ 24. KITTI data training: `train --data_root` for 2 epochs at b16 with 4
+     workers and fast_cpc.yaml's augmentors (gt sampling with road planes,
+     flip, box noise, rotation, scaling), launch counts zeroed before and
+     read after; its first step records every K1-K5 call, held against its
+     plain version at phases 3 and 6's tolerances (K5 bit-equal between two
+     launches), timed; every kernel launched, losses finite. Prints each
+     epoch's train scans/s (host clock, loader included; the first epoch
+     holds the recorded step), the loader wait a step and the peak memory;
+     then `evaluate --ckpt` on the checkpoint of its last epoch.
+Before it prints its result the script stops the loaders' workers, their
+fork server and multiprocessing's resource tracker, waits for each, and
+fails if any process it started is still running.
 The line before the last is the kernels JSON: each row's numbers are those
 of the KITTI training path (per step of phase 6, `launches` from phase 8),
 its `eval` object those of the KITTI eval path (per forward of phase 3,
@@ -175,8 +207,11 @@ null but for K3 and K7) and `second_train` those of SECOND's training path
 of the teacher's eval path (per forward of phase 19, `launches` from its 3
 counted batches; null for K5, K6, K7) and `teacher_train` those of the
 teacher's training path (per step of phase 20, `launches` from its 2 counted
-steps). K6 is on no KITTI path: its row's own numbers are
-the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
+steps), its `kitti_data` object those of the KITTI data eval path (per
+batch of phase 23, `launches` from its eval loop; null for K5, K7) and
+`kitti_data_train` those of the KITTI data training path (per step of phase
+24's recorded step, `launches` from its 2 epochs; null for K6, K7). K6 is on
+no KITTI path: its row's own numbers are the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
 are that path's (`path` says which path a row's own numbers are from).
 K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
 PyTorch prep (Morton sort, gathers, boxes) that precedes each launch (K2's
@@ -186,6 +221,7 @@ The last line is the result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -202,10 +238,16 @@ MAIN_BATCH, MAIN_POINTS, MAIN_ITERS, TRAIN_ITERS = 16, 16384, 3, 3
 WAYMO_BATCH, WAYMO_POINTS, WAYMO_ITERS, WAYMO_TRAIN_ITERS = 8, 122880, 3, 2
 SECOND_BATCH, SECOND_POINTS, SECOND_ITERS, SECOND_TRAIN_ITERS = 4, 20000, 3, 2
 TEACHER_TRAIN_ITERS = 2
+# the synthetic KITTI root of phases 22-24: frames a split, points a scan,
+# loader workers, training epochs
+KITTI_TRAIN, KITTI_VAL, KITTI_SCAN_POINTS, KITTI_WORKERS, KITTI_EPOCHS = 48, 48, 120000, 4, 2
+KITTI_BATCH = 16             # fast_cpc.yaml's BATCH_SIZE_PER_GPU
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
 KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
 WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
 TSM_KERNELS = ("fps_block",) + KITTI_KERNELS
+# at fast_cpc.yaml's 20000 test points a scan, over K1's 16384, d-fps runs on K6
+KITTI_DATA_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
 SECOND_KERNELS = ("probe", "spconv_gather")
 SECOND_CALLS = {"probe": 8, "spconv_gather": 12}   # a forward: 4 rulebooks + 4 plans, 12 convs
 BYKEY_ROWS = 64              # K4's row block (csrc/spconv_bykey.cu kRows)
@@ -261,6 +303,37 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def descendants():
+    """The pids of every process this one started, and theirs."""
+    children = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except OSError:   # it ended meanwhile
+            continue
+        children.setdefault(ppid, []).append(int(pid))
+    found, todo = [], [os.getpid()]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        found += kids
+        todo += kids
+    return found
+
+
+def running(pids):
+    """Those of `pids` that still run (neither gone nor a zombie)."""
+    alive = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    alive.append(pid)
+        except OSError:
+            pass
+    return alive
 
 
 def cuda_time_ms(fn, reps):
@@ -1127,6 +1200,187 @@ def teacher_phases(dev):
     return report_eval, launches_eval, report_train, launches_train
 
 
+def echo_gt_annos(infos):
+    """The val infos' annos of the three classes as detections, at distinct
+    scores (the 41-point sweep steps through the true positives' scores)."""
+    rng = np.random.RandomState(0)
+    dets = []
+    for info in infos:
+        a = info["annos"]
+        keep = np.isin(a["name"], ["Car", "Pedestrian", "Cyclist"])
+        dets.append({k: a[k][keep] for k in ("name", "truncated", "occluded", "alpha", "bbox",
+                                              "dimensions", "location", "rotation_y")}
+                    | {"score": rng.uniform(0.5, 1.0, int(keep.sum()))})
+    return dets
+
+
+def kitti_data_phases(dev):
+    """Phases 22-24: the KITTI data path on a synthetic root. Returns the
+    per-kernel reports of phases 23 and 24, the launch counts of their
+    counted runs, and a function that profiles one eval batch (to be called
+    after every timed path: see Deferred)."""
+    import logging
+    import pickle
+    import tempfile
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets import (build_dataloader, load_batch,
+                                                       load_data_to_device, to_torch_batch)
+    from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from tsm_det_pointcloud_tpu_torch.datasets.kitti.synthetic import write_synthetic_kitti
+    from tsm_det_pointcloud_tpu_torch.eval.kitti_eval import get_official_eval_result
+    from tsm_det_pointcloud_tpu_torch.infer import (detect, load_cfg, profile_call,
+                                                    randomize_eval_state)
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime import eval_utils, train_loop
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/fast_cpc.yaml"
+    cfg = load_cfg(cfg_file)
+    classes = list(cfg.CLASS_NAMES)
+    batch = KITTI_BATCH
+    logger = logging.getLogger("chip_smoke.kitti")
+    logger.setLevel(logging.WARNING)
+    tmp = tempfile.TemporaryDirectory()
+    root, out = Path(tmp.name) / "kitti", Path(tmp.name) / "out"
+
+    # ---- 22. a synthetic KITTI root, then its infos and gt database ----
+    t0 = time.perf_counter()
+    write_synthetic_kitti(root, KITTI_TRAIN, KITTI_VAL, KITTI_SCAN_POINTS)
+    t1 = time.perf_counter()
+    create_kitti_infos(cfg.DATA_CONFIG, classes, root, root, workers=8)
+    t2 = time.perf_counter()
+    with open(root / "kitti_infos_val.pkl", "rb") as f:
+        val_infos = pickle.load(f)
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)
+    check(len(val_infos) == KITTI_VAL, f"{len(val_infos)} val infos")
+    check(all(len(db.get(c, [])) > 0 for c in classes), f"gt database {sorted(db)}")
+    _, echo = get_official_eval_result([i["annos"] for i in val_infos],
+                                       echo_gt_annos(val_infos), classes)
+    check(len(echo) == 72 and all(abs(v - 100.0) < 1e-6 for v in echo.values()),
+          f"echoed gt does not score 100: {echo}")
+    print(f"kitti data: {KITTI_TRAIN} + {KITTI_VAL} frames of {KITTI_SCAN_POINTS} points "
+          f"written in {t1 - t0:.3f} s, infos and gt database in {t2 - t1:.3f} s "
+          f"({ {c: len(v) for c, v in db.items()} } gt objects); echoed val gt scores 100.0 "
+          f"on all {len(echo)} APs")
+
+    # ---- 23. fast_cpc.yaml eval over the val split through eval_one_ckpt ----
+    test_set, test_loader, sampler = build_dataloader(
+        cfg.DATA_CONFIG, classes, batch, root_path=root, workers=KITTI_WORKERS,
+        training=False, pin_memory=True)
+    test_loader.start()   # the workers start during the comparisons below
+    model = build_network(cfg.MODEL, len(classes), test_set, device=dev, seed=0)
+    randomize_eval_state(model, 1)
+    first = load_data_to_device(
+        to_torch_batch(load_batch(test_set, sampler.batches()[0], 0, 0)), dev)
+    n_pts = first["points"].shape[1]
+    rec = record_kernels(KITTI_DATA_EVAL_KERNELS)
+    detect(model, first["points"], first["points_mask"])
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the KITTI data eval batch made no {name} call")
+    print(f"kitti data eval: one batch {tuple(first['points'].shape)}, d-fps {n_pts} -> "
+          f"{cfg.MODEL.BACKBONE_3D.S_SA_CONFIG.NPOINT_LIST[0][0]} on K6 (over K1's 16384)")
+    report_eval = compare_recorded(rec.calls, "kitti data eval")
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    res = eval_utils.eval_one_ckpt(model, test_loader, test_set, cfg, logger, out / "eval")
+    launches_eval = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in KITTI_DATA_EVAL_KERNELS:
+        check(launches_eval[name] > 0,
+              f"kernel {name} was not launched on the KITTI data eval path")
+    with open(out / "eval" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    check(len(annos) == KITTI_VAL, f"{len(annos)} prediction dicts for {KITTI_VAL} frames")
+    for a in annos:
+        check(np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all(),
+              f"frame {a['frame_id']}: non-finite predictions")
+    aps = {k: float(v) for k, v in res.items() if "/" in k}
+    check(len(aps) == 72 and all(np.isfinite(v) for v in aps.values()), f"AP dict {aps}")
+    print(f"kitti data eval main path: {KITTI_VAL} scans ({len(test_loader)} batches, the "
+          f"last of {KITTI_VAL % batch or batch}) x {n_pts} points: {res['scans_per_s']:.3f} "
+          f"scans/s (host clock, loader included, {KITTI_WORKERS} workers), sec_per_example "
+          f"{res['sec_per_example']:.4f}, loader wait {res['loader_first_wait_s']:.4f} s for "
+          f"the first batch, {res['loader_wait_s']:.4f} s for each later one; "
+          f"detections per scan {[len(a['name']) for a in annos[:batch]]}; launches "
+          f"{launches_eval}; peak memory {peak:.2f} GiB")
+    print(f"kitti data eval AP dict: {json.dumps(aps)}")
+    del test_loader
+
+    # ---- 24. train --data_root, 2 epochs, the first step recorded; evaluate --ckpt ----
+    recs = []
+    step = train_loop.train_step
+
+    def first_step_recorded(*args):
+        if recs:
+            return step(*args)
+        recs.append(record_kernels(KITTI_KERNELS))
+        try:
+            result = step(*args)
+            torch.cuda.synchronize()
+        finally:
+            recs[0].restore()
+        return result
+
+    train_loop.train_step = first_step_recorded
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    try:
+        ckpt_dir, epochs = train.main([
+            "--cfg_file", str(cfg_file), "--data_root", str(root), "--epochs",
+            str(KITTI_EPOCHS), "--workers", str(KITTI_WORKERS), "--batch", str(batch),
+            "--output_dir", str(out / "train"), "--device", str(dev)])
+    finally:
+        train_loop.train_step = step
+    launches_train = dict(_kernels.LAUNCHES)
+    for name in KITTI_KERNELS:
+        check(launches_train[name] > 0,
+              f"kernel {name} was not launched on the KITTI data training path")
+    for i, e in enumerate(epochs):
+        check(np.isfinite(e["mean_loss"]), f"epoch {i + 1}: mean loss {e['mean_loss']}")
+    rec = recs[0]
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the KITTI data training step made no {name} call")
+    last = epochs[-1]
+    print(f"kitti data training main path: {KITTI_EPOCHS} epochs of {last['steps']} steps x "
+          f"{batch} scans, {KITTI_WORKERS} workers, the config's augmentors: epoch 1 (its "
+          f"first step recorded) {epochs[0]['scans_per_s']:.3f}, epoch {KITTI_EPOCHS} "
+          f"{last['scans_per_s']:.3f} train scans/s (host clock, loader included); loader "
+          f"wait {epochs[0]['loader_first_wait_s']:.4f} s for the first step, "
+          f"{last['loader_wait_s'] / max(last['steps'] - 1, 1):.4f} s for each later one of "
+          f"epoch {KITTI_EPOCHS}; mean losses "
+          f"{[round(e['mean_loss'], 4) for e in epochs]}; launches {launches_train}; peak "
+          f"memory {max(e["peak_gib"] or 0.0 for e in epochs):.2f} GiB")
+    report_train = compare_recorded(rec.calls, "kitti data train")
+    del rec, recs[:]
+    ckpt = ckpt_dir / f"checkpoint_epoch_{KITTI_EPOCHS}.pth"
+    check(ckpt.exists(), f"no checkpoint {ckpt}")
+    eres = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(root), "--ckpt",
+                          str(ckpt), "--workers", str(KITTI_WORKERS), "--batch_size",
+                          str(batch), "--output_dir", str(out / "train"), "--device", str(dev)])
+    check(all(f"{c}_3d/{d}_R40" in eres for c in classes for d in ("easy", "moderate", "hard")),
+          f"evaluate --ckpt gave no AP dict: {sorted(eres)}")
+    print(f"kitti data evaluate --ckpt {ckpt.name}: {eres['scans_per_s']:.3f} scans/s, "
+          f"Car_3d/moderate_R40 {float(eres['Car_3d/moderate_R40']):.4f}")
+
+    def profile_eval_batch():
+        print("kitti data eval: one profiled batch (forward + NMS)")
+        wall, busy = profile_call(lambda: detect(model, first["points"], first["points_mask"]),
+                                  top=10)
+        print(f"kitti data eval: device idle share of a profiled batch "
+              f"{100 - 100 * busy / wall:.1f}% ({busy:.3f} of {wall:.3f} ms busy)")
+        tmp.cleanup()
+
+    return report_eval, launches_eval, report_train, launches_train, profile_eval_batch
+
+
 def main():
     import torch
 
@@ -1431,10 +1685,21 @@ def main():
     report_second, launches_second = second_phases(dev)
     report_strain, launches_strain = second_train_phases(dev)
     report_teval, launches_teval, report_ttrain, launches_ttrain = teacher_phases(dev)
+    report_kdata, launches_kdata, report_kdtrain, launches_kdtrain, profile_kdata = \
+        kitti_data_phases(dev)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
-                       "teacher train": report_ttrain})
+                       "teacher train": report_ttrain, "kitti data eval": report_kdata,
+                       "kitti data train": report_kdtrain})
+    profile_kdata()
+    from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
+    started = descendants()
+    stop_workers()
+    left = running(started)
+    check(not left, f"processes still running after the loaders were stopped: {left}")
+    print(f"stopped the {len(started)} processes the run had left (loader workers, "
+          f"fork server, resource tracker); none still runs")
 
     def numbers(a, n):
         return {"launches": n, "max_abs_err": a["err"], "ms": a["ms"],
@@ -1458,6 +1723,10 @@ def main():
                    if name in report_teval else None)
         teacher_train = (numbers(report_ttrain[name], launches_ttrain[name])
                          if name in report_ttrain else None)
+        kitti_data = (numbers(report_kdata[name], launches_kdata[name])
+                      if name in report_kdata else None)
+        kitti_data_train = (numbers(report_kdtrain[name], launches_kdtrain[name])
+                            if name in report_kdtrain else None)
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:
@@ -1471,6 +1740,7 @@ def main():
                      if name in report_eval else None),
             "waymo": waymo, "waymo_train": waymo_train, "second": second,
             "second_train": second_train, "teacher": teacher, "teacher_train": teacher_train,
+            "kitti_data": kitti_data, "kitti_data_train": kitti_data_train,
         })
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -42,7 +42,7 @@ def test_imports_without_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
-    + list(PORT.rglob("*.cu")) + [ROOT / "chip_smoke.py"]))
+    + list(PORT.rglob("*.cu")) + list(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py"]))
 def test_no_jax_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), path
@@ -64,6 +64,18 @@ def test_entry_points_refuse_cuda_without_card(monkeypatch):
         train.main(["--batch", "1", "--points", "64", "--steps", "1"])
     model = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_dataset_entry_points_refuse_cuda_without_card(monkeypatch, tmp_path):
+    """`evaluate` and `train --data_root` default to the card too, and
+    refuse a host without one before they read any data."""
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--data_root", str(tmp_path), "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--data_root", str(tmp_path), "--output_dir", str(tmp_path)])
 
 
 def test_teacher_entry_points_refuse_cuda_without_card(monkeypatch):

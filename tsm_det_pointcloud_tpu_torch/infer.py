@@ -250,7 +250,8 @@ def profile_batch(model, points, mask, top=20):
 
 def profile_call(fn, top=20):
     """Trace one call of `fn` on the card; print the device busy share of
-    its wall time and the kernels with the most device time."""
+    its wall time and the kernels with the most device time. Returns
+    (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -278,6 +279,7 @@ def profile_call(fn, top=20):
     events.sort(key=self_device_us, reverse=True)
     for e in events[:top]:
         print(f"  {self_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
 
 
 def main(argv=None):

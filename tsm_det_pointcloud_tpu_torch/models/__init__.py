@@ -2,7 +2,8 @@
 
 `build_network(model_cfg, num_class, dataset, device="cuda", seed=0)` builds
 one of the ported detectors with seeded random weights, in eval mode, on
-`device`:
+`device`; `dataset` is a DatasetMeta or a dataset (`meta_from_dataset`, the
+JAX models/__init__.py:14-29):
   * NAME 3DSSD with the VoxelPointNet2FSMSGDistillation backbone and the
     PointHeadVoteSASAStatisticDistillation head, teacher and student;
     `.train()` turns on the distillation training path;
@@ -106,8 +107,32 @@ def init_weights(model, seed=0):
     return model
 
 
+def meta_from_dataset(dataset):
+    """The DatasetMeta of a dataset (one of `datasets`): its classes, range,
+    point features and sampled points, and the grid its data processor
+    records (for a TSM config `repository_info`'s stride-FACTOR grid; the
+    TSM modules read their geometry from VOXEL_CONFIG, SECOND's anchors this
+    grid)."""
+    if isinstance(dataset, DatasetMeta):
+        return dataset
+    grid = getattr(dataset, "grid_size", None)
+    vs = getattr(dataset, "voxel_size", None)
+    dp = getattr(dataset, "data_processor", None)
+    return DatasetMeta(
+        class_names=tuple(dataset.class_names),
+        point_cloud_range=tuple(np.asarray(dataset.point_cloud_range).tolist()),
+        voxel_size=tuple(np.asarray(vs).tolist()) if vs is not None else None,
+        grid_size=tuple(np.asarray(grid).tolist()) if grid is not None else None,
+        max_voxels=int(getattr(dp, "max_voxels", None) or 16000),
+        max_points_per_voxel=int(getattr(dp, "max_points_per_voxel", None) or 5),
+        num_point_features=int(dataset.point_feature_encoder.num_point_features),
+        max_points=int(getattr(dataset, "max_points", 16384)),
+    )
+
+
 def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
-    """Build the detector (eval mode). `dataset` is a DatasetMeta."""
+    """Build the detector (eval mode). `dataset` is a DatasetMeta or a
+    dataset."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -123,8 +148,7 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
         if model_cfg[section]["NAME"] not in modules:
             raise NotImplementedError(
                 f"{section} {model_cfg[section]['NAME']} is not ported")
-    if not isinstance(dataset, DatasetMeta):
-        raise TypeError("dataset must be a DatasetMeta")
+    dataset = meta_from_dataset(dataset)
     build = _second_modules if name == "SECONDNet" else _tsm_modules
     model = detector_registry[name](model_cfg, num_class, dataset,
                                     build(model_cfg, num_class, dataset))
