@@ -79,10 +79,15 @@ Phases (any failure exits non-zero before the result line):
      bound; K6's counts the block visits the pruning rule required, and
      its plain version (seconds a call) is timed on one run without a
      warm-up. K6 also prints its plan (cluster size,
-     cudaOccupancyMaxActiveClusters, shared memory a CTA), its time a step,
-     and a latency floor (its steps times one exchange round of its
-     clusters, timed alone by csrc/fps.cu's `fps_round_probe` on clusters
-     of 8; on the log line, not in the kernels line);
+     cudaOccupancyMaxActiveClusters and the waves it implies at b8, shared
+     memory a CTA), its time a step, and a latency floor (the waves times
+     its steps times one exchange round of its clusters, timed alone by
+     csrc/fps.cu's `fps_round_probe` on clusters of its size; on the log
+     line, not in the kernels line). K6 again at waymo_fast_cpc.yaml's
+     163840 test points a row, b8 (a cluster of 16 CTAs: rows of more than
+     131072 points), on the clustered scans and with the mask above, each
+     index-equal to the plain FPS over all 8 x 16384 picks, timed, with its
+     plan, waves, time a step and latency floor (log lines only);
  11. Waymo main path: launch counts are zeroed, 3 batches of forward + NMS
      run, the counts are read; outputs finite, box preds (8, 3072, 7),
      count <= 512, and K6, K1, K2, K3, K4 all launched. Prints Waymo scans/s
@@ -191,9 +196,40 @@ Phases (any failure exits non-zero before the result line):
      epoch's train scans/s (host clock, loader included; the first epoch
      holds the recorded step), the loader wait a step and the peak memory;
      then `evaluate --ckpt` on the checkpoint of its last epoch.
+ 25. Waymo data: a synthetic Waymo root of raw tfrecords in a temporary
+     directory (datasets/waymo/synthetic.py: 4 train and 4 val sequences of
+     4 frames, a frame's TOP laser 64 x 2650 with two returns and its
+     per-pixel pose, four short-range lasers, ~195k points, vehicles,
+     pedestrians and cyclists; written by 8 processes), then
+     `create_waymo_infos` with a pool of 8 (npy frames, infos, gt database,
+     pcdet_waymo_dbinfos_train_sampled_1.pkl), timed; the val gt echoed as
+     detections must score 100.0 on every AP and APH, L1 and L2, of the
+     three classes;
+ 26. Waymo data eval: waymo_fast_cpc.yaml's test split through the loader (4
+     forkserver workers, 163840 of each scan's points) and
+     `runtime.eval_utils.eval_one_ckpt` at b8 (2 batches; seeded weights and
+     eval state, the geometry from the dataset): the first batch, loaded in
+     the process, records every K6 (163840 -> 16384, a cluster of 16), K1,
+     K2, K3 and K4 call, held against its plain version at phases 3 and 10's
+     tolerances (K2's layer-0 call on a stride of queries, as phase 10),
+     timed; launch counts are zeroed, the eval loop runs, the counts are
+     read; predictions finite, an AP dict of 12 finite entries. Prints eval
+     scans/s (host clock, loader included), sec_per_example, the loop's wait
+     on the loader a batch and the peak memory; the idle share of one
+     profiled batch comes at the end, after every timed path;
+ 27. Waymo data training: `train --data_root` for 2 epochs of 2 steps at b8
+     (120000 points a scan: K6 in its 8-CTA layout) with 4 workers and the
+     config's augmentors, SAMPLED_INTERVAL.train cut from 5 to 1 by
+     `--set` (16 train frames), launch counts zeroed before and read after;
+     its first step records every K6 and K1-K5 call, held against its plain
+     version at phases 3, 6 and 10's tolerances (K5 bit-equal between two
+     launches), timed; every kernel launched, losses finite. Prints each
+     epoch's train scans/s, the loader wait a step and the peak memory; then
+     `evaluate --ckpt` on the checkpoint of its last epoch.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
-fails if any process it started is still running.
+fails if any process it started is still running; it prints its own time,
+the kernels' build included.
 The line before the last is the kernels JSON: each row's numbers are those
 of the KITTI training path (per step of phase 6, `launches` from phase 8),
 its `eval` object those of the KITTI eval path (per forward of phase 3,
@@ -210,9 +246,13 @@ teacher's training path (per step of phase 20, `launches` from its 2 counted
 steps), its `kitti_data` object those of the KITTI data eval path (per
 batch of phase 23, `launches` from its eval loop; null for K5, K7) and
 `kitti_data_train` those of the KITTI data training path (per step of phase
-24's recorded step, `launches` from its 2 epochs; null for K6, K7). K6 is on
-no KITTI path: its row's own numbers are the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers
-are that path's (`path` says which path a row's own numbers are from).
+24's recorded step, `launches` from its 2 epochs; null for K6, K7), its
+`waymo_data` and `waymo_data_train` objects those of the Waymo data eval and
+training paths (per batch of phase 26 and per step of phase 27's recorded
+step, `launches` from its eval loop and its 2 epochs; null for K7, and K5 at
+eval). K6 is on no KITTI path but the data eval's: its row's own numbers are
+the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers are
+that path's (`path` says which path a row's own numbers are from).
 K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
 PyTorch prep (Morton sort, gathers, boxes) that precedes each launch (K2's
 tiles counted once a pass for the calls that share them).
@@ -242,6 +282,15 @@ TEACHER_TRAIN_ITERS = 2
 # loader workers, training epochs
 KITTI_TRAIN, KITTI_VAL, KITTI_SCAN_POINTS, KITTI_WORKERS, KITTI_EPOCHS = 48, 48, 120000, 4, 2
 KITTI_BATCH = 16             # fast_cpc.yaml's BATCH_SIZE_PER_GPU
+# waymo_fast_cpc.yaml's test scans (sample_points' NUM_POINTS), past K6's 8-CTA layout
+WAYMO_TEST_POINTS = 163840
+# the synthetic Waymo root of phases 25-27: train and val sequences, frames a
+# sequence (16 + 16 frames: 2 eval batches, 2 training steps an epoch at the
+# train SAMPLED_INTERVAL cut from 5 to 1), loader and preprocessing workers,
+# training epochs
+WAYMO_TRAIN_SEQ, WAYMO_VAL_SEQ, WAYMO_SEQ_FRAMES = 4, 4, 4
+WAYMO_WORKERS, WAYMO_PREP_WORKERS, WAYMO_EPOCHS = 4, 8, 2
+WAYMO_DATA_CLASSES = ("Vehicle", "Pedestrian", "Cyclist")
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
 KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
 WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
@@ -473,16 +522,20 @@ def compare_fps_block(args):
     state = sampling.block_prep(xyz, valid)
     plan = sampling.fps_block_plan(nb)
     round_us = exchange_round_us(min(B, plan["active_clusters"]), plan["cluster_size"])
-    floor_ms = (npoint - 1) * round_us / 1e3
+    # a batch of more scans than clusters resident at once runs in waves,
+    # each of them the steps long
+    waves = -(-B // plan["active_clusters"])
+    floor_ms = waves * (npoint - 1) * round_us / 1e3
     EXTRAS["fps_block"] = {"prep_ms": prep_ms, "floor_ms": floor_ms, "steps": npoint - 1}
     print(f"  K6 visited {n_visits} of {(npoint - 1) * nb * B} (step, block) pairs "
           f"({100 * n_visits / ((npoint - 1) * nb * B):.2f}%); their bytes at the memory "
           f"rate {visit_ms:.4f} ms; a full sweep's operations {sweep_ms:.4f} ms; the "
           f"prep alone {prep_ms:.4f} ms")
     print(f"  K6 plan at b{B} x {nb} blocks: cluster size {plan['cluster_size']}, "
-          f"cudaOccupancyMaxActiveClusters {plan['active_clusters']}, "
-          f"{plan['smem_bytes']} B shared memory a CTA; one exchange round "
-          f"{round_us:.4f} us, so a latency floor of {floor_ms:.4f} ms for {npoint - 1} steps")
+          f"cudaOccupancyMaxActiveClusters {plan['active_clusters']} ({waves} wave"
+          f"{'s' if waves > 1 else ''} at b{B}), {plan['smem_bytes']} B shared memory a "
+          f"CTA; one exchange round {round_us:.4f} us, so a latency floor of "
+          f"{floor_ms:.4f} ms for {waves} x {npoint - 1} steps")
     # the plain lockstep FPS takes seconds at Waymo shapes: timed on one
     # run, no warm-up
     return (0.0, lambda: sampling._fps_block_launch(xyz, state, npoint),
@@ -495,12 +548,13 @@ def exchange_round_us(clusters, cluster_size, rounds=16384):
     `round_kernel`, launched by csrc/fps.cu's `fps_round_probe`: every
     warp's candidate pushed to every CTA of its cluster, awaited and reduced)
     with `clusters` clusters of `cluster_size` CTAs of 8 warps at once: K1's
-    layouts (4 or 8 CTAs) and K6's (8)."""
+    layouts (4 or 8 CTAs) and K6's (8, or 16 for rows of more than
+    sampling.FPS_BLOCK_SMALL_POINTS points)."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch.ops import _kernels
 
-    sink = torch.empty(clusters * 8, device="cuda")
+    sink = torch.empty(clusters * cluster_size, device="cuda")
     fn = _kernels.func("fps_round_probe")
 
     def run():
@@ -1381,9 +1435,214 @@ def kitti_data_phases(dev):
     return report_eval, launches_eval, report_train, launches_train, profile_eval_batch
 
 
+def echo_waymo_dets(infos):
+    """The val infos' gt of the three classes as detections, at distinct
+    scores."""
+    rng = np.random.RandomState(0)
+    dets = []
+    for info in infos:
+        a = info["annos"]
+        keep = np.isin(a["name"], WAYMO_DATA_CLASSES)
+        dets.append({"name": a["name"][keep].astype(object),
+                     "boxes_lidar": a["gt_boxes_lidar"][keep],
+                     "score": rng.uniform(0.5, 1.0, int(keep.sum()))})
+    return dets
+
+
+def waymo_data_phases(dev):
+    """Phases 25-27: the Waymo data path on a synthetic root. Returns the
+    per-kernel reports of phases 26 and 27, the launch counts of their
+    counted runs, the plain-version notes of each, and a function that
+    profiles one eval batch (to be called after every timed path: see
+    Deferred)."""
+    import logging
+    import pickle
+    import tempfile
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets import (build_dataloader, load_batch,
+                                                       load_data_to_device, to_torch_batch)
+    from tsm_det_pointcloud_tpu_torch.datasets.waymo.synthetic import write_synthetic_waymo
+    from tsm_det_pointcloud_tpu_torch.datasets.waymo.waymo_dataset import create_waymo_infos
+    from tsm_det_pointcloud_tpu_torch.eval.waymo_eval import waymo_evaluation
+    from tsm_det_pointcloud_tpu_torch.infer import (detect, load_cfg, profile_call,
+                                                    randomize_eval_state)
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime import eval_utils, train_loop
+
+    cfg_file = ROOT / "tools/cfgs/waymo_models/waymo_fast_cpc.yaml"
+    # 2 training steps of b8 from 16 train frames: every frame, not every 5th
+    overrides = ["DATA_CONFIG.SAMPLED_INTERVAL.train", "1"]
+    cfg = load_cfg(cfg_file, overrides)
+    classes = list(cfg.CLASS_NAMES)
+    batch = WAYMO_BATCH
+    tag = cfg.DATA_CONFIG.PROCESSED_DATA_TAG
+    logger = logging.getLogger("chip_smoke.waymo")
+    logger.setLevel(logging.WARNING)
+    tmp = tempfile.TemporaryDirectory()
+    root, out = Path(tmp.name) / "waymo", Path(tmp.name) / "out"
+
+    # ---- 25. a synthetic Waymo root of tfrecords, then its infos and gt database ----
+    t0 = time.perf_counter()
+    write_synthetic_waymo(root, WAYMO_TRAIN_SEQ, WAYMO_VAL_SEQ, WAYMO_SEQ_FRAMES,
+                          workers=WAYMO_PREP_WORKERS)
+    t1 = time.perf_counter()
+    create_waymo_infos(cfg.DATA_CONFIG, classes, root, root, processed_data_tag=tag,
+                       workers=WAYMO_PREP_WORKERS)
+    t2 = time.perf_counter()
+    n_val = WAYMO_VAL_SEQ * WAYMO_SEQ_FRAMES
+    with open(root / f"{tag}_infos_val.pkl", "rb") as f:
+        val_infos = pickle.load(f)
+    with open(root / "pcdet_waymo_dbinfos_train_sampled_1.pkl", "rb") as f:
+        db = pickle.load(f)
+    check(len(val_infos) == n_val, f"{len(val_infos)} val infos")
+    check(all(len(db.get(c, [])) > 0 for c in classes), f"gt database {sorted(db)}")
+    frame_pts = [len(np.load(root / tag / i["point_cloud"]["lidar_sequence"]
+                             / ("%04d.npy" % i["point_cloud"]["sample_idx"])))
+                 for i in val_infos[:2]]
+    _, echo = waymo_evaluation([i["annos"] for i in val_infos], echo_waymo_dets(val_infos),
+                               tuple(classes))
+    check(len(echo) == 12 and all(abs(v - 100.0) < 1e-6 for v in echo.values()),
+          f"echoed gt does not score 100: {echo}")
+    print(f"waymo data: {WAYMO_TRAIN_SEQ} + {WAYMO_VAL_SEQ} sequences of {WAYMO_SEQ_FRAMES} "
+          f"frames written as tfrecords in {t1 - t0:.3f} s ({WAYMO_PREP_WORKERS} processes), "
+          f"create_waymo_infos (npy frames, infos, gt database, "
+          f"pcdet_waymo_dbinfos_train_sampled_1.pkl) in {t2 - t1:.3f} s "
+          f"({ {c: len(v) for c, v in db.items()} } gt objects; {frame_pts} points in the "
+          f"first val frames); echoed val gt scores 100.0 on all {len(echo)} APs and APHs")
+
+    # ---- 26. waymo_fast_cpc.yaml eval over the val split through eval_one_ckpt ----
+    test_set, test_loader, sampler = build_dataloader(
+        cfg.DATA_CONFIG, classes, batch, root_path=root, workers=WAYMO_WORKERS,
+        training=False, pin_memory=True)
+    test_loader.start()   # the workers start during the comparisons below
+    model = build_network(cfg.MODEL, len(classes), test_set, device=dev, seed=0)
+    randomize_eval_state(model, 1)
+    first = load_data_to_device(
+        to_torch_batch(load_batch(test_set, sampler.batches()[0], 0, 0)), dev)
+    n_pts = first["points"].shape[1]
+    check(n_pts == WAYMO_TEST_POINTS and bool(first["points_mask"].all()),
+          f"the test scans are not {WAYMO_TEST_POINTS} sampled points")
+    rec = record_kernels(WAYMO_EVAL_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    detect(model, first["points"], first["points_mask"])
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the Waymo data eval batch made no {name} call")
+    print(f"waymo data eval: one batch {tuple(first['points'].shape)}, d-fps {n_pts} -> "
+          f"{cfg.MODEL.BACKBONE_3D.S_SA_CONFIG.NPOINT_LIST[0][0]} on K6; peak memory of the "
+          f"batch {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    PLAIN_NOTES.clear()
+    report_eval = compare_recorded(rec.calls, "waymo data eval")
+    notes_eval = dict(PLAIN_NOTES)
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    res = eval_utils.eval_one_ckpt(model, test_loader, test_set, cfg, logger, out / "eval")
+    launches_eval = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in WAYMO_EVAL_KERNELS:
+        check(launches_eval[name] > 0,
+              f"kernel {name} was not launched on the Waymo data eval path")
+    with open(out / "eval" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    check(len(annos) == n_val, f"{len(annos)} prediction dicts for {n_val} frames")
+    for a in annos:
+        check(np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all(),
+              f"frame {a['frame_id']}: non-finite predictions")
+    aps = {k: float(v) for k, v in res.items() if "/" in k}
+    check(len(aps) == 12 and all(np.isfinite(v) for v in aps.values()), f"AP dict {aps}")
+    print(f"waymo data eval main path: {n_val} scans ({len(test_loader)} batches) x {n_pts} "
+          f"points: {res['scans_per_s']:.3f} scans/s (host clock, loader included, "
+          f"{WAYMO_WORKERS} workers), sec_per_example {res['sec_per_example']:.4f}, loader "
+          f"wait {res['loader_first_wait_s']:.4f} s for the first batch, "
+          f"{res['loader_wait_s']:.4f} s for each later one; detections per scan "
+          f"{[len(a['name']) for a in annos[:batch]]}; launches {launches_eval}; peak memory "
+          f"{peak:.2f} GiB")
+    print(f"waymo data eval AP dict: {json.dumps(aps)}")
+    del test_loader
+
+    # ---- 27. train --data_root, 2 epochs, the first step recorded; evaluate --ckpt ----
+    recs = []
+    step = train_loop.train_step
+
+    def first_step_recorded(*args):
+        if recs:
+            return step(*args)
+        recs.append(record_kernels(TSM_KERNELS))
+        try:
+            result = step(*args)
+            torch.cuda.synchronize()
+        finally:
+            recs[0].restore()
+        return result
+
+    train_loop.train_step = first_step_recorded
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    try:
+        ckpt_dir, epochs = train.main([
+            "--cfg_file", str(cfg_file), "--data_root", str(root), "--epochs",
+            str(WAYMO_EPOCHS), "--workers", str(WAYMO_WORKERS), "--batch", str(batch),
+            "--output_dir", str(out / "train"), "--device", str(dev), "--set", *overrides])
+    finally:
+        train_loop.train_step = step
+    launches_train = dict(_kernels.LAUNCHES)
+    for name in TSM_KERNELS:
+        check(launches_train[name] > 0,
+              f"kernel {name} was not launched on the Waymo data training path")
+    for i, e in enumerate(epochs):
+        check(np.isfinite(e["mean_loss"]), f"epoch {i + 1}: mean loss {e['mean_loss']}")
+    rec = recs[0]
+    for name, calls in rec.calls.items():
+        check(len(calls) > 0, f"the Waymo data training step made no {name} call")
+    train_pts = rec.calls["fps_block"][0][0].shape[1]
+    last = epochs[-1]
+    print(f"waymo data training main path: {WAYMO_EPOCHS} epochs of {last['steps']} steps x "
+          f"{batch} scans x {train_pts} points, {WAYMO_WORKERS} workers, the config's "
+          f"augmentors: epoch 1 (its first step recorded) {epochs[0]['scans_per_s']:.3f}, "
+          f"epoch {WAYMO_EPOCHS} {last['scans_per_s']:.3f} train scans/s (host clock, loader "
+          f"included); loader wait {epochs[0]['loader_first_wait_s']:.4f} s for the first "
+          f"step, {last['loader_wait_s'] / max(last['steps'] - 1, 1):.4f} s for each later one "
+          f"of epoch {WAYMO_EPOCHS}; mean losses {[round(e['mean_loss'], 4) for e in epochs]}; "
+          f"launches {launches_train}; peak memory "
+          f"{max(e['peak_gib'] or 0.0 for e in epochs):.2f} GiB")
+    PLAIN_NOTES.clear()
+    report_train = compare_recorded(rec.calls, "waymo data train")
+    notes_train = dict(PLAIN_NOTES)
+    del rec, recs[:]
+    ckpt = ckpt_dir / f"checkpoint_epoch_{WAYMO_EPOCHS}.pth"
+    check(ckpt.exists(), f"no checkpoint {ckpt}")
+    eres = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(root), "--ckpt",
+                          str(ckpt), "--workers", str(WAYMO_WORKERS), "--batch_size",
+                          str(batch), "--output_dir", str(out / "train"), "--device", str(dev)])
+    check(all(f"{c}/{m}_L{lv}" in eres and np.isfinite(eres[f"{c}/{m}_L{lv}"])
+              for c in classes for m in ("AP", "APH") for lv in (1, 2)),
+          f"evaluate --ckpt gave no Waymo AP dict: {sorted(eres)}")
+    print(f"waymo data evaluate --ckpt {ckpt.name}: {eres['scans_per_s']:.3f} scans/s, "
+          f"Vehicle/AP_L1 {float(eres['Vehicle/AP_L1']):.4f}")
+
+    def profile_eval_batch():
+        print("waymo data eval: one profiled batch (forward + NMS)")
+        wall, busy = profile_call(lambda: detect(model, first["points"], first["points_mask"]),
+                                  top=10)
+        print(f"waymo data eval: device idle share of a profiled batch "
+              f"{100 - 100 * busy / wall:.1f}% ({busy:.3f} of {wall:.3f} ms busy)")
+        tmp.cleanup()
+
+    return (report_eval, launches_eval, notes_eval, report_train, launches_train, notes_train,
+            profile_eval_batch)
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs the card")
     sys.path.insert(0, str(ROOT))
@@ -1601,6 +1860,19 @@ def main():
     compare_fps_block((xyz, rec.calls["fps_block"][0][1], hard))
     print("waymo fps_block: masked input (empty blocks, an empty scan, a 100-point "
           "scan) index-equal to the plain FPS")
+    # K6 at waymo_fast_cpc.yaml's 163840 test points a row (a cluster of 16
+    # CTAs), on the clustered scans and on the same kind of mask
+    xyz = torch.from_numpy(np.ascontiguousarray(
+        synth_waymo(WAYMO_BATCH, WAYMO_TEST_POINTS, seed=7)[..., :3])).to(dev)
+    compare_recorded({"fps_block": [(xyz, rec.calls["fps_block"][0][1], None)]},
+                     f"waymo fps_block at {WAYMO_TEST_POINTS}")
+    hard = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    hard[:, 40000:] = xyz[:, 40000:, 0] > 0
+    hard[1] = False
+    hard[2, 100:] = False
+    compare_fps_block((xyz, rec.calls["fps_block"][0][1], hard))
+    print(f"waymo fps_block at {WAYMO_TEST_POINTS}: clustered and masked inputs index-equal "
+          f"to the plain FPS")
     del rec, xyz, hard
 
     # ---- 11. the Waymo main path, counted ----
@@ -1687,12 +1959,16 @@ def main():
     report_teval, launches_teval, report_ttrain, launches_ttrain = teacher_phases(dev)
     report_kdata, launches_kdata, report_kdtrain, launches_kdtrain, profile_kdata = \
         kitti_data_phases(dev)
+    (report_wdata, launches_wdata, notes_wdata, report_wdtrain, launches_wdtrain,
+     notes_wdtrain, profile_wdata) = waymo_data_phases(dev)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
                        "teacher train": report_ttrain, "kitti data eval": report_kdata,
-                       "kitti data train": report_kdtrain})
+                       "kitti data train": report_kdtrain, "waymo data eval": report_wdata,
+                       "waymo data train": report_wdtrain})
     profile_kdata()
+    profile_wdata()
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()
@@ -1727,6 +2003,12 @@ def main():
                       if name in report_kdata else None)
         kitti_data_train = (numbers(report_kdtrain[name], launches_kdtrain[name])
                             if name in report_kdtrain else None)
+        waymo_data = ({**numbers(report_wdata[name], launches_wdata[name]),
+                       "plain_note": notes_wdata.get(name)}
+                      if name in report_wdata else None)
+        waymo_data_train = ({**numbers(report_wdtrain[name], launches_wdtrain[name]),
+                             "plain_note": notes_wdtrain.get(name)}
+                            if name in report_wdtrain else None)
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:
@@ -1741,7 +2023,10 @@ def main():
             "waymo": waymo, "waymo_train": waymo_train, "second": second,
             "second_train": second_train, "teacher": teacher, "teacher_train": teacher_train,
             "kitti_data": kitti_data, "kitti_data_train": kitti_data_train,
+            "waymo_data": waymo_data, "waymo_data_train": waymo_data_train,
         })
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

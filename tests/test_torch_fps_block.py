@@ -204,3 +204,22 @@ def test_morton_code_matches_jax():
     want = np.asarray(jax_morton(jnp.asarray(xyz), jnp.asarray(origin), cell=1.0))
     got = sampling.morton_code(torch.from_numpy(xyz), torch.from_numpy(origin)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_plain_block_pruned_at_waymo_test_points_equals_jax():
+    """waymo_fast_cpc.yaml's test scans hold 163840 points a row, past the
+    8-CTA layout of K6 (sampling.FPS_BLOCK_SMALL_POINTS): a few picks of the
+    port's plain block-pruned d-fps there equal the JAX package's
+    `sampling.furthest_point_sample` (the XLA oracle on the CPU), masked
+    tail included."""
+    from tsm_det_pointcloud_tpu.ops.sampling import furthest_point_sample as jax_fps
+
+    n = 163840
+    assert sampling.FPS_BLOCK_SMALL_POINTS < n <= sampling.FPS_BLOCK_MAX_POINTS
+    xyz = _clustered(np.random.RandomState(16), 1, n)
+    mask = np.ones((1, n), bool)
+    mask[:, n - 5000:] = xyz[:, n - 5000:, 0] > 0
+    want = np.asarray(jax_fps(jnp.asarray(xyz), 24, jnp.asarray(mask)))
+    got = sampling.furthest_point_sample_block_pruned(torch.from_numpy(xyz), 24,
+                                                      torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -78,6 +78,21 @@ def test_dataset_entry_points_refuse_cuda_without_card(monkeypatch, tmp_path):
         train.main(["--data_root", str(tmp_path), "--output_dir", str(tmp_path)])
 
 
+def test_waymo_entry_points_refuse_cuda_without_card(monkeypatch, tmp_path):
+    """The same on waymo_fast_cpc.yaml, with `--set`: the Waymo data path
+    defaults to the card and refuses a host without one."""
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+
+    cfg = str(ROOT / "tools/cfgs/waymo_models/waymo_fast_cpc.yaml")
+    flags = ["--cfg_file", cfg, "--data_root", str(tmp_path), "--output_dir", str(tmp_path),
+             "--set", "DATA_CONFIG.SAMPLED_INTERVAL.train", "1"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(flags)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(flags)
+
+
 def test_teacher_entry_points_refuse_cuda_without_card(monkeypatch):
     """`infer` and `train` on fast_cpc_teacher.yaml default to the card
     too, and refuse a host without one."""

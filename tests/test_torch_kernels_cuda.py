@@ -175,6 +175,33 @@ def test_fps_block_kernel_masked_waymo(dev):
     assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 16384, valid))
 
 
+@pytest.mark.parametrize("n, cluster", [(131072, 8), (131073, 16), (163840, 16),
+                                        (sampling.FPS_BLOCK_MAX_POINTS, 16)])
+def test_fps_block_kernel_long_rows(dev, n, cluster):
+    """Rows up to FPS_BLOCK_SMALL_POINTS keep the cluster of 8 CTAs; longer
+    ones, up to the cap (waymo_fast_cpc.yaml's test scans hold 163840), run
+    on a cluster of 16. Index-equal to the plain FPS, on the clustered scans
+    and with whole Morton blocks masked out."""
+    from tsm_det_pointcloud_tpu_torch.infer import synth_waymo
+    batch = 2 if n < sampling.FPS_BLOCK_MAX_POINTS else 1
+    xyz = torch.from_numpy(np.ascontiguousarray(synth_waymo(batch, n, seed=n)[..., :3])).to(dev)
+    assert sampling.fps_block_plan(-(-n // sampling.FPS_BLOCK))["cluster_size"] == cluster
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    valid[:, 40000:] = xyz[:, 40000:, 0] > 0
+    for mask in (None, valid):
+        got = _counted("fps_block", lambda: sampling.furthest_point_sample_block_pruned(
+            xyz, 2048, mask))
+        assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 2048, mask))
+
+
+def test_fps_block_kernel_above_cap_raises(dev):
+    xyz = torch.zeros((1, sampling.FPS_BLOCK_MAX_POINTS + 1, 3), device=dev)
+    before = _kernels.LAUNCHES["fps_block"]
+    with pytest.raises(ValueError, match="FPS_BLOCK_MAX_POINTS"):
+        sampling.furthest_point_sample(xyz, 16)
+    assert _kernels.LAUNCHES["fps_block"] == before
+
+
 def test_fps_dispatch_above_k1_limit(dev):
     """d-fps over more than 16384 points a row launches K6, not K1."""
     rng = np.random.RandomState(21)

@@ -192,13 +192,18 @@ __global__ void __launch_bounds__(THREADS) round_kernel(int rounds, float* __res
   cluster_sync();
 }
 
-// a launch of `clusters` clusters of CL CTAs of `threads` threads
+// a launch of `clusters` clusters of CL CTAs of `threads` threads; a
+// cluster of more than 8 CTAs is non-portable and must be allowed first
 inline cudaError_t cluster_config(const void* kernel, int cl, int clusters, int threads, int smem,
                                   cudaStream_t stream, cudaLaunchConfig_t& cfg,
                                   cudaLaunchAttribute& attr) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
+  if (cl > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(clusters * cl);
   cfg.blockDim = dim3(threads);

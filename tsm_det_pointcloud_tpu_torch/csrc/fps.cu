@@ -199,20 +199,25 @@ extern "C" int fps_launch(const void* xyz, const void* weights, const void* vali
   });
 }
 
-// `clusters` clusters of `cl` CTAs (4 or 8) run `rounds` exchange rounds of
-// K1's layout; sink (clusters * cl,) f32. For timing the floor of a K1 step.
+// `clusters` clusters of `cl` CTAs (4 or 8: K1's layouts; 8 or 16: K6's)
+// run `rounds` exchange rounds of 8 warps a CTA; sink (clusters * cl,) f32.
+// For timing the floor of a K1 or K6 step.
 extern "C" int fps_round_probe(int cl, int clusters, int rounds, void* sink, void* stream) {
-  if ((cl != 4 && cl != 8) || clusters <= 0 || rounds <= 0) return cudaErrorInvalidValue;
-  const auto k8 = round_kernel<8, 8 * kWarps, kThreads>;
-  const auto k4 = round_kernel<4, 4 * kWarps, kThreads>;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(cl == 8 ? reinterpret_cast<const void*>(k8)
-                                           : reinterpret_cast<const void*>(k4),
-                                   cl, clusters, kThreads, 0, static_cast<cudaStream_t>(stream),
-                                   cfg, attr);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, cl == 8 ? k8 : k4, rounds, static_cast<float*>(sink));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  if ((cl != 4 && cl != 8 && cl != 16) || clusters <= 0 || rounds <= 0)
+    return cudaErrorInvalidValue;
+  auto run = [&](auto kernel) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(reinterpret_cast<const void*>(kernel), cl, clusters,
+                                     kThreads, 0, static_cast<cudaStream_t>(stream), cfg, attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel, rounds, static_cast<float*>(sink));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  };
+  switch (cl) {
+    case 4: return run(round_kernel<4, 4 * kWarps, kThreads>);
+    case 8: return run(round_kernel<8, 8 * kWarps, kThreads>);
+    default: return run(round_kernel<16, 16 * kWarps, kThreads>);
+  }
 }

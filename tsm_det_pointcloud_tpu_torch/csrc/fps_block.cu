@@ -25,8 +25,8 @@
 //
 // Bound: the chain of npoint - 1 dependent steps. A step visits a few
 // percent of the blocks (chip_smoke.py prints the share), so its work is
-// small and its time is latency. Design: one scan runs on a cluster of 8
-// CTAs of 8 warps. Block g belongs to warp g mod 64 of the cluster
+// small and its time is latency. Design: one scan runs on a cluster of CL
+// CTAs of 8 warps. Block g belongs to warp g mod (8 CL) of the cluster
 // (interleaved: the visited blocks of a step lie close in Morton order, so
 // they spread over the warps), at most 16 a warp. A warp owns its blocks
 // alone: their coordinates in its part of shared memory, their running mind
@@ -37,12 +37,19 @@
 // agrees on the pick by csrc/cluster_exchange.cuh's exchange (st.async
 // pushes onto every CTA's mbarrier, no CTA or cluster barrier).
 //
-// Cluster size 8: 16 or 12 CTAs a cluster would fit a scan's state in fewer
-// SMs' shared memory, but cudaOccupancyMaxActiveClusters gives 7 resident
-// clusters of 16 or of 12 on an H100, so a batch of 8 would run in two
-// waves; at 8, `plan` reports how many clusters are resident (a larger
-// batch runs in waves, exactly). The layout caps a row at 16 blocks a warp:
-// 16 * 64 * 128 = 131072 points.
+// Two layouts, by the row's length. Up to 1024 blocks (131072 points) a
+// cluster of 8 CTAs, 64 warps: cudaOccupancyMaxActiveClusters gives 7
+// resident clusters of 16 or of 12 on an H100, so a batch of 8 at 16 CTAs
+// would run in two waves, while at 8 it runs in one. Above that, up to 2048
+// blocks (262144 points, kMaxBlocks), a cluster of 16 CTAs, 128 warps
+// (non-portable: cudaFuncAttributeNonPortableClusterSizeAllowed): eight CTAs
+// cannot hold a longer row's coordinates (1280 blocks of xyz are 1,966,080
+// B against 8 x 227 KiB), and 20 blocks a warp would take 160 registers a
+// thread for mind and indices alone. The 16-CTA layout keeps every line of
+// the step; only the cluster and its exchange are wider. `plan` reports the
+// layout and how many clusters are resident (a larger batch runs in waves,
+// exactly: a cluster's CTAs are resident together, and clusters wait for
+// free SMs, never for each other).
 #include "cluster_exchange.cuh"
 
 namespace {
@@ -51,11 +58,18 @@ using namespace fpsx;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCluster = 8;                     // CTAs a cluster
-constexpr int kClusterWarps = kCluster * kWarps;  // 64 candidates a step
 constexpr int kBlock = 128;                     // points per Morton block
 constexpr int kPer = kBlock / 32;               // points a lane of each block
 constexpr int kMaxLocal = 16;                   // blocks a warp
+constexpr int kSmallCluster = 8;                // CTAs a cluster up to kSmallBlocks
+constexpr int kWideCluster = 16;                // CTAs a cluster above
+constexpr int kSmallBlocks = kMaxLocal * kSmallCluster * kWarps;  // 1024: 131072 points
+constexpr int kMaxBlocks = kMaxLocal * kWideCluster * kWarps;     // 2048: 262144 points
+
+// the cluster size of a row of nb blocks (0: too long)
+int cluster_for(int nb) {
+  return nb <= kSmallBlocks ? kSmallCluster : nb <= kMaxBlocks ? kWideCluster : 0;
+}
 
 __device__ __forceinline__ float gap(float lo, float hi, float q) {
   return fmaxf(fmaxf(__fsub_rn(lo, q), __fsub_rn(q, hi)), 0.f);
@@ -69,6 +83,7 @@ __device__ __forceinline__ void visit(float x, float y, float z, int oi, float& 
   take_better(best, Cand{m, oi, x, y, z});
 }
 
+template <int CL>
 __global__ void __launch_bounds__(kThreads)
 fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
                    const float* __restrict__ ys, const float* __restrict__ zs,
@@ -76,12 +91,13 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
                    const float* __restrict__ bbox, const float* __restrict__ bmax0,
                    const int32_t* __restrict__ barg0, int n, int nb, int npoint,
                    int32_t* __restrict__ out, unsigned long long* __restrict__ visits) {
+  constexpr int kClusterWarps = CL * kWarps;  // candidates a step
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(16) float s_slots[2][kClusterWarps * kSlot];
   __shared__ __align__(8) uint64_t s_mbar[2];
 
   const int rank = (int)cluster_rank();
-  const int b = blockIdx.x / kCluster;
+  const int b = blockIdx.x / CL;
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int lane = t & 31;
@@ -166,7 +182,7 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
       }
     }
     const Cand pick =
-        exchange<kCluster, kClusterWarps>(mine, step, s_slots, s_mbar, gwarp, t);
+        exchange<CL, kClusterWarps>(mine, step, s_slots, s_mbar, gwarp, t);
     px = pick.x;
     py = pick.y;
     pz = pick.z;
@@ -177,12 +193,20 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
 }
 
 int coord_smem(int nb) {
-  return kWarps * 3 * ((nb + kClusterWarps - 1) / kClusterWarps) * kBlock * (int)sizeof(float);
+  const int nc = cluster_for(nb) * kWarps;
+  return kWarps * 3 * ((nb + nc - 1) / nc) * kBlock * (int)sizeof(float);
 }
 
-cudaError_t launch_config(const void* kernel, int clusters, int smem, cudaStream_t stream,
-                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
-  return cluster_config(kernel, kCluster, clusters, kThreads, smem, stream, cfg, attr);
+// f(kernel, cluster size) for the layout of rows of nb blocks
+template <class F>
+cudaError_t with_layout(int nb, F f) {
+  switch (cluster_for(nb)) {
+    case kSmallCluster:
+      return f(fps_cluster_kernel<kSmallCluster>, kSmallCluster);
+    case kWideCluster:
+      return f(fps_cluster_kernel<kWideCluster>, kWideCluster);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -191,46 +215,51 @@ cudaError_t launch_config(const void* kernel, int clusters, int smem, cudaStream
 // clusters resident at once (cudaOccupancyMaxActiveClusters), dynamic
 // shared memory bytes a CTA.
 extern "C" int fps_block_plan(int nb, void* out3) {
-  if (nb <= 0 || nb > kMaxLocal * kClusterWarps) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = launch_config(reinterpret_cast<const void*>(fps_cluster_kernel), 1,
-                                  coord_smem(nb), nullptr, cfg, attr);
-  if (err != cudaSuccess) return err;
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, fps_cluster_kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  int* o = static_cast<int*>(out3);
-  o[0] = kCluster;
-  o[1] = active;
-  o[2] = coord_smem(nb);
-  return cudaSuccess;
+  if (nb <= 0) return cudaErrorInvalidValue;
+  return with_layout(nb, [&](auto kernel, int cl) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(reinterpret_cast<const void*>(kernel), cl, 1, kThreads,
+                                     coord_smem(nb), nullptr, cfg, attr);
+    if (err != cudaSuccess) return err;
+    int active = 0;
+    err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    int* o = static_cast<int*>(out3);
+    o[0] = cl;
+    o[1] = active;
+    o[2] = coord_smem(nb);
+    return cudaSuccess;
+  });
 }
 
 // xyz (b, n, 3) f32 in the original order; xs, ys, zs, mind (b, nb*128) f32
 // and ois (b, nb*128) i32 in Morton order (mind is read, not written); bbox
 // (b, 6, nb) f32; bmax (b, nb) f32; barg (b, nb) i32; out (b, npoint) i32;
-// visits (b,) i64, zero on entry. Returns the launch's cudaError_t.
+// visits (b,) i64, zero on entry. nb <= kMaxBlocks. Returns the launch's
+// cudaError_t.
 extern "C" int fps_block_launch(const void* xyz, const void* xs, const void* ys,
                                 const void* zs, const void* ois, const void* mind,
                                 const void* bbox, const void* bmax, const void* barg,
                                 int b, int n, int nb, int npoint, void* out,
                                 void* visits, void* stream) {
-  if (b <= 0 || n <= 0 || npoint <= 0 || nb <= 0 || nb > kMaxLocal * kClusterWarps ||
-      (long long)nb * kBlock < n)
+  if (b <= 0 || n <= 0 || npoint <= 0 || nb <= 0 || (long long)nb * kBlock < n)
     return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = launch_config(reinterpret_cast<const void*>(fps_cluster_kernel), b,
-                                  coord_smem(nb), static_cast<cudaStream_t>(stream), cfg, attr);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, static_cast<const float*>(xyz),
-                           static_cast<const float*>(xs), static_cast<const float*>(ys),
-                           static_cast<const float*>(zs), static_cast<const int32_t*>(ois),
-                           static_cast<const float*>(mind), static_cast<const float*>(bbox),
-                           static_cast<const float*>(bmax), static_cast<const int32_t*>(barg), n,
-                           nb, npoint, static_cast<int32_t*>(out),
-                           static_cast<unsigned long long*>(visits));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return with_layout(nb, [&](auto kernel, int cl) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(reinterpret_cast<const void*>(kernel), cl, b, kThreads,
+                                     coord_smem(nb), static_cast<cudaStream_t>(stream), cfg,
+                                     attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(xyz),
+                             static_cast<const float*>(xs), static_cast<const float*>(ys),
+                             static_cast<const float*>(zs), static_cast<const int32_t*>(ois),
+                             static_cast<const float*>(mind), static_cast<const float*>(bbox),
+                             static_cast<const float*>(bmax), static_cast<const int32_t*>(barg),
+                             n, nb, npoint, static_cast<int32_t*>(out),
+                             static_cast<unsigned long long*>(visits));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  });
 }

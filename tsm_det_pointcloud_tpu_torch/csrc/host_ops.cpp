@@ -5,7 +5,10 @@
 // library built by g++ at first use and loaded with ctypes
 // (ops/host_native.py). The numpy bodies eval/rotate_iou_np.py
 // `_rotate_iou_numpy` and ops/boxes.py `points_in_boxes_np_plain` are its
-// plain versions, which the tests hold it against.
+// plain versions, which the tests hold it against. Beside them, and not in
+// the JAX library: CRC32C of the Waymo tfrecord framing (the JAX
+// waymo_preprocess.py computes it a byte at a time in Python, over frames of
+// megabytes; datasets/waymo/waymo_preprocess.py `crc32c_plain` is that body).
 //
 // Numerics mirror eval/rotate_iou_np.py: the same corner order, the same
 // >= -1e-9 inside test and |denom| > 1e-12 guard in Sutherland-Hodgman
@@ -84,9 +87,44 @@ inline double quad_intersection(const Pt* ca, const Pt* cb) {
   return n > 0 ? poly_area(cur, n) : 0.0;
 }
 
+// CRC32C (Castagnoli, reflected polynomial 0x82F63B78), slicing by 8:
+// table[k][b] is the CRC of byte b followed by k zero bytes
+struct Crc32cTables {
+  uint32_t t[8][256];
+  Crc32cTables() {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+      t[0][i] = c;
+    }
+    for (int k = 1; k < 8; ++k)
+      for (int i = 0; i < 256; ++i) t[k][i] = (t[k - 1][i] >> 8) ^ t[0][t[k - 1][i] & 0xFF];
+  }
+};
+
+const Crc32cTables kCrc;
+
 }  // namespace
 
 extern "C" {
+
+// CRC32C of data (n bytes) continuing from crc (0 to start), as
+// waymo_preprocess.crc32c: pre- and post-inverted.
+uint32_t tsm_crc32c(const uint8_t* data, int64_t n, uint32_t crc) {
+  crc = ~crc;
+  int64_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    const uint32_t lo = crc ^ (uint32_t(data[i]) | uint32_t(data[i + 1]) << 8 |
+                               uint32_t(data[i + 2]) << 16 | uint32_t(data[i + 3]) << 24);
+    const uint32_t hi = uint32_t(data[i + 4]) | uint32_t(data[i + 5]) << 8 |
+                        uint32_t(data[i + 6]) << 16 | uint32_t(data[i + 7]) << 24;
+    crc = kCrc.t[7][lo & 0xFF] ^ kCrc.t[6][(lo >> 8) & 0xFF] ^ kCrc.t[5][(lo >> 16) & 0xFF] ^
+          kCrc.t[4][lo >> 24] ^ kCrc.t[3][hi & 0xFF] ^ kCrc.t[2][(hi >> 8) & 0xFF] ^
+          kCrc.t[1][(hi >> 16) & 0xFF] ^ kCrc.t[0][hi >> 24];
+  }
+  for (; i < n; ++i) crc = kCrc.t[0][(crc ^ data[i]) & 0xFF] ^ (crc >> 8);
+  return ~crc;
+}
 
 // boxes_a (N, 5), boxes_b (M, 5) float64; out (N, M) float32.
 // criterion: -2 raw intersection area, -1 IoU, 0 inter/area_a,

@@ -27,9 +27,11 @@ entries as they are. `close()` stops a loader's workers and waits for them;
 closes every loader, then stops the fork server and multiprocessing's
 resource tracker and waits for each, so a program that ran a loader leaves
 no process behind (the fork server, left to notice its caller's exit, tears
-down its torch import for about a second after).
+down its torch import for about a second after). `forkserver_context()`
+gives that fork server to other process pools (`create_waymo_infos`).
 
-Only `KittiDataset` is ported; the other datasets of the JAX registry raise.
+`KittiDataset` and `WaymoDataset` are ported; the other datasets of the JAX
+registry raise.
 """
 from __future__ import annotations
 
@@ -45,10 +47,12 @@ import torch
 
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
+from .waymo.waymo_dataset import WaymoDataset
 
 __all__ = {
     "DatasetTemplate": DatasetTemplate,
     "KittiDataset": KittiDataset,
+    "WaymoDataset": WaymoDataset,
 }
 # batch entries that stay on the host (the JAX device_batch / the
 # reference's load_data_to_gpu skip them too, image_shape aside)
@@ -180,6 +184,30 @@ _WORKER_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THR
 _STARTED = weakref.WeakSet()
 
 
+def forkserver_context():
+    """multiprocessing's forkserver context with its server running: the
+    server imports torch and this package once, so a process forked from it
+    only unpickles its work (a spawned one imports torch itself, and torch
+    starts a loader's workers one after another: ~6 s each on the card's
+    host), and runs numpy and OpenMP on one thread (`_WORKER_ENV`).
+    `stop_workers` stops the server, also at exit."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", __name__])
+    saved = {k: os.environ.get(k) for k in _WORKER_ENV}
+    os.environ.update(_WORKER_ENV)   # the server's environment, and so its children's
+    try:
+        forkserver.ensure_running()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    atexit.unregister(stop_workers)
+    atexit.register(stop_workers)   # runs before torch's and multiprocessing's
+    return ctx
+
+
 def stop_workers():
     """Close every loader's workers, then stop the fork server they fork
     from and multiprocessing's resource tracker, waiting for each to exit.
@@ -208,9 +236,7 @@ class DataLoader:
                                          num_shards, shard_id)
         kw = {}
         if workers > 0:
-            kw = dict(multiprocessing_context=multiprocessing.get_context("forkserver"),
-                      persistent_workers=True, timeout=timeout,
-                      prefetch_factor=2 * batch_size)
+            kw = dict(persistent_workers=True, timeout=timeout, prefetch_factor=2 * batch_size)
         self._loader = torch.utils.data.DataLoader(
             _SampleLoad(dataset, seed), batch_size=None, sampler=_SampleOrder(self.sampler),
             num_workers=workers, collate_fn=_whole, **kw)
@@ -222,24 +248,8 @@ class DataLoader:
     def start(self):
         """Start the workers now (nothing to do without workers)."""
         if self._loader.num_workers > 0 and not self._started:
-            saved = {k: os.environ.get(k) for k in _WORKER_ENV}
-            os.environ.update(_WORKER_ENV)   # the fork server's, and so the workers'
-            try:
-                # the fork server imports torch and this package once; each
-                # worker forked from it then only unpickles the dataset (a
-                # spawned worker imports torch itself, and torch starts them
-                # one after another: ~6 s each on the card's host)
-                self._loader.multiprocessing_context.set_forkserver_preload(
-                    ["torch", __name__])
-                iter(self._loader)
-            finally:
-                for k, v in saved.items():
-                    if v is None:
-                        os.environ.pop(k)
-                    else:
-                        os.environ[k] = v
-            atexit.unregister(stop_workers)
-            atexit.register(stop_workers)   # runs before torch's and multiprocessing's
+            self._loader.multiprocessing_context = forkserver_context()
+            iter(self._loader)
             _STARTED.add(self)
             self._started = True
 

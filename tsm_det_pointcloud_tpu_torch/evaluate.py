@@ -3,18 +3,24 @@
     python -m tsm_det_pointcloud_tpu_torch.evaluate \\
         --cfg_file tools/cfgs/kitti_models/fast_cpc.yaml [--ckpt CKPT] \\
         [--data_root DIR] [--batch_size 16] [--workers 4] [--save_to_file] \\
-        [--eval_all [--max_waiting_mins 30]] [--output_dir DIR] [--device cuda]
+        [--eval_all [--max_waiting_mins 30]] [--output_dir DIR] [--device cuda] \\
+        [--set KEY VALUE ...]
+    python -m tsm_det_pointcloud_tpu_torch.evaluate \\
+        --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --data_root DIR
 
 Builds the config's test-split loader (the dataset at --data_root, else the
-config's DATA_PATH) and the detector on it, loads --ckpt (else the newest
-checkpoint under <output_dir>/ckpt; with none, the seeded random init, with a
-warning), builds the kernels on the card while the loader's workers start,
-and runs `runtime.eval_utils.eval_one_ckpt`: the eval forward and
-post-processing per batch, the prediction dicts (written as KITTI label files
-with --save_to_file), result.pkl and the official KITTI eval, all under
-<output_dir>/eval, whose metrics.jsonl gets the result dict and
-whose log file the eval's table. Prints the 3D R40 APs, sec_per_example, the
-loop's scans/s (loader included) and its wait on the loader a batch. --eval_all instead watches <output_dir>/ckpt and
+config's DATA_PATH: a KITTI or a Waymo root) and the detector on it, loads
+--ckpt (else the newest checkpoint under <output_dir>/ckpt; with none, the
+seeded random init, with a warning), builds the kernels on the card while
+the loader's workers start, and runs `runtime.eval_utils.eval_one_ckpt`: the
+eval forward and post-processing per batch, the prediction dicts (KITTI:
+written as label files with --save_to_file), result.pkl and the dataset's
+eval (the official KITTI eval, or the Waymo metric), all under
+<output_dir>/eval, whose metrics.jsonl gets the result dict and whose log
+file the eval's table. Prints the APs (KITTI: 3D R40; Waymo: AP and APH at
+L1 and L2), sec_per_example, the loop's scans/s (loader included) and its
+wait on the loader a batch. `--set` overrides config keys
+(`config.cfg_from_list`). --eval_all instead watches <output_dir>/ckpt and
 evaluates each new checkpoint, until none has come for --max_waiting_mins.
 The device is the card unless --device cpu is given.
 """
@@ -37,6 +43,18 @@ from .train import default_output_dir
 from .utils.common_utils import create_logger, resolve_device
 
 
+def ap_line(res, class_names):
+    """The result dict's headline APs: KITTI's 3D R40 easy / moderate /
+    hard a class, else (Waymo) every AP and APH entry."""
+    if all(f"{c}_3d/moderate_R40" in res for c in class_names):
+        return "AP (3d, R40) easy / moderate / hard: " + "; ".join(
+            f"{c} " + " / ".join(f"{float(res[f'{c}_3d/{d}_R40']):.4f}"
+                                 for d in ("easy", "moderate", "hard"))
+            for c in class_names)
+    return "AP: " + "; ".join(f"{k} {float(v):.4f}" for k, v in sorted(res.items())
+                              if "/AP" in k)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cfg_file", default=str(ROOT / "tools/cfgs/kitti_models/fast_cpc.yaml"))
@@ -51,10 +69,12 @@ def main(argv=None):
     ap.add_argument("--output_dir", default=None,
                     help="default output/<config's folder>/<config's name>")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--set", dest="set_cfgs", nargs="+", default=None, metavar="KEY VALUE",
+                    help="config overrides, key value pairs")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = load_cfg(args.cfg_file)
+    cfg = load_cfg(args.cfg_file, args.set_cfgs)
     batch = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     output_dir = Path(args.output_dir or default_output_dir(args.cfg_file))
     eval_dir = output_dir / "eval"
@@ -77,10 +97,7 @@ def main(argv=None):
         res = eval_one_ckpt(model, test_loader, test_set, cfg, logger, eval_dir,
                             save_to_file=args.save_to_file, metrics_writer=writer,
                             epoch_id=epoch_id)
-        print("AP (3d, R40) easy / moderate / hard: " + "; ".join(
-            f"{c} " + " / ".join(f"{float(res[f'{c}_3d/{d}_R40']):.4f}"
-                                 for d in ("easy", "moderate", "hard"))
-            for c in cfg.CLASS_NAMES))
+        print(ap_line(res, cfg.CLASS_NAMES))
         print(f"{res['scans_per_s']:.3f} scans/s on {dev} (batch {batch}, {len(test_set)} "
               f"scans, loader included); sec_per_example {res['sec_per_example']:.4f}; "
               f"loader wait {res['loader_first_wait_s']:.4f} s for the first batch, "

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import cfg_from_yaml_file
+from .config import cfg_from_list, cfg_from_yaml_file
 from .models import build_network
 from .models.dense_heads.point_head_vote import STATISTIC_BUFFERS
 from .models.detectors import DatasetMeta
@@ -123,8 +123,13 @@ def synth_scans(meta, batch, n, seed=0):
     return synth_scene(batch, n, seed, meta.point_cloud_range, meta.num_point_features)[0]
 
 
-def load_cfg(cfg_file):
-    return cfg_from_yaml_file(str(cfg_file), EDict({"ROOT_DIR": ROOT, "LOCAL_RANK": 0}))
+def load_cfg(cfg_file, set_cfgs=None):
+    """The config of `cfg_file`, then the `--set KEY VALUE ...` overrides
+    (`config.cfg_from_list`)."""
+    cfg = cfg_from_yaml_file(str(cfg_file), EDict({"ROOT_DIR": ROOT, "LOCAL_RANK": 0}))
+    if set_cfgs:
+        cfg_from_list(list(set_cfgs), cfg)
+    return cfg
 
 
 # SECOND's conv_cls bias in place of the -log(99) prior: with the seeded

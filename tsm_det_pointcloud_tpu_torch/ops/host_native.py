@@ -7,10 +7,13 @@ loaded. It gives
 
   * rotate_iou(boxes_a, boxes_b, criterion)   the rotated 2D IoU grid
   * points_in_boxes(points, boxes)            the first box that holds a point
+  * crc32c(data, crc)                         CRC32C of the tfrecord framing
 
-with the semantics of the numpy bodies `eval.rotate_iou_np._rotate_iou_numpy`
-and `ops.boxes.points_in_boxes_np_plain`, which are its plain versions. A
-build or load that fails raises: there is no quiet numpy fallback.
+with the semantics of the numpy / Python bodies
+`eval.rotate_iou_np._rotate_iou_numpy`, `ops.boxes.points_in_boxes_np_plain`
+and `datasets.waymo.waymo_preprocess.crc32c_plain`, which are its plain
+versions. A build or load that fails raises: there is no quiet numpy
+fallback.
 """
 from __future__ import annotations
 
@@ -65,6 +68,8 @@ def load():
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_int64),
             ]
+            lib.tsm_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
+            lib.tsm_crc32c.restype = ctypes.c_uint32
             _LIB = lib
     return _LIB
 
@@ -102,3 +107,8 @@ def points_in_boxes(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
     out = np.empty(n, np.int64)
     lib.tsm_points_in_boxes(pp, n, bp, m, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
     return out
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32C (Castagnoli) of `data`, continuing from `crc`."""
+    return int(load().tsm_crc32c(bytes(data), len(data), crc))

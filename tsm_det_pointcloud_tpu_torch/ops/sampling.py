@@ -36,7 +36,10 @@ from . import _kernels
 FPS_MAX_POINTS = 16384  # K1's widest layout: 8 points a lane, a cluster of 8 CTAs
 FPS_BLOCK = 128         # points per Morton block of the block-pruned d-fps
 _BIG_IDX = 1 << 30      # original index of a pad lane: never the least
-FPS_BLOCK_MAX_POINTS = 16 * 64 * FPS_BLOCK  # K6: 16 blocks a warp, 64 warps a cluster
+# K6 (csrc/fps_block.cu): 16 blocks a warp; a row on a cluster of 8 CTAs (64
+# warps) up to FPS_BLOCK_SMALL_POINTS, of 16 CTAs (128 warps) up to the cap
+FPS_BLOCK_SMALL_POINTS = 16 * 64 * FPS_BLOCK
+FPS_BLOCK_MAX_POINTS = 16 * 128 * FPS_BLOCK
 _FAR = 1e30             # xyz of an invalid row when sorting; empty boxes
 _LAST = 2 ** 31 - 1     # sort key of an invalid row: above every Morton code
 
@@ -252,7 +255,8 @@ def _block_pruned_plain(xyz, npoint, valid_mask):
 
 def fps_block_plan(n_blocks):
     """K6's launch plan for rows of `n_blocks` Morton blocks on the current
-    card: cluster size (CTAs a scan), the most clusters resident at once
+    card: cluster size (CTAs a scan: 8 up to FPS_BLOCK_SMALL_POINTS points a
+    row, 16 above), the most clusters resident at once
     (cudaOccupancyMaxActiveClusters; a larger batch runs in waves) and the
     dynamic shared memory of a CTA."""
     out = (ctypes.c_int * 3)()
@@ -285,8 +289,9 @@ def _fps_block_kernel(xyz, npoint, valid_mask):
     _kernels.check_shape(xyz, (B, N, 3), "fps_block xyz")
     _kernels.check_shape(valid_mask, (B, N), "fps_block valid_mask")
     if N > FPS_BLOCK_MAX_POINTS:
-        raise ValueError(f"fps_block takes at most {FPS_BLOCK_MAX_POINTS} points per "
-                         f"row (got {N}): K6 holds a scan in one cluster, 16 blocks a warp")
+        raise ValueError(f"fps_block takes at most FPS_BLOCK_MAX_POINTS = "
+                         f"{FPS_BLOCK_MAX_POINTS} points per row (got {N}): K6 holds a "
+                         f"scan in one cluster of at most 16 CTAs, 16 blocks a warp")
     xyz = xyz.detach().contiguous().float()
     _kernels.require_cuda(xyz)
     return _fps_block_launch(xyz, block_prep(xyz, valid_mask), npoint)

@@ -1,5 +1,5 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
-step or SECOND's step, on synthetic scans or on a KITTI dataset.
+step or SECOND's step, on synthetic scans or on a dataset (KITTI or Waymo).
 
 Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -20,7 +20,12 @@ the counterpart of the JAX tools/train.py):
         [--batch 16] [--epochs N] [--workers 4] [--ckpt_save_interval 1] \\
         [--num_epochs_to_eval 0] [--output_dir DIR] \\
         [--pretrained_model CKPT] [--seed 0] [--device cuda]
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --data_root DIR \\
+        [--set DATA_CONFIG.SAMPLED_INTERVAL.train 1]
 The two modes are chosen by these flags; neither falls back to the other.
+`--set KEY VALUE ...` overrides config keys in both (`config.cfg_from_list`,
+as the JAX tools/train.py's --set).
 
 Both build the detector with seeded random weights. With --pretrained_model
 (a checkpoint this entry point wrote, e.g. the teacher's) the weights it
@@ -98,14 +103,14 @@ def synth_train_batch(batch, n, seed=0, device="cpu", point_cloud_range=KITTI_RA
 
 
 def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1,
-                  pretrained_model=None, dataset=None):
+                  pretrained_model=None, dataset=None, set_cfgs=None):
     """(cfg, model in train mode, optimizer over the parameters that train:
     the student's for a distillation config, else all of them).
     pretrained_model: a checkpoint file whose weights and class statistics
     are loaded first (as the JAX tools/train.py:161-171 does). dataset: the
     training dataset whose geometry the model takes, else the config's
-    (`infer.dataset_meta` at n_points)."""
-    cfg = load_cfg(cfg_file)
+    (`infer.dataset_meta` at n_points). set_cfgs: `--set` overrides."""
+    cfg = load_cfg(cfg_file, set_cfgs)
     if dataset is None:
         dataset = dataset_meta(cfg, n_points, "train")
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=dataset,
@@ -145,7 +150,7 @@ def train_on_dataset(args, dev):
     from .runtime.eval_utils import repeat_eval_ckpts
     from .runtime.metrics import MetricsWriter
 
-    cfg = load_cfg(args.cfg_file)
+    cfg = load_cfg(args.cfg_file, args.set_cfgs)
     batch = args.batch or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
     output_dir = Path(args.output_dir or default_output_dir(args.cfg_file))
@@ -165,7 +170,8 @@ def train_on_dataset(args, dev):
         raise ValueError(f"the train split holds {len(train_set)} samples: no full "
                          f"batch of {batch}")
     _, model, opt = build_trainer(args.cfg_file, dev, args.seed, total_steps=steps * epochs,
-                                  pretrained_model=args.pretrained_model, dataset=train_set)
+                                  pretrained_model=args.pretrained_model, dataset=train_set,
+                                  set_cfgs=args.set_cfgs)
     start_epoch = 0
     resume_from = latest_checkpoint(ckpt_dir)
     if resume_from is not None:
@@ -220,6 +226,8 @@ def main(argv=None):
     ap.add_argument("--pretrained_model", default=None,
                     help="a checkpoint of this entry point (the teacher's, for a "
                          "distillation config) to start from")
+    ap.add_argument("--set", dest="set_cfgs", nargs="+", default=None, metavar="KEY VALUE",
+                    help="config overrides, key value pairs")
     synth = ap.add_argument_group("synthetic-scan mode")
     synth.add_argument("--points", type=int, default=None, help="default 16384")
     synth.add_argument("--steps", type=int, default=None, help="default 3")
@@ -228,7 +236,8 @@ def main(argv=None):
     data = ap.add_argument_group("dataset mode")
     data.add_argument("--dataset", action="store_true",
                       help="train on the config's DATA_PATH")
-    data.add_argument("--data_root", default=None, help="train on this KITTI root")
+    data.add_argument("--data_root", default=None,
+                      help="train on this dataset root (the config's dataset)")
     data.add_argument("--epochs", type=int, default=None)
     data.add_argument("--workers", type=int, default=4)
     data.add_argument("--ckpt_save_interval", type=int, default=1)
@@ -250,7 +259,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     total = args.steps + 1 + int(args.profile)
     cfg, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total,
-                                    args.pretrained_model)
+                                    args.pretrained_model, set_cfgs=args.set_cfgs)
     meta = model.dataset_meta
     batches = [synth_train_batch(args.batch, args.points, args.seed + i, dev,
                                  meta.point_cloud_range, meta.num_point_features)
