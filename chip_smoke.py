@@ -226,6 +226,41 @@ Phases (any failure exits non-zero before the result line):
      launches), timed; every kernel launched, losses finite. Prints each
      epoch's train scans/s, the loader wait a step and the peak memory; then
      `evaluate --ckpt` on the checkpoint of its last epoch.
+ 28. teacher data path and the two-phase recipe, on phase 22's root, each
+     run through its entry point with 4 workers, launch counts zeroed before
+     and read after, the first batch or step recorded (the detector's first
+     forward, or runtime.train_loop.train_step's first call) and each
+     recorded K1-K6 call held against its plain version at phases 3, 6 and
+     10's tolerances (K5 bit-equal between two launches), timed:
+     fast_cpc_teacher.yaml's `evaluate` at b16 x 20000 (3 batches, seeded
+     weights; d-fps 20000 -> 4096 on K6), its `train --data_root` for 1
+     epoch of 3 steps at b16, fast_cpc.yaml's `train --data_root
+     --pretrained_model` on the teacher's checkpoint for 1 epoch of 3 steps,
+     then `evaluate --ckpt` on the student's checkpoint; every teacher
+     parameter and the class statistics bit-equal in the student's
+     checkpoint, losses finite, AP dicts finite. Prints each run's scans/s
+     or train scans/s, loader wait and peak memory;
+ 29. SECOND data path: second.yaml's `evaluate` at b4 (3 batches) and
+     `train --data_root` for 1 epoch of 3 steps at b4, on the first
+     SECOND_DATA_FRAMES val and train frames of the root (`--set
+     DATA_CONFIG.INFO_PATH...` on info files of those frames), recorded and
+     held as in phase 28 (K3 bitwise, K7 at K4's tolerance and bit-equal
+     between two launches); 8 K3 and 12 K7 calls a forward. Prints the
+     points a scan holds in the field of view and those the collate drops
+     past MAX_POINTS, the voxels a scan of the first batch, scans/s, train
+     scans/s and peak memory;
+ 30. reference checkpoint and demo: a synthetic OpenPCDet-layout checkpoint
+     (convert_torch_ckpt.reference_state_dict) of a seeded full-width
+     fast_cpc.yaml detector (infer.build_detector) through
+     `convert_torch_ckpt`: every converted tensor placed, every one placed
+     without a tie bit-equal to its source; prints the tensors placed among
+     more than one candidate and those misplaced, and where none is
+     misplaced checks that every converted entry equals its source and
+     prints the two models' difference on one scan; then `demo --ckpt` on
+     DEMO_SCANS raw .bin scans of the root's val split (360 degrees, no
+     field-of-view crop, 20000 points sampled: d-fps on K6), its first
+     forward recorded and held as in phase 28. Prints the detections a
+     scan, scans/s and peak memory.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -250,9 +285,15 @@ batch of phase 23, `launches` from its eval loop; null for K5, K7) and
 `waymo_data` and `waymo_data_train` objects those of the Waymo data eval and
 training paths (per batch of phase 26 and per step of phase 27's recorded
 step, `launches` from its eval loop and its 2 epochs; null for K7, and K5 at
-eval). K6 is on no KITTI path but the data eval's: its row's own numbers are
-the Waymo eval path's; K7 is on SECOND's alone, and its row's own numbers are
-that path's (`path` says which path a row's own numbers are from).
+eval), its `teacher_data` and `teacher_data_train` objects those of phase
+28's teacher evaluate and train (per batch and per step recorded, `launches`
+from the run), `second_data` and `second_data_train` those of phase 29 (null
+but for K3 and K7) and `demo` that of phase 30's demo (per scan recorded,
+`launches` from its 4 scans; null for K5, K7). K6 is on no KITTI path of
+synthetic scans (only on those of 20000-point test scans: the data evals and
+the demo): its row's own numbers are the Waymo eval path's; K7 is on
+SECOND's paths alone, and its row's own numbers are SECOND's eval path's
+(`path` says which path a row's own numbers are from).
 K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
 PyTorch prep (Morton sort, gathers, boxes) that precedes each launch (K2's
 tiles counted once a pass for the calls that share them).
@@ -262,9 +303,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import NamedTuple
 
@@ -291,6 +334,10 @@ WAYMO_TEST_POINTS = 163840
 WAYMO_TRAIN_SEQ, WAYMO_VAL_SEQ, WAYMO_SEQ_FRAMES = 4, 4, 4
 WAYMO_WORKERS, WAYMO_PREP_WORKERS, WAYMO_EPOCHS = 4, 8, 2
 WAYMO_DATA_CLASSES = ("Vehicle", "Pedestrian", "Cyclist")
+# phase 29: SECOND's eval and training on the first frames of each split of
+# phase 22's root (3 batches, 3 steps at b4); phase 30: the demo's raw scans
+SECOND_DATA_FRAMES = 12
+DEMO_SCANS = 4
 EVAL_KERNELS = ("fps", "query_group", "probe", "spconv_bykey")
 KITTI_KERNELS = EVAL_KERNELS + ("spconv_bykey_bwd",)
 WAYMO_EVAL_KERNELS = ("fps_block",) + EVAL_KERNELS
@@ -862,6 +909,36 @@ def record_kernels(names):
     return rec
 
 
+@contextmanager
+def first_call_recorded(owner, attr, names):
+    """Within the block, the first call of owner.attr (a training loop's
+    first step, `runtime.train_loop.train_step`, or a detector class's first
+    forward) runs with the named kernels' calls recorded; the yielded list
+    then holds (its Recorder, its result)."""
+    import torch
+
+    orig = getattr(owner, attr)
+    first = []
+
+    def wrapped(*args, **kwargs):
+        if first:
+            return orig(*args, **kwargs)
+        rec = record_kernels(names)
+        try:
+            result = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            rec.restore()
+        first.append((rec, result))
+        return result
+
+    setattr(owner, attr, wrapped)
+    try:
+        yield first
+    finally:
+        setattr(owner, attr, orig)
+
+
 def close_scalar(got, want):
     return abs(got - want) <= 1e-4 * max(1.0, abs(want)) + 1e-4 * abs(want)
 
@@ -1271,8 +1348,9 @@ def echo_gt_annos(infos):
 def kitti_data_phases(dev):
     """Phases 22-24: the KITTI data path on a synthetic root. Returns the
     per-kernel reports of phases 23 and 24, the launch counts of their
-    counted runs, and a function that profiles one eval batch (to be called
-    after every timed path: see Deferred)."""
+    counted runs, a function that profiles one eval batch (to be called
+    after every timed path: see Deferred) and removes the root, and the
+    root (phases 28-30 run on it)."""
     import logging
     import pickle
     import tempfile
@@ -1369,37 +1447,20 @@ def kitti_data_phases(dev):
     del test_loader
 
     # ---- 24. train --data_root, 2 epochs, the first step recorded; evaluate --ckpt ----
-    recs = []
-    step = train_loop.train_step
-
-    def first_step_recorded(*args):
-        if recs:
-            return step(*args)
-        recs.append(record_kernels(KITTI_KERNELS))
-        try:
-            result = step(*args)
-            torch.cuda.synchronize()
-        finally:
-            recs[0].restore()
-        return result
-
-    train_loop.train_step = first_step_recorded
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    try:
+    with first_call_recorded(train_loop, "train_step", KITTI_KERNELS) as step0:
         ckpt_dir, epochs = train.main([
             "--cfg_file", str(cfg_file), "--data_root", str(root), "--epochs",
             str(KITTI_EPOCHS), "--workers", str(KITTI_WORKERS), "--batch", str(batch),
             "--output_dir", str(out / "train"), "--device", str(dev)])
-    finally:
-        train_loop.train_step = step
     launches_train = dict(_kernels.LAUNCHES)
     for name in KITTI_KERNELS:
         check(launches_train[name] > 0,
               f"kernel {name} was not launched on the KITTI data training path")
     for i, e in enumerate(epochs):
         check(np.isfinite(e["mean_loss"]), f"epoch {i + 1}: mean loss {e['mean_loss']}")
-    rec = recs[0]
+    rec = step0[0][0]
     for name, calls in rec.calls.items():
         check(len(calls) > 0, f"the KITTI data training step made no {name} call")
     last = epochs[-1]
@@ -1413,7 +1474,7 @@ def kitti_data_phases(dev):
           f"{[round(e['mean_loss'], 4) for e in epochs]}; launches {launches_train}; peak "
           f"memory {max(e["peak_gib"] or 0.0 for e in epochs):.2f} GiB")
     report_train = compare_recorded(rec.calls, "kitti data train")
-    del rec, recs[:]
+    del rec, step0[:]
     ckpt = ckpt_dir / f"checkpoint_epoch_{KITTI_EPOCHS}.pth"
     check(ckpt.exists(), f"no checkpoint {ckpt}")
     eres = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(root), "--ckpt",
@@ -1432,7 +1493,7 @@ def kitti_data_phases(dev):
               f"{100 - 100 * busy / wall:.1f}% ({busy:.3f} of {wall:.3f} ms busy)")
         tmp.cleanup()
 
-    return report_eval, launches_eval, report_train, launches_train, profile_eval_batch
+    return report_eval, launches_eval, report_train, launches_train, profile_eval_batch, root
 
 
 def echo_waymo_dets(infos):
@@ -1568,37 +1629,20 @@ def waymo_data_phases(dev):
     del test_loader
 
     # ---- 27. train --data_root, 2 epochs, the first step recorded; evaluate --ckpt ----
-    recs = []
-    step = train_loop.train_step
-
-    def first_step_recorded(*args):
-        if recs:
-            return step(*args)
-        recs.append(record_kernels(TSM_KERNELS))
-        try:
-            result = step(*args)
-            torch.cuda.synchronize()
-        finally:
-            recs[0].restore()
-        return result
-
-    train_loop.train_step = first_step_recorded
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    try:
+    with first_call_recorded(train_loop, "train_step", TSM_KERNELS) as step0:
         ckpt_dir, epochs = train.main([
             "--cfg_file", str(cfg_file), "--data_root", str(root), "--epochs",
             str(WAYMO_EPOCHS), "--workers", str(WAYMO_WORKERS), "--batch", str(batch),
             "--output_dir", str(out / "train"), "--device", str(dev), "--set", *overrides])
-    finally:
-        train_loop.train_step = step
     launches_train = dict(_kernels.LAUNCHES)
     for name in TSM_KERNELS:
         check(launches_train[name] > 0,
               f"kernel {name} was not launched on the Waymo data training path")
     for i, e in enumerate(epochs):
         check(np.isfinite(e["mean_loss"]), f"epoch {i + 1}: mean loss {e['mean_loss']}")
-    rec = recs[0]
+    rec = step0[0][0]
     for name, calls in rec.calls.items():
         check(len(calls) > 0, f"the Waymo data training step made no {name} call")
     train_pts = rec.calls["fps_block"][0][0].shape[1]
@@ -1615,7 +1659,7 @@ def waymo_data_phases(dev):
     PLAIN_NOTES.clear()
     report_train = compare_recorded(rec.calls, "waymo data train")
     notes_train = dict(PLAIN_NOTES)
-    del rec, recs[:]
+    del rec, step0[:]
     ckpt = ckpt_dir / f"checkpoint_epoch_{WAYMO_EPOCHS}.pth"
     check(ckpt.exists(), f"no checkpoint {ckpt}")
     eres = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(root), "--ckpt",
@@ -1637,6 +1681,292 @@ def waymo_data_phases(dev):
 
     return (report_eval, launches_eval, notes_eval, report_train, launches_train, notes_train,
             profile_eval_batch)
+
+
+def run_recorded(label, entry, argv, owner, attr, names):
+    """`entry.main(argv)` with the launch counts zeroed before and read after
+    and the first call of owner.attr recorded (first_call_recorded).
+    Returns (its result, the launch counts, the peak device memory in GiB,
+    the Recorder, the first call's result); fails if a kernel of `names`
+    was not launched or not called in the recorded pass."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with first_call_recorded(owner, attr, names) as first:
+        result = entry.main(argv)
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(first), f"{label}: no pass was recorded")
+    rec, first_out = first[0]
+    for name in names:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {label} path")
+        check(len(rec.calls[name]) > 0, f"the {label} recorded pass made no {name} call")
+    return result, launches, peak, rec, first_out
+
+
+def check_kitti_aps(res, classes, label):
+    aps = {k: float(v) for k, v in res.items() if "/" in k}
+    check(all(f"{c}_3d/{d}_R40" in aps for c in classes for d in ("easy", "moderate", "hard"))
+          and all(np.isfinite(v) for v in aps.values()), f"{label}: AP dict {aps}")
+    return aps
+
+
+def epochs_line(epochs):
+    last = epochs[-1]
+    for i, e in enumerate(epochs):
+        check(np.isfinite(e["mean_loss"]), f"epoch {i + 1}: mean loss {e['mean_loss']}")
+    return (f"{len(epochs)} epoch(s) of {last['steps']} steps: "
+            f"{[round(e['scans_per_s'], 3) for e in epochs]} train scans/s (host clock, "
+            f"loader included; the first epoch holds the recorded step); loader wait "
+            f"{epochs[0]['loader_first_wait_s']:.4f} s for the first step, "
+            f"{last['loader_wait_s'] / max(last['steps'] - 1, 1):.4f} s for each later one; "
+            f"mean losses {[round(e['mean_loss'], 4) for e in epochs]}; peak memory "
+            f"{max(e['peak_gib'] or 0.0 for e in epochs):.2f} GiB")
+
+
+def eval_line(res):
+    return (f"{res['scans_per_s']:.3f} scans/s (host clock, loader included), "
+            f"sec_per_example {res['sec_per_example']:.4f}, loader wait "
+            f"{res['loader_first_wait_s']:.4f} s for the first batch, "
+            f"{res['loader_wait_s']:.4f} s for each later one")
+
+
+def recipe_phases(dev, root):
+    """Phase 28: fast_cpc_teacher.yaml's evaluate and train --data_root on the
+    KITTI root of phase 22, then the student's train --data_root
+    --pretrained_model on the teacher's checkpoint and its evaluate --ckpt.
+    Returns the per-kernel reports and launch counts of the teacher's eval
+    and training."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.infer import dataset_meta, load_cfg
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.models.dense_heads.point_head_vote import (
+        STATISTIC_BUFFERS as STATISTIC_NAMES,
+    )
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import load_model_state
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import is_student
+
+    teacher_cfg = ROOT / "tools/cfgs/kitti_models/fast_cpc_teacher.yaml"
+    student_cfg = ROOT / "tools/cfgs/kitti_models/fast_cpc.yaml"
+    classes = list(load_cfg(teacher_cfg).CLASS_NAMES)
+    out = root.parent / "recipe"
+    data = ["--data_root", str(root), "--workers", str(KITTI_WORKERS), "--device", str(dev)]
+    batch = ["--batch", str(KITTI_BATCH)]
+
+    # ---- 28. the teacher on the root, then the two-phase recipe ----
+    res, launches_eval, peak, rec, _ = run_recorded(
+        "teacher data eval", evaluate,
+        ["--cfg_file", str(teacher_cfg), "--batch_size", str(KITTI_BATCH), "--output_dir",
+         str(out / "teacher")] + data, detectors["3DSSD"], "forward", KITTI_DATA_EVAL_KERNELS)
+    n_pts = rec.calls["fps_block"][0][0].shape[1]
+    check_kitti_aps(res, classes, "teacher evaluate")
+    print(f"teacher data eval (evaluate, seeded weights): {KITTI_VAL} scans x {n_pts} points "
+          f"(d-fps on K6) at b{KITTI_BATCH}: {eval_line(res)}; launches {launches_eval}; "
+          f"peak memory {peak:.2f} GiB")
+    report_eval = compare_recorded(rec.calls, "teacher data eval")
+
+    (t_dir, t_epochs), launches_train, _, rec, _ = run_recorded(
+        "teacher data train", train,
+        ["--cfg_file", str(teacher_cfg), "--epochs", "1", "--output_dir",
+         str(out / "teacher")] + batch + data, train_loop, "train_step", KITTI_KERNELS)
+    t_ckpt = t_dir / "checkpoint_epoch_1.pth"
+    print(f"teacher data train (train --data_root): {epochs_line(t_epochs)}; launches "
+          f"{launches_train}")
+    report_train = compare_recorded(rec.calls, "teacher data train")
+
+    (s_dir, s_epochs), launches, _, rec, _ = run_recorded(
+        "student data train", train,
+        ["--cfg_file", str(student_cfg), "--epochs", "1", "--output_dir", str(out / "student"),
+         "--pretrained_model", str(t_ckpt)] + batch + data, train_loop, "train_step",
+        KITTI_KERNELS)
+    print(f"student data train (train --data_root --pretrained_model {t_ckpt.name}): "
+          f"{epochs_line(s_epochs)}; launches {launches}")
+    compare_recorded(rec.calls, "student data train")
+    teacher = load_model_state(t_ckpt)
+    s_ckpt = s_dir / "checkpoint_epoch_1.pth"
+    student = load_model_state(s_ckpt)
+    for b in STATISTIC_NAMES:
+        check(torch.equal(student[f"module_list.1.{b}"], teacher[f"module_list.1.head.{b}"]),
+              f"the student's {b} is not the teacher's")
+    scfg = load_cfg(student_cfg)
+    names = [n for n, _ in build_network(scfg.MODEL, len(classes),
+                                         dataset_meta(scfg, 16384, "train"),
+                                         device="cpu").named_parameters()
+             if not is_student(n)]
+    for n in names:
+        check(torch.equal(student[n], teacher[n]), f"teacher parameter {n} changed in the "
+              f"student's training")
+    moved = sum(bool(teacher[f"module_list.1.head.{b}"].abs().max()) for b in STATISTIC_NAMES)
+    print(f"handoff on the root: {len(names)} teacher parameters and the statistics "
+          f"({moved} of {len(STATISTIC_NAMES)} buffers non-zero after the teacher's epoch) "
+          f"bit-equal in the student's checkpoint after its epoch")
+
+    res, launches, peak, rec, _ = run_recorded(
+        "student data eval", evaluate,
+        ["--cfg_file", str(student_cfg), "--ckpt", str(s_ckpt), "--batch_size",
+         str(KITTI_BATCH), "--output_dir", str(out / "student")] + data,
+        detectors["3DSSD"], "forward", KITTI_DATA_EVAL_KERNELS)
+    aps = check_kitti_aps(res, classes, "student evaluate --ckpt")
+    print(f"student data eval (evaluate --ckpt {s_ckpt.name}): {eval_line(res)}; launches "
+          f"{launches}; peak memory {peak:.2f} GiB; Car_3d/moderate_R40 "
+          f"{aps['Car_3d/moderate_R40']:.4f}")
+    compare_recorded(rec.calls, "student data eval")
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def second_data_phases(dev, root):
+    """Phase 29: second.yaml's evaluate and train --data_root on the first
+    SECOND_DATA_FRAMES val and train frames of the KITTI root of phase 22.
+    Returns the per-kernel reports and launch counts of both."""
+    import pickle
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/second.yaml"
+    n = SECOND_DATA_FRAMES
+    for split in ("train", "val"):
+        with open(root / f"kitti_infos_{split}.pkl", "rb") as f:
+            infos = pickle.load(f)[:n]
+        with open(root / f"kitti_infos_{split}_{n}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+    sets = ["--set", "DATA_CONFIG.INFO_PATH.train", f"['kitti_infos_train_{n}.pkl']",
+            "DATA_CONFIG.INFO_PATH.test", f"['kitti_infos_val_{n}.pkl']"]
+    cfg = load_cfg(cfg_file, sets[1:])
+    classes = list(cfg.CLASS_NAMES)
+    test_set = KittiDataset(cfg.DATA_CONFIG, classes, training=False, root_path=root)
+    in_fov = [len(test_set[i]["points"]) for i in range(n)]
+    dropped = [max(k - test_set.max_points, 0) for k in in_fov]
+    out = root.parent / "second"
+    data = ["--data_root", str(root), "--workers", str(KITTI_WORKERS), "--device", str(dev)]
+
+    # ---- 29. SECOND on the root ----
+    res, launches_eval, peak, rec, first_out = run_recorded(
+        "second data eval", evaluate,
+        ["--cfg_file", str(cfg_file), "--batch_size", str(SECOND_BATCH), "--output_dir",
+         str(out)] + data + sets, detectors["SECONDNet"], "forward", SECOND_KERNELS)
+    voxels = first_out["voxel_mask"].sum(1).tolist()
+    del first_out
+    check_kitti_aps(res, classes, "SECOND evaluate")
+    for name, k in SECOND_CALLS.items():
+        check(len(rec.calls[name]) == k and launches_eval[name] == k * (n // SECOND_BATCH),
+              f"SECOND data eval: {len(rec.calls[name])} {name} calls a forward, "
+              f"{launches_eval[name]} in all")
+    print(f"second data eval (evaluate, seeded weights): {n} scans at b{SECOND_BATCH}: points "
+          f"in the field of view {in_fov}, dropped by the collate (MAX_POINTS "
+          f"{test_set.max_points}) {dropped} (mean {np.mean(dropped):.1f} a scan); voxels a "
+          f"scan of the first batch {voxels}; {eval_line(res)}; launches {launches_eval}; "
+          f"peak memory {peak:.2f} GiB")
+    report_eval = compare_recorded(rec.calls, "second data eval")
+
+    (_, epochs), launches_train, _, rec, _ = run_recorded(
+        "second data train", train,
+        ["--cfg_file", str(cfg_file), "--epochs", "1", "--batch", str(SECOND_BATCH),
+         "--output_dir", str(out)] + data + sets, train_loop, "train_step", SECOND_KERNELS)
+    print(f"second data train (train --data_root): {epochs_line(epochs)}; launches "
+          f"{launches_train}")
+    report_train = compare_recorded(rec.calls, "second data train")
+    torch.cuda.empty_cache()
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def demo_phases(dev, root):
+    """Phase 30: a synthetic reference checkpoint of a seeded full-width
+    fast_cpc.yaml detector through convert_torch_ckpt, then demo --ckpt on
+    DEMO_SCANS raw scans of the KITTI root of phase 22. Returns the
+    per-kernel report and launch counts of the demo."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import convert_torch_ckpt, demo
+    from tsm_det_pointcloud_tpu_torch.datasets import load_data_to_device, to_torch_batch
+    from tsm_det_pointcloud_tpu_torch.infer import build_detector, detect
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import restore_checkpoint
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/fast_cpc.yaml"
+    out = root.parent / "demo"
+    out.mkdir()
+
+    # ---- 30. a reference checkpoint converted, then demo --ckpt ----
+    cfg, src_model = build_detector(cfg_file, dev, seed=3, n_points=20000)
+    src = {k: v.detach().cpu() for k, v in src_model.state_dict().items()}
+    ref, source = convert_torch_ckpt.reference_state_dict(src, cfg.MODEL)
+    torch.save({"model_state": ref, "epoch": 80, "it": 37120}, out / "reference.pth")
+    report = convert_torch_ckpt.main(["--ckpt", str(out / "reference.pth"), "--cfg_file",
+                                      str(cfg_file), "--out", str(out / "converted.pth")])
+    check(not report["unplaced"], f"unplaced tensors {report['unplaced']}")
+    conv = torch.load(out / "converted.pth", weights_only=True)["model_state"]
+    tied, misplaced, equal = set(report["tied"]), [], 0
+    for name, key in source.items():
+        coll, path = convert_torch_ckpt.map_name(name)
+        if coll is None:
+            continue
+        if report["placements"][coll][path] != key:
+            misplaced.append(name)
+        elif path not in tied:
+            check(torch.equal(conv[key], src[key]), f"{name}, placed without a tie, is not "
+                  f"its source {key}")
+            equal += 1
+    unmatched = [u for u in report["unmatched"] if not u.endswith(".num_batches_tracked")]
+    print(f"reference checkpoint: {len(ref)} tensors of a seeded full-width fast_cpc.yaml "
+          f"detector in OpenPCDet's layouts; converted {report['converted']}, unmatched "
+          f"{len(report['unmatched'])} ({unmatched} and the BNs' num_batches_tracked), "
+          f"unplaced 0, placed among more than one candidate {len(tied)}, placed without a "
+          f"tie and bit-equal to the source {equal}, misplaced {len(misplaced)} {misplaced}")
+    scans = out / "scans"
+    scans.mkdir()
+    val_ids = (root / "ImageSets" / "val.txt").read_text().split()[:DEMO_SCANS]
+    for sid in val_ids:
+        shutil.copy(root / "training" / "velodyne" / f"{sid}.bin", scans / f"{sid}.bin")
+    if not misplaced:
+        lost = {source[u] for u in unmatched}
+        for key, t in conv.items():
+            check(key in lost or torch.equal(t, src[key]), f"converted {key} is not its source")
+        conv_model = build_detector(cfg_file, dev, seed=0, n_points=20000)[1]
+        restore_checkpoint(out / "converted.pth", conv_model)
+        scan = demo.DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, scans)
+        batch = load_data_to_device(to_torch_batch(scan.collate(scan[0])), dev)
+        (o_src, p_src), (o_conv, p_conv) = (detect(m, batch["points"], batch["points_mask"])
+                                            for m in (src_model, conv_model))
+        diff = max(float((o_src[k] - o_conv[k]).abs().max())
+                   for k in ("batch_cls_preds", "batch_box_preds"))
+        print(f"reference checkpoint: every converted entry equals its source, so the "
+              f"converted model is the source's on the eval path (only {unmatched} differ, "
+              f"not on it); one scan's forward: max abs difference {diff:g}, detections "
+              f"{int(p_src['count'][0])} / {int(p_conv['count'][0])}")
+        del conv_model, o_src, o_conv, p_src, p_conv
+    del src_model, conv
+    torch.cuda.empty_cache()
+
+    (preds, rate), launches, peak, rec, _ = run_recorded(
+        "demo", demo, ["--cfg_file", str(cfg_file), "--data_path", str(scans), "--ckpt",
+                       str(out / "converted.pth"), "--device", str(dev)],
+        detectors["3DSSD"], "forward", KITTI_DATA_EVAL_KERNELS)
+    post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    check(len(preds) == DEMO_SCANS, f"demo detected on {len(preds)} scans")
+    for p in preds:
+        check(len(p["pred_labels"]) <= post_max and np.isfinite(p["pred_boxes"]).all()
+              and np.isfinite(p["pred_scores"]).all(), "demo: bad detections")
+    n_pts = rec.calls["fps_block"][0][0].shape[1]
+    print(f"demo --ckpt converted.pth: {DEMO_SCANS} raw scans of {KITTI_SCAN_POINTS} points "
+          f"over 360 degrees, {n_pts} sampled a scan (d-fps on K6): detections a scan "
+          f"{[len(p['pred_labels']) for p in preds]}; {rate:.3f} scans/s (host clock, a scan a "
+          f"batch, loading included); launches {launches}; peak memory {peak:.2f} GiB")
+    report_demo = compare_recorded(rec.calls, "demo")
+    return report_demo, launches
 
 
 def main():
@@ -1957,16 +2287,23 @@ def main():
     report_second, launches_second = second_phases(dev)
     report_strain, launches_strain = second_train_phases(dev)
     report_teval, launches_teval, report_ttrain, launches_ttrain = teacher_phases(dev)
-    report_kdata, launches_kdata, report_kdtrain, launches_kdtrain, profile_kdata = \
-        kitti_data_phases(dev)
+    (report_kdata, launches_kdata, report_kdtrain, launches_kdtrain, profile_kdata,
+     kitti_root) = kitti_data_phases(dev)
     (report_wdata, launches_wdata, notes_wdata, report_wdtrain, launches_wdtrain,
      notes_wdtrain, profile_wdata) = waymo_data_phases(dev)
+    report_tdata, launches_tdata, report_tdtrain, launches_tdtrain = recipe_phases(
+        dev, kitti_root)
+    report_sdata, launches_sdata, report_sdtrain, launches_sdtrain = second_data_phases(
+        dev, kitti_root)
+    report_demo, launches_demo = demo_phases(dev, kitti_root)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
                        "teacher train": report_ttrain, "kitti data eval": report_kdata,
                        "kitti data train": report_kdtrain, "waymo data eval": report_wdata,
-                       "waymo data train": report_wdtrain})
+                       "waymo data train": report_wdtrain, "teacher data eval": report_tdata,
+                       "teacher data train": report_tdtrain, "second data eval": report_sdata,
+                       "second data train": report_sdtrain, "demo": report_demo})
     profile_kdata()
     profile_wdata()
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
@@ -2009,6 +2346,13 @@ def main():
         waymo_data_train = ({**numbers(report_wdtrain[name], launches_wdtrain[name]),
                              "plain_note": notes_wdtrain.get(name)}
                             if name in report_wdtrain else None)
+        new_paths = {
+            key: (numbers(rep[name], lau[name]) if name in rep else None)
+            for key, rep, lau in (("teacher_data", report_tdata, launches_tdata),
+                                  ("teacher_data_train", report_tdtrain, launches_tdtrain),
+                                  ("second_data", report_sdata, launches_sdata),
+                                  ("second_data_train", report_sdtrain, launches_sdtrain),
+                                  ("demo", report_demo, launches_demo))}
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:
@@ -2023,7 +2367,7 @@ def main():
             "waymo": waymo, "waymo_train": waymo_train, "second": second,
             "second_train": second_train, "teacher": teacher, "teacher_train": teacher_train,
             "kitti_data": kitti_data, "kitti_data_train": kitti_data_train,
-            "waymo_data": waymo_data, "waymo_data_train": waymo_data_train,
+            "waymo_data": waymo_data, "waymo_data_train": waymo_data_train, **new_paths,
         })
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")

@@ -170,5 +170,5 @@ def test_evaluate_and_train_entry_points_on_cpu(roots, tmp_path):
     res = evaluate.main(["--cfg_file", str(cfg), "--data_root", str(proot), "--device",
                          "cpu", "--workers", "0", "--ckpt", str(ckpt), "--output_dir",
                          str(out), "--batch_size", "4"])
-    assert (out / "eval" / "result.pkl").exists()
+    assert (out / "eval" / "default" / "result.pkl").exists()
     assert "Car_3d/moderate_R40" in res

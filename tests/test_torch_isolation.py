@@ -93,6 +93,16 @@ def test_waymo_entry_points_refuse_cuda_without_card(monkeypatch, tmp_path):
         train.main(flags)
 
 
+def test_demo_refuses_cuda_without_card(monkeypatch, tmp_path):
+    """`demo` defaults to the card too, and refuses a host without one
+    before it reads a scan."""
+    from tsm_det_pointcloud_tpu_torch import demo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.main(["--data_path", str(tmp_path)])
+
+
 def test_teacher_entry_points_refuse_cuda_without_card(monkeypatch):
     """`infer` and `train` on fast_cpc_teacher.yaml default to the card
     too, and refuse a host without one."""
@@ -148,11 +158,10 @@ def test_converter_consumes_every_eval_leaf():
             "leaf": np.zeros((2, 2, 2, 2), np.float32)}}}}})
 
 
-def test_second_builds_and_training_raises():
-    """SECOND builds on the CPU, and its training forward, once it raised,
-    now returns a finite loss with its tb terms; the PointPillars topology
-    is not ported and raises. Only the PointPillars half still expects a
-    raise: the name dates from when SECOND's training raised too."""
+def test_second_trains_and_only_pointpillars_raises():
+    """SECOND builds on the CPU and its training forward returns a finite
+    loss with its tb terms; the PointPillars topology is not ported and
+    raises."""
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
 

@@ -7,8 +7,17 @@ from the same (seed, epoch, index) generators.
   * `create_kitti_infos`: the info pickles, `kitti_dbinfos_train.pkl` and
     every gt-database .bin file;
   * `__getitem__` in training (every augmentor of kitti_dataset.yaml,
-    random_local_pyramid_aug included, and of fast_cpc.yaml) and test mode,
-    and `collate_batch`;
+    random_local_pyramid_aug included, and of fast_cpc.yaml,
+    fast_cpc_teacher.yaml and second.yaml) and test mode, and
+    `collate_batch`;
+  * second.yaml's collate, which keeps a scan's first MAX_POINTS (20000)
+    points: on scans of datasets/kitti/synthetic.py (~25k points in the
+    field of view) both packages drop the same tail (ROADMAP §C);
+  * gt sampling's USE_SHARED_MEMORY route (one global npy of the gt
+    database's points in a directory under the test's tmp_path,
+    TSM_SHM_DIR): the loader's batches equal with it on and off, for 0 and
+    2 workers, and to the JAX package's with it on; nothing is left after
+    `clean_shared_memory`;
   * the loader: its batches equal the JAX loader's for workers 0 and 2,
     its rank shards are disjoint and cover the split, and a program that
     ran it with workers leaves no process behind;
@@ -32,8 +41,9 @@ from tsm_det_pointcloud_tpu.datasets.kitti.kitti_dataset import (
 )
 from tsm_det_pointcloud_tpu.models import _meta_from_dataset as jmeta_from_dataset
 from tsm_det_pointcloud_tpu_torch.datasets import (DataLoader, build_dataloader,
-                                                   seed_for_sample)
+                                                   seed_for_sample, stop_workers)
 from tsm_det_pointcloud_tpu_torch.datasets.kitti.calibration_kitti import Calibration
+from tsm_det_pointcloud_tpu_torch.datasets.kitti.synthetic import write_synthetic_kitti
 from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import (
     KittiDataset,
     create_kitti_infos,
@@ -43,6 +53,8 @@ from tsm_det_pointcloud_tpu_torch.models import meta_from_dataset
 
 BASE_CFG = "tools/cfgs/dataset_configs/kitti_dataset.yaml"
 FAST_CPC = "tools/cfgs/kitti_models/fast_cpc.yaml"
+TEACHER = "tools/cfgs/kitti_models/fast_cpc_teacher.yaml"
+SECOND = "tools/cfgs/kitti_models/second.yaml"
 
 
 @pytest.fixture(scope="module")
@@ -101,17 +113,20 @@ def test_gt_database_files_equal_jax(roots):
             (jroot / "gt_database" / name).read_bytes(), name
 
 
-def _datasets(roots, cfg_file, training):
+def _datasets(roots, cfg_file, training, edit=None):
     jroot, proot = roots
-    jds = JKittiDataset(dataset_cfg(cfg_file, jroot), CLASSES, training=training,
-                        root_path=jroot)
-    pds = KittiDataset(dataset_cfg(cfg_file, proot), CLASSES, training=training,
-                       root_path=proot)
+    jcfg, pcfg = dataset_cfg(cfg_file, jroot), dataset_cfg(cfg_file, proot)
+    if edit is not None:
+        edit(jcfg)
+        edit(pcfg)
+    jds = JKittiDataset(jcfg, CLASSES, training=training, root_path=jroot)
+    pds = KittiDataset(pcfg, CLASSES, training=training, root_path=proot)
     return jds, pds
 
 
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
-@pytest.mark.parametrize("cfg_file", [BASE_CFG, FAST_CPC], ids=["kitti_dataset", "fast_cpc"])
+@pytest.mark.parametrize("cfg_file", [BASE_CFG, FAST_CPC, TEACHER, SECOND],
+                         ids=["kitti_dataset", "fast_cpc", "teacher", "second"])
 def test_getitem_and_collate_equal_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)
     if training:
@@ -126,6 +141,92 @@ def test_getitem_and_collate_equal_jax(roots, cfg_file, training):
             psamples.append(pds[i])
             assert_same(psamples[-1], jsamples[-1], f"sample {i} epoch {epoch}")
     assert_same(pds.collate_batch(psamples[:4]), jds.collate_batch(jsamples[:4]), "batch")
+
+
+def test_second_collate_drops_the_scan_tail_like_jax(tmp_path):
+    """second.yaml collates a scan's first MAX_POINTS points and the model
+    voxelizes those alone, where the reference's data processor voxelizes
+    every point of the scan: in test mode (no shuffle) the scan's tail is
+    dropped, in both packages alike."""
+    write_synthetic_kitti(tmp_path, 1, 2, 120000)
+    create_kitti_infos(dataset_cfg(SECOND, tmp_path), CLASSES, tmp_path, tmp_path, workers=1)
+    jds = JKittiDataset(dataset_cfg(SECOND, tmp_path), CLASSES, training=False,
+                        root_path=tmp_path)
+    pds = KittiDataset(dataset_cfg(SECOND, tmp_path), CLASSES, training=False,
+                       root_path=tmp_path)
+    samples = [pds[i] for i in range(2)]
+    assert_same(samples, [jds[i] for i in range(2)])
+    batch = pds.collate_batch(samples)
+    assert_same(batch, jds.collate_batch([jds[i] for i in range(2)]))
+    assert pds.max_points == 20000 and batch["points_mask"].sum() == 2 * 20000
+    for b, sample in enumerate(samples):
+        assert len(sample["points"]) > 24000          # ~5k points dropped a scan
+        np.testing.assert_array_equal(batch["points"][b], sample["points"][:20000])
+
+
+def _global_gt_database(root):
+    """The gt database as the JAX sampler's USE_SHARED_MEMORY route reads it:
+    every object's points in one array (kitti_gt_database_global.npy) and
+    the db infos with each object's rows, global_data_offset [start, end)
+    (kitti_dbinfos_train_global.pkl)."""
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        infos = pickle.load(f)
+    chunks, start = [], 0
+    for cls_infos in infos.values():
+        for info in cls_infos:
+            pts = np.fromfile(root / info["path"], np.float32).reshape(-1, 4)
+            info["global_data_offset"] = (start, start + len(pts))
+            start += len(pts)
+            chunks.append(pts)
+    np.save(root / "kitti_gt_database_global.npy", np.concatenate(chunks))
+    with open(root / "kitti_dbinfos_train_global.pkl", "wb") as f:
+        pickle.dump(infos, f)
+
+
+def _global_sampler(cfg, use_shared_memory):
+    """fast_cpc.yaml's gt sampling on the global gt database."""
+    sampler = cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST[0]
+    sampler.DB_INFO_PATH = ["kitti_dbinfos_train_global.pkl"]
+    sampler.DB_DATA_PATH = ["kitti_gt_database_global.npy"]
+    sampler.USE_SHARED_MEMORY = use_shared_memory
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_gt_sampling_shared_memory_batches_equal_jax(roots, workers, tmp_path, monkeypatch):
+    from tsm_det_pointcloud_tpu.datasets import shared_memory as jshm
+
+    for root in roots:
+        if not (root / "kitti_gt_database_global.npy").exists():
+            _global_gt_database(root)
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    monkeypatch.setenv("TSM_SHM_DIR", str(tmp_path / "port"))
+    monkeypatch.setattr(jshm, "SHM_ROOT", tmp_path / "jax")
+    stop_workers()   # the loader's workers fork from a server that reads TSM_SHM_DIR
+    passes = {}
+    try:
+        for side, on in (("jax", True), ("port", True), ("port", False)):
+            jds, pds = _datasets(roots, FAST_CPC, True, edit=lambda cfg: _global_sampler(cfg, on))
+            ds = jds if side == "jax" else pds
+            assert ds.data_augmentor.data_augmentor_queue[0].use_shared_memory == on
+            loader = (JDataLoader(jds, 2, shuffle=True, drop_last=True, seed=5, prefetch=0)
+                      if side == "jax" else
+                      DataLoader(pds, 2, shuffle=True, drop_last=True, seed=5, workers=workers))
+            passes[side, on] = _batches(loader, 1)
+            if side == "port":
+                loader.close()
+            if side == "port" and on:
+                assert [p.name for p in (tmp_path / "port").iterdir()] == [
+                    "kitti_gt_database_global.npy.npy"]
+                pds.clean_shared_memory()
+        assert not list((tmp_path / "port").iterdir())
+    finally:
+        stop_workers()
+    assert len(passes["port", True]) == 3
+    assert sum(int(b["gt_boxes_mask"].sum()) for b in passes["jax", True]) > 12  # pasted
+    for got, off, want in zip(passes["port", True], passes["port", False], passes["jax", True]):
+        assert_same(got, want)
+        assert_same(off, want)
 
 
 def test_gt_sampling_draw_is_per_sample(roots):
@@ -242,8 +343,7 @@ def test_other_datasets_raise(roots):
         build_dataloader(cfg, CLASSES, 2, workers=0)
 
 
-@pytest.mark.parametrize("cfg_file", [FAST_CPC, "tools/cfgs/kitti_models/fast_cpc_teacher.yaml",
-                                      "tools/cfgs/kitti_models/second.yaml"])
+@pytest.mark.parametrize("cfg_file", [FAST_CPC, TEACHER, SECOND])
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
 def test_meta_from_dataset_equals_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)

@@ -4,12 +4,18 @@ distillation run (`runtime.checkpoint.partial_load` and
 package's pair (runtime/checkpoint.py:95-148) on the tiny teacher and
 distillation models. Every comparison is exact: both sides copy values.
 
+`test_two_phase_recipe_on_one_root` runs the paper's recipe through the
+dataset entry points on one synthetic KITTI root: the teacher's
+`train --data_root`, the student's `train --data_root --pretrained_model`,
+then `evaluate --ckpt`.
+
 The JAX `tools/train.py` passes `partial_load` its `params`; the port's
 state dict holds the BN running stats beside the parameters, and its
 `partial_load` copies them too, as the reference's strict=False state-dict
 load does, so the JAX side here runs `partial_load` on `batch_stats` as well.
 """
 import json
+import pickle
 import subprocess
 import sys
 
@@ -21,12 +27,15 @@ import yaml
 
 import __graft_entry__ as ge
 from tests.test_torch_teacher import _JMODEL as _JTEACHER, _jax_batch
+from tests.torch_kitti_cases import CLASSES, make_root, tiny_dataset_cfg, write_tiny_yaml
+from tsm_det_pointcloud_tpu.eval.kitti_eval import get_official_eval_result as jofficial
 from tsm_det_pointcloud_tpu.runtime.checkpoint import (
     partial_load as jpartial_load,
     transfer_statistics as jtransfer_statistics,
 )
-from tsm_det_pointcloud_tpu_torch import infer, tiny
+from tsm_det_pointcloud_tpu_torch import evaluate, infer, tiny, train
 from tsm_det_pointcloud_tpu_torch.convert import from_flax_variables
+from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
 from tsm_det_pointcloud_tpu_torch.models import build_network
 from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import partial_load, transfer_statistics
 from tsm_det_pointcloud_tpu_torch.runtime.train_state import is_student
@@ -183,3 +192,54 @@ def test_two_phase_cli(tmp_path):
             n_teacher += 1
     assert n_teacher > 50
     assert n_student == sum(is_student(k) for k, _ in model.named_parameters())
+
+
+def test_two_phase_recipe_on_one_root(tmp_path):
+    """The recipe on one KITTI root (tests/torch_kitti_cases.py's, the tiny
+    configs on fast_cpc_teacher.yaml's and fast_cpc.yaml's data sections):
+    the teacher's `train --data_root` for one epoch, the student's
+    `train --data_root --pretrained_model` on its checkpoint for one epoch,
+    then `evaluate --ckpt`. Every loss is finite (each epoch's mean over its
+    steps), every teacher parameter and the class statistics are bit-equal
+    after the handoff, and the AP dict has the JAX official eval's keys.
+    As in test_two_phase_cli, seeded statistics are written into the
+    teacher's checkpoint, whose own stay at zeros on the tiny init."""
+    root, _ = make_root(tmp_path / "kitti")
+    create_kitti_infos(tiny_dataset_cfg(root), CLASSES, root, root, workers=1)
+    t_cfg = write_tiny_yaml(tmp_path / "teacher.yaml", root, model=tiny.tiny_teacher_model_cfg(),
+                            data=tiny_dataset_cfg(
+                                root, cfg_file="tools/cfgs/kitti_models/fast_cpc_teacher.yaml"))
+    d_cfg = write_tiny_yaml(tmp_path / "distill.yaml", root)
+    common = ["--data_root", str(root), "--device", "cpu", "--workers", "0"]
+    t_dir, t_epochs = train.main(["--cfg_file", str(t_cfg), "--output_dir",
+                                  str(tmp_path / "teacher")] + common)
+    t_ckpt = t_dir / "checkpoint_epoch_1.pth"
+    ckpt = torch.load(t_ckpt, weights_only=True)
+    for s, v in tiny.train_statistics().items():
+        ckpt["model_state"][f"module_list.1.head.{s}"] = torch.from_numpy(v)
+    torch.save(ckpt, t_ckpt)
+    d_dir, d_epochs = train.main(["--cfg_file", str(d_cfg), "--output_dir",
+                                  str(tmp_path / "distill"), "--pretrained_model",
+                                  str(t_ckpt)] + common)
+    assert len(t_epochs) == len(d_epochs) == 1 and t_epochs[0]["steps"] == 3
+    assert all(np.isfinite(e["mean_loss"]) for e in t_epochs + d_epochs)
+    teacher = torch.load(t_ckpt, weights_only=True)["model_state"]
+    distill = torch.load(d_dir / "checkpoint_epoch_1.pth", weights_only=True)["model_state"]
+    for s in STATS:
+        assert torch.equal(distill[f"module_list.1.{s}"], teacher[f"module_list.1.head.{s}"])
+    model = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device="cpu")
+    n_teacher = 0
+    for k, _ in model.named_parameters():
+        if not is_student(k):
+            assert torch.equal(distill[k], teacher[k]), f"teacher {k} changed"
+            n_teacher += 1
+    assert n_teacher > 50
+    res = evaluate.main(["--cfg_file", str(d_cfg), "--ckpt", str(d_dir / "checkpoint_epoch_1.pth"),
+                         "--output_dir", str(tmp_path / "distill"), "--batch_size", "4"] + common)
+    with open(root / "kitti_infos_val.pkl", "rb") as f:
+        gt = [info["annos"] for info in pickle.load(f)]
+    with open(tmp_path / "distill" / "eval" / "default" / "result.pkl", "rb") as f:
+        _, want = jofficial(gt, pickle.load(f), CLASSES)
+    aps = {k for k in res if "/" in k}
+    assert aps == set(want) and aps
+    assert all(np.isfinite(float(res[k])) for k in aps)

@@ -8,7 +8,10 @@ same numpy on the same files from the same (seed, epoch, index) generators.
   * the no-label-zone flag both ways, `SAMPLED_INTERVAL` (the config's
     train 5 / test 1), the sweeps of `SEQUENCE_CONFIG`;
   * `meta_from_dataset`; the loader's batches with 0 and 2 workers;
-  * `USE_SHARED_MEMORY` raising; prediction dicts and `evaluation` (Car
+  * `USE_SHARED_MEMORY`: the train frames cached in shared memory (a
+    directory under the test's tmp_path, TSM_SHM_DIR) and removed by
+    `clean_shared_memory`, the loader's batches equal with it on and off
+    and to the JAX package's with it on; prediction dicts and `evaluation` (Car
     read as Vehicle; any EVAL_METRIC but waymo raises);
   * gt sampling as waymo_fast_cpc.yaml configures it (kitti_dbinfos_train.pkl,
     4 point features): a no-op on a Waymo root, which has no such file; and
@@ -145,12 +148,53 @@ def test_build_dataloader_serves_waymo(roots):
     assert batch["points"].shape == (2, 163840, 5) and bool(batch["points_mask"].all())
 
 
-def test_use_shared_memory_raises(roots):
+def test_use_shared_memory_raises(roots, tmp_path, monkeypatch):
+    """USE_SHARED_MEMORY, which raised until the route was ported (hence the
+    name), caches every train frame in shared memory (in training only, as
+    the JAX dataset does) and reads it from there; `clean_shared_memory`
+    leaves nothing behind."""
+    monkeypatch.setenv("TSM_SHM_DIR", str(tmp_path))
     cfg = dataset_cfg(WAYMO_CPC, roots[1])
     cfg.USE_SHARED_MEMORY = True
-    with pytest.raises(NotImplementedError, match="USE_SHARED_MEMORY"):
-        WaymoDataset(cfg, CLASSES, training=True, root_path=roots[1])
-    WaymoDataset(cfg, CLASSES, training=False, root_path=roots[1])   # as the JAX: train only
+    ds = WaymoDataset(cfg, CLASSES, training=True, root_path=roots[1])
+    assert ds.use_shared_memory and len(list(tmp_path.iterdir())) == len(ds.infos) == 4
+    pc = ds.infos[1]["point_cloud"]
+    np.testing.assert_array_equal(ds.get_lidar(pc["lidar_sequence"], pc["sample_idx"]),
+                                  ds._load_lidar_file(pc["lidar_sequence"], pc["sample_idx"]))
+    ds.clean_shared_memory()
+    assert not list(tmp_path.iterdir())
+    assert not WaymoDataset(cfg, CLASSES, training=False, root_path=roots[1]).use_shared_memory
+    assert not list(tmp_path.iterdir())
+
+
+def test_shared_memory_loader_batches_equal_jax(roots, tmp_path, monkeypatch):
+    """A training pass's batches are the same with USE_SHARED_MEMORY on and
+    off, and equal to the JAX package's with it on."""
+    from tsm_det_pointcloud_tpu.datasets import shared_memory as jshm
+
+    monkeypatch.setenv("TSM_SHM_DIR", str(tmp_path / "port"))
+    monkeypatch.setattr(jshm, "SHM_ROOT", tmp_path / "jax")
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    passes = {}
+    for side, on in (("jax", True), ("port", True), ("port", False)):
+        jds, pds = _datasets(roots, True, edit=lambda cfg: cfg.__setitem__("USE_SHARED_MEMORY", on))
+        ds = jds if side == "jax" else pds
+        assert ds.use_shared_memory == on
+        loader = (JDataLoader(jds, 2, shuffle=True, drop_last=True, seed=5, prefetch=0)
+                  if side == "jax" else
+                  DataLoader(pds, 2, shuffle=True, drop_last=True, seed=5, workers=0))
+        loader.set_epoch(1)
+        passes[side, on] = [{k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                             for k, v in b.items()} for b in loader]
+        if side == "port" and on:
+            assert len(list((tmp_path / "port").iterdir())) == 4
+            pds.clean_shared_memory()
+    assert not list((tmp_path / "port").iterdir())
+    assert len(passes["port", True]) == 2
+    for g, off, w in zip(passes["port", True], passes["port", False], passes["jax", True]):
+        assert_same(g, w)
+        assert_same(off, w)
 
 
 def test_prediction_dicts_and_evaluation_equal_jax(roots):

@@ -183,5 +183,5 @@ def test_evaluate_and_train_entry_points_on_cpu(roots, tmp_path):
     assert "eval/Vehicle/AP_L1" in metrics
     res = evaluate.main(["--cfg_file", str(cfg), "--data_root", str(proot), "--device", "cpu",
                          "--workers", "0", "--ckpt", str(ckpt), "--output_dir", str(out)])
-    assert (out / "eval" / "result.pkl").exists()
+    assert (out / "eval" / "default" / "result.pkl").exists()
     assert {"Vehicle/AP_L1", "Cyclist/APH_L2"} <= set(res)

@@ -74,11 +74,12 @@ def dataset_cfg(cfg_file, root):
     return data
 
 
-def tiny_dataset_cfg(root, num_points=256):
-    """fast_cpc.yaml's DATA_CONFIG on the tiny model's range (tiny.PCR,
-    VOXEL_SIZE tiny.VOXEL at FACTOR 4), NUM_POINTS `num_points` in both
-    modes and MAX_GT_BOXES 16."""
-    data = dataset_cfg("tools/cfgs/kitti_models/fast_cpc.yaml", root)
+def tiny_dataset_cfg(root, num_points=256, cfg_file="tools/cfgs/kitti_models/fast_cpc.yaml"):
+    """fast_cpc.yaml's DATA_CONFIG (or fast_cpc_teacher.yaml's, the same
+    processors) on the tiny model's range (tiny.PCR, VOXEL_SIZE tiny.VOXEL
+    at FACTOR 4), NUM_POINTS `num_points` in both modes and MAX_GT_BOXES
+    16."""
+    data = dataset_cfg(cfg_file, root)
     data.POINT_CLOUD_RANGE = list(tiny.PCR)
     data.MAX_GT_BOXES = 16
     for p in data.DATA_PROCESSOR:
@@ -89,12 +90,30 @@ def tiny_dataset_cfg(root, num_points=256):
     return data
 
 
-def write_tiny_yaml(path, root, batch=2, epochs=1):
-    """A config file of the tiny TSM on `tiny_dataset_cfg(root)`, for the
-    entry points."""
-    model = tiny.tiny_model_cfg()
-    doc = {"CLASS_NAMES": CLASSES,
-           "DATA_CONFIG": _plain(tiny_dataset_cfg(root)),
+def tiny_second_dataset_cfg(root):
+    """second.yaml's DATA_CONFIG on the tiny SECOND's geometry
+    (tiny.SECOND_META: its range, voxels of 0.5 x 0.5 x 0.1 m, 512 voxels in
+    both modes, MAX_POINTS 512), gt sampling of its one class, MAX_GT_BOXES
+    16."""
+    meta = tiny.SECOND_META
+    data = dataset_cfg("tools/cfgs/kitti_models/second.yaml", root)
+    data.POINT_CLOUD_RANGE = list(meta.point_cloud_range)
+    data.MAX_POINTS = meta.max_points
+    data.MAX_GT_BOXES = 16
+    data.DATA_AUGMENTOR.AUG_CONFIG_LIST[0].SAMPLE_GROUPS = ["Car:15"]
+    for p in data.DATA_PROCESSOR:
+        if p.NAME == "transform_points_to_voxels":
+            p.VOXEL_SIZE = list(meta.voxel_size)
+            p.MAX_NUMBER_OF_VOXELS = {"train": meta.max_voxels, "test": meta.max_voxels}
+    return data
+
+
+def write_tiny_yaml(path, root, batch=2, epochs=1, model=None, data=None, classes=CLASSES):
+    """A config file of a tiny model (default the tiny TSM) on a dataset
+    config (default `tiny_dataset_cfg(root)`), for the entry points."""
+    model = tiny.tiny_model_cfg() if model is None else model
+    doc = {"CLASS_NAMES": list(classes),
+           "DATA_CONFIG": _plain(tiny_dataset_cfg(root) if data is None else data),
            "MODEL": _plain(model),
            "OPTIMIZATION": {"BATCH_SIZE_PER_GPU": batch, "NUM_EPOCHS": epochs,
                             "OPTIMIZER": "adam_onecycle", "LR": 0.01, "WEIGHT_DECAY": 0.01,

@@ -5,6 +5,7 @@
     root, then the working directory
   * ``merge_new_config`` recursive merge
   * ``cfg_from_list(['K.E.Y', 'val', ...], config)`` dotted overrides
+  * ``log_config_to_file`` recursive print to a logger
 """
 from __future__ import annotations
 
@@ -18,6 +19,15 @@ from .utils.edict import EDict
 cfg = EDict()
 cfg.ROOT_DIR = (Path(__file__).resolve().parent / "../").resolve()
 cfg.LOCAL_RANK = 0
+
+
+def log_config_to_file(config, pre="cfg", logger=None):
+    for key, val in config.items():
+        if isinstance(val, EDict):
+            logger.info("----------- %s -----------" % key)
+            log_config_to_file(val, pre=pre + "." + key, logger=logger)
+            continue
+        logger.info("%s.%s: %s" % (pre, key, val))
 
 
 def merge_new_config(config, new_config):

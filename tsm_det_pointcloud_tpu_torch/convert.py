@@ -24,6 +24,11 @@ that `model.init(..., training=True)` returns (collections `params`,
 
 Every leaf of a TSM training init and of a SECOND init is consumed; a leaf
 that no rule consumes raises.
+
+`flax_view(state_dict)` is the inverse: each entry of a port state dict as
+the flax leaf it comes from (collection, path, value in the flax layout), in
+the order jax.tree_util flattens a flax tree (sorted keys at every level);
+`to_flax_variables(state_dict)` nests them as flax variables.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from .models.dense_heads.point_head_vote import STATISTIC_BUFFERS
 
 
 def _flatten(tree, prefix=""):
@@ -74,6 +81,59 @@ def _convert_leaf(collection, path, arr):
         return _torch_path(path), arr
     raise ValueError(f"no conversion rule for flax leaf {collection}/{path} "
                      f"{arr.shape}")
+
+
+def _flax_leaf(key, arr):
+    """(collection, flax path, value in the flax layout) of a port state
+    dict entry: the inverse of _convert_leaf."""
+    mod, _, leaf = key.rpartition(".")
+    fmod = re.sub(r"module_list\.(\d+)", r"module_list_\1", mod).replace(".", "/")
+    if leaf in STATISTIC_BUFFERS:
+        return "statistics", f"{fmod}/{leaf}", arr
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", f"{fmod}/{leaf[len('running_'):]}", arr
+    if leaf in ("bias", "reg_weight"):
+        return "params", f"{fmod}/{leaf}", arr
+    if leaf == "weight" and arr.ndim == 1:
+        return "params", f"{fmod}/scale", arr
+    if leaf == "weight" and arr.ndim == 2:
+        return "params", f"{fmod}/kernel", arr.T
+    if leaf == "weight" and arr.ndim == 3:
+        return "params", f"{fmod}/kernel", arr
+    if leaf == "weight" and arr.ndim == 4:
+        if re.fullmatch(r"deblock(\d+|_final)", fmod.rpartition("/")[2]):
+            return "params", f"{fmod}/kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return "params", f"{fmod}/kernel", arr.transpose(2, 3, 1, 0)
+    raise ValueError(f"no flax leaf for port entry {key} {arr.shape}")
+
+
+def flax_view(state):
+    """[(collection, flax path, torch key, numpy value in the flax layout)]
+    for every entry of a port state dict, sorted as jax.tree_util flattens
+    the flax variables (collection, then path components); each round-trips
+    through _convert_leaf to its own key and value."""
+    out = []
+    for key, t in state.items():
+        arr = t.detach().cpu().numpy()
+        coll, path, flax_arr = _flax_leaf(key, arr)
+        back_key, back = _convert_leaf(coll, path, flax_arr)
+        if back_key != key or back.shape != arr.shape or not np.array_equal(back, arr):
+            raise ValueError(f"port entry {key} does not round-trip through {coll}/{path}")
+        out.append((coll, path, key, flax_arr))
+    return sorted(out, key=lambda e: (e[0], tuple(e[1].split("/"))))
+
+
+def to_flax_variables(state):
+    """A port state dict as flax variables: {collection: nested dict of
+    numpy leaves}, the inverse of from_flax_variables."""
+    tree = {}
+    for coll, path, _, arr in flax_view(state):
+        d = tree.setdefault(coll, {})
+        *mods, leaf = path.split("/")
+        for m in mods:
+            d = d.setdefault(m, {})
+        d[leaf] = arr
+    return tree
 
 
 def from_flax_variables(variables_np):

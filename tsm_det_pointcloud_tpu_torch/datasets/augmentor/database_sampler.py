@@ -14,7 +14,13 @@ samples the same worker loaded before it: on the worker count. Here every
 call draws its permutation from the sample's generator and takes its head,
 which is what the JAX sampler does on every call once the pool is at most
 twice the draw (the case the tests hold the two against).
-`USE_SHARED_MEMORY` is not ported and raises.
+
+`USE_SHARED_MEMORY` (the JAX sampler's global-npy route): the objects'
+points are one array, the single DB_DATA_PATH npy, published once to shared
+memory (`datasets.shared_memory`) and mapped by every loader worker; each db
+info's `global_data_offset` [start, end) names its rows. Where shared memory
+is missing the sampler reads the per-object files, as the JAX one does.
+`clean_shared_memory()` removes the published array.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from ...ops import boxes as box_ops
+from .. import shared_memory as shm
 
 
 class DataBaseSampler:
@@ -49,8 +56,18 @@ class DataBaseSampler:
         for func_name, val in sampler_cfg.get("PREPARE", {}).items():
             self.db_infos = getattr(self, func_name)(self.db_infos, val)
 
-        if sampler_cfg.get("USE_SHARED_MEMORY", False):
-            raise NotImplementedError("gt_sampling's USE_SHARED_MEMORY is not ported")
+        self.use_shared_memory = sampler_cfg.get("USE_SHARED_MEMORY", False)
+        self.gt_database_data_key = None
+        if self.use_shared_memory:
+            db_data_paths = list(sampler_cfg.get("DB_DATA_PATH", []))
+            assert len(db_data_paths) == 1, "single DB_DATA_PATH supported"
+            if shm.available():
+                key = db_data_paths[0]
+                if not shm.sa_exists(key):
+                    shm.sa_create(key, np.load(self.root_path / db_data_paths[0]))
+                self.gt_database_data_key = key
+            else:
+                self.use_shared_memory = False
 
         self.use_road_plane = sampler_cfg.get("USE_ROAD_PLANE", False)
         self.limit_whole_scene = sampler_cfg.get("LIMIT_WHOLE_SCENE", False)
@@ -61,6 +78,10 @@ class DataBaseSampler:
             if class_name not in class_names:
                 continue
             self.sample_class_num[class_name] = int(sample_num)
+
+    def clean_shared_memory(self):
+        if self.gt_database_data_key:
+            shm.sa_delete(self.gt_database_data_key)
 
     def filter_by_difficulty(self, db_infos, removed_difficulty):
         new_db_infos = {}
@@ -159,13 +180,21 @@ class DataBaseSampler:
         else:
             mv_height = np.zeros(sampled_boxes.shape[0], np.float32)
 
+        db_data = None
+        if self.use_shared_memory and self.gt_database_data_key:
+            db_data = shm.sa_attach(self.gt_database_data_key, copy=False)
+
         obj_points_list = []
         for info, box, mh in zip(sampled_infos_all, sampled_boxes, mv_height):
             num_feats = self.sampler_cfg.get("NUM_POINT_FEATURES", 4)
-            file_path = self.root_path / info["path"]
-            obj_points = np.fromfile(
-                str(file_path), dtype=np.float32
-            ).reshape(-1, num_feats).copy()
+            if db_data is not None:
+                start, end = (int(x) for x in info["global_data_offset"])
+                obj_points = np.array(db_data[start:end], np.float32).reshape(-1, num_feats)
+            else:
+                file_path = self.root_path / info["path"]
+                obj_points = np.fromfile(
+                    str(file_path), dtype=np.float32
+                ).reshape(-1, num_feats).copy()
             obj_points[:, :3] += info["box3d_lidar"][:3].astype(np.float32)
             obj_points[:, 2] -= mh
             obj_points_list.append(obj_points)

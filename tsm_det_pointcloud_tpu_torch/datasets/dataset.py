@@ -162,6 +162,13 @@ class DatasetTemplate:
     def evaluation(self, det_annos, class_names, **kwargs):
         raise NotImplementedError
 
+    def clean_shared_memory(self):
+        """Remove what this dataset put in shared memory (the gt sampler's
+        objects under USE_SHARED_MEMORY)."""
+        for aug in getattr(self.data_augmentor, "data_augmentor_queue", []):
+            if hasattr(aug, "clean_shared_memory"):
+                aug.clean_shared_memory()
+
     def merge_all_iters_to_one_epoch(self, merge=True, epochs=None):
         self._merge_all_iters_to_one_epoch = merge
         self.total_epochs = epochs

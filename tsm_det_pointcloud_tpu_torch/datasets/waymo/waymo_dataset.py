@@ -15,7 +15,11 @@ command:
 loader reads the layout it writes:
   <root>/<PROCESSED_DATA_TAG>/<sequence>/NNNN.npy + <sequence>.pkl
 
-`USE_SHARED_MEMORY` is not ported and raises.
+`USE_SHARED_MEMORY` (training only): the first SHARED_MEMORY_FILE_LIMIT
+frames are loaded once into shared memory (`datasets.shared_memory`, one
+array a frame, keyed <sequence>___<index>) when the dataset is made, and
+read from there; `clean_shared_memory()` removes them. Without shared memory
+the frames are read from their files, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from ...ops import boxes as box_ops
+from .. import shared_memory as shm
 from ..dataset import DatasetTemplate
 
 
@@ -47,9 +52,14 @@ class WaymoDataset(DatasetTemplate):
         )
         self.infos = []
         self.include_waymo_data(self.mode)
-        if self.dataset_cfg.get("USE_SHARED_MEMORY", False) and self.training:
-            raise NotImplementedError(
-                "WaymoDataset's USE_SHARED_MEMORY is not ported (ROADMAP.md §A.5)")
+        self.use_shared_memory = (
+            self.dataset_cfg.get("USE_SHARED_MEMORY", False) and self.training
+        )
+        self.shared_memory_file_limit = int(self.dataset_cfg.get(
+            "SHARED_MEMORY_FILE_LIMIT", 0x7FFFFFFF
+        ))
+        if self.use_shared_memory:
+            self.load_data_to_shared_memory()
 
     def include_waymo_data(self, mode):
         if self.logger:
@@ -66,9 +76,39 @@ class WaymoDataset(DatasetTemplate):
         if self.logger:
             self.logger.info("Total samples for Waymo dataset: %d" % len(self.infos))
 
+    def _shared_frames(self):
+        """The (sequence, index) keys of the frames cached in shared memory."""
+        for info in self.infos[: self.shared_memory_file_limit]:
+            pc = info["point_cloud"]
+            yield f"{pc['lidar_sequence']}___{pc['sample_idx']}", pc
+
+    def load_data_to_shared_memory(self):
+        if not shm.available():
+            self.use_shared_memory = False
+            return
+        for key, pc in self._shared_frames():
+            if not shm.sa_exists(key):
+                shm.sa_create(key, self._load_lidar_file(pc["lidar_sequence"],
+                                                         pc["sample_idx"]))
+        if self.logger:
+            self.logger.info("Training data has been saved to shared memory")
+
+    def clean_shared_memory(self):
+        super().clean_shared_memory()
+        for key, _ in self._shared_frames():
+            shm.sa_delete(key)
+
     def get_lidar(self, sequence_name, sample_idx):
         """A frame's points (N, 5): x, y, z, tanh(intensity), elongation;
-        the no-label-zone points dropped unless DISABLE_NLZ_FLAG_ON_POINTS."""
+        the no-label-zone points dropped unless DISABLE_NLZ_FLAG_ON_POINTS.
+        From shared memory where the frame is cached there."""
+        if self.use_shared_memory:
+            key = f"{sequence_name}___{sample_idx}"
+            if shm.sa_exists(key):
+                return shm.sa_attach(key, copy=True)
+        return self._load_lidar_file(sequence_name, sample_idx)
+
+    def _load_lidar_file(self, sequence_name, sample_idx):
         lidar_file = self.data_path / sequence_name / ("%04d.npy" % sample_idx)
         point_features = np.load(lidar_file)  # (N, 6): xyz, intensity, elong, NLZ
         points_all, nlz_flag = point_features[:, 0:5], point_features[:, 5]

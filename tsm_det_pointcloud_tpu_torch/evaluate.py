@@ -3,8 +3,8 @@
     python -m tsm_det_pointcloud_tpu_torch.evaluate \\
         --cfg_file tools/cfgs/kitti_models/fast_cpc.yaml [--ckpt CKPT] \\
         [--data_root DIR] [--batch_size 16] [--workers 4] [--save_to_file] \\
-        [--eval_all [--max_waiting_mins 30]] [--output_dir DIR] [--device cuda] \\
-        [--set KEY VALUE ...]
+        [--eval_all [--max_waiting_mins 30]] [--extra_tag default] \\
+        [--eval_tag default] [--output_dir DIR] [--device cuda] [--set KEY VALUE ...]
     python -m tsm_det_pointcloud_tpu_torch.evaluate \\
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --data_root DIR
 
@@ -16,8 +16,11 @@ the loader's workers start, and runs `runtime.eval_utils.eval_one_ckpt`: the
 eval forward and post-processing per batch, the prediction dicts (KITTI:
 written as label files with --save_to_file), result.pkl and the dataset's
 eval (the official KITTI eval, or the Waymo metric), all under
-<output_dir>/eval, whose metrics.jsonl gets the result dict and whose log
-file the eval's table. Prints the APs (KITTI: 3D R40; Waymo: AP and APH at
+<output_dir>/eval/<eval_tag>, whose metrics.jsonl gets the result dict and
+whose log file the config and the eval's table. <output_dir> is the JAX
+tools/test.py's, output/<EXP_GROUP_PATH>/<TAG>/<extra_tag> under the
+repository (`train.default_output_dir`), unless --output_dir names
+another. Prints the APs (KITTI: 3D R40; Waymo: AP and APH at
 L1 and L2), sec_per_example, the loop's scans/s (loader included) and its
 wait on the loader a batch. `--set` overrides config keys
 (`config.cfg_from_list`). --eval_all instead watches <output_dir>/ckpt and
@@ -32,6 +35,7 @@ import time
 from contextlib import closing
 from pathlib import Path
 
+from .config import log_config_to_file
 from .datasets import build_dataloader
 from .infer import ROOT, load_cfg
 from .models import build_network
@@ -66,8 +70,10 @@ def main(argv=None):
     ap.add_argument("--save_to_file", action="store_true")
     ap.add_argument("--eval_all", action="store_true")
     ap.add_argument("--max_waiting_mins", type=float, default=30)
+    ap.add_argument("--extra_tag", default="default")
+    ap.add_argument("--eval_tag", default="default")
     ap.add_argument("--output_dir", default=None,
-                    help="default output/<config's folder>/<config's name>")
+                    help="default output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--set", dest="set_cfgs", nargs="+", default=None, metavar="KEY VALUE",
                     help="config overrides, key value pairs")
@@ -76,10 +82,11 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = load_cfg(args.cfg_file, args.set_cfgs)
     batch = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    output_dir = Path(args.output_dir or default_output_dir(args.cfg_file))
-    eval_dir = output_dir / "eval"
+    output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
+    eval_dir = output_dir / "eval" / args.eval_tag
     eval_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(eval_dir / f"log_eval_{time.strftime('%Y%m%d-%H%M%S')}.txt")
+    log_config_to_file(cfg, logger=logger)
     test_set, test_loader, _ = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch, root_path=args.data_root,
         workers=args.workers, logger=logger, training=False, pin_memory=dev.type == "cuda")

@@ -18,8 +18,9 @@ the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/fast_cpc.yaml --data_root DIR \\
         [--batch 16] [--epochs N] [--workers 4] [--ckpt_save_interval 1] \\
-        [--num_epochs_to_eval 0] [--output_dir DIR] \\
-        [--pretrained_model CKPT] [--seed 0] [--device cuda]
+        [--max_ckpt_save_num 30] [--num_epochs_to_eval 0] [--extra_tag default] \\
+        [--output_dir DIR] [--ckpt CKPT] [--pretrained_model CKPT] \\
+        [--seed 0 | --fix_random_seed] [--device cuda]
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --data_root DIR \\
         [--set DATA_CONFIG.SAMPLED_INTERVAL.train 1]
@@ -51,14 +52,23 @@ and the top kernels.
 
 Dataset mode trains --epochs epochs (else the config's NUM_EPOCHS) over the
 dataset's train split with the config's augmentors, `--workers` loader
-processes and batches of --batch (else BATCH_SIZE_PER_GPU), resuming from the
-newest checkpoint under <output_dir>/ckpt (on the card the kernels are built
-first, while the loader's workers start); it checkpoints every
---ckpt_save_interval epochs, streams the losses to <output_dir>/metrics.jsonl
-and prints each epoch's train scans/s (host clock, loader included, ending in
-a synchronize), the loop's wait on the loader a step and the peak device
-memory. --num_epochs_to_eval N then evaluates the last N checkpoints on the
-val split (`runtime.eval_utils.repeat_eval_ckpts`).
+processes and batches of --batch (else BATCH_SIZE_PER_GPU), resuming from
+--ckpt, else from the newest checkpoint under <output_dir>/ckpt (on the card
+the kernels are built first, while the loader's workers start). Its output
+directory is the JAX tools/train.py's, output/<EXP_GROUP_PATH>/<TAG>/
+<extra_tag> under the repository (`default_output_dir`: EXP_GROUP_PATH is
+the --cfg_file string's folders after the first, TAG its file name's stem),
+unless --output_dir names another; the config goes to its log file
+(`config.log_config_to_file`). It checkpoints every --ckpt_save_interval
+epochs, keeps the --max_ckpt_save_num newest, streams the losses to
+<output_dir>/metrics.jsonl and prints each epoch's train scans/s (host
+clock, loader included, ending in a synchronize), the loop's wait on the
+loader a step and the peak device memory. --fix_random_seed seeds the
+loader and numpy's global state with FIX_RANDOM_SEED (666, the JAX tool's)
+in place of --seed. --num_epochs_to_eval N then evaluates the last N
+checkpoints on the val split (`runtime.eval_utils.repeat_eval_ckpts`). A
+dataset cached in shared memory (`USE_SHARED_MEMORY`) is cleaned at the
+end.
 """
 from __future__ import annotations
 
@@ -70,6 +80,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .config import log_config_to_file
 from .infer import (KITTI_RANGE, ROOT, dataset_meta, load_cfg, profile_call, scan_recipe,
                     seed_statistics, synth_scene)
 from .models import build_network
@@ -131,10 +142,18 @@ def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1
     return cfg, model.train(), opt
 
 
-def default_output_dir(cfg_file):
-    """output/<config's folder>/<config's name> under the repository."""
-    cfg_file = Path(cfg_file)
-    return ROOT / "output" / cfg_file.parent.name / cfg_file.stem
+# the loader's seed and numpy's under --fix_random_seed (the JAX tools/train.py's)
+FIX_RANDOM_SEED = 666
+
+
+def default_output_dir(cfg_file, extra_tag="default"):
+    """The JAX tools' output directory for the --cfg_file string:
+    output/<EXP_GROUP_PATH>/<TAG>/<extra_tag> under the repository, where
+    EXP_GROUP_PATH is the string's folders after the first and TAG its file
+    name's stem (config.cfg_from_yaml_file sets both alike)."""
+    cfg_file = str(cfg_file)
+    return (ROOT / "output" / "/".join(cfg_file.split("/")[1:-1]) / Path(cfg_file).stem
+            / extra_tag)
 
 
 def peak_memory(dev):
@@ -153,14 +172,19 @@ def train_on_dataset(args, dev):
     cfg = load_cfg(args.cfg_file, args.set_cfgs)
     batch = args.batch or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
-    output_dir = Path(args.output_dir or default_output_dir(args.cfg_file))
+    output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
     ckpt_dir = output_dir / "ckpt"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(output_dir / f"log_train_{time.strftime('%Y%m%d-%H%M%S')}.txt")
     logger.info("training %s on %s, output %s", args.cfg_file, dev, output_dir)
+    log_config_to_file(cfg, logger=logger)
+    seed = args.seed
+    if args.fix_random_seed:
+        seed = FIX_RANDOM_SEED
+        np.random.seed(FIX_RANDOM_SEED)
     train_set, train_loader, _ = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch, root_path=args.data_root,
-        workers=args.workers, seed=args.seed, logger=logger, training=True,
+        workers=args.workers, seed=seed, logger=logger, training=True,
         pin_memory=dev.type == "cuda")
     train_loader.start()   # the workers start while the kernels and the model are built
     if dev.type == "cuda":
@@ -173,7 +197,7 @@ def train_on_dataset(args, dev):
                                   pretrained_model=args.pretrained_model, dataset=train_set,
                                   set_cfgs=args.set_cfgs)
     start_epoch = 0
-    resume_from = latest_checkpoint(ckpt_dir)
+    resume_from = args.ckpt or latest_checkpoint(ckpt_dir)
     if resume_from is not None:
         start_epoch, it = restore_checkpoint(resume_from, model, opt)
         logger.info("resumed from %s (epoch %d, step %d)", resume_from, start_epoch, it)
@@ -199,7 +223,8 @@ def train_on_dataset(args, dev):
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             train_model(model, opt, train_loader, ckpt_dir, epochs, start_epoch=start_epoch,
-                        log=logger.info, ckpt_save_interval=args.ckpt_save_interval,
+                        log=logger.info, max_ckpt_save_num=args.max_ckpt_save_num,
+                        ckpt_save_interval=args.ckpt_save_interval,
                         device=dev, metrics_writer=writer, timings=timings,
                         on_epoch_end=report)
         if args.num_epochs_to_eval > 0:
@@ -213,6 +238,7 @@ def train_on_dataset(args, dev):
                 repeat_eval_ckpts(eval_model, test_loader, test_set, cfg, ckpt_dir,
                                   output_dir / "eval" / "eval_with_train", logger,
                                   args.num_epochs_to_eval, metrics_writer=writer)
+    train_set.clean_shared_memory()
     return ckpt_dir, epochs_done
 
 
@@ -241,9 +267,15 @@ def main(argv=None):
     data.add_argument("--epochs", type=int, default=None)
     data.add_argument("--workers", type=int, default=4)
     data.add_argument("--ckpt_save_interval", type=int, default=1)
+    data.add_argument("--max_ckpt_save_num", type=int, default=30)
     data.add_argument("--num_epochs_to_eval", type=int, default=0)
+    data.add_argument("--ckpt", default=None,
+                      help="resume from this checkpoint, else from the newest one")
+    data.add_argument("--extra_tag", default="default")
+    data.add_argument("--fix_random_seed", action="store_true",
+                      help=f"seed {FIX_RANDOM_SEED} in place of --seed")
     data.add_argument("--output_dir", default=None,
-                      help="default output/<config's folder>/<config's name>")
+                      help="default output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>")
     args = ap.parse_args(argv)
 
     if args.dataset or args.data_root is not None:
