@@ -260,7 +260,52 @@ Phases (any failure exits non-zero before the result line):
      DEMO_SCANS raw .bin scans of the root's val split (360 degrees, no
      field-of-view crop, 20000 points sampled: d-fps on K6), its first
      forward recorded and held as in phase 28. Prints the detections a
-     scan, scans/s and peak memory.
+     scan, scans/s and peak memory;
+ 31. data-parallel training: fast_cpc.yaml's `train --launcher pytorch
+     --data_root` on phase 22's root as 2 ranks (fresh spawned processes,
+     gloo: NCCL takes one rank a card), b8 each, one epoch of 3 steps from
+     phase 28's teacher checkpoint (--pretrained_model), each rank's first
+     step recorded and every K1-K5 call held against its plain version
+     (rank 0, then rank 1, so that no other rank shares the card while one
+     times); after every step the parameters, BN running statistics and
+     class statistics bit-equal across the ranks, and the reduced gradients
+     of step 1 too; step 1's loss and tb terms (the ranks' mean) against
+     the same step in this process at b16 on the same 16 samples (as phase
+     7), in the loader's order and in the ranks' (rank 0's samples, then
+     rank 1's, every BN's sums taken over each half and added, as the
+     all-reduce adds them: `halves_stats`); prints how far the student
+     gradients lie from both (relative L2 over all of them, and the tensors
+     past the per-tensor tolerance below) and how far the one process's own
+     move when only its summation order changes: the fast_cpc step
+     amplifies the last bits of its BN sums past any such tolerance, so its
+     gradients are figures, not a check; the tiny TSM's step,
+     which the ranks take in their process group before the epoch, at b2 a
+     rank against b4 in this process,
+     every student gradient at rtol 1e-3 with atol 1e-4 * max(max|g| of the
+     tensor, 1e-2 * the largest). Prints the
+     ranks' and the process's train scans/s (no speed-up figure: the ranks
+     share the SMs) and each rank's peak memory;
+ 32. NCCL at world size 1: `train --launcher pytorch` (WORLD_SIZE=1, NCCL)
+     for 2 steps on phase 29's 12 train frames, then `evaluate --ckpt` on
+     one batch of its 12 val frames, and the same with --launcher none,
+     each a fresh process with deterministic algorithms on: losses, every
+     state tensor and every detection bit-equal;
+ 33. sharded eval: `evaluate --launcher pytorch` on phase 31's checkpoint
+     as 2 ranks over gloo at b8 each on the val split; rank 0's merged
+     result.pkl (frame order, boxes, scores, names), its 72 APs and its
+     summed recall lines equal those of one `evaluate` in this process at
+     b8;
+ 34. point axis: waymo_fast_cpc.yaml's `evaluate --launcher pytorch
+     --point_axis 2` on phase 25's root as 2 ranks over gloo, b8 x 163840
+     (81920 points a scan a rank: d-fps on K6 a segment), the first forward
+     recorded and every K1-K4 / K6 call held against its plain version;
+     layer 0's picks equal `segment_local_fps_plain` on the whole cloud, the
+     ranks' batch_box_preds bit-equal (the entry points run the point axis
+     with deterministic algorithms on the card), the AP dict finite; then
+     `train --point_axis 2` for one step at b2 x 120000 (fresh ranks): loss
+     finite, K1-K6 launched, the ranks' parameters and buffers bit-equal
+     after it (the train loop's check). Its gradients are held on the CPU
+     (tests/test_torch_point_sharding.py).
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -289,7 +334,10 @@ eval), its `teacher_data` and `teacher_data_train` objects those of phase
 28's teacher evaluate and train (per batch and per step recorded, `launches`
 from the run), `second_data` and `second_data_train` those of phase 29 (null
 but for K3 and K7) and `demo` that of phase 30's demo (per scan recorded,
-`launches` from its 4 scans; null for K5, K7). K6 is on no KITTI path of
+`launches` from its 4 scans; null for K5, K7), `dist_train` that of phase
+31 (rank 0's recorded step, `launches` from rank 0's epoch; null for K6,
+K7) and `point_axis` that of phase 34 (rank 0's recorded forward,
+`launches` from rank 0's run; null for K5, K7). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -353,6 +401,13 @@ EXTRAS = {}                  # kernel -> figures of its last compared call that 
 EXTRA_KEYS = ("prep_ms", "prep_device_ms", "visits", "device_ms", "library_device_ms",
               "hits", "staged_rows")
 TILED = []                   # K2 tiles whose making a compared call of the pass has timed
+# phases 31-34: ranks a process group, a rank's batch, its loader workers,
+# seconds a phase's ranks may take; phase 32's train and val frames (the
+# trimmed info files of phase 29)
+DIST_WORLD, DIST_BATCH, DIST_WORKERS, DIST_TIMEOUT = 2, 8, 2, 400
+WORLD1_FRAMES = SECOND_DATA_FRAMES
+# phase 34's training step: b2, every 8th of the 16 train frames
+PAX_TRAIN_BATCH, PAX_TRAIN_INTERVAL = 2, 8
 
 
 class Deferred(NamedTuple):
@@ -1513,9 +1568,9 @@ def echo_waymo_dets(infos):
 def waymo_data_phases(dev):
     """Phases 25-27: the Waymo data path on a synthetic root. Returns the
     per-kernel reports of phases 26 and 27, the launch counts of their
-    counted runs, the plain-version notes of each, and a function that
-    profiles one eval batch (to be called after every timed path: see
-    Deferred)."""
+    counted runs, the plain-version notes of each, a function that profiles
+    one eval batch (to be called after every timed path: see Deferred) and
+    removes the root, and the root (phase 34 runs on it)."""
     import logging
     import pickle
     import tempfile
@@ -1680,7 +1735,7 @@ def waymo_data_phases(dev):
         tmp.cleanup()
 
     return (report_eval, launches_eval, notes_eval, report_train, launches_train, notes_train,
-            profile_eval_batch)
+            profile_eval_batch, root)
 
 
 def run_recorded(label, entry, argv, owner, attr, names):
@@ -1967,6 +2022,614 @@ def demo_phases(dev, root):
           f"batch, loading included); launches {launches}; peak memory {peak:.2f} GiB")
     report_demo = compare_recorded(rec.calls, "demo")
     return report_demo, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 31-34: the process group. Each phase starts its ranks as fresh
+# spawned processes (rank_main); two ranks share the one card over gloo.
+# ---------------------------------------------------------------------------
+
+def rank_main(rank, world, port, job, args, out, backend, env):
+    """A rank of phases 31-34: torchrun's environment, then JOBS[job](rank,
+    *args) with `comm.init_distributed` on `backend` (None: the launcher's
+    own, NCCL on the card); its result is torch.save'd to out/rank<r>.pt.
+    The rank's loader workers and their fork server stop before it ends."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port), **env)
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
+    from tsm_det_pointcloud_tpu_torch.parallel import comm
+
+    init = comm.init_distributed
+
+    def init_on_backend(launcher, device="cuda", backend_=None):
+        dev = init(launcher, device, backend_ or backend)
+        BACKENDS.append(torch.distributed.get_backend() if launcher != "none" else None)
+        return dev
+
+    comm.init_distributed = init_on_backend
+    try:
+        torch.save(JOBS[job](rank, *args), Path(out) / f"rank{rank}.pt")
+    finally:
+        stop_workers()
+
+
+def start_ranks(job, args, world=DIST_WORLD, backend="gloo", env=None):
+    """Spawn the `world` ranks of `job`; returns the handle wait_ranks takes."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_{job}_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, port, job, args, out, backend, env or {}))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return job, procs, out, time.perf_counter()
+
+
+def wait_ranks(handle, timeout=DIST_TIMEOUT):
+    """Every rank's result, in rank order; fails (stopping the others) as
+    soon as a rank fails, or when the ranks outlive `timeout` s."""
+    import torch
+
+    job, procs, out, t0 = handle
+    while any(p.is_alive() for p in procs):
+        bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+        if bad or time.perf_counter() - t0 > timeout:
+            for p in procs:
+                p.kill()
+                p.join()
+            fail(f"{job}: a rank failed (exit codes {[p.exitcode for p in procs]})" if bad
+                 else f"{job}: the ranks ran past {timeout} s")
+        time.sleep(0.2)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * len(procs), f"{job}: rank exit codes {codes}")
+    results = [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
+               for r in range(len(procs))]
+    shutil.rmtree(out, ignore_errors=True)
+    return results, time.perf_counter() - t0
+
+
+def compare_in_turn(rank, out, calls, label):
+    """compare_recorded on rank 0, then on rank 1 (each waits for the one
+    before, so that no other rank's kernels share the card while it times);
+    device-time extras stay out."""
+    flag = Path(out) / f"compared{rank}"
+    if rank > 0:
+        prev = Path(out) / f"compared{rank - 1}"
+        while not prev.exists():
+            time.sleep(0.1)
+    report = compare_recorded(calls, label)
+    for agg in report.values():
+        agg.pop("deferred", None)
+    flag.touch()
+    return report
+
+
+def arrays(t):
+    """A dict of tensors as CPU numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in t.items()}
+
+
+TINY_BATCH = 4    # phase 31's tiny TSM step: b2 a rank, b4 in one process
+
+
+def tiny_step(rank=0, world=1):
+    """One training step of the tiny TSM (its committed state, seeded class
+    statistics, tiny.synth_points / synth_gt "wide" of TINY_BATCH scans; this
+    rank's contiguous share of them) on the card, under DDP when the process
+    group has more than one rank. Returns (loss, {student tensor: its
+    reduced gradient})."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.convert import from_flax_variables, to_flax_variables
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.parallel.train_state import wrap_data_parallel
+    from tsm_det_pointcloud_tpu_torch.runtime.optimization import build_optimizer
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import freeze_teacher, train_step
+
+    dev = torch.device("cuda", 0)
+    flax = to_flax_variables(tiny.load_state())
+    flax["statistics"] = {"module_list_1": tiny.train_statistics()}
+    model = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device=dev)
+    model.load_state_dict(from_flax_variables(flax), strict=True)
+    opt = build_optimizer({"OPTIMIZER": "adam_onecycle", "LR": 0.01, "WEIGHT_DECAY": 0.01},
+                          freeze_teacher(model), 10)
+    b = TINY_BATCH // world
+    gt, gmask = tiny.synth_gt(TINY_BATCH, "wide")
+    whole = {"points": tiny.synth_points(TINY_BATCH), "gt_boxes": gt, "gt_boxes_mask": gmask}
+    batch = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(dev) for k, v in whole.items()}
+    batch["points_mask"] = torch.ones(batch["points"].shape[:2], dtype=torch.bool, device=dev)
+    batch["batch_size"] = b
+    grads, step = {}, opt.step
+
+    def then_step():
+        grads.update(arrays({n: p.grad for n, p in model.named_parameters()
+                             if p.grad is not None}))
+        return step()
+
+    opt.step = then_step
+    loss, _ = train_step(wrap_data_parallel(model, dev), opt, batch)
+    return float(loss), grads
+
+
+def job_dist_train(rank, cfg_file, root, pretrained, out):
+    """Phase 31's rank: `train --launcher pytorch` for one epoch at b8, the
+    first step recorded, after the tiny TSM's step (`tiny_step`) in the same
+    process group; after every step the step's loss, tb terms, frames,
+    the tensors that differ across the ranks and the seconds that check
+    took (the epoch's clock holds them); the first step's reduced
+    gradients."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import train
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.parallel.train_state import replica_mismatches, unwrap
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    steps, grads = [], {}
+    step = train_loop.train_step
+
+    def checked_step(model, opt, batch):
+        if not steps:
+            opt_step = opt.step
+
+            def reduced_then_step():
+                grads.update(arrays({n: p.grad for n, p in unwrap(model).named_parameters()
+                                     if p.grad is not None}))
+                opt.step = opt_step
+                return opt_step()
+
+            opt.step = reduced_then_step
+        loss, tb = step(model, opt, batch)
+        t0 = time.perf_counter()
+        steps.append(dict(loss=float(loss), tb={k: float(v) for k, v in tb.items()},
+                          frames=list(batch["frame_id"]),
+                          mismatches=replica_mismatches(model)))
+        steps[-1]["check_s"] = time.perf_counter() - t0
+        return loss, tb
+
+    from tsm_det_pointcloud_tpu_torch.parallel import comm
+
+    tiny, on_dataset = [], train.train_on_dataset
+
+    def tiny_first(args, dev):   # in train's process group, before its epoch
+        tiny.append(tiny_step(rank, comm.get_world_size()))
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        return on_dataset(args, dev)
+
+    train.train_on_dataset = tiny_first
+    train_loop.train_step = checked_step
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with first_call_recorded(train_loop, "train_step", KITTI_KERNELS) as first:
+        ckpt_dir, epochs = train.main([
+            "--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher", "pytorch",
+            "--batch", str(DIST_BATCH), "--epochs", "1", "--workers", str(DIST_WORKERS),
+            "--pretrained_model", str(pretrained), "--output_dir", str(out / "train"),
+            "--device", "cuda"])
+    launches = dict(_kernels.LAUNCHES)
+    peak = max(e["peak_gib"] for e in epochs)
+    report = compare_in_turn(rank, out, first[0][0].calls, f"dist train rank {rank}")
+    return dict(steps=steps, grads=grads, epochs=epochs, launches=launches, peak=peak,
+                report=report, ckpt=str(ckpt_dir / "checkpoint_epoch_1.pth"), tiny=tiny[0])
+
+
+def job_world1(rank, launcher, cfg_file, root, out, sets):
+    """Phase 32's process: train 2 steps and evaluate 1 batch, deterministic
+    algorithms on; returns the losses, the trained state and the
+    predictions."""
+    import pickle
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import load_model_state
+
+    torch.use_deterministic_algorithms(True)
+    data = ["--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher", launcher,
+            "--workers", str(DIST_WORKERS), "--output_dir", str(out), "--device", "cuda",
+            "--set", *sets]
+    ckpt_dir, epochs = train.main(data + ["--batch", str(WORLD1_FRAMES // 2), "--epochs", "1"])
+    ckpt = ckpt_dir / "checkpoint_epoch_1.pth"
+    with first_call_recorded(detectors["3DSSD"], "forward", ()) as first:
+        evaluate.main(data + ["--ckpt", str(ckpt), "--batch_size", str(WORLD1_FRAMES)])
+    raw = arrays({k: first[0][1][k] for k in ("batch_cls_preds", "batch_box_preds")})
+    with open(out / "eval" / "default" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    losses = [json.loads(line).get("train/loss")
+              for line in (out / "metrics.jsonl").read_text().splitlines()]
+    return dict(losses=[v for v in losses if v is not None], steps=epochs[0]["steps"],
+                state=arrays(load_model_state(ckpt)), annos=annos, raw=raw,
+                backends=list(BACKENDS))
+
+
+def job_dist_eval(rank, cfg_file, root, ckpt, out):
+    """Phase 33's rank: `evaluate --launcher pytorch` at b8 on the val split."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    res = evaluate.main([
+        "--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher", "pytorch",
+        "--ckpt", str(ckpt), "--batch_size", str(DIST_BATCH), "--workers", str(DIST_WORKERS),
+        "--output_dir", str(out), "--eval_tag", "two_ranks", "--device", "cuda"])
+    return dict(res=res, launches=dict(_kernels.LAUNCHES),
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def job_point_axis(rank, cfg_file, root, out):
+    """Phase 34's rank: `evaluate --point_axis 2` on the Waymo val split, the
+    first forward recorded with its layer-0 picks and the whole batch it
+    was cut from; rank 0 holds the picks against segment_local_fps_plain."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.parallel import point_sharding
+
+    seen = {}
+    cut, fps = point_sharding.shard_batch, point_sharding.segment_local_fps
+
+    def keep_whole(batch, ctx):
+        seen.setdefault("whole", (batch["points"][..., :3].clone(),
+                                  batch["points_mask"].clone()))
+        return cut(batch, ctx)
+
+    def keep_picks(xyz, npoint, ctx, valid_mask=None):
+        idx = fps(xyz, npoint, ctx, valid_mask)
+        seen.setdefault("picks", (idx.cpu(), npoint, ctx.size, xyz.shape[1]))
+        return idx
+
+    point_sharding.shard_batch, point_sharding.segment_local_fps = keep_whole, keep_picks
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with first_call_recorded(detectors["3DSSD"], "forward", WAYMO_EVAL_KERNELS) as first:
+        res = evaluate.main([
+            "--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher", "pytorch",
+            "--point_axis", str(DIST_WORLD), "--batch_size", str(WAYMO_BATCH),
+            "--workers", str(DIST_WORKERS), "--output_dir", str(out), "--device", "cuda"])
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec, first_out = first[0]
+    boxes = first_out["batch_box_preds"].cpu().numpy()
+    picks, npoint, pax, n_local = seen["picks"]
+    plain_equal = None
+    if rank == 0:
+        xyz, mask = seen["whole"]
+        plain = point_sharding.segment_local_fps_plain(xyz.cuda(), npoint, pax, mask.cuda())
+        plain_equal = bool(torch.equal(plain.cpu(), picks))
+    report = compare_in_turn(rank, out, rec.calls, f"point axis rank {rank}")
+    return dict(res=res, launches=launches, peak=peak, boxes=boxes, report=report,
+                plain_equal=plain_equal, n_local=n_local, npoint=npoint,
+                scans_per_s=res.get("scans_per_s"))
+
+
+BACKENDS = []   # a rank's process-group backend, each time it joined one
+def job_point_axis_train(rank, cfg_file, root, out):
+    """Phase 34's training rank: `train --point_axis 2` for one step at b2
+    (the epoch's end checks the ranks' parameters and buffers bit-equal)."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import train
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    _, epochs = train.main([
+        "--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher", "pytorch",
+        "--point_axis", str(DIST_WORLD), "--batch", str(PAX_TRAIN_BATCH), "--epochs", "1",
+        "--workers", str(DIST_WORKERS), "--output_dir", str(out), "--device", "cuda",
+        "--set", "DATA_CONFIG.SAMPLED_INTERVAL.train", str(PAX_TRAIN_INTERVAL)])
+    return dict(epochs=epochs, launches=dict(_kernels.LAUNCHES),
+                deterministic=torch.are_deterministic_algorithms_enabled())
+
+
+JOBS = {"dist_train": job_dist_train, "world1": job_world1, "dist_eval": job_dist_eval,
+        "point_axis": job_point_axis, "point_axis_train": job_point_axis_train}
+
+
+def rel_l2(want, got, names):
+    """|got - want| / |want| over the concatenated tensors `names`."""
+    num = sum(float(np.sum((got[n].astype(np.float64) - want[n]) ** 2)) for n in names)
+    den = sum(float(np.sum(want[n].astype(np.float64) ** 2)) for n in names)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def halves_stats(x, mask):
+    """pointnet2_modules._masked_stats with the sums, squared sums and count
+    taken over each half of the batch's rows and then added, as two ranks'
+    all-reduce adds their halves (phase 31's one-process reference)."""
+    import torch
+
+    C = x.shape[-1]
+    flat = x.reshape(-1, C)
+    m = None if mask is None else mask.reshape(-1, 1)
+    h = flat.shape[0] // 2
+    parts = []
+    for rows in (slice(0, h), slice(h, None)):
+        f = flat[rows]
+        if m is None:
+            n = torch.full((1,), f.shape[0], dtype=f.dtype, device=f.device)
+        else:
+            n = m[rows].sum().to(f.dtype)[None]
+            f = torch.where(m[rows], f, torch.zeros((), dtype=f.dtype, device=f.device))
+        parts.append(torch.cat([f.sum(0), (f * f).sum(0), n]))
+    sums = parts[0] + parts[1]
+    mean = sums[:C] / sums[2 * C]
+    mean2 = sums[C:2 * C] / sums[2 * C]
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
+def recall_lines(eval_dir):
+    """The recall lines of the eval log under eval_dir."""
+    logs = sorted(Path(eval_dir).glob("log_eval_*.txt"))
+    check(len(logs) == 1, f"{len(logs)} eval logs under {eval_dir}")
+    return [line.split("  ")[-1] for line in logs[0].read_text().splitlines()
+            if "recall_" in line]
+
+
+def multi_process_phases(dev, kitti_root, waymo_root):
+    """Phases 31-34. Returns the per-kernel reports and launch counts of
+    phase 31's recorded step (rank 0) and of phase 34's recorded forward
+    (rank 0)."""
+    import pickle
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate
+    from tsm_det_pointcloud_tpu_torch.datasets import (build_dataloader, load_batch,
+                                                       load_data_to_device, to_torch_batch)
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.backbones_3d import pointnet2_modules
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import is_student, train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/fast_cpc.yaml"
+    cfg = load_cfg(cfg_file)
+    classes = list(cfg.CLASS_NAMES)
+    teacher = kitti_root.parent / "recipe" / "teacher" / "ckpt" / "checkpoint_epoch_1.pth"
+    check(teacher.exists(), f"no teacher checkpoint {teacher}")
+    out = kitti_root.parent / "multi"
+    torch.cuda.empty_cache()
+
+    # ---- 31. data-parallel training: two ranks on the card over gloo ----
+    ranks, wall = wait_ranks(start_ranks("dist_train", (cfg_file, kitti_root, teacher, out)))
+    r0, r1 = ranks
+    n_steps = len(r0["steps"])
+    check(n_steps == KITTI_TRAIN // (DIST_WORLD * DIST_BATCH) and len(r1["steps"]) == n_steps,
+          f"{n_steps} / {len(r1['steps'])} steps")
+    for i in range(n_steps):
+        for r in ranks:
+            check(r["steps"][i]["mismatches"] == [], f"after step {i + 1} these tensors differ "
+                  f"across the ranks: {r['steps'][i]['mismatches'][:5]}")
+    differ = [k for k in r0["grads"] if not np.array_equal(r0["grads"][k], r1["grads"][k])]
+    check(not differ, f"the reduced gradients differ across the ranks: {differ[:5]}")
+    for name in KITTI_KERNELS:
+        for r in ranks:
+            check(r["launches"][name] > 0, f"kernel {name} was not launched on a rank's "
+                  f"data-parallel training path")
+    # the one-process references: the same first step at b16 on the same 16
+    # samples, once in the loader's order, once with rank 0's samples, then
+    # rank 1's, and every BN's sums taken over each rank's half and added
+    # (the ranks' summation order); each from a model built as train builds it
+    train_set, _, sampler = build_dataloader(cfg.DATA_CONFIG, classes, KITTI_BATCH,
+                                             root_path=kitti_root, workers=0, seed=0)
+    first16, second16 = sampler.batches()[:2]
+    frames = sorted(str(f) for r in ranks for f in r["steps"][0]["frames"])
+    by_id = {str(train_set.kitti_infos[i]["point_cloud"]["lidar_idx"]): i for i in first16}
+    check(sorted(by_id) == frames, "the ranks' first batches are not the first 16 samples")
+    rank_order = [by_id[str(f)] for r in ranks for f in r["steps"][0]["frames"]]
+
+    def one_step(indices, split_stats):
+        _, model, opt = build_trainer(cfg_file, dev, 0, total_steps=n_steps,
+                                      pretrained_model=teacher, dataset=train_set)
+        batch = load_data_to_device(to_torch_batch(load_batch(train_set, indices, 0, 0)), dev)
+        grads, opt_step = {}, opt.step
+
+        def then_step():
+            grads.update(arrays({n: p.grad for n, p in model.named_parameters()
+                                 if p.grad is not None}))
+            return opt_step()
+
+        opt.step = then_step
+        stats = pointnet2_modules._masked_stats
+        if split_stats:
+            pointnet2_modules._masked_stats = halves_stats
+        try:
+            loss, tb = train_step(model, opt, batch)
+            torch.cuda.synchronize()
+        finally:
+            pointnet2_modules._masked_stats = stats
+        return model, opt, float(loss), {k: float(v) for k, v in tb.items()}, grads
+
+    def grad_excess(want, got, names):
+        """Over `names`, the largest excess of `got` over rtol 1e-3 around
+        `want` in units of the tensor's atol, and the tensors past it."""
+        scale = max(float(np.abs(want[n]).max()) for n in names)
+        ratios = {}
+        for n in names:
+            atol = 1e-4 * max(float(np.abs(want[n]).max()), 1e-2 * scale)
+            ratios[n] = float(np.max(np.abs(got[n] - want[n]) - 1e-3 * np.abs(want[n]))) / atol
+        return max(ratios.values()), sorted((n for n, v in ratios.items() if v > 1),
+                                            key=lambda n: -ratios[n])
+
+    _, _, loss_s, tb_s, grads_s = one_step(rank_order, True)
+    model, opt, loss, tb, grads = one_step(first16, False)
+    trained = [n for n in grads if is_student(n)]
+    check(set(trained) == set(r0["grads"]) == {n for n in grads_s if is_student(n)},
+          "the ranks' and the process's gradients differ in their tensors")
+    batch2 = load_data_to_device(to_torch_batch(load_batch(train_set, second16, 0, 0)), dev)
+    t0 = time.perf_counter()
+    train_step(model, opt, batch2)
+    torch.cuda.synchronize()
+    one_rate = KITTI_BATCH / (time.perf_counter() - t0)
+    del model, opt, batch2
+    torch.cuda.empty_cache()
+    rank_loss = float(np.mean([r["steps"][0]["loss"] for r in ranks]))
+    for ref_loss, ref_tb, what in ((loss_s, tb_s, "in the ranks' order"),
+                                   (loss, tb, "in the loader's order")):
+        check(close_scalar(rank_loss, ref_loss), f"step 1 loss {rank_loss} vs one process "
+              f"{what} {ref_loss}")
+        for k, v in ref_tb.items():
+            got = float(np.mean([r["steps"][0]["tb"][k] for r in ranks]))
+            check(close_scalar(got, v), f"step 1 tb {k}: {got} vs one process {what} {v}")
+    # the tiny TSM's step, whose gradients are well conditioned: every
+    # student tensor held at the tolerance
+    t_loss, t_grads = tiny_step()
+    tiny_loss = float(np.mean([r["tiny"][0] for r in ranks]))
+    check(close_scalar(tiny_loss, t_loss), f"tiny step loss {tiny_loss} vs one process {t_loss}")
+    t_trained = sorted(t_grads)
+    check(t_trained == sorted(r0["tiny"][1]) and len(t_trained) > 100, "tiny gradient tensors")
+    t_worst, t_over = grad_excess(t_grads, r0["tiny"][1], t_trained)
+    check(not t_over, f"tiny step gradients past the tolerance: {t_over[:5]}")
+    # full width: the gradients against both references, as figures
+    worst, over = grad_excess(grads_s, r0["grads"], trained)
+    worst_plain, over_plain = grad_excess(grads, r0["grads"], trained)
+    worst_order, over_order = grad_excess(grads, grads_s, trained)
+    rel = [rel_l2(a, b, trained) for a, b in ((grads_s, r0["grads"]), (grads, r0["grads"]),
+                                                (grads, grads_s))]
+    print(f"phase 31: the tiny TSM's step (b2 a rank against b{TINY_BATCH} in one process, "
+          f"on the card): loss {tiny_loss:.6f} vs {t_loss:.6f}, {len(t_trained)} student "
+          f"gradients within the tolerance (worst {t_worst:.4f} of it). fast_cpc.yaml's step "
+          f"1, {len(trained)} student gradients (relative L2 difference of all of them; past "
+          f"the per-tensor tolerance): ranks vs one process in the ranks' summation order "
+          f"{rel[0]:.3g}, {len(over)} (worst {worst:.1f}); ranks vs one process in the "
+          f"loader's order {rel[1]:.3g}, {len(over_plain)} (worst {worst_plain:.1f}: "
+          f"{over_plain[:4]}); the one process against itself with only its BN sums in the "
+          f"ranks' order {rel[2]:.3g}, {len(over_order)} (worst {worst_order:.1f})")
+    # each rank's epoch without the cross-rank checks of phase 31's own
+    rates = [r["epochs"][0]["steps"] * DIST_BATCH / (r["epochs"][0]["seconds"] - sum(
+        st["check_s"] for st in r["steps"])) for r in ranks]
+    print(f"phase 31 data-parallel training (train --launcher pytorch, 2 ranks over gloo on "
+          f"the one card, b{DIST_BATCH} each, {n_steps} steps, --pretrained_model "
+          f"{teacher.name}): step 1 loss {rank_loss:.6f} (ranks' mean) vs {loss:.6f} one "
+          f"process at b{KITTI_BATCH} ({loss_s:.6f} in the ranks' order); {len(tb)} tb terms "
+          f"agree; "
+          f"parameters, buffers and statistics bit-equal across the ranks after each step; "
+          f"train scans/s per rank {[round(x, 3) for x in rates]} (sum {sum(rates):.3f}; an "
+          f"epoch of {n_steps} steps whose first is recorded, the loader included, the checks "
+          f"left out: {[round(sum(st['check_s'] for st in r['steps']), 3) for r in ranks]} s) vs "
+          f"{one_rate:.3f} for one process at b{KITTI_BATCH} (its second step alone): the "
+          f"ranks share the card's SMs, so this is no speed-up figure; peak memory per rank "
+          f"{[round(r['peak'], 2) for r in ranks]} GiB; launches rank 0 {r0['launches']}; "
+          f"{wall:.1f} s for the ranks")
+
+    # ---- 32. the NCCL path at world size 1 against --launcher none ----
+    sets = ["DATA_CONFIG.INFO_PATH.train", f"['kitti_infos_train_{WORLD1_FRAMES}.pkl']",
+            "DATA_CONFIG.INFO_PATH.test", f"['kitti_infos_val_{WORLD1_FRAMES}.pkl']"]
+    det_env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    runs = {launcher: start_ranks("world1", (launcher, cfg_file, kitti_root,
+                                             out / f"world1_{launcher}", sets),
+                                  world=1, backend=None, env=det_env)
+            for launcher in ("pytorch", "none")}
+    runs = {k: wait_ranks(h)[0][0] for k, h in runs.items()}
+    a, b = runs["pytorch"], runs["none"]
+    check(a["backends"] == ["nccl", "nccl"] and b["backends"] == [None, None],
+          f"process groups joined: {a['backends']} and {b['backends']}")
+    check(a["steps"] == 2 and a["losses"] == b["losses"] and len(a["losses"]) > 0,
+          f"world-1 losses {a['losses']} vs --launcher none {b['losses']}")
+    differ = [k for k in b["state"] if not np.array_equal(a["state"][k], b["state"][k])]
+    check(not differ and set(a["state"]) == set(b["state"]),
+          f"world-1 parameters differ from --launcher none: {differ[:5]}")
+    check(len(a["annos"]) == len(b["annos"]) == WORLD1_FRAMES, "world-1 eval frames")
+    for k, v in b["raw"].items():
+        check(np.array_equal(a["raw"][k], v), f"world-1 eval {k} differs from --launcher none")
+    for x, y in zip(a["annos"], b["annos"]):
+        check(x["frame_id"] == y["frame_id"] and all(
+            np.array_equal(x[k], y[k]) for k in ("boxes_lidar", "score", "name")),
+            f"world-1 detections of frame {x['frame_id']} differ from --launcher none")
+    print(f"phase 32 NCCL at world size 1 (train --launcher pytorch, 2 steps, then evaluate "
+          f"1 batch of {WORLD1_FRAMES}; deterministic algorithms on): losses "
+          f"{[round(v, 6) for v in a['losses']]}, {len(a['state'])} state tensors, the eval "
+          f"forward's batch_cls_preds / batch_box_preds {b['raw']['batch_box_preds'].shape} and "
+          f"{sum(len(x['name']) for x in a['annos'])} detections bit-equal to --launcher none")
+
+    # ---- 33. sharded eval: two ranks over gloo against one process ----
+    ckpt = Path(r0["ckpt"])
+    ranks, wall = wait_ranks(start_ranks("dist_eval", (cfg_file, kitti_root, ckpt, out)))
+    res2 = ranks[0]["res"]
+    check(ranks[1]["res"] == {}, "rank 1 returned an eval result")
+    res1 = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(kitti_root),
+                          "--ckpt", str(ckpt), "--batch_size", str(DIST_BATCH), "--workers",
+                          str(DIST_WORKERS), "--output_dir", str(out), "--eval_tag",
+                          "one_process", "--device", str(dev)])
+    with open(out / "eval" / "two_ranks" / "result.pkl", "rb") as f:
+        two = pickle.load(f)
+    with open(out / "eval" / "one_process" / "result.pkl", "rb") as f:
+        one = pickle.load(f)
+    check([x["frame_id"] for x in two] == [x["frame_id"] for x in one] and len(one) == KITTI_VAL,
+          "the merged frames are not the one-process frames in order")
+    for x, y in zip(two, one):
+        check(all(np.array_equal(x[k], y[k]) for k in ("boxes_lidar", "score", "name")),
+              f"merged detections of frame {x['frame_id']} differ from one process's")
+    aps1 = {k: float(v) for k, v in res1.items() if "/" in k}
+    aps2 = {k: float(v) for k, v in res2.items() if "/" in k}
+    keys = sorted(aps1)
+    check(keys == sorted(aps2) and len(keys) > 0 and np.array_equal(
+        [aps1[k] for k in keys], [aps2[k] for k in keys], equal_nan=True),
+        f"the merged AP dict differs from one process's: {aps2} vs {aps1}")
+    rec2, rec1 = (recall_lines(out / "eval" / t) for t in ("two_ranks", "one_process"))
+    check(rec2 == rec1 and len(rec1) > 0, f"recall {rec2} vs one process {rec1}")
+    print(f"phase 33 sharded eval (evaluate --launcher pytorch, 2 ranks over gloo, b{DIST_BATCH} "
+          f"each): rank 0's merged {len(two)} frames, their boxes and scores, the {len(aps1)} "
+          f"APs and the summed recall ({'; '.join(rec1)}) equal one process's; "
+          f"{res2['scans_per_s']:.3f} scans/s merged over rank 0's loop vs "
+          f"{res1['scans_per_s']:.3f} one process; peak memory per rank "
+          f"{[round(r['peak'], 2) for r in ranks]} GiB; {wall:.1f} s for the ranks")
+
+    # ---- 34. the point axis: two ranks split each Waymo scan's points ----
+    wcfg = ROOT / "tools/cfgs/waymo_models/waymo_fast_cpc.yaml"
+    ranks, wall = wait_ranks(start_ranks("point_axis", (wcfg, waymo_root, out / "pax")))
+    p0, p1 = ranks
+    check(p0["plain_equal"] is True, "layer 0's picks differ from segment_local_fps_plain")
+    check(p0["n_local"] == WAYMO_TEST_POINTS // DIST_WORLD, f"{p0['n_local']} points a segment")
+    check(np.array_equal(p0["boxes"], p1["boxes"]), "the ranks' batch_box_preds differ")
+    check(np.isfinite(p0["boxes"]).all(), "non-finite box preds")
+    for name in WAYMO_EVAL_KERNELS:
+        for r in ranks:
+            check(r["launches"][name] > 0, f"kernel {name} was not launched on a rank's "
+                  f"point-axis path")
+    aps = {k: float(v) for k, v in p0["res"].items() if "/" in k}
+    check(len(aps) == 12 and all(np.isfinite(v) for v in aps.values()), f"AP dict {aps}")
+    print(f"phase 34 point axis (evaluate --point_axis {DIST_WORLD}, waymo_fast_cpc.yaml, "
+          f"b{WAYMO_BATCH} x {WAYMO_TEST_POINTS}: {p0['n_local']} points a scan a rank): "
+          f"layer 0's {p0['npoint']} picks equal segment_local_fps_plain on the whole cloud, "
+          f"the ranks' batch_box_preds {p0['boxes'].shape} bit-equal, AP dict finite; "
+          f"{p0['scans_per_s']:.3f} scans/s; peak memory per rank "
+          f"{[round(r['peak'], 2) for r in ranks]} GiB; launches rank 0 {p0['launches']}; "
+          f"{wall:.1f} s for the ranks")
+    ranks, wall = wait_ranks(start_ranks("point_axis_train", (wcfg, waymo_root,
+                                                              out / "pax_train")))
+    for r in ranks:
+        e = r["epochs"][0]
+        check(r["deterministic"] and e["steps"] == 1 and np.isfinite(e["mean_loss"]),
+              f"point-axis training: {e['steps']} steps, mean loss {e['mean_loss']}")
+        for name in TSM_KERNELS:
+            check(r["launches"][name] > 0, f"kernel {name} was not launched on a rank's "
+                  f"point-axis training step")
+    e = ranks[0]["epochs"][0]
+    print(f"phase 34 point-axis training (train --point_axis {DIST_WORLD}, 1 step at "
+          f"b{PAX_TRAIN_BATCH} x 120000, 60000 points a scan a rank, deterministic "
+          f"algorithms): loss {e['mean_loss']:.4f}, parameters and buffers bit-equal across "
+          f"the ranks after it; peak memory per rank "
+          f"{[round(r['epochs'][0]['peak_gib'], 2) for r in ranks]} GiB; launches rank 0 "
+          f"{ranks[0]['launches']}; {wall:.1f} s for the ranks")
+    return r0["report"], r0["launches"], p0["report"], p0["launches"]
 
 
 def main():
@@ -2290,12 +2953,14 @@ def main():
     (report_kdata, launches_kdata, report_kdtrain, launches_kdtrain, profile_kdata,
      kitti_root) = kitti_data_phases(dev)
     (report_wdata, launches_wdata, notes_wdata, report_wdtrain, launches_wdtrain,
-     notes_wdtrain, profile_wdata) = waymo_data_phases(dev)
+     notes_wdtrain, profile_wdata, waymo_root) = waymo_data_phases(dev)
     report_tdata, launches_tdata, report_tdtrain, launches_tdtrain = recipe_phases(
         dev, kitti_root)
     report_sdata, launches_sdata, report_sdtrain, launches_sdtrain = second_data_phases(
         dev, kitti_root)
     report_demo, launches_demo = demo_phases(dev, kitti_root)
+    report_dist, launches_dist, report_pax, launches_pax = multi_process_phases(
+        dev, kitti_root, waymo_root)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -2352,7 +3017,9 @@ def main():
                                   ("teacher_data_train", report_tdtrain, launches_tdtrain),
                                   ("second_data", report_sdata, launches_sdata),
                                   ("second_data_train", report_sdtrain, launches_sdtrain),
-                                  ("demo", report_demo, launches_demo))}
+                                  ("demo", report_demo, launches_demo),
+                                  ("dist_train", report_dist, launches_dist),
+                                  ("point_axis", report_pax, launches_pax))}
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:

@@ -1,0 +1,144 @@
+"""The port's `train` and `evaluate` entry points as two processes
+(`--launcher pytorch --device cpu`, torchrun's environment set by hand,
+gloo) on the tiny TSM over tests/torch_kitti_cases.py's root of 6 frames.
+
+* `train` for one epoch at b1 a process (3 steps of 2 scans): both ranks
+  end, rank 0 alone writes the log, the metrics and the checkpoint, and
+  prints the epoch line;
+* `evaluate --launcher pytorch` on that checkpoint at b1 a process: rank 0's
+  result.pkl holds every frame once, in the dataset's order, with the boxes,
+  scores and labels of the one-process `evaluate` at b1 (each rank runs the
+  same per-scan forward on its frames); rank 1 writes none;
+* Waymo's shared-memory preload over 2 ranks (`USE_SHARED_MEMORY`): each
+  rank caches every second train frame from its rank, as the JAX
+  `_dist_info` stride, every rank sees all of them once its dataset is
+  made, and the ranks' cleaning leaves none;
+* `--launcher pytorch` without torchrun's environment raises, and so does
+  `--point_axis 2` in one process (the world is not a multiple of 2), and
+  `--launcher` in the synthetic-scan mode.
+"""
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from tests.torch_dist_cases import (JOIN_TIMEOUT, free_port, rank_env, run_ranks,
+                                    shared_memory_case)
+from tests.torch_kitti_cases import CLASSES, make_root, tiny_dataset_cfg, write_tiny_yaml
+from tsm_det_pointcloud_tpu_torch import evaluate, train
+from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+from tsm_det_pointcloud_tpu_torch.infer import ROOT
+
+
+def _launch(module, flags, world=2):
+    """`python -m module flags` as `world` ranks; returns their outputs."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, OMP_NUM_THREADS="1", **rank_env(rank, world, port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"tsm_det_pointcloud_tpu_torch.{module}", *flags],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=JOIN_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return outs
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    base = tmp_path_factory.mktemp("dist")
+    root, _ = make_root(base / "root")
+    create_kitti_infos(tiny_dataset_cfg(root), CLASSES, root, root, workers=1)
+    cfg = write_tiny_yaml(base / "tiny_kitti.yaml", root, batch=1, epochs=1)
+    common = ["--cfg_file", str(cfg), "--data_root", str(root), "--device", "cpu",
+              "--workers", "0"]
+    out_dir = base / "run"
+    train_outs = _launch("train", common + ["--launcher", "pytorch", "--output_dir",
+                                            str(out_dir)])
+    eval_outs = _launch("evaluate", common + ["--launcher", "pytorch", "--output_dir",
+                                              str(out_dir), "--eval_tag", "two",
+                                              "--batch_size", "1"])
+    one = evaluate.main(common + ["--output_dir", str(out_dir), "--eval_tag", "one",
+                                  "--batch_size", "1"])
+    return dict(base=base, root=root, cfg=cfg, common=common, out_dir=out_dir,
+                train_outs=train_outs, eval_outs=eval_outs, one=one)
+
+
+def test_train_rank0_alone_writes(setup):
+    out_dir = setup["out_dir"]
+    assert sorted(p.name for p in (out_dir / "ckpt").iterdir()) == ["checkpoint_epoch_1.pth"]
+    assert len(list(out_dir.glob("log_train_*.txt"))) == 1
+    rows = (out_dir / "metrics.jsonl").read_text().splitlines()
+    assert len(rows) == 3    # steps 0 and 2 (the first and the last), the epoch's mean
+    rank0, rank1 = setup["train_outs"]
+    assert "epoch 1/1: mean loss" in rank0 and "train scans/s" in rank0
+    assert "epoch 1/1" not in rank1
+    assert "2 process(es), 2 data shard(s)" in next(out_dir.glob("log_train_*.txt")).read_text()
+
+
+def test_sharded_eval_equals_one_process(setup):
+    out_dir = setup["out_dir"]
+    with open(out_dir / "eval" / "two" / "result.pkl", "rb") as f:
+        two = pickle.load(f)
+    with open(out_dir / "eval" / "one" / "result.pkl", "rb") as f:
+        one = pickle.load(f)
+    assert [a["frame_id"] for a in two] == [a["frame_id"] for a in one]
+    assert len(one) == 6
+    for a, b in zip(two, one):
+        assert set(a) == set(b)
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(a[k], v, err_msg=k)
+            else:
+                assert a[k] == v, k
+    assert "Car_3d/moderate_R40" in setup["one"]
+    rank0, rank1 = setup["eval_outs"]
+    assert "AP (3d, R40)" in rank0 and "AP (3d, R40)" not in rank1
+
+
+def test_waymo_shared_memory_strided_over_ranks(tmp_path):
+    from tests.torch_waymo_cases import WAYMO_BASE, create_infos, dataset_cfg, make_root
+    from tsm_det_pointcloud_tpu_torch.datasets.waymo.waymo_dataset import create_waymo_infos
+
+    root = make_root(tmp_path / "waymo")
+    create_infos(create_waymo_infos, dataset_cfg(WAYMO_BASE, root), root)
+    shm, out = tmp_path / "shm", tmp_path / "ranks"
+    shm.mkdir()
+    out.mkdir()
+    ranks = run_ranks(shared_memory_case, (root, str(shm)), out)
+    keys = ranks[0]["keys"]
+    assert len(keys) == 4
+    files = sorted(k + ".npy" for k in keys)
+    for r, res in enumerate(ranks):
+        assert res["seen"] == files and res["left"] == []
+        assert res["mine"] == keys[r::2]
+
+
+def test_missing_environment_raises(setup, monkeypatch):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="RANK is not set"):
+        train.main(setup["common"] + ["--launcher", "pytorch"])
+    with pytest.raises(RuntimeError, match="RANK is not set"):
+        evaluate.main(setup["common"] + ["--launcher", "jax"])
+
+
+def test_point_axis_needs_a_multiple_of_ranks(setup):
+    with pytest.raises(ValueError, match="not divisible by points=2"):
+        evaluate.main(setup["common"] + ["--point_axis", "2", "--output_dir",
+                                         str(setup["base"] / "pax")])
+
+
+def test_synthetic_mode_stays_single_process():
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--launcher", "pytorch"])

@@ -186,3 +186,33 @@ def test_second_trains_and_only_pointpillars_raises():
     cfg["VFE"] = {"NAME": "PillarVFE"}
     with pytest.raises(NotImplementedError, match="PillarVFE"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
+
+
+def test_parallel_modules_are_covered():
+    """The multi-process modules are among those imported without JAX above
+    and scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("comm", "train_state", "point_sharding"):
+        assert f"tsm_det_pointcloud_tpu_torch.parallel.{name}" in mods
+        assert (PORT / "parallel" / f"{name}.py").exists()
+
+
+def test_launcher_refuses_cuda_without_card(monkeypatch, tmp_path):
+    """`--launcher` on the card's default device resolves it first: a host
+    without a card raises before any process group is joined."""
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.parallel import comm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comm.init_distributed("pytorch", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--data_root", str(tmp_path), "--output_dir", str(tmp_path),
+                       "--launcher", "pytorch"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--data_root", str(tmp_path), "--output_dir", str(tmp_path),
+                    "--launcher", "slurm"])
+    assert comm.get_world_size() == 1

@@ -210,13 +210,16 @@ def forkserver_context():
 
 def stop_workers():
     """Close every loader's workers, then stop the fork server they fork
-    from and multiprocessing's resource tracker, waiting for each to exit.
-    A later loader starts them anew."""
+    from and multiprocessing's resource tracker (where this process started
+    it), waiting for each to exit. A later loader starts them anew."""
     for loader in list(_STARTED):
         loader.close()
     gc.collect()   # the closed queues' semaphores unregister before the tracker stops
     forkserver._forkserver._stop()
-    resource_tracker._resource_tracker._stop()
+    # a spawned process shares its parent's tracker (its pid unknown here):
+    # only the process that started a tracker stops it
+    if resource_tracker._resource_tracker._pid is not None:
+        resource_tracker._resource_tracker._stop()
 
 
 class DataLoader:

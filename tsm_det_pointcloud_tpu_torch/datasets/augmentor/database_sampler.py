@@ -20,7 +20,11 @@ points are one array, the single DB_DATA_PATH npy, published once to shared
 memory (`datasets.shared_memory`) and mapped by every loader worker; each db
 info's `global_data_offset` [start, end) names its rows. Where shared memory
 is missing the sampler reads the per-object files, as the JAX one does.
-`clean_shared_memory()` removes the published array.
+`clean_shared_memory()` removes the published array. Every process of a
+multi-process run publishes it where it is missing (`shared_memory.sa_create`
+renames a finished file into place, so racing ranks leave one whole copy)
+and reads it at once; the caller removes it after a barrier, once no rank
+reads it.
 """
 from __future__ import annotations
 

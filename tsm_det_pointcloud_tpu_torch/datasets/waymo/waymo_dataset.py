@@ -18,8 +18,12 @@ loader reads the layout it writes:
 `USE_SHARED_MEMORY` (training only): the first SHARED_MEMORY_FILE_LIMIT
 frames are loaded once into shared memory (`datasets.shared_memory`, one
 array a frame, keyed <sequence>___<index>) when the dataset is made, and
-read from there; `clean_shared_memory()` removes them. Without shared memory
-the frames are read from their files, as in the JAX package.
+read from there; `clean_shared_memory()` removes them. In a multi-process
+run each rank loads and removes every world-size-th frame from its rank
+(the JAX `_dist_info` stride) and all wait at a barrier before any reads
+(a frame another host's shared memory holds is read from its file); the
+caller removes them after a barrier. Without shared memory the frames are
+read from their files, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from pathlib import Path
 import numpy as np
 
 from ...ops import boxes as box_ops
+from ...parallel import comm
 from .. import shared_memory as shm
 from ..dataset import DatasetTemplate
 
@@ -77,8 +82,11 @@ class WaymoDataset(DatasetTemplate):
             self.logger.info("Total samples for Waymo dataset: %d" % len(self.infos))
 
     def _shared_frames(self):
-        """The (sequence, index) keys of the frames cached in shared memory."""
-        for info in self.infos[: self.shared_memory_file_limit]:
+        """The (sequence, index) keys of the frames this process caches in
+        shared memory: every world-size-th from its rank (the JAX
+        `_dist_info` stride)."""
+        rank, world = comm.get_rank(), comm.get_world_size()
+        for info in self.infos[: self.shared_memory_file_limit][rank::world]:
             pc = info["point_cloud"]
             yield f"{pc['lidar_sequence']}___{pc['sample_idx']}", pc
 
@@ -90,6 +98,7 @@ class WaymoDataset(DatasetTemplate):
             if not shm.sa_exists(key):
                 shm.sa_create(key, self._load_lidar_file(pc["lidar_sequence"],
                                                          pc["sample_idx"]))
+        comm.barrier()   # every rank's frames are there before any rank reads
         if self.logger:
             self.logger.info("Training data has been saved to shared memory")
 

@@ -26,13 +26,23 @@ wait on the loader a batch. `--set` overrides config keys
 (`config.cfg_from_list`). --eval_all instead watches <output_dir>/ckpt and
 evaluates each new checkpoint, until none has come for --max_waiting_mins.
 The device is the card unless --device cpu is given.
+
+Multi-process, as the JAX tools/test.py --launcher:
+    torchrun --nproc_per_node N -m tsm_det_pointcloud_tpu_torch.evaluate \
+        --launcher pytorch --cfg_file CFG --data_root DIR [--point_axis P]
+Each rank evaluates its rank-strided shard of the test split (--batch_size a
+process); rank 0 merges the predictions and the recall counters, writes
+result.pkl and runs the dataset's eval (`runtime.eval_utils`), and with
+--eval_all picks the checkpoints for every rank. --point_axis P (or the
+config's PARALLEL.POINT_AXIS) splits each scan's points over P consecutive
+ranks, which share a shard (`parallel.point_sharding`).
 """
 from __future__ import annotations
 
 import argparse
 import re
 import time
-from contextlib import closing
+from contextlib import closing, nullcontext
 from pathlib import Path
 
 from .config import log_config_to_file
@@ -40,11 +50,12 @@ from .datasets import build_dataloader
 from .infer import ROOT, load_cfg
 from .models import build_network
 from .ops import _kernels
+from .parallel import comm, point_sharding
 from .runtime.checkpoint import latest_checkpoint, restore_checkpoint
 from .runtime.eval_utils import eval_one_ckpt
 from .runtime.metrics import MetricsWriter
-from .train import default_output_dir
-from .utils.common_utils import create_logger, resolve_device
+from .train import default_output_dir, shard_plan
+from .utils.common_utils import create_logger
 
 
 def ap_line(res, class_names):
@@ -77,19 +88,36 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--set", dest="set_cfgs", nargs="+", default=None, metavar="KEY VALUE",
                     help="config overrides, key value pairs")
+    ap.add_argument("--launcher", choices=comm.LAUNCHERS, default="none",
+                    help="pytorch (or jax): torchrun's environment; slurm: srun's")
+    ap.add_argument("--point_axis", type=int, default=0,
+                    help="split each scan's points over this many ranks (0: the "
+                         "config's PARALLEL.POINT_AXIS, else off)")
     args = ap.parse_args(argv)
+    dev = comm.init_distributed(args.launcher, args.device)
+    try:
+        return evaluate(args, dev)
+    finally:
+        comm.shutdown()
 
-    dev = resolve_device(args.device)
+
+def evaluate(args, dev):
+    """`main`'s evaluation on `dev`, in this process's part of the group."""
+    main_rank = comm.is_main()
     cfg = load_cfg(args.cfg_file, args.set_cfgs)
     batch = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
     eval_dir = output_dir / "eval" / args.eval_tag
     eval_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(eval_dir / f"log_eval_{time.strftime('%Y%m%d-%H%M%S')}.txt")
+    logger = create_logger(
+        eval_dir / f"log_eval_{time.strftime('%Y%m%d-%H%M%S')}.txt" if main_rank else None,
+        rank=comm.get_rank())
     log_config_to_file(cfg, logger=logger)
+    psh, num_shards, shard_id = shard_plan(args, cfg, dev)
     test_set, test_loader, _ = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch, root_path=args.data_root,
-        workers=args.workers, logger=logger, training=False, pin_memory=dev.type == "cuda")
+        workers=args.workers, logger=logger, training=False, pin_memory=dev.type == "cuda",
+        num_shards=num_shards, shard_id=shard_id)
     test_loader.start()   # the workers start while the kernels and the model are built
     if dev.type == "cuda":
         logger.info("kernels built in %.1f s", _kernels.build_all())
@@ -104,6 +132,8 @@ def main(argv=None):
         res = eval_one_ckpt(model, test_loader, test_set, cfg, logger, eval_dir,
                             save_to_file=args.save_to_file, metrics_writer=writer,
                             epoch_id=epoch_id)
+        if not main_rank:
+            return res
         print(ap_line(res, cfg.CLASS_NAMES))
         print(f"{res['scans_per_s']:.3f} scans/s on {dev} (batch {batch}, {len(test_set)} "
               f"scans, loader included); sec_per_example {res['sec_per_example']:.4f}; "
@@ -111,7 +141,9 @@ def main(argv=None):
               f"{res['loader_wait_s']:.4f} s for each later one")
         return res
 
-    with MetricsWriter(eval_dir) as writer, closing(test_loader):
+    pax_ctx = point_sharding.activate(psh) if psh is not None else nullcontext()
+    with (MetricsWriter(eval_dir) if main_rank else nullcontext()) as writer, \
+            closing(test_loader), pax_ctx:
         if not args.eval_all:
             return load_and_eval(args.ckpt or latest_checkpoint(output_dir / "ckpt"))
         # watch the checkpoint directory: evaluate each new epoch, give up
@@ -120,13 +152,15 @@ def main(argv=None):
         evaluated = set(eval_list.read_text().split() if eval_list.exists() else [])
         waited = 0.0
         while waited < args.max_waiting_mins * 60:
-            latest = latest_checkpoint(output_dir / "ckpt")
+            # rank 0's view of the directory decides for every rank
+            latest = comm.all_gather_object(latest_checkpoint(output_dir / "ckpt"))[0]
             epoch = re.findall(r"checkpoint_epoch_(\d+)", latest.name)[0] if latest else None
             if latest is not None and epoch not in evaluated:
                 load_and_eval(latest, epoch_id=int(epoch))
                 evaluated.add(epoch)
-                with open(eval_list, "a") as f:
-                    f.write(epoch + "\n")
+                if main_rank:
+                    with open(eval_list, "a") as f:
+                        f.write(epoch + "\n")
                 waited = 0.0
             else:
                 time.sleep(30)

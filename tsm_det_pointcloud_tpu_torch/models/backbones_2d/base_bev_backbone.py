@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel import comm
+
 
 class _BatchNorm2d(nn.BatchNorm2d):
     """flax's BatchNorm(epsilon=1e-3, momentum=0.99) in torch's terms,
@@ -25,7 +27,10 @@ class _BatchNorm2d(nn.BatchNorm2d):
     has none to load. In train mode it normalises by the batch's statistics
     over (N, H, W) and moves the running ones as flax's `batch_stats` move:
     `running = 0.99 * running + 0.01 * batch`, with the biased batch
-    variance (torch's own update takes the unbiased one)."""
+    variance (torch's own update takes the unbiased one). In a multi-process
+    run the statistics are the global batch's (`comm.global_sum` of the
+    sums, squared sums and count, flax's fast variance), so this is not
+    `nn.SyncBatchNorm`, which stores the unbiased variance."""
 
     def __init__(self, c):
         super().__init__(int(c), eps=1e-3, momentum=0.01)
@@ -34,12 +39,27 @@ class _BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if comm.data_world_size() > 1:
+            return self._global_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
         return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                                         self.eps)
+
+    def _global_forward(self, x):
+        C = x.shape[1]
+        n = torch.full((1,), x.numel() // C, dtype=x.dtype, device=x.device)
+        sums = comm.global_sum(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), n]))
+        mean = sums[:C] / sums[2 * C]
+        var = torch.clamp(sums[C:2 * C] / sums[2 * C] - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata, *args):
         # a state without metadata reads as torch's version 1, whose loader

@@ -5,7 +5,11 @@ tsm_det_pointcloud_tpu/models/backbones_3d/pointnet2_modules.py:25-70).
 axis, normalising in flax's order: (x - mean) * (rsqrt(var + eps) * scale)
 + bias. In eval mode it uses the running stats. In train mode it uses the
 batch stats of the masked elements (flax 0.12 semantics, see `BatchNorm`)
-and updates the running stats in place.
+and updates the running stats in place. In a multi-process run the batch
+is the global one: the sums, squared sums and count come through
+`comm.global_sum`, and a mask is empty only where it is empty on every rank
+(`comm.global_any`), as the JAX package's jit over a data mesh sees one
+array.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from ...parallel import comm
 
 
 class BatchNorm(nn.Module):
@@ -53,6 +59,8 @@ def _masked_stats(x, mask):
     """Per-channel mean and fast variance over the leading axes of x,
     counting only the elements where mask (x.shape[:-1]) is True."""
     flat = x.reshape(-1, x.shape[-1])
+    if comm.data_world_size() > 1:
+        return _global_stats(flat, None if mask is None else mask.reshape(-1, 1))
     if mask is None:
         mean = flat.mean(0)
         mean2 = (flat * flat).mean(0)
@@ -65,12 +73,28 @@ def _masked_stats(x, mask):
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
+def _global_stats(flat, m):
+    """_masked_stats over the data group's global batch: the per-channel
+    sums, squared sums and count summed over the ranks in one all-reduce."""
+    C = flat.shape[-1]
+    if m is None:
+        n = torch.full((1,), flat.shape[0], dtype=flat.dtype, device=flat.device)
+    else:
+        n = m.sum().to(flat.dtype)[None]
+        flat = torch.where(m, flat, torch.zeros((), dtype=flat.dtype, device=flat.device))
+    sums = comm.global_sum(torch.cat([flat.sum(0), (flat * flat).sum(0), n]))
+    mean = sums[:C] / sums[2 * C]
+    mean2 = sums[C:2 * C] / sums[2 * C]
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
 def safe_bn_mask(mask):
     """An all-empty BatchNorm mask falls back to all-True (inputs are
-    already masked to 0, so the stats stay finite)."""
+    already masked to 0, so the stats stay finite). Empty means empty on
+    every rank of a multi-process run."""
     if mask is None:
         return None
-    return mask | ~mask.any()
+    return mask | ~comm.global_any(mask)
 
 
 class SharedMLP(nn.Module):

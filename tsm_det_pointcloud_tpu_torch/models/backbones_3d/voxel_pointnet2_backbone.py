@@ -11,6 +11,15 @@ tsm_det_pointcloud_tpu/models/backbones_3d/voxel_pointnet2_backbone.py.
 Layers are built with explicit channel counts (flax infers them); the
 parameter names follow the flax module names. In train mode every BN takes
 its batch stats over the elements the JAX call masks (`mask=`).
+
+Under point-axis sharding (`parallel.point_sharding.active()`, JAX
+:140-270) layer 0 gets this rank's segment of each scan's points and runs
+on the segments: d-fps segment-local (`segment_local_fps`; other methods,
+and a layer-0 SAMPLE_RANGE short of the whole cloud, raise as in the JAX
+package), the sampled rows fetched from their owners
+(`gather_from_sharded`) and the ball query merged over the segments
+(`sharded_ball_group_multi`); everything after runs replicated on the
+sampled set.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from torch import nn
 
 from ...ops import grouping, sampling, spconv as sp_ops
 from ...ops.voxel import voxel_centroids
+from ...parallel import point_sharding
 from .pointnet2_modules import BatchNorm, SharedMLP, safe_bn_mask
 from .spconv_backbone import (
     SparseConv,
@@ -168,14 +178,23 @@ class VoxelSAModule(nn.Module):
             self.confidence_out = nn.Linear(int(confidence_mlp[-1]), num_class)
 
     # ---- sampling ----
-    def _sample(self, xyz, scores_point, valid):
+    def _sample(self, xyz, scores_point, valid, psh=None):
         out = []
         for npoint, (lo, hi), method in zip(
                 self.npoint_list, self.sample_range_list, self.sample_method_list):
             sub_xyz = xyz[:, lo:hi]
             sub_valid = valid[:, lo:hi]
+            if psh is not None and method not in ("d-fps", "D-FPS"):
+                raise NotImplementedError(
+                    f"point-axis sharding supports d-fps at layer 0, got {method}")
             if method in ("d-fps", "D-FPS"):
-                if self.sa_layer_idx == 0:
+                if psh is not None:
+                    if lo != 0 or hi < xyz.shape[1] * psh.size:
+                        raise NotImplementedError(
+                            "point-axis sharding needs a full-range layer-0 SAMPLE_RANGE "
+                            "(a sub-slice of the sharded axis would regather the cloud)")
+                    idx = point_sharding.segment_local_fps(xyz, npoint, psh, valid)
+                elif self.sa_layer_idx == 0:
                     idx = sampling.furthest_point_sample(sub_xyz, npoint, sub_valid)
                 else:
                     # layers > 0 reuse the previous ordering: take the first N
@@ -212,10 +231,16 @@ class VoxelSAModule(nn.Module):
                                            torch.full_like(gathered, -1e9))
 
         # ---- sampling ----
+        psh = point_sharding.active() if self.sa_layer_idx == 0 else None
         if new_xyz is None:
-            idx_s = self._sample(xyz, scores_point, valid)
-            new_xyz = sampling.gather_points(xyz, idx_s)
-            new_valid = torch.gather(valid, 1, idx_s.long())
+            idx_s = self._sample(xyz, scores_point, valid, psh)
+            if psh is not None:
+                got = point_sharding.gather_from_sharded(
+                    torch.cat([xyz, valid[..., None].to(xyz.dtype)], -1), idx_s, psh)
+                new_xyz, new_valid = got[..., :3], got[..., 3] > 0.5
+            else:
+                new_xyz = sampling.gather_points(xyz, idx_s)
+                new_valid = torch.gather(valid, 1, idx_s.long())
         else:
             new_valid = torch.ones(new_xyz.shape[:2], dtype=torch.bool,
                                    device=new_xyz.device)
@@ -227,8 +252,12 @@ class VoxelSAModule(nn.Module):
             for i, (r, ns) in enumerate(zip(self.radii, self.nsamples)):
                 lo = self.radii[i - 1] if (self.dilated_group and i > 0) else 0.0
                 scales.append((float(lo), float(r), int(ns)))
-            payload = xyz if features is None else torch.cat([xyz, features], -1)
-            groups = grouping.query_group(xyz, valid, new_xyz, scales, payload=payload)
+            if psh is not None:
+                groups = [(None, cnt, g) for cnt, g in point_sharding.sharded_ball_group_multi(
+                    scales, xyz, features, valid, new_xyz, psh)]
+            else:
+                payload = xyz if features is None else torch.cat([xyz, features], -1)
+                groups = grouping.query_group(xyz, valid, new_xyz, scales, payload=payload)
             for i, (_, cnt, grouped) in enumerate(groups):
                 ns = self.nsamples[i]
                 slot_ok = ((torch.arange(ns, device=xyz.device) < cnt[..., None])

@@ -209,6 +209,10 @@ class AnchorHeadSingle(nn.Module):
         direction cross-entropy over the positives; each normalised by the
         scan's positives and summed over the batch / batch_size."""
         lw = self.model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+        # each scan is normalised by its own positives and the sum divided by
+        # the local batch: in a multi-process run of equal local batches the
+        # ranks' mean, and DDP's mean of their gradients, is the global
+        # batch's, so no reduction goes through parallel.comm here
         bs = batch_dict["batch_size"]
         targets = self.assign(batch_dict["gt_boxes"], batch_dict["gt_boxes_mask"])
         cls_labels = targets["box_cls_labels"]

@@ -10,6 +10,14 @@ SASA loss; `PointHeadVoteSASAStatistic`, the teacher-training head, and
 `statistics` buffers (transferred from the teacher checkpoint, never
 updated by this head). Every `stop_gradient` of the reference is a
 `.detach()` at the same place.
+
+In a multi-process run every reduction over the batch axis is the global
+batch's, as under the JAX package's jit over a data mesh: the normalizers
+(positives, vote weights), the statistic update's counts and feature sums
+through `comm.global_sum`, and each loss term that is a sum over the batch
+divided by such a normalizer is the rank's partial sum scaled by
+`comm.scale_to_global`, so that the ranks' mean is the JAX loss and DDP's
+mean of the rank gradients its gradient.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import loss_utils
+from ...parallel import comm
 from ...ops.box_coder_utils import PointBinResidualCoder
 from ...ops.boxes import boxes_to_corners_3d, points_in_boxes
 from ..backbones_3d.pointnet2_modules import BatchNorm, SharedMLP
@@ -220,13 +229,19 @@ class VoteHeadBranch(nn.Module):
         val = p_val.reshape(-1)
         ok = point_valid.reshape(-1)
         stat, mom, mean = (getattr(self, name).clone() for name in STATISTIC_BUFFERS)
+        masks = [(cls == i) & (val >= 0.3) & ok for i in range(self.num_class)]
+        sums = [(feats * m[:, None].to(feats.dtype)).sum(0) for m in masks]
+        cnts = [m.sum() for m in masks]
+        if comm.data_world_size() > 1:
+            packed = comm.global_sum(torch.cat(
+                [torch.stack(sums), torch.stack(cnts).to(feats.dtype)[:, None]], 1))
+            sums = list(packed[:, :C])
+            cnts = list(packed[:, C].round().to(cnts[0].dtype))
         new_stat, new_mom, new_mean, counts = [], [], [], []
         for i in range(self.num_class):
-            m = (cls == i) & (val >= 0.3) & ok
-            cnt = m.sum()
+            cnt = cnts[i]
             seen = cnt > 0
-            mu = torch.where(seen, (feats * m[:, None].to(feats.dtype)).sum(0)
-                             / torch.clamp(cnt, min=1), mean[i])
+            mu = torch.where(seen, sums[i] / torch.clamp(cnt, min=1), mean[i])
             mom_i = torch.where(seen, 0.9 * mom[i] + (mu - mean[i]), mom[i])
             new_stat.append(torch.where(seen, stat[i] + mom_i, stat[i]))
             new_mom.append(mom_i)
@@ -286,9 +301,9 @@ def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
     v_labels, v_centers = assign_targets_simple(out["candidate_xyz"], gt_boxes,
                                                 gt_valid, extra_width=extra)
     vw = ((v_labels > 0) & cand_valid).float()
-    vw = vw / torch.clamp(vw.sum(), min=1.0)
-    vote_loss = loss_utils.weighted_smooth_l1(
-        out["vote_xyz"], v_centers, weights=vw).sum() * w["vote_reg_weight"]
+    vw = vw / torch.clamp(comm.global_sum(vw.sum()), min=1.0)
+    vote_loss = comm.scale_to_global(loss_utils.weighted_smooth_l1(
+        out["vote_xyz"], v_centers, weights=vw).sum()) * w["vote_reg_weight"]
     tb[prefix + "vote_loss"] = vote_loss
 
     # the targets at vote positions are constants (stop_gradient on the
@@ -314,8 +329,9 @@ def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
         distill_pt = loss_utils.bce_with_logits(out["cls_preds"] / 3.0,
                                                 t_soft).sum(-1) * cls_w
         cls_loss_pt = 0.5 * cls_loss_pt + 0.5 * distill_pt
-    cls_norm = torch.clamp(pos.sum().float(), min=1.0)
-    cls_loss = cls_loss_pt.sum() / cls_norm * w["point_cls_weight"]
+    n_pos = comm.global_sum(pos.sum().float())
+    cls_norm = torch.clamp(n_pos, min=1.0)
+    cls_loss = comm.scale_to_global(cls_loss_pt.sum()) / cls_norm * w["point_cls_weight"]
     tb[prefix + "cls_loss"] = cls_loss
 
     rw = pos.float()
@@ -361,13 +377,14 @@ def _branch_losses(out, teacher_out, gt_boxes, gt_valid, box_coder, cfg,
                                           rw) * w["point_corner_weight"]
             corner = 0.3 * corner + 0.7 * t_corner
         aux = aux + corner
-    box_norm = torch.clamp(pos.sum().float(), min=1.0)
-    box_loss = (box_loss_pt * rw + aux).sum() / box_norm
+    box_norm = torch.clamp(n_pos, min=1.0)
+    part = comm.scale_to_global
+    box_loss = part((box_loss_pt * rw + aux).sum()) / box_norm
     tb[prefix + "box_loss"] = box_loss
-    tb[prefix + "box_off"] = (off_l * rw).sum() / box_norm
-    tb[prefix + "box_ang"] = ((ang_cls_l + ang_reg_l) * rw).sum() / box_norm
-    tb[prefix + "box_aux"] = aux.sum() / box_norm
-    tb[prefix + "n_pos"] = pos.sum().float()
+    tb[prefix + "box_off"] = part((off_l * rw).sum()) / box_norm
+    tb[prefix + "box_ang"] = part(((ang_cls_l + ang_reg_l) * rw).sum()) / box_norm
+    tb[prefix + "box_aux"] = part(aux.sum()) / box_norm
+    tb[prefix + "n_pos"] = n_pos
 
     targets = dict(labels=labels, reg_labels=reg_labels, box_labels=box_labels,
                    pos=pos)

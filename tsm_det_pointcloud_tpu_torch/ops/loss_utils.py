@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import comm
 from .boxes import points_in_boxes, rotate_points_along_z
 
 
@@ -130,8 +131,11 @@ def sasa_assign_targets(points_xyz, gt_boxes, extra_width=None,
 
 def sasa_layer_loss(scores, labels, num_class=3):
     """One SASA pyramid level: focal loss of per-point (num_class,) logits
-    against one-hot labels, ignoring -1, normalised by #(fg + bg)."""
+    against one-hot labels, ignoring -1, normalised by #(fg + bg) of the
+    global batch (a rank's partial sum scaled, see models/dense_heads/
+    point_head_vote.py)."""
     cls_weights = (labels >= 0).to(scores.dtype)
     one_hot = F.one_hot(torch.clamp(labels, min=0), num_class + 1)[..., 1:].to(scores.dtype)
     loss = sigmoid_focal_loss(scores, one_hot, cls_weights)
-    return loss.sum() / torch.clamp(cls_weights.sum(), min=1.0)
+    return (comm.scale_to_global(loss.sum())
+            / torch.clamp(comm.global_sum(cls_weights.sum()), min=1.0))

@@ -14,6 +14,15 @@ package counts it; `loader_first_wait_s` is the loop's wait for its first
 batch (the workers' start, unless `loader.start()` came earlier) and
 `loader_wait_s` its mean wait for each later one; `scans_per_s` is the
 frames over the whole loop, loader included, official eval excluded.
+
+In a multi-process run each rank evaluates its shard of a rank-strided
+loader (under point-axis sharding, each group of `--point_axis` ranks one
+shard); rank 0 merges the prediction dicts into dataset order
+(`comm.merge_results_dist`), sums the recall counters
+(`comm.reduce_dict(average=False)`) and alone writes result.pkl and runs
+the dataset's eval, as the JAX runtime/eval_utils.py:98-103 does; the other
+ranks return {}. `sec_per_example` is rank 0's batch time over the merged
+frames, `scans_per_s` the merged frames over rank 0's loop.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from ..datasets import load_data_to_device
+from ..parallel import comm, point_sharding
 
 
 def eval_one_ckpt(model, loader, dataset, cfg, logger, result_dir, save_to_file=False,
@@ -47,6 +57,9 @@ def eval_one_ckpt(model, loader, dataset, cfg, logger, result_dir, save_to_file=
         t0 = time.perf_counter()
         waits.append(t0 - t_end)
         bsz = int(batch["batch_size"])
+        psh = point_sharding.active()
+        if psh is not None:
+            batch = point_sharding.shard_batch(batch, psh)
         with torch.no_grad():
             out = model(load_data_to_device(batch, dev))
             pred, recall = model.post_processing(out)
@@ -72,6 +85,15 @@ def eval_one_ckpt(model, loader, dataset, cfg, logger, result_dir, save_to_file=
             output_path=result_dir if save_to_file else None)
         t_end = time.perf_counter()
     loop_s = time.perf_counter() - t_start
+    if comm.get_world_size() > 1:
+        psh = point_sharding.active()
+        pax = psh.size if psh is not None else 1
+        det_annos = comm.merge_results_dist(det_annos, len(dataset), replicas=pax)
+        recall_acc = {k: v / pax for k, v in
+                      comm.reduce_dict(recall_acc, average=False).items()}
+        n_frames = len(det_annos)
+        if not comm.is_main():
+            return {}
 
     sec_per_example = total_time / max(n_frames, 1)
     first_wait = waits[0] if waits else 0.0
@@ -102,7 +124,8 @@ def eval_one_ckpt(model, loader, dataset, cfg, logger, result_dir, save_to_file=
 def repeat_eval_ckpts(model, loader, dataset, cfg, ckpt_dir, eval_root, logger,
                       num_epochs_to_eval, metrics_writer=None):
     """Evaluate the last `num_epochs_to_eval` checkpoints of a run, each
-    loaded into `model`; writes eval_root/epoch_<E>/val/eval_summary.json.
+    loaded into `model`; writes eval_root/epoch_<E>/val/eval_summary.json
+    (rank 0).
     Returns {epoch: result dict}."""
     from .checkpoint import _checkpoints, _epoch_of, restore_checkpoint
 
@@ -116,8 +139,9 @@ def repeat_eval_ckpts(model, loader, dataset, cfg, ckpt_dir, eval_root, logger,
         logger.info("*** In-train eval: epoch %d (%s) ***", epoch, ckpt)
         res = eval_one_ckpt(model, loader, dataset, cfg, logger, edir,
                             metrics_writer=metrics_writer, epoch_id=epoch)
-        with open(edir / "eval_summary.json", "w") as f:
-            json.dump({k: float(v) for k, v in res.items()
-                       if isinstance(v, (int, float, np.floating))}, f, indent=1)
+        if comm.is_main():
+            with open(edir / "eval_summary.json", "w") as f:
+                json.dump({k: float(v) for k, v in res.items()
+                           if isinstance(v, (int, float, np.floating))}, f, indent=1)
         results[epoch] = res
     return results

@@ -6,6 +6,15 @@ runs ahead of the card in the steady state. Given `device`, the loop takes
 the loader's host batches and moves them there (`datasets.load_data_to_device`:
 non_blocking copies, from pinned memory when the loader pins; frame_id,
 calib and image_shape stay on the host) and clocks its wait on the loader.
+
+In a multi-process run (`model` wrapped by `parallel.train_state.
+wrap_data_parallel`) every rank steps on its shard; the logged loss and
+tb_dict are the ranks' mean (`comm.reduce_dict`, which every rank joins at
+the same steps), and only rank 0 logs, writes metrics and saves or prunes
+checkpoints while the others wait at a barrier. After each epoch the
+parameters and buffers are checked bit-equal across the ranks. Under
+point-axis sharding each rank keeps its segment of the batch's points
+(`point_sharding.shard_batch`).
 """
 from __future__ import annotations
 
@@ -14,6 +23,8 @@ import time
 import torch
 
 from ..datasets import load_data_to_device
+from ..parallel import comm, point_sharding
+from ..parallel.train_state import check_replicas, unwrap
 from .checkpoint import save_checkpoint
 from .train_state import train_step
 
@@ -30,13 +41,19 @@ def train_one_epoch(model, optimizer, loader, epoch, total_epochs, log=print,
     t0 = t_end = time.perf_counter()
     for i, batch in enumerate(loader):
         waits.append(time.perf_counter() - t_end)
+        psh = point_sharding.active()
+        if psh is not None:
+            batch = point_sharding.shard_batch(batch, psh)
         if device is not None:
             batch = load_data_to_device(batch, device)
         loss, tb = train_step(model, optimizer, batch)
-        losses.append(loss)
+        losses.append(loss)   # this rank's, a device tensor
         if i % log_every == 0 or i + 1 == n:
             it = optimizer.state["count"]
             lr = optimizer.lr_fn(it - 1)
+            if comm.get_world_size() > 1:
+                tb = comm.reduce_dict({"loss": loss, **tb})
+                loss = tb.pop("loss")
             if metrics_writer is not None:
                 metrics_writer.write(it, {"loss": loss, **tb, "learning_rate": lr})
             if log is not None:
@@ -45,6 +62,7 @@ def train_one_epoch(model, optimizer, loader, epoch, total_epochs, log=print,
                     f"data {sum(waits) / (i + 1):.3f} s")
         t_end = time.perf_counter()
     mean = float(torch.stack(losses).mean()) if losses else float("nan")  # waits for the card
+    mean = comm.all_reduce_mean(mean)
     if timings is not None:
         timings.update(loader_first_wait_s=waits[0] if waits else 0.0,
                        loader_wait_s=sum(waits[1:]), steps=len(losses),
@@ -59,7 +77,8 @@ def train_model(model, optimizer, loader, ckpt_dir, total_epochs, start_epoch=0,
     it has one, picks each epoch's order and augmentation), checkpointing
     every `ckpt_save_interval` epochs and after the last. `timings` gets each
     epoch's (see train_one_epoch), then `on_epoch_end(epoch, mean_loss)` is
-    called."""
+    called. In a multi-process run give `log` and `metrics_writer` on rank 0
+    alone (None elsewhere); the checkpoints are rank 0's."""
     for epoch in range(start_epoch, total_epochs):
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(epoch)
@@ -71,10 +90,13 @@ def train_model(model, optimizer, loader, ckpt_dir, total_epochs, start_epoch=0,
         if metrics_writer is not None:
             metrics_writer.write(optimizer.state["count"],
                                  {"epoch": epoch, "mean_loss": mean_loss})
+        check_replicas(model, f"after epoch {epoch}")
         if ckpt_dir is not None and ((epoch + 1) % ckpt_save_interval == 0
                                      or epoch + 1 == total_epochs):
-            save_checkpoint(model, optimizer, ckpt_dir, epoch + 1,
-                            optimizer.state["count"], max_ckpt_save_num)
+            if comm.is_main():
+                save_checkpoint(unwrap(model), optimizer, ckpt_dir, epoch + 1,
+                                optimizer.state["count"], max_ckpt_save_num)
+            comm.barrier()
         if on_epoch_end is not None:
             on_epoch_end(epoch, mean_loss)
     return model

@@ -24,6 +24,11 @@ the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --data_root DIR \\
         [--set DATA_CONFIG.SAMPLED_INTERVAL.train 1]
+Multi-process (dataset mode only; the synthetic-scan mode runs in one
+process), as the JAX tools/train.py --launcher:
+    torchrun --nproc_per_node N -m tsm_det_pointcloud_tpu_torch.train \
+        --launcher pytorch --cfg_file CFG --data_root DIR [--point_axis P]
+    srun ... python -m tsm_det_pointcloud_tpu_torch.train --launcher slurm ...
 The two modes are chosen by these flags; neither falls back to the other.
 `--set KEY VALUE ...` overrides config keys in both (`config.cfg_from_list`,
 as the JAX tools/train.py's --set).
@@ -69,12 +74,25 @@ in place of --seed. --num_epochs_to_eval N then evaluates the last N
 checkpoints on the val split (`runtime.eval_utils.repeat_eval_ckpts`). A
 dataset cached in shared memory (`USE_SHARED_MEMORY`) is cleaned at the
 end.
+
+With --launcher pytorch (or jax, its synonym) or slurm each process joins
+the process group (`parallel.comm.init_distributed`: cuda:LOCAL_RANK and
+NCCL on the card, gloo with --device cpu), loads its rank-strided shard of
+the train split and steps DDP (`parallel.train_state.wrap_data_parallel`);
+--batch is one process's batch, so a step takes world x --batch scans. The
+BN statistics, the class statistics and the losses' normalizers are the
+global batch's (parallel/comm.py), so the step is the JAX data mesh's. Rank
+0 alone logs, writes metrics and checkpoints. --point_axis P (or the
+config's PARALLEL.POINT_AXIS) groups P consecutive ranks on each sample and
+splits each scan's points over them (`parallel.point_sharding`; the world
+size must be a multiple of P, and the scans' points of P).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from contextlib import closing
+from contextlib import closing, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -85,6 +103,8 @@ from .infer import (KITTI_RANGE, ROOT, dataset_meta, load_cfg, profile_call, sca
                     seed_statistics, synth_scene)
 from .models import build_network
 from .ops import _kernels
+from .parallel import comm, point_sharding
+from .parallel.train_state import wrap_data_parallel
 from .runtime.checkpoint import (latest_checkpoint, load_model_state, partial_load,
                                  restore_checkpoint, save_checkpoint, transfer_statistics)
 from .runtime.optimization import build_optimizer
@@ -175,8 +195,14 @@ def train_on_dataset(args, dev):
     output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
     ckpt_dir = output_dir / "ckpt"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(output_dir / f"log_train_{time.strftime('%Y%m%d-%H%M%S')}.txt")
+    rank, main_rank = comm.get_rank(), comm.is_main()
+    logger = create_logger(
+        output_dir / f"log_train_{time.strftime('%Y%m%d-%H%M%S')}.txt" if main_rank else None,
+        rank=rank)
     logger.info("training %s on %s, output %s", args.cfg_file, dev, output_dir)
+    psh, num_shards, shard_id = shard_plan(args, cfg, dev)
+    logger.info("%d process(es), %d data shard(s)%s; batch %d a process", comm.get_world_size(),
+                num_shards, f", points over {psh.size}" if psh else "", batch)
     log_config_to_file(cfg, logger=logger)
     seed = args.seed
     if args.fix_random_seed:
@@ -185,7 +211,7 @@ def train_on_dataset(args, dev):
     train_set, train_loader, _ = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch, root_path=args.data_root,
         workers=args.workers, seed=seed, logger=logger, training=True,
-        pin_memory=dev.type == "cuda")
+        pin_memory=dev.type == "cuda", num_shards=num_shards, shard_id=shard_id)
     train_loader.start()   # the workers start while the kernels and the model are built
     if dev.type == "cuda":
         logger.info("kernels built in %.1f s", _kernels.build_all())
@@ -196,6 +222,7 @@ def train_on_dataset(args, dev):
     _, model, opt = build_trainer(args.cfg_file, dev, args.seed, total_steps=steps * epochs,
                                   pretrained_model=args.pretrained_model, dataset=train_set,
                                   set_cfgs=args.set_cfgs)
+    stepper = wrap_data_parallel(model, dev)
     start_epoch = 0
     resume_from = args.ckpt or latest_checkpoint(ckpt_dir)
     if resume_from is not None:
@@ -209,21 +236,24 @@ def train_on_dataset(args, dev):
             timings, mean_loss=mean_loss, scans_per_s=rate,
             peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
                       if dev.type == "cuda" else None)))
-        print(f"epoch {epoch + 1}/{epochs}: mean loss {mean_loss:.4f}; "
-              f"{rate:.3f} train scans/s on {dev} (batch {batch}, "
-              f"{n} steps in {timings['seconds']:.3f} s, loader included; loader wait "
-              f"{timings['loader_first_wait_s']:.4f} s for the first step, "
-              f"{timings['loader_wait_s'] / max(n - 1, 1):.4f} s for each later one"
-              f"{peak_memory(dev)})")
+        if main_rank:
+            print(f"epoch {epoch + 1}/{epochs}: mean loss {mean_loss:.4f}; "
+                  f"{rate:.3f} train scans/s on {dev} (batch {batch}, "
+                  f"{n} steps in {timings['seconds']:.3f} s, loader included; loader "
+                  f"wait {timings['loader_first_wait_s']:.4f} s for the first step, "
+                  f"{timings['loader_wait_s'] / max(n - 1, 1):.4f} s for each later one"
+                  f"{peak_memory(dev)})")
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
 
-    with MetricsWriter(output_dir) as writer:
+    pax_ctx = point_sharding.activate(psh) if psh is not None else nullcontext()
+    with (MetricsWriter(output_dir) if main_rank else nullcontext()) as writer, pax_ctx:
         with closing(train_loader):   # its workers stop before the eval's start
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            train_model(model, opt, train_loader, ckpt_dir, epochs, start_epoch=start_epoch,
-                        log=logger.info, max_ckpt_save_num=args.max_ckpt_save_num,
+            train_model(stepper, opt, train_loader, ckpt_dir, epochs, start_epoch=start_epoch,
+                        log=logger.info if main_rank else None,
+                        max_ckpt_save_num=args.max_ckpt_save_num,
                         ckpt_save_interval=args.ckpt_save_interval,
                         device=dev, metrics_writer=writer, timings=timings,
                         on_epoch_end=report)
@@ -231,15 +261,35 @@ def train_on_dataset(args, dev):
             test_set, test_loader, _ = build_dataloader(
                 cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch, root_path=args.data_root,
                 workers=args.workers, logger=logger, training=False,
-                pin_memory=dev.type == "cuda")
+                pin_memory=dev.type == "cuda", num_shards=num_shards, shard_id=shard_id)
             eval_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), test_set, device=dev,
                                        seed=args.seed)
             with closing(test_loader):
                 repeat_eval_ckpts(eval_model, test_loader, test_set, cfg, ckpt_dir,
                                   output_dir / "eval" / "eval_with_train", logger,
                                   args.num_epochs_to_eval, metrics_writer=writer)
+    comm.barrier()   # no rank reads the shared frames any more
     train_set.clean_shared_memory()
     return ckpt_dir, epochs_done
+
+
+def shard_plan(args, cfg, dev):
+    """(the point-axis context or None, the loader's shard count, this
+    rank's shard): the ranks, or under --point_axis P (else the config's
+    PARALLEL.POINT_AXIS) the groups of P consecutive ranks, each load one
+    shard. The ranks of a points group repeat everything after layer 0, where
+    the JAX jit computes it once: on the card they run deterministic
+    algorithms (`index_add_`'s sorted route: its float atomics would sum in
+    another order on each rank), so that their BN statistics and outputs
+    stay bit-equal."""
+    pax = args.point_axis or int(cfg.get("PARALLEL", {}).get("POINT_AXIS", 0) or 0)
+    if pax > 1:
+        psh = point_sharding.make_point_mesh(pax, dev.type)
+        if dev.type == "cuda":
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True)
+        return psh, psh.n_data, psh.data_index
+    return None, comm.get_world_size(), comm.get_rank()
 
 
 def main(argv=None):
@@ -276,6 +326,11 @@ def main(argv=None):
                       help=f"seed {FIX_RANDOM_SEED} in place of --seed")
     data.add_argument("--output_dir", default=None,
                       help="default output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>")
+    data.add_argument("--launcher", choices=comm.LAUNCHERS, default="none",
+                      help="pytorch (or jax): torchrun's environment; slurm: srun's")
+    data.add_argument("--point_axis", type=int, default=0,
+                      help="split each scan's points over this many ranks (0: the "
+                           "config's PARALLEL.POINT_AXIS, else off)")
     args = ap.parse_args(argv)
 
     if args.dataset or args.data_root is not None:
@@ -284,7 +339,13 @@ def main(argv=None):
                 ap.error(f"--{flag} belongs to the synthetic-scan mode")
         if args.profile:
             ap.error("--profile belongs to the synthetic-scan mode")
-        return train_on_dataset(args, resolve_device(args.device))
+        dev = comm.init_distributed(args.launcher, args.device)
+        try:
+            return train_on_dataset(args, dev)
+        finally:
+            comm.shutdown()
+    if args.launcher != "none" or args.point_axis:
+        ap.error("--launcher and --point_axis belong to the dataset mode")
     args.batch = args.batch or 16
     args.points = args.points or 16384
     args.steps = 3 if args.steps is None else args.steps
