@@ -306,6 +306,47 @@ Phases (any failure exits non-zero before the result line):
      finite, K1-K6 launched, the ranks' parameters and buffers bit-equal
      after it (the train loop's check). Its gradients are held on the CPU
      (tests/test_torch_point_sharding.py).
+ 35. zoo reference: the tiny PointPillars (tiny.py, the JAX package's
+     converted PRNGKey(0) init in tsm_det_pointcloud_tpu_torch/data/
+     pointpillar_tiny_state.npz) reproduces tests/goldens/pointpillar_forward.npz
+     and the tiny CenterPoint (tiny.centerpoint_eval_state()) reproduces
+     tsm_det_pointcloud_tpu_torch/data/centerpoint_tiny_forward.npz on the card
+     (golden tolerance; labels and counts exact);
+ 36. pointpillar.yaml at full width on synthetic scans (seeded weights and
+     eval state as infer.build_detector makes them): a warm-up batch, then 3
+     counted eval batches of forward + class-agnostic NMS at b16 x 20000
+     (40000 pillars of 32 points, 321,408 anchors a scan); prints scans/s,
+     peak memory, the pillars a scan, the anchors over SCORE_THRESH and the
+     boxes that reach NMS a scan; then a warm-up and 2 counted training
+     steps at b4 x 20000 (16000 pillars): losses finite, every parameter
+     changed; prints train scans/s and peak memory. PointPillars runs no
+     hand-written kernel: the phase checks that none was called or
+     launched, and adds no row to the kernels line;
+ 37. centerpoint.yaml at full width on synthetic scans (seeded weights and
+     eval state): one recorded eval batch at b4 x 20000 (8 K3 and 21 K7
+     calls: 4 subm rulebooks and 4 plans, 17 submanifold and 4 strided
+     convs), each call held against its plain version at phase 14's
+     tolerances and timed, K7's log line giving each conv's (C, Co, K) and
+     hits; then 3 counted batches (launches 8 and 21 a forward; outputs
+     finite, final boxes (4, 500, 7), count <= 500); then one recorded
+     training step (K7 under autograd; every parameter a gradient, every
+     sparse-conv weight a nonzero one), held and timed likewise, and 2
+     counted steps: losses and the hm_loss_0 / reg_loss_0 terms finite,
+     every parameter changed, launches 8 and 21 a step;
+ 38. zoo data path, on phase 22's root: for pointpillar.yaml and
+     centerpoint.yaml, the val gt echoed through the config's dataset
+     scores 100.0 on all 72 APs; `evaluate` at b4 and `train --data_root`
+     for 1 epoch at b4 on phase 29's SECOND_DATA_FRAMES val and train
+     frames, recorded and held as in phase 29 (centerpoint's K3 / K7;
+     pointpillar's runs must launch no kernel), then `evaluate --ckpt` on
+     the trained checkpoint; then pointpillar.yaml's `demo --ckpt` on phase
+     30's raw scans. Prints the points each scan holds in the field of view
+     and those the collate drops past MAX_POINTS, the voxels or pillars a
+     scan, scans/s, train scans/s and peak memory;
+ 39. zoo profiles, after every timed path and profile: `infer --profile`
+     of pointpillar.yaml at b16 and of centerpoint.yaml at b4 (x 20000):
+     the device's busy share, the top kernels, the post-processing's device
+     time alone; no cuDNN FFT kernel (`fft` / `cgemm` in its name) may run.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -336,8 +377,12 @@ from the run), `second_data` and `second_data_train` those of phase 29 (null
 but for K3 and K7) and `demo` that of phase 30's demo (per scan recorded,
 `launches` from its 4 scans; null for K5, K7), `dist_train` that of phase
 31 (rank 0's recorded step, `launches` from rank 0's epoch; null for K6,
-K7) and `point_axis` that of phase 34 (rank 0's recorded forward,
-`launches` from rank 0's run; null for K5, K7). K6 is on no KITTI path of
+K7), `point_axis` that of phase 34 (rank 0's recorded forward,
+`launches` from rank 0's run; null for K5, K7), `centerpoint` and
+`centerpoint_train` those of phase 37 (per recorded forward and step,
+`launches` from the counted batches and steps; null but for K3 and K7) and
+`centerpoint_data` and `centerpoint_data_train` those of phase 38's
+centerpoint evaluate and train (null but for K3 and K7). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -408,6 +453,12 @@ DIST_WORLD, DIST_BATCH, DIST_WORKERS, DIST_TIMEOUT = 2, 8, 2, 400
 WORLD1_FRAMES = SECOND_DATA_FRAMES
 # phase 34's training step: b2, every 8th of the 16 train frames
 PAX_TRAIN_BATCH, PAX_TRAIN_INTERVAL = 2, 8
+# phases 35-39: points a scan (the configs' MAX_POINTS), pointpillar.yaml's
+# eval batch, the configs' BATCH_SIZE_PER_GPU (centerpoint.yaml's eval batch
+# too), counted batches and steps; centerpoint.yaml's K3 / K7 calls a forward
+# (4 subm rulebooks + 4 plans, 17 subm + 4 strided convs)
+ZOO_POINTS, PILLAR_BATCH, ZOO_TRAIN_BATCH, ZOO_ITERS, ZOO_TRAIN_ITERS = 20000, 16, 4, 3, 2
+CENTERPOINT_CALLS = {"probe": 8, "spconv_gather": 21}
 
 
 class Deferred(NamedTuple):
@@ -1542,7 +1593,7 @@ def kitti_data_phases(dev):
 
     def profile_eval_batch():
         print("kitti data eval: one profiled batch (forward + NMS)")
-        wall, busy = profile_call(lambda: detect(model, first["points"], first["points_mask"]),
+        wall, busy, _ = profile_call(lambda: detect(model, first["points"], first["points_mask"]),
                                   top=10)
         print(f"kitti data eval: device idle share of a profiled batch "
               f"{100 - 100 * busy / wall:.1f}% ({busy:.3f} of {wall:.3f} ms busy)")
@@ -1728,7 +1779,7 @@ def waymo_data_phases(dev):
 
     def profile_eval_batch():
         print("waymo data eval: one profiled batch (forward + NMS)")
-        wall, busy = profile_call(lambda: detect(model, first["points"], first["points_mask"]),
+        wall, busy, _ = profile_call(lambda: detect(model, first["points"], first["points_mask"]),
                                   top=10)
         print(f"waymo data eval: device idle share of a profiled batch "
               f"{100 - 100 * busy / wall:.1f}% ({busy:.3f} of {wall:.3f} ms busy)")
@@ -2632,6 +2683,380 @@ def multi_process_phases(dev, kitti_root, waymo_root):
     return r0["report"], r0["launches"], p0["report"], p0["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phases 35-39: PointPillars (pointpillar.yaml) and CenterPoint
+# (centerpoint.yaml)
+# ---------------------------------------------------------------------------
+
+def zoo_golden_phase(dev):
+    """Phase 35: the tiny PointPillars and the tiny CenterPoint reproduce
+    their JAX goldens on the card."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import detect
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    pts = torch.from_numpy(tiny.second_points(2)).to(dev)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    cases = (("pointpillar", tiny.pointpillar_model_cfg(), tiny.POINTPILLAR_META,
+              tiny.load_state(tiny.POINTPILLAR_STATE_PATH),
+              ROOT / "tests/goldens/pointpillar_forward.npz"),
+             ("centerpoint", tiny.centerpoint_model_cfg(), tiny.CENTERPOINT_META,
+              tiny.centerpoint_eval_state(), tiny.CENTERPOINT_FORWARD_PATH))
+    for name, cfg, meta, state, path in cases:
+        model = build_network(cfg, len(meta.class_names), meta, device=dev)
+        model.load_state_dict(state, strict=True)
+        out, pred = detect(model, pts, mask)
+        with np.load(path) as golden:
+            for key in golden.files:
+                want = golden[key]
+                got = (out[key] if key in out else pred[key]).cpu().numpy()
+                if want.dtype.kind in "iu":
+                    check(np.array_equal(got, want), f"tiny {name} {key} differs from the "
+                          f"golden: {got} against {want}")
+                    continue
+                scale = max(1.0, float(np.abs(want).max()))
+                diff = float(np.abs(got - want).max())
+                check(got.shape == want.shape
+                      and np.allclose(got, want, atol=1e-3 * scale, rtol=1e-3),
+                      f"tiny {name} {key} differs from the golden: max abs diff {diff}")
+                print(f"zoo reference: tiny {name} {key} {got.shape} max abs diff vs golden "
+                      f"{diff:.3g}")
+        del model, out, pred
+
+
+def pointpillar_phases(dev):
+    """Phase 36: pointpillar.yaml's eval and training step at full width on
+    synthetic scans. PointPillars runs no hand-written kernel: the phase
+    checks that none was called or launched."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/pointpillar.yaml"
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=ZOO_POINTS)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max, pre = int(post.NMS_CONFIG.NMS_POST_MAXSIZE), int(post.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, PILLAR_BATCH, ZOO_POINTS, seed=s)).to(dev)
+               for s in range(ZOO_ITERS)]
+    mask = torch.ones((PILLAR_BATCH, ZOO_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(KERNELS)
+    _kernels.reset_launches()
+    out, _ = detect(model, batches[0], mask)   # warm-up: cuDNN times its algorithms
+    torch.cuda.synchronize()
+    rec.restore()
+    check(not any(rec.calls.values()) and not any(_kernels.LAUNCHES.values()),
+          f"pointpillar called hand-written kernels: {dict(_kernels.LAUNCHES)}")
+    pillars, over = voxel_anchor_counts(model, out)
+    n_anchors = out["batch_cls_preds"].shape[1]
+    del out, rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(model, pts, mask) for pts in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(not any(_kernels.LAUNCHES.values()), f"pointpillar launched {dict(_kernels.LAUNCHES)}")
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(out[key]).all()), f"pointpillar: non-finite {key}")
+        check(tuple(out["batch_box_preds"].shape) == (PILLAR_BATCH, 321408, 7),
+              f"pointpillar box preds shape {tuple(out['batch_box_preds'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"pointpillar: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()), "pointpillar: count > NMS_POST_MAXSIZE")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    print(f"pointpillar eval: {ZOO_ITERS} batches x {PILLAR_BATCH} scans x {ZOO_POINTS} points "
+          f"in {dt:.3f} s = {ZOO_ITERS * PILLAR_BATCH / dt:.3f} scans/s; pillars a scan "
+          f"(capacity {meta.max_voxels}, {meta.max_points_per_voxel} points a pillar) "
+          f"{pillars}; anchors over SCORE_THRESH {post.SCORE_THRESH} a scan {over} of "
+          f"{n_anchors}; boxes into NMS a scan {[min(o, pre) for o in over]}; detections "
+          f"a scan (last batch) {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no hand-written kernel "
+          f"called or launched (no row in the kernels line)")
+    del model, preds, batches, out, pred
+    torch.cuda.empty_cache()
+
+    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=ZOO_POINTS,
+                                  total_steps=ZOO_TRAIN_ITERS + 1)
+    meta = model.dataset_meta
+    tbatches = [synth_train_batch(ZOO_TRAIN_BATCH, ZOO_POINTS, s, dev, meta.point_cloud_range,
+                                  meta.num_point_features)
+                for s in range(ZOO_TRAIN_ITERS + 1)]
+    warm, tb = train_step(model, opt, tbatches[0])
+    check(bool(torch.isfinite(warm)), "pointpillar warm-up step loss is not finite")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [train_step(model, opt, b)[0] for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(_kernels.LAUNCHES.values()), f"pointpillar launched {dict(_kernels.LAUNCHES)}")
+    for i, loss in enumerate(losses):
+        check(bool(torch.isfinite(loss)), f"pointpillar training step {i} loss is not finite")
+    for n, p in model.named_parameters():
+        check(not torch.equal(p, before[n]), f"pointpillar parameter {n} did not change")
+    print(f"pointpillar training: voxel capacity {meta.max_voxels}; warm-up loss "
+          f"{float(warm):.4f} ({', '.join(f'{k} {float(v):.4f}' for k, v in tb.items())}); "
+          f"{ZOO_TRAIN_ITERS} steps x {ZOO_TRAIN_BATCH} scans x {ZOO_POINTS} points in "
+          f"{dt:.3f} s = {ZOO_TRAIN_ITERS * ZOO_TRAIN_BATCH / dt:.3f} train scans/s "
+          f"({1e3 * dt / ZOO_TRAIN_ITERS:.1f} ms/step); losses "
+          f"{[round(float(v), 4) for v in losses]}; {len(before)} parameters changed; "
+          f"peak memory {peak:.2f} GiB")
+    del model, opt, tbatches, before, losses
+    torch.cuda.empty_cache()
+
+
+def centerpoint_phases(dev):
+    """Phase 37: centerpoint.yaml's eval and training step at full width on
+    synthetic scans, every K3 and K7 call of a recorded eval batch and of a
+    recorded training step held against its plain version. Returns the
+    per-kernel reports and the launch counts of both."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/centerpoint.yaml"
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=ZOO_POINTS)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+    k_max = int(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, ZOO_TRAIN_BATCH, ZOO_POINTS, seed=s)).to(dev)
+               for s in range(ZOO_ITERS)]
+    mask = torch.ones((ZOO_TRAIN_BATCH, ZOO_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(SECOND_KERNELS)
+    out, _ = detect(model, batches[0], mask)
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[name]) == n,
+              f"the centerpoint capture forward made {len(rec.calls[name])} {name} calls, "
+              f"not {n}")
+    voxels, over = voxel_anchor_counts(model, out)
+    print(f"centerpoint capture: voxel capacity {meta.max_voxels}; voxels a scan {voxels}; "
+          f"decoded boxes over SCORE_THRESH {post.SCORE_THRESH} a scan {over} of {k_max}")
+    del out
+    report_eval = compare_recorded(rec.calls, "centerpoint")
+    del rec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(model, pts, mask) for pts in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_eval = dict(_kernels.LAUNCHES)
+    for out, pred in preds:
+        for key in ("final_boxes", "final_scores"):
+            check(bool(torch.isfinite(out[key]).all()), f"centerpoint: non-finite {key}")
+        check(tuple(out["final_boxes"].shape) == (ZOO_TRAIN_BATCH, k_max, 7),
+              f"centerpoint final boxes shape {tuple(out['final_boxes'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"centerpoint: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()), "centerpoint: count > NMS_POST_MAXSIZE")
+    for name, n in CENTERPOINT_CALLS.items():
+        check(launches_eval[name] == n * ZOO_ITERS,
+              f"kernel {name} launched {launches_eval[name]} times on the centerpoint path, "
+              f"not {n} a forward")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    print(f"centerpoint eval: {ZOO_ITERS} batches x {ZOO_TRAIN_BATCH} scans x {ZOO_POINTS} "
+          f"points in {dt:.3f} s = {ZOO_ITERS * ZOO_TRAIN_BATCH / dt:.3f} scans/s; detections "
+          f"a scan (last batch) {counts}; launches {launches_eval}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, preds, batches, out, pred
+    torch.cuda.empty_cache()
+
+    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=ZOO_POINTS,
+                                  total_steps=ZOO_TRAIN_ITERS + 1)
+    meta = model.dataset_meta
+    tbatches = [synth_train_batch(ZOO_TRAIN_BATCH, ZOO_POINTS, s, dev, meta.point_cloud_range,
+                                  meta.num_point_features)
+                for s in range(ZOO_TRAIN_ITERS + 1)]
+    rec = record_kernels(SECOND_KERNELS)
+    opt.zero_grad(set_to_none=True)
+    out = model(dict(tbatches[0]))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[name]) == n,
+              f"the centerpoint training step made {len(rec.calls[name])} {name} calls, "
+              f"not {n}")
+    for n, p in model.named_parameters():
+        check(p.grad is not None, f"centerpoint parameter {n} got no gradient")
+        if p.dim() == 3:
+            check(bool(p.grad.abs().sum() > 0), f"sparse-conv weight {n} got a zero gradient")
+    opt.step()
+    check(bool(torch.isfinite(out["loss"])), "centerpoint warm-up step loss is not finite")
+    print(f"centerpoint training capture: voxel capacity {meta.max_voxels}; loss "
+          f"{float(out['loss'].detach()):.4f}, "
+          + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in out["tb_dict"].items()))
+    del out
+    report_train = compare_recorded(rec.calls, "centerpoint train")
+    del rec
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = [train_step(model, opt, b) for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_train = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, tb) in enumerate(steps):
+        check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v)) for v in tb.values()),
+              f"centerpoint training step {i}: loss {float(loss)}, {tb}")
+    for n, p in model.named_parameters():
+        check(not torch.equal(p, before[n]), f"centerpoint parameter {n} did not change")
+    for name, n in CENTERPOINT_CALLS.items():
+        check(launches_train[name] == n * ZOO_TRAIN_ITERS,
+              f"kernel {name} launched {launches_train[name]} times on the centerpoint "
+              f"training path, not {n} a step")
+    print(f"centerpoint training: {ZOO_TRAIN_ITERS} steps x {ZOO_TRAIN_BATCH} scans x "
+          f"{ZOO_POINTS} points in {dt:.3f} s = {ZOO_TRAIN_ITERS * ZOO_TRAIN_BATCH / dt:.3f} "
+          f"train scans/s ({1e3 * dt / ZOO_TRAIN_ITERS:.1f} ms/step); losses "
+          + str([(round(float(loss), 4), round(float(tb["hm_loss_0"]), 4),
+                  round(float(tb["reg_loss_0"]), 4)) for loss, tb in steps])
+          + f" (loss, hm_loss_0, reg_loss_0); {len(before)} parameters changed; launches "
+          f"{launches_train}; peak memory {peak:.2f} GiB")
+    del model, opt, tbatches, before, steps
+    torch.cuda.empty_cache()
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def zoo_data_phases(dev, root):
+    """Phase 38: pointpillar.yaml and centerpoint.yaml on the KITTI root of
+    phase 22: echoed gt through each config's dataset, then `evaluate` and
+    `train --data_root` on phase 29's SECOND_DATA_FRAMES val and train
+    frames and `evaluate --ckpt` on the trained checkpoint, then `demo
+    --ckpt` of pointpillar.yaml on phase 30's raw scans. Returns
+    centerpoint's per-kernel reports and launch counts of its evaluate and
+    train."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import demo, evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    n = SECOND_DATA_FRAMES
+    sets = ["--set", "DATA_CONFIG.INFO_PATH.train", f"['kitti_infos_train_{n}.pkl']",
+            "DATA_CONFIG.INFO_PATH.test", f"['kitti_infos_val_{n}.pkl']"]
+    data = ["--data_root", str(root), "--workers", str(KITTI_WORKERS), "--device", str(dev)]
+    reports, ckpts = {}, {}
+    for name, names in (("pointpillar", ()), ("centerpoint", SECOND_KERNELS)):
+        cfg_file = ROOT / f"tools/cfgs/kitti_models/{name}.yaml"
+        cfg = load_cfg(cfg_file, sets[1:])
+        classes = list(cfg.CLASS_NAMES)
+        full = KittiDataset(load_cfg(cfg_file).DATA_CONFIG, classes, training=False,
+                            root_path=root)
+        _, echo = full.evaluation(echo_gt_annos(full.kitti_infos), classes)
+        check(len(echo) == 72 and all(abs(v - 100.0) < 1e-6 for v in echo.values()),
+              f"{name}: echoed gt does not score 100: {echo}")
+        test_set = KittiDataset(cfg.DATA_CONFIG, classes, training=False, root_path=root)
+        in_fov = [len(test_set[i]["points"]) for i in range(n)]
+        dropped = [max(k - test_set.max_points, 0) for k in in_fov]
+        out = root.parent / name
+        res, launches_eval, peak, rec, first_out = run_recorded(
+            f"{name} data eval", evaluate,
+            ["--cfg_file", str(cfg_file), "--batch_size", str(ZOO_TRAIN_BATCH), "--output_dir",
+             str(out)] + data + sets, detectors[cfg.MODEL.NAME], "forward", names)
+        voxels = first_out["voxel_mask"].sum(1).tolist()
+        del first_out
+        check_kitti_aps(res, classes, f"{name} evaluate")
+        for kname, k in CENTERPOINT_CALLS.items() if names else ():
+            check(len(rec.calls[kname]) == k and launches_eval[kname] == k * (n // ZOO_TRAIN_BATCH),
+                  f"{name} data eval: {len(rec.calls[kname])} {kname} calls a forward, "
+                  f"{launches_eval[kname]} in all")
+        if not names:
+            check(not any(launches_eval.values()), f"{name} data eval launched {launches_eval}")
+        print(f"{name} data eval (evaluate, seeded weights): echoed val gt through its "
+              f"dataset scores 100.0 on all {len(echo)} APs; {n} scans at b{ZOO_TRAIN_BATCH}: "
+              f"points in the field of view {in_fov}, dropped by the collate (MAX_POINTS "
+              f"{test_set.max_points}) {dropped} (mean {np.mean(dropped):.1f} a scan); voxels "
+              f"a scan of the first batch {voxels}; {eval_line(res)}; launches {launches_eval}; "
+              f"peak memory {peak:.2f} GiB")
+        if names:
+            reports[f"{name}_data"] = (compare_recorded(rec.calls, f"{name} data eval"),
+                                       launches_eval)
+        (ckpt_dir, epochs), launches_train, _, rec, _ = run_recorded(
+            f"{name} data train", train,
+            ["--cfg_file", str(cfg_file), "--epochs", "1", "--batch", str(ZOO_TRAIN_BATCH),
+             "--output_dir", str(out)] + data + sets, train_loop, "train_step", names)
+        if not names:
+            check(not any(launches_train.values()), f"{name} data train launched "
+                  f"{launches_train}")
+        print(f"{name} data train (train --data_root): {epochs_line(epochs)}; launches "
+              f"{launches_train}")
+        if names:
+            reports[f"{name}_data_train"] = (compare_recorded(rec.calls, f"{name} data train"),
+                                             launches_train)
+        ckpts[name] = ckpt_dir / "checkpoint_epoch_1.pth"
+        res = evaluate.main(["--cfg_file", str(cfg_file), "--ckpt", str(ckpts[name]),
+                             "--batch_size", str(ZOO_TRAIN_BATCH), "--output_dir",
+                             str(out / "ckpt_eval")] + data + sets)
+        aps = check_kitti_aps(res, classes, f"{name} evaluate --ckpt")
+        print(f"{name} data eval (evaluate --ckpt {ckpts[name].name}): {eval_line(res)}; "
+              f"Car_3d/moderate_R40 {aps['Car_3d/moderate_R40']:.4f}")
+        torch.cuda.empty_cache()
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/pointpillar.yaml"
+    scans = root.parent / "demo" / "scans"
+    (preds, rate), launches, peak, _, _ = run_recorded(
+        "pointpillar demo", demo, ["--cfg_file", str(cfg_file), "--data_path", str(scans),
+                                   "--ckpt", str(ckpts["pointpillar"]), "--device", str(dev)],
+        detectors["PointPillar"], "forward", ())
+    post_max = int(load_cfg(cfg_file).MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    check(len(preds) == DEMO_SCANS and not any(launches.values()),
+          f"pointpillar demo: {len(preds)} scans, launches {launches}")
+    for p in preds:
+        check(len(p["pred_labels"]) <= post_max and np.isfinite(p["pred_boxes"]).all()
+              and np.isfinite(p["pred_scores"]).all(), "pointpillar demo: bad detections")
+    print(f"pointpillar demo --ckpt {ckpts['pointpillar'].name}: {DEMO_SCANS} raw scans over "
+          f"360 degrees: detections a scan {[len(p['pred_labels']) for p in preds]}; "
+          f"{rate:.3f} scans/s (a scan a batch, loading included); peak memory {peak:.2f} GiB")
+    return reports
+
+
+def zoo_profiles(dev):
+    """Phase 39, after every timed path (a profiler window slows the later
+    launches of its process): `infer --profile` of pointpillar.yaml at b16
+    and of centerpoint.yaml at b4, 20000 points a scan; no cuDNN FFT
+    (`fft` / `cgemm`) kernel may run."""
+    from tsm_det_pointcloud_tpu_torch import infer
+
+    for name, batch in (("pointpillar", PILLAR_BATCH), ("centerpoint", ZOO_TRAIN_BATCH)):
+        print(f"{name}: infer --profile (b{batch} x {ZOO_POINTS})")
+        (wall, busy, names), (pwall, pbusy, _) = infer.main(
+            ["--cfg_file", str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml"), "--batch",
+             str(batch), "--points", str(ZOO_POINTS), "--iters", "1", "--profile",
+             "--device", str(dev)])
+        fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
+        check(not fft, f"{name}: cuDNN ran FFT convolutions: {fft}")
+        print(f"{name} profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
+              f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
+              f"{len(names)} kernels, none an FFT (`fft` / `cgemm`)")
+
+
 def main():
     import torch
 
@@ -2961,6 +3386,10 @@ def main():
     report_demo, launches_demo = demo_phases(dev, kitti_root)
     report_dist, launches_dist, report_pax, launches_pax = multi_process_phases(
         dev, kitti_root, waymo_root)
+    zoo_golden_phase(dev)
+    pointpillar_phases(dev)
+    report_cp, launches_cp, report_cptrain, launches_cptrain = centerpoint_phases(dev)
+    zoo_data = zoo_data_phases(dev, kitti_root)
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -2968,9 +3397,12 @@ def main():
                        "kitti data train": report_kdtrain, "waymo data eval": report_wdata,
                        "waymo data train": report_wdtrain, "teacher data eval": report_tdata,
                        "teacher data train": report_tdtrain, "second data eval": report_sdata,
-                       "second data train": report_sdtrain, "demo": report_demo})
+                       "second data train": report_sdtrain, "demo": report_demo,
+                       "centerpoint": report_cp, "centerpoint train": report_cptrain,
+                       **{k: rep for k, (rep, _) in zoo_data.items()}})
     profile_kdata()
     profile_wdata()
+    zoo_profiles(dev)
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()
@@ -3019,7 +3451,10 @@ def main():
                                   ("second_data_train", report_sdtrain, launches_sdtrain),
                                   ("demo", report_demo, launches_demo),
                                   ("dist_train", report_dist, launches_dist),
-                                  ("point_axis", report_pax, launches_pax))}
+                                  ("point_axis", report_pax, launches_pax),
+                                  ("centerpoint", report_cp, launches_cp),
+                                  ("centerpoint_train", report_cptrain, launches_cptrain),
+                                  *((k, rep, lau) for k, (rep, lau) in zoo_data.items()))}
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:

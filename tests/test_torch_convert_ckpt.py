@@ -5,7 +5,8 @@ is exact: both sides run the same numpy on the same arrays.
   * the layout rules (`convert_weight`, `convert_state_dict`) on the cases of
     tests/test_ckpt_converter.py (a `slow` file: not in tier-1) and on a
     3-tap sparse kernel, which both reject alike;
-  * the graft on the tiny student, teacher and SECOND: a synthetic
+  * the graft on the tiny student, teacher, SECOND, PointPillars and
+    CenterPoint: a synthetic
     OpenPCDet-layout state dict (`reference_state_dict`, numpy-seeded
     values on each JAX tiny training init's structure, BN
     `num_batches_tracked` entries that no rule maps) through the JAX
@@ -18,7 +19,9 @@ is exact: both sides run the same numpy on the same arrays.
     the JAX tool this shows are in ROADMAP §C);
   * the entry point on a full-width fast_cpc.yaml checkpoint.
 """
+import dataclasses
 import importlib.util
+import re
 
 import jax
 import numpy as np
@@ -26,9 +29,12 @@ import pytest
 import torch
 
 import __graft_entry__ as ge
-from tests.test_second_e2e import META as SECOND_JMETA, second_model_cfg, synthetic_batch
+from tests.test_second_e2e import synthetic_batch
 from tests.test_torch_teacher import _JMODEL as _JTEACHER, _jax_batch
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
+from tsm_det_pointcloud_tpu.models.detectors.detector3d_template import (
+    DatasetMeta as JDatasetMeta,
+)
 from tsm_det_pointcloud_tpu_torch import convert_torch_ckpt as port, tiny
 from tsm_det_pointcloud_tpu_torch.convert import from_flax_variables
 from tsm_det_pointcloud_tpu_torch.infer import ROOT, dataset_meta, load_cfg
@@ -103,16 +109,21 @@ def _tsm(cfg, jmodel):
         lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=True), _jax_batch("sparse"))
 
 
-def _second():
-    jmodel = jbuild(second_model_cfg(), num_class=1, dataset=SECOND_JMETA)
-    return tiny.second_model_cfg(), jax.eval_shape(
+def _voxel(cfg, meta):
+    """A voxel detector of the JAX package built on the port's tiny config
+    and geometry; its init's shapes on the tiny SECOND's batch."""
+    jmodel = jbuild(cfg, num_class=len(meta.class_names),
+                    dataset=JDatasetMeta(**dataclasses.asdict(meta)))
+    return cfg, jax.eval_shape(
         lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=True), dict(synthetic_batch()))
 
 
 MODELS = {
     "student": lambda: _tsm(tiny.tiny_model_cfg(), ge._tsm_model()),
     "teacher": lambda: _tsm(tiny.tiny_teacher_model_cfg(), _JTEACHER),
-    "second": _second,
+    "second": lambda: _voxel(tiny.second_model_cfg(), tiny.SECOND_META),
+    "pointpillar": lambda: _voxel(tiny.pointpillar_model_cfg(), tiny.POINTPILLAR_META),
+    "centerpoint": lambda: _voxel(tiny.centerpoint_model_cfg(), tiny.CENTERPOINT_META),
 }
 
 
@@ -151,9 +162,9 @@ def _jax_side(init, ref):
 
 
 def _without_three_tap_kernels(name, ref):
-    """SECOND's state dict without conv_out's kernel, which neither side
-    converts (test_three_tap_spconv_kernel_raises_like_jax)."""
-    if name != "second":
+    """SECOND's and CenterPoint's state dicts without conv_out's kernel,
+    which neither side converts (test_three_tap_spconv_kernel_raises_like_jax)."""
+    if name not in ("second", "centerpoint"):
         return ref
     with pytest.raises(ValueError):
         jtool.convert_state_dict(ref)
@@ -178,16 +189,20 @@ def test_graft_equals_jax(case):
 
 
 # where the reference tensors land against the leaf each came from: the
-# teacher head's reg_weight has no rule; SECOND's 1x1 head convs and 1x1
-# deblock become 2D kernels no 4D leaf takes, and the 2x2 deblock's
-# ConvTranspose2d weight goes to (kh, kw, Cout, Cin), which no leaf has
+# teacher head's reg_weight has no rule; SECOND's and PointPillars' 1x1 head
+# convs and 1x1 deblock become 2D kernels no 4D leaf takes, and the 2x2
+# deblock's ConvTranspose2d weight goes to (kh, kw, Cout, Cin), which no
+# leaf has (CenterPoint's deblocks alike)
+ANCHOR_HEAD_UNPLACED = ["backbone_2d/deblock0/kernel", "backbone_2d/deblock1/kernel",
+                        "dense_head/conv_box/kernel", "dense_head/conv_cls/kernel",
+                        "dense_head/conv_dir_cls/kernel"]
 EXPECTED = {
     "student": dict(unmatched=["point_head.head.reg_weight"], unplaced=[], misplaced=[]),
     "teacher": dict(unmatched=["point_head.head.reg_weight"], unplaced=[], misplaced=[]),
-    "second": dict(unmatched=[], misplaced=[], unplaced=[
-        "backbone_2d/deblock0/kernel", "backbone_2d/deblock1/kernel",
-        "dense_head/conv_box/kernel", "dense_head/conv_cls/kernel",
-        "dense_head/conv_dir_cls/kernel"]),
+    "second": dict(unmatched=[], misplaced=[], unplaced=ANCHOR_HEAD_UNPLACED),
+    "pointpillar": dict(unmatched=[], misplaced=[], unplaced=ANCHOR_HEAD_UNPLACED),
+    "centerpoint": dict(unmatched=[], misplaced=[], unplaced=[
+        "backbone_2d/deblock0/kernel", "backbone_2d/deblock1/kernel"]),
 }
 
 
@@ -212,6 +227,100 @@ def test_round_trip_placements(case):
     assert misplaced == EXPECTED[name]["misplaced"]
     for key, t in got.items():
         assert torch.equal(t, template[key] if key in lost else src[key]), key
+
+
+# OpenPCDet's own module names where the port's (the flax ones) differ:
+# PillarVFE's PFNLayer and CenterHead's shared conv and SeparateHead
+OPENPCDET_NAMES = [
+    (r"^vfe\.pfn_(\d+)\.", r"vfe.pfn_layers.\1.linear."),
+    (r"^vfe\.pfn_bn_(\d+)\.", r"vfe.pfn_layers.\1.norm."),
+    (r"^dense_head\.shared_conv\.", "dense_head.shared_conv.0."),
+    (r"^dense_head\.shared_bn\.", "dense_head.shared_conv.1."),
+    (r"^dense_head\.head_(\d+)\.(\w+?)_conv(\d+)\.", r"dense_head.heads_list.\1.\2.\3.0."),
+    (r"^dense_head\.head_(\d+)\.(\w+?)_bn(\d+)\.", r"dense_head.heads_list.\1.\2.\3.1."),
+    (r"^dense_head\.head_(\d+)\.(\w+?)_out\.", r"dense_head.heads_list.\1.\2.1."),
+]
+
+
+def _openpcdet_name(name):
+    for pat, rep in OPENPCDET_NAMES:
+        if re.match(pat, name):
+            return re.sub(pat, rep, name)
+    return name
+
+
+@pytest.mark.parametrize("name", ["pointpillar", "centerpoint"])
+def test_openpcdet_zoo_names_place_like_jax(name):
+    """A reference checkpoint under OpenPCDet's names of the PFN layer
+    (`vfe.pfn_layers.0.linear` / `.norm`) and of the center head
+    (`dense_head.shared_conv.{0,1}`, `dense_head.heads_list.*`): both
+    converters place it alike, bit for bit. No rule maps a BN named `norm`
+    or `<i>.1` to a scale: its weight becomes a 1-D `kernel` that no leaf
+    takes (unplaced). PointPillars' PFN is then placed right but for that
+    scale (its bias and statistics go to the only PFN BN, the first such
+    leaf in flax order). CenterPoint's head shares no path component with
+    its flax leaves but the leaf name: each of its BN biases and statistics,
+    hidden convs and output convs goes to the first leaf of its shape in
+    flax order (the sparse stem's conv2_down BN, the BEV backbone's
+    block0_conv0, head_0's first output conv of that width): 67 tensors
+    misplaced on the tiny model (ROADMAP §C)."""
+    cfg, shapes = MODELS[name]()
+    rng = np.random.RandomState(sorted(MODELS).index(name))
+    init = _fill(shapes, rng)
+    src = from_flax_variables(_fill(shapes, rng))
+    ref, source = port.reference_state_dict(src, cfg)
+    ref = {_openpcdet_name(k): v for k, v in _without_three_tap_kernels(name, ref).items()}
+    source = {_openpcdet_name(k): v for k, v in source.items()}
+    want, want_unmatched, want_unplaced = _jax_side(init, ref)
+    got, report = port.convert_checkpoint(ref, from_flax_variables(init))
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert report["unmatched"] == want_unmatched and report["unplaced"] == want_unplaced
+    misplaced = {}
+    for ref_name, key in source.items():
+        coll, path = port.map_name(ref_name)
+        if ref_name in ref and coll is not None and path not in report["unplaced"] \
+                and report["placements"][coll][path] != key:
+            misplaced[ref_name] = report["placements"][coll][path]
+    scales = [p for p in report["unplaced"] if p.endswith("/kernel") and "deblock" not in p
+              and not p.startswith("dense_head/conv_")]
+    if name == "pointpillar":
+        assert scales == ["vfe/pfn_layers/0/norm/kernel"] and misplaced == {}
+    else:
+        assert len(scales) == 11 and all("/1/kernel" in p for p in scales)
+        assert len(misplaced) == 67 and all(n.startswith("dense_head.") for n in misplaced)
+        assert misplaced["dense_head.heads_list.0.hm.0.0.weight"] == (
+            "module_list.3.block0_conv0.weight")
+        assert misplaced["dense_head.shared_conv.1.running_mean"] == (
+            "module_list.1.conv2_down.bn.running_mean")
+
+
+@pytest.mark.parametrize("name,unplaced", [
+    ("pointpillar", ["backbone_2d/deblock0/kernel", "backbone_2d/deblock2/kernel",
+                     "dense_head/conv_box/kernel", "dense_head/conv_cls/kernel",
+                     "dense_head/conv_dir_cls/kernel"]),
+    ("centerpoint", ["backbone_2d/deblock0/kernel"])])
+def test_full_width_square_deblock_lands_unread(name, unplaced):
+    """At full width pointpillar.yaml's deblock1 (128 -> 128) and
+    centerpoint.yaml's (256 -> 256) are 2 x 2 ConvTranspose2d's with as
+    many inputs as outputs: read as a Conv2d's (kh, kw, Cin, Cout) their
+    weight has the leaf's shape, so the graft puts it on its own leaf,
+    unflipped and with inputs and outputs swapped, without a word; every
+    other placed tensor equals its source (ROADMAP §C)."""
+    cfg = load_cfg(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
+    meta = dataset_meta(cfg, 16384, "train")
+    src = build_network(cfg.MODEL, 3, meta, device="cpu", seed=3).state_dict()
+    template = build_network(cfg.MODEL, 3, meta, device="cpu", seed=4).state_dict()
+    ref, source = port.reference_state_dict(src, cfg.MODEL)
+    ref = {k: v for k, v in ref.items() if k != "backbone_3d.conv_out.weight"}
+    got, report = port.convert_checkpoint(ref, template)
+    assert report["unplaced"] == unplaced and report["unmatched"] == [
+        n for n in ref if n.endswith(".num_batches_tracked")]
+    differ = [key for n, key in source.items() if n in ref
+              and port.map_name(n)[1] not in unplaced and not torch.equal(got[key], src[key])]
+    key = f"module_list.{3 if name == 'centerpoint' else 2}.deblock1.weight"
+    assert differ == [key]
+    w = ref[f"backbone_2d.deblock1.weight"].numpy()             # (Cin, Cout, 2, 2)
+    assert np.array_equal(got[key].numpy(), w.transpose(1, 0, 2, 3)[:, :, ::-1, ::-1])
 
 
 def test_entry_point_on_full_width_fast_cpc(tmp_path):

@@ -12,7 +12,12 @@ out of range, so that the range mask and sample_points' draw both work):
     student's cls output biases at 1.0, so that NMS keeps boxes; labels
     equal, scores and boxes rtol 1e-4 and atol 1e-4
     (tests/test_torch_eval_loop.py's);
-  * the entry point once on the CPU with --device cpu and --ckpt.
+  * the entry point once on the CPU with --device cpu and --ckpt;
+  * the same two on the tiny PointPillars with pointpillar.yaml's data
+    section on its geometry (torch_kitti_cases.tiny_pointpillar_dataset_cfg:
+    0.5 m pillars of 8 points, 512 points a scan), from the committed
+    converted JAX init (data/pointpillar_tiny_state.npz) with its conv_cls
+    bias at 0.
 """
 import importlib.util
 
@@ -22,7 +27,8 @@ import pytest
 import torch
 
 from tests.test_torch_kitti_data import assert_same
-from tests.torch_kitti_cases import CLASSES, tiny_dataset_cfg, write_tiny_yaml
+from tests.torch_kitti_cases import (CLASSES, tiny_dataset_cfg, tiny_pointpillar_dataset_cfg,
+                                     write_tiny_yaml)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu_torch import demo, tiny
 from tsm_det_pointcloud_tpu_torch.convert import to_flax_variables
@@ -91,9 +97,10 @@ def state():
 
 
 
-def _jax_detections(jds, variables):
+def _jax_detections(jds, variables, model_cfg=None, num_class=3):
     """The JAX demo's loop (tools/demo.py:111-128) on `jds`."""
-    model = jbuild(tiny.tiny_model_cfg(), num_class=3, dataset=jds.template)
+    model_cfg = tiny.tiny_model_cfg() if model_cfg is None else model_cfg
+    model = jbuild(model_cfg, num_class=num_class, dataset=jds.template)
 
     @jax.jit
     def infer(v, b):
@@ -131,6 +138,46 @@ def test_entry_point_on_cpu(scans, state, tmp_path, capsys):
     torch.save({"model_state": state, "optimizer_state": {}, "epoch": 1, "it": 3}, ckpt)
     preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(scans / "bin"),
                        "--ckpt", str(ckpt), "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "Total number of samples: \t3" in err and f"Loaded checkpoint {ckpt}" in err
+    assert err.count(" detections") == N_SCANS and "Demo done" in err
+    assert sum(len(p["pred_labels"]) for p in preds) == err.count("  label=") > 0
+    assert rate > 0
+
+
+@pytest.fixture(scope="module")
+def pp_state():
+    """The committed converted JAX tiny PointPillars init, conv_cls bias 0."""
+    sd = tiny.load_state(tiny.POINTPILLAR_STATE_PATH)
+    sd["module_list.3.conv_cls.bias"] = torch.zeros_like(sd["module_list.3.conv_cls.bias"])
+    return sd
+
+
+def test_pointpillar_detections_equal_jax(scans, pp_state):
+    cfg = tiny_pointpillar_dataset_cfg(scans)
+    jds = jdemo.DemoDataset(cfg, ["Car"], scans / "bin", ext=".bin")
+    pds = demo.DemoDataset(cfg, ["Car"], scans / "bin", ext=".bin")
+    for i in range(N_SCANS):
+        assert_same(pds.collate(pds[i]), jds.collate(jds[i]), f"batch {i}")
+    want = _jax_detections(jds, to_flax_variables(pp_state), tiny.pointpillar_model_cfg(), 1)
+    model = build_network(tiny.pointpillar_model_cfg(), 1, pds, device="cpu")
+    model.load_state_dict(pp_state, strict=True)
+    got = demo.run_demo(model, pds, create_logger())
+    assert sum(len(p["pred_labels"]) for p in want) > 0, "no detections to compare"
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g["pred_labels"], w["pred_labels"], err_msg=f"scan {i}")
+        np.testing.assert_allclose(g["pred_scores"], w["pred_scores"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g["pred_boxes"], w["pred_boxes"], rtol=1e-4, atol=1e-4)
+
+
+def test_pointpillar_entry_point_on_cpu(scans, pp_state, tmp_path, capsys):
+    cfg = write_tiny_yaml(tmp_path / "tiny_pointpillar.yaml", scans,
+                          model=tiny.pointpillar_model_cfg(),
+                          data=tiny_pointpillar_dataset_cfg(scans), classes=["Car"])
+    ckpt = tmp_path / "tiny_pointpillar.pth"
+    torch.save({"model_state": pp_state, "optimizer_state": {}, "epoch": 1, "it": 3}, ckpt)
+    preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(scans / "bin"),
+                             "--ckpt", str(ckpt), "--device", "cpu"])
     err = capsys.readouterr().err
     assert "Total number of samples: \t3" in err and f"Loaded checkpoint {ckpt}" in err
     assert err.count(" detections") == N_SCANS and "Demo done" in err

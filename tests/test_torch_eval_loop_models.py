@@ -1,15 +1,19 @@
 """The dataset-driven eval loop and first-batch training loss of the tiny TSM
-teacher (fast_cpc_teacher.yaml's data section on its range) and the tiny
+teacher (fast_cpc_teacher.yaml's data section on its range), the tiny
 SECOND (second.yaml's: the voxel route, no sample_points, on the tiny
-SECOND's geometry) against the JAX package, over copies of one synthetic
+SECOND's geometry), the tiny PointPillars (pointpillar.yaml's: 8 points a
+pillar, gt sampling on road planes) and the tiny CenterPoint
+(centerpoint.yaml's) against the JAX package, over copies of one synthetic
 KITTI root, as tests/test_torch_eval_loop.py holds the tiny student.
 
 Both sides take the committed converted JAX PRNGKey(0) inits
 (data/tsm_teacher_tiny_state.npz with tiny.teacher_overrides();
-data/second_tiny_state.npz), the flax side through `convert.to_flax_variables`.
+data/second_tiny_state.npz; data/pointpillar_tiny_state.npz;
+tiny.centerpoint_eval_state(), drawn over data/centerpoint_tiny_state.npz),
+the flax side through `convert.to_flax_variables`.
 So that NMS keeps boxes: the teacher's cls output biases are 1.0 and its
 SCORE_THRESH 0.05 for every class (tests/test_torch_teacher.py's), SECOND's
-conv_cls bias 0. Tolerances, those
+and PointPillars' conv_cls bias 0. Tolerances, those
 of tests/test_torch_eval_loop.py:
   * `eval_one_ckpt` (6 val frames in batches of 4): the same detections a
     frame, names equal, scores and lidar boxes rtol 1e-4 (atol 1e-4 on boxes);
@@ -28,8 +32,9 @@ import torch
 
 from tests.test_second_e2e import second_model_cfg as jax_second_cfg
 from tests.test_torch_teacher import _jax_teacher_cfg
-from tests.torch_kitti_cases import (CLASSES, copy_root, make_root, tiny_dataset_cfg,
-                                     tiny_second_dataset_cfg)
+from tests.torch_kitti_cases import (CLASSES, copy_root, make_root,
+                                     tiny_centerpoint_dataset_cfg, tiny_dataset_cfg,
+                                     tiny_pointpillar_dataset_cfg, tiny_second_dataset_cfg)
 from tsm_det_pointcloud_tpu.datasets import DataLoader as JDataLoader
 from tsm_det_pointcloud_tpu.datasets.kitti.kitti_dataset import (
     KittiDataset as JKittiDataset,
@@ -73,7 +78,21 @@ def _second():
     return tiny.second_model_cfg(), jax_second_cfg(), state, tiny_second_dataset_cfg, ["Car"]
 
 
-MODELS = {"teacher": _teacher, "second": _second}
+def _pointpillar():
+    state = tiny.load_state(tiny.POINTPILLAR_STATE_PATH)
+    state["module_list.3.conv_cls.bias"] = torch.zeros_like(
+        state["module_list.3.conv_cls.bias"])
+    return (tiny.pointpillar_model_cfg(), tiny.pointpillar_model_cfg(), state,
+            tiny_pointpillar_dataset_cfg, ["Car"])
+
+
+def _centerpoint():
+    return (tiny.centerpoint_model_cfg(), tiny.centerpoint_model_cfg(),
+            tiny.centerpoint_eval_state(), tiny_centerpoint_dataset_cfg, CLASSES)
+
+
+MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
+          "centerpoint": _centerpoint}
 
 
 

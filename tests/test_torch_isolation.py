@@ -121,7 +121,7 @@ def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     cfg = tiny.tiny_model_cfg()
-    cfg["NAME"] = "PointPillar"
+    cfg["NAME"] = "PartA2Net"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
     # train mode is ported, and asks for the gt boxes it trains on
@@ -158,10 +158,10 @@ def test_converter_consumes_every_eval_leaf():
             "leaf": np.zeros((2, 2, 2, 2), np.float32)}}}}})
 
 
-def test_second_trains_and_only_pointpillars_raises():
+def test_second_trains_and_unported_topologies_raise():
     """SECOND builds on the CPU and its training forward returns a finite
-    loss with its tb terms; the PointPillars topology is not ported and
-    raises."""
+    loss with its tb terms; an unported detector (Part-A2) raises, and so
+    does a module that the SECOND topology does not take."""
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
@@ -177,10 +177,9 @@ def test_second_trains_and_only_pointpillars_raises():
     assert torch.isfinite(out["loss"])
     assert set(out["tb_dict"]) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}
     cfg = tiny.second_model_cfg()
-    cfg["NAME"] = "PointPillar"
-    cfg["VFE"] = {"NAME": "PillarVFE"}
-    cfg["MAP_TO_BEV"] = {"NAME": "PointPillarScatter", "NUM_BEV_FEATURES": 64}
-    with pytest.raises(NotImplementedError):
+    cfg["NAME"] = "PartA2Net"
+    cfg["BACKBONE_3D"] = {"NAME": "UNetV2"}
+    with pytest.raises(NotImplementedError, match="PartA2Net"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
     cfg = tiny.second_model_cfg()
     cfg["VFE"] = {"NAME": "PillarVFE"}
@@ -195,6 +194,32 @@ def test_parallel_modules_are_covered():
     for name in ("comm", "train_state", "point_sharding"):
         assert f"tsm_det_pointcloud_tpu_torch.parallel.{name}" in mods
         assert (PORT / "parallel" / f"{name}.py").exists()
+
+
+def test_zoo_modules_are_covered():
+    """PointPillars' and CenterPoint's modules are among those imported
+    without JAX above and scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("models.backbones_3d.vfe", "models.backbones_2d.map_to_bev",
+                 "models.backbones_3d.spconv_backbone", "models.model_utils.centernet_utils",
+                 "models.dense_heads.center_head", "models.detectors.pointpillar",
+                 "models.detectors.centerpoint", "ops.loss_utils"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_zoo_entry_points_refuse_cuda_without_card(monkeypatch):
+    """`infer` and `train` on pointpillar.yaml and centerpoint.yaml default
+    to the card too, and refuse a host without one."""
+    from tsm_det_pointcloud_tpu_torch import infer, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("pointpillar", "centerpoint"):
+        cfg = str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--steps", "1"])
 
 
 def test_launcher_refuses_cuda_without_card(monkeypatch, tmp_path):

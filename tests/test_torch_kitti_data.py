@@ -8,11 +8,12 @@ from the same (seed, epoch, index) generators.
     every gt-database .bin file;
   * `__getitem__` in training (every augmentor of kitti_dataset.yaml,
     random_local_pyramid_aug included, and of fast_cpc.yaml,
-    fast_cpc_teacher.yaml and second.yaml) and test mode, and
-    `collate_batch`;
+    fast_cpc_teacher.yaml, second.yaml, pointpillar.yaml (gt sampling on
+    road planes) and centerpoint.yaml) and test mode, and `collate_batch`;
   * second.yaml's collate, which keeps a scan's first MAX_POINTS (20000)
     points: on scans of datasets/kitti/synthetic.py (~25k points in the
-    field of view) both packages drop the same tail (ROADMAP §C);
+    field of view) both packages drop the same tail (ROADMAP §C), and so do
+    pointpillar.yaml's and centerpoint.yaml's;
   * gt sampling's USE_SHARED_MEMORY route (one global npy of the gt
     database's points in a directory under the test's tmp_path,
     TSM_SHM_DIR): the loader's batches equal with it on and off, for 0 and
@@ -22,7 +23,8 @@ from the same (seed, epoch, index) generators.
     its rank shards are disjoint and cover the split, and a program that
     ran it with workers leaves no process behind;
   * the DatasetMeta a dataset gives the model builder, for fast_cpc.yaml,
-    fast_cpc_teacher.yaml and second.yaml.
+    fast_cpc_teacher.yaml, second.yaml, pointpillar.yaml (32 points a
+    pillar) and centerpoint.yaml.
 """
 import json
 import pickle
@@ -55,6 +57,8 @@ BASE_CFG = "tools/cfgs/dataset_configs/kitti_dataset.yaml"
 FAST_CPC = "tools/cfgs/kitti_models/fast_cpc.yaml"
 TEACHER = "tools/cfgs/kitti_models/fast_cpc_teacher.yaml"
 SECOND = "tools/cfgs/kitti_models/second.yaml"
+POINTPILLAR = "tools/cfgs/kitti_models/pointpillar.yaml"
+CENTERPOINT = "tools/cfgs/kitti_models/centerpoint.yaml"
 
 
 @pytest.fixture(scope="module")
@@ -125,8 +129,10 @@ def _datasets(roots, cfg_file, training, edit=None):
 
 
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
-@pytest.mark.parametrize("cfg_file", [BASE_CFG, FAST_CPC, TEACHER, SECOND],
-                         ids=["kitti_dataset", "fast_cpc", "teacher", "second"])
+@pytest.mark.parametrize("cfg_file", [BASE_CFG, FAST_CPC, TEACHER, SECOND, POINTPILLAR,
+                                      CENTERPOINT],
+                         ids=["kitti_dataset", "fast_cpc", "teacher", "second", "pointpillar",
+                              "centerpoint"])
 def test_getitem_and_collate_equal_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)
     if training:
@@ -148,11 +154,24 @@ def test_second_collate_drops_the_scan_tail_like_jax(tmp_path):
     voxelizes those alone, where the reference's data processor voxelizes
     every point of the scan: in test mode (no shuffle) the scan's tail is
     dropped, in both packages alike."""
+    _collate_drops_the_scan_tail_like_jax(SECOND, tmp_path)
+
+
+@pytest.mark.parametrize("cfg_file", [POINTPILLAR, CENTERPOINT], ids=["pointpillar",
+                                                                      "centerpoint"])
+def test_zoo_collate_drops_the_scan_tail_like_jax(cfg_file, tmp_path):
+    """pointpillar.yaml and centerpoint.yaml have second.yaml's MAX_POINTS
+    20000 and the same collate: the same tail is dropped in both packages."""
+    _collate_drops_the_scan_tail_like_jax(cfg_file, tmp_path)
+
+
+def _collate_drops_the_scan_tail_like_jax(cfg_file, tmp_path):
     write_synthetic_kitti(tmp_path, 1, 2, 120000)
-    create_kitti_infos(dataset_cfg(SECOND, tmp_path), CLASSES, tmp_path, tmp_path, workers=1)
-    jds = JKittiDataset(dataset_cfg(SECOND, tmp_path), CLASSES, training=False,
+    create_kitti_infos(dataset_cfg(cfg_file, tmp_path), CLASSES, tmp_path, tmp_path,
+                       workers=1)
+    jds = JKittiDataset(dataset_cfg(cfg_file, tmp_path), CLASSES, training=False,
                         root_path=tmp_path)
-    pds = KittiDataset(dataset_cfg(SECOND, tmp_path), CLASSES, training=False,
+    pds = KittiDataset(dataset_cfg(cfg_file, tmp_path), CLASSES, training=False,
                        root_path=tmp_path)
     samples = [pds[i] for i in range(2)]
     assert_same(samples, [jds[i] for i in range(2)])
@@ -343,7 +362,7 @@ def test_other_datasets_raise(roots):
         build_dataloader(cfg, CLASSES, 2, workers=0)
 
 
-@pytest.mark.parametrize("cfg_file", [FAST_CPC, TEACHER, SECOND])
+@pytest.mark.parametrize("cfg_file", [FAST_CPC, TEACHER, SECOND, POINTPILLAR, CENTERPOINT])
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
 def test_meta_from_dataset_equals_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)

@@ -1,5 +1,5 @@
 """The rank side of the port's multi-process tests (test_torch_comm.py,
-test_torch_dist_train.py, test_torch_point_sharding.py): numpy and torch
+test_torch_dist_train.py, test_torch_dist_zoo.py, test_torch_point_sharding.py): numpy and torch
 only, since the ranks are spawned processes and must not import JAX (the
 tests compute the JAX references in their own process).
 
@@ -155,6 +155,22 @@ def second_batch(n_scans):
             "gt_boxes": gt, "gt_boxes_mask": gmask, "batch_size": n_scans}
 
 
+def pointpillar_batch(n_scans):
+    from tsm_det_pointcloud_tpu_torch import tiny
+
+    gt, gmask = tiny.pointpillar_gt(n_scans)
+    return {"points": tiny.second_points(n_scans), "points_mask": np.ones((n_scans, 512), bool),
+            "gt_boxes": gt, "gt_boxes_mask": gmask, "batch_size": n_scans}
+
+
+def centerpoint_batch(n_scans):
+    from tsm_det_pointcloud_tpu_torch import tiny
+
+    gt, gmask = tiny.centerpoint_gt(n_scans)
+    return {"points": tiny.second_points(n_scans), "points_mask": np.ones((n_scans, 512), bool),
+            "gt_boxes": gt, "gt_boxes_mask": gmask, "batch_size": n_scans}
+
+
 def local_batch(batch, rank, world):
     """This rank's contiguous share of a numpy batch, as torch tensors (the
     JAX shard_batch's P("data") placement)."""
@@ -182,6 +198,14 @@ def _model(which):
     if which == "second":
         model = build_network(tiny.second_model_cfg(), 1, tiny.SECOND_META, device="cpu")
         model.load_state_dict(tiny.load_state(tiny.SECOND_STATE_PATH), strict=True)
+    elif which == "pointpillar":
+        model = build_network(tiny.pointpillar_model_cfg(), 1, tiny.POINTPILLAR_META,
+                              device="cpu")
+        model.load_state_dict(tiny.load_state(tiny.POINTPILLAR_STATE_PATH), strict=True)
+    elif which == "centerpoint":
+        model = build_network(tiny.centerpoint_model_cfg(), 3, tiny.CENTERPOINT_META,
+                              device="cpu")
+        model.load_state_dict(tiny.load_state(tiny.CENTERPOINT_STATE_PATH), strict=True)
     elif which == "teacher":
         model = build_network(tiny.tiny_teacher_model_cfg(), 3, tiny.META, device="cpu")
         model.load_state_dict(teacher_state(), strict=True)
@@ -193,8 +217,9 @@ def _model(which):
 
 def dist_step_case(rank, world, which, batch, point_axis=0):
     """One DDP training step of the tiny TSM ("tsm"), its teacher
-    ("teacher": every parameter trains, the class statistics update) or
-    SECOND ("second")
+    ("teacher": every parameter trains, the class statistics update),
+    SECOND ("second"), PointPillars ("pointpillar") or CenterPoint
+    ("centerpoint")
     on this rank's share of `batch` (under point_axis P, P ranks share a
     sample set and split its points). Returns this rank's loss and tb terms,
     the reduced gradients, the buffers after the forward, the parameters

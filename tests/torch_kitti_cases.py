@@ -1,6 +1,6 @@
 """The synthetic KITTI root and dataset configs shared by the port's KITTI
 tests (test_torch_kitti_data.py, test_torch_kitti_eval.py,
-test_torch_eval_loop.py).
+test_torch_eval_loop.py, test_torch_eval_loop_models.py).
 
 `make_root` writes tests/test_kitti_pipeline.py's `make_kitti_root` layout
 (velodyne, label_2, calib, planes, ImageSets; one Car and one DontCare a
@@ -106,6 +106,39 @@ def tiny_second_dataset_cfg(root):
             p.VOXEL_SIZE = list(meta.voxel_size)
             p.MAX_NUMBER_OF_VOXELS = {"train": meta.max_voxels, "test": meta.max_voxels}
     return data
+
+
+def _tiny_voxel_dataset_cfg(cfg_file, root, meta, groups):
+    """`cfg_file`'s DATA_CONFIG on the geometry of `meta` (its range, voxel
+    size, MAX_POINTS_PER_VOXEL and its voxels in both modes, MAX_POINTS),
+    gt sampling of `groups`, MAX_GT_BOXES 16."""
+    data = dataset_cfg(cfg_file, root)
+    data.POINT_CLOUD_RANGE = list(meta.point_cloud_range)
+    data.MAX_POINTS = meta.max_points
+    data.MAX_GT_BOXES = 16
+    data.DATA_AUGMENTOR.AUG_CONFIG_LIST[0].SAMPLE_GROUPS = list(groups)
+    for p in data.DATA_PROCESSOR:
+        if p.NAME == "transform_points_to_voxels":
+            p.VOXEL_SIZE = list(meta.voxel_size)
+            p.MAX_POINTS_PER_VOXEL = meta.max_points_per_voxel
+            p.MAX_NUMBER_OF_VOXELS = {"train": meta.max_voxels, "test": meta.max_voxels}
+    return data
+
+
+def tiny_pointpillar_dataset_cfg(root):
+    """pointpillar.yaml's DATA_CONFIG (gt sampling on road planes) on the tiny
+    PointPillars' geometry (tiny.POINTPILLAR_META), gt sampling of its one
+    class."""
+    return _tiny_voxel_dataset_cfg("tools/cfgs/kitti_models/pointpillar.yaml", root,
+                                   tiny.POINTPILLAR_META, ["Car:15"])
+
+
+def tiny_centerpoint_dataset_cfg(root):
+    """centerpoint.yaml's DATA_CONFIG on the tiny CenterPoint's geometry
+    (tiny.CENTERPOINT_META), gt sampling of its three classes."""
+    return _tiny_voxel_dataset_cfg("tools/cfgs/kitti_models/centerpoint.yaml", root,
+                                   tiny.CENTERPOINT_META,
+                                   ["Car:15", "Pedestrian:15", "Cyclist:15"])
 
 
 def write_tiny_yaml(path, root, batch=2, epochs=1, model=None, data=None, classes=CLASSES):

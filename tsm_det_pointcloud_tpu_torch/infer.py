@@ -11,6 +11,10 @@ scans.
         --cfg_file tools/cfgs/kitti_models/second.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/fast_cpc_teacher.yaml
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/pointpillar.yaml --batch 16 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/centerpoint.yaml --batch 4 --points 20000
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
@@ -22,7 +26,8 @@ running stats and the TSM heads' statistics buffers are random, made from
 --profile then traces one more batch with
 torch.profiler and prints the device's busy share of that batch's wall time
 and the kernels with the most device time, and the same for the batch's
-post-processing alone.
+post-processing alone (`main` returns both traces' figures and kernel
+names).
 """
 from __future__ import annotations
 
@@ -60,17 +65,19 @@ class ScanRecipe(NamedTuple):
 
 
 # keyed by the dataset's POINT_CLOUD_RANGE: the recipes of the JAX package's
-# bench.py (KITTI range, eight car-like clusters) and tools/bench_waymo.py
+# bench.py (KITTI range, eight car-like clusters; pointpillar.yaml's range,
+# 0.32 m narrower in y, takes the same scans) and tools/bench_waymo.py
 # (Waymo range, sixteen vehicle-like clusters)
+_KITTI_SCANS = ScanRecipe((0.0, -39.0, -2.0), (69.0, 39.0, 0.5), 8, (5, -30), (60, 30),
+                          (-1.6, -0.2), (-0.9, 4.2, 2.2, 1.6))
 SCAN_RECIPES = {
-    (0, -40, -3, 70.4, 40, 1): ScanRecipe(
-        (0.0, -39.0, -2.0), (69.0, 39.0, 0.5), 8, (5, -30), (60, 30), (-1.6, -0.2),
-        (-0.9, 4.2, 2.2, 1.6)),
+    (0, -40, -3, 70.4, 40, 1): _KITTI_SCANS,
     (-75.2, -75.2, -2, 75.2, 75.2, 4): ScanRecipe(
         (-74, -74, -1.9), (74, 74, 3.9), 16, (-60, -60), (60, 60), (0.0, 1.8),
         (0.9, 4.2, 2.2, 2.0)),
+    (0, -39.68, -3, 69.12, 39.68, 1): _KITTI_SCANS,
 }
-KITTI_RANGE, WAYMO_RANGE = SCAN_RECIPES
+KITTI_RANGE, WAYMO_RANGE = list(SCAN_RECIPES)[:2]
 
 
 def scan_recipe(point_cloud_range):
@@ -132,11 +139,19 @@ def load_cfg(cfg_file, set_cfgs=None):
     return cfg
 
 
-# SECOND's conv_cls bias in place of the -log(99) prior: with the seeded
-# weights and eval state a few thousand of a scan's 211,200 anchors then
-# score above the config's SCORE_THRESH 0.1 (calibrated on the synthetic
-# KITTI scans at 20000 points; infer prints the count)
-SECOND_CLS_BIAS = -2.575
+# the anchor heads' conv_cls bias in place of the -log(99) prior, by
+# detector: with the seeded weights and eval state a few thousand of a
+# scan's anchors then score above the config's SCORE_THRESH 0.1 (calibrated
+# on the synthetic KITTI scans at 20000 points: ~2,850 of SECOND's 211,200
+# anchors, ~2,800 of PointPillars' 321,408, where SECOND's value lets ~78,000
+# pass; infer prints the count)
+CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25}
+# CenterPoint's hm_out: a gain on its seeded kernel and a bias in place of
+# the -2.19 init. The seeded heatmap logits lie within 0.5 of each other, so
+# at the init's bias either all of a scan's 500 decoded boxes pass
+# SCORE_THRESH or none; with these ~100 do (on the same scans; infer prints
+# the count)
+CENTERPOINT_HM_GAIN, CENTERPOINT_HM_BIAS = 20.0, -6.5
 
 
 @torch.no_grad()
@@ -144,7 +159,9 @@ def randomize_eval_state(model, seed):
     """Seeded non-trivial BN running stats and, for TSM, statistics buffers
     (a real deployment loads them from a checkpoint), and cls output biases
     lifted from the -log(99) prior so that boxes reach NMS: TSM's cls heads
-    at 1.0, SECOND's conv_cls at SECOND_CLS_BIAS."""
+    at 1.0, an anchor head's conv_cls at CLS_BIAS of its detector,
+    CenterPoint's hm_out kernel times CENTERPOINT_HM_GAIN and its bias at
+    CENTERPOINT_HM_BIAS."""
     from .models.backbones_3d.pointnet2_modules import BatchNorm
 
     g = torch.Generator().manual_seed(int(seed))
@@ -158,7 +175,10 @@ def randomize_eval_state(model, seed):
         if tail in ("cls0_out", "cls1_out", "cls2_out"):
             m.bias.fill_(1.0)
         elif tail == "conv_cls":
-            m.bias.fill_(SECOND_CLS_BIAS)
+            m.bias.fill_(CLS_BIAS[type(model).__name__])
+        elif tail == "hm_out":
+            m.weight.mul_(CENTERPOINT_HM_GAIN)
+            m.bias.fill_(CENTERPOINT_HM_BIAS)
     seed_statistics(model, g)
 
 
@@ -221,14 +241,17 @@ def detect(model, points, mask):
 
 
 def voxel_anchor_counts(model, out):
-    """Per scan, the voxels a voxel-based detector kept and the anchors
-    (predictions) whose best class score reaches a scalar SCORE_THRESH; None
-    where the model or the config has neither."""
+    """Per scan, the voxels (or pillars) a voxel-based detector kept and the
+    predictions that reach NMS: the anchors whose best class score reaches a
+    scalar SCORE_THRESH, or CenterPoint's decoded boxes scoring above it;
+    None where the model or the config has neither."""
     post = model.model_cfg["POST_PROCESSING"]
     voxels = out["voxel_mask"].sum(1).tolist() if "voxel_mask" in out else None
     thresh = post.get("SCORE_THRESH", 0.1)
     over = None
-    if not isinstance(thresh, (list, tuple)):
+    if "final_scores" in out:
+        over = (out["final_scores"] > float(thresh)).sum(1).tolist()
+    elif not isinstance(thresh, (list, tuple)):
         scores = torch.sigmoid(out["batch_cls_preds"]).amax(-1)
         over = (scores >= float(thresh)).sum(1).tolist()
     return voxels, over
@@ -246,17 +269,18 @@ def self_device_us(evt):
 def profile_batch(model, points, mask, top=20):
     """Trace one batch on the card; print the device busy share and the
     kernels with the most device time. Then trace the batch's
-    post-processing (NMS) alone, to show its share of the batch."""
-    profile_call(lambda: detect(model, points, mask), top)
+    post-processing (NMS) alone, to show its share of the batch. Returns
+    both traces' `profile_call` results."""
+    whole = profile_call(lambda: detect(model, points, mask), top)
     out, _ = detect(model, points, mask)
     print("post-processing alone:")
-    profile_call(lambda: model.post_processing(out), top=5)
+    return whole, profile_call(lambda: model.post_processing(out), top=5)
 
 
 def profile_call(fn, top=20):
     """Trace one call of `fn` on the card; print the device busy share of
     its wall time and the kernels with the most device time. Returns
-    (wall ms, device busy ms)."""
+    (wall ms, device busy ms, the names of the kernels that ran)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -284,7 +308,7 @@ def profile_call(fn, top=20):
     events.sort(key=self_device_us, reverse=True)
     for e in events[:top]:
         print(f"  {self_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
-    return wall_us / 1e3, busy_us / 1e3
+    return wall_us / 1e3, busy_us / 1e3, [e.key for e in events]
 
 
 def main(argv=None):
@@ -321,7 +345,7 @@ def main(argv=None):
     if args.profile:
         if dev.type != "cuda":
             raise RuntimeError("--profile measures the card: run with --device cuda")
-        profile_batch(model, pts, mask)
+        return profile_batch(model, pts, mask)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,12 @@ JAX models/__init__.py:14-29):
     updates the head's class statistics;
   * NAME SECONDNet: MeanVFE, VoxelBackBone8x, HeightCompression,
     BaseBEVBackbone, AnchorHeadSingle; `.train()` turns on its training
-    forward (target assignment and the head's losses).
+    forward (target assignment and the head's losses);
+  * NAME PointPillar: PillarVFE, PointPillarScatter, BaseBEVBackbone,
+    AnchorHeadSingle; training as SECONDNet's;
+  * NAME CenterPoint: MeanVFE, VoxelResBackBone8x, HeightCompression,
+    BaseBEVBackbone, CenterHead; `.train()` turns on the head's heatmap
+    targets and losses.
 Any other configuration raises. Matmuls and convolutions run in full
 float32: TF32 is switched off here. cuDNN times its algorithms for each
 convolution shape at first use (`cudnn.benchmark`): left to its heuristics,
@@ -28,15 +33,16 @@ from torch import nn
 
 from ..utils.common_utils import resolve_device
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
-from .backbones_2d.map_to_bev import HeightCompression
+from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from .backbones_3d.pointnet2_modules import BatchNorm
-from .backbones_3d.spconv_backbone import VoxelBackBone8x, _ConvBase
-from .backbones_3d.vfe import MeanVFE
+from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x, _ConvBase
+from .backbones_3d.vfe import MeanVFE, PillarVFE
 from .backbones_3d.voxel_pointnet2_backbone import (
     VoxelPointNet2FSMSG,
     VoxelPointNet2FSMSGDistillation,
 )
 from .dense_heads.anchor_head import AnchorHeadSingle
+from .dense_heads.center_head import HM_INIT_BIAS, CenterHead
 from .dense_heads.point_head_vote import (
     PointHeadVoteSASAStatistic,
     PointHeadVoteSASAStatisticDistillation,
@@ -54,6 +60,11 @@ _PORTED = {
     "SECONDNet": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
                   "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                   "DENSE_HEAD": ("AnchorHeadSingle",)},
+    "PointPillar": {"VFE": ("PillarVFE",), "MAP_TO_BEV": ("PointPillarScatter",),
+                    "BACKBONE_2D": ("BaseBEVBackbone",), "DENSE_HEAD": ("AnchorHeadSingle",)},
+    "CenterPoint": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelResBackBone8x",),
+                    "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
+                    "DENSE_HEAD": ("CenterHead",)},
 }
 # (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
 _TSM_PAIRS = {
@@ -70,7 +81,8 @@ def init_weights(model, seed=0):
     """Seeded random weights from a torch.Generator: Dense and 2D conv
     kernels lecun normal, sparse-conv kernels N(0, 2 / (K * Cin)), the
     teacher's dynamic regression weight N(0, 2 / 64), biases 0 except the
-    confidence / cls output biases at -log(99), BN at the identity."""
+    confidence / cls output biases at -log(99) and CenterPoint's heatmap
+    output bias at HM_INIT_BIAS, BN at the identity."""
     g = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
@@ -88,8 +100,9 @@ def init_weights(model, seed=0):
             fan_in = cin * m.weight.shape[2] * m.weight.shape[3]
             m.weight.data.copy_(torch.randn(m.weight.shape, generator=g) / np.sqrt(fan_in))
             if m.bias is not None:
-                prior = name.rsplit(".", 1)[-1] == "conv_cls"
-                m.bias.data.fill_(_NEG_LOG99 if prior else 0.0)
+                tail = name.rsplit(".", 1)[-1]
+                m.bias.data.fill_(_NEG_LOG99 if tail == "conv_cls"
+                                  else HM_INIT_BIAS if tail == "hm_out" else 0.0)
         elif isinstance(m, _ConvBase):
             K, cin, _ = m.weight.shape
             w = torch.randn(m.weight.shape, generator=g) * np.sqrt(2.0 / (K * cin))
@@ -149,7 +162,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
             raise NotImplementedError(
                 f"{section} {model_cfg[section]['NAME']} is not ported")
     dataset = meta_from_dataset(dataset)
-    build = _second_modules if name == "SECONDNet" else _tsm_modules
+    build = {"SECONDNet": _second_modules, "PointPillar": _pointpillar_modules,
+             "CenterPoint": _centerpoint_modules}.get(name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
                                     build(model_cfg, num_class, dataset))
     init_weights(model, seed)
@@ -183,4 +197,36 @@ def _second_modules(model_cfg, num_class, meta):
     head = AnchorHeadSingle(dict(model_cfg["DENSE_HEAD"]), b2d.get_output_feature_dim(),
                             num_class, tuple(meta.class_names), meta.grid_size,
                             meta.point_cloud_range)
+    return [vfe, b3d, to_bev, b2d, head]
+
+
+def _pointpillar_modules(model_cfg, num_class, meta):
+    """The PointPillars topology in the JAX package's module order: VFE,
+    MAP_TO_BEV, BACKBONE_2D, DENSE_HEAD (flax module_list_0..3)."""
+    vfe = PillarVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
+                    meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
+    map_cfg = dict(model_cfg["MAP_TO_BEV"])
+    to_bev = PointPillarScatter(map_cfg, meta.grid_size)
+    b2d = BaseBEVBackbone(dict(model_cfg["BACKBONE_2D"]),
+                          map_cfg.get("NUM_BEV_FEATURES", vfe.get_output_feature_dim()))
+    head = AnchorHeadSingle(dict(model_cfg["DENSE_HEAD"]), b2d.get_output_feature_dim(),
+                            num_class, tuple(meta.class_names), meta.grid_size,
+                            meta.point_cloud_range)
+    return [vfe, to_bev, b2d, head]
+
+
+def _centerpoint_modules(model_cfg, num_class, meta):
+    """The CenterPoint topology in the JAX package's module order: VFE,
+    BACKBONE_3D, MAP_TO_BEV, BACKBONE_2D, DENSE_HEAD (flax
+    module_list_0..4)."""
+    vfe = MeanVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
+                  meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
+    b3d = VoxelResBackBone8x(dict(model_cfg["BACKBONE_3D"]), vfe.get_output_feature_dim(),
+                             meta)
+    map_cfg = dict(model_cfg["MAP_TO_BEV"])
+    to_bev = HeightCompression(map_cfg)
+    b2d = BaseBEVBackbone(dict(model_cfg["BACKBONE_2D"]), map_cfg["NUM_BEV_FEATURES"])
+    head = CenterHead(dict(model_cfg["DENSE_HEAD"]), b2d.get_output_feature_dim(), num_class,
+                      tuple(meta.class_names), meta.grid_size, meta.point_cloud_range,
+                      meta.voxel_size)
     return [vfe, b3d, to_bev, b2d, head]

@@ -1,5 +1,6 @@
-"""Sparse conv layers and SECOND's sparse stem (counterpart of
-tsm_det_pointcloud_tpu/models/backbones_3d/spconv_backbone.py:27-249).
+"""Sparse conv layers, SECOND's sparse stem and its residual variant
+(counterpart of
+tsm_det_pointcloud_tpu/models/backbones_3d/spconv_backbone.py:27-309).
 
 A conv's `weight` keeps the JAX layout (K, Cin, Cout), taps ordered like
 ops.spconv.kernel_offsets(). BN is eps 1e-3, momentum 0.99; in train mode
@@ -177,6 +178,77 @@ class VoxelBackBone8x(nn.Module):
         x4 = self._subm_pair(self.conv4_a, self.conv4_b,
                              self._down(self.conv4_down, x3, caps[2]))
         out = self._down(self.conv_out, x4, caps[3])
+        batch_dict["encoded_spconv_tensor"] = sp.sparse_to_dense(
+            out.features, out.coords, out.valid, out.grid)
+        batch_dict["encoded_spconv_tensor_stride"] = 8
+        batch_dict["multi_scale_3d_features"] = {
+            "x_conv1": x1, "x_conv2": x2, "x_conv3": x3, "x_conv4": x4}
+        batch_dict["multi_scale_3d_strides"] = {
+            "x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
+        return batch_dict
+
+
+class SparseBasicBlock(nn.Module):
+    """Residual pair of submanifold convs on one position set: `conv1`
+    (BN, ReLU), `conv2` (BN, no ReLU), then relu(out + identity) masked to
+    the valid rows. Both convs take the `rulebook` they are handed."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.conv1 = SubMConv(channels, channels)
+        self.conv2 = SubMConv(channels, channels, use_relu=False)
+
+    def forward(self, st: SparseTensor, rulebook=None) -> SparseTensor:
+        out = self.conv2(self.conv1(st, rulebook=rulebook), rulebook=rulebook)
+        feats = torch.relu(out.features + st.features)
+        return st._replace(features=torch.where(st.valid[..., None], feats,
+                                                torch.zeros_like(feats)))
+
+
+class VoxelResBackBone8x(nn.Module):
+    """CenterPoint's residual sparse stem: conv_input + two SparseBasicBlocks
+    a level (16, 32, 64, 128 channels; strided convs between the levels) +
+    conv_out (128 over (3, 1, 1)), 21 sparse convs. Each level's position
+    set has one materialised subm rulebook, which all of that level's convs
+    share (five at level 1, four at levels 2-4; the JAX package builds one a
+    conv, and a position set has one rulebook), and each strided conv one
+    materialised plan: 8 probes a forward (K3 on the card), every conv an
+    index gather-GEMM (K7). batch_dict in and out as `VoxelBackBone8x`."""
+
+    def __init__(self, model_cfg, input_channels, meta):
+        super().__init__()
+        self.grid0 = sparse_shape_from_meta(meta)
+        self.capacities = model_cfg.get("VOXEL_CAPACITIES", None)
+        self.conv_input = SubMConv(input_channels, 16)
+        self.res1_a, self.res1_b = SparseBasicBlock(16), SparseBasicBlock(16)
+        self.conv2_down = SparseConv(16, 32)
+        self.res2_a, self.res2_b = SparseBasicBlock(32), SparseBasicBlock(32)
+        self.conv3_down = SparseConv(32, 64)
+        self.res3_a, self.res3_b = SparseBasicBlock(64), SparseBasicBlock(64)
+        self.conv4_down = SparseConv(64, 128, padding=(0, 1, 1))
+        self.res4_a, self.res4_b = SparseBasicBlock(128), SparseBasicBlock(128)
+        self.conv_out = SparseConv(128, 128, kernel_size=(3, 1, 1), stride=(2, 1, 1),
+                                   padding=0)
+
+    @staticmethod
+    def _blocks(st, *convs):
+        """Submanifold convs and blocks in turn on one materialised rulebook."""
+        rb = sp.build_subm_rulebook(st.coords, st.valid, st.grid, lazy=False)
+        for conv in convs:
+            st = conv(st, rulebook=rb)
+        return st
+
+    def forward(self, batch_dict):
+        st = SparseTensor(batch_dict["voxel_features"], batch_dict["voxel_coords"],
+                          batch_dict["voxel_mask"], self.grid0, 1)
+        V = st.features.shape[1]
+        caps = self.capacities or [V] * 4
+        down = VoxelBackBone8x._down
+        x1 = self._blocks(st, self.conv_input, self.res1_a, self.res1_b)
+        x2 = self._blocks(down(self.conv2_down, x1, caps[0]), self.res2_a, self.res2_b)
+        x3 = self._blocks(down(self.conv3_down, x2, caps[1]), self.res3_a, self.res3_b)
+        x4 = self._blocks(down(self.conv4_down, x3, caps[2]), self.res4_a, self.res4_b)
+        out = down(self.conv_out, x4, caps[3])
         batch_dict["encoded_spconv_tensor"] = sp.sparse_to_dense(
             out.features, out.coords, out.valid, out.grid)
         batch_dict["encoded_spconv_tensor_stride"] = 8

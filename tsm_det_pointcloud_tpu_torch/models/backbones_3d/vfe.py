@@ -1,11 +1,13 @@
-"""Voxel feature encoder (counterpart of
-tsm_det_pointcloud_tpu/models/backbones_3d/vfe.py:23-56): `MeanVFE`
-voxelises the (B, N, C) points on the device and averages each voxel's
-points.
+"""Voxel feature encoders (counterpart of
+tsm_det_pointcloud_tpu/models/backbones_3d/vfe.py:23-150): each voxelises
+the (B, N, C) points on the device. `MeanVFE` averages each voxel's
+points; `PillarVFE` (PointPillars) runs a Linear + BN + ReLU over each
+pillar's decorated points and max-pools them.
 
 batch_dict in: points (B, N, C), points_mask (B, N) bool; out:
-voxel_features (B, V, C), voxel_coords (B, V, 3) int32 zyx sorted by key
-(-1 pad), voxel_num_points (B, V), voxel_mask (B, V) bool.
+voxel_features (B, V, C'), voxel_coords (B, V, 3) int32 zyx sorted by key
+(-1 pad), voxel_mask (B, V) bool; MeanVFE also voxel_num_points (B, V),
+PillarVFE also pillar_features (B, V, C').
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from ...ops.voxel import compute_voxel_coords, grid_size, voxelize
+from .pointnet2_modules import BatchNorm
 
 
 class MeanVFE(nn.Module):
@@ -44,4 +47,71 @@ class MeanVFE(nn.Module):
         batch_dict["voxel_coords"] = out["coordinates"]
         batch_dict["voxel_num_points"] = out["num_points"]
         batch_dict["voxel_mask"] = out["num_points"] > 0
+        return batch_dict
+
+
+class PillarVFE(nn.Module):
+    """PointPillars' feature net, as pointpillar.yaml configures it: one PFN
+    layer (NUM_FILTERS of one entry) with BN, absolute xyz, no distance; any
+    other USE_NORM, USE_ABSLOTE_XYZ, WITH_DISTANCE or a second layer raises
+    (no config takes them). Each pillar keeps its first
+    `max_points_per_voxel` points in scan order (`voxelize`); a point's
+    features are followed by the xyz offsets from its pillar's mean (divided
+    by max(n, 1)) and from its pillar's centre, z included, and the padded
+    slots are zeroed. Then a bias-free Linear `pfn_0`, a BN `pfn_bn_0` (eps
+    1e-3, momentum 0.99) and a ReLU, and a max over the pillar's points with
+    -1e9 at padded slots; an empty pillar gives 0. The BN has no mask, as in
+    the JAX package: its training statistics count all B x V x P rows, padded
+    slots and empty pillars included (their Linear outputs are 0). Module
+    names follow the flax ones, so `convert.from_flax_variables` maps a JAX
+    state onto it."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size,
+                 point_cloud_range, max_voxels, max_points_per_voxel):
+        super().__init__()
+        cfg = model_cfg
+        filters = [int(n) for n in cfg["NUM_FILTERS"]]
+        if (len(filters) != 1 or not cfg.get("USE_NORM", True)
+                or not cfg.get("USE_ABSLOTE_XYZ", True) or cfg.get("WITH_DISTANCE", False)):
+            raise NotImplementedError(
+                "PillarVFE: only one PFN layer with BN, absolute xyz and no distance is ported")
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.max_voxels = int(max_voxels)
+        self.max_points_per_voxel = int(max_points_per_voxel)
+        self.pfn_0 = nn.Linear(int(num_point_features) + 6, filters[0], bias=False)
+        self.pfn_bn_0 = BatchNorm(filters[0], eps=1e-3)
+
+    def get_output_feature_dim(self):
+        return self.pfn_0.out_features
+
+    def forward(self, batch_dict):
+        points, mask = batch_dict["points"], batch_dict["points_mask"]
+        coords, in_range = compute_voxel_coords(points[..., :3], self.point_cloud_range,
+                                                self.voxel_size)
+        out = voxelize(points, coords, mask & in_range, self.max_voxels,
+                       self.max_points_per_voxel,
+                       grid_size(self.point_cloud_range, self.voxel_size))
+        voxels, coords, npts = out["voxels"], out["coordinates"], out["num_points"]
+        P = voxels.shape[2]
+        pt_valid = (torch.arange(P, device=voxels.device)[None, None, :]
+                    < npts[..., None])[..., None]                     # (B, V, P, 1)
+        xyz = voxels[..., :3]
+        cnt = torch.clamp(npts, min=1)[..., None, None].to(xyz.dtype)
+        f_cluster = xyz - xyz.sum(2, keepdim=True) / cnt
+        vx, vy, vz = self.voxel_size
+        x0, y0, z0 = self.point_cloud_range[:3]
+        c = coords.to(xyz.dtype)
+        center = torch.stack([(c[..., 2] + 0.5) * vx + x0, (c[..., 1] + 0.5) * vy + y0,
+                              (c[..., 0] + 0.5) * vz + z0], -1)[:, :, None, :]
+        x = torch.cat([voxels, f_cluster, xyz - center], -1) * pt_valid.to(xyz.dtype)
+        x = torch.relu(self.pfn_bn_0(self.pfn_0(x)))
+        pooled = torch.where(pt_valid, x, torch.full((), -1e9, dtype=x.dtype,
+                                                     device=x.device)).amax(2)
+        vmask = npts > 0
+        pooled = torch.where(vmask[..., None], pooled, torch.zeros_like(pooled))
+        batch_dict["pillar_features"] = pooled
+        batch_dict["voxel_features"] = pooled
+        batch_dict["voxel_coords"] = coords
+        batch_dict["voxel_mask"] = vmask
         return batch_dict

@@ -1,12 +1,16 @@
 """Detector registry: the ported detectors by config NAME."""
 from __future__ import annotations
 
+from .centerpoint import CenterPoint
 from .detector3d_template import DatasetMeta, Detector3DTemplate
 from .point_3dssd import Point3DSSD
+from .pointpillar import PointPillar
 from .second_net import SECONDNet
 
 __all__ = {
     "3DSSD": Point3DSSD,
     "Point3DSSD": Point3DSSD,
     "SECONDNet": SECONDNet,
+    "PointPillar": PointPillar,
+    "CenterPoint": CenterPoint,
 }

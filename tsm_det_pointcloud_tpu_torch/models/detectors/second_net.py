@@ -1,5 +1,5 @@
 """SECOND detector (counterpart of
-tsm_det_pointcloud_tpu/models/detectors/second_net.py and pointpillar.py)."""
+tsm_det_pointcloud_tpu/models/detectors/second_net.py)."""
 from __future__ import annotations
 
 from .detector3d_template import Detector3DTemplate

@@ -1,7 +1,9 @@
-"""Losses of the TSM distillation step and of SECOND's anchor head
-(counterpart of tsm_det_pointcloud_tpu/ops/loss_utils.py). Every function returns
-per-element losses, unreduced, so callers normalise as the reference does;
-the functions take any leading batch axes."""
+"""Losses of the TSM distillation step, of the anchor heads (SECOND,
+PointPillars) and of CenterPoint's head (counterpart of
+tsm_det_pointcloud_tpu/ops/loss_utils.py). Every function but the batch
+losses `sasa_layer_loss` and `centernet_focal` returns per-element losses,
+unreduced, so callers normalise as the reference does; the functions take
+any leading batch axes."""
 from __future__ import annotations
 
 import torch
@@ -139,3 +141,21 @@ def sasa_layer_loss(scores, labels, num_class=3):
     loss = sigmoid_focal_loss(scores, one_hot, cls_weights)
     return (comm.scale_to_global(loss.sum())
             / torch.clamp(comm.global_sum(cls_weights.sum()), min=1.0))
+
+
+def centernet_focal(pred, gt):
+    """CornerNet / CenterNet gaussian focal loss of heatmap scores `pred` in
+    (0, 1) against the gaussian targets `gt`, summed over the whole batch
+    and normalised by the positives, the elements where gt == 1 exactly;
+    with no positive, -sum of the negative terms. In a multi-process run
+    the sums and the positives are the global batch's (a rank's partial sum
+    scaled, `comm.scale_to_global`; the count through `comm.global_sum`)."""
+    pos = (gt == 1).to(pred.dtype)
+    neg = (gt < 1).to(pred.dtype)
+    pred = torch.clamp(pred, 1e-4, 1 - 1e-4)
+    pos_loss = (torch.log(pred) * torch.pow(1 - pred, 2) * pos).sum()
+    neg_loss = (torch.log(1 - pred) * torch.pow(pred, 2) * torch.pow(1 - gt, 4) * neg).sum()
+    num_pos = comm.global_sum(pos.sum())
+    return torch.where(num_pos == 0, -comm.scale_to_global(neg_loss),
+                       -comm.scale_to_global(pos_loss + neg_loss)
+                       / torch.clamp(num_pos, min=1.0))

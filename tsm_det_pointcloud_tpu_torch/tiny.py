@@ -25,6 +25,26 @@ grid, one class. `data/second_tiny_state.npz` holds its converted
 PRNGKey(0) eval init; with it the eval forward on `second_points(2)` must
 reproduce `tests/goldens/second_forward.npz`. `second_gt` gives its
 training batches their gt boxes.
+
+The tiny PointPillars is a copy of the JAX package's test model
+(`tiny_model_cfg`, `META` and `synthetic_batch` of
+tests/test_pointpillar_e2e.py): 0.5 m pillars of at most 8 points on the
+SECOND tiny range, 256 pillars for 512 points (the scans overflow it), one
+class. `data/pointpillar_tiny_state.npz` holds its converted PRNGKey(0) eval
+init; with it the eval forward on `second_points(2)` (the same batch) must
+reproduce `tests/goldens/pointpillar_forward.npz`.
+
+The tiny CenterPoint (`centerpoint_model_cfg`, `CENTERPOINT_META`) runs
+VoxelResBackBone8x on a 64 x 64 x 40 grid of the same range and a
+CenterHead of two class groups (Car; Pedestrian and Cyclist), so that the
+group-local labels go through the label table, with circle NMS.
+`data/centerpoint_tiny_state.npz` holds its converted PRNGKey(0) eval init
+and `data/centerpoint_tiny_forward.npz` the JAX package's eval outputs and
+post-processed predictions on `second_points(2)` with
+`centerpoint_eval_state()`: that init with every value redrawn from a numpy
+seed, so that the heatmap scores spread (at the init they all lie within
+1e-3 of sigmoid(-2.19), and their order would turn on rounding).
+`centerpoint_gt` gives its training batches their gt boxes.
 """
 from __future__ import annotations
 
@@ -43,6 +63,9 @@ SECOND_STATE_PATH = STATE_PATH.parent / "second_tiny_state.npz"
 TEACHER_STATE_PATH = STATE_PATH.parent / "tsm_teacher_tiny_state.npz"
 TEACHER_FORWARD_PATH = STATE_PATH.parent / "tsm_teacher_tiny_forward.npz"
 TEACHER_TRAIN_GOLDEN_PATH = STATE_PATH.parent / "tsm_teacher_tiny_train_golden.npz"
+POINTPILLAR_STATE_PATH = STATE_PATH.parent / "pointpillar_tiny_state.npz"
+CENTERPOINT_STATE_PATH = STATE_PATH.parent / "centerpoint_tiny_state.npz"
+CENTERPOINT_FORWARD_PATH = STATE_PATH.parent / "centerpoint_tiny_forward.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -340,6 +363,154 @@ def second_gt(batch_size, which="anchored"):
         if b < batch_size:
             mask[b, slot] = False
     return gt, mask
+
+
+POINTPILLAR_META = DatasetMeta(
+    class_names=("Car",),
+    point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+    voxel_size=(0.5, 0.5, 4.0), grid_size=(32, 32, 1), max_voxels=256,
+    max_points_per_voxel=8, num_point_features=4, max_points=512,
+)
+
+
+def pointpillar_model_cfg():
+    return EDict({
+        "NAME": "PointPillar",
+        "VFE": {"NAME": "PillarVFE", "WITH_DISTANCE": False, "USE_ABSLOTE_XYZ": True,
+                "USE_NORM": True, "NUM_FILTERS": [16]},
+        "MAP_TO_BEV": {"NAME": "PointPillarScatter", "NUM_BEV_FEATURES": 16},
+        "BACKBONE_2D": {
+            "NAME": "BaseBEVBackbone",
+            "LAYER_NUMS": [1, 1], "LAYER_STRIDES": [2, 2],
+            "NUM_FILTERS": [16, 32], "UPSAMPLE_STRIDES": [1, 2],
+            "NUM_UPSAMPLE_FILTERS": [16, 16],
+        },
+        "DENSE_HEAD": {
+            "NAME": "AnchorHeadSingle", "CLASS_AGNOSTIC": False,
+            "USE_DIRECTION_CLASSIFIER": True, "DIR_OFFSET": 0.78539,
+            "DIR_LIMIT_OFFSET": 0.0, "NUM_DIR_BINS": 2,
+            "ANCHOR_GENERATOR_CONFIG": [{
+                "class_name": "Car", "anchor_sizes": [[3.9, 1.6, 1.56]],
+                "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-1.78],
+                "align_center": False, "feature_map_stride": 2,
+                "matched_threshold": 0.6, "unmatched_threshold": 0.45,
+            }],
+            "TARGET_ASSIGNER_CONFIG": {"MATCH_HEIGHT": False},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {
+                "cls_weight": 1.0, "loc_weight": 2.0, "dir_weight": 0.2,
+                "code_weights": [1.0] * 7}},
+        },
+        "POST_PROCESSING": {
+            "RECALL_THRESH_LIST": [0.3, 0.5, 0.7],
+            "SCORE_THRESH": 0.1, "EVAL_METRIC": "kitti",
+            "NMS_CONFIG": {"MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu",
+                           "NMS_THRESH": 0.01, "NMS_PRE_MAXSIZE": 128,
+                           "NMS_POST_MAXSIZE": 16},
+        },
+    })
+
+
+def pointpillar_gt(batch_size):
+    """gt_boxes (B, 5, 8) and gt_boxes_mask (B, 5) of the reference batch:
+    two cars a scan."""
+    gt = np.zeros((batch_size, 5, 8), np.float32)
+    gt[:, 0] = [8, 0, -1, 3.9, 1.6, 1.56, 0.3, 1]
+    gt[:, 1] = [4, 3, -1, 3.9, 1.6, 1.56, -0.5, 1]
+    mask = np.zeros((batch_size, 5), bool)
+    mask[:, :2] = True
+    return gt, mask
+
+
+CENTERPOINT_META = DatasetMeta(
+    class_names=("Car", "Pedestrian", "Cyclist"),
+    point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+    voxel_size=(0.25, 0.25, 0.1), grid_size=(64, 64, 40), max_voxels=512,
+    max_points_per_voxel=5, num_point_features=4, max_points=512,
+)
+
+
+def centerpoint_model_cfg():
+    heads = {"center": {"out_channels": 2, "num_conv": 2},
+             "center_z": {"out_channels": 1, "num_conv": 2},
+             "dim": {"out_channels": 3, "num_conv": 2},
+             "rot": {"out_channels": 2, "num_conv": 2}}
+    return EDict({
+        "NAME": "CenterPoint",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelResBackBone8x"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": {
+            "NAME": "BaseBEVBackbone",
+            "LAYER_NUMS": [1, 1], "LAYER_STRIDES": [1, 2],
+            "NUM_FILTERS": [32, 64], "UPSAMPLE_STRIDES": [1, 2],
+            "NUM_UPSAMPLE_FILTERS": [32, 32],
+        },
+        "DENSE_HEAD": {
+            "NAME": "CenterHead",
+            "CLASS_NAMES_EACH_HEAD": [["Car"], ["Pedestrian", "Cyclist"]],
+            "SHARED_CONV_CHANNEL": 32, "NUM_HM_CONV": 2,
+            "SEPARATE_HEAD_CFG": {"HEAD_ORDER": ["center", "center_z", "dim", "rot"],
+                                  "HEAD_DICT": heads},
+            "TARGET_ASSIGNER_CONFIG": {"FEATURE_MAP_STRIDE": 8, "NUM_MAX_OBJS": 100,
+                                       "GAUSSIAN_OVERLAP": 0.1, "MIN_RADIUS": 2},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"cls_weight": 1.0, "loc_weight": 2.0,
+                                             "code_weights": [1.0] * 8}},
+            "POST_PROCESSING": {"MAX_OBJ_PER_SAMPLE": 32},
+        },
+        "POST_PROCESSING": {
+            "RECALL_THRESH_LIST": [0.3, 0.5, 0.7],
+            "SCORE_THRESH": 0.1, "EVAL_METRIC": "kitti",
+            "NMS_CONFIG": {"NMS_TYPE": "circle_nms", "MIN_RADIUS": 2.5,
+                           "NMS_POST_MAXSIZE": 16},
+        },
+    })
+
+
+def centerpoint_gt(batch_size):
+    """gt_boxes (B, 6, 8) and gt_boxes_mask (B, 6) of the tiny CenterPoint's
+    training batches, per scan: two cars, a pedestrian and a cyclist on the
+    map, a car whose centre lies off the map (x 17) and a masked slot."""
+    gt = np.zeros((batch_size, 6, 8), np.float32)
+    gt[:, 0] = [8, 0, -1, 3.9, 1.6, 1.56, 0.3, 1]
+    gt[:, 1] = [4, 3, -1, 0.8, 0.6, 1.7, -0.5, 2]
+    gt[:, 2] = [12.3, -4.6, -1, 1.76, 0.6, 1.73, 2.0, 3]
+    gt[:, 3] = [3.1, -5.2, -1.2, 4.2, 1.7, 1.5, -1.2, 1]
+    gt[:, 4] = [17, 2, -1, 3.9, 1.6, 1.56, 0.0, 1]
+    gt[:, 5] = [6, -5, -1, 3.9, 1.6, 1.56, 1.0, 1]
+    mask = np.zeros((batch_size, 6), bool)
+    mask[:, :5] = True
+    return gt, mask
+
+
+# the tiny CenterPoint's eval state: its hm_out bias and a gain on its hm_out
+# kernels, so that the heatmap scores spread and some of the decoded ones
+# fall below SCORE_THRESH 0.1
+CENTERPOINT_EVAL_HM_BIAS, CENTERPOINT_EVAL_HM_GAIN = -2.0, 4.0
+
+
+def centerpoint_eval_state(seed=3):
+    """The tiny CenterPoint's state for its eval checks: every entry of the
+    committed init redrawn from numpy's RandomState(seed), in key order:
+    conv kernels N(0, 1 / fan-in), BN scales and running variances
+    U(0.5, 1.5), the other vectors N(0, 0.2^2); the hm_out kernels times
+    CENTERPOINT_EVAL_HM_GAIN and their biases at CENTERPOINT_EVAL_HM_BIAS."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, t in sorted(load_state(CENTERPOINT_STATE_PATH).items()):
+        a = t.numpy()
+        if a.ndim >= 2:
+            fan_in = int(np.prod(a.shape[1:])) if a.ndim == 4 else int(np.prod(a.shape[:-1]))
+            v = rng.randn(*a.shape) / np.sqrt(fan_in)
+        elif key.endswith(("running_var", ".weight")):
+            v = rng.uniform(0.5, 1.5, a.shape)
+        else:
+            v = rng.randn(*a.shape) * 0.2
+        if key.endswith("hm_out.weight"):
+            v = v * CENTERPOINT_EVAL_HM_GAIN
+        elif key.endswith("hm_out.bias"):
+            v = np.full(a.shape, CENTERPOINT_EVAL_HM_BIAS)
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
 
 
 def load_state(path=STATE_PATH):
