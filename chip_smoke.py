@@ -344,9 +344,44 @@ Phases (any failure exits non-zero before the result line):
      and those the collate drops past MAX_POINTS, the voxels or pillars a
      scan, scans/s, train scans/s and peak memory;
  39. zoo profiles, after every timed path and profile: `infer --profile`
-     of pointpillar.yaml at b16 and of centerpoint.yaml at b4 (x 20000):
+     of pointpillar.yaml at b16 and of centerpoint.yaml at b4 (x 20000), in
+     a fresh process (with phase 44's):
      the device's busy share, the top kernels, the post-processing's device
      time alone; no cuDNN FFT kernel (`fft` / `cgemm` in its name) may run.
+ 40. two-stage reference: the tiny Part-A2 and PV-RCNN
+     (tiny.two_stage_state) reproduce tsm_det_pointcloud_tpu_torch/data/
+     {parta2,pvrcnn}_tiny_forward.npz on the card (golden tolerance; labels,
+     counts and the RoIs' labels exact);
+ 41. PartA2.yaml at full width on synthetic scans (seeded weights and eval
+     state): one recorded eval batch at b4 x 20000 (UNetV2's 21 by-key
+     convs, K4, 40000 voxels a level), each call held against its plain
+     version at phase 14's tolerances and timed; 3 counted batches (outputs
+     finite, rois (4, 100, 7), count <= 500, 21 K4 launches a forward;
+     prints scans/s, peak memory, the proposals kept and the RoI boxes over
+     SCORE_THRESH a scan, and the RoI-aware pool's time a batch); one
+     recorded training step at b4 (16000 voxels a level; every parameter a
+     gradient, every sparse-conv weight a nonzero one; each K4 and K5 call
+     held, K5 bit-equal between two launches; the proposals and sampled
+     RoIs a scan), then 2 counted steps: losses and the RCNN terms finite,
+     every parameter changed but those with a zero gradient and value
+     (`still_params`);
+ 42. pvrcnn.yaml at full width, as phase 41: eval b4 x 20000 (one d-fps of
+     2048 keypoints over 20000 points on K6, six K2 calls: the VSA's raw
+     points and x_conv1..4 and the RoI grid's 21,600 queries a scan, 8 K3
+     and 12 K7 calls a forward, each held) and training b2 (the RoI grid's
+     110,592 queries a scan);
+ 43. two-stage data path, on phase 22's root: for PartA2.yaml and
+     pvrcnn.yaml, the val gt echoed through the config's dataset scores
+     100.0 on all 72 APs; `evaluate` at b4, `train --data_root` for 1 epoch
+     (b4 / b2) on phase 29's SECOND_DATA_FRAMES val and train frames, each
+     first forward or step recorded and held as in phase 29, `evaluate
+     --ckpt` on the trained checkpoint and `demo --ckpt` on phase 30's raw
+     scans, its first forward recorded;
+ 44. two-stage profiles, after every timed path: `infer --profile` of both
+     at b4 x 20000, in phase 39's fresh process (busy share, top kernels, post-processing alone; no FFT
+     kernel), and the device time alone of the proposal layer's NMS on one
+     eval batch's anchor boxes at the test mode's NMS_PRE_MAXSIZE (1024) and
+     at the training mode's (9000).
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -382,7 +417,11 @@ K7), `point_axis` that of phase 34 (rank 0's recorded forward,
 `centerpoint_train` those of phase 37 (per recorded forward and step,
 `launches` from the counted batches and steps; null but for K3 and K7) and
 `centerpoint_data` and `centerpoint_data_train` those of phase 38's
-centerpoint evaluate and train (null but for K3 and K7). K6 is on no KITTI path of
+centerpoint evaluate and train (null but for K3 and K7), `parta2` and
+`parta2_train` those of phase 41 (null but for K4, and K5 in training),
+`pvrcnn` and `pvrcnn_train` those of phase 42 (null for K1, K4, K5), and
+`parta2_data`, `parta2_data_train`, `pvrcnn_data` and `pvrcnn_data_train`
+those of phase 43's evaluate and train. K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -459,6 +498,18 @@ PAX_TRAIN_BATCH, PAX_TRAIN_INTERVAL = 2, 8
 # (4 subm rulebooks + 4 plans, 17 subm + 4 strided convs)
 ZOO_POINTS, PILLAR_BATCH, ZOO_TRAIN_BATCH, ZOO_ITERS, ZOO_TRAIN_ITERS = 20000, 16, 4, 3, 2
 CENTERPOINT_CALLS = {"probe": 8, "spconv_gather": 21}
+# phases 40-44: points a scan (the configs' MAX_POINTS), counted eval batches
+# and training steps; by config: its file, eval batch, training batch
+# (BATCH_SIZE_PER_GPU) and the hand-written kernels a forward calls: Part-A2's
+# UNetV2 makes 21 by-key convs (K4; K5 in their backward); PV-RCNN one d-fps
+# of 2048 keypoints over 20000 points (K6), five VSA queries and the RoI
+# grid's (K2), and VoxelBackBone8x's 8 probes and 12 convs (K3, K7)
+TWO_STAGE_POINTS, TWO_STAGE_ITERS, TWO_STAGE_TRAIN_ITERS = 20000, 3, 2
+TWO_STAGE = {
+    "parta2": ("PartA2.yaml", 4, 4, {"spconv_bykey": 21}),
+    "pvrcnn": ("pvrcnn.yaml", 4, 2, {"fps_block": 1, "query_group": 6, "probe": 8,
+                                     "spconv_gather": 12}),
+}
 
 
 class Deferred(NamedTuple):
@@ -3037,24 +3088,381 @@ def zoo_data_phases(dev, root):
     return reports
 
 
-def zoo_profiles(dev):
+def infer_profiles(jobs):
+    """`infer --profile` of each (config file name, batch, points) of `jobs`
+    in turn, in one fresh process, its output echoed; returns {config file
+    name: `infer.main`'s two `profile_call` results}. That process starts
+    with cuDNN's autotuner and the allocator empty: in this one, after the
+    other phases, the autotuner once ended on an FFT conv for
+    pointpillar.yaml, which fresh processes never picked."""
+    argvs = [["--cfg_file", str(ROOT / f"tools/cfgs/kitti_models/{name}"), "--batch",
+              str(batch), "--points", str(points), "--iters", "1", "--profile"]
+             for name, batch, points in jobs]
+    code = ("import json; from tsm_det_pointcloud_tpu_torch import infer\n"
+            f"for argv in {argvs!r}:\n"
+            "    print('PROFILE ' + json.dumps(infer.main(argv)), flush=True)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    check(proc.returncode == 0, f"infer --profile failed: {proc.stderr[-3000:]}")
+    results, lines = [], []
+    for line in proc.stdout.splitlines():
+        if line.startswith("PROFILE "):
+            results.append(json.loads(line[len("PROFILE "):]))
+        else:
+            lines.append(line)
+    print("\n".join(lines))
+    check(len(results) == len(jobs), f"infer --profile gave {len(results)} of {len(jobs)}")
+    print(f"infer --profile of {len(jobs)} configs in one process: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {name: r for (name, _, _), r in zip(jobs, results)}
+
+
+# the profiles of phases 39 and 44: config file, batch, points a scan
+PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
+            ("centerpoint.yaml", ZOO_TRAIN_BATCH, ZOO_POINTS),
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()))
+
+
+def zoo_profiles(profiles):
     """Phase 39, after every timed path (a profiler window slows the later
     launches of its process): `infer --profile` of pointpillar.yaml at b16
-    and of centerpoint.yaml at b4, 20000 points a scan; no cuDNN FFT
-    (`fft` / `cgemm`) kernel may run."""
-    from tsm_det_pointcloud_tpu_torch import infer
-
-    for name, batch in (("pointpillar", PILLAR_BATCH), ("centerpoint", ZOO_TRAIN_BATCH)):
-        print(f"{name}: infer --profile (b{batch} x {ZOO_POINTS})")
-        (wall, busy, names), (pwall, pbusy, _) = infer.main(
-            ["--cfg_file", str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml"), "--batch",
-             str(batch), "--points", str(ZOO_POINTS), "--iters", "1", "--profile",
-             "--device", str(dev)])
+    and of centerpoint.yaml at b4, 20000 points a scan (`profiles`, from
+    `infer_profiles`); no cuDNN FFT (`fft` / `cgemm`) kernel may run."""
+    for name in ("pointpillar", "centerpoint"):
+        (wall, busy, names), (pwall, pbusy, _) = profiles[f"{name}.yaml"]
         fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
         check(not fft, f"{name}: cuDNN ran FFT convolutions: {fft}")
         print(f"{name} profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
               f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
               f"{len(names)} kernels, none an FFT (`fft` / `cgemm`)")
+
+
+# ---------------------------------------------------------------------------
+# phases 40-44: Part-A2 (PartA2.yaml) and PV-RCNN (pvrcnn.yaml)
+# ---------------------------------------------------------------------------
+
+def hold_golden(label, out, pred, path):
+    """The outputs and predictions of a tiny model's eval forward against a
+    JAX golden: integer arrays (labels, counts) exact, the rest at the golden
+    tolerance (atol 1e-3 * max(1, max|want|), rtol 1e-3)."""
+    with np.load(path) as golden:
+        for key in golden.files:
+            want = golden[key]
+            got = (out[key] if key in out else pred[key]).cpu().numpy()
+            if want.dtype.kind in "iu":
+                check(np.array_equal(got, want),
+                      f"{label} {key} differs from the golden: {got} against {want}")
+                continue
+            scale = max(1.0, float(np.abs(want).max()))
+            diff = float(np.abs(got - want).max())
+            check(got.shape == want.shape
+                  and np.allclose(got, want, atol=1e-3 * scale, rtol=1e-3),
+                  f"{label} {key} differs from the golden: max abs diff {diff}")
+            print(f"{label} {key} {got.shape} max abs diff vs golden {diff:.3g}")
+
+
+def two_stage_golden_phase(dev):
+    """Phase 40: the tiny Part-A2 and PV-RCNN (tiny.two_stage_state) reproduce
+    their JAX goldens on the card (labels, counts and kept RoI labels exact)."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import detect
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    pts = torch.from_numpy(tiny.second_points(2, 256)).to(dev)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    for which, path in (("parta2", tiny.PARTA2_FORWARD_PATH),
+                        ("pvrcnn", tiny.PVRCNN_FORWARD_PATH)):
+        cfg, meta = tiny.two_stage_model(which)
+        model = build_network(cfg, 1, meta, device=dev)
+        model.load_state_dict(tiny.two_stage_state(which), strict=True)
+        out, pred = detect(model, pts, mask)
+        hold_golden(f"two-stage reference: tiny {which}", out, pred, path)
+        del model, out, pred
+
+
+def pool_all(out, grid_size):
+    """Part-A2's RoI-aware pooling of a batch, as its RoI head runs it."""
+    from tsm_det_pointcloud_tpu_torch.models.roi_heads.partA2_head import (roiaware_cells,
+                                                                           roiaware_pool)
+
+    seg = out["point_features"] * out["point_cls_scores"][..., None]
+    for p, f, part, v, r in zip(out["point_coords"], seg, out["point_part_offset"],
+                                out["point_valid"], out["rois"]):
+        cells = roiaware_cells(p, v, r, grid_size)
+        roiaware_pool(p, part, v, r, grid_size, "avg", cells)
+        roiaware_pool(p, f, v, r, grid_size, "max", cells)
+
+
+def two_stage_phases(dev, which):
+    """Phase 41 (which "parta2") or 42 ("pvrcnn"): the config's eval and
+    training step at full width on synthetic scans, every hand-written
+    kernel call of one recorded eval batch and of one recorded training
+    step held against its plain version. Returns the per-kernel reports and
+    the launch counts of both."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, rois_over,
+                                                    synth_scans, voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    cfg_name, batch, tbatch, calls = TWO_STAGE[which]
+    names = tuple(calls)
+    cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=TWO_STAGE_POINTS)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE)
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, batch, TWO_STAGE_POINTS, seed=s)).to(dev)
+               for s in range(TWO_STAGE_ITERS)]
+    mask = torch.ones((batch, TWO_STAGE_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(names)
+    out, _ = detect(model, batches[0], mask)
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in calls.items():
+        check(len(rec.calls[name]) == n, f"the {which} capture forward made "
+              f"{len(rec.calls[name])} {name} calls, not {n}")
+    voxels, over = voxel_anchor_counts(model, out)
+    print(f"{which} capture: voxel capacity {meta.max_voxels}; voxels a scan {voxels}; anchors "
+          f"over SCORE_THRESH {post.SCORE_THRESH} a scan {over}; (proposals kept, RoI boxes "
+          f"over SCORE_THRESH) a scan {rois_over(model, out)}")
+    del out
+    report_eval = compare_recorded(rec.calls, which)
+    del rec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(model, pts, mask) for pts in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_eval = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds", "rois"):
+            check(bool(torch.isfinite(out[key]).all()), f"{which}: non-finite {key}")
+        check(tuple(out["rois"].shape) == (batch, n_rois, 7),
+              f"{which} rois shape {tuple(out['rois'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"{which}: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()), f"{which}: count > NMS_POST_MAXSIZE")
+    for name, n in calls.items():
+        check(launches_eval[name] == n * TWO_STAGE_ITERS, f"kernel {name} launched "
+              f"{launches_eval[name]} times on the {which} path, not {n} a forward")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    extra = ""
+    if which == "parta2":
+        g = int(cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE)
+        pool_ms = cuda_time_ms(lambda: pool_all(preds[-1][0], g), 3)
+        extra = f"; RoI-aware pool (both pools, {g}^3 cells a RoI) {pool_ms:.3f} ms a batch"
+    print(f"{which} eval: {TWO_STAGE_ITERS} batches x {batch} scans x {TWO_STAGE_POINTS} "
+          f"points in {dt:.3f} s = {TWO_STAGE_ITERS * batch / dt:.3f} scans/s; (proposals "
+          f"kept, RoI boxes over SCORE_THRESH) a scan {rois_over(model, preds[-1][0])}; "
+          f"detections a scan (last batch) {counts}; launches {launches_eval}; peak memory "
+          f"{peak:.2f} GiB{extra}")
+    del model, preds, batches, out, pred
+    torch.cuda.empty_cache()
+
+    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=TWO_STAGE_POINTS,
+                                  total_steps=TWO_STAGE_TRAIN_ITERS + 1)
+    meta = model.dataset_meta
+    tbatches = [synth_train_batch(tbatch, TWO_STAGE_POINTS, s, dev, meta.point_cloud_range,
+                                  meta.num_point_features)
+                for s in range(TWO_STAGE_TRAIN_ITERS + 1)]
+    rec = record_kernels(names + (("spconv_bykey_bwd",) if which == "parta2" else ()))
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    out = model(dict(tbatches[0]))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in calls.items():
+        check(len(rec.calls[name]) == n, f"the {which} training step made "
+              f"{len(rec.calls[name])} {name} calls, not {n}")
+    if which == "parta2":
+        check(len(rec.calls["spconv_bykey_bwd"]) > 0, "the parta2 training step made no K5 call")
+    for n, p in model.named_parameters():
+        check(p.grad is not None, f"{which} parameter {n} got no gradient")
+        if p.dim() == 3:
+            check(bool(p.grad.abs().sum() > 0), f"sparse-conv weight {n} got a zero gradient")
+    opt.step()
+    tb = out["tb_dict"]
+    check(bool(torch.isfinite(out["loss"])) and {"rcnn_cls_loss", "rcnn_reg_loss",
+                                                 "rcnn_corner_loss", "point_loss"} <= set(tb),
+          f"{which} warm-up step: loss {float(out['loss'].detach())}, terms {sorted(tb)}")
+    targets = out["roi_targets"]
+    print(f"{which} training capture: voxel capacity {meta.max_voxels}; proposals kept a scan "
+          f"{out['roi_valid'].sum(1).tolist()}, sampled RoIs a scan "
+          f"{targets['sampled'].sum(1).tolist()}, of them foreground "
+          f"{(targets['sampled'] & targets['fg']).sum(1).tolist()}; loss "
+          f"{float(out['loss'].detach()):.4f}, "
+          + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in tb.items())
+          + f"; K5 calls {len(rec.calls.get('spconv_bykey_bwd', []))}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del out, targets, tb
+    report_train = compare_recorded(rec.calls, f"{which} train")
+    del rec
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = [train_step(model, opt, b) for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_train = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, tb) in enumerate(steps):
+        check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v)) for v in tb.values())
+              and "rcnn_cls_loss" in tb, f"{which} training step {i}: loss {float(loss)}, {tb}")
+    still = still_params(model, before, which)
+    for name, n in calls.items():
+        check(launches_train[name] == n * TWO_STAGE_TRAIN_ITERS, f"kernel {name} launched "
+              f"{launches_train[name]} times on the {which} training path, not {n} a step")
+    print(f"{which} training: {TWO_STAGE_TRAIN_ITERS} steps x {tbatch} scans x "
+          f"{TWO_STAGE_POINTS} points in {dt:.3f} s = "
+          f"{TWO_STAGE_TRAIN_ITERS * tbatch / dt:.3f} train scans/s "
+          f"({1e3 * dt / TWO_STAGE_TRAIN_ITERS:.1f} ms/step); losses "
+          + str([(round(float(loss), 4), round(float(tb["rcnn_cls_loss"]), 4))
+                 for loss, tb in steps])
+          + f" (loss, rcnn_cls_loss); {len(before) - len(still)} of {len(before)} parameters "
+          f"changed (unchanged, with a zero gradient and value: {still}); launches "
+          f"{launches_train}; peak memory {peak:.2f} GiB")
+    del model, opt, tbatches, before, steps
+    torch.cuda.empty_cache()
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def two_stage_data_phases(dev, root):
+    """Phase 43: PartA2.yaml and pvrcnn.yaml on the KITTI root of phase 22:
+    echoed gt through each config's dataset, `evaluate` and `train
+    --data_root` for 1 epoch on phase 29's SECOND_DATA_FRAMES val and train
+    frames (the first forward or step recorded and held), `evaluate --ckpt`
+    on the trained checkpoint and `demo --ckpt` on phase 30's raw scans.
+    Returns the per-kernel reports and launch counts of each evaluate and
+    train."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import demo, evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    n = SECOND_DATA_FRAMES
+    sets = ["--set", "DATA_CONFIG.INFO_PATH.train", f"['kitti_infos_train_{n}.pkl']",
+            "DATA_CONFIG.INFO_PATH.test", f"['kitti_infos_val_{n}.pkl']"]
+    data = ["--data_root", str(root), "--workers", str(KITTI_WORKERS), "--device", str(dev)]
+    reports = {}
+    for which, (cfg_name, batch, tbatch, calls) in TWO_STAGE.items():
+        names = tuple(calls)
+        tnames = names + (("spconv_bykey_bwd",) if which == "parta2" else ())
+        cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
+        cfg = load_cfg(cfg_file, sets[1:])
+        classes = list(cfg.CLASS_NAMES)
+        full = KittiDataset(load_cfg(cfg_file).DATA_CONFIG, classes, training=False,
+                            root_path=root)
+        _, echo = full.evaluation(echo_gt_annos(full.kitti_infos), classes)
+        check(len(echo) == 72 and all(abs(v - 100.0) < 1e-6 for v in echo.values()),
+              f"{which}: echoed gt does not score 100: {echo}")
+        out = root.parent / which
+        res, launches_eval, peak, rec, first_out = run_recorded(
+            f"{which} data eval", evaluate,
+            ["--cfg_file", str(cfg_file), "--batch_size", str(batch), "--output_dir",
+             str(out)] + data + sets, detectors[cfg.MODEL.NAME], "forward", names)
+        voxels = first_out["voxel_mask"].sum(1).tolist()
+        proposals = first_out["roi_valid"].sum(1).tolist()
+        del first_out
+        check_kitti_aps(res, classes, f"{which} evaluate")
+        for kname, k in calls.items():
+            check(len(rec.calls[kname]) == k and launches_eval[kname] == k * (n // batch),
+                  f"{which} data eval: {len(rec.calls[kname])} {kname} calls a forward, "
+                  f"{launches_eval[kname]} in all")
+        print(f"{which} data eval (evaluate, seeded weights): echoed val gt through its dataset "
+              f"scores 100.0 on all {len(echo)} APs; {n} scans at b{batch}: voxels a scan of "
+              f"the first batch {voxels}, proposals kept {proposals}; {eval_line(res)}; "
+              f"launches {launches_eval}; peak memory {peak:.2f} GiB")
+        reports[f"{which}_data"] = (compare_recorded(rec.calls, f"{which} data eval"),
+                                    launches_eval)
+        (ckpt_dir, epochs), launches_train, _, rec, _ = run_recorded(
+            f"{which} data train", train,
+            ["--cfg_file", str(cfg_file), "--epochs", "1", "--batch", str(tbatch),
+             "--output_dir", str(out)] + data + sets, train_loop, "train_step", tnames)
+        print(f"{which} data train (train --data_root): {epochs_line(epochs)}; launches "
+              f"{launches_train}")
+        reports[f"{which}_data_train"] = (compare_recorded(rec.calls, f"{which} data train"),
+                                          launches_train)
+        ckpt = ckpt_dir / "checkpoint_epoch_1.pth"
+        res = evaluate.main(["--cfg_file", str(cfg_file), "--ckpt", str(ckpt), "--batch_size",
+                             str(batch), "--output_dir", str(out / "ckpt_eval")] + data + sets)
+        aps = check_kitti_aps(res, classes, f"{which} evaluate --ckpt")
+        print(f"{which} data eval (evaluate --ckpt {ckpt.name}): {eval_line(res)}; "
+              f"Car_3d/moderate_R40 {aps['Car_3d/moderate_R40']:.4f}")
+        (preds, rate), launches, peak, _, _ = run_recorded(
+            f"{which} demo", demo, ["--cfg_file", str(cfg_file), "--data_path",
+                                    str(root.parent / "demo" / "scans"), "--ckpt", str(ckpt),
+                                    "--device", str(dev)],
+            detectors[cfg.MODEL.NAME], "forward", names)
+        post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+        check(len(preds) == DEMO_SCANS, f"{which} demo: {len(preds)} scans")
+        for p in preds:
+            check(len(p["pred_labels"]) <= post_max and np.isfinite(p["pred_boxes"]).all()
+                  and np.isfinite(p["pred_scores"]).all(), f"{which} demo: bad detections")
+        print(f"{which} demo --ckpt {ckpt.name}: {DEMO_SCANS} raw scans over 360 degrees: "
+              f"detections a scan {[len(p['pred_labels']) for p in preds]}; {rate:.3f} scans/s "
+              f"(a scan a batch, loading included); launches {launches}; peak memory "
+              f"{peak:.2f} GiB")
+        torch.cuda.empty_cache()
+    return reports
+
+
+def two_stage_profiles(dev, profiles):
+    """Phase 44, after every timed path: `infer --profile` of PartA2.yaml and
+    pvrcnn.yaml at b4 x 20000 (`profiles`, from `infer_profiles`), then the
+    device time alone of the proposal layer's NMS on one eval batch's anchor boxes,
+    at the test mode's NMS_PRE_MAXSIZE and at the training mode's (9000
+    boxes a scan)."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import infer
+    from tsm_det_pointcloud_tpu_torch.models.roi_heads import roi_head_template as tmpl
+
+    for which, (cfg_name, batch, _, _) in TWO_STAGE.items():
+        cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
+        (wall, busy, names), (pwall, pbusy, _) = profiles[cfg_name]
+        fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
+        check(not fft, f"{which}: cuDNN ran FFT convolutions: {fft}")
+        cfg, model = infer.build_detector(cfg_file, dev, seed=0, n_points=TWO_STAGE_POINTS)
+        seen = {}
+        head = model.module_list[-1]
+        hook = head.register_forward_pre_hook(lambda m, a: seen.update(
+            cls=a[0]["batch_cls_preds"].detach(), box=a[0]["batch_box_preds"].detach()))
+        pts = torch.from_numpy(infer.synth_scans(model.dataset_meta, batch, TWO_STAGE_POINTS,
+                                                 seed=0)).to(dev)
+        infer.detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+        hook.remove()
+        nms = {}
+        for mode in ("TEST", "TRAIN"):
+            ncfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG[mode]
+            nms[mode] = device_ms(lambda: tmpl.proposal_layer(seen["cls"], seen["box"], ncfg),
+                                  2)
+        print(f"{which} profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
+              f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
+              f"{len(names)} kernels, none an FFT; proposal layer's NMS alone, device time a "
+              f"batch: {nms['TEST']:.3f} ms at NMS_PRE_MAXSIZE "
+              f"{cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE} (test), "
+              f"{nms['TRAIN']:.3f} ms at {cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE} "
+              f"(training)")
+        del model, seen
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -3372,24 +3780,41 @@ def main():
     del wtr_model, wopt, wtbatches, before, losses
     torch.cuda.empty_cache()
 
+    def mark(phases):
+        print(f"chip_smoke: phases {phases} done at {time.perf_counter() - t_start:.1f} s")
+
+    mark("1-12")
     report_second, launches_second = second_phases(dev)
     report_strain, launches_strain = second_train_phases(dev)
     report_teval, launches_teval, report_ttrain, launches_ttrain = teacher_phases(dev)
+    mark("13-21")
     (report_kdata, launches_kdata, report_kdtrain, launches_kdtrain, profile_kdata,
      kitti_root) = kitti_data_phases(dev)
     (report_wdata, launches_wdata, notes_wdata, report_wdtrain, launches_wdtrain,
      notes_wdtrain, profile_wdata, waymo_root) = waymo_data_phases(dev)
+    mark("22-27")
     report_tdata, launches_tdata, report_tdtrain, launches_tdtrain = recipe_phases(
         dev, kitti_root)
     report_sdata, launches_sdata, report_sdtrain, launches_sdtrain = second_data_phases(
         dev, kitti_root)
     report_demo, launches_demo = demo_phases(dev, kitti_root)
+    mark("28-30")
     report_dist, launches_dist, report_pax, launches_pax = multi_process_phases(
         dev, kitti_root, waymo_root)
+    mark("31-34")
     zoo_golden_phase(dev)
     pointpillar_phases(dev)
     report_cp, launches_cp, report_cptrain, launches_cptrain = centerpoint_phases(dev)
     zoo_data = zoo_data_phases(dev, kitti_root)
+    mark("35-38")
+    two_stage_golden_phase(dev)
+    two_stage = {}
+    for which in TWO_STAGE:
+        rep_e, lau_e, rep_t, lau_t = two_stage_phases(dev, which)
+        two_stage[which] = (rep_e, lau_e)
+        two_stage[f"{which}_train"] = (rep_t, lau_t)
+    two_stage.update(two_stage_data_phases(dev, kitti_root))
+    mark("40-43")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -3399,10 +3824,14 @@ def main():
                        "teacher data train": report_tdtrain, "second data eval": report_sdata,
                        "second data train": report_sdtrain, "demo": report_demo,
                        "centerpoint": report_cp, "centerpoint train": report_cptrain,
-                       **{k: rep for k, (rep, _) in zoo_data.items()}})
+                       **{k: rep for k, (rep, _) in zoo_data.items()},
+                       **{k: rep for k, (rep, _) in two_stage.items()}})
     profile_kdata()
     profile_wdata()
-    zoo_profiles(dev)
+    profiles = infer_profiles(PROFILES)
+    zoo_profiles(profiles)
+    two_stage_profiles(dev, profiles)
+    mark("the device times and profiles (39, 44)")
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()
@@ -3454,7 +3883,8 @@ def main():
                                   ("point_axis", report_pax, launches_pax),
                                   ("centerpoint", report_cp, launches_cp),
                                   ("centerpoint_train", report_cptrain, launches_cptrain),
-                                  *((k, rep, lau) for k, (rep, lau) in zoo_data.items()))}
+                                  *((k, rep, lau) for k, (rep, lau) in zoo_data.items()),
+                                  *((k, rep, lau) for k, (rep, lau) in two_stage.items()))}
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:

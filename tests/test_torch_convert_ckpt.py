@@ -5,8 +5,8 @@ is exact: both sides run the same numpy on the same arrays.
   * the layout rules (`convert_weight`, `convert_state_dict`) on the cases of
     tests/test_ckpt_converter.py (a `slow` file: not in tier-1) and on a
     3-tap sparse kernel, which both reject alike;
-  * the graft on the tiny student, teacher, SECOND, PointPillars and
-    CenterPoint: a synthetic
+  * the graft on the tiny student, teacher, SECOND, PointPillars,
+    CenterPoint, Part-A2 and PV-RCNN: a synthetic
     OpenPCDet-layout state dict (`reference_state_dict`, numpy-seeded
     values on each JAX tiny training init's structure, BN
     `num_batches_tracked` entries that no rule maps) through the JAX
@@ -124,6 +124,8 @@ MODELS = {
     "second": lambda: _voxel(tiny.second_model_cfg(), tiny.SECOND_META),
     "pointpillar": lambda: _voxel(tiny.pointpillar_model_cfg(), tiny.POINTPILLAR_META),
     "centerpoint": lambda: _voxel(tiny.centerpoint_model_cfg(), tiny.CENTERPOINT_META),
+    "parta2": lambda: _voxel(*tiny.two_stage_model("parta2")),
+    "pvrcnn": lambda: _voxel(*tiny.two_stage_model("pvrcnn")),
 }
 
 
@@ -164,7 +166,7 @@ def _jax_side(init, ref):
 def _without_three_tap_kernels(name, ref):
     """SECOND's and CenterPoint's state dicts without conv_out's kernel,
     which neither side converts (test_three_tap_spconv_kernel_raises_like_jax)."""
-    if name not in ("second", "centerpoint"):
+    if name not in ("second", "centerpoint", "parta2", "pvrcnn"):
         return ref
     with pytest.raises(ValueError):
         jtool.convert_state_dict(ref)
@@ -203,29 +205,48 @@ EXPECTED = {
     "pointpillar": dict(unmatched=[], misplaced=[], unplaced=ANCHOR_HEAD_UNPLACED),
     "centerpoint": dict(unmatched=[], misplaced=[], unplaced=[
         "backbone_2d/deblock0/kernel", "backbone_2d/deblock1/kernel"]),
+    # the two-stage tiny models: the anchor head's 1x1 convs as SECOND's; the
+    # RoI head's cls_fc / cls_out tie in leaf name and shape with the point
+    # head's (Part-A2: a (16, 16) fc, its BN and a (16, 1) output; PV-RCNN:
+    # cls_out) and go to the point head's, the first in flax order; PV-RCNN's
+    # 1x1 deblock0 goes to another (32, 32) 2D leaf
+    "parta2": dict(unmatched=[], unplaced=["backbone_2d/deblock0/kernel"]
+                   + ANCHOR_HEAD_UNPLACED[2:],
+                   misplaced=[f"roi_head.cls_fc.bn0.{k}" for k in (
+                       "running_mean", "running_var", "bias", "weight")]
+                   + ["roi_head.cls_out.bias", "roi_head.cls_out.weight"]),
+    "pvrcnn": dict(unmatched=[], unplaced=ANCHOR_HEAD_UNPLACED[2:],
+                   misplaced=["backbone_2d.deblock0.weight", "roi_head.cls_out.bias",
+                              "roi_head.cls_out.weight"]),
 }
 
 
 def test_round_trip_placements(case):
     """Every converted tensor that a leaf takes lands on the leaf it came
     from, and keeps its value there; what does not is listed in EXPECTED
-    (ROADMAP §C: faults of the JAX tool, which the port keeps)."""
+    (ROADMAP §C: faults of the JAX tool, which the port keeps): a leaf no
+    tensor lands on keeps the template's value, and a leaf a misplaced tensor
+    lands on is not held."""
     name, _, init, ref, source, src = case
     ref = _without_three_tap_kernels(name, ref)
     template = from_flax_variables(init)
     got, report = port.convert_checkpoint(ref, template)
-    misplaced, lost = [], set()
+    misplaced, lost, taken = [], set(), set()
     for ref_name, key in source.items():
         coll, path = port.map_name(ref_name)
         if ref_name not in ref or coll is None or path in report["unplaced"]:
             lost.add(key)
         elif report["placements"][coll][path] != key:
             misplaced.append(ref_name)
+            lost.add(key)
+            taken.add(report["placements"][coll][path])
     unmatched = [n for n in report["unmatched"] if not n.endswith(".num_batches_tracked")]
     assert unmatched == EXPECTED[name]["unmatched"]
     assert report["unplaced"] == EXPECTED[name]["unplaced"]
     assert misplaced == EXPECTED[name]["misplaced"]
     for key, t in got.items():
+        if key in taken:      # a misplaced tensor went here too (ROADMAP §C)
+            continue
         assert torch.equal(t, template[key] if key in lost else src[key]), key
 
 
@@ -292,6 +313,87 @@ def test_openpcdet_zoo_names_place_like_jax(name):
             "module_list.3.block0_conv0.weight")
         assert misplaced["dense_head.shared_conv.1.running_mean"] == (
             "module_list.1.conv2_down.bn.running_mean")
+
+
+# OpenPCDet's names of the two-stage modules where the port's (the flax
+# ones) differ: the VSA's SA layers and fusion, the point heads' cls / part
+# layers, the RoI heads' grid-pool MLPs and FC stacks (a Conv1d, BN, ReLU,
+# Dropout each; the output conv after them), UNetV2's decoder convs
+def _seq(prefix, first, step, offset=0):
+    return lambda m: f"{prefix}.{int(m.group(first)) * step + offset}."
+
+
+def _two_stage_openpcdet_names(cfg):
+    conv_src = [s for s in cfg.get("PFE", {}).get("FEATURES_SOURCE", []) if s.startswith("x_")]
+    n = {k: len(cfg.ROI_HEAD.get(f"{k.upper()}_FC", [])) for k in ("cls", "reg")}
+    n_point = {k: len(cfg.POINT_HEAD.get(f"{k.upper()}_FC", [])) for k in ("cls", "part")}
+    rules = [
+        (r"^pfe\.sa_(x_conv\d)\.mlp(\d)\.(fc|bn)(\d)\.",
+         lambda m: f"pfe.SA_layers.{conv_src.index(m.group(1))}.mlps.{m.group(2)}."
+                   f"{3 * int(m.group(4)) + (m.group(3) == 'bn')}."),
+        (r"^pfe\.sa_rawpoints\.mlp(\d)\.(fc|bn)(\d)\.",
+         lambda m: f"pfe.SA_rawpoints.mlps.{m.group(1)}."
+                   f"{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^pfe\.vsa_point_feature_fusion\.", lambda m: "pfe.vsa_point_feature_fusion.0."),
+        (r"^pfe\.fusion_bn\.", lambda m: "pfe.vsa_point_feature_fusion.1."),
+        (r"^point_head\.(cls|part)_fc\.(fc|bn)(\d)\.",
+         lambda m: f"point_head.{'cls_layers' if m.group(1) == 'cls' else 'part_reg_layers'}."
+                   f"{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^point_head\.(cls|part)_out\.",
+         lambda m: f"point_head.{'cls_layers' if m.group(1) == 'cls' else 'part_reg_layers'}."
+                   f"{3 * n_point[m.group(1)]}."),
+        (r"^roi_head\.pool_mlp(\d)\.(fc|bn)(\d)\.",
+         lambda m: f"roi_head.roi_grid_pool_layer.mlps.{m.group(1)}."
+                   f"{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^roi_head\.(shared|cls|reg)_(fc|bn)(\d)\.",
+         lambda m: f"roi_head.{m.group(1)}{'_fc_layer' if m.group(1) == 'shared' else '_layers'}."
+                   f"{4 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^roi_head\.(cls|reg)_fc\.(fc|bn)(\d)\.",
+         lambda m: f"roi_head.{m.group(1)}_layers."
+                   f"{4 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^roi_head\.(cls|reg)_out\.", lambda m: f"roi_head.{m.group(1)}_layers."
+                                               f"{4 * n[m.group(1)]}."),
+        (r"^backbone_3d\.up(\d)to\d_(lateral|inv|fuse)\.(bn\.)?",
+         lambda m: f"backbone_3d."
+                   f"{dict(lateral='conv_up_t', inv='inv_conv', fuse='conv_up_m')[m.group(2)]}"
+                   f"{m.group(1)}.{1 if m.group(3) else 0}."),
+    ]
+
+    def rename(name):
+        for pat, rep in rules:
+            if re.match(pat, name):
+                return re.sub(pat, rep, name)
+        return name
+
+    return rename
+
+
+@pytest.mark.parametrize("name", ["parta2", "pvrcnn"])
+def test_openpcdet_two_stage_names_place_like_jax(name):
+    """A reference checkpoint of the tiny two-stage detector under OpenPCDet's
+    module names (`_two_stage_openpcdet_names`): both converters place it
+    alike, bit for bit, with the same unmatched and unplaced lists; what the
+    JAX rules make of it is in ROADMAP §C (no rule maps a BN named `<i>` to
+    a scale, and a tensor whose path shares nothing with its leaf's but the
+    leaf name goes to the first leaf of its shape in flax order)."""
+    cfg, shapes = MODELS[name]()
+    rng = np.random.RandomState(sorted(MODELS).index(name))
+    init = _fill(shapes, rng)
+    src = from_flax_variables(_fill(shapes, rng))
+    ref, source = port.reference_state_dict(src, cfg)
+    rename = _two_stage_openpcdet_names(cfg)
+    ref = _without_three_tap_kernels(name, ref)
+    renamed = [k for k in ref if rename(k) != k]
+    ref = {rename(k): v for k, v in ref.items()}
+    source = {rename(k): v for k, v in source.items()}
+    assert len(renamed) > 20
+    want, want_unmatched, want_unplaced = _jax_side(init, ref)
+    got, report = port.convert_checkpoint(ref, from_flax_variables(init))
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert report["unmatched"] == want_unmatched and report["unplaced"] == want_unplaced
+    placed = sum(torch.equal(got[key], src[key]) for n, key in source.items() if n in ref)
+    print(f"{name}: {len(ref)} tensors, {len(renamed)} renamed, "
+          f"{len(report['unplaced'])} unplaced, {placed} on the leaf they came from")
 
 
 @pytest.mark.parametrize("name,unplaced", [

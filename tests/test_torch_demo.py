@@ -17,7 +17,10 @@ out of range, so that the range mask and sample_points' draw both work):
     section on its geometry (torch_kitti_cases.tiny_pointpillar_dataset_cfg:
     0.5 m pillars of 8 points, 512 points a scan), from the committed
     converted JAX init (data/pointpillar_tiny_state.npz) with its conv_cls
-    bias at 0.
+    bias at 0;
+  * the same two on the tiny Part-A2 with PartA2.yaml's data section on its
+    geometry (torch_kitti_cases.tiny_two_stage_dataset_cfg: 256 points a
+    scan), from tiny.two_stage_state("parta2"): its labels are the RoIs'.
 """
 import importlib.util
 
@@ -28,7 +31,7 @@ import torch
 
 from tests.test_torch_kitti_data import assert_same
 from tests.torch_kitti_cases import (CLASSES, tiny_dataset_cfg, tiny_pointpillar_dataset_cfg,
-                                     write_tiny_yaml)
+                                     tiny_two_stage_dataset_cfg, write_tiny_yaml)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu_torch import demo, tiny
 from tsm_det_pointcloud_tpu_torch.convert import to_flax_variables
@@ -176,6 +179,39 @@ def test_pointpillar_entry_point_on_cpu(scans, pp_state, tmp_path, capsys):
                           data=tiny_pointpillar_dataset_cfg(scans), classes=["Car"])
     ckpt = tmp_path / "tiny_pointpillar.pth"
     torch.save({"model_state": pp_state, "optimizer_state": {}, "epoch": 1, "it": 3}, ckpt)
+    preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(scans / "bin"),
+                             "--ckpt", str(ckpt), "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "Total number of samples: \t3" in err and f"Loaded checkpoint {ckpt}" in err
+    assert err.count(" detections") == N_SCANS and "Demo done" in err
+    assert sum(len(p["pred_labels"]) for p in preds) == err.count("  label=") > 0
+    assert rate > 0
+
+
+def test_parta2_detections_equal_jax(scans):
+    cfg = tiny_two_stage_dataset_cfg("parta2", scans)
+    state = tiny.two_stage_state("parta2")
+    jds = jdemo.DemoDataset(cfg, ["Car"], scans / "bin", ext=".bin")
+    pds = demo.DemoDataset(cfg, ["Car"], scans / "bin", ext=".bin")
+    for i in range(N_SCANS):
+        assert_same(pds.collate(pds[i]), jds.collate(jds[i]), f"batch {i}")
+    want = _jax_detections(jds, to_flax_variables(state), tiny.parta2_model_cfg(), 1)
+    model = build_network(tiny.parta2_model_cfg(), 1, pds, device="cpu")
+    model.load_state_dict(state, strict=True)
+    got = demo.run_demo(model, pds, create_logger())
+    assert sum(len(p["pred_labels"]) for p in want) > 0, "no detections to compare"
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g["pred_labels"], w["pred_labels"], err_msg=f"scan {i}")
+        np.testing.assert_allclose(g["pred_scores"], w["pred_scores"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g["pred_boxes"], w["pred_boxes"], rtol=1e-4, atol=1e-4)
+
+
+def test_parta2_entry_point_on_cpu(scans, tmp_path, capsys):
+    cfg = write_tiny_yaml(tmp_path / "tiny_parta2.yaml", scans, model=tiny.parta2_model_cfg(),
+                          data=tiny_two_stage_dataset_cfg("parta2", scans), classes=["Car"])
+    ckpt = tmp_path / "tiny_parta2.pth"
+    torch.save({"model_state": tiny.two_stage_state("parta2"), "optimizer_state": {},
+                "epoch": 1, "it": 3}, ckpt)
     preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(scans / "bin"),
                              "--ckpt", str(ckpt), "--device", "cpu"])
     err = capsys.readouterr().err

@@ -13,9 +13,13 @@ gloo) on the tiny TSM over tests/torch_kitti_cases.py's root of 6 frames.
   rank caches every second train frame from its rank, as the JAX
   `_dist_info` stride, every rank sees all of them once its dataset is
   made, and the ranks' cleaning leaves none;
+* `train --launcher pytorch` for one epoch on the tiny Part-A2 and PV-RCNN
+  (PartA2.yaml's and pvrcnn.yaml's data sections on their geometry, road
+  planes and gt sampling): rank 0 writes the checkpoint, which loads;
 * `--launcher pytorch` without torchrun's environment raises, and so does
-  `--point_axis 2` in one process (the world is not a multiple of 2), and
-  `--launcher` in the synthetic-scan mode.
+  `--point_axis 2` in one process (the world is not a multiple of 2; for a
+  two-stage config, which has no point-sharded layer, whatever the world),
+  and `--launcher` in the synthetic-scan mode.
 """
 import os
 import pickle
@@ -27,8 +31,9 @@ import pytest
 
 from tests.torch_dist_cases import (JOIN_TIMEOUT, free_port, rank_env, run_ranks,
                                     shared_memory_case)
-from tests.torch_kitti_cases import CLASSES, make_root, tiny_dataset_cfg, write_tiny_yaml
-from tsm_det_pointcloud_tpu_torch import evaluate, train
+from tests.torch_kitti_cases import (CLASSES, make_root, tiny_dataset_cfg,
+                                     tiny_two_stage_dataset_cfg, write_tiny_yaml)
+from tsm_det_pointcloud_tpu_torch import evaluate, tiny, train
 from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
 from tsm_det_pointcloud_tpu_torch.infer import ROOT
 
@@ -137,6 +142,41 @@ def test_point_axis_needs_a_multiple_of_ranks(setup):
     with pytest.raises(ValueError, match="not divisible by points=2"):
         evaluate.main(setup["common"] + ["--point_axis", "2", "--output_dir",
                                          str(setup["base"] / "pax")])
+
+
+def _two_stage_yaml(setup, which):
+    model = tiny.two_stage_model(which)[0]
+    return write_tiny_yaml(setup["base"] / f"tiny_{which}.yaml", setup["root"], batch=1,
+                           epochs=1, model=model, classes=["Car"],
+                           data=tiny_two_stage_dataset_cfg(which, setup["root"]))
+
+
+@pytest.mark.parametrize("which", ["parta2", "pvrcnn"])
+def test_two_stage_trains_over_two_ranks(setup, which):
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import load_model_state
+
+    cfg = _two_stage_yaml(setup, which)
+    out_dir = setup["base"] / f"run_{which}"
+    rank0, rank1 = _launch("train", ["--cfg_file", str(cfg), "--data_root", str(setup["root"]),
+                                     "--device", "cpu", "--workers", "0", "--launcher",
+                                     "pytorch", "--output_dir", str(out_dir)])
+    assert "epoch 1/1: mean loss" in rank0 and "epoch 1/1" not in rank1
+    ckpt = out_dir / "ckpt" / "checkpoint_epoch_1.pth"
+    model_cfg, meta = tiny.two_stage_model(which)
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    model = build_network(model_cfg, 1, meta, device="cpu")
+    model.load_state_dict(load_model_state(ckpt), strict=True)
+    assert all(torch.isfinite(t).all() for t in model.state_dict().values())
+
+
+def test_two_stage_refuses_point_axis(setup):
+    with pytest.raises(ValueError, match="PartA2Net has no such layer"):
+        train.main(["--cfg_file", str(_two_stage_yaml(setup, "parta2")), "--data_root",
+                    str(setup["root"]), "--device", "cpu", "--workers", "0",
+                    "--point_axis", "2", "--output_dir", str(setup["base"] / "pax2")])
 
 
 def test_synthetic_mode_stays_single_process():

@@ -1,11 +1,14 @@
-"""Data-parallel training of the tiny PointPillars and the tiny CenterPoint
-in the port: two gloo processes at b2 each (tests/torch_dist_cases.py
+"""Data-parallel training of the tiny PointPillars, the tiny CenterPoint and
+the tiny Part-A2 in the port: two gloo processes at b2 each (tests/torch_dist_cases.py
 `dist_steps_case`: DDP, one `train_step` on their halves of the batch)
 against one port process at b4 (the same function at world size 1), whose
-step tests/test_torch_pointpillar.py and tests/test_torch_centerpoint.py
-hold against the JAX package. The BNs (PillarVFE's over B x V x P rows, the
-BEV backbone's and the center head's), the focal loss's positives and the
-regression loss's mask sum are the global batch's through parallel.comm.
+step tests/test_torch_pointpillar.py, tests/test_torch_centerpoint.py and
+tests/test_torch_parta2.py hold against the JAX package. The BNs
+(PillarVFE's over B x V x P rows, the BEV backbone's, the center head's,
+UNetV2's and the RoI head's over the valid RoIs), the focal losses'
+positives, the regression loss's mask sum and the RCNN losses' sampled and
+foreground counts are the global batch's through parallel.comm (Part-A2's
+batch has a scan with no sampled RoI on each rank).
 
 Tolerances, as test_torch_dist_train.py's: loss and tb terms (the ranks'
 mean) atol 1e-4 * max(1, |want|), rtol 1e-4; gradients (DDP's mean) rtol
@@ -19,10 +22,11 @@ import pytest
 import torch
 
 from tests.torch_dist_cases import (centerpoint_batch, dist_step_case, dist_steps_case,
-                                    pointpillar_batch, run_ranks)
+                                    parta2_batch, pointpillar_batch, run_ranks)
 
 B = 4
-BATCHES = {"pointpillar": pointpillar_batch, "centerpoint": centerpoint_batch}
+BATCHES = {"pointpillar": pointpillar_batch, "centerpoint": centerpoint_batch,
+           "parta2": parta2_batch}
 
 
 @pytest.fixture(scope="module")

@@ -2,15 +2,18 @@
 teacher (fast_cpc_teacher.yaml's data section on its range), the tiny
 SECOND (second.yaml's: the voxel route, no sample_points, on the tiny
 SECOND's geometry), the tiny PointPillars (pointpillar.yaml's: 8 points a
-pillar, gt sampling on road planes) and the tiny CenterPoint
-(centerpoint.yaml's) against the JAX package, over copies of one synthetic
-KITTI root, as tests/test_torch_eval_loop.py holds the tiny student.
+pillar, gt sampling on road planes), the tiny CenterPoint
+(centerpoint.yaml's) and the tiny Part-A2 and PV-RCNN (PartA2.yaml's and
+pvrcnn.yaml's: road planes, two-stage post-processing) against the JAX
+package, over copies of one synthetic KITTI root, as
+tests/test_torch_eval_loop.py holds the tiny student.
 
 Both sides take the committed converted JAX PRNGKey(0) inits
 (data/tsm_teacher_tiny_state.npz with tiny.teacher_overrides();
 data/second_tiny_state.npz; data/pointpillar_tiny_state.npz;
-tiny.centerpoint_eval_state(), drawn over data/centerpoint_tiny_state.npz),
-the flax side through `convert.to_flax_variables`.
+tiny.centerpoint_eval_state(), drawn over data/centerpoint_tiny_state.npz;
+tiny.two_stage_state(...), drawn over the port model's own entries), the
+flax side through `convert.to_flax_variables`.
 So that NMS keeps boxes: the teacher's cls output biases are 1.0 and its
 SCORE_THRESH 0.05 for every class (tests/test_torch_teacher.py's), SECOND's
 and PointPillars' conv_cls bias 0. Tolerances, those
@@ -34,7 +37,8 @@ from tests.test_second_e2e import second_model_cfg as jax_second_cfg
 from tests.test_torch_teacher import _jax_teacher_cfg
 from tests.torch_kitti_cases import (CLASSES, copy_root, make_root,
                                      tiny_centerpoint_dataset_cfg, tiny_dataset_cfg,
-                                     tiny_pointpillar_dataset_cfg, tiny_second_dataset_cfg)
+                                     tiny_pointpillar_dataset_cfg, tiny_second_dataset_cfg,
+                                     tiny_two_stage_dataset_cfg)
 from tsm_det_pointcloud_tpu.datasets import DataLoader as JDataLoader
 from tsm_det_pointcloud_tpu.datasets.kitti.kitti_dataset import (
     KittiDataset as JKittiDataset,
@@ -91,8 +95,15 @@ def _centerpoint():
             tiny.centerpoint_eval_state(), tiny_centerpoint_dataset_cfg, CLASSES)
 
 
+def _two_stage(which):
+    cfg = tiny.two_stage_model(which)[0]
+    return (cfg, cfg, tiny.two_stage_state(which),
+            lambda root: tiny_two_stage_dataset_cfg(which, root), ["Car"])
+
+
 MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
-          "centerpoint": _centerpoint}
+          "centerpoint": _centerpoint, "parta2": lambda: _two_stage("parta2"),
+          "pvrcnn": lambda: _two_stage("pvrcnn")}
 
 
 

@@ -121,7 +121,7 @@ def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     cfg = tiny.tiny_model_cfg()
-    cfg["NAME"] = "PartA2Net"
+    cfg["NAME"] = "PointRCNN"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
     # train mode is ported, and asks for the gt boxes it trains on
@@ -160,7 +160,7 @@ def test_converter_consumes_every_eval_leaf():
 
 def test_second_trains_and_unported_topologies_raise():
     """SECOND builds on the CPU and its training forward returns a finite
-    loss with its tb terms; an unported detector (Part-A2) raises, and so
+    loss with its tb terms; an unported detector (PointRCNN) raises, and so
     does a module that the SECOND topology does not take."""
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
@@ -177,9 +177,9 @@ def test_second_trains_and_unported_topologies_raise():
     assert torch.isfinite(out["loss"])
     assert set(out["tb_dict"]) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}
     cfg = tiny.second_model_cfg()
-    cfg["NAME"] = "PartA2Net"
-    cfg["BACKBONE_3D"] = {"NAME": "UNetV2"}
-    with pytest.raises(NotImplementedError, match="PartA2Net"):
+    cfg["NAME"] = "PointRCNN"
+    cfg["BACKBONE_3D"] = {"NAME": "PointNet2MSG"}
+    with pytest.raises(NotImplementedError, match="PointRCNN"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
     cfg = tiny.second_model_cfg()
     cfg["VFE"] = {"NAME": "PillarVFE"}
@@ -206,6 +206,41 @@ def test_zoo_modules_are_covered():
                  "models.detectors.centerpoint", "ops.loss_utils"):
         assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
         assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_two_stage_modules_are_covered():
+    """Part-A2's and PV-RCNN's modules are among those imported without JAX
+    above and scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("models.roi_heads.roi_head_template", "models.roi_heads.partA2_head",
+                 "models.roi_heads.pvrcnn_head", "models.backbones_3d.spconv_unet",
+                 "models.backbones_3d.pfe.voxel_set_abstraction",
+                 "models.dense_heads.point_intra_part_head",
+                 "models.dense_heads.point_head_simple", "models.detectors.two_stage",
+                 "models.detectors.pv_rcnn"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_two_stage_entry_points_refuse_cuda_without_card(monkeypatch):
+    """`infer` and `train` on PartA2.yaml and pvrcnn.yaml default to the card
+    too, and refuse a host without one; the detectors still unported raise
+    in build_network."""
+    from tsm_det_pointcloud_tpu_torch import infer, tiny, train
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    for name in ("PointRCNN", "VoxelRCNN", "PVRCNNPlusPlus"):
+        cfg = tiny.pvrcnn_model_cfg()
+        cfg["NAME"] = name
+        with pytest.raises(NotImplementedError, match=name):
+            build_network(cfg, 1, tiny.PVRCNN_META, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("PartA2", "pvrcnn"):
+        cfg = str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--steps", "1"])
 
 
 def test_zoo_entry_points_refuse_cuda_without_card(monkeypatch):

@@ -141,6 +141,15 @@ def tiny_centerpoint_dataset_cfg(root):
                                    ["Car:15", "Pedestrian:15", "Cyclist:15"])
 
 
+def tiny_two_stage_dataset_cfg(which, root):
+    """PartA2.yaml's ("parta2") or pvrcnn.yaml's ("pvrcnn") DATA_CONFIG (gt
+    sampling on road planes) on the tiny detector's geometry
+    (tiny.two_stage_model(which)), gt sampling of its one class."""
+    cfg_file = {"parta2": "PartA2.yaml", "pvrcnn": "pvrcnn.yaml"}[which]
+    return _tiny_voxel_dataset_cfg(f"tools/cfgs/kitti_models/{cfg_file}", root,
+                                   tiny.two_stage_model(which)[1], ["Car:15"])
+
+
 def write_tiny_yaml(path, root, batch=2, epochs=1, model=None, data=None, classes=CLASSES):
     """A config file of a tiny model (default the tiny TSM) on a dataset
     config (default `tiny_dataset_cfg(root)`), for the entry points."""

@@ -15,6 +15,10 @@ scans.
         --cfg_file tools/cfgs/kitti_models/pointpillar.yaml --batch 16 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/centerpoint.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/PartA2.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 4 --points 20000
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
@@ -144,8 +148,14 @@ def load_cfg(cfg_file, set_cfgs=None):
 # scan's anchors then score above the config's SCORE_THRESH 0.1 (calibrated
 # on the synthetic KITTI scans at 20000 points: ~2,850 of SECOND's 211,200
 # anchors, ~2,800 of PointPillars' 321,408, where SECOND's value lets ~78,000
-# pass; infer prints the count)
-CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25}
+# pass; infer prints the count). Part-A2's and PV-RCNN's seeded anchor logits
+# lie within ~0.25 of each other, so a scan's count jumps from none to all
+# across a quarter of bias: at these values ~23,800 and ~210 anchors a scan
+# pass (on the same scans). Their proposal layer keeps the best 1024 a scan
+# (NMS_PRE_MAXSIZE of the test mode) whatever their scores, and infer prints
+# the proposals NMS kept a scan and the RoI head's boxes over SCORE_THRESH
+CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
+            "PVRCNN": -2.5}
 # CenterPoint's hm_out: a gain on its seeded kernel and a bias in place of
 # the -2.19 init. The seeded heatmap logits lie within 0.5 of each other, so
 # at the init's bias either all of a scan's 500 decoded boxes pass
@@ -244,7 +254,9 @@ def voxel_anchor_counts(model, out):
     """Per scan, the voxels (or pillars) a voxel-based detector kept and the
     predictions that reach NMS: the anchors whose best class score reaches a
     scalar SCORE_THRESH, or CenterPoint's decoded boxes scoring above it;
-    None where the model or the config has neither."""
+    None where the model or the config has neither. A two-stage detector's
+    anchors are counted by the dense head's scores (`cls_preds`): the final
+    NMS takes its RoI head's boxes, which `rois_over` counts."""
     post = model.model_cfg["POST_PROCESSING"]
     voxels = out["voxel_mask"].sum(1).tolist() if "voxel_mask" in out else None
     thresh = post.get("SCORE_THRESH", 0.1)
@@ -252,9 +264,21 @@ def voxel_anchor_counts(model, out):
     if "final_scores" in out:
         over = (out["final_scores"] > float(thresh)).sum(1).tolist()
     elif not isinstance(thresh, (list, tuple)):
-        scores = torch.sigmoid(out["batch_cls_preds"]).amax(-1)
-        over = (scores >= float(thresh)).sum(1).tolist()
+        logits = out["cls_preds"] if "roi_labels" in out else out["batch_cls_preds"]
+        over = (torch.sigmoid(logits).amax(-1) >= float(thresh)).sum(1).tolist()
     return voxels, over
+
+
+def rois_over(model, out):
+    """Per scan, a two-stage detector's proposals (the RoIs its proposal NMS
+    kept) and the RoI head's boxes scoring at least SCORE_THRESH, which the
+    final NMS takes; None for a one-stage detector."""
+    if "roi_valid" not in out:
+        return None
+    thresh = float(model.model_cfg["POST_PROCESSING"].get("SCORE_THRESH", 0.1))
+    scores = torch.sigmoid(out["batch_cls_preds"][..., 0])
+    return list(zip(out["roi_valid"].sum(1).tolist(),
+                    ((scores >= thresh) & out["roi_valid"]).sum(1).tolist()))
 
 
 def self_device_us(evt):
@@ -336,9 +360,13 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     voxels, over = voxel_anchor_counts(model, out)
+    rois = rois_over(model, out)
     for b, c in enumerate(pred["count"].tolist()):
         extra = "" if voxels is None else f", {voxels[b]} voxels"
         extra += "" if over is None else f", {over[b]} predictions over SCORE_THRESH"
+        if rois is not None:
+            extra += (f" (anchors); {rois[b][0]} proposals kept, {rois[b][1]} RoI boxes "
+                      f"over SCORE_THRESH")
         print(f"scan {b}: {c} detections{extra}")
     print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "
           f"(batch {args.batch} x {args.points} points, {args.iters} batches)")

@@ -18,7 +18,13 @@ JAX models/__init__.py:14-29):
     AnchorHeadSingle; training as SECONDNet's;
   * NAME CenterPoint: MeanVFE, VoxelResBackBone8x, HeightCompression,
     BaseBEVBackbone, CenterHead; `.train()` turns on the head's heatmap
-    targets and losses.
+    targets and losses;
+  * NAME PartA2Net: MeanVFE, UNetV2, HeightCompression, BaseBEVBackbone,
+    AnchorHeadSingle, PointIntraPartOffsetHead, PartA2FCHead;
+  * NAME PVRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
+    VoxelSetAbstraction, BaseBEVBackbone, AnchorHeadSingle, PointHeadSimple,
+    PVRCNNHead; for both `.train()` turns on the anchor head's decode in
+    training, the target assignment of all three heads and their losses.
 Any other configuration raises. Matmuls and convolutions run in full
 float32: TF32 is switched off here. cuDNN times its algorithms for each
 convolution shape at first use (`cudnn.benchmark`): left to its heuristics,
@@ -35,7 +41,9 @@ from ..utils.common_utils import resolve_device
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from .backbones_3d.pointnet2_modules import BatchNorm
+from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x, _ConvBase
+from .backbones_3d.spconv_unet import UNetV2
 from .backbones_3d.vfe import MeanVFE, PillarVFE
 from .backbones_3d.voxel_pointnet2_backbone import (
     VoxelPointNet2FSMSG,
@@ -43,12 +51,16 @@ from .backbones_3d.voxel_pointnet2_backbone import (
 )
 from .dense_heads.anchor_head import AnchorHeadSingle
 from .dense_heads.center_head import HM_INIT_BIAS, CenterHead
+from .dense_heads.point_head_simple import PointHeadSimple
+from .dense_heads.point_intra_part_head import CLS_PRIOR_BIAS, PointIntraPartOffsetHead
 from .dense_heads.point_head_vote import (
     PointHeadVoteSASAStatistic,
     PointHeadVoteSASAStatisticDistillation,
     VoteHeadBranch,
 )
 from .detectors import DatasetMeta, __all__ as detector_registry
+from .roi_heads.partA2_head import PartA2FCHead
+from .roi_heads.pvrcnn_head import PVRCNNHead
 
 _NEG_LOG99 = -float(np.log(99.0))
 # the sections each ported detector reads, and the module NAMEs each may give
@@ -65,6 +77,14 @@ _PORTED = {
     "CenterPoint": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelResBackBone8x",),
                     "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                     "DENSE_HEAD": ("CenterHead",)},
+    "PartA2Net": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("UNetV2",),
+                  "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
+                  "DENSE_HEAD": ("AnchorHeadSingle",),
+                  "POINT_HEAD": ("PointIntraPartOffsetHead",), "ROI_HEAD": ("PartA2FCHead",)},
+    "PVRCNN": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+               "MAP_TO_BEV": ("HeightCompression",), "PFE": ("VoxelSetAbstraction",),
+               "BACKBONE_2D": ("BaseBEVBackbone",), "DENSE_HEAD": ("AnchorHeadSingle",),
+               "POINT_HEAD": ("PointHeadSimple",), "ROI_HEAD": ("PVRCNNHead",)},
 }
 # (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
 _TSM_PAIRS = {
@@ -81,8 +101,11 @@ def init_weights(model, seed=0):
     """Seeded random weights from a torch.Generator: Dense and 2D conv
     kernels lecun normal, sparse-conv kernels N(0, 2 / (K * Cin)), the
     teacher's dynamic regression weight N(0, 2 / 64), biases 0 except the
-    confidence / cls output biases at -log(99) and CenterPoint's heatmap
-    output bias at HM_INIT_BIAS, BN at the identity."""
+    confidence / cls output biases at -log(99) (the TSM heads' `cls*_out`,
+    the anchor heads' `conv_cls` and Part-A2's point head's `cls_out`; the
+    other `cls_out`, PV-RCNN's point head's and the RoI heads', start at 0,
+    as flax's Dense), CenterPoint's heatmap output bias at HM_INIT_BIAS, BN
+    at the identity."""
     g = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
@@ -92,7 +115,7 @@ def init_weights(model, seed=0):
             if m.bias is not None:
                 tail = name.rsplit(".", 1)[-1]
                 prior = tail == "confidence_out" or (
-                    tail.startswith("cls") and tail.endswith("_out"))
+                    tail.startswith("cls") and tail.endswith("_out") and tail != "cls_out")
                 m.bias.data.fill_(_NEG_LOG99 if prior else 0.0)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             # fan in: Cin * kh * kw (ConvTranspose2d keeps Cin first too)
@@ -117,6 +140,8 @@ def init_weights(model, seed=0):
         elif isinstance(m, VoteHeadBranch) and m.gated_reg:
             w = torch.randn(m.reg_weight.shape, generator=g) * np.sqrt(2.0 / 64)
             m.reg_weight.data.copy_(w)
+        elif isinstance(m, PointIntraPartOffsetHead):
+            m.cls_out.bias.data.fill_(CLS_PRIOR_BIAS)
     return model
 
 
@@ -163,7 +188,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
                 f"{section} {model_cfg[section]['NAME']} is not ported")
     dataset = meta_from_dataset(dataset)
     build = {"SECONDNet": _second_modules, "PointPillar": _pointpillar_modules,
-             "CenterPoint": _centerpoint_modules}.get(name, _tsm_modules)
+             "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
+             "PVRCNN": _two_stage_modules}.get(name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
                                     build(model_cfg, num_class, dataset))
     init_weights(model, seed)
@@ -230,3 +256,39 @@ def _centerpoint_modules(model_cfg, num_class, meta):
                       tuple(meta.class_names), meta.grid_size, meta.point_cloud_range,
                       meta.voxel_size)
     return [vfe, b3d, to_bev, b2d, head]
+
+
+def _two_stage_modules(model_cfg, num_class, meta):
+    """Part-A2's and PV-RCNN's topology in the JAX package's module order
+    (its `module_topology`): VFE, BACKBONE_3D, MAP_TO_BEV, PFE (PV-RCNN),
+    BACKBONE_2D, DENSE_HEAD (decoding its boxes in training too, for the
+    RoI head), POINT_HEAD, ROI_HEAD: flax module_list_0..6 (Part-A2) and
+    0..7 (PV-RCNN)."""
+    vfe = MeanVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
+                  meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
+    b3d_cls = {"UNetV2": UNetV2, "VoxelBackBone8x": VoxelBackBone8x}[
+        model_cfg["BACKBONE_3D"]["NAME"]]
+    b3d = b3d_cls(dict(model_cfg["BACKBONE_3D"]), vfe.get_output_feature_dim(), meta)
+    map_cfg = dict(model_cfg["MAP_TO_BEV"])
+    modules = [vfe, b3d, HeightCompression(map_cfg)]
+    pfe = None
+    if model_cfg.get("PFE") is not None:
+        pfe = VoxelSetAbstraction(dict(model_cfg["PFE"]), meta.voxel_size,
+                                  meta.point_cloud_range, map_cfg["NUM_BEV_FEATURES"],
+                                  meta.num_point_features)
+        modules.append(pfe)
+    b2d = BaseBEVBackbone(dict(model_cfg["BACKBONE_2D"]), map_cfg["NUM_BEV_FEATURES"])
+    head = AnchorHeadSingle(dict(model_cfg["DENSE_HEAD"]), b2d.get_output_feature_dim(),
+                            num_class, tuple(meta.class_names), meta.grid_size,
+                            meta.point_cloud_range, predict_boxes_when_training=True)
+    modules += [b2d, head]
+    point_cfg, roi_cfg = dict(model_cfg["POINT_HEAD"]), dict(model_cfg["ROI_HEAD"])
+    if point_cfg["NAME"] == "PointIntraPartOffsetHead":
+        point = PointIntraPartOffsetHead(point_cfg, num_class, b3d.num_point_features, meta)
+        roi = PartA2FCHead(roi_cfg, b3d.num_point_features, num_class)
+    else:
+        c = (pfe.num_point_features_before_fusion
+             if point_cfg.get("USE_POINT_FEATURES_BEFORE_FUSION") else pfe.num_point_features)
+        point = PointHeadSimple(point_cfg, num_class, c, meta)
+        roi = PVRCNNHead(roi_cfg, pfe.num_point_features, num_class)
+    return modules + [point, roi]

@@ -5,7 +5,9 @@ tsm_det_pointcloud_tpu/models/dense_heads/anchor_head.py:29-150, 152-313).
 BEV features, permutes their outputs to NHWC before flattening, so that
 prediction i pairs with anchor i of `generate_anchors`' layout. At eval it
 decodes the boxes with the direction correction; in training it leaves
-them out (the JAX head's `predict_boxes_when_training` is False), and
+them out unless `predict_boxes_when_training` (the JAX head's flag, set for
+the first stage of a two-stage detector, whose RoI head reads the decoded
+boxes; the decode keeps its gradient to the box regression), and
 `loss` assigns the targets (`assign_targets`, vectorised over anchors and
 boxes, a loop over the scans) and computes the focal cls, smooth-L1 box
 (with the sine difference on the heading) and direction losses.
@@ -115,9 +117,10 @@ def assign_targets(anchors, gt_boxes, gt_valid, anchor_class_ids, matched_thresh
 
 class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, class_names,
-                 grid_size, point_cloud_range):
+                 grid_size, point_cloud_range, predict_boxes_when_training=False):
         super().__init__()
         cfg = model_cfg
+        self.predict_boxes_when_training = bool(predict_boxes_when_training)
         self.model_cfg = cfg
         self.num_class = int(num_class)
         anchor_cfgs = cfg["ANCHOR_GENERATOR_CONFIG"]
@@ -170,7 +173,7 @@ class AnchorHeadSingle(nn.Module):
             batch_dict["dir_cls_preds"] = dir_preds
         batch_dict["cls_preds"] = cls_preds
         batch_dict["box_preds"] = box_preds
-        if self.training:
+        if self.training and not self.predict_boxes_when_training:
             return batch_dict
         batch_cls, batch_box = self.generate_predicted_boxes(cls_preds, box_preds, dir_preds)
         batch_dict["batch_cls_preds"] = batch_cls

@@ -5,7 +5,9 @@ from .centerpoint import CenterPoint
 from .detector3d_template import DatasetMeta, Detector3DTemplate
 from .point_3dssd import Point3DSSD
 from .pointpillar import PointPillar
+from .pv_rcnn import PVRCNN
 from .second_net import SECONDNet
+from .two_stage import PartA2Net
 
 __all__ = {
     "3DSSD": Point3DSSD,
@@ -13,4 +15,6 @@ __all__ = {
     "SECONDNet": SECONDNet,
     "PointPillar": PointPillar,
     "CenterPoint": CenterPoint,
+    "PartA2Net": PartA2Net,
+    "PVRCNN": PVRCNN,
 }

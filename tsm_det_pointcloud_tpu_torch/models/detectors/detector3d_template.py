@@ -47,7 +47,9 @@ class Detector3DTemplate(nn.Module):
     def post_processing(self, batch_dict):
         """batch_cls_preds (B, N, C) + batch_box_preds (B, N, 7+) ->
         (dict(pred_boxes (B, P, 7), pred_scores (B, P), pred_labels (B, P),
-        count (B,)) with P = NMS_POST_MAXSIZE, slots >= count zero; and the
+        count (B,)) with P = NMS_POST_MAXSIZE, slots >= count zero, the
+        labels those of the RoIs where a two-stage head set `roi_labels`,
+        else each box's best class; and the
         recall dict, which `generate_recall_record` fills when `batch_dict`
         holds "gt_boxes" and which is {} otherwise)."""
         post_cfg = self.model_cfg["POST_PROCESSING"]
@@ -57,13 +59,15 @@ class Detector3DTemplate(nn.Module):
         box_preds = batch_dict["batch_box_preds"]
         if not batch_dict.get("cls_preds_normalized", False):
             cls_preds = torch.sigmoid(cls_preds)
-        if batch_dict.get("roi_labels") is not None:
-            raise NotImplementedError("two-stage roi_labels are not ported")
+        roi_labels = batch_dict.get("roi_labels")
 
         boxes, scores, labels, counts = [], [], [], []
-        for cls_p, box_p in zip(cls_preds, box_preds):
+        for b, (cls_p, box_p) in enumerate(zip(cls_preds, box_preds)):
             max_scores = cls_p.amax(dim=-1)
-            lab = torch.argmax(cls_p, dim=-1).to(torch.int32) + 1
+            if roi_labels is not None:   # a two-stage head's: its RoIs' classes
+                lab = roi_labels[b]
+            else:
+                lab = torch.argmax(cls_p, dim=-1).to(torch.int32) + 1
             if isinstance(score_thresh, (list, tuple)):
                 idx, cnt, sc = model_nms_utils.multi_thresh_nms(
                     max_scores, box_p[:, :7], lab, nms_cfg, list(score_thresh))

@@ -1,0 +1,45 @@
+"""Two-stage detectors (counterpart of
+tsm_det_pointcloud_tpu/models/detectors/two_stage.py): the module list in
+the JAX topology's order, then in training the loss of the dense head plus
+the point head's `loss_point` and the RoI head's `loss_rcnn`."""
+from __future__ import annotations
+
+from .detector3d_template import Detector3DTemplate
+
+
+class TwoStageBase(Detector3DTemplate):
+    """In training (`.train()`, a batch with gt_boxes and gt_boxes_mask) the
+    forward adds `loss`, the sum of the dense head's loss, `loss_point` and
+    `loss_rcnn`, and `tb_dict`: the dense head's terms, `point_loss` and
+    the RoI head's terms. At eval the RoI head's refined boxes, scores and
+    `roi_labels` feed the template's post-processing."""
+
+    def forward(self, batch_dict):
+        batch_dict = self.forward_modules(batch_dict)
+        if self.training:
+            loss, tb = 0.0, {}
+            head = self.dense_head
+            if head is not None:
+                loss, tb = head.loss(batch_dict)
+                tb = dict(tb)
+            if "loss_point" in batch_dict:
+                loss = loss + batch_dict["loss_point"]
+                tb["point_loss"] = batch_dict["loss_point"]
+            if "loss_rcnn" in batch_dict:
+                loss = loss + batch_dict["loss_rcnn"]
+                tb.update(batch_dict.get("tb_dict_rcnn", {}))
+            batch_dict["loss"] = loss
+            batch_dict["tb_dict"] = tb
+        return batch_dict
+
+    @property
+    def dense_head(self):
+        from ..dense_heads.anchor_head import AnchorHeadSingle
+
+        return next((m for m in self.module_list if isinstance(m, AnchorHeadSingle)), None)
+
+
+class PartA2Net(TwoStageBase):
+    """MeanVFE -> UNetV2 -> HeightCompression -> BaseBEVBackbone ->
+    AnchorHeadSingle (RPN) + PointIntraPartOffsetHead -> PartA2FCHead
+    (module_list 0-6, the flax indices)."""

@@ -45,9 +45,23 @@ post-processed predictions on `second_points(2)` with
 seed, so that the heatmap scores spread (at the init they all lie within
 1e-3 of sigmoid(-2.19), and their order would turn on rounding).
 `centerpoint_gt` gives its training batches their gt boxes.
+
+The tiny two-stage detectors are copies of the JAX package's test models
+(`model_cfg` and `META` of tests/test_parta2_e2e.py and
+tests/test_pvrcnn_e2e.py): Part-A2 (UNetV2, a 4^3 RoI-aware pool) and
+PV-RCNN (64 keypoints over bev, x_conv3, x_conv4 and the raw points, a 3^3
+RoI grid) on the tiny SECOND's range and grid, one class, fed
+`second_points(2, 256)`. Their checks run on `two_stage_state(which)`, a
+state drawn from a numpy seed over the port model's own entries (no init
+is committed: the converted inits would take 5.4 MB and 3.1 MB), with the
+anchor head's cls bias lifted so that the proposals' scores spread;
+`data/parta2_tiny_forward.npz` and `data/pvrcnn_tiny_forward.npz` hold the
+JAX package's eval outputs and post-processed predictions with it.
+`two_stage_gt` gives their training batches their gt boxes.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +80,8 @@ TEACHER_TRAIN_GOLDEN_PATH = STATE_PATH.parent / "tsm_teacher_tiny_train_golden.n
 POINTPILLAR_STATE_PATH = STATE_PATH.parent / "pointpillar_tiny_state.npz"
 CENTERPOINT_STATE_PATH = STATE_PATH.parent / "centerpoint_tiny_state.npz"
 CENTERPOINT_FORWARD_PATH = STATE_PATH.parent / "centerpoint_tiny_forward.npz"
+PARTA2_FORWARD_PATH = STATE_PATH.parent / "parta2_tiny_forward.npz"
+PVRCNN_FORWARD_PATH = STATE_PATH.parent / "pvrcnn_tiny_forward.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -488,15 +504,13 @@ def centerpoint_gt(batch_size):
 CENTERPOINT_EVAL_HM_BIAS, CENTERPOINT_EVAL_HM_GAIN = -2.0, 4.0
 
 
-def centerpoint_eval_state(seed=3):
-    """The tiny CenterPoint's state for its eval checks: every entry of the
-    committed init redrawn from numpy's RandomState(seed), in key order:
-    conv kernels N(0, 1 / fan-in), BN scales and running variances
-    U(0.5, 1.5), the other vectors N(0, 0.2^2); the hm_out kernels times
-    CENTERPOINT_EVAL_HM_GAIN and their biases at CENTERPOINT_EVAL_HM_BIAS."""
+def redraw_state(state, seed):
+    """Every entry of `state` redrawn from numpy's RandomState(seed), in key
+    order: conv and Dense kernels N(0, 1 / fan-in), BN scales and running
+    variances U(0.5, 1.5), the other vectors N(0, 0.2^2)."""
     rng = np.random.RandomState(seed)
     out = {}
-    for key, t in sorted(load_state(CENTERPOINT_STATE_PATH).items()):
+    for key, t in sorted(state.items()):
         a = t.numpy()
         if a.ndim >= 2:
             fan_in = int(np.prod(a.shape[1:])) if a.ndim == 4 else int(np.prod(a.shape[:-1]))
@@ -505,12 +519,255 @@ def centerpoint_eval_state(seed=3):
             v = rng.uniform(0.5, 1.5, a.shape)
         else:
             v = rng.randn(*a.shape) * 0.2
+        out[key] = v
+    return out
+
+
+def centerpoint_eval_state(seed=3):
+    """The tiny CenterPoint's state for its eval checks: the committed init
+    redrawn (`redraw_state`), the hm_out kernels times
+    CENTERPOINT_EVAL_HM_GAIN and their biases at CENTERPOINT_EVAL_HM_BIAS."""
+    out = {}
+    for key, v in redraw_state(load_state(CENTERPOINT_STATE_PATH), seed).items():
         if key.endswith("hm_out.weight"):
             v = v * CENTERPOINT_EVAL_HM_GAIN
         elif key.endswith("hm_out.bias"):
-            v = np.full(a.shape, CENTERPOINT_EVAL_HM_BIAS)
+            v = np.full(v.shape, CENTERPOINT_EVAL_HM_BIAS)
         out[key] = torch.from_numpy(v.astype(np.float32))
     return out
+
+
+def _two_stage_dense_head():
+    return {
+        "NAME": "AnchorHeadSingle", "CLASS_AGNOSTIC": False,
+        "USE_DIRECTION_CLASSIFIER": True, "DIR_OFFSET": 0.78539,
+        "DIR_LIMIT_OFFSET": 0.0, "NUM_DIR_BINS": 2,
+        "ANCHOR_GENERATOR_CONFIG": [{
+            "class_name": "Car", "anchor_sizes": [[3.9, 1.6, 1.56]],
+            "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-1.78],
+            "align_center": False, "feature_map_stride": 8,
+            "matched_threshold": 0.6, "unmatched_threshold": 0.45,
+        }],
+        "TARGET_ASSIGNER_CONFIG": {"MATCH_HEIGHT": False},
+        "LOSS_CONFIG": {"LOSS_WEIGHTS": {
+            "cls_weight": 1.0, "loc_weight": 2.0, "dir_weight": 0.2,
+            "code_weights": [1.0] * 7}},
+    }
+
+
+def _two_stage_post(nms_pre=16):
+    return {
+        "RECALL_THRESH_LIST": [0.3, 0.5, 0.7], "SCORE_THRESH": 0.1,
+        "EVAL_METRIC": "kitti",
+        "NMS_CONFIG": {"MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu",
+                       "NMS_THRESH": 0.1, "NMS_PRE_MAXSIZE": nms_pre,
+                       "NMS_POST_MAXSIZE": 8},
+    }
+
+
+def _rcnn_loss_cfg():
+    return {"CORNER_LOSS_REGULARIZATION": True,
+            "LOSS_WEIGHTS": {"rcnn_cls_weight": 1.0, "rcnn_reg_weight": 1.0,
+                             "rcnn_corner_weight": 1.0, "code_weights": [1.0] * 7}}
+
+
+PARTA2_META = DatasetMeta(
+    class_names=("Car",), point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+    voxel_size=(0.5, 0.5, 0.1), grid_size=(32, 32, 40), max_voxels=256,
+    max_points_per_voxel=5, num_point_features=4, max_points=256,
+)
+PVRCNN_META = dataclasses.replace(PARTA2_META, max_voxels=512)
+
+
+def parta2_model_cfg():
+    return EDict({
+        "NAME": "PartA2Net",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "UNetV2"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": {
+            "NAME": "BaseBEVBackbone",
+            "LAYER_NUMS": [1], "LAYER_STRIDES": [1], "NUM_FILTERS": [32],
+            "UPSAMPLE_STRIDES": [1], "NUM_UPSAMPLE_FILTERS": [32],
+        },
+        "DENSE_HEAD": _two_stage_dense_head(),
+        "POINT_HEAD": {
+            "NAME": "PointIntraPartOffsetHead", "CLS_FC": [16], "PART_FC": [16],
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"point_cls_weight": 1.0,
+                                             "point_part_weight": 1.0}},
+        },
+        "ROI_HEAD": {
+            "NAME": "PartA2FCHead",
+            "ROI_AWARE_POOL": {"POOL_SIZE": 4},
+            "SHARED_FC": [32], "CLS_FC": [16], "REG_FC": [16],
+            "NMS_CONFIG": {
+                "TRAIN": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.8,
+                          "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 16},
+                "TEST": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+                         "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 8},
+            },
+            "TARGET_CONFIG": {
+                "ROI_PER_IMAGE": 8, "FG_RATIO": 0.5, "REG_FG_THRESH": 0.55,
+                "CLS_FG_THRESH": 0.75, "CLS_BG_THRESH": 0.25, "CLS_BG_THRESH_LO": 0.1,
+            },
+            "LOSS_CONFIG": _rcnn_loss_cfg(),
+        },
+        "POST_PROCESSING": _two_stage_post(),
+    })
+
+
+def pvrcnn_model_cfg():
+    return EDict({
+        "NAME": "PVRCNN",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelBackBone8x"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "PFE": {
+            "NAME": "VoxelSetAbstraction", "POINT_SOURCE": "raw_points",
+            "NUM_KEYPOINTS": 64, "NUM_OUTPUT_FEATURES": 32,
+            "FEATURES_SOURCE": ["bev", "x_conv3", "x_conv4", "raw_points"],
+            "SA_LAYER": {
+                "raw_points": {"MLPS": [[8, 8], [8, 8]], "POOL_RADIUS": [0.4, 0.8],
+                               "NSAMPLE": [8, 8]},
+                "x_conv3": {"MLPS": [[8, 8], [8, 8]], "POOL_RADIUS": [1.2, 2.4],
+                            "NSAMPLE": [8, 8]},
+                "x_conv4": {"MLPS": [[8, 8], [8, 8]], "POOL_RADIUS": [2.4, 4.8],
+                            "NSAMPLE": [8, 8]},
+            },
+        },
+        "BACKBONE_2D": {
+            "NAME": "BaseBEVBackbone",
+            "LAYER_NUMS": [1], "LAYER_STRIDES": [1], "NUM_FILTERS": [32],
+            "UPSAMPLE_STRIDES": [1], "NUM_UPSAMPLE_FILTERS": [32],
+        },
+        "DENSE_HEAD": _two_stage_dense_head(),
+        "POINT_HEAD": {
+            "NAME": "PointHeadSimple", "CLS_FC": [16],
+            "USE_POINT_FEATURES_BEFORE_FUSION": True,
+            "TARGET_CONFIG": {"GT_EXTRA_WIDTH": [0.2, 0.2, 0.2]},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"point_cls_weight": 1.0}},
+        },
+        "ROI_HEAD": {
+            "NAME": "PVRCNNHead",
+            "SHARED_FC": [32, 32], "CLS_FC": [16], "REG_FC": [16],
+            "NMS_CONFIG": {
+                "TRAIN": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.8,
+                          "NMS_PRE_MAXSIZE": 128, "NMS_POST_MAXSIZE": 32},
+                "TEST": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+                         "NMS_PRE_MAXSIZE": 128, "NMS_POST_MAXSIZE": 16},
+            },
+            "ROI_GRID_POOL": {"GRID_SIZE": 3, "MLPS": [[8, 8], [8, 8]],
+                              "POOL_RADIUS": [0.8, 1.6], "NSAMPLE": [8, 8]},
+            "TARGET_CONFIG": {
+                "ROI_PER_IMAGE": 16, "FG_RATIO": 0.5, "REG_FG_THRESH": 0.55,
+                "CLS_FG_THRESH": 0.75, "CLS_BG_THRESH": 0.25, "CLS_BG_THRESH_LO": 0.1,
+            },
+            "LOSS_CONFIG": _rcnn_loss_cfg(),
+        },
+        "POST_PROCESSING": _two_stage_post(),
+    })
+
+
+# the anchor head's conv_cls bias in the tiny two-stage states: the
+# proposals' scores then spread around SCORE_THRESH 0.1
+TWO_STAGE_CLS_BIAS = -2.0
+
+
+def two_stage_model(which):
+    """(model config, DatasetMeta) of the tiny Part-A2 ("parta2") or PV-RCNN
+    ("pvrcnn")."""
+    if which == "parta2":
+        return parta2_model_cfg(), PARTA2_META
+    return pvrcnn_model_cfg(), PVRCNN_META
+
+
+# added to the bias of every channels-last BN (the sparse convs', the MLPs'
+# and the heads'; not the BEV backbone's, whose output the anchor head turns
+# into boxes) in the tiny two-stage states' training checks: a ReLU after a
+# train-mode BN then sees inputs near 0 only where a row lies ~3 standard
+# deviations under its channel's mean. Otherwise, across the ~10^5 ReLU
+# inputs of a step, some lie within the rounding distance between the two
+# packages' forwards of 0 (2.6e-7 and 4.4e-7 were seen), and a ReLU that
+# passes such an input on one side only moves the gradients of every layer
+# before it by up to a few percent, which no per-element tolerance can tell
+# from a fault.
+TWO_STAGE_TRAIN_BN_LIFT = 3.0
+
+
+def two_stage_state(which, seed=4, train=False):
+    """The tiny two-stage detector's state for its checks: every entry of
+    the port model's state dict drawn as `redraw_state` draws it, the anchor
+    head's conv_cls bias at TWO_STAGE_CLS_BIAS; with `train` the
+    channels-last BN biases raised by TWO_STAGE_TRAIN_BN_LIFT."""
+    from .models import build_network
+    from .models.backbones_3d.pointnet2_modules import BatchNorm
+
+    cfg, meta = two_stage_model(which)
+    model = build_network(cfg, 1, meta, device="cpu", seed=0)
+    lifted = {f"{name}.bias" for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    out = {}
+    for key, v in redraw_state(model.state_dict(), seed).items():
+        if key.endswith("conv_cls.bias"):
+            v = np.full(v.shape, TWO_STAGE_CLS_BIAS)
+        elif train and key in lifted:
+            v = v + TWO_STAGE_TRAIN_BN_LIFT
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+# gt boxes (x, y, z, dx, dy, dz, heading, class) of the tiny two-stage
+# detectors' training checks, per scan, the last of each scan masked out
+# (a copy of the first, 5 cm along x). Each is a training-mode RoI of
+# `two_stage_state(which, train=True)` grown along its length, so that its
+# IoU with that RoI is 1 / the factor: Part-A2's scan 0 has a foreground RoI at IoU 0.8, one at
+# 0.6 (foreground, and in the cls loss's ignored interval) and one at 0.17
+# (hard background), the rest easy background tied at priority 1.0 (8 of 16
+# sampled); its scan 1 has nine RoIs at IoU 0.4, which is never sampled, so
+# that only 7 of 16 have a positive priority and none is sampled.
+# PV-RCNN's scans have RoIs at IoU 0.8, 0.6, 0.17 and at 0.91, 0.4 (16 of
+# 32 sampled in each).
+TWO_STAGE_GT = {
+    "parta2": [
+        [[11.657, -1.154, -1.122, 14.528, 0.695, 2.696, 3.579, 1],
+         [2.69, -8.856, -3.227, 4.816, 3.424, 2.835, 1.879, 1],
+         [-0.123, 10.648, -0.749, 25.91, 2.496, 1.355, 2.727, 1],
+         [11.707, -1.154, -1.122, 14.528, 0.695, 2.696, 3.579, 1]],
+        [[2.254, -1.027, -3.178, 8.065, 1.901, 1.344, 0.81, 1],
+         [4.114, -1.031, -1.003, 19.316, 0.476, 3.049, 5.533, 1],
+         [0.031, 10.968, -0.565, 11.081, 3.582, 1.77, 2.748, 1],
+         [12.136, -7.285, -1.633, 5.969, 0.713, 1.417, 2.702, 1],
+         [4.28, -10.059, -1.899, 8.96, 0.683, 1.407, 5.796, 1],
+         [16.131, 8.197, -3.086, 18.929, 6.723, 1.427, 3.481, 1],
+         [12.86, -4.172, -2.369, 54.901, 0.421, 2.654, 0.801, 1],
+         [15.827, 1.24, -1.649, 9.397, 1.619, 3.07, 5.963, 1],
+         [8.188, -6.667, -3.418, 12.42, 2.458, 4.514, 5.951, 1],
+         [2.304, -1.027, -3.178, 8.065, 1.901, 1.344, 0.81, 1]],
+    ],
+    "pvrcnn": [
+        [[2.449, -5.849, -1.297, 12.424, 1.352, 5.058, 3.234, 1],
+         [3.513, -2.627, -1.652, 3.214, 2.804, 1.112, 2.875, 1],
+         [3.752, 4.64, -1.01, 40.132, 3.63, 2.035, 2.627, 1],
+         [2.499, -5.849, -1.297, 12.424, 1.352, 5.058, 3.234, 1]],
+        [[5.745, 13.47, 0.004, 0.767, 1.983, 1.22, 3.717, 1],
+         [17.281, -3.449, -0.849, 15.677, 0.922, 8.23, 6.623, 1],
+         [5.795, 13.47, 0.004, 0.767, 1.983, 1.22, 3.717, 1]],
+    ],
+}
+
+
+def two_stage_gt(which, batch_size=2):
+    """gt_boxes (B, M, 8) float32 and gt_boxes_mask (B, M) bool of the tiny
+    two-stage detector's training batches: TWO_STAGE_GT[which]'s scans in
+    turn, the last box of each masked, padded to the longest."""
+    scans = TWO_STAGE_GT[which]
+    M = max(len(s) for s in scans)
+    gt = np.zeros((batch_size, M, 8), np.float32)
+    mask = np.zeros((batch_size, M), bool)
+    for b in range(batch_size):
+        boxes = np.asarray(scans[b % len(scans)], np.float32)
+        gt[b, :len(boxes)] = boxes
+        mask[b, :len(boxes) - 1] = True
+    return gt, mask
 
 
 def load_state(path=STATE_PATH):

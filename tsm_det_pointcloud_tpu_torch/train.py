@@ -1,5 +1,6 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
-step or SECOND's step, on synthetic scans or on a dataset (KITTI or Waymo).
+step or the step of a voxel detector (SECOND, PointPillars, CenterPoint,
+Part-A2, PV-RCNN), on synthetic scans or on a dataset (KITTI or Waymo).
 
 Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -13,6 +14,10 @@ Synthetic-scan mode:
         --points 122880 --steps 3
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/second.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/kitti_models/PartA2.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 2 --points 20000
 Dataset mode (`--data_root DIR`, or `--dataset` for the config's DATA_PATH;
 the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -85,7 +90,8 @@ global batch's (parallel/comm.py), so the step is the JAX data mesh's. Rank
 0 alone logs, writes metrics and checkpoints. --point_axis P (or the
 config's PARALLEL.POINT_AXIS) groups P consecutive ranks on each sample and
 splits each scan's points over them (`parallel.point_sharding`; the world
-size must be a multiple of P, and the scans' points of P).
+size must be a multiple of P, and the scans' points of P; a TSM config's
+only, whose backbone's layer 0 is what it splits).
 """
 from __future__ import annotations
 
@@ -281,8 +287,12 @@ def shard_plan(args, cfg, dev):
     the JAX jit computes it once: on the card they run deterministic
     algorithms (`index_add_`'s sorted route: its float atomics would sum in
     another order on each rank), so that their BN statistics and outputs
-    stay bit-equal."""
+    stay bit-equal. The split belongs to the TSM backbone's layer 0: a
+    config without it (a voxel or pillar detector) raises."""
     pax = args.point_axis or int(cfg.get("PARALLEL", {}).get("POINT_AXIS", 0) or 0)
+    if pax > 1 and cfg.MODEL.get("NAME") not in ("3DSSD", "Point3DSSD"):
+        raise ValueError(f"--point_axis splits the points of the TSM backbone's layer 0; "
+                         f"{cfg.MODEL.NAME} has no such layer: run it without --point_axis")
     if pax > 1:
         psh = point_sharding.make_point_mesh(pax, dev.type)
         if dev.type == "cuda":
