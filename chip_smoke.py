@@ -381,7 +381,40 @@ Phases (any failure exits non-zero before the result line):
      at b4 x 20000, in phase 39's fresh process (busy share, top kernels, post-processing alone; no FFT
      kernel), and the device time alone of the proposal layer's NMS on one
      eval batch's anchor boxes at the test mode's NMS_PRE_MAXSIZE (1024) and
-     at the training mode's (9000).
+     at the training mode's (9000);
+ 45. PointRCNN reference: the tiny PointRCNN (tiny.two_stage_state) reproduces
+     tsm_det_pointcloud_tpu_torch/data/pointrcnn_tiny_forward.npz on the card
+     through K1 and K2 (golden tolerance; labels, counts and the RoIs' labels
+     exact); then the RCNN losses with a non-empty foreground: the tiny
+     PointRCNN's and Part-A2's RoI heads (training states) take RoIs made from
+     jittered gt boxes (tiny.gt_roi_proposals) beside their first stages'
+     outputs, and rcnn_cls / reg / corner losses and the gradients of reg +
+     corner (head parameters, proposal boxes) on the card are held against
+     the same heads on the CPU (losses 1e-4, gradients rtol 1e-3 above the
+     rounding floor);
+ 46. pointrcnn.yaml at full width on synthetic scans, as phase 41: one
+     recorded eval batch at b4 x 16384 (PointNet2MSG's four d-fps, 16384 ->
+     4096 -> 1024 -> 256 -> 64, and four two-scale ball queries; the in-RoI
+     encoder's two d-fps, 512 -> 128 -> 32, and two ball queries over 400
+     rows), every K1 / K2 call held against its plain version (indices
+     exact) with K1's plan, waves and rows with no valid lane printed; the
+     in-RoI d-fps and ball query again with every third row emptied by hand
+     (the synthetic scans' eval RoIs all hold points; an emptied row must
+     pick index 0 and find nothing, as in the plain version); 3 counted
+     batches (scans/s, peak memory, the proposal layer's share of a batch:
+     NMS over 9000 of 16384 point boxes a scan); one recorded training step
+     at b2 (1024 in-RoI rows) held likewise, every parameter a gradient, and
+     2 counted steps (losses finite, `still_params`);
+ 47. pointrcnn.yaml's data path on phase 22's root: echoed gt 100.0 on all 72
+     APs through its dataset (sample_points, shuffle_points), `evaluate` at
+     b4 and `train --data_root` for 1 epoch at b2 on phase 29's frames, each
+     first forward or step recorded and held, `evaluate --ckpt`, `demo --ckpt`
+     on phase 30's scans; then convert_torch_ckpt on a synthetic reference
+     checkpoint of a seeded full-width detector (nothing unplaced, loads
+     strictly, detects on a raw scan);
+ 48. PointRCNN's profile, after every timed path: `infer --profile` at b4 x
+     16384 in phase 39's fresh process, and the proposal layer's NMS alone at
+     9000 boxes a scan (test and training modes).
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -419,9 +452,11 @@ K7), `point_axis` that of phase 34 (rank 0's recorded forward,
 `centerpoint_data` and `centerpoint_data_train` those of phase 38's
 centerpoint evaluate and train (null but for K3 and K7), `parta2` and
 `parta2_train` those of phase 41 (null but for K4, and K5 in training),
-`pvrcnn` and `pvrcnn_train` those of phase 42 (null for K1, K4, K5), and
+`pvrcnn` and `pvrcnn_train` those of phase 42 (null for K1, K4, K5),
 `parta2_data`, `parta2_data_train`, `pvrcnn_data` and `pvrcnn_data_train`
-those of phase 43's evaluate and train. K6 is on no KITTI path of
+those of phase 43's evaluate and train, `pointrcnn` and `pointrcnn_train`
+those of phase 46 and `pointrcnn_data` and `pointrcnn_data_train` those of
+phase 47 (null but for K1 and K2). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -510,6 +545,22 @@ TWO_STAGE = {
     "pvrcnn": ("pvrcnn.yaml", 4, 2, {"fps_block": 1, "query_group": 6, "probe": 8,
                                      "spconv_gather": 12}),
 }
+# phases 45-48: PointRCNN (pointrcnn.yaml), as TWO_STAGE: its file, eval
+# batch, training batch (BATCH_SIZE_PER_GPU) and the hand-written kernels a
+# forward calls: PointNet2MSG's four d-fps (16384 -> 4096 -> 1024 -> 256 ->
+# 64) and multi-scale ball queries, then the in-RoI encoder's two (512 ->
+# 128 -> 32 over B * R rows), K1 and K2; its scans hold the config's
+# MAX_POINTS (sample_points' NUM_POINTS), within K1's rows
+POINTRCNN = {"pointrcnn": ("pointrcnn.yaml", 4, 2, {"fps": 6, "query_group": 6})}
+SCAN_POINTS = {"pointrcnn": 16384}
+
+
+def stage_spec(which):
+    return {**TWO_STAGE, **POINTRCNN}[which]
+
+
+def scan_points(which):
+    return SCAN_POINTS.get(which, TWO_STAGE_POINTS)
 
 
 class Deferred(NamedTuple):
@@ -684,13 +735,17 @@ def compare_fps(args):
     # of this call's cluster layout, timed alone by a probe kernel
     plan = sampling.fps_plan(N, weights is not None)
     round_us = exchange_round_us(min(B, plan["active_clusters"]), plan["cluster_size"])
-    floor_ms = (npoint - 1) * round_us / 1e3
-    EXTRAS["fps"] = {"floor_ms": floor_ms, "steps": npoint - 1}
+    # a batch of more rows than clusters resident at once runs in waves
+    waves = -(-B // plan["active_clusters"])
+    floor_ms = waves * (npoint - 1) * round_us / 1e3
+    empty = int((~valid.bool()).all(1).sum()) if valid is not None else 0
+    EXTRAS["fps"] = {"floor_ms": floor_ms, "steps": npoint - 1, "empty_rows": empty}
     print(f"  K1 plan at b{B} x {N} ({'s-fps' if weights is not None else 'd-fps'}): "
           f"cluster size {plan['cluster_size']}, cudaOccupancyMaxActiveClusters "
-          f"{plan['active_clusters']}, {plan['smem_bytes']} B shared memory a CTA; one "
+          f"{plan['active_clusters']} ({waves} wave{'s' if waves > 1 else ''}), "
+          f"{plan['smem_bytes']} B shared memory a CTA; {empty} rows with no valid lane; one "
           f"exchange round {round_us:.4f} us, so a latency floor of {floor_ms:.4f} ms for "
-          f"{npoint - 1} steps")
+          f"{waves} x {npoint - 1} steps")
     return (0.0, lambda: sampling._fps_kernel(xyz, npoint, valid, weights),
             lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid, weights),
             None, ops, nbytes, 5, 1)
@@ -3118,10 +3173,11 @@ def infer_profiles(jobs):
     return {name: r for (name, _, _), r in zip(jobs, results)}
 
 
-# the profiles of phases 39 and 44: config file, batch, points a scan
+# the profiles of phases 39, 44 and 48: config file, batch, points a scan
 PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
             ("centerpoint.yaml", ZOO_TRAIN_BATCH, ZOO_POINTS),
-            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()))
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()),
+            *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()))
 
 
 def zoo_profiles(profiles):
@@ -3197,30 +3253,34 @@ def pool_all(out, grid_size):
 
 
 def two_stage_phases(dev, which):
-    """Phase 41 (which "parta2") or 42 ("pvrcnn"): the config's eval and
-    training step at full width on synthetic scans, every hand-written
-    kernel call of one recorded eval batch and of one recorded training
-    step held against its plain version. Returns the per-kernel reports and
-    the launch counts of both."""
+    """Phase 41 (which "parta2"), 42 ("pvrcnn") or 46 ("pointrcnn"): the
+    config's eval and training step at full width on synthetic scans, every
+    hand-written kernel call of one recorded eval batch and of one recorded
+    training step held against its plain version. PointRCNN's recorded eval
+    batch must give K1 rows with no valid lane (padded and empty RoIs), and
+    its counted batches print the proposal layer's share of a batch.
+    Returns the per-kernel reports and the launch counts of both."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, rois_over,
                                                     synth_scans, voxel_anchor_counts)
-    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.models.roi_heads import roi_head_template as tmpl
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels, grouping
     from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
     from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
 
-    cfg_name, batch, tbatch, calls = TWO_STAGE[which]
+    cfg_name, batch, tbatch, calls = stage_spec(which)
+    n_pts = scan_points(which)
     names = tuple(calls)
     cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
-    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=TWO_STAGE_POINTS)
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=n_pts)
     post = cfg.MODEL.POST_PROCESSING
     post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
     n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE)
     meta = model.dataset_meta
-    batches = [torch.from_numpy(synth_scans(meta, batch, TWO_STAGE_POINTS, seed=s)).to(dev)
+    batches = [torch.from_numpy(synth_scans(meta, batch, n_pts, seed=s)).to(dev)
                for s in range(TWO_STAGE_ITERS)]
-    mask = torch.ones((batch, TWO_STAGE_POINTS), dtype=torch.bool, device=dev)
+    mask = torch.ones((batch, n_pts), dtype=torch.bool, device=dev)
     rec = record_kernels(names)
     out, _ = detect(model, batches[0], mask)
     torch.cuda.synchronize()
@@ -3234,6 +3294,31 @@ def two_stage_phases(dev, which):
           f"over SCORE_THRESH) a scan {rois_over(model, out)}")
     del out
     report_eval = compare_recorded(rec.calls, which)
+    if which == "pointrcnn":
+        # the in-RoI encoder's first d-fps (B * R rows of 512 slots) again,
+        # with whole rows emptied and rows of one valid slot, as padded RoIs
+        # and RoIs that hold no point or one give them
+        xyz, npoint, valid, _ = rec.calls["fps"][-2]
+        holed = valid.clone()
+        holed[::3] = False
+        holed[1::3, 1:] = False
+        holed_report = compare_recorded({"fps": [(xyz, npoint, holed, None)]},
+                                        "pointrcnn in-RoI fps, rows emptied")
+        empty = holed_report["fps"]["empty_rows"]
+        check(empty > 0, "pointrcnn: the emptied rows did not reach K1")
+        # and the in-RoI encoder's first ball query with the same rows' sources
+        # emptied: their queries must find nothing (cnt 0), as in the plain version
+        src, src_valid, q, scales, payload = rec.calls["query_group"][-2][:5]
+        src_holed = src_valid.clone()
+        src_holed[::3] = False
+        compare_recorded({"query_group": [(src, src_holed, q, scales, payload, None, None,
+                                           None)]}, "pointrcnn in-RoI query_group, rows emptied")
+        cnt = grouping.query_group_plain(src[::3], src_holed[::3], q[::3], scales)[1]
+        check(not bool(cnt.any()), "pointrcnn: a query on an emptied row found a source")
+        print(f"pointrcnn: the recorded eval batch gave {report_eval['fps']['empty_rows']} K1 "
+              f"rows with no valid lane; its in-RoI d-fps ({tuple(xyz.shape)}) with {empty} rows "
+              f"emptied and {int((holed.sum(1) == 1).sum())} of one valid slot is index-equal to "
+              f"the plain version")
     del rec
 
     torch.cuda.synchronize()
@@ -3258,11 +3343,24 @@ def two_stage_phases(dev, which):
               f"{launches_eval[name]} times on the {which} path, not {n} a forward")
     counts = [int(c) for c in preds[-1][1]["count"]]
     extra = ""
+    if which == "pointrcnn":
+        seen = {}
+        head = model.module_list[-1]
+        hook = head.register_forward_pre_hook(lambda m, a: seen.update(
+            cls=a[0]["batch_cls_preds"].detach(), box=a[0]["batch_box_preds"].detach()))
+        detect(model, batches[-1], mask)
+        hook.remove()
+        ncfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+        nms_ms = cuda_time_ms(lambda: tmpl.proposal_layer(seen["cls"], seen["box"], ncfg), 1)
+        extra = (f"; the proposal layer ({seen['box'].shape[1]} point boxes a scan, NMS over "
+                 f"the best {ncfg.NMS_PRE_MAXSIZE}) {nms_ms:.3f} ms a batch, "
+                 f"{100 * nms_ms / (1e3 * dt / TWO_STAGE_ITERS):.1f}% of a counted batch")
+        del seen
     if which == "parta2":
         g = int(cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE)
         pool_ms = cuda_time_ms(lambda: pool_all(preds[-1][0], g), 3)
         extra = f"; RoI-aware pool (both pools, {g}^3 cells a RoI) {pool_ms:.3f} ms a batch"
-    print(f"{which} eval: {TWO_STAGE_ITERS} batches x {batch} scans x {TWO_STAGE_POINTS} "
+    print(f"{which} eval: {TWO_STAGE_ITERS} batches x {batch} scans x {n_pts} "
           f"points in {dt:.3f} s = {TWO_STAGE_ITERS * batch / dt:.3f} scans/s; (proposals "
           f"kept, RoI boxes over SCORE_THRESH) a scan {rois_over(model, preds[-1][0])}; "
           f"detections a scan (last batch) {counts}; launches {launches_eval}; peak memory "
@@ -3270,10 +3368,10 @@ def two_stage_phases(dev, which):
     del model, preds, batches, out, pred
     torch.cuda.empty_cache()
 
-    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=TWO_STAGE_POINTS,
+    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=n_pts,
                                   total_steps=TWO_STAGE_TRAIN_ITERS + 1)
     meta = model.dataset_meta
-    tbatches = [synth_train_batch(tbatch, TWO_STAGE_POINTS, s, dev, meta.point_cloud_range,
+    tbatches = [synth_train_batch(tbatch, n_pts, s, dev, meta.point_cloud_range,
                                   meta.num_point_features)
                 for s in range(TWO_STAGE_TRAIN_ITERS + 1)]
     rec = record_kernels(names + (("spconv_bykey_bwd",) if which == "parta2" else ()))
@@ -3309,6 +3407,9 @@ def two_stage_phases(dev, which):
     del out, targets, tb
     report_train = compare_recorded(rec.calls, f"{which} train")
     del rec
+    if which == "pointrcnn":
+        print(f"pointrcnn: the recorded training step gave {report_train['fps']['empty_rows']} "
+              f"K1 rows with no valid lane")
 
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
@@ -3328,7 +3429,7 @@ def two_stage_phases(dev, which):
         check(launches_train[name] == n * TWO_STAGE_TRAIN_ITERS, f"kernel {name} launched "
               f"{launches_train[name]} times on the {which} training path, not {n} a step")
     print(f"{which} training: {TWO_STAGE_TRAIN_ITERS} steps x {tbatch} scans x "
-          f"{TWO_STAGE_POINTS} points in {dt:.3f} s = "
+          f"{n_pts} points in {dt:.3f} s = "
           f"{TWO_STAGE_TRAIN_ITERS * tbatch / dt:.3f} train scans/s "
           f"({1e3 * dt / TWO_STAGE_TRAIN_ITERS:.1f} ms/step); losses "
           + str([(round(float(loss), 4), round(float(tb["rcnn_cls_loss"]), 4))
@@ -3341,8 +3442,9 @@ def two_stage_phases(dev, which):
     return report_eval, launches_eval, report_train, launches_train
 
 
-def two_stage_data_phases(dev, root):
-    """Phase 43: PartA2.yaml and pvrcnn.yaml on the KITTI root of phase 22:
+def two_stage_data_phases(dev, root, table=TWO_STAGE):
+    """Phase 43 (phase 47 with table POINTRCNN): PartA2.yaml and pvrcnn.yaml
+    (pointrcnn.yaml) on the KITTI root of phase 22:
     echoed gt through each config's dataset, `evaluate` and `train
     --data_root` for 1 epoch on phase 29's SECOND_DATA_FRAMES val and train
     frames (the first forward or step recorded and held), `evaluate --ckpt`
@@ -3362,7 +3464,7 @@ def two_stage_data_phases(dev, root):
             "DATA_CONFIG.INFO_PATH.test", f"['kitti_infos_val_{n}.pkl']"]
     data = ["--data_root", str(root), "--workers", str(KITTI_WORKERS), "--device", str(dev)]
     reports = {}
-    for which, (cfg_name, batch, tbatch, calls) in TWO_STAGE.items():
+    for which, (cfg_name, batch, tbatch, calls) in table.items():
         names = tuple(calls)
         tnames = names + (("spconv_bykey_bwd",) if which == "parta2" else ())
         cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
@@ -3378,7 +3480,8 @@ def two_stage_data_phases(dev, root):
             f"{which} data eval", evaluate,
             ["--cfg_file", str(cfg_file), "--batch_size", str(batch), "--output_dir",
              str(out)] + data + sets, detectors[cfg.MODEL.NAME], "forward", names)
-        voxels = first_out["voxel_mask"].sum(1).tolist()
+        voxels = (first_out["voxel_mask"].sum(1).tolist() if "voxel_mask" in first_out
+                  else None)
         proposals = first_out["roi_valid"].sum(1).tolist()
         del first_out
         check_kitti_aps(res, classes, f"{which} evaluate")
@@ -3387,8 +3490,9 @@ def two_stage_data_phases(dev, root):
                   f"{which} data eval: {len(rec.calls[kname])} {kname} calls a forward, "
                   f"{launches_eval[kname]} in all")
         print(f"{which} data eval (evaluate, seeded weights): echoed val gt through its dataset "
-              f"scores 100.0 on all {len(echo)} APs; {n} scans at b{batch}: voxels a scan of "
-              f"the first batch {voxels}, proposals kept {proposals}; {eval_line(res)}; "
+              f"scores 100.0 on all {len(echo)} APs; {n} scans at b{batch}: "
+              + ("" if voxels is None else f"voxels a scan of the first batch {voxels}, ")
+              + f"proposals kept {proposals}; {eval_line(res)}; "
               f"launches {launches_eval}; peak memory {peak:.2f} GiB")
         reports[f"{which}_data"] = (compare_recorded(rec.calls, f"{which} data eval"),
                                     launches_eval)
@@ -3424,8 +3528,9 @@ def two_stage_data_phases(dev, root):
     return reports
 
 
-def two_stage_profiles(dev, profiles):
-    """Phase 44, after every timed path: `infer --profile` of PartA2.yaml and
+def two_stage_profiles(dev, profiles, table=TWO_STAGE):
+    """Phase 44 (phase 48 with table POINTRCNN: pointrcnn.yaml at b4 x 16384),
+    after every timed path: `infer --profile` of PartA2.yaml and
     pvrcnn.yaml at b4 x 20000 (`profiles`, from `infer_profiles`), then the
     device time alone of the proposal layer's NMS on one eval batch's anchor boxes,
     at the test mode's NMS_PRE_MAXSIZE and at the training mode's (9000
@@ -3435,17 +3540,18 @@ def two_stage_profiles(dev, profiles):
     from tsm_det_pointcloud_tpu_torch import infer
     from tsm_det_pointcloud_tpu_torch.models.roi_heads import roi_head_template as tmpl
 
-    for which, (cfg_name, batch, _, _) in TWO_STAGE.items():
+    for which, (cfg_name, batch, _, _) in table.items():
         cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
+        n_pts = scan_points(which)
         (wall, busy, names), (pwall, pbusy, _) = profiles[cfg_name]
         fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
         check(not fft, f"{which}: cuDNN ran FFT convolutions: {fft}")
-        cfg, model = infer.build_detector(cfg_file, dev, seed=0, n_points=TWO_STAGE_POINTS)
+        cfg, model = infer.build_detector(cfg_file, dev, seed=0, n_points=n_pts)
         seen = {}
         head = model.module_list[-1]
         hook = head.register_forward_pre_hook(lambda m, a: seen.update(
             cls=a[0]["batch_cls_preds"].detach(), box=a[0]["batch_box_preds"].detach()))
-        pts = torch.from_numpy(infer.synth_scans(model.dataset_meta, batch, TWO_STAGE_POINTS,
+        pts = torch.from_numpy(infer.synth_scans(model.dataset_meta, batch, n_pts,
                                                  seed=0)).to(dev)
         infer.detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
         hook.remove()
@@ -3463,6 +3569,153 @@ def two_stage_profiles(dev, profiles):
               f"(training)")
         del model, seen
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 45-48: PointRCNN (pointrcnn.yaml)
+# ---------------------------------------------------------------------------
+
+def pointrcnn_golden_phase(dev):
+    """Phase 45: the tiny PointRCNN (tiny.two_stage_state("pointrcnn"))
+    reproduces its JAX golden on the card (labels, counts and the RoIs'
+    labels exact), through K1 and K2."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import detect
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    pts = torch.from_numpy(tiny.second_points(2, 256)).to(dev)
+    cfg, meta = tiny.two_stage_model("pointrcnn")
+    model = build_network(cfg, 1, meta, device=dev)
+    model.load_state_dict(tiny.two_stage_state("pointrcnn"), strict=True)
+    _kernels.reset_launches()
+    out, pred = detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+    check(_kernels.LAUNCHES["fps"] == 3 and _kernels.LAUNCHES["query_group"] == 3,
+          f"tiny pointrcnn launches {dict(_kernels.LAUNCHES)}")
+    hold_golden("pointrcnn reference: tiny pointrcnn", out, pred, tiny.POINTRCNN_FORWARD_PATH)
+
+
+def rcnn_gt_roi_phase(dev):
+    """Phase 45: the RCNN regression and corner losses with a non-empty
+    foreground. The tiny PointRCNN's and Part-A2's RoI heads (their training
+    states) take RoIs made from the gt boxes (`tiny.gt_roi_proposals`:
+    jittered within REG_FG_THRESH) beside the first stages' own outputs of
+    their training batch; rcnn_cls_loss, rcnn_reg_loss, rcnn_corner_loss and
+    the gradients of reg + corner on the head's parameters and on the
+    proposals' boxes are held on the card against the same head on the CPU
+    (the plain path: PointRCNN's in-RoI K1 and K2 calls run their plain
+    versions there). Losses atol 1e-4 * max(1, |want|) + rtol 1e-4, gradients
+    rtol 1e-3 above atol 1e-4 * max(the tensor's largest |g|, 1e-2 * the
+    head's)."""
+    import copy
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    cpu = torch.device("cpu")
+    for which in ("pointrcnn", "parta2"):
+        cfg, meta = tiny.two_stage_model(which)
+        gt, gmask = tiny.two_stage_gt(which)
+        model = build_network(cfg, 1, meta, device=cpu)
+        model.load_state_dict(tiny.two_stage_state(which, train=True), strict=True)
+        model.train()
+        bd = {"points": torch.from_numpy(tiny.second_points(2, 256)),
+              "points_mask": torch.ones(2, 256, dtype=torch.bool), "batch_size": 2,
+              "gt_boxes": torch.from_numpy(gt), "gt_boxes_mask": torch.from_numpy(gmask)}
+        with torch.no_grad():
+            for m in model.module_list[:-1]:
+                bd = m(bd)
+        logits, boxes = tiny.gt_roi_proposals(gt, gmask, 256)
+        bd = {k: v.detach() for k, v in bd.items() if isinstance(v, torch.Tensor)}
+        bd.update(batch_cls_preds=torch.from_numpy(logits), cls_preds_normalized=False)
+        results = []
+        for d in (dev, cpu):
+            head = copy.deepcopy(model.module_list[-1]).to(d).train()
+            box = torch.from_numpy(boxes).to(d).requires_grad_(True)
+            _kernels.reset_launches()
+            out = head(dict({k: v.to(d) if isinstance(v, torch.Tensor) else v
+                             for k, v in bd.items()}, batch_box_preds=box))
+            tb = out["tb_dict_rcnn"]
+            (tb["rcnn_reg_loss"] + tb["rcnn_corner_loss"]).backward()
+            fg = int((out["roi_targets"]["fg"] & out["roi_targets"]["sampled"]).sum())
+            results.append(dict(
+                tb={k: float(v.detach()) for k, v in tb.items()}, fg=fg,
+                launches=dict(_kernels.LAUNCHES), box=box.grad.cpu().numpy(),
+                grads={n: p.grad.cpu().numpy() for n, p in head.named_parameters()
+                       if p.grad is not None}))
+        got, want = results
+        check(got["fg"] == want["fg"] > 0,
+              f"{which} gt RoIs: sampled foreground {got['fg']} / {want['fg']}")
+        if which == "pointrcnn":
+            check(got["launches"]["fps"] == 1 and got["launches"]["query_group"] == 1,
+                  f"{which} gt RoIs: launches {got['launches']}")
+        for k, v in want["tb"].items():
+            check(close_scalar(got["tb"][k], v) and v > 0,
+                  f"{which} gt RoIs: {k} {got['tb'][k]} on the card, {v} on the CPU")
+        scale = max(float(np.abs(g).max()) for g in want["grads"].values())
+        worst = 0.0
+        check(set(got["grads"]) == set(want["grads"]) and len(want["grads"]) > 5,
+              f"{which} gt RoIs: gradients of {sorted(set(got['grads']) ^ set(want['grads']))}")
+        for n, w in list(want["grads"].items()) + [("proposal boxes", want["box"])]:
+            g = got["box"] if n == "proposal boxes" else got["grads"][n]
+            atol = 1e-4 * max(float(np.abs(w).max()), 1e-2 * scale)
+            check(np.allclose(g, w, rtol=1e-3, atol=atol),
+                  f"{which} gt RoIs: gradient of {n} differs: {float(np.abs(g - w).max())}")
+            worst = max(worst, float(np.abs(g - w).max()))
+        print(f"{which} gt RoIs (card against CPU): {got['fg']} foreground RoIs sampled; "
+              + ", ".join(f"{k} {got['tb'][k]:.6f} ({want['tb'][k]:.6f})" for k in want["tb"])
+              + f"; {len(want['grads'])} parameter gradients and the boxes' held, max abs diff "
+              f"{worst:.3g}; launches on the card {got['launches']}")
+
+
+def pointrcnn_converter_phase(dev, root):
+    """Phase 47: convert_torch_ckpt on a synthetic reference checkpoint of a
+    seeded full-width pointrcnn.yaml detector (OpenPCDet's layouts,
+    `reference_state_dict`): nothing unplaced; the tensors placed off their
+    own leaf (ties of leaf name and shape, ROADMAP §C) are counted; the
+    converted checkpoint loads strictly and detects on phase 30's first raw
+    scan with finite outputs."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import convert_torch_ckpt, demo
+    from tsm_det_pointcloud_tpu_torch.datasets import load_data_to_device, to_torch_batch
+    from tsm_det_pointcloud_tpu_torch.infer import build_detector, detect
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import restore_checkpoint
+
+    cfg_file = ROOT / "tools/cfgs/kitti_models/pointrcnn.yaml"
+    out = root.parent / "pointrcnn_convert"
+    out.mkdir()
+    cfg, src_model = build_detector(cfg_file, dev, seed=3, n_points=scan_points("pointrcnn"))
+    src = {k: v.detach().cpu() for k, v in src_model.state_dict().items()}
+    del src_model
+    ref, source = convert_torch_ckpt.reference_state_dict(src, cfg.MODEL)
+    torch.save({"model_state": ref, "epoch": 80, "it": 37120}, out / "reference.pth")
+    report = convert_torch_ckpt.main(["--ckpt", str(out / "reference.pth"), "--cfg_file",
+                                      str(cfg_file), "--out", str(out / "converted.pth")])
+    check(not report["unplaced"], f"pointrcnn converter: unplaced {report['unplaced']}")
+    conv = torch.load(out / "converted.pth", weights_only=True)["model_state"]
+    equal = sum(torch.equal(conv[key], src[key]) for key in source.values())
+    model = build_detector(cfg_file, dev, seed=0, n_points=scan_points("pointrcnn"))[1]
+    restore_checkpoint(out / "converted.pth", model)
+    scans = demo.DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root.parent / "demo" / "scans")
+    batch = load_data_to_device(to_torch_batch(scans.collate(scans[0])), dev)
+    o, p = detect(model, batch["points"], batch["points_mask"])
+    check(all(bool(torch.isfinite(t).all()) for t in (o["batch_cls_preds"], o["batch_box_preds"],
+                                                      p["pred_boxes"], p["pred_scores"])),
+          "pointrcnn converter: non-finite outputs of the converted model")
+    print(f"pointrcnn reference checkpoint: {len(ref)} tensors of a seeded full-width "
+          f"pointrcnn.yaml detector in OpenPCDet's layouts; converted {report['converted']}, "
+          f"unplaced 0, placed among more than one candidate {len(report['tied'])}, "
+          f"{equal} of {len(source)} port entries bit-equal to their source after it; the "
+          f"converted model loads strictly and detects {int(p['count'][0])} boxes on a raw "
+          f"scan, outputs finite")
+    del model, o, p
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3815,6 +4068,14 @@ def main():
         two_stage[f"{which}_train"] = (rep_t, lau_t)
     two_stage.update(two_stage_data_phases(dev, kitti_root))
     mark("40-43")
+    pointrcnn_golden_phase(dev)
+    rcnn_gt_roi_phase(dev)
+    rep_e, lau_e, rep_t, lau_t = two_stage_phases(dev, "pointrcnn")
+    two_stage["pointrcnn"] = (rep_e, lau_e)
+    two_stage["pointrcnn_train"] = (rep_t, lau_t)
+    two_stage.update(two_stage_data_phases(dev, kitti_root, POINTRCNN))
+    pointrcnn_converter_phase(dev, kitti_root)
+    mark("45-47")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -3831,7 +4092,8 @@ def main():
     profiles = infer_profiles(PROFILES)
     zoo_profiles(profiles)
     two_stage_profiles(dev, profiles)
-    mark("the device times and profiles (39, 44)")
+    two_stage_profiles(dev, profiles, POINTRCNN)
+    mark("the device times and profiles (39, 44, 48)")
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()

@@ -6,7 +6,7 @@ is exact: both sides run the same numpy on the same arrays.
     tests/test_ckpt_converter.py (a `slow` file: not in tier-1) and on a
     3-tap sparse kernel, which both reject alike;
   * the graft on the tiny student, teacher, SECOND, PointPillars,
-    CenterPoint, Part-A2 and PV-RCNN: a synthetic
+    CenterPoint, Part-A2, PV-RCNN and PointRCNN: a synthetic
     OpenPCDet-layout state dict (`reference_state_dict`, numpy-seeded
     values on each JAX tiny training init's structure, BN
     `num_batches_tracked` entries that no rule maps) through the JAX
@@ -126,6 +126,7 @@ MODELS = {
     "centerpoint": lambda: _voxel(tiny.centerpoint_model_cfg(), tiny.CENTERPOINT_META),
     "parta2": lambda: _voxel(*tiny.two_stage_model("parta2")),
     "pvrcnn": lambda: _voxel(*tiny.two_stage_model("pvrcnn")),
+    "pointrcnn": lambda: _voxel(*tiny.two_stage_model("pointrcnn")),
 }
 
 
@@ -218,6 +219,13 @@ EXPECTED = {
     "pvrcnn": dict(unmatched=[], unplaced=ANCHOR_HEAD_UNPLACED[2:],
                    misplaced=["backbone_2d.deblock0.weight", "roi_head.cls_out.bias",
                               "roi_head.cls_out.weight"]),
+    # PointRCNN: every tensor placed, but the RoI head's cls_fc BN and
+    # cls_out, which tie with the point head's (a 16-wide BN, a (16, 1)
+    # output) and go to the point head's, as Part-A2's
+    "pointrcnn": dict(unmatched=[], unplaced=[],
+                      misplaced=[f"roi_head.cls_fc.bn0.{k}" for k in (
+                          "running_mean", "running_var", "bias", "weight")]
+                      + ["roi_head.cls_out.bias", "roi_head.cls_out.weight"]),
 }
 
 
@@ -448,3 +456,83 @@ def test_entry_point_on_full_width_fast_cpc(tmp_path):
     for ref_name, key in source.items():
         if ref_name != "point_head.head.reg_weight":
             assert torch.equal(out["model_state"][key], src[key]), key
+
+
+def _pointrcnn_openpcdet_names(cfg):
+    """OpenPCDet's PointRCNN names of the port's (the flax) modules: the SA
+    and FP modules' SharedMLPs (Conv2d, BN, ReLU a layer), the point head's
+    cls / box layers (Linear, BN, ReLU a layer, the output Linear after
+    them), the RoI head's `xyz_up_layer` (as built with BN), in-RoI
+    `SA_modules` and FC stacks (Conv1d, BN, ReLU a layer, a Dropout after
+    the first: DP_RATIO 0.0 >= 0)."""
+    n_point = {k: len(cfg.POINT_HEAD[f"{k.upper()}_FC"]) for k in ("cls", "reg")}
+    n_roi = {k: len(cfg.ROI_HEAD[f"{k.upper()}_FC"]) for k in ("cls", "reg")}
+
+    def fc(k):
+        return 3 * k + (k > 0)
+
+    rules = [
+        (r"^backbone_3d\.sa(\d)\.mlp(\d)\.(fc|bn)(\d)\.",
+         lambda m: f"backbone_3d.SA_modules.{m.group(1)}.mlps.{m.group(2)}."
+                   f"{3 * int(m.group(4)) + (m.group(3) == 'bn')}."),
+        (r"^backbone_3d\.fp(\d)\.mlp\.(fc|bn)(\d)\.",
+         lambda m: f"backbone_3d.FP_modules.{m.group(1)}.mlp."
+                   f"{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^point_head\.(cls|box)_fc\.(fc|bn)(\d)\.",
+         lambda m: f"point_head.{m.group(1)}_layers.{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^point_head\.(cls|box)_out\.",
+         lambda m: f"point_head.{m.group(1)}_layers."
+                   f"{3 * n_point['cls' if m.group(1) == 'cls' else 'reg']}."),
+        (r"^roi_head\.xyz_up\.(fc|bn)(\d)\.",
+         lambda m: f"roi_head.xyz_up_layer.{3 * int(m.group(2)) + (m.group(1) == 'bn')}."),
+        (r"^roi_head\.roi_sa(\d)\.(mlp0\.)?(fc|bn)(\d)\.",
+         lambda m: f"roi_head.SA_modules.{m.group(1)}.mlps.0."
+                   f"{3 * int(m.group(4)) + (m.group(3) == 'bn')}."),
+        (r"^roi_head\.shared_(fc|bn)(\d)\.",
+         lambda m: f"roi_head.shared_fc_layer.{fc(int(m.group(2))) + (m.group(1) == 'bn')}."),
+        (r"^roi_head\.(cls|reg)_fc\.(fc|bn)(\d)\.",
+         lambda m: f"roi_head.{m.group(1)}_layers.{fc(int(m.group(3))) + (m.group(2) == 'bn')}."),
+        (r"^roi_head\.(cls|reg)_out\.",
+         lambda m: f"roi_head.{m.group(1)}_layers.{fc(n_roi[m.group(1)])}."),
+    ]
+
+    def rename(name):
+        for pat, rep in rules:
+            if re.match(pat, name):
+                return re.sub(pat, rep, name)
+        return name
+
+    return rename
+
+
+def test_openpcdet_pointrcnn_names_place_like_jax():
+    """A reference checkpoint of the tiny PointRCNN under OpenPCDet's module
+    names (`backbone_3d.SA_modules.<i>.mlps.<j>.<k>`, `FP_modules`,
+    `point_head.cls_layers`, `roi_head.SA_modules`, `roi_head.xyz_up_layer`,
+    ...): both converters place it alike, bit for bit, with the same
+    unmatched and unplaced lists. No rule maps a BN named `<k>` to a scale
+    (its weight becomes an unplaced 1-D kernel), and a tensor whose path
+    shares nothing with its leaf's but the leaf name goes to the first leaf
+    of its shape in flax order (ROADMAP §C)."""
+    cfg, shapes = MODELS["pointrcnn"]()
+    rng = np.random.RandomState(sorted(MODELS).index("pointrcnn"))
+    init = _fill(shapes, rng)
+    src = from_flax_variables(_fill(shapes, rng))
+    ref, source = port.reference_state_dict(src, cfg)
+    rename = _pointrcnn_openpcdet_names(cfg)
+    renamed = [k for k in ref if rename(k) != k]
+    assert len(renamed) == len(ref)
+    ref = {rename(k): v for k, v in ref.items()}
+    source = {rename(k): v for k, v in source.items()}
+    for name in ("backbone_3d.SA_modules.1.mlps.0.3.weight", "backbone_3d.FP_modules.0.mlp.0.weight",
+                 "point_head.cls_layers.0.weight", "point_head.cls_layers.3.bias",
+                 "roi_head.SA_modules.1.mlps.0.3.weight", "roi_head.xyz_up_layer.4.weight",
+                 "roi_head.cls_layers.4.bias"):
+        assert name in ref, name
+    want, want_unmatched, want_unplaced = _jax_side(init, ref)
+    got, report = port.convert_checkpoint(ref, from_flax_variables(init))
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert report["unmatched"] == want_unmatched and report["unplaced"] == want_unplaced
+    placed = sum(torch.equal(got[key], src[key]) for n, key in source.items() if n in ref)
+    print(f"pointrcnn: {len(ref)} tensors, {len(renamed)} renamed, "
+          f"{len(report['unplaced'])} unplaced, {placed} on the leaf they came from")

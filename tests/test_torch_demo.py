@@ -20,7 +20,9 @@ out of range, so that the range mask and sample_points' draw both work):
     bias at 0;
   * the same two on the tiny Part-A2 with PartA2.yaml's data section on its
     geometry (torch_kitti_cases.tiny_two_stage_dataset_cfg: 256 points a
-    scan), from tiny.two_stage_state("parta2"): its labels are the RoIs'.
+    scan), from tiny.two_stage_state("parta2"): its labels are the RoIs';
+    and on the tiny PointRCNN with pointrcnn.yaml's (sample_points at 256,
+    no voxels), from tiny.two_stage_state("pointrcnn").
 """
 import importlib.util
 
@@ -188,15 +190,17 @@ def test_pointpillar_entry_point_on_cpu(scans, pp_state, tmp_path, capsys):
     assert rate > 0
 
 
-def test_parta2_detections_equal_jax(scans):
-    cfg = tiny_two_stage_dataset_cfg("parta2", scans)
-    state = tiny.two_stage_state("parta2")
+@pytest.mark.parametrize("which", ["parta2", "pointrcnn"])
+def test_parta2_detections_equal_jax(scans, which):
+    cfg = tiny_two_stage_dataset_cfg(which, scans)
+    state = tiny.two_stage_state(which)
+    model_cfg = tiny.two_stage_model(which)[0]
     jds = jdemo.DemoDataset(cfg, ["Car"], scans / "bin", ext=".bin")
     pds = demo.DemoDataset(cfg, ["Car"], scans / "bin", ext=".bin")
     for i in range(N_SCANS):
         assert_same(pds.collate(pds[i]), jds.collate(jds[i]), f"batch {i}")
-    want = _jax_detections(jds, to_flax_variables(state), tiny.parta2_model_cfg(), 1)
-    model = build_network(tiny.parta2_model_cfg(), 1, pds, device="cpu")
+    want = _jax_detections(jds, to_flax_variables(state), model_cfg, 1)
+    model = build_network(model_cfg, 1, pds, device="cpu")
     model.load_state_dict(state, strict=True)
     got = demo.run_demo(model, pds, create_logger())
     assert sum(len(p["pred_labels"]) for p in want) > 0, "no detections to compare"
@@ -206,11 +210,13 @@ def test_parta2_detections_equal_jax(scans):
         np.testing.assert_allclose(g["pred_boxes"], w["pred_boxes"], rtol=1e-4, atol=1e-4)
 
 
-def test_parta2_entry_point_on_cpu(scans, tmp_path, capsys):
-    cfg = write_tiny_yaml(tmp_path / "tiny_parta2.yaml", scans, model=tiny.parta2_model_cfg(),
-                          data=tiny_two_stage_dataset_cfg("parta2", scans), classes=["Car"])
-    ckpt = tmp_path / "tiny_parta2.pth"
-    torch.save({"model_state": tiny.two_stage_state("parta2"), "optimizer_state": {},
+@pytest.mark.parametrize("which", ["parta2", "pointrcnn"])
+def test_parta2_entry_point_on_cpu(scans, tmp_path, capsys, which):
+    cfg = write_tiny_yaml(tmp_path / f"tiny_{which}.yaml", scans,
+                          model=tiny.two_stage_model(which)[0],
+                          data=tiny_two_stage_dataset_cfg(which, scans), classes=["Car"])
+    ckpt = tmp_path / f"tiny_{which}.pth"
+    torch.save({"model_state": tiny.two_stage_state(which), "optimizer_state": {},
                 "epoch": 1, "it": 3}, ckpt)
     preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(scans / "bin"),
                              "--ckpt", str(ckpt), "--device", "cpu"])

@@ -151,7 +151,7 @@ def _two_stage_yaml(setup, which):
                            data=tiny_two_stage_dataset_cfg(which, setup["root"]))
 
 
-@pytest.mark.parametrize("which", ["parta2", "pvrcnn"])
+@pytest.mark.parametrize("which", ["parta2", "pvrcnn", "pointrcnn"])
 def test_two_stage_trains_over_two_ranks(setup, which):
     import torch
 
@@ -177,6 +177,13 @@ def test_two_stage_refuses_point_axis(setup):
         train.main(["--cfg_file", str(_two_stage_yaml(setup, "parta2")), "--data_root",
                     str(setup["root"]), "--device", "cpu", "--workers", "0",
                     "--point_axis", "2", "--output_dir", str(setup["base"] / "pax2")])
+
+
+def test_pointrcnn_refuses_point_axis(setup):
+    with pytest.raises(ValueError, match="PointRCNN has no such layer"):
+        train.main(["--cfg_file", str(_two_stage_yaml(setup, "pointrcnn")), "--data_root",
+                    str(setup["root"]), "--device", "cpu", "--workers", "0",
+                    "--point_axis", "2", "--output_dir", str(setup["base"] / "pax2_pointrcnn")])
 
 
 def test_synthetic_mode_stays_single_process():

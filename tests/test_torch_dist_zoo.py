@@ -1,14 +1,17 @@
-"""Data-parallel training of the tiny PointPillars, the tiny CenterPoint and
-the tiny Part-A2 in the port: two gloo processes at b2 each (tests/torch_dist_cases.py
+"""Data-parallel training of the tiny PointPillars, the tiny CenterPoint,
+the tiny Part-A2 and the tiny PointRCNN in the port: two gloo processes at b2 each (tests/torch_dist_cases.py
 `dist_steps_case`: DDP, one `train_step` on their halves of the batch)
 against one port process at b4 (the same function at world size 1), whose
 step tests/test_torch_pointpillar.py, tests/test_torch_centerpoint.py and
-tests/test_torch_parta2.py hold against the JAX package. The BNs
+tests/test_torch_parta2.py and tests/test_torch_pointrcnn.py hold against
+the JAX package. The BNs
 (PillarVFE's over B x V x P rows, the BEV backbone's, the center head's,
 UNetV2's and the RoI head's over the valid RoIs), the focal losses'
 positives, the regression loss's mask sum and the RCNN losses' sampled and
 foreground counts are the global batch's through parallel.comm (Part-A2's
-batch has a scan with no sampled RoI on each rank).
+batch has a scan with no sampled RoI on each rank; PointRCNN's point head's
+positives and its PointNet++ BNs over the valid points and slots are
+global too).
 
 Tolerances, as test_torch_dist_train.py's: loss and tb terms (the ranks'
 mean) atol 1e-4 * max(1, |want|), rtol 1e-4; gradients (DDP's mean) rtol
@@ -17,6 +20,8 @@ BN running statistics after the step atol and rtol 1e-5. Between the ranks:
 the reduced gradients, every buffer and every parameter after the optimizer
 step bit-equal.
 """
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +31,7 @@ from tests.torch_dist_cases import (centerpoint_batch, dist_step_case, dist_step
 
 B = 4
 BATCHES = {"pointpillar": pointpillar_batch, "centerpoint": centerpoint_batch,
-           "parta2": parta2_batch}
+           "parta2": parta2_batch, "pointrcnn": partial(parta2_batch, which="pointrcnn")}
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,10 @@ teacher (fast_cpc_teacher.yaml's data section on its range), the tiny
 SECOND (second.yaml's: the voxel route, no sample_points, on the tiny
 SECOND's geometry), the tiny PointPillars (pointpillar.yaml's: 8 points a
 pillar, gt sampling on road planes), the tiny CenterPoint
-(centerpoint.yaml's) and the tiny Part-A2 and PV-RCNN (PartA2.yaml's and
-pvrcnn.yaml's: road planes, two-stage post-processing) against the JAX
+(centerpoint.yaml's), the tiny Part-A2 and PV-RCNN (PartA2.yaml's and
+pvrcnn.yaml's: road planes, two-stage post-processing) and the tiny
+PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels)
+against the JAX
 package, over copies of one synthetic KITTI root, as
 tests/test_torch_eval_loop.py holds the tiny student.
 
@@ -12,7 +14,8 @@ Both sides take the committed converted JAX PRNGKey(0) inits
 (data/tsm_teacher_tiny_state.npz with tiny.teacher_overrides();
 data/second_tiny_state.npz; data/pointpillar_tiny_state.npz;
 tiny.centerpoint_eval_state(), drawn over data/centerpoint_tiny_state.npz;
-tiny.two_stage_state(...), drawn over the port model's own entries), the
+tiny.two_stage_state(...), drawn over the port model's own entries, or
+PointRCNN's over data/pointrcnn_tiny_state.npz), the
 flax side through `convert.to_flax_variables`.
 So that NMS keeps boxes: the teacher's cls output biases are 1.0 and its
 SCORE_THRESH 0.05 for every class (tests/test_torch_teacher.py's), SECOND's
@@ -103,7 +106,7 @@ def _two_stage(which):
 
 MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
           "centerpoint": _centerpoint, "parta2": lambda: _two_stage("parta2"),
-          "pvrcnn": lambda: _two_stage("pvrcnn")}
+          "pvrcnn": lambda: _two_stage("pvrcnn"), "pointrcnn": lambda: _two_stage("pointrcnn")}
 
 
 

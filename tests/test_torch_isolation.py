@@ -121,7 +121,7 @@ def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     cfg = tiny.tiny_model_cfg()
-    cfg["NAME"] = "PointRCNN"
+    cfg["NAME"] = "VoxelRCNN"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
     # train mode is ported, and asks for the gt boxes it trains on
@@ -160,8 +160,8 @@ def test_converter_consumes_every_eval_leaf():
 
 def test_second_trains_and_unported_topologies_raise():
     """SECOND builds on the CPU and its training forward returns a finite
-    loss with its tb terms; an unported detector (PointRCNN) raises, and so
-    does a module that the SECOND topology does not take."""
+    loss with its tb terms; an unported detector (SECONDNetIoU) raises, and
+    so does a module that the SECOND topology does not take."""
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
@@ -177,9 +177,8 @@ def test_second_trains_and_unported_topologies_raise():
     assert torch.isfinite(out["loss"])
     assert set(out["tb_dict"]) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}
     cfg = tiny.second_model_cfg()
-    cfg["NAME"] = "PointRCNN"
-    cfg["BACKBONE_3D"] = {"NAME": "PointNet2MSG"}
-    with pytest.raises(NotImplementedError, match="PointRCNN"):
+    cfg["NAME"] = "SECONDNetIoU"
+    with pytest.raises(NotImplementedError, match="SECONDNetIoU"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
     cfg = tiny.second_model_cfg()
     cfg["VFE"] = {"NAME": "PillarVFE"}
@@ -222,20 +221,52 @@ def test_two_stage_modules_are_covered():
         assert (PORT / (name.replace(".", "/") + ".py")).exists()
 
 
+def test_pointrcnn_modules_are_covered():
+    """PointRCNN's modules are among those imported without JAX above and
+    scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("models.backbones_3d.pointnet2_backbone", "models.backbones_3d.pointnet2_modules",
+                 "models.dense_heads.point_head_box", "models.roi_heads.pointrcnn_head",
+                 "ops.grouping", "ops.box_coder_utils"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_pointrcnn_data_entry_points_refuse_cuda_without_card(monkeypatch, tmp_path):
+    """`evaluate`, `train --data_root` (also under --launcher) and `demo` on
+    pointrcnn.yaml default to the card too, and refuse a host without one."""
+    from tsm_det_pointcloud_tpu_torch import demo, evaluate, train
+
+    cfg = str(ROOT / "tools/cfgs/kitti_models/pointrcnn.yaml")
+    flags = ["--cfg_file", cfg, "--data_root", str(tmp_path), "--output_dir", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(flags)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(flags)
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(flags + ["--launcher", "pytorch"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.main(["--cfg_file", cfg, "--data_path", str(tmp_path)])
+
+
 def test_two_stage_entry_points_refuse_cuda_without_card(monkeypatch):
-    """`infer` and `train` on PartA2.yaml and pvrcnn.yaml default to the card
-    too, and refuse a host without one; the detectors still unported raise
-    in build_network."""
+    """`infer` and `train` on PartA2.yaml, pvrcnn.yaml and pointrcnn.yaml
+    default to the card too, and refuse a host without one; the detectors
+    still unported raise in build_network."""
     from tsm_det_pointcloud_tpu_torch import infer, tiny, train
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
-    for name in ("PointRCNN", "VoxelRCNN", "PVRCNNPlusPlus"):
+    for name in ("SECONDNetIoU", "VoxelRCNN", "PVRCNNPlusPlus"):
         cfg = tiny.pvrcnn_model_cfg()
         cfg["NAME"] = name
         with pytest.raises(NotImplementedError, match=name):
             build_network(cfg, 1, tiny.PVRCNN_META, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("PartA2", "pvrcnn"):
+    for name in ("PartA2", "pvrcnn", "pointrcnn"):
         cfg = str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
         with pytest.raises(RuntimeError, match="CUDA"):
             infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])

@@ -59,6 +59,7 @@ TEACHER = "tools/cfgs/kitti_models/fast_cpc_teacher.yaml"
 SECOND = "tools/cfgs/kitti_models/second.yaml"
 POINTPILLAR = "tools/cfgs/kitti_models/pointpillar.yaml"
 CENTERPOINT = "tools/cfgs/kitti_models/centerpoint.yaml"
+POINTRCNN = "tools/cfgs/kitti_models/pointrcnn.yaml"
 
 
 @pytest.fixture(scope="module")
@@ -130,9 +131,9 @@ def _datasets(roots, cfg_file, training, edit=None):
 
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
 @pytest.mark.parametrize("cfg_file", [BASE_CFG, FAST_CPC, TEACHER, SECOND, POINTPILLAR,
-                                      CENTERPOINT],
+                                      CENTERPOINT, POINTRCNN],
                          ids=["kitti_dataset", "fast_cpc", "teacher", "second", "pointpillar",
-                              "centerpoint"])
+                              "centerpoint", "pointrcnn"])
 def test_getitem_and_collate_equal_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)
     if training:
@@ -362,7 +363,8 @@ def test_other_datasets_raise(roots):
         build_dataloader(cfg, CLASSES, 2, workers=0)
 
 
-@pytest.mark.parametrize("cfg_file", [FAST_CPC, TEACHER, SECOND, POINTPILLAR, CENTERPOINT])
+@pytest.mark.parametrize("cfg_file", [FAST_CPC, TEACHER, SECOND, POINTPILLAR, CENTERPOINT,
+                                      POINTRCNN])
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
 def test_meta_from_dataset_equals_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)

@@ -171,12 +171,13 @@ def centerpoint_batch(n_scans):
             "gt_boxes": gt, "gt_boxes_mask": gmask, "batch_size": n_scans}
 
 
-def parta2_batch(n_scans):
+def parta2_batch(n_scans, which="parta2"):
     """The tiny Part-A2's training batch (tiny.second_points at 256 points,
-    tiny.two_stage_gt's scans in turn: a full RoI sample and an empty one)."""
+    tiny.two_stage_gt's scans in turn: a full RoI sample and an empty one),
+    or the tiny PointRCNN's (which "pointrcnn")."""
     from tsm_det_pointcloud_tpu_torch import tiny
 
-    gt, gmask = tiny.two_stage_gt("parta2", n_scans)
+    gt, gmask = tiny.two_stage_gt(which, n_scans)
     return {"points": tiny.second_points(n_scans, 256),
             "points_mask": np.ones((n_scans, 256), bool), "gt_boxes": gt,
             "gt_boxes_mask": gmask, "batch_size": n_scans}
@@ -217,9 +218,10 @@ def _model(which):
         model = build_network(tiny.centerpoint_model_cfg(), 3, tiny.CENTERPOINT_META,
                               device="cpu")
         model.load_state_dict(tiny.load_state(tiny.CENTERPOINT_STATE_PATH), strict=True)
-    elif which == "parta2":
-        model = build_network(tiny.parta2_model_cfg(), 1, tiny.PARTA2_META, device="cpu")
-        model.load_state_dict(tiny.two_stage_state("parta2", train=True), strict=True)
+    elif which in ("parta2", "pointrcnn"):
+        cfg, meta = tiny.two_stage_model(which)
+        model = build_network(cfg, 1, meta, device="cpu")
+        model.load_state_dict(tiny.two_stage_state(which, train=True), strict=True)
     elif which == "teacher":
         model = build_network(tiny.tiny_teacher_model_cfg(), 3, tiny.META, device="cpu")
         model.load_state_dict(teacher_state(), strict=True)
@@ -233,7 +235,7 @@ def dist_step_case(rank, world, which, batch, point_axis=0):
     """One DDP training step of the tiny TSM ("tsm"), its teacher
     ("teacher": every parameter trains, the class statistics update),
     SECOND ("second"), PointPillars ("pointpillar"), CenterPoint
-    ("centerpoint") or Part-A2 ("parta2")
+    ("centerpoint"), Part-A2 ("parta2") or PointRCNN ("pointrcnn")
     on this rank's share of `batch` (under point_axis P, P ranks share a
     sample set and split its points). Returns this rank's loss and tb terms,
     the reduced gradients, the buffers after the forward, the parameters

@@ -142,12 +142,20 @@ def tiny_centerpoint_dataset_cfg(root):
 
 
 def tiny_two_stage_dataset_cfg(which, root):
-    """PartA2.yaml's ("parta2") or pvrcnn.yaml's ("pvrcnn") DATA_CONFIG (gt
-    sampling on road planes) on the tiny detector's geometry
-    (tiny.two_stage_model(which)), gt sampling of its one class."""
-    cfg_file = {"parta2": "PartA2.yaml", "pvrcnn": "pvrcnn.yaml"}[which]
-    return _tiny_voxel_dataset_cfg(f"tools/cfgs/kitti_models/{cfg_file}", root,
-                                   tiny.two_stage_model(which)[1], ["Car:15"])
+    """PartA2.yaml's ("parta2"), pvrcnn.yaml's ("pvrcnn") or pointrcnn.yaml's
+    ("pointrcnn") DATA_CONFIG (gt sampling on road planes) on the tiny
+    detector's geometry (tiny.two_stage_model(which); pointrcnn.yaml's
+    sample_points takes its MAX_POINTS in both modes), gt sampling of its one
+    class."""
+    cfg_file = {"parta2": "PartA2.yaml", "pvrcnn": "pvrcnn.yaml",
+                "pointrcnn": "pointrcnn.yaml"}[which]
+    meta = tiny.two_stage_model(which)[1]
+    data = _tiny_voxel_dataset_cfg(f"tools/cfgs/kitti_models/{cfg_file}", root, meta,
+                                   ["Car:15"])
+    for p in data.DATA_PROCESSOR:
+        if which == "pointrcnn" and p.NAME == "sample_points":
+            p.NUM_POINTS = {"train": meta.max_points, "test": meta.max_points}
+    return data
 
 
 def write_tiny_yaml(path, root, batch=2, epochs=1, model=None, data=None, classes=CLASSES):

@@ -1,5 +1,6 @@
 """The JAX side of the tiny two-stage detectors' checks
-(tests/test_torch_parta2.py, tests/test_torch_pvrcnn.py): the JAX model of
+(tests/test_torch_parta2.py, tests/test_torch_pvrcnn.py,
+tests/test_torch_pointrcnn.py): the JAX model of
 `tiny.two_stage_model(which)` on `tiny.second_points(2, 256)`, its jitted
 eval forward with post-processing and its jitted training step, with the
 port state `tiny.two_stage_state(which)` converted to flax variables
@@ -9,6 +10,8 @@ The committed goldens `data/parta2_tiny_forward.npz` and
 `data/pvrcnn_tiny_forward.npz` (FORWARD keys of the eval forward and the
 post-processed predictions) are regenerated with
     python -c "from tests.torch_two_stage_cases import write_forward; write_forward('parta2'); write_forward('pvrcnn')"
+(PointRCNN's, with its state, by tests/test_torch_pointrcnn.py's
+write_pointrcnn_tiny_files).
 """
 import dataclasses
 
@@ -32,11 +35,13 @@ PRED = ("pred_boxes", "pred_scores", "pred_labels", "count")
 TRAIN_AUX = ("voxel_features", "voxel_coords", "voxel_mask", "spatial_features_2d",
              "cls_preds", "box_preds", "dir_cls_preds", "point_coords", "point_valid",
              "point_features", "point_cls_scores", "point_features_before_fusion",
-             "point_part_offset")
+             "point_part_offset", "point_cls_preds", "point_box_preds_raw", "rois",
+             "roi_labels", "batch_cls_preds", "batch_box_preds")
 
 
 def forward_path(which):
-    return tiny.PARTA2_FORWARD_PATH if which == "parta2" else tiny.PVRCNN_FORWARD_PATH
+    return {"parta2": tiny.PARTA2_FORWARD_PATH, "pvrcnn": tiny.PVRCNN_FORWARD_PATH,
+            "pointrcnn": tiny.POINTRCNN_FORWARD_PATH}[which]
 
 
 def points():

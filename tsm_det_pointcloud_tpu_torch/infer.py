@@ -19,6 +19,8 @@ scans.
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --batch 4 --points 16384
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
@@ -211,20 +213,23 @@ def dataset_meta(cfg, n_points, mode="test"):
     DATA_PROCESSOR entry that states one (and its voxel limits, where it has
     them: MAX_NUMBER_OF_VOXELS of `mode`, "test" for eval and "train" for
     training, as the JAX data processor picks them), and the grid they
-    give."""
+    give; no voxel size nor grid for a point-based config that voxelizes
+    nothing (pointrcnn.yaml)."""
     data = cfg.DATA_CONFIG
     pcr = tuple(data.POINT_CLOUD_RANGE)
-    voxel = next(p for p in data.DATA_PROCESSOR if "VOXEL_SIZE" in p)
-    size = tuple(voxel.VOXEL_SIZE)
-    grid = np.round(np.subtract(pcr[3:], pcr[:3]) / np.asarray(size)).astype(int)
+    voxel = next((p for p in data.DATA_PROCESSOR if "VOXEL_SIZE" in p), None)
     limits = {}
-    if "MAX_NUMBER_OF_VOXELS" in voxel:
-        limits["max_voxels"] = int(voxel.MAX_NUMBER_OF_VOXELS[mode])
-    if "MAX_POINTS_PER_VOXEL" in voxel:
-        limits["max_points_per_voxel"] = int(voxel.MAX_POINTS_PER_VOXEL)
+    if voxel is not None:
+        size = tuple(voxel.VOXEL_SIZE)
+        grid = np.round(np.subtract(pcr[3:], pcr[:3]) / np.asarray(size)).astype(int)
+        limits["voxel_size"] = size
+        limits["grid_size"] = tuple(int(g) for g in grid)
+        if "MAX_NUMBER_OF_VOXELS" in voxel:
+            limits["max_voxels"] = int(voxel.MAX_NUMBER_OF_VOXELS[mode])
+        if "MAX_POINTS_PER_VOXEL" in voxel:
+            limits["max_points_per_voxel"] = int(voxel.MAX_POINTS_PER_VOXEL)
     return DatasetMeta(
-        class_names=tuple(cfg.CLASS_NAMES), point_cloud_range=pcr, voxel_size=size,
-        grid_size=tuple(int(g) for g in grid),
+        class_names=tuple(cfg.CLASS_NAMES), point_cloud_range=pcr,
         num_point_features=len(data.POINT_FEATURE_ENCODING.used_feature_list),
         max_points=n_points, **limits)
 
@@ -255,8 +260,9 @@ def voxel_anchor_counts(model, out):
     predictions that reach NMS: the anchors whose best class score reaches a
     scalar SCORE_THRESH, or CenterPoint's decoded boxes scoring above it;
     None where the model or the config has neither. A two-stage detector's
-    anchors are counted by the dense head's scores (`cls_preds`): the final
-    NMS takes its RoI head's boxes, which `rois_over` counts."""
+    first-stage boxes are counted by the dense head's scores (`cls_preds`),
+    or PointRCNN's point head's (`point_cls_preds`, a box a point): the
+    final NMS takes its RoI head's boxes, which `rois_over` counts."""
     post = model.model_cfg["POST_PROCESSING"]
     voxels = out["voxel_mask"].sum(1).tolist() if "voxel_mask" in out else None
     thresh = post.get("SCORE_THRESH", 0.1)
@@ -264,7 +270,8 @@ def voxel_anchor_counts(model, out):
     if "final_scores" in out:
         over = (out["final_scores"] > float(thresh)).sum(1).tolist()
     elif not isinstance(thresh, (list, tuple)):
-        logits = out["cls_preds"] if "roi_labels" in out else out["batch_cls_preds"]
+        logits = (out["cls_preds"] if "cls_preds" in out else out["point_cls_preds"]) \
+            if "roi_labels" in out else out["batch_cls_preds"]
         over = (torch.sigmoid(logits).amax(-1) >= float(thresh)).sum(1).tolist()
     return voxels, over
 
@@ -365,7 +372,7 @@ def main(argv=None):
         extra = "" if voxels is None else f", {voxels[b]} voxels"
         extra += "" if over is None else f", {over[b]} predictions over SCORE_THRESH"
         if rois is not None:
-            extra += (f" (anchors); {rois[b][0]} proposals kept, {rois[b][1]} RoI boxes "
+            extra += (f" (first stage); {rois[b][0]} proposals kept, {rois[b][1]} RoI boxes "
                       f"over SCORE_THRESH")
         print(f"scan {b}: {c} detections{extra}")
     print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "

@@ -24,7 +24,9 @@ JAX models/__init__.py:14-29):
   * NAME PVRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
     VoxelSetAbstraction, BaseBEVBackbone, AnchorHeadSingle, PointHeadSimple,
     PVRCNNHead; for both `.train()` turns on the anchor head's decode in
-    training, the target assignment of all three heads and their losses.
+    training, the target assignment of all three heads and their losses;
+  * NAME PointRCNN: PointNet2MSG, PointHeadBox, PointRCNNHead; `.train()`
+    turns on the point head's and the RoI head's targets and losses.
 Any other configuration raises. Matmuls and convolutions run in full
 float32: TF32 is switched off here. cuDNN times its algorithms for each
 convolution shape at first use (`cudnn.benchmark`): left to its heuristics,
@@ -42,6 +44,7 @@ from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from .backbones_3d.pointnet2_modules import BatchNorm
 from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
+from .backbones_3d.pointnet2_backbone import PointNet2MSG
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x, _ConvBase
 from .backbones_3d.spconv_unet import UNetV2
 from .backbones_3d.vfe import MeanVFE, PillarVFE
@@ -51,6 +54,7 @@ from .backbones_3d.voxel_pointnet2_backbone import (
 )
 from .dense_heads.anchor_head import AnchorHeadSingle
 from .dense_heads.center_head import HM_INIT_BIAS, CenterHead
+from .dense_heads.point_head_box import PointHeadBox
 from .dense_heads.point_head_simple import PointHeadSimple
 from .dense_heads.point_intra_part_head import CLS_PRIOR_BIAS, PointIntraPartOffsetHead
 from .dense_heads.point_head_vote import (
@@ -60,6 +64,7 @@ from .dense_heads.point_head_vote import (
 )
 from .detectors import DatasetMeta, __all__ as detector_registry
 from .roi_heads.partA2_head import PartA2FCHead
+from .roi_heads.pointrcnn_head import PointRCNNHead
 from .roi_heads.pvrcnn_head import PVRCNNHead
 
 _NEG_LOG99 = -float(np.log(99.0))
@@ -85,6 +90,8 @@ _PORTED = {
                "MAP_TO_BEV": ("HeightCompression",), "PFE": ("VoxelSetAbstraction",),
                "BACKBONE_2D": ("BaseBEVBackbone",), "DENSE_HEAD": ("AnchorHeadSingle",),
                "POINT_HEAD": ("PointHeadSimple",), "ROI_HEAD": ("PVRCNNHead",)},
+    "PointRCNN": {"BACKBONE_3D": ("PointNet2MSG",), "POINT_HEAD": ("PointHeadBox",),
+                  "ROI_HEAD": ("PointRCNNHead",)},
 }
 # (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
 _TSM_PAIRS = {
@@ -102,10 +109,11 @@ def init_weights(model, seed=0):
     kernels lecun normal, sparse-conv kernels N(0, 2 / (K * Cin)), the
     teacher's dynamic regression weight N(0, 2 / 64), biases 0 except the
     confidence / cls output biases at -log(99) (the TSM heads' `cls*_out`,
-    the anchor heads' `conv_cls` and Part-A2's point head's `cls_out`; the
-    other `cls_out`, PV-RCNN's point head's and the RoI heads', start at 0,
-    as flax's Dense), CenterPoint's heatmap output bias at HM_INIT_BIAS, BN
-    at the identity."""
+    the anchor heads' `conv_cls`, and Part-A2's and PointRCNN's point
+    heads' `cls_out`, set after the loop, since a module comes before its
+    layers in `named_modules`; the other `cls_out`, PV-RCNN's point head's
+    and the RoI heads', start at 0, as flax's Dense), CenterPoint's heatmap
+    output bias at HM_INIT_BIAS, BN at the identity."""
     g = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
@@ -140,7 +148,8 @@ def init_weights(model, seed=0):
         elif isinstance(m, VoteHeadBranch) and m.gated_reg:
             w = torch.randn(m.reg_weight.shape, generator=g) * np.sqrt(2.0 / 64)
             m.reg_weight.data.copy_(w)
-        elif isinstance(m, PointIntraPartOffsetHead):
+    for m in model.modules():
+        if isinstance(m, (PointIntraPartOffsetHead, PointHeadBox)):
             m.cls_out.bias.data.fill_(CLS_PRIOR_BIAS)
     return model
 
@@ -189,7 +198,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
     dataset = meta_from_dataset(dataset)
     build = {"SECONDNet": _second_modules, "PointPillar": _pointpillar_modules,
              "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
-             "PVRCNN": _two_stage_modules}.get(name, _tsm_modules)
+             "PVRCNN": _two_stage_modules, "PointRCNN": _pointrcnn_modules}.get(
+                 name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
                                     build(model_cfg, num_class, dataset))
     init_weights(model, seed)
@@ -292,3 +302,13 @@ def _two_stage_modules(model_cfg, num_class, meta):
         point = PointHeadSimple(point_cfg, num_class, c, meta)
         roi = PVRCNNHead(roi_cfg, pfe.num_point_features, num_class)
     return modules + [point, roi]
+
+
+def _pointrcnn_modules(model_cfg, num_class, meta):
+    """PointRCNN's topology in the JAX package's module order: BACKBONE_3D,
+    POINT_HEAD, ROI_HEAD (flax module_list_0..2)."""
+    backbone = PointNet2MSG(dict(model_cfg["BACKBONE_3D"]), meta.num_point_features, meta)
+    c = backbone.num_point_features
+    point = PointHeadBox(dict(model_cfg["POINT_HEAD"]), num_class, c, meta)
+    roi = PointRCNNHead(dict(model_cfg["ROI_HEAD"]), c, num_class)
+    return [backbone, point, roi]

@@ -1,5 +1,17 @@
-"""Shared point MLPs (counterpart of
-tsm_det_pointcloud_tpu/models/backbones_3d/pointnet2_modules.py:25-70).
+"""Shared point MLPs and the PointNet++ set-abstraction / feature-propagation
+modules (counterpart of
+tsm_det_pointcloud_tpu/models/backbones_3d/pointnet2_modules.py:25-70, :130
+and :242).
+
+`PointnetSAModuleMSG`: d-fps of `npoint` centres (K1 on the card,
+`sampling.furthest_point_sample`), one multi-scale nearest-k ball query with
+the gather of [xyz, features] (K2, `grouping.query_group`), xyz re-centred
+on the centre, unfilled slots zeroed, a masked SharedMLP a scale and the
+masked max pool (-1e9 fill; 0 for an invalid centre or an empty ball).
+`PointnetFPModule`: 3-NN inverse-distance interpolation
+(`grouping.three_nn`, plain PyTorch on any device, as the JAX package's XLA
+code), the skip features concatenated, a SharedMLP masked by the unknown
+points' validity, zeros at invalid points.
 
 `Dense` is `nn.Linear`; `BatchNorm` is flax's BatchNorm over the trailing
 axis, normalising in flax's order: (x - mean) * (rsqrt(var + eps) * scale)
@@ -18,6 +30,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ...ops import grouping, sampling
 from ...parallel import comm
 
 
@@ -120,3 +133,56 @@ class SharedMLP(nn.Module):
                 x = getattr(self, f"bn{i}")(x, mask)
             x = torch.relu(x)
         return x
+
+
+class PointnetSAModuleMSG(nn.Module):
+    """Multi-scale grouping set abstraction; `mlp{i}` is scale i's SharedMLP
+    over [re-centred xyz, features] (in_channels: the features' width)."""
+
+    def __init__(self, npoint, radii, nsamples, mlps, in_channels):
+        super().__init__()
+        self.npoint = int(npoint)
+        self.scales = [(0.0, float(r), int(ns)) for r, ns in zip(radii, nsamples)]
+        for i, mlp in enumerate(mlps):
+            setattr(self, f"mlp{i}", SharedMLP(3 + int(in_channels), mlp))
+        self.out_channels = sum(int(m[-1]) for m in mlps)
+
+    def forward(self, xyz, features, valid):
+        """xyz (B, N, 3), features (B, N, C) or None, valid (B, N) ->
+        new_xyz (B, npoint, 3), new_features (B, npoint, out_channels),
+        new_valid (B, npoint)."""
+        idx = sampling.furthest_point_sample(xyz, self.npoint, valid)
+        new_xyz = sampling.gather_points(xyz, idx)
+        new_valid = torch.gather(valid, 1, idx.long())
+        payload = xyz if features is None else torch.cat([xyz, features], -1)
+        groups = grouping.query_group(xyz, valid, new_xyz, self.scales, payload=payload)
+        outs = []
+        for i, (_, cnt, grouped) in enumerate(groups):
+            ns = self.scales[i][2]
+            slot_ok = (torch.arange(ns, device=xyz.device) < cnt[..., None]) & new_valid[..., None]
+            g = torch.cat([grouped[..., :3] - new_xyz[:, :, None, :], grouped[..., 3:]], -1)
+            g = torch.where(slot_ok[..., None], g, torch.zeros_like(g))
+            h = getattr(self, f"mlp{i}")(g, slot_ok)
+            h = torch.where(slot_ok[..., None], h, torch.full_like(h, -1e9)).amax(dim=2)
+            keep = new_valid[..., None] & (cnt[..., None] > 0)
+            outs.append(torch.where(keep, h, torch.zeros_like(h)))
+        return new_xyz, torch.cat(outs, -1), new_valid
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation: the known points' features interpolated at the
+    unknown points from their three nearest known ones, the unknown points'
+    own features after them, then `mlp` (SharedMLP)."""
+
+    def __init__(self, mlp, in_channels):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels, mlp)
+
+    def forward(self, unknown, known, unknown_feats, known_feats, known_valid, unknown_valid):
+        dist, idx = grouping.three_nn(unknown, known, known_valid)
+        interp = grouping.three_interpolate(known_feats, idx,
+                                            grouping.three_interpolate_weights(dist))
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats], -1)
+        out = self.mlp(interp, unknown_valid)
+        return torch.where(unknown_valid[..., None], out, torch.zeros_like(out))

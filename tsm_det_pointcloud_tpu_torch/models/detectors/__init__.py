@@ -7,7 +7,7 @@ from .point_3dssd import Point3DSSD
 from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN
 from .second_net import SECONDNet
-from .two_stage import PartA2Net
+from .two_stage import PartA2Net, PointRCNN
 
 __all__ = {
     "3DSSD": Point3DSSD,
@@ -17,4 +17,5 @@ __all__ = {
     "CenterPoint": CenterPoint,
     "PartA2Net": PartA2Net,
     "PVRCNN": PVRCNN,
+    "PointRCNN": PointRCNN,
 }

@@ -43,3 +43,10 @@ class PartA2Net(TwoStageBase):
     """MeanVFE -> UNetV2 -> HeightCompression -> BaseBEVBackbone ->
     AnchorHeadSingle (RPN) + PointIntraPartOffsetHead -> PartA2FCHead
     (module_list 0-6, the flax indices)."""
+
+
+class PointRCNN(TwoStageBase):
+    """PointNet2MSG -> PointHeadBox (per-point proposals) -> PointRCNNHead
+    (module_list 0-2, the flax indices). Its training loss is `loss_point`
+    plus `loss_rcnn` (no dense head), tb_dict `point_loss` and the RCNN
+    terms."""

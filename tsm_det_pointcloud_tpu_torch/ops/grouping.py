@@ -33,6 +33,11 @@ the same sources share their tiles through a `TileCache`.
 nearest-k over the visited pairs), the kernel's CPU twin with the same
 visit counts. The gathered payload is differentiable (`_GroupPayload`);
 the kernel output alone has no `grad_fn`.
+
+Also the JAX module's XLA helpers of PointRCNN, plain PyTorch on any
+device: `first_k_true` (the RoI-point pool's first k hits of a row),
+`three_nn`, `three_interpolate_weights` and `three_interpolate` (the
+feature propagation's inverse-distance 3-NN interpolation).
 """
 from __future__ import annotations
 
@@ -501,3 +506,66 @@ def group_points(features, idx):
     flat = torch.gather(features, 1,
                         idx.reshape(B, M * ns, 1).long().expand(-1, -1, C))
     return flat.reshape(B, M, ns, C)
+
+
+def first_k_true(mask, k):
+    """mask (R, N) bool -> idx (R, k) int64 of each row's first k True
+    columns in index order, unfilled slots holding the row's first True
+    column (0 when it has none), and cnt (R,) int32, the row's True count
+    (counterpart of the JAX `_first_k_true`, ops/grouping.py:28)."""
+    if mask.dim() != 2:
+        raise ValueError("first_k_true expects a 2D mask")
+    R, N = mask.shape
+    rank = torch.cumsum(mask, dim=1) - 1                          # position among the hits
+    write = torch.where(mask & (rank < k), rank, torch.full_like(rank, k))
+    first = torch.argmax(mask.to(torch.uint8), dim=1)            # 0 if no hit
+    out = first[:, None].expand(R, k + 1).clone()
+    cols = torch.arange(N, device=mask.device).expand(R, N)
+    out.scatter_(1, write, cols)     # column k collects the dropped hits
+    return out[:, :k], mask.sum(1, dtype=torch.int32)
+
+
+def three_nn(unknown, known, valid_mask=None, chunk=1024):
+    """unknown (B, M, 3), known (B, N, 3) -> dist (B, M, 3) f32, idx (B, M, 3)
+    int64: each unknown point's three nearest known points (counterpart of
+    the JAX `three_nn`, ops/grouping.py:239). d2 is ((dx*dx + dy*dy) +
+    dz*dz), each operation rounded; an invalid known point is at d2 = inf;
+    the order is by (d2, index), ties to the lower index as lax.top_k, by
+    unique int64 (d2 bits, index) keys. dist is sqrt(d2), so inf where fewer
+    than three known points are valid. Runs `chunk` unknown points at a time."""
+    unknown = unknown.detach()
+    known = known.detach()
+    B, M, _ = unknown.shape
+    N = known.shape[1]
+    lanes = torch.arange(N, device=known.device, dtype=torch.int64)
+    inf = torch.tensor(float("inf"), dtype=known.dtype, device=known.device)
+    dists, idxs = [], []
+    for m0 in range(0, M, chunk):
+        d = unknown[:, m0:m0 + chunk, None, :] - known[:, None, :, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        if valid_mask is not None:
+            d2 = torch.where(valid_mask[:, None, :], d2, inf)
+        key = (d2.contiguous().view(torch.int32).to(torch.int64) << 32) | lanes
+        top = torch.topk(key, 3, dim=-1, largest=False, sorted=True).values
+        idx = top & 0xFFFFFFFF
+        dists.append(torch.sqrt(torch.gather(d2, 2, idx)))
+        idxs.append(idx)
+    return torch.cat(dists, 1), torch.cat(idxs, 1)
+
+
+def three_interpolate_weights(dist):
+    """Inverse-distance weights of three_nn's dist: 1 / clip(d, 1e-8) over
+    their sum (the JAX `three_interpolate_weights`, ops/grouping.py:270): a
+    neighbour at inf weighs 0, and a point with all three at inf gets NaN, as
+    in the JAX package."""
+    recip = 1.0 / torch.clamp(dist, min=1e-8)
+    return recip / ((recip[..., 0:1] + recip[..., 1:2]) + recip[..., 2:3])
+
+
+def three_interpolate(features, idx, weight):
+    """features (B, N, C), idx (B, M, 3), weight (B, M, 3) -> (B, M, C), the
+    weighted sum of the three gathered rows in order (the JAX
+    `three_interpolate`, ops/grouping.py:263)."""
+    g = group_points(features, idx)                                  # (B, M, 3, C)
+    w = weight[..., None]
+    return (g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1]) + g[:, :, 2] * w[:, :, 2]

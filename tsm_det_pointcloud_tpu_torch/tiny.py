@@ -58,6 +58,21 @@ anchor head's cls bias lifted so that the proposals' scores spread;
 `data/parta2_tiny_forward.npz` and `data/pvrcnn_tiny_forward.npz` hold the
 JAX package's eval outputs and post-processed predictions with it.
 `two_stage_gt` gives their training batches their gt boxes.
+
+The tiny PointRCNN is the JAX package's test model (`pointrcnn_cfg` and
+`META_POINT` of tests/test_two_stage_models.py) with the in-RoI SA stack of
+its `test_pointrcnn_roi_sa_stack_e2e` (NPOINTS [16, -1]: a d-fps and ball
+query layer, then the GroupAll terminal), so that it runs every layer
+pointrcnn.yaml runs: PointNet2MSG at 64 / 16 centres and two FP levels,
+PointHeadBox with one mean size, 32 pooled points a RoI. One class, fed
+`second_points(2, 256)`. `data/pointrcnn_tiny_state.npz` holds its
+converted PRNGKey(0) training init; its checks run on
+`two_stage_state("pointrcnn")`, that init redrawn from a numpy seed (at the
+init every point scores within rounding of sigmoid(-log 99), and the
+proposals' order would turn on it);
+`data/pointrcnn_tiny_forward.npz` holds the JAX package's eval outputs and
+post-processed predictions with it, and `TWO_STAGE_GT["pointrcnn"]` the gt
+boxes of its training batches.
 """
 from __future__ import annotations
 
@@ -82,6 +97,8 @@ CENTERPOINT_STATE_PATH = STATE_PATH.parent / "centerpoint_tiny_state.npz"
 CENTERPOINT_FORWARD_PATH = STATE_PATH.parent / "centerpoint_tiny_forward.npz"
 PARTA2_FORWARD_PATH = STATE_PATH.parent / "parta2_tiny_forward.npz"
 PVRCNN_FORWARD_PATH = STATE_PATH.parent / "pvrcnn_tiny_forward.npz"
+POINTRCNN_STATE_PATH = STATE_PATH.parent / "pointrcnn_tiny_state.npz"
+POINTRCNN_FORWARD_PATH = STATE_PATH.parent / "pointrcnn_tiny_forward.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -674,10 +691,12 @@ TWO_STAGE_CLS_BIAS = -2.0
 
 
 def two_stage_model(which):
-    """(model config, DatasetMeta) of the tiny Part-A2 ("parta2") or PV-RCNN
-    ("pvrcnn")."""
+    """(model config, DatasetMeta) of the tiny Part-A2 ("parta2"), PV-RCNN
+    ("pvrcnn") or PointRCNN ("pointrcnn")."""
     if which == "parta2":
         return parta2_model_cfg(), PARTA2_META
+    if which == "pointrcnn":
+        return pointrcnn_model_cfg(), POINTRCNN_META
     return pvrcnn_model_cfg(), PVRCNN_META
 
 
@@ -692,23 +711,35 @@ def two_stage_model(which):
 # before it by up to a few percent, which no per-element tolerance can tell
 # from a fault.
 TWO_STAGE_TRAIN_BN_LIFT = 3.0
+# the tiny PointRCNN's output layers in its training state (the point
+# head's and the RoI head's): their kernels and biases times this gain,
+# since the lifted BNs' large ReLU outputs would otherwise give boxes of
+# exp(4) times the mean size, saturated scores, and RCNN residuals whose
+# exp amplifies the two packages' rounding apart past the checks' 1e-5
+POINTRCNN_TRAIN_GAIN = 0.1
+POINTRCNN_TRAIN_GAIN_LAYERS = ("module_list.1.cls_out.", "module_list.1.box_out.",
+                               "module_list.2.cls_out.", "module_list.2.reg_out.")
 
 
 def two_stage_state(which, seed=4, train=False):
     """The tiny two-stage detector's state for its checks: every entry of
-    the port model's state dict drawn as `redraw_state` draws it, the anchor
-    head's conv_cls bias at TWO_STAGE_CLS_BIAS; with `train` the
-    channels-last BN biases raised by TWO_STAGE_TRAIN_BN_LIFT."""
+    the port model's state dict (PointRCNN's: the committed init) drawn as
+    `redraw_state` draws it, the anchor head's conv_cls bias at
+    TWO_STAGE_CLS_BIAS; with `train` the channels-last BN biases raised by
+    TWO_STAGE_TRAIN_BN_LIFT."""
     from .models import build_network
     from .models.backbones_3d.pointnet2_modules import BatchNorm
 
     cfg, meta = two_stage_model(which)
     model = build_network(cfg, 1, meta, device="cpu", seed=0)
     lifted = {f"{name}.bias" for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    base = load_state(POINTRCNN_STATE_PATH) if which == "pointrcnn" else model.state_dict()
     out = {}
-    for key, v in redraw_state(model.state_dict(), seed).items():
+    for key, v in redraw_state(base, seed).items():
         if key.endswith("conv_cls.bias"):
             v = np.full(v.shape, TWO_STAGE_CLS_BIAS)
+        elif train and which == "pointrcnn" and key.startswith(POINTRCNN_TRAIN_GAIN_LAYERS):
+            v = v * POINTRCNN_TRAIN_GAIN
         elif train and key in lifted:
             v = v + TWO_STAGE_TRAIN_BN_LIFT
         out[key] = torch.from_numpy(v.astype(np.float32))
@@ -752,6 +783,22 @@ TWO_STAGE_GT = {
          [17.281, -3.449, -0.849, 15.677, 0.922, 8.23, 6.623, 1],
          [5.795, 13.47, 0.004, 0.767, 1.983, 1.22, 3.717, 1]],
     ],
+    # PointRCNN's: the reference batch's box over the 50-point cluster (point
+    # head positives, and the GT_EXTRA_WIDTH band around it), then training
+    # RoIs grown to IoU 0.8, 0.6 and 0.17 (scan 0) and 0.9, 0.6 and 0.4
+    # (scan 1)
+    "pointrcnn": [
+        [[8.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1],
+         [8.046, -2.977, -1.464, 5.935, 1.697, 2.471, 1.14, 1],
+         [2.353, 2.497, 0.943, 8.758, 2.019, 2.574, 1.344, 1],
+         [11.371, 7.553, -1.851, 30.418, 1.991, 2.583, 1.827, 1],
+         [8.096, -2.977, -1.464, 5.935, 1.697, 2.471, 1.14, 1]],
+        [[8.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1],
+         [-1.619, 5.362, -1.979, 6.936, 2.159, 2.518, 1.322, 1],
+         [8.236, 3.102, -1.969, 10.05, 1.355, 2.608, 0.977, 1],
+         [5.215, -6.153, -1.68, 14.007, 1.866, 2.543, 1.82, 1],
+         [-1.569, 5.362, -1.979, 6.936, 2.159, 2.518, 1.322, 1]],
+    ],
 }
 
 
@@ -768,6 +815,72 @@ def two_stage_gt(which, batch_size=2):
         gt[b, :len(boxes)] = boxes
         mask[b, :len(boxes) - 1] = True
     return gt, mask
+
+
+POINTRCNN_META = PARTA2_META   # META_POINT of the JAX package's test
+
+
+def pointrcnn_model_cfg():
+    roi_common = parta2_model_cfg().ROI_HEAD
+    return EDict({
+        "NAME": "PointRCNN",
+        "BACKBONE_3D": {
+            "NAME": "PointNet2MSG",
+            "SA_CONFIG": {
+                "NPOINTS": [64, 16],
+                "RADIUS": [[0.5, 1.0], [1.0, 2.0]],
+                "NSAMPLE": [[8, 8], [8, 8]],
+                "MLPS": [[[8, 8], [8, 8]], [[16, 16], [16, 16]]],
+            },
+            "FP_MLPS": [[16], [16]],
+        },
+        "POINT_HEAD": {
+            "NAME": "PointHeadBox", "CLS_FC": [16], "REG_FC": [16],
+            "CLASS_AGNOSTIC": False, "USE_POINT_FEATURES_BEFORE_FUSION": False,
+            "TARGET_CONFIG": {
+                "GT_EXTRA_WIDTH": [0.2, 0.2, 0.2], "BOX_CODER": "PointResidualCoder",
+                "BOX_CODER_CONFIG": {"use_mean_size": True, "mean_size": [[3.9, 1.6, 1.56]]},
+            },
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"point_cls_weight": 1.0,
+                                             "point_box_weight": 1.0}},
+        },
+        "ROI_HEAD": {
+            "NAME": "PointRCNNHead",
+            "ROI_POINT_POOL": {"NUM_SAMPLED_POINTS": 32, "DEPTH_NORMALIZER": 70.0},
+            "XYZ_UP_LAYER": [16, 16],
+            "SHARED_FC": [32], "CLS_FC": [16], "REG_FC": [16],
+            "SA_CONFIG": {"NPOINTS": [16, -1], "RADIUS": [0.4, 100], "NSAMPLE": [8, 8],
+                          "MLPS": [[16, 16], [16, 32]]},
+            "NMS_CONFIG": roi_common.NMS_CONFIG, "TARGET_CONFIG": roi_common.TARGET_CONFIG,
+            "LOSS_CONFIG": roi_common.LOSS_CONFIG,
+        },
+        "POST_PROCESSING": _two_stage_post(),
+    })
+
+
+def gt_roi_proposals(gt, gmask, n_boxes, seed=0):
+    """First-stage outputs whose proposals are the valid gt boxes: logits
+    (B, n_boxes, 1) and boxes (B, n_boxes, 7), the gt boxes jittered (centre
+    within 5 cm, sizes within 3 %, heading within 0.03 rad, so that each
+    keeps an IoU above REG_FG_THRESH 0.55 with its box) at the top scores,
+    far-off 0.5 m boxes at low ones. Fed to a RoI head in training, they
+    make its foreground non-empty, so that its regression and corner losses
+    have terms."""
+    rng = np.random.RandomState(seed)
+    B = gmask.shape[0]
+    boxes = np.zeros((B, n_boxes, 7), np.float32)
+    boxes[..., 0] = rng.uniform(100, 200, (B, n_boxes))
+    boxes[..., 3:6] = 0.5
+    logits = rng.uniform(-6, -4, (B, n_boxes, 1)).astype(np.float32)
+    for b in range(B):
+        for j in np.flatnonzero(gmask[b]):
+            box = np.array(gt[b, j, :7], np.float32)
+            box[:3] += rng.uniform(-0.05, 0.05, 3)
+            box[3:6] *= rng.uniform(0.97, 1.03, 3)
+            box[6] += rng.uniform(-0.03, 0.03)
+            boxes[b, j] = box
+            logits[b, j] = 4.0 - 0.1 * j
+    return logits, boxes
 
 
 def load_state(path=STATE_PATH):
