@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
      gathered rows equal, K3 probe bitwise, K4 gather-GEMM allclose
      (rtol 1e-4, atol 1e-4 * max|out|: f32 sums in another order, and
      K4's split-precision 3xTF32 products) — and both are timed with CUDA
-     events around a host loop of launches, with the bound from the inputs.
+     events around a host loop of launches, with the bound from the inputs
+     (the plain versions of K1 and K2, tenths of a second to seconds a call,
+     on one run after the comparison's).
      K4's log line also gives a second bound, its hits at the 3xTF32 rate
      (495 / 3 TFLOP/s, not in the kernels line), and its hit share of
      staged rows: the hits over the rows of the (64-row block, tap) pairs
@@ -414,7 +416,33 @@ Phases (any failure exits non-zero before the result line):
      strictly, detects on a raw scan);
  48. PointRCNN's profile, after every timed path: `infer --profile` at b4 x
      16384 in phase 39's fresh process, and the proposal layer's NMS alone at
-     9000 boxes a scan (test and training modes).
+     9000 boxes a scan (test and training modes);
+ 49. Voxel R-CNN and SECONDNetIoU references: both tiny detectors
+     (tiny.two_stage_state) reproduce their JAX goldens on the card, through
+     K3 and K7 (and K2's two RoI-grid window queries of the tiny Voxel
+     R-CNN; golden tolerance; labels, counts and the RoIs' labels exact);
+     then their RoI heads on RoIs made from the gt boxes, as phase 45:
+     Voxel R-CNN's cls / reg / corner losses and SECONDNetIoU's IoU loss,
+     with the gradients of reg + corner (of the IoU loss) on the head's
+     parameters and the proposals' boxes, card against CPU;
+ 50. voxel_rcnn_car.yaml (eval b4, training b2) and second_iou.yaml (eval
+     and training b4) at full width on synthetic scans of 20000 points, as
+     phase 41: one recorded eval batch with every K2 (Voxel R-CNN's three
+     9^3-window queries of its 6^3 RoI lattice over x_conv2..4), K3 and K7
+     call held against its plain version (indices exact) and timed; 3
+     counted batches (scans/s, peak memory, proposals kept; SECONDNetIoU's
+     rectified scores in [0, 1]); one recorded training step held likewise,
+     every parameter a gradient, peak memory (SECONDNetIoU's pool is (4,
+     512, 175616) f32); 2 counted steps (losses finite, `still_params`);
+ 51. both configs' data path on phase 22's root: echoed gt 100.0 on every
+     AP of the config's classes (Car alone for voxel_rcnn_car.yaml),
+     `evaluate`, `train --data_root` for 1 epoch, `evaluate --ckpt` and
+     `demo --ckpt`, each first forward or step recorded and held, as phase
+     43; convert_torch_ckpt on a synthetic reference checkpoint of each
+     seeded full-width detector, as phase 47;
+ 52. their profiles, after every timed path: `infer --profile` at b4 x 20000
+     in phase 39's fresh process, and the proposal layer's NMS alone at 1024
+     and 9000 boxes a scan.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -456,7 +484,10 @@ centerpoint evaluate and train (null but for K3 and K7), `parta2` and
 `parta2_data`, `parta2_data_train`, `pvrcnn_data` and `pvrcnn_data_train`
 those of phase 43's evaluate and train, `pointrcnn` and `pointrcnn_train`
 those of phase 46 and `pointrcnn_data` and `pointrcnn_data_train` those of
-phase 47 (null but for K1 and K2). K6 is on no KITTI path of
+phase 47 (null but for K1 and K2), `voxelrcnn`, `voxelrcnn_train`,
+`secondnetiou` and `secondnetiou_train` those of phase 50 and their `_data`
+and `_data_train` objects those of phase 51 (null but for K2, K3 and K7;
+SECONDNetIoU's K2 null too). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -553,10 +584,38 @@ TWO_STAGE = {
 # MAX_POINTS (sample_points' NUM_POINTS), within K1's rows
 POINTRCNN = {"pointrcnn": ("pointrcnn.yaml", 4, 2, {"fps": 6, "query_group": 6})}
 SCAN_POINTS = {"pointrcnn": 16384}
+# phases 49-52: Voxel R-CNN (voxel_rcnn_car.yaml) and SECONDNetIoU
+# (second_iou.yaml), as TWO_STAGE: both on VoxelBackBone8x's 8 probes and 12
+# convs (K3, K7); Voxel R-CNN's RoI grid pools x_conv2..4 by one K2 window
+# query each (6^3 lattice points a RoI), SECONDNetIoU's samples the BEV map
+# (no hand-written kernel)
+VOXEL_ROI = {
+    "voxelrcnn": ("voxel_rcnn_car.yaml", 4, 2, {"probe": 8, "spconv_gather": 12,
+                                                "query_group": 3}),
+    "secondnetiou": ("second_iou.yaml", 4, 4, {"probe": 8, "spconv_gather": 12}),
+}
+# what phase 51's converter leaves unplaced of their reference checkpoints:
+# the 1x1 deblock0 and the anchor head's 1x1 convs, 2-D kernels no 4-D leaf
+# takes (ROADMAP §C)
+VOXEL_ROI_UNPLACED = ("backbone_2d/deblock0/kernel", "dense_head/conv_box/kernel",
+                      "dense_head/conv_cls/kernel", "dense_head/conv_dir_cls/kernel")
+# the RCNN terms of each two-stage detector's tb_dict (a training step's must
+# hold them all) and the term its counted steps print
+RCNN_TERMS = {"parta2": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
+              "pvrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
+              "pointrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
+              "voxelrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss"),
+              "secondnetiou": ("rcnn_iou_loss",)}
+
+
+# the RoI head's inputs (first-stage scores and boxes) of each two-stage
+# config's first synthetic eval batch (phases 41, 42, 46, 50), on the host,
+# for the proposal NMS timed alone in phases 44, 48 and 52
+PROPOSALS = {}
 
 
 def stage_spec(which):
-    return {**TWO_STAGE, **POINTRCNN}[which]
+    return {**TWO_STAGE, **POINTRCNN, **VOXEL_ROI}[which]
 
 
 def scan_points(which):
@@ -746,9 +805,11 @@ def compare_fps(args):
           f"{plan['smem_bytes']} B shared memory a CTA; {empty} rows with no valid lane; one "
           f"exchange round {round_us:.4f} us, so a latency floor of {floor_ms:.4f} ms for "
           f"{waves} x {npoint - 1} steps")
+    # the plain FPS (about a second a call) is timed on one run without a
+    # warm-up: the comparison above ran it on the same inputs
     return (0.0, lambda: sampling._fps_kernel(xyz, npoint, valid, weights),
             lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid, weights),
-            None, ops, nbytes, 5, 1)
+            None, ops, nbytes, 5, 0)
 
 
 def compare_fps_block(args):
@@ -894,8 +955,10 @@ def compare_query_group(args):
     nbytes = (B * N * (12 + 1 + (12 if window else 0) + 4 * D)
               + B * M * (12 + (12 if window else 0))
               + B * M * (4 * T + 4 * S + 4 * T * D))
+    # the plain version is timed on one run without a warm-up: the comparison
+    # above ran it on the same inputs
     return (err, lambda: grouping._query_group_launch(prep, qx, scales_n, pl, qcc),
-            lambda: grouping.query_group_plain(*plain_args), None, ops, nbytes, 5, 1)
+            lambda: grouping.query_group_plain(*plain_args), None, ops, nbytes, 5, 0)
 
 
 def compare_probe(args):
@@ -3173,11 +3236,12 @@ def infer_profiles(jobs):
     return {name: r for (name, _, _), r in zip(jobs, results)}
 
 
-# the profiles of phases 39, 44 and 48: config file, batch, points a scan
+# the profiles of phases 39, 44, 48 and 52: config file, batch, points a scan
 PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
             ("centerpoint.yaml", ZOO_TRAIN_BATCH, ZOO_POINTS),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()),
-            *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()))
+            *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()),
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()))
 
 
 def zoo_profiles(profiles):
@@ -3218,24 +3282,39 @@ def hold_golden(label, out, pred, path):
             print(f"{label} {key} {got.shape} max abs diff vs golden {diff:.3g}")
 
 
-def two_stage_golden_phase(dev):
-    """Phase 40: the tiny Part-A2 and PV-RCNN (tiny.two_stage_state) reproduce
-    their JAX goldens on the card (labels, counts and kept RoI labels exact)."""
+# the tiny two-stage goldens of phases 40 and 49, and the hand-written kernels
+# each tiny forward launches (None: not counted)
+TINY_GOLDENS = {"parta2": ("PARTA2_FORWARD_PATH", None),
+                "pvrcnn": ("PVRCNN_FORWARD_PATH", None),
+                "voxelrcnn": ("VOXELRCNN_FORWARD_PATH",
+                              {"probe": 8, "spconv_gather": 12, "query_group": 2}),
+                "secondnetiou": ("SECONDNETIOU_FORWARD_PATH",
+                                 {"probe": 8, "spconv_gather": 12})}
+
+
+def two_stage_golden_phase(dev, whiches=("parta2", "pvrcnn")):
+    """Phase 40 (49 with voxelrcnn and secondnetiou): the tiny detectors
+    (tiny.two_stage_state) reproduce their JAX goldens on the card (labels,
+    counts and kept RoI labels exact), through the kernels they launch."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.infer import detect
     from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
 
     pts = torch.from_numpy(tiny.second_points(2, 256)).to(dev)
     mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
-    for which, path in (("parta2", tiny.PARTA2_FORWARD_PATH),
-                        ("pvrcnn", tiny.PVRCNN_FORWARD_PATH)):
+    for which in whiches:
+        path, launches = TINY_GOLDENS[which]
         cfg, meta = tiny.two_stage_model(which)
         model = build_network(cfg, 1, meta, device=dev)
         model.load_state_dict(tiny.two_stage_state(which), strict=True)
+        _kernels.reset_launches()
         out, pred = detect(model, pts, mask)
-        hold_golden(f"two-stage reference: tiny {which}", out, pred, path)
+        got = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        check(launches is None or got == launches, f"tiny {which} launches {got}")
+        hold_golden(f"two-stage reference: tiny {which}", out, pred, getattr(tiny, path))
         del model, out, pred
 
 
@@ -3253,7 +3332,8 @@ def pool_all(out, grid_size):
 
 
 def two_stage_phases(dev, which):
-    """Phase 41 (which "parta2"), 42 ("pvrcnn") or 46 ("pointrcnn"): the
+    """Phase 41 (which "parta2"), 42 ("pvrcnn"), 46 ("pointrcnn") or 50
+    ("voxelrcnn", "secondnetiou"): the
     config's eval and training step at full width on synthetic scans, every
     hand-written kernel call of one recorded eval batch and of one recorded
     training step held against its plain version. PointRCNN's recorded eval
@@ -3338,24 +3418,30 @@ def two_stage_phases(dev, which):
         for key in ("pred_boxes", "pred_scores"):
             check(bool(torch.isfinite(pred[key]).all()), f"{which}: non-finite {key}")
         check(bool((pred["count"] <= post_max).all()), f"{which}: count > NMS_POST_MAXSIZE")
+        if out.get("cls_preds_normalized"):   # SECONDNetIoU's rectified scores
+            rect = out["batch_cls_preds"]
+            check(bool((rect >= 0).all() and (rect <= 1).all()),
+                  f"{which}: rectified scores outside [0, 1]")
     for name, n in calls.items():
         check(launches_eval[name] == n * TWO_STAGE_ITERS, f"kernel {name} launched "
               f"{launches_eval[name]} times on the {which} path, not {n} a forward")
     counts = [int(c) for c in preds[-1][1]["count"]]
+    # the RoI head's inputs of the first batch, for the proposal NMS timed
+    # alone after every timed path (two_stage_profiles)
+    seen = {}
+    hook = model.module_list[-1].register_forward_pre_hook(lambda m, a: seen.update(
+        cls=a[0]["batch_cls_preds"].detach(), box=a[0]["batch_box_preds"].detach()))
+    detect(model, batches[0], mask)
+    hook.remove()
+    PROPOSALS[which] = {k: v.cpu() for k, v in seen.items()}
     extra = ""
     if which == "pointrcnn":
-        seen = {}
-        head = model.module_list[-1]
-        hook = head.register_forward_pre_hook(lambda m, a: seen.update(
-            cls=a[0]["batch_cls_preds"].detach(), box=a[0]["batch_box_preds"].detach()))
-        detect(model, batches[-1], mask)
-        hook.remove()
         ncfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
         nms_ms = cuda_time_ms(lambda: tmpl.proposal_layer(seen["cls"], seen["box"], ncfg), 1)
         extra = (f"; the proposal layer ({seen['box'].shape[1]} point boxes a scan, NMS over "
                  f"the best {ncfg.NMS_PRE_MAXSIZE}) {nms_ms:.3f} ms a batch, "
                  f"{100 * nms_ms / (1e3 * dt / TWO_STAGE_ITERS):.1f}% of a counted batch")
-        del seen
+    del seen
     if which == "parta2":
         g = int(cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE)
         pool_ms = cuda_time_ms(lambda: pool_all(preds[-1][0], g), 3)
@@ -3392,14 +3478,15 @@ def two_stage_phases(dev, which):
             check(bool(p.grad.abs().sum() > 0), f"sparse-conv weight {n} got a zero gradient")
     opt.step()
     tb = out["tb_dict"]
-    check(bool(torch.isfinite(out["loss"])) and {"rcnn_cls_loss", "rcnn_reg_loss",
-                                                 "rcnn_corner_loss", "point_loss"} <= set(tb),
+    terms = RCNN_TERMS[which]
+    check(bool(torch.isfinite(out["loss"])) and set(terms) <= set(tb),
           f"{which} warm-up step: loss {float(out['loss'].detach())}, terms {sorted(tb)}")
-    targets = out["roi_targets"]
+    targets = out.get("roi_targets")
+    sampled = ("no RoI sampling (every valid RoI trains the IoU branch)" if targets is None
+               else f"sampled RoIs a scan {targets['sampled'].sum(1).tolist()}, of them "
+               f"foreground {(targets['sampled'] & targets['fg']).sum(1).tolist()}")
     print(f"{which} training capture: voxel capacity {meta.max_voxels}; proposals kept a scan "
-          f"{out['roi_valid'].sum(1).tolist()}, sampled RoIs a scan "
-          f"{targets['sampled'].sum(1).tolist()}, of them foreground "
-          f"{(targets['sampled'] & targets['fg']).sum(1).tolist()}; loss "
+          f"{out['roi_valid'].sum(1).tolist()}, {sampled}; loss "
           f"{float(out['loss'].detach()):.4f}, "
           + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in tb.items())
           + f"; K5 calls {len(rec.calls.get('spconv_bykey_bwd', []))}; peak memory "
@@ -3423,7 +3510,7 @@ def two_stage_phases(dev, which):
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (loss, tb) in enumerate(steps):
         check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v)) for v in tb.values())
-              and "rcnn_cls_loss" in tb, f"{which} training step {i}: loss {float(loss)}, {tb}")
+              and set(terms) <= set(tb), f"{which} training step {i}: loss {float(loss)}, {tb}")
     still = still_params(model, before, which)
     for name, n in calls.items():
         check(launches_train[name] == n * TWO_STAGE_TRAIN_ITERS, f"kernel {name} launched "
@@ -3432,9 +3519,9 @@ def two_stage_phases(dev, which):
           f"{n_pts} points in {dt:.3f} s = "
           f"{TWO_STAGE_TRAIN_ITERS * tbatch / dt:.3f} train scans/s "
           f"({1e3 * dt / TWO_STAGE_TRAIN_ITERS:.1f} ms/step); losses "
-          + str([(round(float(loss), 4), round(float(tb["rcnn_cls_loss"]), 4))
+          + str([(round(float(loss), 4), round(float(tb[terms[0]]), 4))
                  for loss, tb in steps])
-          + f" (loss, rcnn_cls_loss); {len(before) - len(still)} of {len(before)} parameters "
+          + f" (loss, {terms[0]}); {len(before) - len(still)} of {len(before)} parameters "
           f"changed (unchanged, with a zero gradient and value: {still}); launches "
           f"{launches_train}; peak memory {peak:.2f} GiB")
     del model, opt, tbatches, before, steps
@@ -3443,8 +3530,9 @@ def two_stage_phases(dev, which):
 
 
 def two_stage_data_phases(dev, root, table=TWO_STAGE):
-    """Phase 43 (phase 47 with table POINTRCNN): PartA2.yaml and pvrcnn.yaml
-    (pointrcnn.yaml) on the KITTI root of phase 22:
+    """Phase 43 (phase 47 with table POINTRCNN, 51 with VOXEL_ROI): PartA2.yaml
+    and pvrcnn.yaml (pointrcnn.yaml; voxel_rcnn_car.yaml and second_iou.yaml)
+    on the KITTI root of phase 22:
     echoed gt through each config's dataset, `evaluate` and `train
     --data_root` for 1 epoch on phase 29's SECOND_DATA_FRAMES val and train
     frames (the first forward or step recorded and held), `evaluate --ckpt`
@@ -3473,7 +3561,8 @@ def two_stage_data_phases(dev, root, table=TWO_STAGE):
         full = KittiDataset(load_cfg(cfg_file).DATA_CONFIG, classes, training=False,
                             root_path=root)
         _, echo = full.evaluation(echo_gt_annos(full.kitti_infos), classes)
-        check(len(echo) == 72 and all(abs(v - 100.0) < 1e-6 for v in echo.values()),
+        check(len(echo) == 24 * len(classes) and all(abs(v - 100.0) < 1e-6
+                                                     for v in echo.values()),
               f"{which}: echoed gt does not score 100: {echo}")
         out = root.parent / which
         res, launches_eval, peak, rec, first_out = run_recorded(
@@ -3529,37 +3618,29 @@ def two_stage_data_phases(dev, root, table=TWO_STAGE):
 
 
 def two_stage_profiles(dev, profiles, table=TWO_STAGE):
-    """Phase 44 (phase 48 with table POINTRCNN: pointrcnn.yaml at b4 x 16384),
+    """Phase 44 (phase 48 with table POINTRCNN: pointrcnn.yaml at b4 x 16384;
+    52 with VOXEL_ROI: voxel_rcnn_car.yaml and second_iou.yaml at b4 x 20000),
     after every timed path: `infer --profile` of PartA2.yaml and
     pvrcnn.yaml at b4 x 20000 (`profiles`, from `infer_profiles`), then the
-    device time alone of the proposal layer's NMS on one eval batch's anchor boxes,
-    at the test mode's NMS_PRE_MAXSIZE and at the training mode's (9000
-    boxes a scan)."""
-    import torch
-
+    device time alone of the proposal layer's NMS on the first-stage boxes of
+    the config's first synthetic eval batch (`PROPOSALS`, kept by
+    `two_stage_phases`), at the test mode's NMS_PRE_MAXSIZE and at the
+    training mode's (9000 boxes a scan)."""
     from tsm_det_pointcloud_tpu_torch import infer
     from tsm_det_pointcloud_tpu_torch.models.roi_heads import roi_head_template as tmpl
 
-    for which, (cfg_name, batch, _, _) in table.items():
-        cfg_file = ROOT / f"tools/cfgs/kitti_models/{cfg_name}"
-        n_pts = scan_points(which)
+    for which, (cfg_name, _, _, _) in table.items():
+        cfg = infer.load_cfg(ROOT / f"tools/cfgs/kitti_models/{cfg_name}")
         (wall, busy, names), (pwall, pbusy, _) = profiles[cfg_name]
         fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
         check(not fft, f"{which}: cuDNN ran FFT convolutions: {fft}")
-        cfg, model = infer.build_detector(cfg_file, dev, seed=0, n_points=n_pts)
-        seen = {}
-        head = model.module_list[-1]
-        hook = head.register_forward_pre_hook(lambda m, a: seen.update(
-            cls=a[0]["batch_cls_preds"].detach(), box=a[0]["batch_box_preds"].detach()))
-        pts = torch.from_numpy(infer.synth_scans(model.dataset_meta, batch, n_pts,
-                                                 seed=0)).to(dev)
-        infer.detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
-        hook.remove()
+        seen = {k: v.to(dev) for k, v in PROPOSALS.pop(which).items()}
         nms = {}
         for mode in ("TEST", "TRAIN"):
             ncfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG[mode]
+            # one call a window: the 9000-box NMS runs ~0.9 s of device time
             nms[mode] = device_ms(lambda: tmpl.proposal_layer(seen["cls"], seen["box"], ncfg),
-                                  2)
+                                  1)
         print(f"{which} profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
               f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
               f"{len(names)} kernels, none an FFT; proposal layer's NMS alone, device time a "
@@ -3567,8 +3648,7 @@ def two_stage_profiles(dev, profiles, table=TWO_STAGE):
               f"{cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE} (test), "
               f"{nms['TRAIN']:.3f} ms at {cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE} "
               f"(training)")
-        del model, seen
-        torch.cuda.empty_cache()
+        del seen
 
 
 # ---------------------------------------------------------------------------
@@ -3597,16 +3677,38 @@ def pointrcnn_golden_phase(dev):
     hold_golden("pointrcnn reference: tiny pointrcnn", out, pred, tiny.POINTRCNN_FORWARD_PATH)
 
 
-def rcnn_gt_roi_phase(dev):
-    """Phase 45: the RCNN regression and corner losses with a non-empty
-    foreground. The tiny PointRCNN's and Part-A2's RoI heads (their training
+def _tree(fn, v):
+    """fn on every tensor of a batch entry: a tensor, a sparse level (a
+    SparseTensor named tuple) or a dict of them; other values as they are."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return fn(v)
+    if isinstance(v, dict):
+        return {k: _tree(fn, x) for k, x in v.items()}
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_tree(fn, x) for x in v))
+    return v
+
+
+# the RoI head's launches on the tiny gt-RoI batch, and the losses whose sum
+# is held with its gradients: regression + corner, or SECONDNetIoU's IoU loss
+GT_ROI = {"pointrcnn": ({"fps": 1, "query_group": 1}, ("rcnn_reg_loss", "rcnn_corner_loss")),
+          "parta2": ({}, ("rcnn_reg_loss", "rcnn_corner_loss")),
+          "voxelrcnn": ({"query_group": 2}, ("rcnn_reg_loss", "rcnn_corner_loss")),
+          "secondnetiou": ({}, ("rcnn_iou_loss",))}
+
+
+def rcnn_gt_roi_phase(dev, whiches=("pointrcnn", "parta2")):
+    """Phase 45 (49 with voxelrcnn and secondnetiou): the RCNN losses with a
+    non-empty foreground. The tiny detectors' RoI heads (their training
     states) take RoIs made from the gt boxes (`tiny.gt_roi_proposals`:
     jittered within REG_FG_THRESH) beside the first stages' own outputs of
-    their training batch; rcnn_cls_loss, rcnn_reg_loss, rcnn_corner_loss and
-    the gradients of reg + corner on the head's parameters and on the
+    their training batch; the RCNN losses and the gradients of reg + corner
+    (SECONDNetIoU: of its IoU loss) on the head's parameters and on the
     proposals' boxes are held on the card against the same head on the CPU
-    (the plain path: PointRCNN's in-RoI K1 and K2 calls run their plain
-    versions there). Losses atol 1e-4 * max(1, |want|) + rtol 1e-4, gradients
+    (the plain path: the heads' K1 and K2 calls run their plain versions
+    there). Losses atol 1e-4 * max(1, |want|) + rtol 1e-4, gradients
     rtol 1e-3 above atol 1e-4 * max(the tensor's largest |g|, 1e-2 * the
     head's)."""
     import copy
@@ -3618,7 +3720,8 @@ def rcnn_gt_roi_phase(dev):
     from tsm_det_pointcloud_tpu_torch.ops import _kernels
 
     cpu = torch.device("cpu")
-    for which in ("pointrcnn", "parta2"):
+    for which in whiches:
+        launches, held = GT_ROI[which]
         cfg, meta = tiny.two_stage_model(which)
         gt, gmask = tiny.two_stage_gt(which)
         model = build_network(cfg, 1, meta, device=cpu)
@@ -3631,29 +3734,29 @@ def rcnn_gt_roi_phase(dev):
             for m in model.module_list[:-1]:
                 bd = m(bd)
         logits, boxes = tiny.gt_roi_proposals(gt, gmask, 256)
-        bd = {k: v.detach() for k, v in bd.items() if isinstance(v, torch.Tensor)}
+        bd = {k: _tree(torch.Tensor.detach, v) for k, v in bd.items()
+              if k not in ("batch_cls_preds", "batch_box_preds", "cls_preds_normalized")}
         bd.update(batch_cls_preds=torch.from_numpy(logits), cls_preds_normalized=False)
         results = []
         for d in (dev, cpu):
             head = copy.deepcopy(model.module_list[-1]).to(d).train()
             box = torch.from_numpy(boxes).to(d).requires_grad_(True)
             _kernels.reset_launches()
-            out = head(dict({k: v.to(d) if isinstance(v, torch.Tensor) else v
-                             for k, v in bd.items()}, batch_box_preds=box))
+            out = head(dict(_tree(lambda t: t.to(d), bd), batch_box_preds=box))
             tb = out["tb_dict_rcnn"]
-            (tb["rcnn_reg_loss"] + tb["rcnn_corner_loss"]).backward()
-            fg = int((out["roi_targets"]["fg"] & out["roi_targets"]["sampled"]).sum())
+            sum(tb[k] for k in held).backward()
+            fg = (int((out["roi_targets"]["fg"] & out["roi_targets"]["sampled"]).sum())
+                  if "roi_targets" in out else None)
             results.append(dict(
                 tb={k: float(v.detach()) for k, v in tb.items()}, fg=fg,
                 launches=dict(_kernels.LAUNCHES), box=box.grad.cpu().numpy(),
                 grads={n: p.grad.cpu().numpy() for n, p in head.named_parameters()
                        if p.grad is not None}))
         got, want = results
-        check(got["fg"] == want["fg"] > 0,
+        check(got["fg"] == want["fg"] and (want["fg"] is None or want["fg"] > 0),
               f"{which} gt RoIs: sampled foreground {got['fg']} / {want['fg']}")
-        if which == "pointrcnn":
-            check(got["launches"]["fps"] == 1 and got["launches"]["query_group"] == 1,
-                  f"{which} gt RoIs: launches {got['launches']}")
+        check({k: v for k, v in got["launches"].items() if v} == launches,
+              f"{which} gt RoIs: launches {got['launches']}")
         for k, v in want["tb"].items():
             check(close_scalar(got["tb"][k], v) and v > 0,
                   f"{which} gt RoIs: {k} {got['tb'][k]} on the card, {v} on the CPU")
@@ -3667,19 +3770,22 @@ def rcnn_gt_roi_phase(dev):
             check(np.allclose(g, w, rtol=1e-3, atol=atol),
                   f"{which} gt RoIs: gradient of {n} differs: {float(np.abs(g - w).max())}")
             worst = max(worst, float(np.abs(g - w).max()))
-        print(f"{which} gt RoIs (card against CPU): {got['fg']} foreground RoIs sampled; "
+        fg = "" if got["fg"] is None else f"{got['fg']} foreground RoIs sampled; "
+        print(f"{which} gt RoIs (card against CPU): {fg}"
               + ", ".join(f"{k} {got['tb'][k]:.6f} ({want['tb'][k]:.6f})" for k in want["tb"])
-              + f"; {len(want['grads'])} parameter gradients and the boxes' held, max abs diff "
-              f"{worst:.3g}; launches on the card {got['launches']}")
+              + f"; {len(want['grads'])} parameter gradients and the boxes' held (of "
+              f"{' + '.join(held)}), max abs diff {worst:.3g}; launches on the card "
+              f"{got['launches']}")
 
 
-def pointrcnn_converter_phase(dev, root):
-    """Phase 47: convert_torch_ckpt on a synthetic reference checkpoint of a
-    seeded full-width pointrcnn.yaml detector (OpenPCDet's layouts,
-    `reference_state_dict`): nothing unplaced; the tensors placed off their
-    own leaf (ties of leaf name and shape, ROADMAP §C) are counted; the
-    converted checkpoint loads strictly and detects on phase 30's first raw
-    scan with finite outputs."""
+def pointrcnn_converter_phase(dev, root, which="pointrcnn", unplaced=()):
+    """Phase 47 (51 with voxelrcnn and secondnetiou): convert_torch_ckpt on a
+    synthetic reference checkpoint of a seeded full-width detector of the
+    config (OpenPCDet's layouts, `reference_state_dict`): nothing unplaced
+    but `unplaced` (the 1x1 BEV convs no 4-D leaf takes, ROADMAP §C); the
+    tensors placed off their own leaf (ties of leaf name and shape) are
+    counted; the converted checkpoint loads strictly and detects on phase
+    30's first raw scan with finite outputs."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch import convert_torch_ckpt, demo
@@ -3687,30 +3793,34 @@ def pointrcnn_converter_phase(dev, root):
     from tsm_det_pointcloud_tpu_torch.infer import build_detector, detect
     from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import restore_checkpoint
 
-    cfg_file = ROOT / "tools/cfgs/kitti_models/pointrcnn.yaml"
-    out = root.parent / "pointrcnn_convert"
+    cfg_file = ROOT / f"tools/cfgs/kitti_models/{stage_spec(which)[0]}"
+    out = root.parent / f"{which}_convert"
     out.mkdir()
-    cfg, src_model = build_detector(cfg_file, dev, seed=3, n_points=scan_points("pointrcnn"))
+    cfg, src_model = build_detector(cfg_file, dev, seed=3, n_points=scan_points(which))
     src = {k: v.detach().cpu() for k, v in src_model.state_dict().items()}
     del src_model
     ref, source = convert_torch_ckpt.reference_state_dict(src, cfg.MODEL)
+    # SECOND's conv_out kernel (3, 1, 1), which neither converter reads (ROADMAP §C)
+    ref.pop("backbone_3d.conv_out.weight", None)
     torch.save({"model_state": ref, "epoch": 80, "it": 37120}, out / "reference.pth")
     report = convert_torch_ckpt.main(["--ckpt", str(out / "reference.pth"), "--cfg_file",
                                       str(cfg_file), "--out", str(out / "converted.pth")])
-    check(not report["unplaced"], f"pointrcnn converter: unplaced {report['unplaced']}")
+    check(report["unplaced"] == list(unplaced),
+          f"{which} converter: unplaced {report['unplaced']}")
     conv = torch.load(out / "converted.pth", weights_only=True)["model_state"]
     equal = sum(torch.equal(conv[key], src[key]) for key in source.values())
-    model = build_detector(cfg_file, dev, seed=0, n_points=scan_points("pointrcnn"))[1]
+    model = build_detector(cfg_file, dev, seed=0, n_points=scan_points(which))[1]
     restore_checkpoint(out / "converted.pth", model)
     scans = demo.DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root.parent / "demo" / "scans")
     batch = load_data_to_device(to_torch_batch(scans.collate(scans[0])), dev)
     o, p = detect(model, batch["points"], batch["points_mask"])
     check(all(bool(torch.isfinite(t).all()) for t in (o["batch_cls_preds"], o["batch_box_preds"],
                                                       p["pred_boxes"], p["pred_scores"])),
-          "pointrcnn converter: non-finite outputs of the converted model")
-    print(f"pointrcnn reference checkpoint: {len(ref)} tensors of a seeded full-width "
-          f"pointrcnn.yaml detector in OpenPCDet's layouts; converted {report['converted']}, "
-          f"unplaced 0, placed among more than one candidate {len(report['tied'])}, "
+          f"{which} converter: non-finite outputs of the converted model")
+    print(f"{which} reference checkpoint: {len(ref)} tensors of a seeded full-width "
+          f"{cfg_file.name} detector in OpenPCDet's layouts; converted {report['converted']}, "
+          f"unplaced {report['unplaced']}, placed among more than one candidate "
+          f"{len(report['tied'])}, "
           f"{equal} of {len(source)} port entries bit-equal to their source after it; the "
           f"converted model loads strictly and detects {int(p['count'][0])} boxes on a raw "
           f"scan, outputs finite")
@@ -4076,6 +4186,16 @@ def main():
     two_stage.update(two_stage_data_phases(dev, kitti_root, POINTRCNN))
     pointrcnn_converter_phase(dev, kitti_root)
     mark("45-47")
+    two_stage_golden_phase(dev, tuple(VOXEL_ROI))
+    rcnn_gt_roi_phase(dev, tuple(VOXEL_ROI))
+    for which in VOXEL_ROI:
+        rep_e, lau_e, rep_t, lau_t = two_stage_phases(dev, which)
+        two_stage[which] = (rep_e, lau_e)
+        two_stage[f"{which}_train"] = (rep_t, lau_t)
+    two_stage.update(two_stage_data_phases(dev, kitti_root, VOXEL_ROI))
+    for which in VOXEL_ROI:
+        pointrcnn_converter_phase(dev, kitti_root, which, VOXEL_ROI_UNPLACED)
+    mark("49-51")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -4087,13 +4207,16 @@ def main():
                        "centerpoint": report_cp, "centerpoint train": report_cptrain,
                        **{k: rep for k, (rep, _) in zoo_data.items()},
                        **{k: rep for k, (rep, _) in two_stage.items()}})
+    mark("the deferred device times")
     profile_kdata()
     profile_wdata()
     profiles = infer_profiles(PROFILES)
+    mark("the data paths' and the configs' profiles (39, 44, 48, 52)")
     zoo_profiles(profiles)
     two_stage_profiles(dev, profiles)
     two_stage_profiles(dev, profiles, POINTRCNN)
-    mark("the device times and profiles (39, 44, 48)")
+    two_stage_profiles(dev, profiles, VOXEL_ROI)
+    mark("the proposal NMS's device times (44, 48, 52)")
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()

@@ -127,6 +127,8 @@ MODELS = {
     "parta2": lambda: _voxel(*tiny.two_stage_model("parta2")),
     "pvrcnn": lambda: _voxel(*tiny.two_stage_model("pvrcnn")),
     "pointrcnn": lambda: _voxel(*tiny.two_stage_model("pointrcnn")),
+    "voxelrcnn": lambda: _voxel(*tiny.two_stage_model("voxelrcnn")),
+    "secondnetiou": lambda: _voxel(*tiny.two_stage_model("secondnetiou")),
 }
 
 
@@ -167,7 +169,7 @@ def _jax_side(init, ref):
 def _without_three_tap_kernels(name, ref):
     """SECOND's and CenterPoint's state dicts without conv_out's kernel,
     which neither side converts (test_three_tap_spconv_kernel_raises_like_jax)."""
-    if name not in ("second", "centerpoint", "parta2", "pvrcnn"):
+    if name not in ("second", "centerpoint", "parta2", "pvrcnn", "voxelrcnn", "secondnetiou"):
         return ref
     with pytest.raises(ValueError):
         jtool.convert_state_dict(ref)
@@ -219,6 +221,13 @@ EXPECTED = {
     "pvrcnn": dict(unmatched=[], unplaced=ANCHOR_HEAD_UNPLACED[2:],
                    misplaced=["backbone_2d.deblock0.weight", "roi_head.cls_out.bias",
                               "roi_head.cls_out.weight"]),
+    # Voxel R-CNN and SECONDNetIoU: the anchor head's 1x1 convs and the 1x1
+    # deblock0 as Part-A2's; no other leaf shares a leaf name and shape with
+    # their RoI heads' (no point head), so every other tensor lands home
+    "voxelrcnn": dict(unmatched=[], unplaced=["backbone_2d/deblock0/kernel"]
+                      + ANCHOR_HEAD_UNPLACED[2:], misplaced=[]),
+    "secondnetiou": dict(unmatched=[], unplaced=["backbone_2d/deblock0/kernel"]
+                         + ANCHOR_HEAD_UNPLACED[2:], misplaced=[]),
     # PointRCNN: every tensor placed, but the RoI head's cls_fc BN and
     # cls_out, which tie with the point head's (a 16-wide BN, a (16, 1)
     # output) and go to the point head's, as Part-A2's
@@ -400,6 +409,75 @@ def test_openpcdet_two_stage_names_place_like_jax(name):
     assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
     assert report["unmatched"] == want_unmatched and report["unplaced"] == want_unplaced
     placed = sum(torch.equal(got[key], src[key]) for n, key in source.items() if n in ref)
+    print(f"{name}: {len(ref)} tensors, {len(renamed)} renamed, "
+          f"{len(report['unplaced'])} unplaced, {placed} on the leaf they came from")
+
+
+def _voxel_roi_openpcdet_names(cfg):
+    """OpenPCDet's names of Voxel R-CNN's and SECONDNetIoU's RoI heads where
+    the port's (the flax ones) differ: the grid-pool layers
+    (`roi_head.roi_grid_pool_layers.<source>.mlps.<scale>.<k>`, a conv, BN
+    and ReLU a layer), `roi_head.shared_fc_layer`, `roi_head.cls_layers` /
+    `reg_layers` / `iou_layers` (a linear or conv, BN, ReLU and Dropout a
+    layer; the output after them)."""
+    sources = list(cfg.ROI_HEAD.get("ROI_GRID_POOL", {}).get("POOL_LAYERS", {}))
+    n = {k: len(cfg.ROI_HEAD.get(f"{k.upper()}_FC", [])) for k in ("cls", "reg", "iou")}
+    rules = [
+        (r"^roi_head\.pool_(x_conv\d)_(\d)\.(fc|bn)(\d)\.",
+         lambda m: f"roi_head.roi_grid_pool_layers.{sources.index(m.group(1))}.mlps."
+                   f"{m.group(2)}.{3 * int(m.group(4)) + (m.group(3) == 'bn')}."),
+        (r"^roi_head\.shared_(fc|bn)(\d)\.",
+         lambda m: f"roi_head.shared_fc_layer.{4 * int(m.group(2)) + (m.group(1) == 'bn')}."),
+        (r"^roi_head\.(cls|reg|iou)_fc\.(fc|bn)(\d)\.",
+         lambda m: f"roi_head.{m.group(1)}_layers."
+                   f"{4 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^roi_head\.(cls|reg|iou)_out\.",
+         lambda m: f"roi_head.{m.group(1)}_layers.{4 * n[m.group(1)]}."),
+    ]
+
+    def rename(name):
+        for pat, rep in rules:
+            if re.match(pat, name):
+                return re.sub(pat, rep, name)
+        return name
+
+    return rename
+
+
+@pytest.mark.parametrize("name", ["voxelrcnn", "secondnetiou"])
+def test_openpcdet_voxel_roi_names_place_like_jax(name):
+    """A reference checkpoint of the tiny Voxel R-CNN or SECONDNetIoU under
+    OpenPCDet's RoI-head names (`_voxel_roi_openpcdet_names`): both
+    converters place it alike, bit for bit, with the same unmatched and
+    unplaced lists. No rule maps a BN named `<k>` to a scale: each RoI-head
+    BN weight becomes a 1-D kernel no leaf takes, and the other renamed
+    tensors, which share no path component with their leaves but the leaf
+    name, go to the first leaf of their shape in flax order (ROADMAP §C)."""
+    cfg, shapes = MODELS[name]()
+    rng = np.random.RandomState(sorted(MODELS).index(name))
+    init = _fill(shapes, rng)
+    src = from_flax_variables(_fill(shapes, rng))
+    ref, source = port.reference_state_dict(src, cfg)
+    rename = _voxel_roi_openpcdet_names(cfg)
+    ref = _without_three_tap_kernels(name, ref)
+    renamed = [k for k in ref if rename(k) != k]
+    ref = {rename(k): v for k, v in ref.items()}
+    source = {rename(k): v for k, v in source.items()}
+    assert len(renamed) == len([k for k in ref if k.startswith("roi_head.")]) > 10
+    head_names = {"voxelrcnn": ("roi_head.roi_grid_pool_layers.1.mlps.0.3.weight",
+                                "roi_head.shared_fc_layer.1.running_var",
+                                "roi_head.cls_layers.4.bias", "roi_head.reg_layers.0.weight"),
+                  "secondnetiou": ("roi_head.shared_fc_layer.0.weight",
+                                   "roi_head.iou_layers.1.weight", "roi_head.iou_layers.4.bias")}
+    for n_ in head_names[name]:
+        assert n_ in ref, n_
+    want, want_unmatched, want_unplaced = _jax_side(init, ref)
+    got, report = port.convert_checkpoint(ref, from_flax_variables(init))
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert report["unmatched"] == want_unmatched and report["unplaced"] == want_unplaced
+    bn_scales = [p for p in report["unplaced"] if p.startswith("roi_head/")]
+    assert bn_scales and all(p.endswith("/kernel") for p in bn_scales)
+    placed = sum(torch.equal(got[key], src[key]) for n_, key in source.items() if n_ in ref)
     print(f"{name}: {len(ref)} tensors, {len(renamed)} renamed, "
           f"{len(report['unplaced'])} unplaced, {placed} on the leaf they came from")
 

@@ -151,7 +151,7 @@ def _two_stage_yaml(setup, which):
                            data=tiny_two_stage_dataset_cfg(which, setup["root"]))
 
 
-@pytest.mark.parametrize("which", ["parta2", "pvrcnn", "pointrcnn"])
+@pytest.mark.parametrize("which", ["parta2", "pvrcnn", "pointrcnn", "voxelrcnn", "secondnetiou"])
 def test_two_stage_trains_over_two_ranks(setup, which):
     import torch
 
@@ -184,6 +184,15 @@ def test_pointrcnn_refuses_point_axis(setup):
         train.main(["--cfg_file", str(_two_stage_yaml(setup, "pointrcnn")), "--data_root",
                     str(setup["root"]), "--device", "cpu", "--workers", "0",
                     "--point_axis", "2", "--output_dir", str(setup["base"] / "pax2_pointrcnn")])
+
+
+@pytest.mark.parametrize("which,name", [("voxelrcnn", "VoxelRCNN"),
+                                        ("secondnetiou", "SECONDNetIoU")])
+def test_voxel_roi_refuses_point_axis(setup, which, name):
+    with pytest.raises(ValueError, match=f"{name} has no such layer"):
+        train.main(["--cfg_file", str(_two_stage_yaml(setup, which)), "--data_root",
+                    str(setup["root"]), "--device", "cpu", "--workers", "0",
+                    "--point_axis", "2", "--output_dir", str(setup["base"] / f"pax2_{which}")])
 
 
 def test_synthetic_mode_stays_single_process():

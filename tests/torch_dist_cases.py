@@ -203,6 +203,13 @@ def teacher_state():
     return state
 
 
+# the tiny SECONDNetIoU's proposal NMS in the data-parallel step: up to 64
+# RoIs a scan at IoU 0.1 keeps 27, 26 | 27, 25 on the two ranks' scans (at
+# its own 16 every scan fills all 16), so that the IoU loss's normaliser, the
+# valid RoIs, differs between the ranks and the global one shows
+SECONDNETIOU_TRAIN_NMS = {"NMS_THRESH": 0.1, "NMS_POST_MAXSIZE": 64}
+
+
 def _model(which):
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
@@ -218,8 +225,10 @@ def _model(which):
         model = build_network(tiny.centerpoint_model_cfg(), 3, tiny.CENTERPOINT_META,
                               device="cpu")
         model.load_state_dict(tiny.load_state(tiny.CENTERPOINT_STATE_PATH), strict=True)
-    elif which in ("parta2", "pointrcnn"):
+    elif which in ("parta2", "pointrcnn", "secondnetiou"):
         cfg, meta = tiny.two_stage_model(which)
+        if which == "secondnetiou":
+            cfg.ROI_HEAD.NMS_CONFIG.TRAIN.update(SECONDNETIOU_TRAIN_NMS)
         model = build_network(cfg, 1, meta, device="cpu")
         model.load_state_dict(tiny.two_stage_state(which, train=True), strict=True)
     elif which == "teacher":
@@ -235,7 +244,8 @@ def dist_step_case(rank, world, which, batch, point_axis=0):
     """One DDP training step of the tiny TSM ("tsm"), its teacher
     ("teacher": every parameter trains, the class statistics update),
     SECOND ("second"), PointPillars ("pointpillar"), CenterPoint
-    ("centerpoint"), Part-A2 ("parta2") or PointRCNN ("pointrcnn")
+    ("centerpoint"), Part-A2 ("parta2"), PointRCNN ("pointrcnn") or
+    SECONDNetIoU ("secondnetiou", its proposal NMS at SECONDNETIOU_TRAIN_NMS)
     on this rank's share of `batch` (under point_axis P, P ranks share a
     sample set and split its points). Returns this rank's loss and tb terms,
     the reduced gradients, the buffers after the forward, the parameters

@@ -1,14 +1,16 @@
-"""The dataset-driven eval loop and first-batch training loss of the tiny TSM
-teacher (fast_cpc_teacher.yaml's data section on its range), the tiny
-SECOND (second.yaml's: the voxel route, no sample_points, on the tiny
-SECOND's geometry), the tiny PointPillars (pointpillar.yaml's: 8 points a
-pillar, gt sampling on road planes), the tiny CenterPoint
-(centerpoint.yaml's), the tiny Part-A2 and PV-RCNN (PartA2.yaml's and
-pvrcnn.yaml's: road planes, two-stage post-processing) and the tiny
-PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels)
-against the JAX
-package, over copies of one synthetic KITTI root, as
-tests/test_torch_eval_loop.py holds the tiny student.
+"""The dataset-driven eval loop and first-batch training loss of the tiny
+detectors of the KITTI zoo against the JAX package, over copies of one
+synthetic KITTI root, as tests/test_torch_eval_loop.py holds the tiny
+student: the tiny TSM teacher (fast_cpc_teacher.yaml's data section on its
+range), the tiny SECOND (second.yaml's: the voxel route, no sample_points,
+on the tiny SECOND's geometry), the tiny PointPillars (pointpillar.yaml's: 8
+points a pillar, gt sampling on road planes), the tiny CenterPoint
+(centerpoint.yaml's), the tiny Part-A2, PV-RCNN, Voxel R-CNN and
+SECONDNetIoU (PartA2.yaml's, pvrcnn.yaml's, voxel_rcnn_car.yaml's and
+second_iou.yaml's: road planes, two-stage post-processing) and the tiny
+PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels).
+The cases are spread over tests/test_torch_eval_loop_*.py, so that
+`--dist loadfile` runs them on several workers.
 
 Both sides take the committed converted JAX PRNGKey(0) inits
 (data/tsm_teacher_tiny_state.npz with tiny.teacher_overrides();
@@ -106,12 +108,25 @@ def _two_stage(which):
 
 MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
           "centerpoint": _centerpoint, "parta2": lambda: _two_stage("parta2"),
-          "pvrcnn": lambda: _two_stage("pvrcnn"), "pointrcnn": lambda: _two_stage("pointrcnn")}
+          "pvrcnn": lambda: _two_stage("pvrcnn"), "pointrcnn": lambda: _two_stage("pointrcnn"),
+          "voxelrcnn": lambda: _two_stage("voxelrcnn"),
+          "secondnetiou": lambda: _two_stage("secondnetiou")}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port while a module of these cases runs
+    (beside XLA's CPU thread pools, torch's own pool slows the tiny
+    models); each eval-loop test file imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
-@pytest.fixture(scope="module")
-def roots(tmp_path_factory):
+
+def make_roots(tmp_path_factory):
+    """(the JAX side's root, the port's): copies of one synthetic KITTI root,
+    each with its side's infos."""
     base = tmp_path_factory.mktemp("kitti")
     make_root(base / "base")
     jroot = copy_root(base / "base", base / "jax")
@@ -121,14 +136,13 @@ def roots(tmp_path_factory):
     return jroot, proot
 
 
-@pytest.fixture(scope="module", params=sorted(MODELS))
-def case(request, roots, tmp_path_factory):
+def run_case(name, roots, tmp_path_factory):
     """(name, eval results of both sides, the port's val dataset, the model
     configs, the state, the dataset config maker, the classes)."""
-    cfg, jcfg, state, data, classes = MODELS[request.param]()
+    cfg, jcfg, state, data, classes = MODELS[name]()
     jroot, proot = roots
-    out = tmp_path_factory.mktemp(f"eval_{request.param}")
-    logger = logging.getLogger("test_torch_eval_loop_models")
+    out = tmp_path_factory.mktemp(f"eval_{name}")
+    logger = logging.getLogger("torch_eval_loop_cases")
     jds = JKittiDataset(data(jroot), classes, training=False, root_path=jroot)
     jmodel = jbuild(jcfg, num_class=len(classes), dataset=jds)
     jeval_one_ckpt(jmodel, to_flax_variables(state), JDataLoader(jds, 4, prefetch=0), jds,
@@ -142,11 +156,11 @@ def case(request, roots, tmp_path_factory):
     for side in ("jax", "port"):
         with open(out / side / "result.pkl", "rb") as f:
             annos.append(pickle.load(f))
-    return dict(name=request.param, pres=pres, jannos=annos[0], pannos=annos[1], pds=pds,
+    return dict(name=name, pres=pres, jannos=annos[0], pannos=annos[1], pds=pds,
                 cfg=cfg, jcfg=jcfg, state=state, data=data, classes=classes)
 
 
-def test_eval_loop_detections_match_jax(case):
+def check_detections_match_jax(case):
     jannos, pannos = case["jannos"], case["pannos"]
     assert [a["frame_id"] for a in pannos] == [a["frame_id"] for a in jannos]
     assert sum(len(a["name"]) for a in pannos) > 0, "no detections to compare"
@@ -157,7 +171,7 @@ def test_eval_loop_detections_match_jax(case):
         np.testing.assert_allclose(pa["boxes_lidar"], ja["boxes_lidar"], rtol=1e-4, atol=1e-4)
 
 
-def test_eval_loop_ap_dict_is_the_jax_eval(case):
+def check_ap_dict_is_the_jax_eval(case):
     pds, pres = case["pds"], case["pres"]
     gt = [info["annos"] for info in pds.kitti_infos]
     _, want = jofficial(gt, case["pannos"], case["classes"])
@@ -169,7 +183,7 @@ def test_eval_loop_ap_dict_is_the_jax_eval(case):
         assert got[k] == want[k], k
 
 
-def test_first_loader_batch_loss_matches_jax(case, roots):
+def check_first_loader_batch_loss_matches_jax(case, roots):
     _, proot = roots
     classes = case["classes"]
     ds, loader, _ = build_dataloader(case["data"](proot), classes, 2, workers=0, seed=0,

@@ -1,6 +1,6 @@
 """The synthetic KITTI root and dataset configs shared by the port's KITTI
 tests (test_torch_kitti_data.py, test_torch_kitti_eval.py,
-test_torch_eval_loop.py, test_torch_eval_loop_models.py).
+test_torch_eval_loop.py, torch_eval_loop_cases.py).
 
 `make_root` writes tests/test_kitti_pipeline.py's `make_kitti_root` layout
 (velodyne, label_2, calib, planes, ImageSets; one Car and one DontCare a
@@ -142,13 +142,15 @@ def tiny_centerpoint_dataset_cfg(root):
 
 
 def tiny_two_stage_dataset_cfg(which, root):
-    """PartA2.yaml's ("parta2"), pvrcnn.yaml's ("pvrcnn") or pointrcnn.yaml's
-    ("pointrcnn") DATA_CONFIG (gt sampling on road planes) on the tiny
+    """PartA2.yaml's ("parta2"), pvrcnn.yaml's ("pvrcnn"), pointrcnn.yaml's
+    ("pointrcnn"), voxel_rcnn_car.yaml's ("voxelrcnn") or second_iou.yaml's
+    ("secondnetiou") DATA_CONFIG (gt sampling on road planes) on the tiny
     detector's geometry (tiny.two_stage_model(which); pointrcnn.yaml's
     sample_points takes its MAX_POINTS in both modes), gt sampling of its one
     class."""
     cfg_file = {"parta2": "PartA2.yaml", "pvrcnn": "pvrcnn.yaml",
-                "pointrcnn": "pointrcnn.yaml"}[which]
+                "pointrcnn": "pointrcnn.yaml", "voxelrcnn": "voxel_rcnn_car.yaml",
+                "secondnetiou": "second_iou.yaml"}[which]
     meta = tiny.two_stage_model(which)[1]
     data = _tiny_voxel_dataset_cfg(f"tools/cfgs/kitti_models/{cfg_file}", root, meta,
                                    ["Car:15"])

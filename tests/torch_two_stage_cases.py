@@ -41,7 +41,9 @@ TRAIN_AUX = ("voxel_features", "voxel_coords", "voxel_mask", "spatial_features_2
 
 def forward_path(which):
     return {"parta2": tiny.PARTA2_FORWARD_PATH, "pvrcnn": tiny.PVRCNN_FORWARD_PATH,
-            "pointrcnn": tiny.POINTRCNN_FORWARD_PATH}[which]
+            "pointrcnn": tiny.POINTRCNN_FORWARD_PATH,
+            "voxelrcnn": tiny.VOXELRCNN_FORWARD_PATH,
+            "secondnetiou": tiny.SECONDNETIOU_FORWARD_PATH}[which]
 
 
 def points():
@@ -184,19 +186,31 @@ def check_batch_stats(model, stats):
                                    err_msg=key)
 
 
+def sub_variables(variables, path):
+    """The flax variables of the submodule at `path` (a tuple of names)."""
+    out = {}
+    for coll, tree in variables.items():
+        for p in path:
+            tree = tree.get(p, {})
+        if tree:
+            out[coll] = tree
+    return out
+
+
 def full_width_state(cfg_path):
     """(flax variables of the config's JAX init by eval_shape, zeros, no
-    forward; the port model; its DatasetMeta)."""
+    forward; the port model; its DatasetMeta), with the config's classes."""
     import jax.numpy as jnp
 
     from tsm_det_pointcloud_tpu_torch import infer
 
     cfg = infer.load_cfg(cfg_path)
     meta = infer.dataset_meta(cfg, 20000)
-    jmodel = jbuild(cfg.MODEL, num_class=3, dataset=JDatasetMeta(**dataclasses.asdict(meta)))
+    n_cls = len(cfg.CLASS_NAMES)
+    jmodel = jbuild(cfg.MODEL, num_class=n_cls, dataset=JDatasetMeta(**dataclasses.asdict(meta)))
     batch = {"points": jnp.zeros((1, 20000, 4), jnp.float32),
              "points_mask": jnp.ones((1, 20000), bool), "batch_size": 1}
     shapes = jax.eval_shape(lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=False),
                             batch)
     variables = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    return variables, build_network(cfg.MODEL, 3, meta, device="cpu"), meta
+    return variables, build_network(cfg.MODEL, n_cls, meta, device="cpu"), meta

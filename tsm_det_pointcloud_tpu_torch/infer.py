@@ -21,6 +21,10 @@ scans.
         --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --batch 4 --points 16384
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/voxel_rcnn_car.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/second_iou.yaml --batch 4 --points 20000
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
@@ -155,9 +159,12 @@ def load_cfg(cfg_file, set_cfgs=None):
 # across a quarter of bias: at these values ~23,800 and ~210 anchors a scan
 # pass (on the same scans). Their proposal layer keeps the best 1024 a scan
 # (NMS_PRE_MAXSIZE of the test mode) whatever their scores, and infer prints
-# the proposals NMS kept a scan and the RoI head's boxes over SCORE_THRESH
+# the proposals NMS kept a scan and the RoI head's boxes over SCORE_THRESH.
+# SECONDNetIoU's first stage is SECOND's, with the same seeded weights and eval
+# state, so it takes SECOND's value; Voxel R-CNN's (one class, a narrower BEV
+# backbone) was set on the card
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
-            "PVRCNN": -2.5}
+            "PVRCNN": -2.5, "SECONDNetIoU": -2.575, "VoxelRCNN": -1.25}
 # CenterPoint's hm_out: a gain on its seeded kernel and a bias in place of
 # the -2.19 init. The seeded heatmap logits lie within 0.5 of each other, so
 # at the init's bias either all of a scan's 500 decoded boxes pass
@@ -283,7 +290,9 @@ def rois_over(model, out):
     if "roi_valid" not in out:
         return None
     thresh = float(model.model_cfg["POST_PROCESSING"].get("SCORE_THRESH", 0.1))
-    scores = torch.sigmoid(out["batch_cls_preds"][..., 0])
+    scores = out["batch_cls_preds"][..., 0]
+    if not out.get("cls_preds_normalized", False):
+        scores = torch.sigmoid(scores)
     return list(zip(out["roi_valid"].sum(1).tolist(),
                     ((scores >= thresh) & out["roi_valid"]).sum(1).tolist()))
 

@@ -26,7 +26,11 @@ JAX models/__init__.py:14-29):
     PVRCNNHead; for both `.train()` turns on the anchor head's decode in
     training, the target assignment of all three heads and their losses;
   * NAME PointRCNN: PointNet2MSG, PointHeadBox, PointRCNNHead; `.train()`
-    turns on the point head's and the RoI head's targets and losses.
+    turns on the point head's and the RoI head's targets and losses;
+  * NAME VoxelRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
+    BaseBEVBackbone, AnchorHeadSingle, VoxelRCNNHead; NAME SECONDNetIoU: the
+    same with SECONDHead; for both `.train()` turns on the anchor head's
+    decode in training, the RoI head's targets (VoxelRCNN) and the losses.
 Any other configuration raises. Matmuls and convolutions run in full
 float32: TF32 is switched off here. cuDNN times its algorithms for each
 convolution shape at first use (`cudnn.benchmark`): left to its heuristics,
@@ -66,6 +70,8 @@ from .detectors import DatasetMeta, __all__ as detector_registry
 from .roi_heads.partA2_head import PartA2FCHead
 from .roi_heads.pointrcnn_head import PointRCNNHead
 from .roi_heads.pvrcnn_head import PVRCNNHead
+from .roi_heads.second_head import SECONDHead
+from .roi_heads.voxelrcnn_head import VoxelRCNNHead
 
 _NEG_LOG99 = -float(np.log(99.0))
 # the sections each ported detector reads, and the module NAMEs each may give
@@ -92,6 +98,12 @@ _PORTED = {
                "POINT_HEAD": ("PointHeadSimple",), "ROI_HEAD": ("PVRCNNHead",)},
     "PointRCNN": {"BACKBONE_3D": ("PointNet2MSG",), "POINT_HEAD": ("PointHeadBox",),
                   "ROI_HEAD": ("PointRCNNHead",)},
+    "VoxelRCNN": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+                  "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
+                  "DENSE_HEAD": ("AnchorHeadSingle",), "ROI_HEAD": ("VoxelRCNNHead",)},
+    "SECONDNetIoU": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+                     "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
+                     "DENSE_HEAD": ("AnchorHeadSingle",), "ROI_HEAD": ("SECONDHead",)},
 }
 # (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
 _TSM_PAIRS = {
@@ -112,7 +124,8 @@ def init_weights(model, seed=0):
     the anchor heads' `conv_cls`, and Part-A2's and PointRCNN's point
     heads' `cls_out`, set after the loop, since a module comes before its
     layers in `named_modules`; the other `cls_out`, PV-RCNN's point head's
-    and the RoI heads', start at 0, as flax's Dense), CenterPoint's heatmap
+    and the RoI heads', and SECONDHead's `iou_out` start at 0, as flax's
+    Dense), CenterPoint's heatmap
     output bias at HM_INIT_BIAS, BN at the identity."""
     g = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
@@ -198,7 +211,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
     dataset = meta_from_dataset(dataset)
     build = {"SECONDNet": _second_modules, "PointPillar": _pointpillar_modules,
              "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
-             "PVRCNN": _two_stage_modules, "PointRCNN": _pointrcnn_modules}.get(
+             "PVRCNN": _two_stage_modules, "PointRCNN": _pointrcnn_modules,
+             "VoxelRCNN": _two_stage_modules, "SECONDNetIoU": _two_stage_modules}.get(
                  name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
                                     build(model_cfg, num_class, dataset))
@@ -269,11 +283,12 @@ def _centerpoint_modules(model_cfg, num_class, meta):
 
 
 def _two_stage_modules(model_cfg, num_class, meta):
-    """Part-A2's and PV-RCNN's topology in the JAX package's module order
-    (its `module_topology`): VFE, BACKBONE_3D, MAP_TO_BEV, PFE (PV-RCNN),
+    """The anchor-RPN two-stage topology in the JAX package's module order
+    (its `build_module_list`): VFE, BACKBONE_3D, MAP_TO_BEV, PFE (PV-RCNN),
     BACKBONE_2D, DENSE_HEAD (decoding its boxes in training too, for the
-    RoI head), POINT_HEAD, ROI_HEAD: flax module_list_0..6 (Part-A2) and
-    0..7 (PV-RCNN)."""
+    RoI head), POINT_HEAD (Part-A2, PV-RCNN), ROI_HEAD: flax
+    module_list_0..6 (Part-A2), 0..7 (PV-RCNN), 0..5 (Voxel R-CNN,
+    SECONDNetIoU)."""
     vfe = MeanVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
                   meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
     b3d_cls = {"UNetV2": UNetV2, "VoxelBackBone8x": VoxelBackBone8x}[
@@ -292,7 +307,14 @@ def _two_stage_modules(model_cfg, num_class, meta):
                             num_class, tuple(meta.class_names), meta.grid_size,
                             meta.point_cloud_range, predict_boxes_when_training=True)
     modules += [b2d, head]
-    point_cfg, roi_cfg = dict(model_cfg["POINT_HEAD"]), dict(model_cfg["ROI_HEAD"])
+    roi_cfg = dict(model_cfg["ROI_HEAD"])
+    geometry = dict(voxel_size=meta.voxel_size, point_cloud_range=meta.point_cloud_range)
+    if roi_cfg["NAME"] == "VoxelRCNNHead":
+        return modules + [VoxelRCNNHead(roi_cfg, num_class, **geometry)]
+    if roi_cfg["NAME"] == "SECONDHead":
+        return modules + [SECONDHead(roi_cfg, b2d.get_output_feature_dim(), num_class,
+                                     **geometry)]
+    point_cfg = dict(model_cfg["POINT_HEAD"])
     if point_cfg["NAME"] == "PointIntraPartOffsetHead":
         point = PointIntraPartOffsetHead(point_cfg, num_class, b3d.num_point_features, meta)
         roi = PartA2FCHead(roi_cfg, b3d.num_point_features, num_class)

@@ -32,6 +32,13 @@ def voxel_centers(coords_zyx, stride, voxel_size, point_cloud_range):
     return (coords_zyx.flip(-1).to(torch.float32) + 0.5) * vs + origin
 
 
+def _clip01(w):
+    """w clipped to [0, 1] as jnp.clip does it, gradient included: half the
+    gradient passes at a bound (torch.clamp passes all of it), which a
+    lattice point on a pixel's edge meets in SECONDHead's pool."""
+    return torch.minimum(torch.maximum(w, torch.zeros_like(w)), torch.ones_like(w))
+
+
 def bilinear_interpolate(bev, x, y):
     """bev (H, W, C); x, y (K,) in pixel units -> (K, C), the corner indices
     clamped to the map and the weights to [0, 1]."""
@@ -39,8 +46,8 @@ def bilinear_interpolate(bev, x, y):
     x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, W - 2)
     y0 = torch.clamp(torch.floor(y).to(torch.int64), 0, H - 2)
     x1, y1 = x0 + 1, y0 + 1
-    wx = torch.clamp(x - x0.to(x.dtype), 0.0, 1.0)
-    wy = torch.clamp(y - y0.to(y.dtype), 0.0, 1.0)
+    wx = _clip01(x - x0.to(x.dtype))
+    wy = _clip01(y - y0.to(y.dtype))
     return (bev[y0, x0] * ((1 - wx) * (1 - wy))[:, None]
             + bev[y0, x1] * (wx * (1 - wy))[:, None]
             + bev[y1, x0] * ((1 - wx) * wy)[:, None]

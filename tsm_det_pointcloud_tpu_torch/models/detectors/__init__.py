@@ -7,7 +7,7 @@ from .point_3dssd import Point3DSSD
 from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN
 from .second_net import SECONDNet
-from .two_stage import PartA2Net, PointRCNN
+from .two_stage import PartA2Net, PointRCNN, SECONDNetIoU, VoxelRCNN
 
 __all__ = {
     "3DSSD": Point3DSSD,
@@ -18,4 +18,6 @@ __all__ = {
     "PartA2Net": PartA2Net,
     "PVRCNN": PVRCNN,
     "PointRCNN": PointRCNN,
+    "VoxelRCNN": VoxelRCNN,
+    "SECONDNetIoU": SECONDNetIoU,
 }

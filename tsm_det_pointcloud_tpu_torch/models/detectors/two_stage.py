@@ -50,3 +50,16 @@ class PointRCNN(TwoStageBase):
     (module_list 0-2, the flax indices). Its training loss is `loss_point`
     plus `loss_rcnn` (no dense head), tb_dict `point_loss` and the RCNN
     terms."""
+
+
+class VoxelRCNN(TwoStageBase):
+    """MeanVFE -> VoxelBackBone8x -> HeightCompression -> BaseBEVBackbone ->
+    AnchorHeadSingle (RPN) -> VoxelRCNNHead, RoI-grid pooling over the
+    sparse levels (module_list 0-5, the flax indices). Its training loss is
+    the RPN's and the RCNN's."""
+
+
+class SECONDNetIoU(TwoStageBase):
+    """SECOND's modules -> SECONDHead, the IoU branch over BEV-pooled RoIs
+    (module_list 0-5): its scores are rectified as cls^(1-a) * iou^a before
+    the final NMS. Its training loss is the RPN's and `rcnn_iou_loss`."""

@@ -73,6 +73,15 @@ proposals' order would turn on it);
 `data/pointrcnn_tiny_forward.npz` holds the JAX package's eval outputs and
 post-processed predictions with it, and `TWO_STAGE_GT["pointrcnn"]` the gt
 boxes of its training batches.
+
+The tiny Voxel R-CNN and SECONDNetIoU are the JAX package's test models
+(`voxelrcnn_cfg` and `test_secondnet_iou_e2e` of
+tests/test_two_stage_models.py, on META_VOXEL, which is PVRCNN_META): the
+anchor RPN on VoxelBackBone8x, then a 3^3 RoI grid pooled over x_conv3 and
+x_conv4 by window queries, or a 3^3 lattice of the BEV map and the IoU
+branch. Their checks run on `two_stage_state("voxelrcnn" /
+"secondnetiou")`; `data/{voxelrcnn,secondnetiou}_tiny_forward.npz` hold the
+JAX package's eval outputs and predictions with it.
 """
 from __future__ import annotations
 
@@ -99,6 +108,8 @@ PARTA2_FORWARD_PATH = STATE_PATH.parent / "parta2_tiny_forward.npz"
 PVRCNN_FORWARD_PATH = STATE_PATH.parent / "pvrcnn_tiny_forward.npz"
 POINTRCNN_STATE_PATH = STATE_PATH.parent / "pointrcnn_tiny_state.npz"
 POINTRCNN_FORWARD_PATH = STATE_PATH.parent / "pointrcnn_tiny_forward.npz"
+VOXELRCNN_FORWARD_PATH = STATE_PATH.parent / "voxelrcnn_tiny_forward.npz"
+SECONDNETIOU_FORWARD_PATH = STATE_PATH.parent / "secondnetiou_tiny_forward.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -685,6 +696,79 @@ def pvrcnn_model_cfg():
     })
 
 
+def _roi_common():
+    """The NMS, target and loss sections of the JAX tiny RoI heads
+    (ROI_COMMON of tests/test_two_stage_models.py)."""
+    return {
+        "NMS_CONFIG": {
+            "TRAIN": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.8,
+                      "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 16},
+            "TEST": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+                     "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 8},
+        },
+        "TARGET_CONFIG": {
+            "ROI_PER_IMAGE": 8, "FG_RATIO": 0.5, "REG_FG_THRESH": 0.55,
+            "CLS_FG_THRESH": 0.75, "CLS_BG_THRESH": 0.25, "CLS_BG_THRESH_LO": 0.1,
+        },
+        "LOSS_CONFIG": _rcnn_loss_cfg(),
+    }
+
+
+VOXELRCNN_META = PVRCNN_META   # META_VOXEL of the JAX package's test
+
+
+def voxelrcnn_model_cfg():
+    """The JAX package's tiny Voxel R-CNN (`voxelrcnn_cfg` of
+    tests/test_two_stage_models.py): a 3^3 RoI grid over x_conv3 and x_conv4,
+    one window query of 5^3 voxels, radius and 8 samples a source."""
+    return EDict({
+        "NAME": "VoxelRCNN",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelBackBone8x"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": {
+            "NAME": "BaseBEVBackbone",
+            "LAYER_NUMS": [1], "LAYER_STRIDES": [1], "NUM_FILTERS": [32],
+            "UPSAMPLE_STRIDES": [1], "NUM_UPSAMPLE_FILTERS": [32],
+        },
+        "DENSE_HEAD": _two_stage_dense_head(),
+        "ROI_HEAD": {
+            "NAME": "VoxelRCNNHead",
+            "ROI_GRID_POOL": {
+                "GRID_SIZE": 3,
+                "POOL_LAYERS": {
+                    "x_conv3": {"MLPS": [[8, 8]], "POOL_RADIUS": [1.2],
+                                "NSAMPLE": [8], "QUERY_RANGES": [[2, 2, 2]]},
+                    "x_conv4": {"MLPS": [[8, 8]], "POOL_RADIUS": [2.4],
+                                "NSAMPLE": [8], "QUERY_RANGES": [[2, 2, 2]]},
+                },
+            },
+            "SHARED_FC": [32], "CLS_FC": [16], "REG_FC": [16],
+            **_roi_common(),
+        },
+        "POST_PROCESSING": _two_stage_post(),
+    })
+
+
+def secondnetiou_model_cfg():
+    """The JAX package's tiny SECONDNetIoU (`test_secondnet_iou_e2e` of
+    tests/test_two_stage_models.py): the tiny Voxel R-CNN's first stage and
+    a SECONDHead over a 3^3 lattice of the 32-channel BEV map."""
+    cfg = voxelrcnn_model_cfg()
+    cfg["NAME"] = "SECONDNetIoU"
+    common = _roi_common()
+    cfg["ROI_HEAD"] = EDict({
+        "NAME": "SECONDHead",
+        "ROI_GRID_POOL": {"GRID_SIZE": 3},
+        "SHARED_FC": [32], "IOU_FC": [16],
+        "IOU_WEIGHT": 0.5,
+        "NMS_CONFIG": common["NMS_CONFIG"],
+        "TARGET_CONFIG": common["TARGET_CONFIG"],
+        "LOSS_CONFIG": {"LOSS_WEIGHTS": {"rcnn_iou_weight": 1.0}},
+    })
+    return cfg
+
+
 # the anchor head's conv_cls bias in the tiny two-stage states: the
 # proposals' scores then spread around SCORE_THRESH 0.1
 TWO_STAGE_CLS_BIAS = -2.0
@@ -692,12 +776,14 @@ TWO_STAGE_CLS_BIAS = -2.0
 
 def two_stage_model(which):
     """(model config, DatasetMeta) of the tiny Part-A2 ("parta2"), PV-RCNN
-    ("pvrcnn") or PointRCNN ("pointrcnn")."""
-    if which == "parta2":
-        return parta2_model_cfg(), PARTA2_META
-    if which == "pointrcnn":
-        return pointrcnn_model_cfg(), POINTRCNN_META
-    return pvrcnn_model_cfg(), PVRCNN_META
+    ("pvrcnn"), PointRCNN ("pointrcnn"), Voxel R-CNN ("voxelrcnn") or
+    SECONDNetIoU ("secondnetiou")."""
+    cfg, meta = {"parta2": (parta2_model_cfg, PARTA2_META),
+                 "pvrcnn": (pvrcnn_model_cfg, PVRCNN_META),
+                 "pointrcnn": (pointrcnn_model_cfg, POINTRCNN_META),
+                 "voxelrcnn": (voxelrcnn_model_cfg, VOXELRCNN_META),
+                 "secondnetiou": (secondnetiou_model_cfg, VOXELRCNN_META)}[which]
+    return cfg(), meta
 
 
 # added to the bias of every channels-last BN (the sparse convs', the MLPs'
@@ -799,7 +885,25 @@ TWO_STAGE_GT = {
          [5.215, -6.153, -1.68, 14.007, 1.866, 2.543, 1.82, 1],
          [-1.569, 5.362, -1.979, 6.936, 2.159, 2.518, 1.322, 1]],
     ],
+    # Voxel R-CNN's, which SECONDNetIoU shares (their first stages draw the
+    # same state, so their training RoIs are the same): RoIs widened by 12 %,
+    # turned by 0.06 rad, moved 4 cm along their heading and grown along their
+    # length to IoU 0.8, 0.6 and 0.17 (scan 0) and 0.865 and 0.4 (scan 1); 8
+    # of 16 sampled in each. No edge of a gt box lies on its RoI's: the IoU's
+    # gradient, which SECONDHead's loss follows, is then the same in both
+    # packages (on shared edges the clipped polygon's vertices, and so the
+    # gradient, turn on rounding)
+    "voxelrcnn": [
+        [[11.251, 5.471, -1.219, 3.502, 2.085, 5.695, 6.401, 1],
+         [7.244, -8.855, -1.259, 11.044, 1.197, 1.287, 5.399, 1],
+         [9.045, -0.588, -3.126, 5.446, 1.525, 3.755, 5.16, 1],
+         [11.301, 5.471, -1.219, 3.502, 2.085, 5.695, 6.401, 1]],
+        [[11.485, 5.176, -1.548, 2.441, 2.077, 5.034, 6.759, 1],
+         [5.137, -5.958, 1.392, 2.436, 2.178, 2.875, 6.151, 1],
+         [11.535, 5.176, -1.548, 2.441, 2.077, 5.034, 6.759, 1]],
+    ],
 }
+TWO_STAGE_GT["secondnetiou"] = TWO_STAGE_GT["voxelrcnn"]
 
 
 def two_stage_gt(which, batch_size=2):

@@ -1,6 +1,7 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
-step or the step of a voxel detector (SECOND, PointPillars, CenterPoint,
-Part-A2, PV-RCNN), on synthetic scans or on a dataset (KITTI or Waymo).
+step or the step of another detector of the KITTI zoo (SECOND, PointPillars,
+CenterPoint, Part-A2, PV-RCNN, PointRCNN, Voxel R-CNN, SECONDNetIoU), on
+synthetic scans or on a dataset (KITTI or Waymo).
 
 Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -18,6 +19,10 @@ Synthetic-scan mode:
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 2 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/voxel_rcnn_car.yaml --batch 2 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/second_iou.yaml --batch 4 --points 20000
 Dataset mode (`--data_root DIR`, or `--dataset` for the config's DATA_PATH;
 the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
