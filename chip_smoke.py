@@ -15,8 +15,8 @@ Phases (any failure exits non-zero before the result line):
      (rtol 1e-4, atol 1e-4 * max|out|: f32 sums in another order, and
      K4's split-precision 3xTF32 products) — and both are timed with CUDA
      events around a host loop of launches, with the bound from the inputs
-     (the plain versions of K1 and K2, tenths of a second to seconds a call,
-     on one run after the comparison's).
+     (the plain versions of K1, K2 and K6, tenths of a second to seconds a
+     call, on the comparison's own run: one run, no warm-up).
      K4's log line also gives a second bound, its hits at the 3xTF32 rate
      (495 / 3 TFLOP/s, not in the kernels line), and its hit share of
      staged rows: the hits over the rows of the (64-row block, tap) pairs
@@ -32,9 +32,9 @@ Phases (any failure exits non-zero before the result line):
      time, and not in the kernels line. K3 and torch.searchsorted are also
      traced with torch.profiler: `device_ms` and `library_device_ms` are
      their kernels' device time alone, without the host's dispatch gaps.
-     Every such device time is taken at the end, after phase 16: a
+     Every such device time is taken at the end, after phase 16 (a
      profiler window slows the host's later launches, and no path is timed
-     after one. K1's log line gives its plan (cluster size,
+     after one), a pass's calls one after another in one window. K1's log line gives its plan (cluster size,
      cudaOccupancyMaxActiveClusters, shared memory a CTA), its time a step
      and a latency floor: its steps times one exchange round of its cluster
      layout, timed alone by csrc/fps.cu's `fps_round_probe` (on the log
@@ -79,8 +79,8 @@ Phases (any failure exits non-zero before the result line):
      query, all sources, and `plain_ms` is that subset's time;
      `plain_note` says so). Each is timed, with its
      bound; K6's counts the block visits the pruning rule required, and
-     its plain version (seconds a call) is timed on one run without a
-     warm-up. K6 also prints its plan (cluster size,
+     its plain version (seconds a call) is timed on the comparison's run,
+     without a warm-up. K6 also prints its plan (cluster size,
      cudaOccupancyMaxActiveClusters and the waves it implies at b8, shared
      memory a CTA), its time a step, and a latency floor (the waves times
      its steps times one exchange round of its clusters, timed alone by
@@ -293,18 +293,21 @@ Phases (any failure exits non-zero before the result line):
      each a fresh process with deterministic algorithms on: losses, every
      state tensor and every detection bit-equal;
  33. sharded eval: `evaluate --launcher pytorch` on phase 31's checkpoint
-     as 2 ranks over gloo at b8 each on the val split; rank 0's merged
+     as 2 ranks over gloo at b8 each on the val split (the ranks then run
+     phase 34's jobs in turn, each job in a process group of its own on a
+     port of its own: one spawn for the three); rank 0's merged
      result.pkl (frame order, boxes, scores, names), its 72 APs and its
      summed recall lines equal those of one `evaluate` in this process at
      b8;
  34. point axis: waymo_fast_cpc.yaml's `evaluate --launcher pytorch
-     --point_axis 2` on phase 25's root as 2 ranks over gloo, b8 x 163840
+     --point_axis 2` on every 2nd val frame of phase 25's root (one batch)
+     as 2 ranks over gloo, b8 x 163840
      (81920 points a scan a rank: d-fps on K6 a segment), the first forward
      recorded and every K1-K4 / K6 call held against its plain version;
      layer 0's picks equal `segment_local_fps_plain` on the whole cloud, the
      ranks' batch_box_preds bit-equal (the entry points run the point axis
      with deterministic algorithms on the card), the AP dict finite; then
-     `train --point_axis 2` for one step at b2 x 120000 (fresh ranks): loss
+     `train --point_axis 2` for one step at b2 x 120000: loss
      finite, K1-K6 launched, the ranks' parameters and buffers bit-equal
      after it (the train loop's check). Its gradients are held on the CPU
      (tests/test_torch_point_sharding.py).
@@ -443,6 +446,29 @@ Phases (any failure exits non-zero before the result line):
  52. their profiles, after every timed path: `infer --profile` at b4 x 20000
      in phase 39's fresh process, and the proposal layer's NMS alone at 1024
      and 9000 boxes a scan.
+ 53. PV-RCNN++ reference: the tiny PV-RCNN++ (tiny.two_stage_state)
+     reproduces tsm_det_pointcloud_tpu_torch/data/
+     pvrcnnplusplus_tiny_forward.npz on the card through one K1 launch of
+     its 2 x 6 sector rows, six K2 calls (VectorPool on the raw points and
+     x_conv3, x_conv4's SAGroup, the RoI grid), 8 K3 and 12 K7 calls
+     (golden tolerance; labels, counts and the RoIs' labels exact);
+ 54. pv_rcnn_plusplus.yaml at full width on synthetic scans, as phase 42:
+     eval b4 x 20000 (one K6 launch over the 4 x 6 sector rows at 686 picks,
+     the six VectorPool K2 queries of 4096 keypoints a scan and the RoI
+     grid's, 8 K3 and 12 K7 calls, each held against its plain version and
+     timed; the capture prints the distinct keypoints a scan and the copies
+     of point 0 marked valid); the K6 launch again with each scan's fullest
+     sector thinned to 100 valid points (the synthetic scans' x >= 0 leaves
+     sectors 0 and 5 empty and most rows without point 0), index-equal to the
+     plain d-fps; 3 counted batches (scans/s, peak memory); training b2;
+ 55. its data path on phase 22's root, as phase 43 (echoed gt 100.0 on all
+     72 APs, `evaluate`, `train --data_root`, `evaluate --ckpt`, `demo
+     --ckpt`), and the converter on a synthetic reference checkpoint, as
+     phase 47, then again with its VectorPool layers under OpenPCDet's names
+     (their 15 BN scales land on no leaf);
+ 56. its profile, after every timed path: `infer --profile` at b4 x 20000
+     in phase 39's fresh process, and the proposal layer's NMS alone at 1024
+     and 9000 boxes a scan.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -487,7 +513,9 @@ those of phase 46 and `pointrcnn_data` and `pointrcnn_data_train` those of
 phase 47 (null but for K1 and K2), `voxelrcnn`, `voxelrcnn_train`,
 `secondnetiou` and `secondnetiou_train` those of phase 50 and their `_data`
 and `_data_train` objects those of phase 51 (null but for K2, K3 and K7;
-SECONDNetIoU's K2 null too). K6 is on no KITTI path of
+SECONDNetIoU's K2 null too), `pvrcnnplusplus` and `pvrcnnplusplus_train`
+those of phase 54 and its `_data` and `_data_train` objects those of phase
+55 (null for K1, K4, K5). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -556,8 +584,9 @@ TILED = []                   # K2 tiles whose making a compared call of the pass
 # trimmed info files of phase 29)
 DIST_WORLD, DIST_BATCH, DIST_WORKERS, DIST_TIMEOUT = 2, 8, 2, 400
 WORLD1_FRAMES = SECOND_DATA_FRAMES
-# phase 34's training step: b2, every 8th of the 16 train frames
-PAX_TRAIN_BATCH, PAX_TRAIN_INTERVAL = 2, 8
+# phase 34's training step: b2, every 8th of the 16 train frames; its eval:
+# every 2nd of the 16 val frames, one batch at b8
+PAX_TRAIN_BATCH, PAX_TRAIN_INTERVAL, PAX_EVAL_INTERVAL = 2, 8, 2
 # phases 35-39: points a scan (the configs' MAX_POINTS), pointpillar.yaml's
 # eval batch, the configs' BATCH_SIZE_PER_GPU (centerpoint.yaml's eval batch
 # too), counted batches and steps; centerpoint.yaml's K3 / K7 calls a forward
@@ -599,13 +628,28 @@ VOXEL_ROI = {
 # takes (ROADMAP §C)
 VOXEL_ROI_UNPLACED = ("backbone_2d/deblock0/kernel", "dense_head/conv_box/kernel",
                       "dense_head/conv_cls/kernel", "dense_head/conv_dir_cls/kernel")
+# phases 53-56: PV-RCNN++ (pv_rcnn_plusplus.yaml), as TWO_STAGE: PV-RCNN's
+# topology with its keypoints by sector d-fps (one K6 launch over B x 6
+# sector rows of 20000 points at 686 picks, sector 0's share of 4096) and
+# VectorPool on the raw points, x_conv3 and x_conv4 (six single-scale K2
+# queries), the RoI grid's K2 query, VoxelBackBone8x's 8 probes and 12 convs
+# (K3, K7); its converter phase also reads the VectorPool layers under
+# OpenPCDet's names, whose BN scales no rule takes (ROADMAP §C)
+PVRCNN_PP = {"pvrcnnplusplus": ("pv_rcnn_plusplus.yaml", 4, 2,
+                                {"fps_block": 1, "query_group": 7, "probe": 8,
+                                 "spconv_gather": 12})}
+SECTORS = 6                    # pv_rcnn_plusplus.yaml's SPC_SAMPLING.NUM_SECTORS
+SECTOR_THIN_POINTS = 100       # phase 54's under-filled rows keep this many points
+VECTOR_POOL_BN_SCALES = 15     # 3 sources x (2 groups x 2 BNs + the aggregation's 1)
 # the RCNN terms of each two-stage detector's tb_dict (a training step's must
 # hold them all) and the term its counted steps print
 RCNN_TERMS = {"parta2": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
               "pvrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
               "pointrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
               "voxelrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss"),
-              "secondnetiou": ("rcnn_iou_loss",)}
+              "secondnetiou": ("rcnn_iou_loss",),
+              "pvrcnnplusplus": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss",
+                                 "point_loss")}
 
 
 # the RoI head's inputs (first-stage scores and boxes) of each two-stage
@@ -615,7 +659,7 @@ PROPOSALS = {}
 
 
 def stage_spec(which):
-    return {**TWO_STAGE, **POINTRCNN, **VOXEL_ROI}[which]
+    return {**TWO_STAGE, **POINTRCNN, **VOXEL_ROI, **PVRCNN_PP}[which]
 
 
 def scan_points(which):
@@ -717,23 +761,46 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / max(reps, 1)
 
 
-def device_ms(fn, reps, kernels=None):
+def timed_once(fn):
+    """(fn(), its ms between two CUDA events): one run, no warm-up. The
+    plain versions of K1, K2 and K6 (tenths of a second to seconds a call)
+    are timed on the run that their comparison with the kernel makes."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def device_ms(fn, reps, kernels=None, warm=True):
     """Device time of `fn`'s kernels alone, per call, from a torch.profiler
     window of `reps` calls: for each kernel, its mean time times the
     launches it makes a call. Unlike cuda_time_ms it leaves out the host's
     dispatch gaps between launches. The profiler at times hands back a
     window short of a kernel record or two, which the means ride out; a
     window with no device time, or (given `kernels`) another number of
-    launches a call, is taken again, up to five times."""
+    launches a call, is taken again, up to five times. `warm` False: no
+    warm-up call, for a function this process has run on these shapes.
+    Without `kernels` the window traces the device alone (its CPU events,
+    which only a launch count's check reads, make key_averages ~2x slower
+    on a window of thousands of operations such as the 9000-box NMS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tsm_det_pointcloud_tpu_torch.infer import self_device_us
 
-    fn()  # warm-up
+    if warm:
+        fn()
     for _ in range(5):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CUDA] if kernels is None else [ProfilerActivity.CPU,
+                                                                 ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -784,7 +851,8 @@ def compare_fps(args):
 
     xyz, npoint, valid, weights = args
     got = sampling._fps_kernel(xyz, npoint, valid, weights)
-    want = sampling.furthest_point_sample_plain(xyz, npoint, valid, weights)
+    want, plain_ms = timed_once(
+        lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid, weights))
     check(bool((got == want).all()), f"K1 fps differs from its plain version at {tuple(xyz.shape)}")
     B, N, _ = xyz.shape
     ops = (npoint - 1) * B * N * (10 if weights is not None else 9)
@@ -805,10 +873,8 @@ def compare_fps(args):
           f"{plan['smem_bytes']} B shared memory a CTA; {empty} rows with no valid lane; one "
           f"exchange round {round_us:.4f} us, so a latency floor of {floor_ms:.4f} ms for "
           f"{waves} x {npoint - 1} steps")
-    # the plain FPS (about a second a call) is timed on one run without a
-    # warm-up: the comparison above ran it on the same inputs
-    return (0.0, lambda: sampling._fps_kernel(xyz, npoint, valid, weights),
-            lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid, weights),
+    # the plain FPS (about a second a call) is timed on the comparison's run
+    return (0.0, lambda: sampling._fps_kernel(xyz, npoint, valid, weights), plain_ms,
             None, ops, nbytes, 5, 0)
 
 
@@ -817,7 +883,7 @@ def compare_fps_block(args):
 
     xyz, npoint, valid = args
     got, visits = sampling._fps_block_kernel(xyz, npoint, valid)
-    want = sampling.furthest_point_sample_plain(xyz, npoint, valid)
+    want, plain_ms = timed_once(lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid))
     n_diff = int((got != want).sum())
     check(n_diff == 0, f"K6 fps_block differs from the plain FPS at {tuple(xyz.shape)}: "
                        f"{n_diff} of {got.numel()} picks")
@@ -856,10 +922,9 @@ def compare_fps_block(args):
           f"{'s' if waves > 1 else ''} at b{B}), {plan['smem_bytes']} B shared memory a "
           f"CTA; one exchange round {round_us:.4f} us, so a latency floor of "
           f"{floor_ms:.4f} ms for {waves} x {npoint - 1} steps")
-    # the plain lockstep FPS takes seconds at Waymo shapes: timed on one
-    # run, no warm-up
-    return (0.0, lambda: sampling._fps_block_launch(xyz, state, npoint),
-            lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid),
+    # the plain lockstep FPS takes seconds at Waymo shapes: timed on the
+    # comparison's run
+    return (0.0, lambda: sampling._fps_block_launch(xyz, state, npoint), plain_ms,
             None, ops, nbytes, reps, 0)
 
 
@@ -905,7 +970,7 @@ def compare_query_group(args):
                       None if q_coords is None else q_coords[:, ::stride].contiguous())
         gi, gc = gi[:, ::stride], gc[:, ::stride]
         gg = None if gg is None else gg[:, ::stride]
-    wi, wc, wg = grouping.query_group_plain(*plain_args)
+    (wi, wc, wg), plain_ms = timed_once(lambda: grouping.query_group_plain(*plain_args))
     check(bool((gc == wc).all()), "K2 cnt differs from its plain version")
     # slot j of scale s is filled when j < min(cnt_s, ns_s)
     filled = torch.cat([torch.arange(int(sc[2]), device=gc.device)
@@ -955,10 +1020,9 @@ def compare_query_group(args):
     nbytes = (B * N * (12 + 1 + (12 if window else 0) + 4 * D)
               + B * M * (12 + (12 if window else 0))
               + B * M * (4 * T + 4 * S + 4 * T * D))
-    # the plain version is timed on one run without a warm-up: the comparison
-    # above ran it on the same inputs
-    return (err, lambda: grouping._query_group_launch(prep, qx, scales_n, pl, qcc),
-            lambda: grouping.query_group_plain(*plain_args), None, ops, nbytes, 5, 0)
+    # the plain version is timed on the comparison's run
+    return (err, lambda: grouping._query_group_launch(prep, qx, scales_n, pl, qcc), plain_ms,
+            None, ops, nbytes, 5, 0)
 
 
 def compare_probe(args):
@@ -1112,7 +1176,8 @@ def compare_recorded(calls, label):
         for i, args in enumerate(args_list):
             err, kfn, pfn, lfn, ops, nbytes, reps, preps = COMPARE[name](args)
             k_ms = cuda_time_ms(kfn, reps)
-            p_ms = cuda_time_ms(pfn, preps)
+            # a number: the plain version's ms, taken on the comparison's run
+            p_ms = pfn if isinstance(pfn, float) else cuda_time_ms(pfn, preps)
             l_ms = cuda_time_ms(lfn, reps) if lfn is not None else None
             b_ms, b_by = bound_ms(ops, nbytes)
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
@@ -1151,15 +1216,24 @@ def compare_recorded(calls, label):
 
 
 def take_device_times(reports):
-    """The deferred device times (see Deferred), summed over each pass."""
+    """The deferred device times (see Deferred), summed over each pass: a
+    pass's calls of one figure run one after another in one profiler window
+    of `reps` repetitions, whose device time a repetition is their sum."""
     import torch
 
     for label, report in reports.items():
         for name, agg in report.items():
+            figures = {}
             for k, d in agg.pop("deferred", []):
-                args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in d.args]
-                agg[k] = agg.get(k, 0.0) + device_ms(lambda: d.fn(*args, **d.kwargs),
-                                                     d.reps, d.kernels)
+                figures.setdefault(k, []).append(d)
+            for k, ds in figures.items():
+                calls = [(d.fn, [a.cuda() if isinstance(a, torch.Tensor) else a for a in d.args],
+                          d.kwargs or {}) for d in ds]
+                kernels = (None if any(d.kernels is None for d in ds)
+                           else sum(d.kernels for d in ds))
+                agg[k] = device_ms(lambda: [fn(*args, **kw) for fn, args, kw in calls],
+                                   ds[0].reps, kernels)
+                del calls
             got = {k: agg[k] for k in ("device_ms", "library_device_ms", "prep_device_ms")
                    if k in agg}
             if got:
@@ -2275,16 +2349,27 @@ def rank_main(rank, world, port, job, args, out, backend, env):
         stop_workers()
 
 
+def free_ports(n):
+    """n distinct free ports on localhost."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
 def start_ranks(job, args, world=DIST_WORLD, backend="gloo", env=None):
     """Spawn the `world` ranks of `job`; returns the handle wait_ranks takes."""
-    import socket
     import tempfile
 
     import torch.multiprocessing as mp
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port, = free_ports(1)
     out = tempfile.mkdtemp(prefix=f"chip_smoke_{job}_")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=rank_main,
@@ -2519,11 +2604,15 @@ def job_point_axis(rank, cfg_file, root, out):
     point_sharding.shard_batch, point_sharding.segment_local_fps = keep_whole, keep_picks
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
-    with first_call_recorded(detectors["3DSSD"], "forward", WAYMO_EVAL_KERNELS) as first:
-        res = evaluate.main([
-            "--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher", "pytorch",
-            "--point_axis", str(DIST_WORLD), "--batch_size", str(WAYMO_BATCH),
-            "--workers", str(DIST_WORKERS), "--output_dir", str(out), "--device", "cuda"])
+    try:
+        with first_call_recorded(detectors["3DSSD"], "forward", WAYMO_EVAL_KERNELS) as first:
+            res = evaluate.main([
+                "--cfg_file", str(cfg_file), "--data_root", str(root), "--launcher",
+                "pytorch", "--point_axis", str(DIST_WORLD), "--batch_size", str(WAYMO_BATCH),
+                "--workers", str(DIST_WORKERS), "--output_dir", str(out), "--device", "cuda",
+                "--set", "DATA_CONFIG.SAMPLED_INTERVAL.test", str(PAX_EVAL_INTERVAL)])
+    finally:
+        point_sharding.shard_batch, point_sharding.segment_local_fps = cut, fps
     launches = dict(_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec, first_out = first[0]
@@ -2559,8 +2648,26 @@ def job_point_axis_train(rank, cfg_file, root, out):
                 deterministic=torch.are_deterministic_algorithms_enabled())
 
 
+def job_in_turn(rank, jobs):
+    """Phases 33-34's ranks: each (job name, its arguments, a port) of
+    `jobs` in turn in these processes, each in a process group of its own
+    (MASTER_PORT the job's port; the entry points leave their group at
+    their end), the cache allocator emptied between them. Returns each job's
+    result and seconds."""
+    import torch
+
+    out = []
+    for job, args, port in jobs:
+        os.environ["MASTER_PORT"] = str(port)
+        t0 = time.perf_counter()
+        out.append((JOBS[job](rank, *args), time.perf_counter() - t0))
+        torch.cuda.empty_cache()
+    return out
+
+
 JOBS = {"dist_train": job_dist_train, "world1": job_world1, "dist_eval": job_dist_eval,
-        "point_axis": job_point_axis, "point_axis_train": job_point_axis_train}
+        "point_axis": job_point_axis, "point_axis_train": job_point_axis_train,
+        "in_turn": job_in_turn}
 
 
 def rel_l2(want, got, names):
@@ -2626,6 +2733,14 @@ def multi_process_phases(dev, kitti_root, waymo_root):
     check(teacher.exists(), f"no teacher checkpoint {teacher}")
     out = kitti_root.parent / "multi"
     torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+
+    def took(phase):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_phase:.1f} s")
+        t_phase = now
 
     # ---- 31. data-parallel training: two ranks on the card over gloo ----
     ranks, wall = wait_ranks(start_ranks("dist_train", (cfg_file, kitti_root, teacher, out)))
@@ -2749,6 +2864,8 @@ def multi_process_phases(dev, kitti_root, waymo_root):
           f"{[round(r['peak'], 2) for r in ranks]} GiB; launches rank 0 {r0['launches']}; "
           f"{wall:.1f} s for the ranks")
 
+    took(31)
+
     # ---- 32. the NCCL path at world size 1 against --launcher none ----
     sets = ["DATA_CONFIG.INFO_PATH.train", f"['kitti_infos_train_{WORLD1_FRAMES}.pkl']",
             "DATA_CONFIG.INFO_PATH.test", f"['kitti_infos_val_{WORLD1_FRAMES}.pkl']"]
@@ -2779,9 +2896,24 @@ def multi_process_phases(dev, kitti_root, waymo_root):
           f"forward's batch_cls_preds / batch_box_preds {b['raw']['batch_box_preds'].shape} and "
           f"{sum(len(x['name']) for x in a['annos'])} detections bit-equal to --launcher none")
 
-    # ---- 33. sharded eval: two ranks over gloo against one process ----
+    took(32)
+
+    # ---- 33-34: one spawn of two ranks runs phase 33's sharded eval, then
+    # phase 34's point-axis eval and training, each in a group of its own ----
     ckpt = Path(r0["ckpt"])
-    ranks, wall = wait_ranks(start_ranks("dist_eval", (cfg_file, kitti_root, ckpt, out)))
+    wcfg = ROOT / "tools/cfgs/waymo_models/waymo_fast_cpc.yaml"
+    jobs = [("dist_eval", (cfg_file, kitti_root, ckpt, out)),
+            ("point_axis", (wcfg, waymo_root, out / "pax")),
+            ("point_axis_train", (wcfg, waymo_root, out / "pax_train"))]
+    in_turn, wall = wait_ranks(start_ranks(
+        "in_turn", ([(job, args, port) for (job, args), port in zip(jobs, free_ports(3))],)))
+    (evals, eval_s), (paxes, pax_s), (trains, train_s) = (
+        ([r[i][0] for r in in_turn], max(r[i][1] for r in in_turn)) for i in range(3))
+    print(f"phases 33-34's ranks: {wall:.1f} s in one spawn (the jobs {eval_s:.1f}, "
+          f"{pax_s:.1f} and {train_s:.1f} s on the slower rank)")
+
+    # ---- 33. sharded eval: two ranks over gloo against one process ----
+    ranks = evals
     res2 = ranks[0]["res"]
     check(ranks[1]["res"] == {}, "rank 1 returned an eval result")
     res1 = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(kitti_root),
@@ -2810,11 +2942,10 @@ def multi_process_phases(dev, kitti_root, waymo_root):
           f"APs and the summed recall ({'; '.join(rec1)}) equal one process's; "
           f"{res2['scans_per_s']:.3f} scans/s merged over rank 0's loop vs "
           f"{res1['scans_per_s']:.3f} one process; peak memory per rank "
-          f"{[round(r['peak'], 2) for r in ranks]} GiB; {wall:.1f} s for the ranks")
+          f"{[round(r['peak'], 2) for r in ranks]} GiB; {eval_s:.1f} s for the ranks")
 
     # ---- 34. the point axis: two ranks split each Waymo scan's points ----
-    wcfg = ROOT / "tools/cfgs/waymo_models/waymo_fast_cpc.yaml"
-    ranks, wall = wait_ranks(start_ranks("point_axis", (wcfg, waymo_root, out / "pax")))
+    ranks = paxes
     p0, p1 = ranks
     check(p0["plain_equal"] is True, "layer 0's picks differ from segment_local_fps_plain")
     check(p0["n_local"] == WAYMO_TEST_POINTS // DIST_WORLD, f"{p0['n_local']} points a segment")
@@ -2832,9 +2963,8 @@ def multi_process_phases(dev, kitti_root, waymo_root):
           f"the ranks' batch_box_preds {p0['boxes'].shape} bit-equal, AP dict finite; "
           f"{p0['scans_per_s']:.3f} scans/s; peak memory per rank "
           f"{[round(r['peak'], 2) for r in ranks]} GiB; launches rank 0 {p0['launches']}; "
-          f"{wall:.1f} s for the ranks")
-    ranks, wall = wait_ranks(start_ranks("point_axis_train", (wcfg, waymo_root,
-                                                              out / "pax_train")))
+          f"{pax_s:.1f} s for the ranks")
+    ranks = trains
     for r in ranks:
         e = r["epochs"][0]
         check(r["deterministic"] and e["steps"] == 1 and np.isfinite(e["mean_loss"]),
@@ -2848,7 +2978,8 @@ def multi_process_phases(dev, kitti_root, waymo_root):
           f"algorithms): loss {e['mean_loss']:.4f}, parameters and buffers bit-equal across "
           f"the ranks after it; peak memory per rank "
           f"{[round(r['epochs'][0]['peak_gib'], 2) for r in ranks]} GiB; launches rank 0 "
-          f"{ranks[0]['launches']}; {wall:.1f} s for the ranks")
+          f"{ranks[0]['launches']}; {train_s:.1f} s for the ranks")
+    took("33-34")
     return r0["report"], r0["launches"], p0["report"], p0["launches"]
 
 
@@ -3214,11 +3345,13 @@ def infer_profiles(jobs):
     other phases, the autotuner once ended on an FFT conv for
     pointpillar.yaml, which fresh processes never picked."""
     argvs = [["--cfg_file", str(ROOT / f"tools/cfgs/kitti_models/{name}"), "--batch",
-              str(batch), "--points", str(points), "--iters", "1", "--profile"]
+              str(batch), "--points", str(points), "--iters", "0", "--profile"]
              for name, batch, points in jobs]
-    code = ("import json; from tsm_det_pointcloud_tpu_torch import infer\n"
+    code = ("import json, time; from tsm_det_pointcloud_tpu_torch import infer\n"
             f"for argv in {argvs!r}:\n"
-            "    print('PROFILE ' + json.dumps(infer.main(argv)), flush=True)\n")
+            "    t0 = time.perf_counter()\n"
+            "    print('PROFILE ' + json.dumps(infer.main(argv)), flush=True)\n"
+            "    print(f'infer --profile of {argv[1]}: {time.perf_counter() - t0:.1f} s')\n")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=900)
@@ -3236,12 +3369,13 @@ def infer_profiles(jobs):
     return {name: r for (name, _, _), r in zip(jobs, results)}
 
 
-# the profiles of phases 39, 44, 48 and 52: config file, batch, points a scan
+# the profiles of phases 39, 44, 48, 52 and 56: config file, batch, points a scan
 PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
             ("centerpoint.yaml", ZOO_TRAIN_BATCH, ZOO_POINTS),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()),
             *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()),
-            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()))
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()),
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in PVRCNN_PP.values()))
 
 
 def zoo_profiles(profiles):
@@ -3282,18 +3416,22 @@ def hold_golden(label, out, pred, path):
             print(f"{label} {key} {got.shape} max abs diff vs golden {diff:.3g}")
 
 
-# the tiny two-stage goldens of phases 40 and 49, and the hand-written kernels
-# each tiny forward launches (None: not counted)
+# the tiny two-stage goldens of phases 40, 49 and 53, and the hand-written
+# kernels each tiny forward launches (None: not counted)
 TINY_GOLDENS = {"parta2": ("PARTA2_FORWARD_PATH", None),
                 "pvrcnn": ("PVRCNN_FORWARD_PATH", None),
                 "voxelrcnn": ("VOXELRCNN_FORWARD_PATH",
                               {"probe": 8, "spconv_gather": 12, "query_group": 2}),
                 "secondnetiou": ("SECONDNETIOU_FORWARD_PATH",
-                                 {"probe": 8, "spconv_gather": 12})}
+                                 {"probe": 8, "spconv_gather": 12}),
+                "pvrcnnplusplus": ("PVRCNNPLUSPLUS_FORWARD_PATH",
+                                   {"fps": 1, "query_group": 6, "probe": 8,
+                                    "spconv_gather": 12})}
 
 
 def two_stage_golden_phase(dev, whiches=("parta2", "pvrcnn")):
-    """Phase 40 (49 with voxelrcnn and secondnetiou): the tiny detectors
+    """Phase 40 (49 with voxelrcnn and secondnetiou, 53 with
+    pvrcnnplusplus): the tiny detectors
     (tiny.two_stage_state) reproduce their JAX goldens on the card (labels,
     counts and kept RoI labels exact), through the kernels they launch."""
     import torch
@@ -3331,14 +3469,60 @@ def pool_all(out, grid_size):
         roiaware_pool(p, f, v, r, grid_size, "max", cells)
 
 
+def keypoint_line(out, points):
+    """PV-RCNN++'s keypoints of an eval forward, per scan: the distinct
+    keypoints, and the copies of point 0 among them and how many of those
+    are marked valid (an empty sector's picks are all index 0, and
+    point_valid reads point 0's validity, as in the JAX package)."""
+    import torch
+
+    kp, valid = out["point_coords"], out["point_valid"]
+    distinct = [int(torch.unique(k, dim=0).shape[0]) for k in kp]
+    zero = (kp == points[:, :1, :3]).all(-1)
+    return (f"distinct keypoints a scan {distinct} of {kp.shape[1]}; copies of point 0 a "
+            f"scan {zero.sum(1).tolist()}, marked valid {(zero & valid).sum(1).tolist()}")
+
+
+def hold_sector_rows(which, args):
+    """Phase 54's K6 sector launch again, on its recorded rows (B x SECTORS
+    sector rows: the empty sectors of a scan over KITTI's range, rows whose
+    valid set excludes index 0) with each scan's fullest sector thinned to
+    SECTOR_THIN_POINTS valid points, fewer than its picks: index-equal to
+    the plain d-fps, as phase 10's masked input."""
+    import torch
+
+    xyz, npoint, valid = args
+    counts = valid.sum(1)
+    empty = int((counts == 0).sum())
+    no_zero = int((~valid[:, 0] & (counts > 0)).sum())
+    thinned = valid.clone()
+    rows = (counts.reshape(-1, SECTORS).argmax(1)
+            + torch.arange(xyz.shape[0] // SECTORS, device=xyz.device) * SECTORS).tolist()
+    for r in rows:
+        keep = torch.nonzero(valid[r])[:SECTOR_THIN_POINTS, 0]
+        thinned[r] = False
+        thinned[r, keep] = True
+    check(empty > 0 and no_zero > 0, f"{which}: the sector rows hold {empty} empty rows and "
+          f"{no_zero} rows without point 0")
+    compare_fps_block((xyz, npoint, thinned))
+    EXTRAS.pop("fps_block", None)
+    print(f"{which} fps_block on the sector rows {tuple(xyz.shape)} at {npoint} picks: "
+          f"{empty} empty rows, {no_zero} non-empty rows whose valid set excludes index 0, "
+          f"the valid points a row {counts.tolist()}; index-equal to the plain d-fps, and "
+          f"again with {len(rows)} rows thinned to {SECTOR_THIN_POINTS} valid points "
+          f"(fewer than the picks)")
+
+
 def two_stage_phases(dev, which):
-    """Phase 41 (which "parta2"), 42 ("pvrcnn"), 46 ("pointrcnn") or 50
-    ("voxelrcnn", "secondnetiou"): the
+    """Phase 41 (which "parta2"), 42 ("pvrcnn"), 46 ("pointrcnn"), 50
+    ("voxelrcnn", "secondnetiou") or 54 ("pvrcnnplusplus"): the
     config's eval and training step at full width on synthetic scans, every
     hand-written kernel call of one recorded eval batch and of one recorded
     training step held against its plain version. PointRCNN's recorded eval
     batch must give K1 rows with no valid lane (padded and empty RoIs), and
     its counted batches print the proposal layer's share of a batch.
+    PV-RCNN++'s capture prints its keypoints (`keypoint_line`) and its K6
+    sector launch is held once more with rows thinned (`hold_sector_rows`).
     Returns the per-kernel reports and the launch counts of both."""
     import torch
 
@@ -3371,9 +3555,12 @@ def two_stage_phases(dev, which):
     voxels, over = voxel_anchor_counts(model, out)
     print(f"{which} capture: voxel capacity {meta.max_voxels}; voxels a scan {voxels}; anchors "
           f"over SCORE_THRESH {post.SCORE_THRESH} a scan {over}; (proposals kept, RoI boxes "
-          f"over SCORE_THRESH) a scan {rois_over(model, out)}")
+          f"over SCORE_THRESH) a scan {rois_over(model, out)}"
+          + (f"; {keypoint_line(out, batches[0])}" if which in PVRCNN_PP else ""))
     del out
     report_eval = compare_recorded(rec.calls, which)
+    if which in PVRCNN_PP:
+        hold_sector_rows(which, rec.calls["fps_block"][0])
     if which == "pointrcnn":
         # the in-RoI encoder's first d-fps (B * R rows of 512 slots) again,
         # with whole rows emptied and rows of one valid slot, as padded RoIs
@@ -3530,8 +3717,9 @@ def two_stage_phases(dev, which):
 
 
 def two_stage_data_phases(dev, root, table=TWO_STAGE):
-    """Phase 43 (phase 47 with table POINTRCNN, 51 with VOXEL_ROI): PartA2.yaml
-    and pvrcnn.yaml (pointrcnn.yaml; voxel_rcnn_car.yaml and second_iou.yaml)
+    """Phase 43 (phase 47 with table POINTRCNN, 51 with VOXEL_ROI, 55 with
+    PVRCNN_PP): PartA2.yaml and pvrcnn.yaml (pointrcnn.yaml;
+    voxel_rcnn_car.yaml and second_iou.yaml; pv_rcnn_plusplus.yaml)
     on the KITTI root of phase 22:
     echoed gt through each config's dataset, `evaluate` and `train
     --data_root` for 1 epoch on phase 29's SECOND_DATA_FRAMES val and train
@@ -3572,6 +3760,8 @@ def two_stage_data_phases(dev, root, table=TWO_STAGE):
         voxels = (first_out["voxel_mask"].sum(1).tolist() if "voxel_mask" in first_out
                   else None)
         proposals = first_out["roi_valid"].sum(1).tolist()
+        if which in PVRCNN_PP:   # the FOV crop leaves 4 of the 6 sectors empty
+            proposals = f"{proposals}; {keypoint_line(first_out, first_out['points'])}"
         del first_out
         check_kitti_aps(res, classes, f"{which} evaluate")
         for kname, k in calls.items():
@@ -3619,7 +3809,8 @@ def two_stage_data_phases(dev, root, table=TWO_STAGE):
 
 def two_stage_profiles(dev, profiles, table=TWO_STAGE):
     """Phase 44 (phase 48 with table POINTRCNN: pointrcnn.yaml at b4 x 16384;
-    52 with VOXEL_ROI: voxel_rcnn_car.yaml and second_iou.yaml at b4 x 20000),
+    52 with VOXEL_ROI: voxel_rcnn_car.yaml and second_iou.yaml at b4 x 20000;
+    56 with PVRCNN_PP: pv_rcnn_plusplus.yaml at b4 x 20000),
     after every timed path: `infer --profile` of PartA2.yaml and
     pvrcnn.yaml at b4 x 20000 (`profiles`, from `infer_profiles`), then the
     device time alone of the proposal layer's NMS on the first-stage boxes of
@@ -3638,9 +3829,10 @@ def two_stage_profiles(dev, profiles, table=TWO_STAGE):
         nms = {}
         for mode in ("TEST", "TRAIN"):
             ncfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG[mode]
-            # one call a window: the 9000-box NMS runs ~0.9 s of device time
+            # one call a window, no warm-up (the proposal layer ran on these
+            # shapes in the config's phases): the 9000-box NMS runs ~0.9 s
             nms[mode] = device_ms(lambda: tmpl.proposal_layer(seen["cls"], seen["box"], ncfg),
-                                  1)
+                                  1, warm=False)
         print(f"{which} profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
               f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
               f"{len(names)} kernels, none an FFT; proposal layer's NMS alone, device time a "
@@ -3778,14 +3970,42 @@ def rcnn_gt_roi_phase(dev, whiches=("pointrcnn", "parta2")):
               f"{got['launches']}")
 
 
+def vector_pool_openpcdet_names(model_cfg):
+    """A function renaming a reference checkpoint's PV-RCNN++ VectorPool
+    layers from the port's names (the flax ones) to OpenPCDet's:
+    `pfe.SA_rawpoints` or `pfe.SA_layers.<j>` (j the x_conv source's place
+    among the PFE's), `layer_<k>.post_mlps.<3 i, or 3 i + 1 for the BN>`
+    for group k's layer i, `msg_post_mlps.<...>` for the aggregation."""
+    import re
+
+    srcs = [s for s in model_cfg.PFE.FEATURES_SOURCE if s.startswith("x_conv")]
+    pat = re.compile(r"^pfe\.sa_(rawpoints|x_conv\d)\.(?:scale(\d)\.post_mlp|agg)\.(fc|bn)(\d)"
+                     r"\.(.*)$")
+
+    def rename(name):
+        m = pat.match(name)
+        if m is None:
+            return name
+        src, k, kind, i, leaf = m.groups()
+        head = "pfe.SA_rawpoints" if src == "rawpoints" else f"pfe.SA_layers.{srcs.index(src)}"
+        mid = "msg_post_mlps" if k is None else f"layer_{k}.post_mlps"
+        return f"{head}.{mid}.{3 * int(i) + (kind == 'bn')}.{leaf}"
+
+    return rename
+
+
 def pointrcnn_converter_phase(dev, root, which="pointrcnn", unplaced=()):
-    """Phase 47 (51 with voxelrcnn and secondnetiou): convert_torch_ckpt on a
-    synthetic reference checkpoint of a seeded full-width detector of the
-    config (OpenPCDet's layouts, `reference_state_dict`): nothing unplaced
-    but `unplaced` (the 1x1 BEV convs no 4-D leaf takes, ROADMAP §C); the
-    tensors placed off their own leaf (ties of leaf name and shape) are
-    counted; the converted checkpoint loads strictly and detects on phase
-    30's first raw scan with finite outputs."""
+    """Phase 47 (51 with voxelrcnn and secondnetiou, 55 with
+    pvrcnnplusplus): convert_torch_ckpt on a synthetic reference checkpoint
+    of a seeded full-width detector of the config (OpenPCDet's layouts,
+    `reference_state_dict`): nothing unplaced but `unplaced` (the 1x1 BEV
+    convs no 4-D leaf takes, ROADMAP §C); the tensors placed off their own
+    leaf (ties of leaf name and shape) are counted; the converted checkpoint
+    loads strictly and detects on phase 30's first raw scan with finite
+    outputs. For PV-RCNN++ the same checkpoint again with its VectorPool
+    layers under OpenPCDet's names (`vector_pool_openpcdet_names`): their
+    VECTOR_POOL_BN_SCALES BN scales land on no leaf; the others' placements
+    are counted."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch import convert_torch_ckpt, demo
@@ -3825,6 +4045,21 @@ def pointrcnn_converter_phase(dev, root, which="pointrcnn", unplaced=()):
           f"converted model loads strictly and detects {int(p['count'][0])} boxes on a raw "
           f"scan, outputs finite")
     del model, o, p
+    if which in PVRCNN_PP:
+        rename = vector_pool_openpcdet_names(cfg.MODEL)
+        named = {rename(k): v for k, v in ref.items()}
+        pool = {rename(k): key for k, key in source.items() if rename(k) != k}
+        template = build_detector(cfg_file, "cpu", seed=0, n_points=scan_points(which))[1]
+        state, rep = convert_torch_ckpt.convert_checkpoint(named, template.state_dict())
+        lost = [p_ for p_ in rep["unplaced"] if p_ not in unplaced]
+        home = sum(torch.equal(state[key], src[key]) for key in pool.values())
+        check(len(lost) == VECTOR_POOL_BN_SCALES
+              and all(p_.endswith(("/1/kernel", "/4/kernel")) for p_ in lost),
+              f"{which} converter under OpenPCDet's names: unplaced {lost}")
+        print(f"{which} reference checkpoint under OpenPCDet's VectorPool names ({len(pool)} "
+              f"tensors renamed, e.g. {next(iter(pool))}): unplaced beyond the above "
+              f"{len(lost)} (every VectorPool BN scale), {home} of the {len(pool)} VectorPool "
+              f"entries equal to their source after it")
     torch.cuda.empty_cache()
 
 
@@ -4196,6 +4431,15 @@ def main():
     for which in VOXEL_ROI:
         pointrcnn_converter_phase(dev, kitti_root, which, VOXEL_ROI_UNPLACED)
     mark("49-51")
+    two_stage_golden_phase(dev, tuple(PVRCNN_PP))
+    for which in PVRCNN_PP:
+        rep_e, lau_e, rep_t, lau_t = two_stage_phases(dev, which)
+        two_stage[which] = (rep_e, lau_e)
+        two_stage[f"{which}_train"] = (rep_t, lau_t)
+    two_stage.update(two_stage_data_phases(dev, kitti_root, PVRCNN_PP))
+    for which in PVRCNN_PP:
+        pointrcnn_converter_phase(dev, kitti_root, which, VOXEL_ROI_UNPLACED)
+    mark("53-55")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -4211,12 +4455,13 @@ def main():
     profile_kdata()
     profile_wdata()
     profiles = infer_profiles(PROFILES)
-    mark("the data paths' and the configs' profiles (39, 44, 48, 52)")
+    mark("the data paths' and the configs' profiles (39, 44, 48, 52, 56)")
     zoo_profiles(profiles)
     two_stage_profiles(dev, profiles)
     two_stage_profiles(dev, profiles, POINTRCNN)
     two_stage_profiles(dev, profiles, VOXEL_ROI)
-    mark("the proposal NMS's device times (44, 48, 52)")
+    two_stage_profiles(dev, profiles, PVRCNN_PP)
+    mark("the proposal NMS's device times (44, 48, 52, 56)")
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()

@@ -129,6 +129,7 @@ MODELS = {
     "pointrcnn": lambda: _voxel(*tiny.two_stage_model("pointrcnn")),
     "voxelrcnn": lambda: _voxel(*tiny.two_stage_model("voxelrcnn")),
     "secondnetiou": lambda: _voxel(*tiny.two_stage_model("secondnetiou")),
+    "pvrcnnplusplus": lambda: _voxel(*tiny.two_stage_model("pvrcnnplusplus")),
 }
 
 
@@ -169,7 +170,8 @@ def _jax_side(init, ref):
 def _without_three_tap_kernels(name, ref):
     """SECOND's and CenterPoint's state dicts without conv_out's kernel,
     which neither side converts (test_three_tap_spconv_kernel_raises_like_jax)."""
-    if name not in ("second", "centerpoint", "parta2", "pvrcnn", "voxelrcnn", "secondnetiou"):
+    if name not in ("second", "centerpoint", "parta2", "pvrcnn", "voxelrcnn", "secondnetiou",
+                    "pvrcnnplusplus"):
         return ref
     with pytest.raises(ValueError):
         jtool.convert_state_dict(ref)
@@ -221,6 +223,10 @@ EXPECTED = {
     "pvrcnn": dict(unmatched=[], unplaced=ANCHOR_HEAD_UNPLACED[2:],
                    misplaced=["backbone_2d.deblock0.weight", "roi_head.cls_out.bias",
                               "roi_head.cls_out.weight"]),
+    # PV-RCNN++: PV-RCNN's; every VectorPool tensor lands home
+    "pvrcnnplusplus": dict(unmatched=[], unplaced=ANCHOR_HEAD_UNPLACED[2:],
+                           misplaced=["backbone_2d.deblock0.weight", "roi_head.cls_out.bias",
+                                      "roi_head.cls_out.weight"]),
     # Voxel R-CNN and SECONDNetIoU: the anchor head's 1x1 convs and the 1x1
     # deblock0 as Part-A2's; no other leaf shares a leaf name and shape with
     # their RoI heads' (no point head), so every other tensor lands home
@@ -333,9 +339,10 @@ def test_openpcdet_zoo_names_place_like_jax(name):
 
 
 # OpenPCDet's names of the two-stage modules where the port's (the flax
-# ones) differ: the VSA's SA layers and fusion, the point heads' cls / part
-# layers, the RoI heads' grid-pool MLPs and FC stacks (a Conv1d, BN, ReLU,
-# Dropout each; the output conv after them), UNetV2's decoder convs
+# ones) differ: the VSA's SA layers and fusion, PV-RCNN++'s VectorPool
+# groups (`layer_<k>.post_mlps`) and their `msg_post_mlps`, the point heads'
+# cls / part layers, the RoI heads' grid-pool MLPs and FC stacks (a Conv1d,
+# BN, ReLU, Dropout each; the output conv after them), UNetV2's decoder convs
 def _seq(prefix, first, step, offset=0):
     return lambda m: f"{prefix}.{int(m.group(first)) * step + offset}."
 
@@ -345,6 +352,17 @@ def _two_stage_openpcdet_names(cfg):
     n = {k: len(cfg.ROI_HEAD.get(f"{k.upper()}_FC", [])) for k in ("cls", "reg")}
     n_point = {k: len(cfg.POINT_HEAD.get(f"{k.upper()}_FC", [])) for k in ("cls", "part")}
     rules = [
+        (r"^pfe\.sa_(x_conv\d)\.scale(\d)\.post_mlp\.(fc|bn)(\d)\.",
+         lambda m: f"pfe.SA_layers.{conv_src.index(m.group(1))}.layer_{m.group(2)}.post_mlps."
+                   f"{3 * int(m.group(4)) + (m.group(3) == 'bn')}."),
+        (r"^pfe\.sa_rawpoints\.scale(\d)\.post_mlp\.(fc|bn)(\d)\.",
+         lambda m: f"pfe.SA_rawpoints.layer_{m.group(1)}.post_mlps."
+                   f"{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^pfe\.sa_(x_conv\d)\.agg\.(fc|bn)(\d)\.",
+         lambda m: f"pfe.SA_layers.{conv_src.index(m.group(1))}.msg_post_mlps."
+                   f"{3 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+        (r"^pfe\.sa_rawpoints\.agg\.(fc|bn)(\d)\.",
+         lambda m: f"pfe.SA_rawpoints.msg_post_mlps.{3 * int(m.group(2)) + (m.group(1) == 'bn')}."),
         (r"^pfe\.sa_(x_conv\d)\.mlp(\d)\.(fc|bn)(\d)\.",
          lambda m: f"pfe.SA_layers.{conv_src.index(m.group(1))}.mlps.{m.group(2)}."
                    f"{3 * int(m.group(4)) + (m.group(3) == 'bn')}."),
@@ -385,14 +403,18 @@ def _two_stage_openpcdet_names(cfg):
     return rename
 
 
-@pytest.mark.parametrize("name", ["parta2", "pvrcnn"])
+@pytest.mark.parametrize("name", ["parta2", "pvrcnn", "pvrcnnplusplus"])
 def test_openpcdet_two_stage_names_place_like_jax(name):
     """A reference checkpoint of the tiny two-stage detector under OpenPCDet's
     module names (`_two_stage_openpcdet_names`): both converters place it
     alike, bit for bit, with the same unmatched and unplaced lists; what the
     JAX rules make of it is in ROADMAP §C (no rule maps a BN named `<i>` to
     a scale, and a tensor whose path shares nothing with its leaf's but the
-    leaf name goes to the first leaf of its shape in flax order)."""
+    leaf name goes to the first leaf of its shape in flax order). Under
+    PV-RCNN++'s VectorPool names every BN scale of a group is unplaced, each
+    group's first post_mlp layer, whose width of cells x (3 + C) inputs no
+    other leaf has, lands home, and x_conv3's msg_post_mlps BN lands on the
+    sparse stem's conv1 BN, the first 16-wide BN in flax order."""
     cfg, shapes = MODELS[name]()
     rng = np.random.RandomState(sorted(MODELS).index(name))
     init = _fill(shapes, rng)
@@ -411,6 +433,18 @@ def test_openpcdet_two_stage_names_place_like_jax(name):
     placed = sum(torch.equal(got[key], src[key]) for n, key in source.items() if n in ref)
     print(f"{name}: {len(ref)} tensors, {len(renamed)} renamed, "
           f"{len(report['unplaced'])} unplaced, {placed} on the leaf they came from")
+    if name == "pvrcnnplusplus":
+        pool = [p for p in report["unplaced"] if "/layer_" in p or "/msg_post_mlps/" in p]
+        assert len(pool) == 10 and all(p.endswith(("/1/kernel", "/4/kernel")) for p in pool)
+        home = {"pfe/SA_rawpoints/layer_0/post_mlps/0/kernel":
+                "module_list.3.sa_rawpoints.scale0.post_mlp.fc0.weight",
+                "pfe/SA_rawpoints/layer_1/post_mlps/0/kernel":
+                "module_list.3.sa_rawpoints.scale1.post_mlp.fc0.weight",
+                "pfe/SA_layers/0/layer_0/post_mlps/0/kernel":
+                "module_list.3.sa_x_conv3.scale0.post_mlp.fc0.weight",
+                "pfe/SA_layers/0/msg_post_mlps/1/bias": "module_list.1.conv1.bn.bias"}
+        for path, key in home.items():
+            assert report["placements"]["params"][path] == key, path
 
 
 def _voxel_roi_openpcdet_names(cfg):

@@ -22,10 +22,12 @@ out of range, so that the range mask and sample_points' draw both work):
     geometry (torch_kitti_cases.tiny_two_stage_dataset_cfg: 256 points a
     scan), from tiny.two_stage_state("parta2"): its labels are the RoIs';
     on the tiny PointRCNN with pointrcnn.yaml's (sample_points at 256,
-    no voxels), from tiny.two_stage_state("pointrcnn"); and the entry point
-    alone on the tiny Voxel R-CNN and SECONDNetIoU with voxel_rcnn_car.yaml's
-    and second_iou.yaml's data sections (their detections are held against
-    the JAX package through the eval loop, tests/test_torch_eval_loop_voxel_roi.py).
+    no voxels), from tiny.two_stage_state("pointrcnn"); on the tiny PV-RCNN++
+    with pv_rcnn_plusplus.yaml's, from tiny.two_stage_state("pvrcnnplusplus");
+    and the entry point alone on the tiny Voxel R-CNN and SECONDNetIoU with
+    voxel_rcnn_car.yaml's and second_iou.yaml's data sections (their
+    detections are held against the JAX package through the eval loop,
+    tests/test_torch_eval_loop_voxel_roi.py).
 """
 import importlib.util
 
@@ -193,7 +195,7 @@ def test_pointpillar_entry_point_on_cpu(scans, pp_state, tmp_path, capsys):
     assert rate > 0
 
 
-@pytest.mark.parametrize("which", ["parta2", "pointrcnn"])
+@pytest.mark.parametrize("which", ["parta2", "pointrcnn", "pvrcnnplusplus"])
 def test_parta2_detections_equal_jax(scans, which):
     cfg = tiny_two_stage_dataset_cfg(which, scans)
     state = tiny.two_stage_state(which)
@@ -213,7 +215,8 @@ def test_parta2_detections_equal_jax(scans, which):
         np.testing.assert_allclose(g["pred_boxes"], w["pred_boxes"], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("which", ["parta2", "pointrcnn", "voxelrcnn", "secondnetiou"])
+@pytest.mark.parametrize("which", ["parta2", "pointrcnn", "voxelrcnn", "secondnetiou",
+                                   "pvrcnnplusplus"])
 def test_parta2_entry_point_on_cpu(scans, tmp_path, capsys, which):
     cfg = write_tiny_yaml(tmp_path / f"tiny_{which}.yaml", scans,
                           model=tiny.two_stage_model(which)[0],

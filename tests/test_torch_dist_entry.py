@@ -13,9 +13,10 @@ gloo) on the tiny TSM over tests/torch_kitti_cases.py's root of 6 frames.
   rank caches every second train frame from its rank, as the JAX
   `_dist_info` stride, every rank sees all of them once its dataset is
   made, and the ranks' cleaning leaves none;
-* `train --launcher pytorch` for one epoch on the tiny Part-A2 and PV-RCNN
-  (PartA2.yaml's and pvrcnn.yaml's data sections on their geometry, road
-  planes and gt sampling): rank 0 writes the checkpoint, which loads;
+* `train --launcher pytorch` for one epoch on the tiny two-stage detectors
+  (Part-A2, PV-RCNN, PointRCNN, Voxel R-CNN, SECONDNetIoU and PV-RCNN++, on
+  their configs' data sections on their geometry, road planes and gt
+  sampling): rank 0 writes the checkpoint, which loads;
 * `--launcher pytorch` without torchrun's environment raises, and so does
   `--point_axis 2` in one process (the world is not a multiple of 2; for a
   two-stage config, which has no point-sharded layer, whatever the world),
@@ -151,7 +152,8 @@ def _two_stage_yaml(setup, which):
                            data=tiny_two_stage_dataset_cfg(which, setup["root"]))
 
 
-@pytest.mark.parametrize("which", ["parta2", "pvrcnn", "pointrcnn", "voxelrcnn", "secondnetiou"])
+@pytest.mark.parametrize("which", ["parta2", "pvrcnn", "pointrcnn", "voxelrcnn", "secondnetiou",
+                                   "pvrcnnplusplus"])
 def test_two_stage_trains_over_two_ranks(setup, which):
     import torch
 
@@ -187,7 +189,8 @@ def test_pointrcnn_refuses_point_axis(setup):
 
 
 @pytest.mark.parametrize("which,name", [("voxelrcnn", "VoxelRCNN"),
-                                        ("secondnetiou", "SECONDNetIoU")])
+                                        ("secondnetiou", "SECONDNetIoU"),
+                                        ("pvrcnnplusplus", "PVRCNNPlusPlus")])
 def test_voxel_roi_refuses_point_axis(setup, which, name):
     with pytest.raises(ValueError, match=f"{name} has no such layer"):
         train.main(["--cfg_file", str(_two_stage_yaml(setup, which)), "--data_root",

@@ -1,5 +1,6 @@
 """Data-parallel training of the tiny PointPillars, the tiny CenterPoint,
-the tiny Part-A2, the tiny PointRCNN and the tiny SECONDNetIoU in the port: two gloo processes at b2 each (tests/torch_dist_cases.py
+the tiny Part-A2, the tiny PointRCNN, the tiny SECONDNetIoU and the tiny
+PV-RCNN++ in the port: two gloo processes at b2 each (tests/torch_dist_cases.py
 `dist_steps_case`: DDP, one `train_step` on their halves of the batch)
 against one port process at b4 (the same function at world size 1), whose
 step tests/test_torch_pointpillar.py, tests/test_torch_centerpoint.py and
@@ -13,7 +14,9 @@ batch has a scan with no sampled RoI on each rank; PointRCNN's point head's
 positives and its PointNet++ BNs over the valid points and slots are
 global too; SECONDNetIoU's IoU loss is normalised by the global batch's
 valid RoIs, which differ between its ranks: torch_dist_cases'
-SECONDNETIOU_TRAIN_NMS).
+SECONDNETIOU_TRAIN_NMS; PV-RCNN++'s sector d-fps runs on each rank's scans
+and its VectorPool post_mlp BNs, which take no mask, over the global
+batch's keypoints).
 
 Tolerances, as test_torch_dist_train.py's: loss and tb terms (the ranks'
 mean) atol 1e-4 * max(1, |want|), rtol 1e-4; gradients (DDP's mean) rtol
@@ -34,7 +37,8 @@ from tests.torch_dist_cases import (centerpoint_batch, dist_step_case, dist_step
 B = 4
 BATCHES = {"pointpillar": pointpillar_batch, "centerpoint": centerpoint_batch,
            "parta2": parta2_batch, "pointrcnn": partial(parta2_batch, which="pointrcnn"),
-           "secondnetiou": partial(parta2_batch, which="secondnetiou")}
+           "secondnetiou": partial(parta2_batch, which="secondnetiou"),
+           "pvrcnnplusplus": partial(parta2_batch, which="pvrcnnplusplus")}
 
 
 @pytest.fixture(scope="module")

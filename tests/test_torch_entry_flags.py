@@ -142,3 +142,18 @@ def test_fix_random_seed_is_the_jax_seed(root, tmp_path, monkeypatch):
         assert seen["seed"] == want
     np.random.seed(FIX_RANDOM_SEED)
     assert np.array_equal(seen["numpy"], np.random.get_state()[1])
+
+
+def test_logger_writes_each_run_to_its_own_file(tmp_path):
+    """The entry points' logger, made again in the same process (an entry
+    point run twice), writes to the new run's log file alone: the earlier
+    run's file gets none of the later lines, and a run without a file
+    writes to none."""
+    from tsm_det_pointcloud_tpu_torch.utils.common_utils import create_logger
+
+    first, second = tmp_path / "log_first.txt", tmp_path / "log_second.txt"
+    create_logger(first).info("the first run")
+    create_logger(second).info("the second run")
+    create_logger().info("a run without a log file")
+    assert first.read_text().count("run") == 1 and "the first run" in first.read_text()
+    assert second.read_text().count("run") == 1 and "the second run" in second.read_text()

@@ -52,6 +52,16 @@ _JMODEL = ge._tsm_model()
 CFG = EDict({"CLASS_NAMES": CLASSES})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port while this module runs (beside XLA's
+    CPU thread pools, torch's own pool slows the tiny models)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def roots(tmp_path_factory):
     base = tmp_path_factory.mktemp("kitti")

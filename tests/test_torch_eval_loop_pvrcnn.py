@@ -1,5 +1,5 @@
 """The dataset-driven eval loop and first-batch training loss of the tiny PV-RCNN
-against the JAX package (tests/torch_eval_loop_cases.py: the states, data
+and the tiny PV-RCNN++ against the JAX package (tests/torch_eval_loop_cases.py: the states, data
 sections and tolerances)."""
 import pytest
 
@@ -12,7 +12,7 @@ def roots(tmp_path_factory):
     return cases.make_roots(tmp_path_factory)
 
 
-@pytest.fixture(scope="module", params=['pvrcnn'])
+@pytest.fixture(scope="module", params=['pvrcnn', 'pvrcnnplusplus'])
 def case(request, roots, tmp_path_factory):
     return cases.run_case(request.param, roots, tmp_path_factory)
 

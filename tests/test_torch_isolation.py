@@ -121,7 +121,7 @@ def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     cfg = tiny.tiny_model_cfg()
-    cfg["NAME"] = "PVRCNNPlusPlus"
+    cfg["NAME"] = "CaDDN"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
     # train mode is ported, and asks for the gt boxes it trains on
@@ -160,8 +160,8 @@ def test_converter_consumes_every_eval_leaf():
 
 def test_second_trains_and_unported_topologies_raise():
     """SECOND builds on the CPU and its training forward returns a finite
-    loss with its tb terms; an unported detector (PVRCNNPlusPlus) raises, and
-    so does a module that the SECOND topology does not take."""
+    loss with its tb terms; an unported detector (CaDDN) raises, and so does
+    a module that the SECOND topology does not take."""
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
@@ -177,8 +177,8 @@ def test_second_trains_and_unported_topologies_raise():
     assert torch.isfinite(out["loss"])
     assert set(out["tb_dict"]) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}
     cfg = tiny.second_model_cfg()
-    cfg["NAME"] = "PVRCNNPlusPlus"
-    with pytest.raises(NotImplementedError, match="PVRCNNPlusPlus"):
+    cfg["NAME"] = "CaDDN"
+    with pytest.raises(NotImplementedError, match="CaDDN"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
     cfg = tiny.second_model_cfg()
     cfg["VFE"] = {"NAME": "PillarVFE"}
@@ -262,20 +262,32 @@ def test_voxel_roi_modules_are_covered():
         assert (PORT / (name.replace(".", "/") + ".py")).exists()
 
 
+def test_pvrcnnplusplus_modules_are_covered():
+    """PV-RCNN++'s module (sector d-fps and VectorPool) and its detector's
+    are among those imported without JAX above and scanned for JAX
+    imports."""
+    mods = _port_modules()
+    for name in ("models.backbones_3d.pfe.vector_pool", "models.detectors.pv_rcnn"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
 def test_two_stage_entry_points_refuse_cuda_without_card(monkeypatch):
     """`infer` and `train` on PartA2.yaml, pvrcnn.yaml, pointrcnn.yaml,
-    voxel_rcnn_car.yaml and second_iou.yaml default to the card too, and
-    refuse a host without one; the detector still unported (PV-RCNN++, on
-    the PV-RCNN modules and on SECONDHead's) raises in build_network."""
+    voxel_rcnn_car.yaml, second_iou.yaml and pv_rcnn_plusplus.yaml default to
+    the card too, and refuse a host without one; a detector still unported
+    (CaDDN, on the PV-RCNN modules and on SECONDHead's) raises in
+    build_network."""
     from tsm_det_pointcloud_tpu_torch import infer, tiny, train
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     for cfg in (tiny.pvrcnn_model_cfg(), tiny.secondnetiou_model_cfg()):
-        cfg["NAME"] = "PVRCNNPlusPlus"
-        with pytest.raises(NotImplementedError, match="PVRCNNPlusPlus"):
+        cfg["NAME"] = "CaDDN"
+        with pytest.raises(NotImplementedError, match="CaDDN"):
             build_network(cfg, 1, tiny.PVRCNN_META, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("PartA2", "pvrcnn", "pointrcnn", "voxel_rcnn_car", "second_iou"):
+    for name in ("PartA2", "pvrcnn", "pointrcnn", "voxel_rcnn_car", "second_iou",
+                 "pv_rcnn_plusplus"):
         cfg = str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
         with pytest.raises(RuntimeError, match="CUDA"):
             infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])

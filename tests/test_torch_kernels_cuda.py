@@ -202,6 +202,38 @@ def test_fps_block_kernel_above_cap_raises(dev):
     assert _kernels.LAUNCHES["fps_block"] == before
 
 
+@pytest.mark.parametrize("n,num_sectors", [(20000, 6), (3000, 4)])
+def test_sector_fps_rows(dev, n, num_sectors):
+    """PV-RCNN++'s sector d-fps: one launch over the B * S sector rows (K6
+    above 16384 points a row, K1 below), index-equal to the plain d-fps, on
+    rows whose valid set excludes index 0 (every sector but point 0's), a
+    scan with no valid point (every row empty), a scan with its first
+    sector under-filled (3 valid points, fewer than its share) and KITTI's
+    field of view (x > 0: sectors 0 and 5 of 6 empty)."""
+    from tsm_det_pointcloud_tpu_torch.models.backbones_3d.pfe import vector_pool
+
+    rng = np.random.RandomState(24)
+    xyz = rng.uniform(-40, 40, (3, n, 3)).astype(np.float32)
+    xyz[2, :, 0] = np.abs(xyz[2, :, 0]) + 0.1
+    valid = np.ones((3, n), bool)
+    valid[1] = False
+    sector = vector_pool.sector_ids(torch.from_numpy(xyz), num_sectors).numpy()
+    first = np.flatnonzero(sector[0] == 0)
+    valid[0, first[3:]] = False
+    xyz, valid = torch.from_numpy(xyz).to(dev), torch.from_numpy(valid).to(dev)
+    npoint = 4096 if n > sampling.FPS_MAX_POINTS else 200
+    shares = vector_pool.sector_shares(npoint, num_sectors)
+    kernel = "fps_block" if n > sampling.FPS_MAX_POINTS else "fps"
+    got = _counted(kernel, lambda: vector_pool.sectorized_fps(xyz, valid, npoint, num_sectors))
+    rows, masks = vector_pool.sector_rows(xyz, valid, num_sectors)
+    assert not masks[:, 0].all() and (~masks).all(1).any()
+    want = sampling.furthest_point_sample_plain(rows, shares[0], masks).reshape(
+        3, num_sectors, shares[0])
+    want = torch.cat([want[:, s, :k] for s, k in enumerate(shares)], 1)
+    assert torch.equal(got, want)
+    assert (got[1] == 0).all() and (got[0, 4:shares[0]] == int(first[0])).all()
+
+
 def test_fps_dispatch_above_k1_limit(dev):
     """d-fps over more than 16384 points a row launches K6, not K1."""
     rng = np.random.RandomState(21)

@@ -47,6 +47,16 @@ CFG = EDict({"CLASS_NAMES": CLASSES})
 B = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port while this module runs (beside XLA's
+    CPU thread pools, torch's own pool slows the tiny models)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _plain(v):
     if isinstance(v, dict):
         return {k: _plain(x) for k, x in v.items()}

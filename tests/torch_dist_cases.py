@@ -174,7 +174,7 @@ def centerpoint_batch(n_scans):
 def parta2_batch(n_scans, which="parta2"):
     """The tiny Part-A2's training batch (tiny.second_points at 256 points,
     tiny.two_stage_gt's scans in turn: a full RoI sample and an empty one),
-    or the tiny PointRCNN's (which "pointrcnn")."""
+    or the tiny PointRCNN's, SECONDNetIoU's or PV-RCNN++'s (`which`)."""
     from tsm_det_pointcloud_tpu_torch import tiny
 
     gt, gmask = tiny.two_stage_gt(which, n_scans)
@@ -225,7 +225,7 @@ def _model(which):
         model = build_network(tiny.centerpoint_model_cfg(), 3, tiny.CENTERPOINT_META,
                               device="cpu")
         model.load_state_dict(tiny.load_state(tiny.CENTERPOINT_STATE_PATH), strict=True)
-    elif which in ("parta2", "pointrcnn", "secondnetiou"):
+    elif which in ("parta2", "pointrcnn", "secondnetiou", "pvrcnnplusplus"):
         cfg, meta = tiny.two_stage_model(which)
         if which == "secondnetiou":
             cfg.ROI_HEAD.NMS_CONFIG.TRAIN.update(SECONDNETIOU_TRAIN_NMS)
@@ -244,8 +244,9 @@ def dist_step_case(rank, world, which, batch, point_axis=0):
     """One DDP training step of the tiny TSM ("tsm"), its teacher
     ("teacher": every parameter trains, the class statistics update),
     SECOND ("second"), PointPillars ("pointpillar"), CenterPoint
-    ("centerpoint"), Part-A2 ("parta2"), PointRCNN ("pointrcnn") or
-    SECONDNetIoU ("secondnetiou", its proposal NMS at SECONDNETIOU_TRAIN_NMS)
+    ("centerpoint"), Part-A2 ("parta2"), PointRCNN ("pointrcnn"), PV-RCNN++
+    ("pvrcnnplusplus") or SECONDNetIoU ("secondnetiou", its proposal NMS at
+    SECONDNETIOU_TRAIN_NMS)
     on this rank's share of `batch` (under point_axis P, P ranks share a
     sample set and split its points). Returns this rank's loss and tb terms,
     the reduced gradients, the buffers after the forward, the parameters

@@ -5,9 +5,10 @@ student: the tiny TSM teacher (fast_cpc_teacher.yaml's data section on its
 range), the tiny SECOND (second.yaml's: the voxel route, no sample_points,
 on the tiny SECOND's geometry), the tiny PointPillars (pointpillar.yaml's: 8
 points a pillar, gt sampling on road planes), the tiny CenterPoint
-(centerpoint.yaml's), the tiny Part-A2, PV-RCNN, Voxel R-CNN and
-SECONDNetIoU (PartA2.yaml's, pvrcnn.yaml's, voxel_rcnn_car.yaml's and
-second_iou.yaml's: road planes, two-stage post-processing) and the tiny
+(centerpoint.yaml's), the tiny Part-A2, PV-RCNN, PV-RCNN++, Voxel R-CNN
+and SECONDNetIoU (PartA2.yaml's, pvrcnn.yaml's, pv_rcnn_plusplus.yaml's,
+voxel_rcnn_car.yaml's and second_iou.yaml's: road planes, two-stage
+post-processing) and the tiny
 PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels).
 The cases are spread over tests/test_torch_eval_loop_*.py, so that
 `--dist loadfile` runs them on several workers.
@@ -109,6 +110,7 @@ def _two_stage(which):
 MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
           "centerpoint": _centerpoint, "parta2": lambda: _two_stage("parta2"),
           "pvrcnn": lambda: _two_stage("pvrcnn"), "pointrcnn": lambda: _two_stage("pointrcnn"),
+          "pvrcnnplusplus": lambda: _two_stage("pvrcnnplusplus"),
           "voxelrcnn": lambda: _two_stage("voxelrcnn"),
           "secondnetiou": lambda: _two_stage("secondnetiou")}
 

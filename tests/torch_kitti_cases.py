@@ -142,13 +142,15 @@ def tiny_centerpoint_dataset_cfg(root):
 
 
 def tiny_two_stage_dataset_cfg(which, root):
-    """PartA2.yaml's ("parta2"), pvrcnn.yaml's ("pvrcnn"), pointrcnn.yaml's
+    """PartA2.yaml's ("parta2"), pvrcnn.yaml's ("pvrcnn"),
+    pv_rcnn_plusplus.yaml's ("pvrcnnplusplus"), pointrcnn.yaml's
     ("pointrcnn"), voxel_rcnn_car.yaml's ("voxelrcnn") or second_iou.yaml's
     ("secondnetiou") DATA_CONFIG (gt sampling on road planes) on the tiny
     detector's geometry (tiny.two_stage_model(which); pointrcnn.yaml's
     sample_points takes its MAX_POINTS in both modes), gt sampling of its one
     class."""
     cfg_file = {"parta2": "PartA2.yaml", "pvrcnn": "pvrcnn.yaml",
+                "pvrcnnplusplus": "pv_rcnn_plusplus.yaml",
                 "pointrcnn": "pointrcnn.yaml", "voxelrcnn": "voxel_rcnn_car.yaml",
                 "secondnetiou": "second_iou.yaml"}[which]
     meta = tiny.two_stage_model(which)[1]

@@ -6,10 +6,11 @@ eval forward with post-processing and its jitted training step, with the
 port state `tiny.two_stage_state(which)` converted to flax variables
 (`convert.to_flax_variables`). Imports JAX: the CPU tests' helper only.
 
-The committed goldens `data/parta2_tiny_forward.npz` and
-`data/pvrcnn_tiny_forward.npz` (FORWARD keys of the eval forward and the
-post-processed predictions) are regenerated with
-    python -c "from tests.torch_two_stage_cases import write_forward; write_forward('parta2'); write_forward('pvrcnn')"
+The committed goldens `data/parta2_tiny_forward.npz`,
+`data/pvrcnn_tiny_forward.npz` and `data/pvrcnnplusplus_tiny_forward.npz`
+(FORWARD keys of the eval forward and the post-processed predictions) are
+regenerated with
+    python -c "from tests.torch_two_stage_cases import write_forward; write_forward('parta2'); write_forward('pvrcnn'); write_forward('pvrcnnplusplus')"
 (PointRCNN's, with its state, by tests/test_torch_pointrcnn.py's
 write_pointrcnn_tiny_files).
 """
@@ -43,7 +44,8 @@ def forward_path(which):
     return {"parta2": tiny.PARTA2_FORWARD_PATH, "pvrcnn": tiny.PVRCNN_FORWARD_PATH,
             "pointrcnn": tiny.POINTRCNN_FORWARD_PATH,
             "voxelrcnn": tiny.VOXELRCNN_FORWARD_PATH,
-            "secondnetiou": tiny.SECONDNETIOU_FORWARD_PATH}[which]
+            "secondnetiou": tiny.SECONDNETIOU_FORWARD_PATH,
+            "pvrcnnplusplus": tiny.PVRCNNPLUSPLUS_FORWARD_PATH}[which]
 
 
 def points():

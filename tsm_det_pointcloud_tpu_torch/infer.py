@@ -20,6 +20,8 @@ scans.
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/pv_rcnn_plusplus.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --batch 4 --points 16384
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/voxel_rcnn_car.yaml --batch 4 --points 20000
@@ -162,9 +164,12 @@ def load_cfg(cfg_file, set_cfgs=None):
 # the proposals NMS kept a scan and the RoI head's boxes over SCORE_THRESH.
 # SECONDNetIoU's first stage is SECOND's, with the same seeded weights and eval
 # state, so it takes SECOND's value; Voxel R-CNN's (one class, a narrower BEV
-# backbone) was set on the card
+# backbone) was set on the card. PV-RCNN++'s seeded first stage is another
+# draw than PV-RCNN's (its PFE's weights come first in the generator): at
+# -2.5 ~116,000 anchors a scan pass, at -2.855 ~230 (set on one scan)
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
-            "PVRCNN": -2.5, "SECONDNetIoU": -2.575, "VoxelRCNN": -1.25}
+            "PVRCNN": -2.5, "PVRCNNPlusPlus": -2.855, "SECONDNetIoU": -2.575,
+            "VoxelRCNN": -1.25}
 # CenterPoint's hm_out: a gain on its seeded kernel and a bias in place of
 # the -2.19 init. The seeded heatmap logits lie within 0.5 of each other, so
 # at the init's bias either all of a scan's 500 decoded boxes pass
@@ -311,8 +316,9 @@ def profile_batch(model, points, mask, top=20):
     kernels with the most device time. Then trace the batch's
     post-processing (NMS) alone, to show its share of the batch. Returns
     both traces' `profile_call` results."""
-    whole = profile_call(lambda: detect(model, points, mask), top)
-    out, _ = detect(model, points, mask)
+    traced = {}
+    whole = profile_call(lambda: traced.update(out=detect(model, points, mask)[0]), top)
+    out = traced["out"]   # the traced batch's forward, for its post-processing
     print("post-processing alone:")
     return whole, profile_call(lambda: model.post_processing(out), top=5)
 
@@ -331,8 +337,10 @@ def profile_call(fn, top=20):
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side kernel events only: an aten op's device time is also its
     # kernels' time, and a user annotation's (Optimizer.step) spans its
-    # kernels' too, so counting either would count them twice
-    events = [e for e in prof.key_averages()
+    # kernels' too, so counting either would count them twice. key_averages
+    # takes seconds on a traced forward: it is built once
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)
               and self_device_us(e) > 0]
@@ -341,7 +349,7 @@ def profile_call(fn, top=20):
           f"({100 * busy_us / wall_us:.1f}%), idle {100 - 100 * busy_us / wall_us:.1f}%")
     # each iteration of an NMS keep fixpoint (nms_bev's or the suppression
     # matrix route's) ends in one torch.equal, which the host waits for
-    n_equal = sum(e.count for e in prof.key_averages() if e.key == "aten::equal")
+    n_equal = sum(e.count for e in averages if e.key == "aten::equal")
     if n_equal:
         print(f"profile: {n_equal} aten::equal calls (NMS keep-fixpoint iterations, one "
               f"host sync each)")
@@ -366,7 +374,7 @@ def main(argv=None):
     cfg, model = build_detector(args.cfg_file, dev, args.seed, args.points)
     pts = torch.from_numpy(synth_scans(model.dataset_meta, args.batch, args.points, args.seed)).to(dev)
     mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
-    detect(model, pts, mask)  # warm-up: builds the kernels
+    out, pred = detect(model, pts, mask)  # warm-up: builds the kernels
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -384,8 +392,9 @@ def main(argv=None):
             extra += (f" (first stage); {rois[b][0]} proposals kept, {rois[b][1]} RoI boxes "
                       f"over SCORE_THRESH")
         print(f"scan {b}: {c} detections{extra}")
-    print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "
-          f"(batch {args.batch} x {args.points} points, {args.iters} batches)")
+    if args.iters:   # --iters 0: the warm-up batch's detections alone (a --profile run)
+        print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "
+              f"(batch {args.batch} x {args.points} points, {args.iters} batches)")
     if args.profile:
         if dev.type != "cuda":
             raise RuntimeError("--profile measures the card: run with --device cuda")

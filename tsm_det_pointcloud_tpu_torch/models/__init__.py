@@ -25,6 +25,9 @@ JAX models/__init__.py:14-29):
     VoxelSetAbstraction, BaseBEVBackbone, AnchorHeadSingle, PointHeadSimple,
     PVRCNNHead; for both `.train()` turns on the anchor head's decode in
     training, the target assignment of all three heads and their losses;
+  * NAME PVRCNNPlusPlus: PV-RCNN's modules, its VoxelSetAbstraction with
+    the sector keypoint sampling (SAMPLE_METHOD SPC) and VectorPool
+    sources; training as PV-RCNN's;
   * NAME PointRCNN: PointNet2MSG, PointHeadBox, PointRCNNHead; `.train()`
     turns on the point head's and the RoI head's targets and losses;
   * NAME VoxelRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
@@ -113,6 +116,7 @@ _TSM_PAIRS = {
         (VoxelPointNet2FSMSG, PointHeadVoteSASAStatistic),
 }
 _PORTED["Point3DSSD"] = _PORTED["3DSSD"]
+_PORTED["PVRCNNPlusPlus"] = _PORTED["PVRCNN"]
 _COMMON_SECTIONS = {"NAME", "POST_PROCESSING", "FACTOR"}
 
 
@@ -211,7 +215,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
     dataset = meta_from_dataset(dataset)
     build = {"SECONDNet": _second_modules, "PointPillar": _pointpillar_modules,
              "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
-             "PVRCNN": _two_stage_modules, "PointRCNN": _pointrcnn_modules,
+             "PVRCNN": _two_stage_modules, "PVRCNNPlusPlus": _two_stage_modules,
+             "PointRCNN": _pointrcnn_modules,
              "VoxelRCNN": _two_stage_modules, "SECONDNetIoU": _two_stage_modules}.get(
                  name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
@@ -287,7 +292,7 @@ def _two_stage_modules(model_cfg, num_class, meta):
     (its `build_module_list`): VFE, BACKBONE_3D, MAP_TO_BEV, PFE (PV-RCNN),
     BACKBONE_2D, DENSE_HEAD (decoding its boxes in training too, for the
     RoI head), POINT_HEAD (Part-A2, PV-RCNN), ROI_HEAD: flax
-    module_list_0..6 (Part-A2), 0..7 (PV-RCNN), 0..5 (Voxel R-CNN,
+    module_list_0..6 (Part-A2), 0..7 (PV-RCNN, PV-RCNN++), 0..5 (Voxel R-CNN,
     SECONDNetIoU)."""
     vfe = MeanVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
                   meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)

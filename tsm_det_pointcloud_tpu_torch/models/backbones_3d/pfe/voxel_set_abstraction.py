@@ -3,17 +3,20 @@ tsm_det_pointcloud_tpu/models/backbones_3d/pfe/voxel_set_abstraction.py).
 
 NUM_KEYPOINTS keypoints a scan by d-fps over the raw points
 (`sampling.furthest_point_sample`: K1 up to 16384 points a scan on the card,
-K6 above), then one feature block per FEATURES_SOURCE, in the JAX package's
-order: `bev` (the BEV map bilinearly sampled at each keypoint's xy), then
-`raw_points`, then each `x_conv*` in the config's order, each of the last
-two an `SAGroup` (a multi-scale nearest-k ball query over the source, all
-its scales in one K2 call, and a SharedMLP a scale max-pooled over the
-filled slots; an empty ball gives 0). The sparse sources group their
-voxel centres (`voxel_centers`). The blocks are concatenated
+K6 above), or with SAMPLE_METHOD SPC (PV-RCNN++) by
+`vector_pool.sectorized_fps` (SPC_SAMPLING.NUM_SECTORS azimuth sectors, one
+d-fps call over all of them); then one feature block per FEATURES_SOURCE,
+in the JAX package's order: `bev` (the BEV map bilinearly sampled at each
+keypoint's xy), then `raw_points`, then each `x_conv*` in the config's
+order, each of the last two an `SAGroup` (a multi-scale nearest-k ball
+query over the source, all its scales in one K2 call, and a SharedMLP a
+scale max-pooled over the filled slots; an empty ball gives 0) or, where
+the source's NAME is VectorPoolAggregationModuleMSG (PV-RCNN++), a
+`vector_pool.VectorPoolAggregationModuleMSG`. The sparse sources group
+their voxel centres (`voxel_centers`). The blocks are concatenated
 (`point_features_before_fusion`) and fused by `vsa_point_feature_fusion`
 (Dense without bias), `fusion_bn` (masked by the keypoints' validity) and
-ReLU into `point_features`. PV-RCNN++'s sector sampling (SAMPLE_METHOD SPC)
-and VectorPool sources are not ported and raise.
+ReLU into `point_features`.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from torch import nn
 
 from ....ops import grouping, sampling
 from ..pointnet2_modules import BatchNorm, SharedMLP
+from .vector_pool import VectorPoolAggregationModuleMSG, sectorized_fps
 
 
 def voxel_centers(coords_zyx, stride, voxel_size, point_cloud_range):
@@ -84,6 +88,19 @@ class SAGroup(nn.Module):
         return torch.cat(outs, -1)
 
 
+def _group(sc, in_channels):
+    """A source's aggregation: PV-RCNN++'s VectorPool (NAME
+    VectorPoolAggregationModuleMSG; LOCAL_GRIDS default 3^3 a scale,
+    AGGREGATION_MLPS optional) or PV-RCNN's SAGroup."""
+    if str(sc.get("NAME", "")) == "VectorPoolAggregationModuleMSG":
+        n = len(sc["POOL_RADIUS"])
+        return VectorPoolAggregationModuleMSG(
+            in_channels, sc["POOL_RADIUS"], sc["NSAMPLE"],
+            sc.get("LOCAL_GRIDS", [[3, 3, 3]] * n), sc["MLPS"],
+            sc.get("AGGREGATION_MLPS") or None)
+    return SAGroup(in_channels, sc["POOL_RADIUS"], sc["NSAMPLE"], sc["MLPS"])
+
+
 # the channels of each sparse source of VoxelBackBone8x / UNetV2's encoder
 X_CONV_CHANNELS = {"x_conv1": 16, "x_conv2": 32, "x_conv3": 64, "x_conv4": 64}
 
@@ -93,26 +110,21 @@ class VoxelSetAbstraction(nn.Module):
                  num_rawpoint_features=4):
         super().__init__()
         cfg = model_cfg
-        if str(cfg.get("SAMPLE_METHOD", "FPS")) in ("SPC", "SectorFPS"):
-            raise NotImplementedError("PV-RCNN++'s sector keypoint sampling is not ported")
+        self.num_sectors = (int(cfg.get("SPC_SAMPLING", {}).get("NUM_SECTORS", 6))
+                            if str(cfg.get("SAMPLE_METHOD", "FPS")) in ("SPC", "SectorFPS")
+                            else None)
         self.model_cfg = cfg
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.num_keypoints = int(cfg["NUM_KEYPOINTS"])
         self.sources = list(cfg["FEATURES_SOURCE"])
         sa_cfg = cfg.get("SA_LAYER", {})
-        for sc in sa_cfg.values():
-            if str(sc.get("NAME", "")) == "VectorPoolAggregationModuleMSG":
-                raise NotImplementedError("PV-RCNN++'s VectorPool aggregation is not ported")
         c = int(num_bev_features) if "bev" in self.sources else 0
         if "raw_points" in self.sources:
-            rp = sa_cfg["raw_points"]
-            self.sa_rawpoints = SAGroup(int(num_rawpoint_features) - 3, rp["POOL_RADIUS"],
-                                        rp["NSAMPLE"], rp["MLPS"])
+            self.sa_rawpoints = _group(sa_cfg["raw_points"], int(num_rawpoint_features) - 3)
             c += self.sa_rawpoints.out_channels
         for src in self.x_conv_sources:
-            sc = sa_cfg[src]
-            m = SAGroup(X_CONV_CHANNELS[src], sc["POOL_RADIUS"], sc["NSAMPLE"], sc["MLPS"])
+            m = _group(sa_cfg[src], X_CONV_CHANNELS[src])
             setattr(self, f"sa_{src}", m)
             c += m.out_channels
         self.num_point_features = int(cfg["NUM_OUTPUT_FEATURES"])
@@ -128,7 +140,10 @@ class VoxelSetAbstraction(nn.Module):
         points = batch_dict["points"]
         pmask = batch_dict["points_mask"]
         xyz = points[..., :3].contiguous()
-        idx = sampling.furthest_point_sample(xyz, self.num_keypoints, pmask)
+        if self.num_sectors is None:
+            idx = sampling.furthest_point_sample(xyz, self.num_keypoints, pmask)
+        else:
+            idx = sectorized_fps(xyz, pmask, self.num_keypoints, self.num_sectors)
         keypoints = sampling.gather_points(xyz, idx)
         kp_valid = torch.gather(pmask, 1, idx.long())
         feats = []

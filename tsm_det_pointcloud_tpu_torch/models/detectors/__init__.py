@@ -5,7 +5,7 @@ from .centerpoint import CenterPoint
 from .detector3d_template import DatasetMeta, Detector3DTemplate
 from .point_3dssd import Point3DSSD
 from .pointpillar import PointPillar
-from .pv_rcnn import PVRCNN
+from .pv_rcnn import PVRCNN, PVRCNNPlusPlus
 from .second_net import SECONDNet
 from .two_stage import PartA2Net, PointRCNN, SECONDNetIoU, VoxelRCNN
 
@@ -17,6 +17,7 @@ __all__ = {
     "CenterPoint": CenterPoint,
     "PartA2Net": PartA2Net,
     "PVRCNN": PVRCNN,
+    "PVRCNNPlusPlus": PVRCNNPlusPlus,
     "PointRCNN": PointRCNN,
     "VoxelRCNN": VoxelRCNN,
     "SECONDNetIoU": SECONDNetIoU,

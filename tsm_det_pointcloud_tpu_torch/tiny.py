@@ -82,6 +82,14 @@ x_conv4 by window queries, or a 3^3 lattice of the BEV map and the IoU
 branch. Their checks run on `two_stage_state("voxelrcnn" /
 "secondnetiou")`; `data/{voxelrcnn,secondnetiou}_tiny_forward.npz` hold the
 JAX package's eval outputs and predictions with it.
+
+The tiny PV-RCNN++ (`pvrcnnplusplus_model_cfg`) is the tiny PV-RCNN with
+sector keypoint sampling and VectorPool on the raw points and on x_conv3.
+Its checks run on `two_stage_state("pvrcnnplusplus")`, whose entries of
+PV-RCNN's names and shapes are PV-RCNN's draws (`SHARED_DRAWS`), so that
+its proposals and training RoIs are PV-RCNN's and it trains on PV-RCNN's
+gt boxes; `data/pvrcnnplusplus_tiny_forward.npz` holds the JAX package's
+eval outputs and predictions with it.
 """
 from __future__ import annotations
 
@@ -110,6 +118,7 @@ POINTRCNN_STATE_PATH = STATE_PATH.parent / "pointrcnn_tiny_state.npz"
 POINTRCNN_FORWARD_PATH = STATE_PATH.parent / "pointrcnn_tiny_forward.npz"
 VOXELRCNN_FORWARD_PATH = STATE_PATH.parent / "voxelrcnn_tiny_forward.npz"
 SECONDNETIOU_FORWARD_PATH = STATE_PATH.parent / "secondnetiou_tiny_forward.npz"
+PVRCNNPLUSPLUS_FORWARD_PATH = STATE_PATH.parent / "pvrcnnplusplus_tiny_forward.npz"
 META = DatasetMeta(
     class_names=("Car", "Pedestrian", "Cyclist"),
     point_cloud_range=tuple(PCR), voxel_size=tuple(VOXEL),
@@ -696,6 +705,30 @@ def pvrcnn_model_cfg():
     })
 
 
+def pvrcnnplusplus_model_cfg():
+    """The tiny PV-RCNN++: the tiny PV-RCNN with its PFE as
+    pv_rcnn_plusplus.yaml's, cut to size: the keypoints by sector d-fps over
+    6 azimuth sectors (the tiny scans' x >= 0 leaves sectors 0 and 5
+    empty), VectorPool on the raw points (2^3 and 3^3 cells) and on x_conv3
+    (3^3 and 3^3), each with an aggregation MLP, and x_conv4 kept on
+    PV-RCNN's SAGroup, so that both kinds of support set and both kinds of
+    source run."""
+    cfg = pvrcnn_model_cfg()
+    cfg["NAME"] = "PVRCNNPlusPlus"
+    pfe = cfg["PFE"]
+    pfe["SAMPLE_METHOD"] = "SPC"
+    pfe["SPC_SAMPLING"] = {"NUM_SECTORS": 6, "SAMPLE_RADIUS_WITH_ROI": 1.6}
+    pfe["SA_LAYER"]["raw_points"] = {
+        "NAME": "VectorPoolAggregationModuleMSG", "POOL_RADIUS": [0.4, 0.8],
+        "NSAMPLE": [8, 8], "LOCAL_GRIDS": [[2, 2, 2], [3, 3, 3]], "MLPS": [[8, 8], [8, 8]],
+        "AGGREGATION_MLPS": [16]}
+    pfe["SA_LAYER"]["x_conv3"] = {
+        "NAME": "VectorPoolAggregationModuleMSG", "POOL_RADIUS": [1.2, 2.4],
+        "NSAMPLE": [8, 8], "LOCAL_GRIDS": [[3, 3, 3], [3, 3, 3]], "MLPS": [[8, 8], [8, 8]],
+        "AGGREGATION_MLPS": [16]}
+    return cfg
+
+
 def _roi_common():
     """The NMS, target and loss sections of the JAX tiny RoI heads
     (ROI_COMMON of tests/test_two_stage_models.py)."""
@@ -776,10 +809,11 @@ TWO_STAGE_CLS_BIAS = -2.0
 
 def two_stage_model(which):
     """(model config, DatasetMeta) of the tiny Part-A2 ("parta2"), PV-RCNN
-    ("pvrcnn"), PointRCNN ("pointrcnn"), Voxel R-CNN ("voxelrcnn") or
-    SECONDNetIoU ("secondnetiou")."""
+    ("pvrcnn"), PV-RCNN++ ("pvrcnnplusplus"), PointRCNN ("pointrcnn"), Voxel
+    R-CNN ("voxelrcnn") or SECONDNetIoU ("secondnetiou")."""
     cfg, meta = {"parta2": (parta2_model_cfg, PARTA2_META),
                  "pvrcnn": (pvrcnn_model_cfg, PVRCNN_META),
+                 "pvrcnnplusplus": (pvrcnnplusplus_model_cfg, PVRCNN_META),
                  "pointrcnn": (pointrcnn_model_cfg, POINTRCNN_META),
                  "voxelrcnn": (voxelrcnn_model_cfg, VOXELRCNN_META),
                  "secondnetiou": (secondnetiou_model_cfg, VOXELRCNN_META)}[which]
@@ -807,21 +841,41 @@ POINTRCNN_TRAIN_GAIN_LAYERS = ("module_list.1.cls_out.", "module_list.1.box_out.
                                "module_list.2.cls_out.", "module_list.2.reg_out.")
 
 
-def two_stage_state(which, seed=4, train=False):
-    """The tiny two-stage detector's state for its checks: every entry of
-    the port model's state dict (PointRCNN's: the committed init) drawn as
-    `redraw_state` draws it, the anchor head's conv_cls bias at
-    TWO_STAGE_CLS_BIAS; with `train` the channels-last BN biases raised by
-    TWO_STAGE_TRAIN_BN_LIFT."""
+# the tiny detector whose draws a tiny detector's state takes wherever an
+# entry of the same name and shape is in both: PV-RCNN++'s first stage and
+# RoI head are then PV-RCNN's, and so are its training RoIs (its gt boxes
+# are PV-RCNN's)
+SHARED_DRAWS = {"pvrcnnplusplus": "pvrcnn"}
+
+
+def _drawn(which, seed):
+    """`redraw_state` over the tiny `which`'s port state dict (PointRCNN's:
+    the committed init), and the model."""
     from .models import build_network
-    from .models.backbones_3d.pointnet2_modules import BatchNorm
 
     cfg, meta = two_stage_model(which)
     model = build_network(cfg, 1, meta, device="cpu", seed=0)
-    lifted = {f"{name}.bias" for name, m in model.named_modules() if isinstance(m, BatchNorm)}
     base = load_state(POINTRCNN_STATE_PATH) if which == "pointrcnn" else model.state_dict()
+    return redraw_state(base, seed), model
+
+
+def two_stage_state(which, seed=4, train=False):
+    """The tiny two-stage detector's state for its checks: every entry of
+    the port model's state dict (PointRCNN's: the committed init) drawn as
+    `redraw_state` draws it (PV-RCNN++'s entries of PV-RCNN's names and
+    shapes as PV-RCNN's: SHARED_DRAWS), the anchor head's conv_cls bias at
+    TWO_STAGE_CLS_BIAS; with `train` the channels-last BN biases raised by
+    TWO_STAGE_TRAIN_BN_LIFT."""
+    from .models.backbones_3d.pointnet2_modules import BatchNorm
+
+    drawn, model = _drawn(which, seed)
+    if which in SHARED_DRAWS:
+        shared = _drawn(SHARED_DRAWS[which], seed)[0]
+        drawn = {k: shared[k] if k in shared and shared[k].shape == v.shape else v
+                 for k, v in drawn.items()}
+    lifted = {f"{name}.bias" for name, m in model.named_modules() if isinstance(m, BatchNorm)}
     out = {}
-    for key, v in redraw_state(base, seed).items():
+    for key, v in drawn.items():
         if key.endswith("conv_cls.bias"):
             v = np.full(v.shape, TWO_STAGE_CLS_BIAS)
         elif train and which == "pointrcnn" and key.startswith(POINTRCNN_TRAIN_GAIN_LAYERS):
@@ -904,6 +958,7 @@ TWO_STAGE_GT = {
     ],
 }
 TWO_STAGE_GT["secondnetiou"] = TWO_STAGE_GT["voxelrcnn"]
+TWO_STAGE_GT["pvrcnnplusplus"] = TWO_STAGE_GT["pvrcnn"]
 
 
 def two_stage_gt(which, batch_size=2):

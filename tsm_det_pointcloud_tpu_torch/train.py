@@ -1,6 +1,7 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
 step or the step of another detector of the KITTI zoo (SECOND, PointPillars,
-CenterPoint, Part-A2, PV-RCNN, PointRCNN, Voxel R-CNN, SECONDNetIoU), on
+CenterPoint, Part-A2, PV-RCNN, PV-RCNN++, PointRCNN, Voxel R-CNN,
+SECONDNetIoU), on
 synthetic scans or on a dataset (KITTI or Waymo).
 
 Synthetic-scan mode:
@@ -19,6 +20,8 @@ Synthetic-scan mode:
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/pvrcnn.yaml --batch 2 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/kitti_models/pv_rcnn_plusplus.yaml --batch 2 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/voxel_rcnn_car.yaml --batch 2 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.train \

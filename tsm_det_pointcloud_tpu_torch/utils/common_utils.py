@@ -80,7 +80,11 @@ class _LiveStderrHandler(logging.StreamHandler):
 
 
 def create_logger(log_file=None, rank=0, log_level=logging.INFO):
-    """The entry points' logger: stderr, and `log_file` when given."""
+    """The entry points' logger: stderr, and `log_file` when given. The
+    logger is one a rank for the process, so a call drops the file handlers
+    of earlier calls: an entry point run again in the same process (a
+    notebook, a script that evaluates twice) writes to its own log alone,
+    not also to every earlier run's."""
     logger = logging.getLogger(__name__ + (".rank%d" % rank))
     logger.setLevel(log_level if rank == 0 else logging.ERROR)
     logger.propagate = False
@@ -91,8 +95,12 @@ def create_logger(log_file=None, rank=0, log_level=logging.INFO):
         console.setLevel(lvl)
         console.setFormatter(formatter)
         logger.addHandler(console)
+    path = None if log_file is None else os.path.abspath(str(log_file))
+    for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)
+              and getattr(h, "baseFilename", None) != path]:
+        logger.removeHandler(h)
+        h.close()
     if log_file is not None:
-        path = os.path.abspath(str(log_file))
         if not any(isinstance(h, logging.FileHandler)
                    and getattr(h, "baseFilename", None) == path
                    for h in logger.handlers):
