@@ -469,6 +469,32 @@ Phases (any failure exits non-zero before the result line):
  56. its profile, after every timed path: `infer --profile` at b4 x 20000
      in phase 39's fresh process, and the proposal layer's NMS alone at 1024
      and 9000 boxes a scan.
+ 57. nuScenes reference: the tiny nuScenes CenterPoint
+     (tiny.centerpoint_nusc_state: two class groups, a vel head each, 5 point
+     features) reproduces tsm_det_pointcloud_tpu_torch/data/
+     centerpoint_nusc_tiny_forward.npz on the card through 8 K3 and 21 K7
+     calls (9-column decoded boxes; golden tolerance, labels and counts
+     exact);
+ 58. cbgs_voxel01_res3d_centerpoint.yaml (OpenPCDet's nuScenes CenterPoint:
+     1024 x 1024 x 40 grid, six head groups with velocity) at full width on
+     synthetic nuScenes-range scans of 300000 points x 5 features: eval b4
+     (the recorded forward's 8 K3 and 21 K7 calls held against their plain
+     versions and timed; voxels a scan, the decoded boxes over SCORE_THRESH
+     and their velocities, finite), 3 counted batches (scans/s, peak
+     memory), a training step b4 on 10-column gt boxes of all ten classes
+     (every head group trains) recorded and held,
+     2 counted steps;
+ 59. its data path on a synthetic nuScenes root (1 + 1 scenes of 4
+     keyframes, each after nine sweeps of 34,720 points: the writer,
+     `create_nuscenes_infos` with the train gt database; the points a
+     10-sweep val scan holds before and after the range crop; echoed val gt
+     NDS 0.8 and mAP 1), `evaluate` (a finite NDS dict), `train --data_root`
+     for an epoch with CBGS and gt sampling (the loader's wait), each first
+     forward or step recorded and held, the converter on an OpenPCDet-named
+     reference checkpoint of the seeded detector (NUSC_PLACEMENTS), and
+     `demo --ckpt` of the converted checkpoint on two .npy scans;
+ 60. its profiles, after every timed path: `infer --profile` at b4 x 300000
+     in phase 39's fresh process, then a training step traced in this one.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -515,7 +541,10 @@ phase 47 (null but for K1 and K2), `voxelrcnn`, `voxelrcnn_train`,
 and `_data_train` objects those of phase 51 (null but for K2, K3 and K7;
 SECONDNetIoU's K2 null too), `pvrcnnplusplus` and `pvrcnnplusplus_train`
 those of phase 54 and its `_data` and `_data_train` objects those of phase
-55 (null for K1, K4, K5). K6 is on no KITTI path of
+55 (null for K1, K4, K5), `centerpoint_nusc` and `centerpoint_nusc_train`
+those of phase 58 and `centerpoint_nusc_data` and
+`centerpoint_nusc_data_train` those of phase 59's evaluate and train (null
+but for K3 and K7). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -641,6 +670,31 @@ PVRCNN_PP = {"pvrcnnplusplus": ("pv_rcnn_plusplus.yaml", 4, 2,
 SECTORS = 6                    # pv_rcnn_plusplus.yaml's SPC_SAMPLING.NUM_SECTORS
 SECTOR_THIN_POINTS = 100       # phase 54's under-filled rows keep this many points
 VECTOR_POOL_BN_SCALES = 15     # 3 sources x (2 groups x 2 BNs + the aggregation's 1)
+# phases 57-60: nuScenes' CenterPoint (cbgs_voxel01_res3d_centerpoint.yaml): its
+# file under tools/cfgs; phase 58's points a synthetic scan (about a 10-sweep
+# scan after the range crop), the config's BATCH_SIZE_PER_GPU (its eval batch
+# too), counted batches and steps; VoxelResBackBone8x's K3 / K7 calls a pass
+# are centerpoint.yaml's (CENTERPOINT_CALLS)
+NUSC_CFG = "nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml"
+NUSC_POINTS, NUSC_BATCH, NUSC_ITERS, NUSC_TRAIN_ITERS = 300000, 4, 3, 2
+# phase 59's synthetic root: train and val scenes, keyframes a scene (each
+# after nine sweeps), points a sweep (nuScenes' 32-beam lidar); the demo's
+# .npy scans (each a val keyframe's 10-sweep cloud)
+NUSC_TRAIN_SCENES, NUSC_VAL_SCENES, NUSC_KEYFRAMES, NUSC_SWEEP_POINTS = 1, 1, 4, 34720
+NUSC_DEMO_SCANS = 2
+# what its converter makes of the OpenPCDet-named reference checkpoint of the
+# seeded full-width detector: (unplaced, placed on their own leaf, placed on
+# another leaf); the groups' branches share their shapes (ROADMAP §C)
+NUSC_PLACEMENTS = (38, 182, 248)
+# OpenPCDet's names of CenterHead's shared conv and SeparateHead where the
+# port's (the flax ones) differ
+CENTER_HEAD_OPENPCDET_NAMES = (
+    (r"^dense_head\.shared_conv\.", "dense_head.shared_conv.0."),
+    (r"^dense_head\.shared_bn\.", "dense_head.shared_conv.1."),
+    (r"^dense_head\.head_(\d+)\.(\w+?)_conv(\d+)\.", r"dense_head.heads_list.\1.\2.\3.0."),
+    (r"^dense_head\.head_(\d+)\.(\w+?)_bn(\d+)\.", r"dense_head.heads_list.\1.\2.\3.1."),
+    (r"^dense_head\.head_(\d+)\.(\w+?)_out\.", r"dense_head.heads_list.\1.\2.1."),
+)
 # the RCNN terms of each two-stage detector's tb_dict (a training step's must
 # hold them all) and the term its counted steps print
 RCNN_TERMS = {"parta2": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss"),
@@ -3337,6 +3391,12 @@ def zoo_data_phases(dev, root):
     return reports
 
 
+def cfg_path(name):
+    """A config file under tools/cfgs: `name` with its folder, or a KITTI
+    config's file name."""
+    return ROOT / "tools/cfgs" / (name if "/" in name else f"kitti_models/{name}")
+
+
 def infer_profiles(jobs):
     """`infer --profile` of each (config file name, batch, points) of `jobs`
     in turn, in one fresh process, its output echoed; returns {config file
@@ -3344,8 +3404,8 @@ def infer_profiles(jobs):
     with cuDNN's autotuner and the allocator empty: in this one, after the
     other phases, the autotuner once ended on an FFT conv for
     pointpillar.yaml, which fresh processes never picked."""
-    argvs = [["--cfg_file", str(ROOT / f"tools/cfgs/kitti_models/{name}"), "--batch",
-              str(batch), "--points", str(points), "--iters", "0", "--profile"]
+    argvs = [["--cfg_file", str(cfg_path(name)), "--batch", str(batch), "--points",
+              str(points), "--iters", "0", "--profile"]
              for name, batch, points in jobs]
     code = ("import json, time; from tsm_det_pointcloud_tpu_torch import infer\n"
             f"for argv in {argvs!r}:\n"
@@ -3369,13 +3429,14 @@ def infer_profiles(jobs):
     return {name: r for (name, _, _), r in zip(jobs, results)}
 
 
-# the profiles of phases 39, 44, 48, 52 and 56: config file, batch, points a scan
+# the profiles of phases 39, 44, 48, 52, 56 and 60: config file, batch, points a scan
 PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
             ("centerpoint.yaml", ZOO_TRAIN_BATCH, ZOO_POINTS),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()),
             *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()),
-            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in PVRCNN_PP.values()))
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in PVRCNN_PP.values()),
+            (NUSC_CFG, NUSC_BATCH, NUSC_POINTS))
 
 
 def zoo_profiles(profiles):
@@ -4063,6 +4124,375 @@ def pointrcnn_converter_phase(dev, root, which="pointrcnn", unplaced=()):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 57-60: nuScenes' CenterPoint (cbgs_voxel01_res3d_centerpoint.yaml)
+# ---------------------------------------------------------------------------
+
+def openpcdet_center_head_name(name):
+    """A port state-dict name (a reference_state_dict name) under
+    OpenPCDet's CenterHead names."""
+    import re
+
+    for pat, rep in CENTER_HEAD_OPENPCDET_NAMES:
+        if re.match(pat, name):
+            return re.sub(pat, rep, name)
+    return name
+
+
+def nusc_golden_phase(dev):
+    """Phase 57: the tiny nuScenes CenterPoint (tiny.centerpoint_nusc_state)
+    reproduces data/centerpoint_nusc_tiny_forward.npz on the card through 8
+    K3 and 21 K7 calls: 9-column decoded boxes, labels and counts exact."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import detect
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    meta = tiny.CENTERPOINT_NUSC_META
+    model = build_network(tiny.centerpoint_nusc_model_cfg(), len(meta.class_names), meta,
+                          device=dev)
+    model.load_state_dict(tiny.centerpoint_nusc_state(), strict=True)
+    pts = torch.from_numpy(tiny.nusc_points(2)).to(dev)
+    _kernels.reset_launches()
+    out, pred = detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+    got = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    check(got == CENTERPOINT_CALLS, f"tiny nuScenes CenterPoint launches {got}")
+    check(tuple(out["final_boxes"].shape) == (2, 64, 9),
+          f"tiny nuScenes CenterPoint final boxes {tuple(out['final_boxes'].shape)}")
+    hold_golden("nuScenes reference: tiny centerpoint_nusc", out, pred,
+                tiny.CENTERPOINT_NUSC_FORWARD_PATH)
+    del model, out, pred
+
+
+def velocity_line(model, out):
+    """The decoded boxes over SCORE_THRESH a scan and their speeds; fails on
+    a non-finite velocity."""
+    from tsm_det_pointcloud_tpu_torch.infer import velocities_over
+
+    rows = velocities_over(model, out)
+    check(rows is not None and all(finite for *_, finite in rows),
+          f"nuScenes: decoded velocities {rows}")
+    return ("decoded boxes over SCORE_THRESH a scan " + str([n for n, *_ in rows])
+            + ", their velocities finite, speed mean / max a scan "
+            + str([(round(m, 3), round(t, 3)) for _, m, t, _ in rows]) + " m/s")
+
+
+def nusc_phases(dev):
+    """Phase 58: cbgs_voxel01_res3d_centerpoint.yaml at full width on
+    synthetic nuScenes-range scans of NUSC_POINTS points (x, y, z,
+    intensity, time lag): an eval batch and a training step at b4 recorded,
+    each K3 and K7 call held against its plain version and timed, then 3
+    counted batches and 2 counted steps. Returns the per-kernel reports and
+    launch counts of both."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    cfg_file = cfg_path(NUSC_CFG)
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=NUSC_POINTS)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+    groups = len(cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD)
+    k_max = groups * int(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, NUSC_BATCH, NUSC_POINTS, seed=s)).to(dev)
+               for s in range(NUSC_ITERS)]
+    mask = torch.ones((NUSC_BATCH, NUSC_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(SECOND_KERNELS)
+    out, _ = detect(model, batches[0], mask)
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[name]) == n, f"the nuScenes capture forward made "
+              f"{len(rec.calls[name])} {name} calls, not {n}")
+    voxels, over = voxel_anchor_counts(model, out)
+    print(f"centerpoint_nusc capture: grid {meta.grid_size}, {NUSC_POINTS} points a scan of "
+          f"{meta.num_point_features} features, voxel capacity {meta.max_voxels}; voxels a scan "
+          f"{voxels}; {velocity_line(model, out)} of {k_max}")
+    del out
+    report_eval = compare_recorded(rec.calls, "centerpoint_nusc")
+    del rec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(model, pts, mask) for pts in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_eval = dict(_kernels.LAUNCHES)
+    for out, pred in preds:
+        for key in ("final_boxes", "final_scores"):
+            check(bool(torch.isfinite(out[key]).all()), f"centerpoint_nusc: non-finite {key}")
+        check(tuple(out["final_boxes"].shape) == (NUSC_BATCH, k_max, 9),
+              f"centerpoint_nusc final boxes shape {tuple(out['final_boxes'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"centerpoint_nusc: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()),
+              "centerpoint_nusc: count > NMS_POST_MAXSIZE")
+    for name, n in CENTERPOINT_CALLS.items():
+        check(launches_eval[name] == n * NUSC_ITERS,
+              f"kernel {name} launched {launches_eval[name]} times on the nuScenes path, "
+              f"not {n} a forward")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    print(f"centerpoint_nusc eval: {NUSC_ITERS} batches x {NUSC_BATCH} scans x {NUSC_POINTS} "
+          f"points in {dt:.3f} s = {NUSC_ITERS * NUSC_BATCH / dt:.3f} scans/s; detections a "
+          f"scan (last batch) {counts}; launches {launches_eval}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, preds, batches, out, pred
+    torch.cuda.empty_cache()
+
+    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=NUSC_POINTS,
+                                  total_steps=NUSC_TRAIN_ITERS + 1)
+    meta = model.dataset_meta
+    tbatches = [synth_train_batch(NUSC_BATCH, NUSC_POINTS, s, dev, meta.point_cloud_range,
+                                  meta.num_point_features, velocity=True,
+                                  n_classes=len(meta.class_names))
+                for s in range(NUSC_TRAIN_ITERS + 1)]
+    rec = record_kernels(SECOND_KERNELS)
+    opt.zero_grad(set_to_none=True)
+    out = model(dict(tbatches[0]))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    rec.restore()
+    for name, n in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[name]) == n, f"the nuScenes training step made "
+              f"{len(rec.calls[name])} {name} calls, not {n}")
+    for n, p in model.named_parameters():
+        check(p.grad is not None, f"centerpoint_nusc parameter {n} got no gradient")
+        if p.dim() == 3 or ".vel_" in n:
+            check(bool(p.grad.abs().sum() > 0), f"centerpoint_nusc {n} got a zero gradient")
+    opt.step()
+    check(bool(torch.isfinite(out["loss"])), "centerpoint_nusc warm-up step loss is not finite")
+    print(f"centerpoint_nusc training capture: voxel capacity {meta.max_voxels}, gt boxes "
+          f"{tuple(tbatches[0]['gt_boxes'].shape)} (with velocities); loss "
+          f"{float(out['loss'].detach()):.4f}, "
+          + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in out["tb_dict"].items()))
+    del out
+    report_train = compare_recorded(rec.calls, "centerpoint_nusc train")
+    del rec
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = [train_step(model, opt, b) for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_train = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, tb) in enumerate(steps):
+        check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v)) for v in tb.values()),
+              f"centerpoint_nusc training step {i}: loss {float(loss)}, {tb}")
+    for n, p in model.named_parameters():
+        check(not torch.equal(p, before[n]), f"centerpoint_nusc parameter {n} did not change")
+    for name, n in CENTERPOINT_CALLS.items():
+        check(launches_train[name] == n * NUSC_TRAIN_ITERS,
+              f"kernel {name} launched {launches_train[name]} times on the nuScenes "
+              f"training path, not {n} a step")
+    print(f"centerpoint_nusc training: {NUSC_TRAIN_ITERS} steps x {NUSC_BATCH} scans x "
+          f"{NUSC_POINTS} points in {dt:.3f} s = {NUSC_TRAIN_ITERS * NUSC_BATCH / dt:.3f} "
+          f"train scans/s ({1e3 * dt / NUSC_TRAIN_ITERS:.1f} ms/step); losses "
+          + str([(round(float(loss), 4), round(float(tb["hm_loss_0"]), 4),
+                  round(float(tb["reg_loss_0"]), 4)) for loss, tb in steps])
+          + f" (loss, hm_loss_0, reg_loss_0); {len(before)} parameters changed; launches "
+          f"{launches_train}; peak memory {peak:.2f} GiB")
+    del model, opt, tbatches, before, steps
+    torch.cuda.empty_cache()
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def echo_nusc_dets(dataset, classes):
+    """Prediction dicts of each info's own gt boxes of lidar points (score 1,
+    7 columns)."""
+    dets = []
+    for info in dataset.infos:
+        keep = np.array([n in classes for n in info["gt_names"]], bool) & (
+            np.asarray(info["num_lidar_pts"]) > 0)
+        labels = np.array([classes.index(n) + 1 for n in np.asarray(info["gt_names"])[keep]])
+        dets += dataset.generate_prediction_dicts(
+            {"metadata": [None]},
+            [{"pred_boxes": np.asarray(info["gt_boxes"])[keep][:, :7],
+              "pred_scores": np.ones(int(keep.sum()), np.float32), "pred_labels": labels}],
+            classes)
+    return dets
+
+
+def nusc_data_phases(dev, base):
+    """Phase 59: the nuScenes data path on a synthetic root at nuScenes'
+    sweep size (NUSC_TRAIN_SCENES + NUSC_VAL_SCENES scenes of NUSC_KEYFRAMES
+    keyframes, each after nine sweeps of NUSC_SWEEP_POINTS points): the
+    writer, `create_nuscenes_infos` (10-sweep infos, the train gt database),
+    echoed val gt through the dataset's NDS (0.8, mAP 1), `evaluate`
+    (seeded weights: a finite NDS dict), `train --data_root` for an epoch
+    (CBGS, gt sampling, the world augmentors; the loader's wait), each
+    first forward or step recorded and its K3 / K7 calls held; the converter
+    on an OpenPCDet-named reference checkpoint of the seeded full-width
+    detector (NUSC_PLACEMENTS) and `demo --ckpt` of the converted checkpoint
+    on .npy scans (val keyframes' 10-sweep clouds). Returns the per-kernel
+    reports and launch counts of evaluate and train."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import convert_torch_ckpt, demo, evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets.nuscenes.nuscenes_dataset import (
+        NuScenesDataset, create_nuscenes_infos)
+    from tsm_det_pointcloud_tpu_torch.datasets.nuscenes.synthetic import (
+        write_synthetic_nuscenes)
+    from tsm_det_pointcloud_tpu_torch.infer import build_detector, load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    cfg_file = cfg_path(NUSC_CFG)
+    cfg = load_cfg(cfg_file)
+    classes = list(cfg.CLASS_NAMES)
+    root = base / "root"
+    t0 = time.perf_counter()
+    write_synthetic_nuscenes(root, NUSC_TRAIN_SCENES, NUSC_VAL_SCENES, NUSC_KEYFRAMES,
+                             NUSC_SWEEP_POINTS, seed=0)
+    t1 = time.perf_counter()
+    create_nuscenes_infos(cfg.DATA_CONFIG, classes, root)
+    t2 = time.perf_counter()
+    test_set = NuScenesDataset(cfg.DATA_CONFIG, classes, training=False, root_path=root)
+    train_set = NuScenesDataset(cfg.DATA_CONFIG, classes, training=True, root_path=root)
+    points = [len(test_set.get_lidar_with_sweeps(i, cfg.DATA_CONFIG.MAX_SWEEPS))
+              for i in range(len(test_set))]
+    cropped = [len(test_set[i]["points"]) for i in range(len(test_set))]
+    check(max(cropped) <= test_set.max_points, f"nuScenes scans cut by the collate: {cropped}")
+    _, echo = test_set.evaluation(echo_nusc_dets(test_set, classes), classes)
+    check(abs(echo["NDS"] - 0.8) < 1e-9 and echo["mAP"] > 1 - 1e-9,
+          f"nuScenes echoed gt: NDS {echo['NDS']}, mAP {echo['mAP']}")
+    print(f"nuScenes data: wrote {NUSC_TRAIN_SCENES} + {NUSC_VAL_SCENES} scenes of "
+          f"{NUSC_KEYFRAMES} keyframes x 10 sweeps of {NUSC_SWEEP_POINTS} points in "
+          f"{t1 - t0:.1f} s, infos and gt database in {t2 - t1:.1f} s; train infos "
+          f"{len(train_set.infos)} after CBGS; points a val scan of 10 sweeps {points}, "
+          f"{cropped} after the range crop (MAX_POINTS {test_set.max_points}); echoed val gt: "
+          f"NDS {echo['NDS']:.4f}, mAP {echo['mAP']:.4f}, mAVE {echo['mAVE']:.4f}")
+
+    common = ["--cfg_file", str(cfg_file), "--data_root", str(root), "--workers",
+              str(KITTI_WORKERS), "--device", str(dev)]
+    out_dir = base / "run"
+    res, launches_eval, peak, rec, first_out = run_recorded(
+        "centerpoint_nusc data eval", evaluate,
+        common + ["--batch_size", str(NUSC_BATCH), "--output_dir", str(out_dir)],
+        detectors["CenterPoint"], "forward", SECOND_KERNELS)
+    voxels = first_out["voxel_mask"].sum(1).tolist()
+    del first_out
+    summary = {k: res[k] for k in ("NDS", "mAP", "mATE", "mASE", "mAOE", "mAVE", "mAAE")}
+    check(all(np.isfinite(v) for v in summary.values()), f"nuScenes evaluate: {summary}")
+    for kname, k in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[kname]) == k, f"nuScenes data eval: {len(rec.calls[kname])} "
+              f"{kname} calls a forward")
+    print(f"centerpoint_nusc data eval (evaluate, seeded weights): {len(test_set)} scans at "
+          f"b{NUSC_BATCH}: voxels a scan of the first batch {voxels}; "
+          + "; ".join(f"{k} {v:.4f}" for k, v in summary.items())
+          + f"; {eval_line(res)}; launches {launches_eval}; peak memory {peak:.2f} GiB")
+    report_eval = compare_recorded(rec.calls, "centerpoint_nusc data eval")
+    del rec
+    (ckpt_dir, epochs), launches_train, _, rec, _ = run_recorded(
+        "centerpoint_nusc data train", train,
+        common + ["--epochs", "1", "--batch", str(NUSC_BATCH), "--output_dir", str(out_dir)],
+        train_loop, "train_step", SECOND_KERNELS)
+    print(f"centerpoint_nusc data train (train --data_root, CBGS and gt sampling): "
+          f"{epochs_line(epochs)}; launches {launches_train}")
+    report_train = compare_recorded(rec.calls, "centerpoint_nusc data train")
+    del rec
+    check((ckpt_dir / "checkpoint_epoch_1.pth").exists(), "nuScenes train wrote no checkpoint")
+
+    # the converter on an OpenPCDet-named reference checkpoint of the seeded
+    # full-width detector (seeded eval state: after an epoch of 10 steps the
+    # trained checkpoint's BN statistics are far from its batches', and its
+    # decoded sizes, exp of the dim map, overflow), then demo --ckpt of the
+    # converted checkpoint on val keyframes' 10-sweep clouds
+    cfg, src_model = build_detector(cfg_file, dev, seed=3, n_points=NUSC_POINTS)
+    src = {k: v.detach().cpu() for k, v in src_model.state_dict().items()}
+    del src_model
+    ref, source = convert_torch_ckpt.reference_state_dict(src, cfg.MODEL)
+    ref.pop("backbone_3d.conv_out.weight")   # (3, 1, 1): neither converter reads it
+    ref = {openpcdet_center_head_name(k): v for k, v in ref.items()}
+    source = {openpcdet_center_head_name(k): v for k, v in source.items()}
+    torch.save({"model_state": ref, "epoch": 20, "it": 123}, base / "reference.pth")
+    report = convert_torch_ckpt.main(["--ckpt", str(base / "reference.pth"), "--cfg_file",
+                                      str(cfg_file), "--out", str(base / "converted.pth")])
+    conv = torch.load(base / "converted.pth", weights_only=True)["model_state"]
+    home = misplaced = 0
+    for name, key in source.items():
+        coll, path = convert_torch_ckpt.map_name(name)
+        if name not in ref or coll is None or path in report["unplaced"]:
+            continue
+        if report["placements"][coll][path] == key:
+            home += 1
+        else:
+            misplaced += 1
+    got = (len(report["unplaced"]), home, misplaced)
+    check(got == NUSC_PLACEMENTS, f"nuScenes converter: (unplaced, home, misplaced) {got}")
+    equal = sum(torch.equal(conv[key], src[key]) for key in source.values())
+    print(f"centerpoint_nusc reference checkpoint under OpenPCDet's CenterHead names "
+          f"(dense_head.heads_list.<g>.<branch>, six groups with vel): {len(ref)} tensors; "
+          f"unplaced {got[0]}, placed on their own leaf {got[1]}, on another leaf {got[2]} "
+          f"(the groups' branches share their shapes); {equal} of {len(source)} entries "
+          f"bit-equal to their source after it")
+    del conv, src, ref
+
+    scans = base / "demo"
+    scans.mkdir()
+    for i in range(NUSC_DEMO_SCANS):
+        np.save(scans / f"{i:06d}.npy", test_set.get_lidar_with_sweeps(i, 10))
+    (preds, rate), launches, peak, _, _ = run_recorded(
+        "centerpoint_nusc demo", demo, ["--cfg_file", str(cfg_file), "--data_path", str(scans),
+                                        "--ext", ".npy", "--ckpt", str(base / "converted.pth"),
+                                        "--device", str(dev)],
+        detectors["CenterPoint"], "forward", SECOND_KERNELS)
+    post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    check(len(preds) == NUSC_DEMO_SCANS, f"nuScenes demo: {len(preds)} scans")
+    for p in preds:
+        check(len(p["pred_labels"]) <= post_max and np.isfinite(p["pred_boxes"]).all()
+              and np.isfinite(p["pred_scores"]).all(), "nuScenes demo: bad detections")
+    print(f"centerpoint_nusc demo --ckpt converted.pth: {NUSC_DEMO_SCANS} .npy scans of 5 "
+          f"columns (the converted model loads strictly): detections a scan "
+          f"{[len(p['pred_labels']) for p in preds]}, finite; {rate:.3f} scans/s (a scan a "
+          f"batch, loading included); launches {launches}; peak memory {peak:.2f} GiB")
+    torch.cuda.empty_cache()
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def nusc_profiles(dev, profiles):
+    """Phase 60, after every timed path: `infer --profile` of the nuScenes
+    config at b4 x NUSC_POINTS (from `infer_profiles`; no cuDNN FFT kernel
+    may run), then one training step at b4 traced in this process (a
+    warm-up step first), as `train --profile` traces it."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import profile_call
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    (wall, busy, names), (pwall, pbusy, _) = profiles[NUSC_CFG]
+    fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
+    check(not fft, f"centerpoint_nusc: cuDNN ran FFT convolutions: {fft}")
+    print(f"centerpoint_nusc eval profile: busy {busy:.3f} of {wall:.3f} ms "
+          f"({100 * busy / wall:.1f}%), post-processing alone {pbusy:.3f} ms device time of "
+          f"{pwall:.3f} ms; {len(names)} kernels, none an FFT")
+    _, model, opt = build_trainer(cfg_path(NUSC_CFG), dev, seed=0, n_points=NUSC_POINTS,
+                                  total_steps=2)
+    meta = model.dataset_meta
+    batches = [synth_train_batch(NUSC_BATCH, NUSC_POINTS, s, dev, meta.point_cloud_range,
+                                 meta.num_point_features, velocity=True,
+                                 n_classes=len(meta.class_names)) for s in range(2)]
+    train_step(model, opt, batches[0])
+    wall, busy, _ = profile_call(lambda: train_step(model, opt, batches[1]))
+    print(f"centerpoint_nusc training profile: busy {busy:.3f} of {wall:.3f} ms "
+          f"({100 * busy / wall:.1f}%)")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -4440,6 +4870,15 @@ def main():
     for which in PVRCNN_PP:
         pointrcnn_converter_phase(dev, kitti_root, which, VOXEL_ROI_UNPLACED)
     mark("53-55")
+    nusc_golden_phase(dev)
+    nusc = {}
+    rep_e, lau_e, rep_t, lau_t = nusc_phases(dev)
+    nusc["centerpoint_nusc"] = (rep_e, lau_e)
+    nusc["centerpoint_nusc_train"] = (rep_t, lau_t)
+    rep_e, lau_e, rep_t, lau_t = nusc_data_phases(dev, kitti_root.parent / "nuscenes")
+    nusc["centerpoint_nusc_data"] = (rep_e, lau_e)
+    nusc["centerpoint_nusc_data_train"] = (rep_t, lau_t)
+    mark("57-59")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -4450,18 +4889,21 @@ def main():
                        "second data train": report_sdtrain, "demo": report_demo,
                        "centerpoint": report_cp, "centerpoint train": report_cptrain,
                        **{k: rep for k, (rep, _) in zoo_data.items()},
-                       **{k: rep for k, (rep, _) in two_stage.items()}})
+                       **{k: rep for k, (rep, _) in two_stage.items()},
+                       **{k: rep for k, (rep, _) in nusc.items()}})
     mark("the deferred device times")
     profile_kdata()
     profile_wdata()
     profiles = infer_profiles(PROFILES)
-    mark("the data paths' and the configs' profiles (39, 44, 48, 52, 56)")
+    mark("the data paths' and the configs' profiles (39, 44, 48, 52, 56, 60)")
     zoo_profiles(profiles)
     two_stage_profiles(dev, profiles)
     two_stage_profiles(dev, profiles, POINTRCNN)
     two_stage_profiles(dev, profiles, VOXEL_ROI)
     two_stage_profiles(dev, profiles, PVRCNN_PP)
     mark("the proposal NMS's device times (44, 48, 52, 56)")
+    nusc_profiles(dev, profiles)
+    mark("the nuScenes profiles (60)")
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()
@@ -4514,7 +4956,8 @@ def main():
                                   ("centerpoint", report_cp, launches_cp),
                                   ("centerpoint_train", report_cptrain, launches_cptrain),
                                   *((k, rep, lau) for k, (rep, lau) in zoo_data.items()),
-                                  *((k, rep, lau) for k, (rep, lau) in two_stage.items()))}
+                                  *((k, rep, lau) for k, (rep, lau) in two_stage.items()),
+                                  *((k, rep, lau) for k, (rep, lau) in nusc.items()))}
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:

@@ -19,6 +19,7 @@ from tsm_det_pointcloud_tpu.ops import spconv_pallas
 from tsm_det_pointcloud_tpu_torch import tiny
 from tsm_det_pointcloud_tpu_torch.models import build_network
 from tsm_det_pointcloud_tpu_torch.ops import spconv as tsp
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRID, OUT_GRID, CAP = (8, 20, 20), (4, 10, 10), 200
 

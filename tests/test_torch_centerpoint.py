@@ -8,8 +8,9 @@ eval maps and decoded boxes, its training loss), each fed the JAX module's
 own input. Whole: the tiny CenterPoint's (tiny.py) eval outputs and
 post-processed predictions with circle NMS and with nms_gpu, one training
 step's loss, tb terms, every gradient and the BN statistics after it, the
-committed goldens, and centerpoint.yaml's full-width flax tree loaded
-strictly.
+committed goldens, the head with nuScenes' velocity branch on a seeded
+state (tests/test_torch_centerpoint_nusc.py holds the whole nuScenes
+CenterPoint), and centerpoint.yaml's full-width flax tree loaded strictly.
 
 Tolerances: outputs at the golden one (atol 1e-3 * max(1, max|want|),
 rtol 1e-3; sums run in another order on the two sides), labels, counts and
@@ -35,6 +36,7 @@ import torch
 
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu.models.dense_heads.center_head import (
+    CenterHead as JCenterHead,
     SeparateHead as JSeparateHead,
 )
 from tsm_det_pointcloud_tpu.models.detectors.detector3d_template import (
@@ -441,11 +443,31 @@ def test_train_batch_stats(train_case):
 
 
 def test_velocity_head_raises():
-    """No KITTI config has CenterHead's velocity head; it is not ported."""
+    """CenterHead with nuScenes' velocity head on the tiny CenterPoint's BEV
+    map builds and decodes as the JAX head does: on the same seeded state,
+    9-column boxes (the velocity read off the vel map), labels exact, boxes
+    and scores at the golden tolerance."""
     cfg = tiny.centerpoint_model_cfg()
     cfg.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_DICT["vel"] = {"out_channels": 2, "num_conv": 2}
-    with pytest.raises(NotImplementedError, match="velocity"):
-        build_network(cfg, 3, tiny.CENTERPOINT_META, device="cpu")
+    cfg.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_ORDER = ["center", "center_z", "dim", "rot", "vel"]
+    head = build_network(cfg, 3, tiny.CENTERPOINT_META, device="cpu").module_list[4].eval()
+    state = {k: _t(v.astype(np.float32)) for k, v in tiny.redraw_state(head.state_dict(), 7).items()}
+    head.load_state_dict(state, strict=True)
+    meta = tiny.CENTERPOINT_META
+    jhead = JCenterHead(model_cfg=cfg.DENSE_HEAD, input_channels=64, num_class=3,
+                        class_names=meta.class_names, grid_size=meta.grid_size,
+                        point_cloud_range=meta.point_cloud_range, voxel_size=meta.voxel_size)
+    x = np.random.RandomState(8).randn(2, 8, 8, 64).astype(np.float32)
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda v, f: jhead.apply(v, {"spatial_features_2d": f}, training=False))(
+        to_flax_variables(state), x))
+    with torch.no_grad():
+        got = head({"spatial_features_2d": _t(x)})
+    assert got["final_boxes"].shape == want["final_boxes"].shape == (2, 64, 9)
+    np.testing.assert_array_equal(got["final_labels"].numpy(), want["final_labels"])
+    for k in ("final_boxes", "final_scores"):
+        _golden_close(got[k], want[k], k)
+    assert np.abs(want["final_boxes"][..., 7:]).min() > 0
 
 
 def test_full_width_flax_tree_loads_strictly():

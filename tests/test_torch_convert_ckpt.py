@@ -31,6 +31,7 @@ import torch
 import __graft_entry__ as ge
 from tests.test_second_e2e import synthetic_batch
 from tests.test_torch_teacher import _JMODEL as _JTEACHER, _jax_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu.models.detectors.detector3d_template import (
     DatasetMeta as JDatasetMeta,
@@ -648,3 +649,66 @@ def test_openpcdet_pointrcnn_names_place_like_jax():
     placed = sum(torch.equal(got[key], src[key]) for n, key in source.items() if n in ref)
     print(f"pointrcnn: {len(ref)} tensors, {len(renamed)} renamed, "
           f"{len(report['unplaced'])} unplaced, {placed} on the leaf they came from")
+
+
+def test_openpcdet_nuscenes_centerpoint_names_place_like_jax():
+    """A synthetic reference checkpoint of the full-width
+    cbgs_voxel01_res3d_centerpoint.yaml detector (six CenterHead groups,
+    each with a vel branch) under OpenPCDet's names
+    (`dense_head.heads_list.<g>.<branch>.*`): both converters place it
+    alike, bit for bit, with the same unmatched and unplaced lists. The
+    groups' branches share their shapes (every hidden conv is (3, 3, 64,
+    64), the center / rot / vel outputs (3, 3, 64, 2)), so each such tensor,
+    whose path shares nothing with its leaf's but the leaf name, goes to the
+    first leaf of its shape in flax order, whatever its group: each hidden
+    conv on head_0's center_conv0, each output on head_0's first output of
+    its width (every vel and 2-class hm output on center_out, every 1-class
+    hm on center_z_out), the BN biases and statistics on the sparse stem's
+    conv3_down BN (the first 64-wide BN in flax order); each BN scale,
+    a 1-D kernel, is unplaced. 248 of the 257 placed dense-head tensors
+    land away from home (ROADMAP §C)."""
+    cfg = load_cfg(ROOT / "tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml")
+    meta = dataset_meta(cfg, 4096, "train")
+    jmodel = jbuild(cfg.MODEL, num_class=10, dataset=JDatasetMeta(**dataclasses.asdict(meta)))
+    batch = {"points": np.zeros((1, 4096, 5), np.float32),
+             "points_mask": np.ones((1, 4096), bool), "batch_size": 1}
+    shapes = jax.eval_shape(lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=False),
+                            batch)
+    rng = np.random.RandomState(11)
+    init = _fill(shapes, rng)
+    src = from_flax_variables(_fill(shapes, rng))
+    ref, source = port.reference_state_dict(src, cfg.MODEL)
+    ref = {_openpcdet_name(k): v for k, v in ref.items() if k != "backbone_3d.conv_out.weight"}
+    source = {_openpcdet_name(k): v for k, v in source.items()}
+    vel = [k for k in ref if re.match(r"dense_head\.heads_list\.\d\.vel\.", k)]
+    assert len(vel) == 6 * 9 and "dense_head.heads_list.5.vel.1.weight" in ref
+    want, want_unmatched, want_unplaced = _jax_side(init, ref)
+    got, report = port.convert_checkpoint(ref, from_flax_variables(init))
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert report["unmatched"] == want_unmatched and report["unplaced"] == want_unplaced
+    misplaced, home = {}, 0
+    for ref_name, key in source.items():
+        coll, path = port.map_name(ref_name)
+        if ref_name not in ref or coll is None or path in report["unplaced"]:
+            continue
+        if report["placements"][coll][path] != key:
+            misplaced[ref_name] = report["placements"][coll][path]
+        else:
+            home += 1
+    head = [n for n in ref if n.startswith("dense_head.") and port.map_name(n)[0] is not None
+            and port.map_name(n)[1] not in report["unplaced"]]
+    print(f"nuScenes CenterPoint: {len(ref)} tensors, {len(report['unplaced'])} unplaced, "
+          f"{home} home, {len(misplaced)} misplaced ({len(head)} placed dense-head tensors)")
+    assert all(n.startswith("dense_head.") for n in misplaced)
+    assert all(misplaced[n] == "module_list.4.head_0.center_out.weight"
+               for n in vel if re.search(r"\.vel\.1\.weight$", n))
+    assert misplaced["dense_head.heads_list.3.hm.0.0.weight"] == (
+        "module_list.4.head_0.center_conv0.weight")
+    assert misplaced["dense_head.shared_conv.1.running_mean"] == (
+        "module_list.1.conv3_down.bn.running_mean")
+    assert (len(report["unplaced"]), home, len(misplaced), len(head)) == NUSC_PLACEMENTS
+
+
+# (unplaced, placed home, misplaced, placed dense-head tensors) of the full-width
+# nuScenes CenterPoint's OpenPCDet-named checkpoint (ROADMAP §C)
+NUSC_PLACEMENTS = (38, 182, 248, 257)

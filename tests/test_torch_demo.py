@@ -27,7 +27,13 @@ out of range, so that the range mask and sample_points' draw both work):
     and the entry point alone on the tiny Voxel R-CNN and SECONDNetIoU with
     voxel_rcnn_car.yaml's and second_iou.yaml's data sections (their
     detections are held against the JAX package through the eval loop,
-    tests/test_torch_eval_loop_voxel_roi.py).
+    tests/test_torch_eval_loop_voxel_roi.py);
+  * the tiny nuScenes CenterPoint (tiny.centerpoint_nusc_state()) on
+    cbgs_voxel01_res3d_centerpoint.yaml's data section on its geometry
+    (torch_nuscenes_cases.tiny_dataset_cfg) over `.npy` scans of 5 columns:
+    its detections and the entry point; `.bin` scans of the same points are
+    read as 4 columns on both sides (the JAX tool's reading, which this
+    config cannot take: ROADMAP §C), and the port logs a warning.
 """
 import importlib.util
 
@@ -36,9 +42,11 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_nuscenes_cases as nusc
 from tests.test_torch_kitti_data import assert_same
 from tests.torch_kitti_cases import (CLASSES, tiny_dataset_cfg, tiny_pointpillar_dataset_cfg,
                                      tiny_two_stage_dataset_cfg, write_tiny_yaml)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu_torch import demo, tiny
 from tsm_det_pointcloud_tpu_torch.convert import to_flax_variables
@@ -231,3 +239,67 @@ def test_parta2_entry_point_on_cpu(scans, tmp_path, capsys, which):
     assert err.count(" detections") == N_SCANS and "Demo done" in err
     assert sum(len(p["pred_labels"]) for p in preds) == err.count("  label=") > 0
     assert rate > 0
+
+
+@pytest.fixture(scope="module")
+def nusc_scans(tmp_path_factory):
+    """Two nuScenes-like scans of 600 points (x, y, z, intensity, time lag)
+    over the +-51.2 m range and past it, each with a car-like cluster, as
+    .npy (5 columns) and as .bin of their first 4 columns."""
+    base = tmp_path_factory.mktemp("demo_nusc")
+    rng = np.random.RandomState(1)
+    for ext in ("npy", "bin"):
+        (base / ext).mkdir()
+    for i in range(2):
+        pts = np.zeros((600, 5), np.float32)
+        pts[:, 0:2] = rng.uniform(-54, 54, (600, 2))
+        pts[:, 2] = rng.uniform(-1.8, 1.0, 600)
+        pts[:, 3] = rng.uniform(0, 100, 600)
+        pts[:, 4] = rng.randint(0, 10, 600) * 0.05
+        pts[:150, 0] = rng.uniform(4 + i, 8.6 + i, 150)
+        pts[:150, 1] = rng.uniform(2, 4, 150)
+        pts[:150, 2] = rng.uniform(-1.8, -0.2, 150)
+        np.save(base / "npy" / f"{i:06d}.npy", pts)
+        pts[:, :4].copy().tofile(base / "bin" / f"{i:06d}.bin")
+    return base
+
+
+def test_nuscenes_npy_detections_equal_jax(nusc_scans):
+    cfg = nusc.tiny_dataset_cfg(nusc_scans)
+    jds = jdemo.DemoDataset(cfg, nusc.CLASSES, nusc_scans / "npy", ext=".npy")
+    pds = demo.DemoDataset(cfg, nusc.CLASSES, nusc_scans / "npy", ext=".npy")
+    state = tiny.centerpoint_nusc_state()
+    want = _jax_detections(jds, to_flax_variables(state), tiny.centerpoint_nusc_model_cfg())
+    model = build_network(tiny.centerpoint_nusc_model_cfg(), 3, pds, device="cpu")
+    model.load_state_dict(state, strict=True)
+    got = demo.run_demo(model, pds, create_logger())
+    assert sum(len(p["pred_labels"]) for p in want) > 0, "no detections to compare"
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g["pred_labels"], w["pred_labels"], err_msg=f"scan {i}")
+        np.testing.assert_allclose(g["pred_scores"], w["pred_scores"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g["pred_boxes"], w["pred_boxes"], rtol=1e-4, atol=1e-4)
+
+
+def test_nuscenes_bin_reads_four_columns(nusc_scans, capsys):
+    cfg = nusc.tiny_dataset_cfg(nusc_scans)
+    jds = jdemo.DemoDataset(cfg, nusc.CLASSES, nusc_scans / "bin", ext=".bin")
+    pds = demo.DemoDataset(cfg, nusc.CLASSES, nusc_scans / "bin", ext=".bin",
+                           logger=create_logger())
+    assert "reading .bin scans as 4 columns" in capsys.readouterr().err
+    for i in range(2):
+        jsample, psample = jds[i], pds[i]
+        assert_same(psample, jsample, f"scan {i}")
+        assert psample["points"].shape[1] == 4
+
+
+def test_nuscenes_entry_point_on_cpu(nusc_scans, tmp_path, capsys):
+    cfg = nusc.write_tiny_yaml(tmp_path / "tiny_nusc.yaml", nusc_scans)
+    ckpt = tmp_path / "tiny_nusc.pth"
+    torch.save({"model_state": tiny.centerpoint_nusc_state(), "optimizer_state": {},
+                "epoch": 1, "it": 3}, ckpt)
+    preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(nusc_scans / "npy"),
+                             "--ext", ".npy", "--ckpt", str(ckpt), "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "Total number of samples: \t2" in err and f"Loaded checkpoint {ckpt}" in err
+    assert sum(len(p["pred_labels"]) for p in preds) == err.count("  label=") > 0
+    assert all(p["pred_boxes"].shape[-1] == 7 for p in preds) and rate > 0

@@ -17,6 +17,10 @@ gloo) on the tiny TSM over tests/torch_kitti_cases.py's root of 6 frames.
   (Part-A2, PV-RCNN, PointRCNN, Voxel R-CNN, SECONDNetIoU and PV-RCNN++, on
   their configs' data sections on their geometry, road planes and gt
   sampling): rank 0 writes the checkpoint, which loads;
+* `train --launcher pytorch` for one epoch on the tiny nuScenes CenterPoint
+  over a synthetic nuScenes root (cbgs_voxel01_res3d_centerpoint.yaml's data
+  section: CBGS, gt sampling, 10 sweeps): rank 0 writes the checkpoint,
+  which loads; `--point_axis 2` refuses it;
 * `--launcher pytorch` without torchrun's environment raises, and so does
   `--point_axis 2` in one process (the world is not a multiple of 2; for a
   two-stage config, which has no point-sharded layer, whatever the world),
@@ -30,10 +34,12 @@ import sys
 import numpy as np
 import pytest
 
+from tests import torch_nuscenes_cases as nusc
 from tests.torch_dist_cases import (JOIN_TIMEOUT, free_port, rank_env, run_ranks,
                                     shared_memory_case)
 from tests.torch_kitti_cases import (CLASSES, make_root, tiny_dataset_cfg,
                                      tiny_two_stage_dataset_cfg, write_tiny_yaml)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu_torch import evaluate, tiny, train
 from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
 from tsm_det_pointcloud_tpu_torch.infer import ROOT
@@ -196,6 +202,38 @@ def test_voxel_roi_refuses_point_axis(setup, which, name):
         train.main(["--cfg_file", str(_two_stage_yaml(setup, which)), "--data_root",
                     str(setup["root"]), "--device", "cpu", "--workers", "0",
                     "--point_axis", "2", "--output_dir", str(setup["base"] / f"pax2_{which}")])
+
+
+@pytest.fixture(scope="module")
+def nusc_setup(tmp_path_factory):
+    base = tmp_path_factory.mktemp("dist_nusc")
+    root = nusc.port_infos(nusc.make_root(base / "root"))
+    return base, root, nusc.write_tiny_yaml(base / "tiny_nusc.yaml", root, batch=1, epochs=1)
+
+
+def test_nuscenes_centerpoint_trains_over_two_ranks(nusc_setup):
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import load_model_state
+
+    base, root, cfg = nusc_setup
+    rank0, rank1 = _launch("train", ["--cfg_file", str(cfg), "--data_root", str(root),
+                                     "--device", "cpu", "--workers", "0", "--launcher",
+                                     "pytorch", "--output_dir", str(base / "run")])
+    assert "epoch 1/1: mean loss" in rank0 and "epoch 1/1" not in rank1
+    model = build_network(tiny.centerpoint_nusc_model_cfg(), 3, tiny.CENTERPOINT_NUSC_META,
+                          device="cpu")
+    model.load_state_dict(load_model_state(base / "run" / "ckpt" / "checkpoint_epoch_1.pth"),
+                          strict=True)
+    assert all(torch.isfinite(t).all() for t in model.state_dict().values())
+
+
+def test_nuscenes_centerpoint_refuses_point_axis(nusc_setup):
+    base, root, cfg = nusc_setup
+    with pytest.raises(ValueError, match="CenterPoint has no such layer"):
+        train.main(["--cfg_file", str(cfg), "--data_root", str(root), "--device", "cpu",
+                    "--workers", "0", "--point_axis", "2", "--output_dir", str(base / "pax2")])
 
 
 def test_synthetic_mode_stays_single_process():

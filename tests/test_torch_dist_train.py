@@ -37,6 +37,7 @@ from tests.test_second_e2e import META as JMETA, second_model_cfg
 from tests.test_torch_teacher import _jax_teacher_cfg
 from tests.torch_dist_cases import (OPTIM, TOTAL_STEPS, dist_steps_case, run_ranks,
                                     second_batch, teacher_state, tsm_batch, tsm_state)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu.parallel.train_state import (TrainState, create_train_step,
                                                          make_mesh, shard_batch,

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from tests.torch_kitti_cases import CLASSES, make_root, tiny_dataset_cfg, write_tiny_yaml
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu_torch import datasets, evaluate, train
 from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
 from tsm_det_pointcloud_tpu_torch.infer import ROOT

@@ -16,6 +16,7 @@ from tsm_det_pointcloud_tpu.ops.fps_pallas import (
 )
 from tsm_det_pointcloud_tpu.ops.sampling import _furthest_point_sample_xla
 from tsm_det_pointcloud_tpu_torch.ops import sampling
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _clustered(rng, B, N):

@@ -19,6 +19,7 @@ from tsm_det_pointcloud_tpu.ops import grouping as jgrp
 from tsm_det_pointcloud_tpu.ops import voxel as jvox
 from tsm_det_pointcloud_tpu_torch.ops import grouping as tgrp
 from torch_group_cases import ADV_R, ADV_R2, adversarial, on_grid
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DILATED = ((0.0, 0.8), (0.8, 1.6), (1.6, 2.4))
 NS = (16, 32, 8)

@@ -358,8 +358,8 @@ def test_loader_shards_are_disjoint(roots):
 
 def test_other_datasets_raise(roots):
     cfg = dataset_cfg(FAST_CPC, roots[1])
-    cfg.DATASET = "NuScenesDataset"
-    with pytest.raises(NotImplementedError, match="NuScenesDataset"):
+    cfg.DATASET = "LyftDataset"
+    with pytest.raises(NotImplementedError, match="LyftDataset"):
         build_dataloader(cfg, CLASSES, 2, workers=0)
 
 

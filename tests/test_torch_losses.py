@@ -23,6 +23,7 @@ from tsm_det_pointcloud_tpu_torch.models.dense_heads import point_head_vote as t
 from tsm_det_pointcloud_tpu_torch.ops import box_coder_utils as tcoder
 from tsm_det_pointcloud_tpu_torch.ops import boxes as tboxes
 from tsm_det_pointcloud_tpu_torch.ops import loss_utils as tloss
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _close(got, want, what=""):

@@ -33,6 +33,7 @@ from jax.sharding import Mesh
 import __graft_entry__ as ge
 from tests.torch_dist_cases import (dist_steps_case, point_forward_case,
                                     point_primitives_case, run_ranks, tsm_batch, tsm_state)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.parallel import point_sharding as jps
 from tsm_det_pointcloud_tpu_torch.convert import from_flax_variables, to_flax_variables
 from tsm_det_pointcloud_tpu_torch.runtime.train_state import is_student

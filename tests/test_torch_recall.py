@@ -19,6 +19,7 @@ import torch
 
 import __graft_entry__ as ge
 from tests.test_second_e2e import META as SECOND_JMETA, second_model_cfg, synthetic_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu.ops import iou3d as jiou
 from tsm_det_pointcloud_tpu_torch import tiny

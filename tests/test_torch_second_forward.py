@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tests.test_second_e2e import META as JMETA, second_model_cfg, synthetic_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu.models.backbones_3d.vfe import MeanVFE as JMeanVFE
 from tsm_det_pointcloud_tpu.models.dense_heads import anchor_head as janchor

@@ -18,6 +18,7 @@ import torch
 from tsm_det_pointcloud_tpu.ops import spconv as jsp
 from tsm_det_pointcloud_tpu.ops import spconv_pallas
 from tsm_det_pointcloud_tpu_torch.ops import spconv as tsp
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-5
 

@@ -32,6 +32,7 @@ from tsm_det_pointcloud_tpu_torch.models.backbones_3d import pointnet2_modules a
 from tsm_det_pointcloud_tpu_torch.ops import grouping as tgrp
 from tsm_det_pointcloud_tpu_torch.ops import spconv as tsp
 from tsm_det_pointcloud_tpu_torch.ops import voxel as tvox
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _close(got, want, rtol, atol_scale, what=""):

@@ -20,6 +20,7 @@ from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu_torch import tiny
 from tsm_det_pointcloud_tpu_torch.convert import from_flax_variables
 from tsm_det_pointcloud_tpu_torch.models import build_network
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = "tests/goldens/tsm_forward.npz"
 

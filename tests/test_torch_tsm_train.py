@@ -63,6 +63,7 @@ from tsm_det_pointcloud_tpu_torch.runtime.train_state import (
     train_step,
 )
 from tsm_det_pointcloud_tpu_torch.train import synth_train_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OPTIM = {"OPTIMIZER": "adam_onecycle", "LR": 0.01, "WEIGHT_DECAY": 0.01,
          "MOMS": [0.95, 0.85], "PCT_START": 0.3, "DIV_FACTOR": 10,

@@ -41,6 +41,7 @@ from tsm_det_pointcloud_tpu_torch.convert import from_flax_variables, to_flax_va
 from tsm_det_pointcloud_tpu_torch.models import build_network
 from tsm_det_pointcloud_tpu_torch.models.dense_heads.anchor_head import AnchorHeadSingle
 from tsm_det_pointcloud_tpu_torch.models.roi_heads import roi_head_template as tmpl
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TARGET_CFG = {"ROI_PER_IMAGE": 8, "FG_RATIO": 0.5, "REG_FG_THRESH": 0.55,
               "CLS_FG_THRESH": 0.75, "CLS_BG_THRESH": 0.25, "CLS_BG_THRESH_LO": 0.1}

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tests.test_torch_tsm_forward import _assert_golden_close, _random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tsm_det_pointcloud_tpu.models import build_network as jbuild
 from tsm_det_pointcloud_tpu.models.detectors.detector3d_template import (
     DatasetMeta as JDatasetMeta,

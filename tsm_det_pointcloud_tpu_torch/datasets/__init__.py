@@ -30,8 +30,8 @@ no process behind (the fork server, left to notice its caller's exit, tears
 down its torch import for about a second after). `forkserver_context()`
 gives that fork server to other process pools (`create_waymo_infos`).
 
-`KittiDataset` and `WaymoDataset` are ported; the other datasets of the JAX
-registry raise.
+`KittiDataset`, `WaymoDataset` and `NuScenesDataset` are ported; the other
+datasets of the JAX registry (Lyft, Pandaset) raise.
 """
 from __future__ import annotations
 
@@ -47,12 +47,14 @@ import torch
 
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
+from .nuscenes.nuscenes_dataset import NuScenesDataset
 from .waymo.waymo_dataset import WaymoDataset
 
 __all__ = {
     "DatasetTemplate": DatasetTemplate,
     "KittiDataset": KittiDataset,
     "WaymoDataset": WaymoDataset,
+    "NuScenesDataset": NuScenesDataset,
 }
 # batch entries that stay on the host (the JAX device_batch / the
 # reference's load_data_to_gpu skip them too, image_shape aside)

@@ -5,9 +5,13 @@
 
 PATH is a scan file or a directory of them (globbed by --ext and sorted):
 `.bin` files of float32 (x, y, z, intensity), `.npy` arrays of the config's
-point features. Each scan goes through the config's test-mode data
-processing (`DatasetTemplate.prepare_data`: range mask, sample_points, ...;
-no field-of-view crop, there is no calibration) and is collated alone. The
+point features. A `.bin` is read as 4 columns whatever the config takes, as
+the JAX tool reads it: a config of 5 point features (nuScenes' x, y, z,
+intensity, time lag; Waymo's) takes `.npy` scans, and with `.bin` the demo
+logs a warning and the model then fails on the missing column. Each scan
+goes through the config's test-mode data processing
+(`DatasetTemplate.prepare_data`: range mask, sample_points, ...; no
+field-of-view crop, there is no calibration) and is collated alone. The
 detector is built with `build_network` on that geometry, with seeded random
 weights unless --ckpt names a checkpoint of this package (from `train`, or
 from a reference checkpoint by `convert_torch_ckpt`). Each scan's eval
@@ -45,6 +49,11 @@ class DemoDataset(DatasetTemplate):
             self.sample_file_list = sorted(glob.glob(str(self.root_path / f"*{ext}")))
         else:
             self.sample_file_list = [str(root_path)]
+        n_features = self.point_feature_encoder.num_point_features
+        if ext == ".bin" and n_features > 4 and logger is not None:
+            logger.warning("reading .bin scans as 4 columns (x, y, z, intensity), as the JAX "
+                           "tool does; this config takes %d point features: pass .npy scans "
+                           "of them", n_features)
 
     def __len__(self):
         return len(self.sample_file_list)

@@ -27,14 +27,21 @@ scans.
         --cfg_file tools/cfgs/kitti_models/voxel_rcnn_car.yaml --batch 4 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/second_iou.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml \
+        --batch 4 --points 300000
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
-features) or Waymo (5 point features, a +-75.2 m range). Prints the
-detections per scan of the last batch and the scans/s over the timed
-batches (host clock around work that ends in a synchronize). Weights, BN
-running stats and the TSM heads' statistics buffers are random, made from
---seed, with the cls priors lifted so that NMS has boxes to work on.
+features), Waymo (5 point features, a +-75.2 m range) or nuScenes (5 point
+features: x, y, z, intensity, a sweep's time lag; a +-51.2 m range). Prints
+the detections per scan of the last batch (for a CenterHead with a
+velocity branch also the speed of its decoded boxes over SCORE_THRESH,
+which the detector's post-processing drops, as the JAX one does) and the
+scans/s over the timed batches (host clock around work that ends in a
+synchronize). Weights, BN running stats and the TSM heads' statistics
+buffers are random, made from --seed, with the cls priors lifted so that
+NMS has boxes to work on.
 --profile then traces one more batch with
 torch.profiler and prints the device's busy share of that batch's wall time
 and the kernels with the most device time, and the same for the batch's
@@ -88,6 +95,10 @@ SCAN_RECIPES = {
         (-74, -74, -1.9), (74, 74, 3.9), 16, (-60, -60), (60, 60), (0.0, 1.8),
         (0.9, 4.2, 2.2, 2.0)),
     (0, -39.68, -3, 69.12, 39.68, 1): _KITTI_SCANS,
+    # nuScenes (the lidar 1.84 m up): sixteen car-like clusters
+    (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0): ScanRecipe(
+        (-51, -51, -1.9), (51, 51, 1.5), 16, (-45, -45), (45, 45), (-1.8, -0.2),
+        (-1.0, 4.6, 1.95, 1.73)),
 }
 KITTI_RANGE, WAYMO_RANGE = list(SCAN_RECIPES)[:2]
 
@@ -170,22 +181,27 @@ def load_cfg(cfg_file, set_cfgs=None):
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
             "PVRCNN": -2.5, "PVRCNNPlusPlus": -2.855, "SECONDNetIoU": -2.575,
             "VoxelRCNN": -1.25}
-# CenterPoint's hm_out: a gain on its seeded kernel and a bias in place of
-# the -2.19 init. The seeded heatmap logits lie within 0.5 of each other, so
-# at the init's bias either all of a scan's 500 decoded boxes pass
-# SCORE_THRESH or none; with these ~100 do (on the same scans; infer prints
-# the count)
-CENTERPOINT_HM_GAIN, CENTERPOINT_HM_BIAS = 20.0, -6.5
+# CenterPoint's hm_out by the config's dataset: a gain on its seeded kernel
+# and a bias in place of the -2.19 init, one for every class group or one
+# for all. The seeded heatmap logits lie within 0.5 of each other, so at the
+# init's bias either all of a scan's decoded boxes pass SCORE_THRESH or
+# none; with these ~100 of centerpoint.yaml's 500 do on the synthetic KITTI
+# scans. The nuScenes config's six groups' seeded logits lie apart (at gain
+# 20 and bias 0 a group's 50th best is 2.5 to 10.7, stable over scans and
+# from 100k to 300k points on the CPU): each group's bias puts its 50th best
+# at SCORE_THRESH, ~300 of a scan's 3000 decoded boxes (infer prints the count)
+CENTERPOINT_HM = {"KittiDataset": (20.0, -6.5),
+                  "NuScenesDataset": (20.0, (-4.75, -12.1, -4.65, -12.9, -7.1, -7.6))}
 
 
 @torch.no_grad()
-def randomize_eval_state(model, seed):
+def randomize_eval_state(model, seed, dataset="KittiDataset"):
     """Seeded non-trivial BN running stats and, for TSM, statistics buffers
     (a real deployment loads them from a checkpoint), and cls output biases
     lifted from the -log(99) prior so that boxes reach NMS: TSM's cls heads
     at 1.0, an anchor head's conv_cls at CLS_BIAS of its detector,
-    CenterPoint's hm_out kernel times CENTERPOINT_HM_GAIN and its bias at
-    CENTERPOINT_HM_BIAS."""
+    CenterPoint's hm_out kernel times the gain and its bias at the bias of
+    CENTERPOINT_HM[dataset]."""
     from .models.backbones_3d.pointnet2_modules import BatchNorm
 
     g = torch.Generator().manual_seed(int(seed))
@@ -201,8 +217,11 @@ def randomize_eval_state(model, seed):
         elif tail == "conv_cls":
             m.bias.fill_(CLS_BIAS[type(model).__name__])
         elif tail == "hm_out":
-            m.weight.mul_(CENTERPOINT_HM_GAIN)
-            m.bias.fill_(CENTERPOINT_HM_BIAS)
+            gain, bias = CENTERPOINT_HM[dataset]
+            if isinstance(bias, tuple):   # by group: ...head_<g>.hm_out
+                bias = bias[int(name.rsplit(".", 2)[-2].removeprefix("head_"))]
+            m.weight.mul_(gain)
+            m.bias.fill_(bias)
     seed_statistics(model, g)
 
 
@@ -253,7 +272,7 @@ def build_detector(cfg_file, device="cuda", seed=0, n_points=16384):
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                           dataset=dataset_meta(cfg, n_points), device=device,
                           seed=seed)
-    randomize_eval_state(model, seed + 1)
+    randomize_eval_state(model, seed + 1, cfg.DATA_CONFIG.DATASET)
     return cfg, model
 
 
@@ -286,6 +305,23 @@ def voxel_anchor_counts(model, out):
             if "roi_labels" in out else out["batch_cls_preds"]
         over = (torch.sigmoid(logits).amax(-1) >= float(thresh)).sum(1).tolist()
     return voxels, over
+
+
+def velocities_over(model, out):
+    """Per scan, (count, mean, max) of the speeds |(vx, vy)| of a CenterHead's
+    decoded 9-column boxes scoring above SCORE_THRESH, and whether all their
+    velocities are finite; None where the decoded boxes have no velocity."""
+    if "final_boxes" not in out or out["final_boxes"].shape[-1] < 9:
+        return None
+    thresh = float(model.model_cfg["POST_PROCESSING"].get("SCORE_THRESH", 0.1))
+    rows = []
+    for boxes, scores in zip(out["final_boxes"], out["final_scores"]):
+        vel = boxes[scores > thresh][:, 7:9]
+        speed = torch.linalg.vector_norm(vel, dim=-1)
+        rows.append((int(speed.numel()), float(speed.mean()) if speed.numel() else 0.0,
+                     float(speed.max()) if speed.numel() else 0.0,
+                     bool(torch.isfinite(vel).all())))
+    return rows
 
 
 def rois_over(model, out):
@@ -385,12 +421,17 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     voxels, over = voxel_anchor_counts(model, out)
     rois = rois_over(model, out)
+    vels = velocities_over(model, out)
     for b, c in enumerate(pred["count"].tolist()):
         extra = "" if voxels is None else f", {voxels[b]} voxels"
         extra += "" if over is None else f", {over[b]} predictions over SCORE_THRESH"
         if rois is not None:
             extra += (f" (first stage); {rois[b][0]} proposals kept, {rois[b][1]} RoI boxes "
                       f"over SCORE_THRESH")
+        if vels is not None:
+            n, mean, top, finite = vels[b]
+            extra += (f"; their velocities {'finite' if finite else 'NOT finite'}, speed mean "
+                      f"{mean:.3f} max {top:.3f} m/s")
         print(f"scan {b}: {c} detections{extra}")
     if args.iters:   # --iters 0: the warm-up batch's detections alone (a --profile run)
         print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "

@@ -4,7 +4,7 @@ tsm_det_pointcloud_tpu/models/dense_heads/center_head.py).
 A shared 3x3 conv (with bias) + BN + ReLU over the NHWC BEV map, then per
 class group (CLASS_NAMES_EACH_HEAD) a `SeparateHead` of 3x3 branches: `hm`
 (a channel per class of the group) and the HEAD_DICT entries (center,
-center_z, dim, rot; a velocity head, which no KITTI config has, raises).
+center_z, dim, rot and, in the nuScenes configs, vel).
 The convs run in NCHW on the channels-last view of the map, as
 `BaseBEVBackbone`'s do. Module names follow the flax ones
 (`shared_conv`, `shared_bn`, `head_{g}` with `{name}_conv{i}`,
@@ -14,10 +14,13 @@ Training: per group, the gaussian heatmap targets of its classes
 (`centernet_utils.assign_center_targets`), the focal loss on
 clip(sigmoid(hm), 1e-4, 1 - 1e-4), and the L1 of the HEAD_ORDER maps
 gathered at each gt's cell against its box targets, normalised by the
-batch's count of gts on the map; the group's loss is cls_weight * hm +
+batch's count of gts on the map (with a vel head the targets are 10 wide,
+the gt's vx, vy last, and every column weighs 1: code_weights is read
+nowhere, as in the JAX head); the group's loss is cls_weight * hm +
 loc_weight * reg, the head's their sum. Both normalisers are the global
 batch's in a multi-process run (`parallel.comm`). Eval: each group's
-heatmap decoded over C x H x W (MAX_OBJ_PER_SAMPLE boxes a scan), its
+heatmap decoded over C x H x W (MAX_OBJ_PER_SAMPLE boxes a scan; 7
+columns, 9 with the velocity read off the vel map), its
 group-local labels mapped to the global 1-based class ids, the groups
 concatenated (final_boxes, final_scores, final_labels). As in the JAX head,
 POST_CENTER_LIMIT_RANGE, NUM_MAX_OBJS, code_weights and USE_BIAS_BEFORE_NORM
@@ -78,8 +81,7 @@ class CenterHead(nn.Module):
         self.min_radius = int(tgt_cfg.get("MIN_RADIUS", 2))
         self.max_obj = int(cfg.get("POST_PROCESSING", {}).get("MAX_OBJ_PER_SAMPLE", 500))
         head_dict = dict(cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"])
-        if "vel" in head_dict:
-            raise NotImplementedError("CenterHead: the velocity head is not ported")
+        self.code_size = 8 + (2 if "vel" in head_dict else 0)
         self.head_order = list(cfg["SEPARATE_HEAD_CFG"]["HEAD_ORDER"])
         c = int(cfg.get("SHARED_CONV_CHANNEL", 64))
         self.shared_conv = nn.Conv2d(int(input_channels), c, 3, padding=1)
@@ -111,7 +113,7 @@ class CenterHead(nn.Module):
             b, s, lab = centernet_utils.decode_bbox_from_heatmap(
                 torch.sigmoid(pm["hm"]), pm["rot"][:, 1:2], pm["rot"][:, 0:1], pm["center"],
                 pm["center_z"], pm["dim"], self.point_cloud_range, self.voxel_size,
-                self.stride, K=self.max_obj)
+                self.stride, vel=pm.get("vel"), K=self.max_obj)
             boxes.append(b)
             scores.append(s)
             labels.append(getattr(self, f"label_lut_{gi}")[lab])
@@ -135,7 +137,7 @@ class CenterHead(nn.Module):
         tgts = centernet_utils.assign_center_targets(
             gt, gv & (local > 0), local, len(self.groups[gi]), self.point_cloud_range,
             self.voxel_size, self.stride, (H, W), gaussian_overlap=self.gaussian_overlap,
-            min_radius=self.min_radius)
+            min_radius=self.min_radius, code_size=self.code_size)
         hm_loss = loss_utils.centernet_focal(
             torch.clamp(torch.sigmoid(pm["hm"]), 1e-4, 1 - 1e-4), tgts["heatmap"])
         reg_map = torch.cat([pm[k] for k in self.head_order], 1)    # (B, code, H, W)

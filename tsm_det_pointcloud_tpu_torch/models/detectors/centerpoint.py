@@ -29,7 +29,9 @@ class CenterPoint(Detector3DTemplate):
         recall dict), P = min(NMS_POST_MAXSIZE, boxes a scan): per scan the
         boxes scoring above SCORE_THRESH through one class-agnostic NMS over
         all groups, `circle_nms` or rotated `nms_bev` by NMS_TYPE; slots past
-        count are zero. The recall dict as the template's."""
+        count are zero. The recall dict as the template's. A velocity head's
+        9-column boxes are cut to 7 here, as the JAX detector cuts them: the
+        predictions carry no velocity, and nuScenes' mAVE is 1 (ROADMAP §C)."""
         post_cfg = self.model_cfg["POST_PROCESSING"]
         nms_cfg = post_cfg.get("NMS_CONFIG", {})
         score_thresh = float(post_cfg.get("SCORE_THRESH", 0.1))

@@ -54,14 +54,16 @@ def draw_gaussians(centers_xy, radii, valid, size_hw):
 
 def assign_center_targets(gt_boxes, gt_valid, class_ids, num_classes, point_cloud_range,
                           voxel_size, feature_map_stride, size_hw, gaussian_overlap=0.1,
-                          min_radius=2):
+                          min_radius=2, code_size=8):
     """CenterPoint targets. gt_boxes (B, M, 7+), gt_valid (B, M), class_ids
     (B, M) 1-based within the head's classes. Returns dict: heatmap
     (B, C, H, W), box_targets (B, M, 8): the centre's offset from its
-    floored cell, z, log dims, sin and cos of the heading, zero outside the
-    map; inds (B, M) int64, the flat map index of each gt's cell; mask
-    (B, M), the valid gts whose centre lies on the map. The radius is the
-    int-truncated gaussian_radius, at least min_radius."""
+    floored cell, z, log dims, sin and cos of the heading, then with
+    code_size > 8 and boxes of 9 or more columns the velocity (vx, vy:
+    columns 7 and 8; (B, M, 10)), zero outside the map; inds (B, M) int64,
+    the flat map index of each gt's cell; mask (B, M), the valid gts whose
+    centre lies on the map. The radius is the int-truncated gaussian_radius,
+    at least min_radius."""
     H, W = size_hw
     vx = voxel_size[0] * feature_map_stride
     vy = voxel_size[1] * feature_map_stride
@@ -79,15 +81,18 @@ def assign_center_targets(gt_boxes, gt_valid, class_ids, num_classes, point_clou
     tgt = [(cx - xi.to(cx.dtype))[..., None], (cy - yi.to(cy.dtype))[..., None],
            gt_boxes[..., 2:3], torch.log(torch.clamp(gt_boxes[..., 3:6], min=1e-5)),
            torch.sin(gt_boxes[..., 6:7]), torch.cos(gt_boxes[..., 6:7])]
+    if code_size > 8 and gt_boxes.shape[-1] >= 9:
+        tgt.append(gt_boxes[..., 7:9])
     box_targets = torch.cat(tgt, -1)
     box_targets = torch.where(in_map[..., None], box_targets, torch.zeros_like(box_targets))
     return dict(heatmap=heatmap, box_targets=box_targets, inds=yi * W + xi, mask=in_map)
 
 
 def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
-                             point_cloud_range, voxel_size, feature_map_stride, K=100):
+                             point_cloud_range, voxel_size, feature_map_stride, vel=None, K=100):
     """heatmap (B, C, H, W) sigmoid scores, the regression maps (B, c, H, W)
-    -> boxes (B, k, 7), scores (B, k), labels (B, k) int64 (0-based),
+    -> boxes (B, k, 7), or (B, k, 9) with the velocity map `vel` (B, 2, H, W)
+    read at each box's cell, scores (B, k), labels (B, k) int64 (0-based),
     the k = min(K, C H W) best scores of each scan, descending (an exact
     stable sort: ties go to the lower index, as `lax.top_k`); heading
     atan2(sin, cos)."""
@@ -109,9 +114,11 @@ def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
     angle = torch.atan2(take(rot_sin)[:, 0], take(rot_cos)[:, 0])
     xs = (xi + off[:, 0]) * feature_map_stride * voxel_size[0] + point_cloud_range[0]
     ys = (yi + off[:, 1]) * feature_map_stride * voxel_size[1] + point_cloud_range[1]
-    boxes = torch.cat([xs[..., None], ys[..., None], take(center_z)[:, 0, :, None],
-                       torch.exp(take(dim)).transpose(1, 2), angle[..., None]], -1)
-    return boxes, scores, labels
+    parts = [xs[..., None], ys[..., None], take(center_z)[:, 0, :, None],
+             torch.exp(take(dim)).transpose(1, 2), angle[..., None]]
+    if vel is not None:
+        parts.append(take(vel).transpose(1, 2))
+    return torch.cat(parts, -1), scores, labels
 
 
 def circle_nms(centers_xy, scores, valid, min_radius, post_max_size):

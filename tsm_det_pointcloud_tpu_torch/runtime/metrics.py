@@ -5,6 +5,7 @@ imports (tensorboardX or torch.utils.tensorboard)."""
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 
 
@@ -42,8 +43,10 @@ class MetricsWriter:
                 continue
         self._f.write(json.dumps(row) + "\n")
         if self._tb is not None:
+            # nuScenes' TP errors a class does not define are NaN: the jsonl
+            # keeps them, TensorBoard (which warns on each) does not
             for k, v in row.items():
-                if k != "step":
+                if k != "step" and math.isfinite(v):
                     self._tb.add_scalar(k, v, int(step))
 
     def close(self):

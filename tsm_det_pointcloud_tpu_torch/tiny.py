@@ -46,6 +46,18 @@ seed, so that the heatmap scores spread (at the init they all lie within
 1e-3 of sigmoid(-2.19), and their order would turn on rounding).
 `centerpoint_gt` gives its training batches their gt boxes.
 
+The tiny nuScenes CenterPoint (`centerpoint_nusc_model_cfg`,
+`CENTERPOINT_NUSC_META`) is the tiny CenterPoint on a nuScenes-like 16 x 16
+x 8 m range (a 64 x 64 x 40 grid) with 5 point features (x, y, z,
+intensity, time lag: `nusc_points`) and a `vel` head in each of its two
+class groups (car; pedestrian and barrier), so that its boxes are 9 columns
+and its targets 10 wide (`centerpoint_nusc_gt`: gt boxes with velocities).
+No init is committed: its checks run on `centerpoint_nusc_state()`, every
+entry of the port model's state dict drawn from a numpy seed
+(`redraw_state`), its hm_out kernels as `centerpoint_eval_state` sets them;
+`data/centerpoint_nusc_tiny_forward.npz` holds the JAX package's eval
+outputs and post-processed predictions with it.
+
 The tiny two-stage detectors are copies of the JAX package's test models
 (`model_cfg` and `META` of tests/test_parta2_e2e.py and
 tests/test_pvrcnn_e2e.py): Part-A2 (UNetV2, a 4^3 RoI-aware pool) and
@@ -570,6 +582,90 @@ def centerpoint_eval_state(seed=3):
             v = v * CENTERPOINT_EVAL_HM_GAIN
         elif key.endswith("hm_out.bias"):
             v = np.full(v.shape, CENTERPOINT_EVAL_HM_BIAS)
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+CENTERPOINT_NUSC_META = DatasetMeta(
+    class_names=("car", "pedestrian", "barrier"),
+    point_cloud_range=(-8.0, -8.0, -5.0, 8.0, 8.0, 3.0),
+    voxel_size=(0.25, 0.25, 0.2), grid_size=(64, 64, 40), max_voxels=512,
+    max_points_per_voxel=10, num_point_features=5, max_points=512,
+)
+CENTERPOINT_NUSC_FORWARD_PATH = STATE_PATH.parent / "centerpoint_nusc_tiny_forward.npz"
+
+
+def centerpoint_nusc_model_cfg():
+    """The tiny CenterPoint with nuScenes' head layout: HEAD_ORDER ends in
+    vel, nms_gpu post-processing."""
+    cfg = centerpoint_model_cfg()
+    head = cfg.DENSE_HEAD
+    head.CLASS_NAMES_EACH_HEAD = [["car"], ["pedestrian", "barrier"]]
+    head.SEPARATE_HEAD_CFG.HEAD_ORDER = ["center", "center_z", "dim", "rot", "vel"]
+    head.SEPARATE_HEAD_CFG.HEAD_DICT["vel"] = {"out_channels": 2, "num_conv": 2}
+    head.LOSS_CONFIG.LOSS_WEIGHTS = {"cls_weight": 1.0, "loc_weight": 0.25,
+                                     "code_weights": [1.0] * 8 + [0.2, 0.2]}
+    cfg.POST_PROCESSING.NMS_CONFIG = {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.2,
+                                      "NMS_PRE_MAXSIZE": 48, "NMS_POST_MAXSIZE": 16}
+    return cfg
+
+
+def nusc_points(batch_size=2, n=512, seed=0):
+    """(B, n, 5) float32 points of the tiny nuScenes CenterPoint: uniform in
+    its range, intensity in [0, 100), the time lag of one of ten sweeps
+    (0, 0.05, ..., 0.45 s), the first 60 of each scan in a car-sized box at
+    (2, 1, -1)."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((batch_size, n, 5), np.float32)
+    pts[..., 0] = rng.uniform(-7.5, 7.5, (batch_size, n))
+    pts[..., 1] = rng.uniform(-7.5, 7.5, (batch_size, n))
+    pts[..., 2] = rng.uniform(-2.5, 1.5, (batch_size, n))
+    pts[..., 3] = rng.uniform(0, 100, (batch_size, n))
+    pts[..., 4] = rng.randint(0, 10, (batch_size, n)) * 0.05
+    for b in range(batch_size):
+        pts[b, :60, 0] = rng.uniform(0.0, 4.0, 60)
+        pts[b, :60, 1] = rng.uniform(0.2, 1.8, 60)
+        pts[b, :60, 2] = rng.uniform(-1.8, -0.2, 60)
+    return pts
+
+
+def centerpoint_nusc_gt(batch_size):
+    """gt_boxes (B, 6, 10) (x, y, z, dx, dy, dz, heading, vx, vy, class) and
+    gt_boxes_mask (B, 6) of the tiny nuScenes CenterPoint's training
+    batches, per scan: two cars (one standing), a pedestrian and a barrier on
+    the map, a car whose centre lies off the map and a masked slot."""
+    gt = np.zeros((batch_size, 6, 10), np.float32)
+    gt[:, 0] = [2, 1, -1, 4.6, 1.9, 1.7, 0.3, 4.5, 1.4, 1]
+    gt[:, 1] = [-4, 3, -1, 0.7, 0.7, 1.8, -0.5, -0.8, 0.9, 2]
+    gt[:, 2] = [4.3, -4.6, -1.3, 2.5, 0.5, 1.0, 2.0, 0.0, 0.0, 3]
+    gt[:, 3] = [-3.1, -5.2, -1.2, 4.2, 1.7, 1.5, -1.2, 0.0, 0.0, 1]
+    gt[:, 4] = [9, 2, -1, 4.6, 1.9, 1.7, 0.0, 6.0, 0.0, 1]
+    gt[:, 5] = [6, -5, -1, 4.6, 1.9, 1.7, 1.0, 1.0, 1.0, 1]
+    mask = np.zeros((batch_size, 6), bool)
+    mask[:, :5] = True
+    return gt, mask
+
+
+# its hm_out bias: about 36 of a scan's 64 decoded boxes then pass
+# SCORE_THRESH 0.1 (all 64 at CENTERPOINT_EVAL_HM_BIAS)
+CENTERPOINT_NUSC_HM_BIAS = -3.0
+
+
+def centerpoint_nusc_state(seed=3):
+    """The tiny nuScenes CenterPoint's state for its checks: every entry of
+    the port model's state dict redrawn (`redraw_state`), the hm_out
+    kernels times CENTERPOINT_EVAL_HM_GAIN and their biases at
+    CENTERPOINT_NUSC_HM_BIAS."""
+    from .models import build_network
+
+    model = build_network(centerpoint_nusc_model_cfg(), len(CENTERPOINT_NUSC_META.class_names),
+                          CENTERPOINT_NUSC_META, device="cpu", seed=0)
+    out = {}
+    for key, v in redraw_state(model.state_dict(), seed).items():
+        if key.endswith("hm_out.weight"):
+            v = v * CENTERPOINT_EVAL_HM_GAIN
+        elif key.endswith("hm_out.bias"):
+            v = np.full(v.shape, CENTERPOINT_NUSC_HM_BIAS)
         out[key] = torch.from_numpy(v.astype(np.float32))
     return out
 

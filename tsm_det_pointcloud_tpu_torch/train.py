@@ -1,8 +1,8 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
 step or the step of another detector of the KITTI zoo (SECOND, PointPillars,
 CenterPoint, Part-A2, PV-RCNN, PV-RCNN++, PointRCNN, Voxel R-CNN,
-SECONDNetIoU), on
-synthetic scans or on a dataset (KITTI or Waymo).
+SECONDNetIoU) or of nuScenes' CenterPoint, on synthetic scans or on a
+dataset (KITTI, Waymo or nuScenes).
 
 Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -26,6 +26,9 @@ Synthetic-scan mode:
         --cfg_file tools/cfgs/kitti_models/voxel_rcnn_car.yaml --batch 2 --points 20000
     python -m tsm_det_pointcloud_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/second_iou.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \
+        --cfg_file tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml \
+        --batch 4 --points 300000
 Dataset mode (`--data_root DIR`, or `--dataset` for the config's DATA_PATH;
 the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -62,7 +65,9 @@ Synthetic-scan mode runs one warm-up step (which builds the kernels) plus
 loss on the host at the first and the last of them), each on its own
 synthetic scan batch with one class-1 box (a car) around each of the scan's
 eight point clusters (KITTI-range configs) or one vehicle box around each of
-its sixteen (Waymo configs). Prints the losses, the train scans/s over the
+its sixteen (Waymo and nuScenes configs; a nuScenes box also has a
+velocity, and its classes cycle through the config's ten, so that every
+head group has targets). Prints the losses, the train scans/s over the
 timed steps (host clock around work that ends in a synchronize) and the peak
 device memory; with --ckpt_dir it then writes a checkpoint. --profile then
 traces one more step with torch.profiler and prints the device's busy share
@@ -128,17 +133,22 @@ from .utils.common_utils import create_logger, resolve_device
 
 
 def synth_train_batch(batch, n, seed=0, device="cpu", point_cloud_range=KITTI_RANGE,
-                      n_features=4):
+                      n_features=4, velocity=False, n_classes=1):
     """Synthetic scans (infer.synth_scene: by default the KITTI range's
-    (B, n, 4) with 8 clusters; the Waymo range's have 16) plus gt_boxes with
-    the recipe's box of class 1, heading 0, around each cluster, and masks,
-    as device tensors."""
+    (B, n, 4) with 8 clusters; the Waymo and nuScenes ranges' have 16) plus
+    gt_boxes with the recipe's box, heading 0, around each cluster, and
+    masks, as device tensors. The boxes' classes cycle through 1..n_classes
+    (by default all class 1). With `velocity` the boxes carry a velocity
+    (vx, vy), each component uniform in [-5, 5) m/s from the seed, before the
+    class: (B, n_box, 10)."""
     pts, centres = synth_scene(batch, n, seed, point_cloud_range, n_features)
     n_box = centres.shape[1]
-    gt = np.zeros((batch, n_box, 8), np.float32)
+    gt = np.zeros((batch, n_box, 10 if velocity else 8), np.float32)
     gt[..., 0:2] = centres
     gt[..., 2:6] = scan_recipe(point_cloud_range).box
-    gt[..., 7] = 1
+    if velocity:
+        gt[..., 7:9] = np.random.RandomState(seed).uniform(-5, 5, (batch, n_box, 2))
+    gt[..., -1] = 1 + np.arange(n_box) % n_classes
     dev = torch.device(device)
     return {"points": torch.from_numpy(pts).to(dev),
             "points_mask": torch.ones((batch, n), dtype=torch.bool, device=dev),
@@ -174,6 +184,12 @@ def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1
         params = list(model.parameters())
     opt = build_optimizer(cfg.OPTIMIZATION, params, total_steps)
     return cfg, model.train(), opt
+
+
+def predicts_velocity(model):
+    """Whether the model's CenterHead has a velocity branch (its training
+    batches then need 10-column gt boxes)."""
+    return any(getattr(m, "code_size", 8) > 8 for m in model.modules())
 
 
 # the loader's seed and numpy's under --fix_random_seed (the JAX tools/train.py's)
@@ -372,8 +388,10 @@ def main(argv=None):
     cfg, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total,
                                     args.pretrained_model, set_cfgs=args.set_cfgs)
     meta = model.dataset_meta
+    velocity = predicts_velocity(model)
     batches = [synth_train_batch(args.batch, args.points, args.seed + i, dev,
-                                 meta.point_cloud_range, meta.num_point_features)
+                                 meta.point_cloud_range, meta.num_point_features, velocity,
+                                 len(cfg.CLASS_NAMES) if velocity else 1)
                for i in range(total)]
     loss, _ = train_step(model, opt, batches[0])  # warm-up: builds the kernels
     print(f"warm-up step: loss {float(loss):.4f}")
