@@ -349,7 +349,7 @@ Phases (any failure exits non-zero before the result line):
      and those the collate drops past MAX_POINTS, the voxels or pillars a
      scan, scans/s, train scans/s and peak memory;
  39. zoo profiles, after every timed path and profile: `infer --profile`
-     of pointpillar.yaml at b16 and of centerpoint.yaml at b4 (x 20000), in
+     of pointpillar.yaml and of centerpoint.yaml at b4 (x 20000), in
      a fresh process (with phase 44's):
      the device's busy share, the top kernels, the post-processing's device
      time alone; no cuDNN FFT kernel (`fft` / `cgemm` in its name) may run.
@@ -494,7 +494,38 @@ Phases (any failure exits non-zero before the result line):
      reference checkpoint of the seeded detector (NUSC_PLACEMENTS), and
      `demo --ckpt` of the converted checkpoint on two .npy scans;
  60. its profiles, after every timed path: `infer --profile` at b4 x 300000
-     in phase 39's fresh process, then a training step traced in this one.
+     in phase 39's fresh process, then a training step traced in this one;
+ 61. Lyft reference: the tiny Lyft CenterPoint (tiny.centerpoint_lyft_state:
+     Lyft's nine classes in five groups, no vel head) reproduces
+     tsm_det_pointcloud_tpu_torch/data/centerpoint_lyft_tiny_forward.npz on
+     the card through 8 K3 and 21 K7 calls (7-column decoded boxes; golden
+     tolerance, labels and counts exact);
+ 62. lyft_models/centerpoint_voxel01_res3d.yaml (nuScenes' CenterPoint widths
+     on Lyft's +-80 m range: a 1600 x 1600 x 41 grid, five head groups) at
+     full width on synthetic scans of 300000 points x 5 features, as phase
+     58: eval b4 (the recorded forward's 8 K3 and 21 K7 calls held against
+     their plain versions and timed; voxels a scan and the decoded boxes over
+     SCORE_THRESH), 2 counted batches (scans/s, peak memory), a training step
+     b4 on gt boxes of all nine classes (every head group trains) recorded
+     and held, 2 counted steps;
+ 63. its data path on a synthetic Lyft root (2 + 2 scenes of 4 key frames,
+     each after nine sweeps of 65,000 points: the writer,
+     `create_lyft_infos` with the train gt database; the points a 5-sweep
+     val scan holds before and after the range crop; echoed val gt: Lyft
+     mAP 1 and, through eval_metric "kitti", AP 100 on every 3D R40
+     difficulty of the four KITTI classes Lyft's map to), `evaluate` (a
+     finite mAP dict), `train --data_root` for an epoch with gt sampling
+     (the loader's wait), each first forward or step recorded and held;
+ 64. the PandaSet data path on pandaset_models/centerpoint.yaml at full
+     width (centerpoint.yaml's model on a 2816 x 1600 x 41 grid), on a
+     synthetic root of 2 + 2 sequences of 4 frames of 115,200 Pandar64
+     points (pandas pickles, world frame): the writer,
+     `create_pandaset_infos` with the train gt database, the points a frame
+     keeps, the val frames' gt boxes fed back through
+     `generate_prediction_dicts` onto their world cuboids within 1e-4 m,
+     `train --data_root` for an epoch, then `evaluate` of its checkpoint
+     (the empty result, as the reference's; result.pkl holds a cuboid
+     DataFrame a frame), each first step or forward recorded and held.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -543,8 +574,12 @@ SECONDNetIoU's K2 null too), `pvrcnnplusplus` and `pvrcnnplusplus_train`
 those of phase 54 and its `_data` and `_data_train` objects those of phase
 55 (null for K1, K4, K5), `centerpoint_nusc` and `centerpoint_nusc_train`
 those of phase 58 and `centerpoint_nusc_data` and
-`centerpoint_nusc_data_train` those of phase 59's evaluate and train (null
-but for K3 and K7). K6 is on no KITTI path of
+`centerpoint_nusc_data_train` those of phase 59's evaluate and train,
+`centerpoint_lyft` and `centerpoint_lyft_train` those of phase 62,
+`centerpoint_lyft_data` and `centerpoint_lyft_data_train` those of phase
+63's evaluate and train, and `centerpoint_pandaset_data` and
+`centerpoint_pandaset_data_train` those of phase 64's (null but for K3 and
+K7). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
 SECOND's paths alone, and its row's own numbers are SECOND's eval path's
@@ -558,6 +593,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -621,6 +657,9 @@ PAX_TRAIN_BATCH, PAX_TRAIN_INTERVAL, PAX_EVAL_INTERVAL = 2, 8, 2
 # too), counted batches and steps; centerpoint.yaml's K3 / K7 calls a forward
 # (4 subm rulebooks + 4 plans, 17 subm + 4 strided convs)
 ZOO_POINTS, PILLAR_BATCH, ZOO_TRAIN_BATCH, ZOO_ITERS, ZOO_TRAIN_ITERS = 20000, 16, 4, 3, 2
+# phase 39's profile of pointpillar.yaml runs at b4: in the profiles' fresh process its first batch
+# at b16 spent ~22 s more in cuDNN's autotune of the 496 x 432 BEV maps (50 s against 28 s)
+PILLAR_PROFILE_BATCH = 4
 CENTERPOINT_CALLS = {"probe": 8, "spconv_gather": 21}
 # phases 40-44: points a scan (the configs' MAX_POINTS), counted eval batches
 # and training steps; by config: its file, eval batch, training batch
@@ -686,6 +725,23 @@ NUSC_DEMO_SCANS = 2
 # seeded full-width detector: (unplaced, placed on their own leaf, placed on
 # another leaf); the groups' branches share their shapes (ROADMAP §C)
 NUSC_PLACEMENTS = (38, 182, 248)
+# phases 61-64: Lyft's CenterPoint (the Lyft config: nuScenes' CenterPoint
+# widths, five head groups, no velocity, a 1600 x 1600 x 41 grid) and
+# PandaSet's (centerpoint.yaml's model on a 2816 x 1600 x 41 grid): their
+# files under tools/cfgs; phase 62's points a synthetic scan (about a 5-sweep
+# Lyft scan after the range crop), the config's BATCH_SIZE_PER_GPU (its eval
+# batch too), counted batches and steps
+LYFT_CFG = "lyft_models/centerpoint_voxel01_res3d.yaml"
+PANDASET_CFG = "pandaset_models/centerpoint.yaml"
+LYFT_POINTS, LYFT_BATCH, LYFT_ITERS, LYFT_TRAIN_ITERS = 300000, 4, 2, 2
+# phase 63's synthetic Lyft root: train and val scenes, key frames a scene
+# (each after nine sweeps), points a sweep (the order of Lyft's roof lidar)
+LYFT_TRAIN_SCENES, LYFT_VAL_SCENES, LYFT_KEYFRAMES, LYFT_SWEEP_POINTS = 2, 2, 4, 65000
+# phase 64's synthetic PandaSet root: train and val sequences (ids the
+# config's SEQUENCES name), frames a sequence, Pandar64 points a frame (64
+# beams x 1800 azimuths, single return), the config's batch
+PANDASET_TRAIN_SEQ, PANDASET_VAL_SEQ = ("001", "002"), ("004", "007")
+PANDASET_FRAMES, PANDASET_POINTS, PANDASET_BATCH = 4, 115200, 4
 # OpenPCDet's names of CenterHead's shared conv and SeparateHead where the
 # port's (the flax ones) differ
 CENTER_HEAD_OPENPCDET_NAMES = (
@@ -3430,7 +3486,7 @@ def infer_profiles(jobs):
 
 
 # the profiles of phases 39, 44, 48, 52, 56 and 60: config file, batch, points a scan
-PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
+PROFILES = (("pointpillar.yaml", PILLAR_PROFILE_BATCH, ZOO_POINTS),
             ("centerpoint.yaml", ZOO_TRAIN_BATCH, ZOO_POINTS),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in TWO_STAGE.values()),
             *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()),
@@ -3441,8 +3497,8 @@ PROFILES = (("pointpillar.yaml", PILLAR_BATCH, ZOO_POINTS),
 
 def zoo_profiles(profiles):
     """Phase 39, after every timed path (a profiler window slows the later
-    launches of its process): `infer --profile` of pointpillar.yaml at b16
-    and of centerpoint.yaml at b4, 20000 points a scan (`profiles`, from
+    launches of its process): `infer --profile` of pointpillar.yaml and of
+    centerpoint.yaml at b4, 20000 points a scan (`profiles`, from
     `infer_profiles`); no cuDNN FFT (`fft` / `cgemm`) kernel may run."""
     for name in ("pointpillar", "centerpoint"):
         (wall, busy, names), (pwall, pbusy, _) = profiles[f"{name}.yaml"]
@@ -4139,10 +4195,11 @@ def openpcdet_center_head_name(name):
     return name
 
 
-def nusc_golden_phase(dev):
-    """Phase 57: the tiny nuScenes CenterPoint (tiny.centerpoint_nusc_state)
-    reproduces data/centerpoint_nusc_tiny_forward.npz on the card through 8
-    K3 and 21 K7 calls: 9-column decoded boxes, labels and counts exact."""
+def center_golden_phase(dev, label, model_cfg, meta, state, path, n_cols):
+    """Phases 57 and 61: a tiny CenterPoint with several class groups
+    (tiny.centerpoint_nusc_state, tiny.centerpoint_lyft_state) reproduces its
+    JAX golden on the card through 8 K3 and 21 K7 calls: n_cols-column
+    decoded boxes, labels and counts exact."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch import tiny
@@ -4150,19 +4207,18 @@ def nusc_golden_phase(dev):
     from tsm_det_pointcloud_tpu_torch.models import build_network
     from tsm_det_pointcloud_tpu_torch.ops import _kernels
 
-    meta = tiny.CENTERPOINT_NUSC_META
-    model = build_network(tiny.centerpoint_nusc_model_cfg(), len(meta.class_names), meta,
-                          device=dev)
-    model.load_state_dict(tiny.centerpoint_nusc_state(), strict=True)
+    model = build_network(model_cfg, len(meta.class_names), meta, device=dev)
+    model.load_state_dict(state, strict=True)
     pts = torch.from_numpy(tiny.nusc_points(2)).to(dev)
     _kernels.reset_launches()
     out, pred = detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
     got = {k: v for k, v in _kernels.LAUNCHES.items() if v}
-    check(got == CENTERPOINT_CALLS, f"tiny nuScenes CenterPoint launches {got}")
-    check(tuple(out["final_boxes"].shape) == (2, 64, 9),
-          f"tiny nuScenes CenterPoint final boxes {tuple(out['final_boxes'].shape)}")
-    hold_golden("nuScenes reference: tiny centerpoint_nusc", out, pred,
-                tiny.CENTERPOINT_NUSC_FORWARD_PATH)
+    check(got == CENTERPOINT_CALLS, f"tiny {label} launches {got}")
+    groups = len(model_cfg.DENSE_HEAD.CLASS_NAMES_EACH_HEAD)
+    k_max = groups * int(model_cfg.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)
+    check(tuple(out["final_boxes"].shape) == (2, k_max, n_cols),
+          f"tiny {label} final boxes {tuple(out['final_boxes'].shape)}")
+    hold_golden(f"{label} reference: tiny {label}", out, pred, path)
     del model, out, pred
 
 
@@ -4179,44 +4235,52 @@ def velocity_line(model, out):
             + str([(round(m, 3), round(t, 3)) for _, m, t, _ in rows]) + " m/s")
 
 
-def nusc_phases(dev):
-    """Phase 58: cbgs_voxel01_res3d_centerpoint.yaml at full width on
-    synthetic nuScenes-range scans of NUSC_POINTS points (x, y, z,
-    intensity, time lag): an eval batch and a training step at b4 recorded,
-    each K3 and K7 call held against its plain version and timed, then 3
-    counted batches and 2 counted steps. Returns the per-kernel reports and
-    launch counts of both."""
+def center_phases(dev, cfg_name, points, batch, iters, train_iters, label):
+    """Phases 58 and 62: a CenterPoint config of several class groups
+    (cbgs_voxel01_res3d_centerpoint.yaml, the Lyft config) at full width on
+    synthetic scans of its range of `points` points (x, y, z, intensity,
+    time lag): an eval batch and a training step at b`batch` recorded, each
+    K3 and K7 call held against its plain version and timed, then `iters`
+    counted batches and `train_iters` counted steps; the training batches'
+    gt boxes cycle through the config's classes (every head group trains)
+    and carry velocities where the head predicts them. Returns the
+    per-kernel reports and launch counts of both."""
     import torch
 
     from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
                                                     voxel_anchor_counts)
     from tsm_det_pointcloud_tpu_torch.ops import _kernels
     from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
-    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+    from tsm_det_pointcloud_tpu_torch.train import (build_trainer, predicts_velocity,
+                                                    synth_train_batch)
 
-    cfg_file = cfg_path(NUSC_CFG)
-    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=NUSC_POINTS)
+    cfg_file = cfg_path(cfg_name)
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=points)
+    velocity = predicts_velocity(model)
+    n_cols = 9 if velocity else 7
     post = cfg.MODEL.POST_PROCESSING
     post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
     groups = len(cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD)
     k_max = groups * int(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE)
     meta = model.dataset_meta
-    batches = [torch.from_numpy(synth_scans(meta, NUSC_BATCH, NUSC_POINTS, seed=s)).to(dev)
-               for s in range(NUSC_ITERS)]
-    mask = torch.ones((NUSC_BATCH, NUSC_POINTS), dtype=torch.bool, device=dev)
+    batches = [torch.from_numpy(synth_scans(meta, batch, points, seed=s)).to(dev)
+               for s in range(iters)]
+    mask = torch.ones((batch, points), dtype=torch.bool, device=dev)
     rec = record_kernels(SECOND_KERNELS)
     out, _ = detect(model, batches[0], mask)
     torch.cuda.synchronize()
     rec.restore()
     for name, n in CENTERPOINT_CALLS.items():
-        check(len(rec.calls[name]) == n, f"the nuScenes capture forward made "
+        check(len(rec.calls[name]) == n, f"the {label} capture forward made "
               f"{len(rec.calls[name])} {name} calls, not {n}")
     voxels, over = voxel_anchor_counts(model, out)
-    print(f"centerpoint_nusc capture: grid {meta.grid_size}, {NUSC_POINTS} points a scan of "
+    boxes = velocity_line(model, out) if velocity else (
+        f"decoded boxes over SCORE_THRESH a scan {over}")
+    print(f"{label} capture: grid {meta.grid_size}, {points} points a scan of "
           f"{meta.num_point_features} features, voxel capacity {meta.max_voxels}; voxels a scan "
-          f"{voxels}; {velocity_line(model, out)} of {k_max}")
+          f"{voxels}; {boxes} of {k_max}")
     del out
-    report_eval = compare_recorded(rec.calls, "centerpoint_nusc")
+    report_eval = compare_recorded(rec.calls, label)
     del rec
 
     torch.cuda.synchronize()
@@ -4229,32 +4293,32 @@ def nusc_phases(dev):
     launches_eval = dict(_kernels.LAUNCHES)
     for out, pred in preds:
         for key in ("final_boxes", "final_scores"):
-            check(bool(torch.isfinite(out[key]).all()), f"centerpoint_nusc: non-finite {key}")
-        check(tuple(out["final_boxes"].shape) == (NUSC_BATCH, k_max, 9),
-              f"centerpoint_nusc final boxes shape {tuple(out['final_boxes'].shape)}")
+            check(bool(torch.isfinite(out[key]).all()), f"{label}: non-finite {key}")
+        check(tuple(out["final_boxes"].shape) == (batch, k_max, n_cols),
+              f"{label} final boxes shape {tuple(out['final_boxes'].shape)}")
         for key in ("pred_boxes", "pred_scores"):
-            check(bool(torch.isfinite(pred[key]).all()), f"centerpoint_nusc: non-finite {key}")
+            check(bool(torch.isfinite(pred[key]).all()), f"{label}: non-finite {key}")
         check(bool((pred["count"] <= post_max).all()),
-              "centerpoint_nusc: count > NMS_POST_MAXSIZE")
+              f"{label}: count > NMS_POST_MAXSIZE")
     for name, n in CENTERPOINT_CALLS.items():
-        check(launches_eval[name] == n * NUSC_ITERS,
-              f"kernel {name} launched {launches_eval[name]} times on the nuScenes path, "
+        check(launches_eval[name] == n * iters,
+              f"kernel {name} launched {launches_eval[name]} times on the {label} path, "
               f"not {n} a forward")
     counts = [int(c) for c in preds[-1][1]["count"]]
-    print(f"centerpoint_nusc eval: {NUSC_ITERS} batches x {NUSC_BATCH} scans x {NUSC_POINTS} "
-          f"points in {dt:.3f} s = {NUSC_ITERS * NUSC_BATCH / dt:.3f} scans/s; detections a "
+    print(f"{label} eval: {iters} batches x {batch} scans x {points} "
+          f"points in {dt:.3f} s = {iters * batch / dt:.3f} scans/s; detections a "
           f"scan (last batch) {counts}; launches {launches_eval}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, preds, batches, out, pred
     torch.cuda.empty_cache()
 
-    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=NUSC_POINTS,
-                                  total_steps=NUSC_TRAIN_ITERS + 1)
+    _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=points,
+                                  total_steps=train_iters + 1)
     meta = model.dataset_meta
-    tbatches = [synth_train_batch(NUSC_BATCH, NUSC_POINTS, s, dev, meta.point_cloud_range,
-                                  meta.num_point_features, velocity=True,
+    tbatches = [synth_train_batch(batch, points, s, dev, meta.point_cloud_range,
+                                  meta.num_point_features, velocity=velocity,
                                   n_classes=len(meta.class_names))
-                for s in range(NUSC_TRAIN_ITERS + 1)]
+                for s in range(train_iters + 1)]
     rec = record_kernels(SECOND_KERNELS)
     opt.zero_grad(set_to_none=True)
     out = model(dict(tbatches[0]))
@@ -4262,20 +4326,21 @@ def nusc_phases(dev):
     torch.cuda.synchronize()
     rec.restore()
     for name, n in CENTERPOINT_CALLS.items():
-        check(len(rec.calls[name]) == n, f"the nuScenes training step made "
+        check(len(rec.calls[name]) == n, f"the {label} training step made "
               f"{len(rec.calls[name])} {name} calls, not {n}")
     for n, p in model.named_parameters():
-        check(p.grad is not None, f"centerpoint_nusc parameter {n} got no gradient")
+        check(p.grad is not None, f"{label} parameter {n} got no gradient")
         if p.dim() == 3 or ".vel_" in n:
-            check(bool(p.grad.abs().sum() > 0), f"centerpoint_nusc {n} got a zero gradient")
+            check(bool(p.grad.abs().sum() > 0), f"{label} {n} got a zero gradient")
     opt.step()
-    check(bool(torch.isfinite(out["loss"])), "centerpoint_nusc warm-up step loss is not finite")
-    print(f"centerpoint_nusc training capture: voxel capacity {meta.max_voxels}, gt boxes "
-          f"{tuple(tbatches[0]['gt_boxes'].shape)} (with velocities); loss "
+    check(bool(torch.isfinite(out["loss"])), f"{label} warm-up step loss is not finite")
+    print(f"{label} training capture: voxel capacity {meta.max_voxels}, gt boxes "
+          f"{tuple(tbatches[0]['gt_boxes'].shape)}{' (with velocities)' if velocity else ''} "
+          f"of {len(meta.class_names)} classes; loss "
           f"{float(out['loss'].detach()):.4f}, "
           + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in out["tb_dict"].items()))
     del out
-    report_train = compare_recorded(rec.calls, "centerpoint_nusc train")
+    report_train = compare_recorded(rec.calls, f"{label} train")
     del rec
 
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -4290,16 +4355,16 @@ def nusc_phases(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (loss, tb) in enumerate(steps):
         check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v)) for v in tb.values()),
-              f"centerpoint_nusc training step {i}: loss {float(loss)}, {tb}")
+              f"{label} training step {i}: loss {float(loss)}, {tb}")
     for n, p in model.named_parameters():
-        check(not torch.equal(p, before[n]), f"centerpoint_nusc parameter {n} did not change")
+        check(not torch.equal(p, before[n]), f"{label} parameter {n} did not change")
     for name, n in CENTERPOINT_CALLS.items():
-        check(launches_train[name] == n * NUSC_TRAIN_ITERS,
-              f"kernel {name} launched {launches_train[name]} times on the nuScenes "
+        check(launches_train[name] == n * train_iters,
+              f"kernel {name} launched {launches_train[name]} times on the {label} "
               f"training path, not {n} a step")
-    print(f"centerpoint_nusc training: {NUSC_TRAIN_ITERS} steps x {NUSC_BATCH} scans x "
-          f"{NUSC_POINTS} points in {dt:.3f} s = {NUSC_TRAIN_ITERS * NUSC_BATCH / dt:.3f} "
-          f"train scans/s ({1e3 * dt / NUSC_TRAIN_ITERS:.1f} ms/step); losses "
+    print(f"{label} training: {train_iters} steps x {batch} scans x "
+          f"{points} points in {dt:.3f} s = {train_iters * batch / dt:.3f} "
+          f"train scans/s ({1e3 * dt / train_iters:.1f} ms/step); losses "
           + str([(round(float(loss), 4), round(float(tb["hm_loss_0"]), 4),
                   round(float(tb["reg_loss_0"]), 4)) for loss, tb in steps])
           + f" (loss, hm_loss_0, reg_loss_0); {len(before)} parameters changed; launches "
@@ -4491,6 +4556,212 @@ def nusc_profiles(dev, profiles):
           f"({100 * busy / wall:.1f}%)")
     del model, opt, batches
     torch.cuda.empty_cache()
+
+
+def echo_lyft_dets(dataset, classes):
+    """Prediction dicts of each info's own gt boxes (7 columns), at distinct
+    scores (the KITTI eval's 41-point sweep steps through the true
+    positives' scores)."""
+    rng = np.random.RandomState(0)
+    dets = []
+    for info in dataset.infos:
+        labels = np.array([classes.index(n) + 1 for n in info["gt_names"]])
+        dets += dataset.generate_prediction_dicts(
+            {"metadata": [None]},
+            [{"pred_boxes": np.asarray(info["gt_boxes"])[:, :7],
+              "pred_scores": rng.uniform(0.5, 1.0, len(labels)).astype(np.float32),
+              "pred_labels": labels}], classes)
+    return dets
+
+
+def lyft_data_phases(dev, base):
+    """Phase 63: the Lyft data path on a synthetic root at the order of
+    Lyft's roof lidar (LYFT_TRAIN_SCENES + LYFT_VAL_SCENES scenes of
+    LYFT_KEYFRAMES key frames, each after nine sweeps of LYFT_SWEEP_POINTS
+    points): the writer, `create_lyft_infos` (10-sweep infos, the train gt
+    database), the points a 5-sweep val scan holds before and after the
+    range crop, echoed val gt through the dataset's Lyft mAP (1.0) and its
+    pseudo-KITTI route (AP 100 on every 3D R40 difficulty of the four KITTI
+    classes the Lyft classes map to), `evaluate` (seeded weights: a finite
+    mAP dict), `train --data_root` for an epoch (gt sampling, the world
+    augmentors; the loader's wait), each first forward or step recorded and
+    its K3 / K7 calls held. Returns the per-kernel reports and launch counts
+    of evaluate and train."""
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets.lyft.lyft_dataset import (
+        MAP_NAME_TO_KITTI, LyftDataset, create_lyft_infos)
+    from tsm_det_pointcloud_tpu_torch.datasets.lyft.synthetic import write_synthetic_lyft
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    cfg_file = cfg_path(LYFT_CFG)
+    cfg = load_cfg(cfg_file)
+    classes = list(cfg.CLASS_NAMES)
+    root = base / "trainval"
+    t0 = time.perf_counter()
+    write_synthetic_lyft(root, LYFT_TRAIN_SCENES, LYFT_VAL_SCENES, LYFT_KEYFRAMES,
+                         LYFT_SWEEP_POINTS, seed=0)
+    t1 = time.perf_counter()
+    create_lyft_infos(cfg.DATA_CONFIG, classes, root)
+    t2 = time.perf_counter()
+    test_set = LyftDataset(cfg.DATA_CONFIG, classes, training=False, root_path=root)
+    points, cropped = [], []
+    for i in range(len(test_set)):
+        np.random.seed(i)
+        points.append(len(test_set.get_lidar_with_sweeps(i, cfg.DATA_CONFIG.MAX_SWEEPS)))
+        cropped.append(len(test_set[i]["points"]))
+    check(max(cropped) <= test_set.max_points, f"Lyft scans cut by the collate: {cropped}")
+    dets = echo_lyft_dets(test_set, classes)
+    _, echo = test_set.evaluation(dets, classes)
+    check(abs(echo["mAP"] - 1.0) < 1e-9, f"Lyft echoed gt: {echo}")
+    _, kitti = test_set.evaluation(dets, classes, eval_metric="kitti")
+    kitti_classes = sorted(set(MAP_NAME_TO_KITTI.values()))
+    aps = {f"{c}_3d/{d}_R40": kitti.get(f"{c}_3d/{d}_R40") for c in kitti_classes
+           for d in ("easy", "moderate", "hard")}
+    check(all(v is not None and abs(v - 100.0) < 1e-6 for v in aps.values()),
+          f"Lyft echoed gt through the KITTI route: {aps}")
+    print(f"Lyft data: wrote {LYFT_TRAIN_SCENES} + {LYFT_VAL_SCENES} scenes of "
+          f"{LYFT_KEYFRAMES} key frames (each after nine sweeps) of {LYFT_SWEEP_POINTS} "
+          f"points a sweep in {t1 - t0:.1f} s, infos and gt database in {t2 - t1:.1f} s; "
+          f"points a val scan of {cfg.DATA_CONFIG.MAX_SWEEPS} sweeps {points}, {cropped} after "
+          f"the range crop (MAX_POINTS {test_set.max_points}); echoed val gt: Lyft mAP "
+          f"{echo['mAP']:.4f}, pseudo-KITTI AP (3D R40) 100.0 for {kitti_classes} on every "
+          f"difficulty")
+
+    common = ["--cfg_file", str(cfg_file), "--data_root", str(root), "--workers",
+              str(KITTI_WORKERS), "--device", str(dev)]
+    out_dir = base / "run"
+    res, launches_eval, peak, rec, first_out = run_recorded(
+        "centerpoint_lyft data eval", evaluate,
+        common + ["--batch_size", str(LYFT_BATCH), "--output_dir", str(out_dir)],
+        detectors["CenterPoint"], "forward", SECOND_KERNELS)
+    voxels = first_out["voxel_mask"].sum(1).tolist()
+    del first_out
+    check(set(classes) | {"mAP"} <= set(res) and all(np.isfinite(res[k]) for k in classes),
+          f"Lyft evaluate: {res}")
+    for kname, k in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[kname]) == k, f"Lyft data eval: {len(rec.calls[kname])} "
+              f"{kname} calls a forward")
+    print(f"centerpoint_lyft data eval (evaluate, seeded weights): {len(test_set)} scans at "
+          f"b{LYFT_BATCH}: voxels a scan of the first batch {voxels}; mAP {res['mAP']:.4f}; "
+          f"{eval_line(res)}; launches {launches_eval}; peak memory {peak:.2f} GiB")
+    report_eval = compare_recorded(rec.calls, "centerpoint_lyft data eval")
+    del rec
+    (ckpt_dir, epochs), launches_train, _, rec, _ = run_recorded(
+        "centerpoint_lyft data train", train,
+        common + ["--epochs", "1", "--batch", str(LYFT_BATCH), "--output_dir", str(out_dir)],
+        train_loop, "train_step", SECOND_KERNELS)
+    print(f"centerpoint_lyft data train (train --data_root, gt sampling): "
+          f"{epochs_line(epochs)}; launches {launches_train}")
+    report_train = compare_recorded(rec.calls, "centerpoint_lyft data train")
+    del rec
+    check((ckpt_dir / "checkpoint_epoch_1.pth").exists(), "Lyft train wrote no checkpoint")
+    return report_eval, launches_eval, report_train, launches_train
+
+
+def pandaset_data_phases(dev, base):
+    """Phase 64: the PandaSet data path on pandaset_models/centerpoint.yaml at
+    full width, on a synthetic root of Pandar64 frames (PANDASET_FRAMES
+    frames of PANDASET_POINTS points in each of the sequences
+    PANDASET_TRAIN_SEQ and PANDASET_VAL_SEQ, ids the config's SEQUENCES
+    name): the writer, `create_pandaset_infos` (infos, the train gt
+    database), the points a frame holds before and after the range crop,
+    the val frames' gt boxes fed back through `generate_prediction_dicts`
+    onto their world cuboids (within 1e-4 m: the poses are float64 on the
+    host), `train --data_root` for an epoch, then `evaluate` of its
+    checkpoint (the empty result, as the reference's), each first step or
+    forward recorded and its K3 / K7 calls held. Returns the per-kernel
+    reports and launch counts of evaluate and train."""
+    import pandas as pd
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, train
+    from tsm_det_pointcloud_tpu_torch.datasets.pandaset.pandaset_dataset import (
+        PandasetDataset, create_pandaset_infos)
+    from tsm_det_pointcloud_tpu_torch.datasets.pandaset.synthetic import (
+        write_synthetic_pandaset)
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import __all__ as detectors
+    from tsm_det_pointcloud_tpu_torch.runtime import train_loop
+
+    cfg_file = cfg_path(PANDASET_CFG)
+    cfg = load_cfg(cfg_file)
+    classes = list(cfg.CLASS_NAMES)
+    root = base / "root"
+    t0 = time.perf_counter()
+    write_synthetic_pandaset(root, PANDASET_TRAIN_SEQ + PANDASET_VAL_SEQ, PANDASET_FRAMES,
+                             PANDASET_POINTS, seed=0)
+    t1 = time.perf_counter()
+    create_pandaset_infos(cfg.DATA_CONFIG, classes, root, root)
+    t2 = time.perf_counter()
+    test_set = PandasetDataset(cfg.DATA_CONFIG, classes, training=False, root_path=root)
+    check(len(test_set) == len(PANDASET_VAL_SEQ) * PANDASET_FRAMES,
+          f"PandaSet val infos: {len(test_set)}")
+    mapped = set(cfg.DATA_CONFIG.TRAINING_CATEGORIES)
+    cropped, worst, boxes = [], 0.0, 0
+    for i, info in enumerate(test_set.infos):
+        sample = test_set[i]
+        cropped.append(len(sample["points"]))
+        gt = sample["gt_boxes"]
+        annos = test_set.generate_prediction_dicts(
+            test_set.collate_batch([sample]),
+            [{"pred_boxes": gt[:, :7], "pred_scores": np.ones(len(gt), np.float32),
+              "pred_labels": gt[:, 7].astype(np.int64)}], classes)
+        cub = pd.read_pickle(root / info["cuboids_path"])
+        cub = cub[(cub["cuboids.sensor_id"] != 1) & cub.label.isin(mapped)]
+        df = annos[0]["preds"]
+        check(len(df) == len(cub) > 0, f"PandaSet frame {i}: {len(df)} boxes of {len(cub)}")
+        for a in "xyz":
+            worst = max(worst, float(np.abs(df[f"position.{a}"].to_numpy()
+                                             - cub[f"position.{a}"].to_numpy()).max()))
+        boxes += len(df)
+    check(worst < 1e-4, f"PandaSet echoed cuboids {worst} m from the world ones")
+    check(max(cropped) <= test_set.max_points, f"PandaSet frames cut by the collate: {cropped}")
+    print(f"PandaSet data: wrote {len(PANDASET_TRAIN_SEQ)} + {len(PANDASET_VAL_SEQ)} "
+          f"sequences of {PANDASET_FRAMES} frames of {PANDASET_POINTS} Pandar64 points (and "
+          f"PandarGT points) in {t1 - t0:.1f} s, infos and gt database in {t2 - t1:.1f} s; "
+          f"points a val frame after the Pandar64 pick and the range crop {cropped} "
+          f"(MAX_POINTS {test_set.max_points}); {boxes} echoed val gt boxes back on their "
+          f"world cuboids within {worst:.2e} m")
+
+    # training first: its first step's cuDNN autotune of the 2816 x 1600 grid's
+    # BEV convs (the widest the port runs, ~50 s on the card) covers the eval
+    # forward's shapes too, which evaluate then finds tuned
+    common = ["--cfg_file", str(cfg_file), "--data_root", str(root), "--workers",
+              str(KITTI_WORKERS), "--device", str(dev)]
+    out_dir = base / "run"
+    (ckpt_dir, epochs), launches_train, _, rec, _ = run_recorded(
+        "centerpoint_pandaset data train", train,
+        common + ["--epochs", "1", "--batch", str(PANDASET_BATCH), "--output_dir", str(out_dir)],
+        train_loop, "train_step", SECOND_KERNELS)
+    print(f"centerpoint_pandaset data train (train --data_root, gt sampling): "
+          f"{epochs_line(epochs)}; launches {launches_train}")
+    report_train = compare_recorded(rec.calls, "centerpoint_pandaset data train")
+    del rec
+    check((ckpt_dir / "checkpoint_epoch_1.pth").exists(), "PandaSet train wrote no checkpoint")
+    res, launches_eval, peak, rec, first_out = run_recorded(
+        "centerpoint_pandaset data eval", evaluate,
+        common + ["--batch_size", str(PANDASET_BATCH), "--output_dir", str(out_dir)],
+        detectors["CenterPoint"], "forward", SECOND_KERNELS)
+    voxels = first_out["voxel_mask"].sum(1).tolist()
+    del first_out
+    check(set(res) == {"sec_per_example", "loader_first_wait_s", "loader_wait_s",
+                       "scans_per_s"}, f"PandaSet evaluate: {res}")
+    with open(out_dir / "eval" / "default" / "result.pkl", "rb") as f:
+        result = pickle.load(f)
+    check(len(result) == len(test_set) and all("preds" in a for a in result),
+          f"PandaSet evaluate: {len(result)} prediction dicts")
+    for kname, k in CENTERPOINT_CALLS.items():
+        check(len(rec.calls[kname]) == k, f"PandaSet data eval: {len(rec.calls[kname])} "
+              f"{kname} calls a forward")
+    print(f"centerpoint_pandaset data eval (evaluate of the trained checkpoint): "
+          f"{len(test_set)} frames at b{PANDASET_BATCH}: voxels a frame of the first batch "
+          f"{voxels}; detections a frame {[len(a['name']) for a in result]} (world-frame cuboid "
+          f"DataFrames), the empty result; {eval_line(res)}; launches {launches_eval}; peak "
+          f"memory {peak:.2f} GiB")
+    report_eval = compare_recorded(rec.calls, "centerpoint_pandaset data eval")
+    del rec
+    return report_eval, launches_eval, report_train, launches_train
 
 
 def main():
@@ -4870,15 +5141,32 @@ def main():
     for which in PVRCNN_PP:
         pointrcnn_converter_phase(dev, kitti_root, which, VOXEL_ROI_UNPLACED)
     mark("53-55")
-    nusc_golden_phase(dev)
+    center_golden_phase(dev, "centerpoint_nusc", tiny.centerpoint_nusc_model_cfg(),
+                        tiny.CENTERPOINT_NUSC_META, tiny.centerpoint_nusc_state(),
+                        tiny.CENTERPOINT_NUSC_FORWARD_PATH, 9)
     nusc = {}
-    rep_e, lau_e, rep_t, lau_t = nusc_phases(dev)
+    rep_e, lau_e, rep_t, lau_t = center_phases(dev, NUSC_CFG, NUSC_POINTS, NUSC_BATCH,
+                                               NUSC_ITERS, NUSC_TRAIN_ITERS, "centerpoint_nusc")
     nusc["centerpoint_nusc"] = (rep_e, lau_e)
     nusc["centerpoint_nusc_train"] = (rep_t, lau_t)
     rep_e, lau_e, rep_t, lau_t = nusc_data_phases(dev, kitti_root.parent / "nuscenes")
     nusc["centerpoint_nusc_data"] = (rep_e, lau_e)
     nusc["centerpoint_nusc_data_train"] = (rep_t, lau_t)
     mark("57-59")
+    center_golden_phase(dev, "centerpoint_lyft", tiny.centerpoint_lyft_model_cfg(),
+                        tiny.CENTERPOINT_LYFT_META, tiny.centerpoint_lyft_state(),
+                        tiny.CENTERPOINT_LYFT_FORWARD_PATH, 7)
+    rep_e, lau_e, rep_t, lau_t = center_phases(dev, LYFT_CFG, LYFT_POINTS, LYFT_BATCH,
+                                               LYFT_ITERS, LYFT_TRAIN_ITERS, "centerpoint_lyft")
+    nusc["centerpoint_lyft"] = (rep_e, lau_e)
+    nusc["centerpoint_lyft_train"] = (rep_t, lau_t)
+    rep_e, lau_e, rep_t, lau_t = lyft_data_phases(dev, kitti_root.parent / "lyft")
+    nusc["centerpoint_lyft_data"] = (rep_e, lau_e)
+    nusc["centerpoint_lyft_data_train"] = (rep_t, lau_t)
+    rep_e, lau_e, rep_t, lau_t = pandaset_data_phases(dev, kitti_root.parent / "pandaset")
+    nusc["centerpoint_pandaset_data"] = (rep_e, lau_e)
+    nusc["centerpoint_pandaset_data_train"] = (rep_t, lau_t)
+    mark("61-64")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,

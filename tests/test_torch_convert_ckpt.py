@@ -6,7 +6,8 @@ is exact: both sides run the same numpy on the same arrays.
     tests/test_ckpt_converter.py (a `slow` file: not in tier-1) and on a
     3-tap sparse kernel, which both reject alike;
   * the graft on the tiny student, teacher, SECOND, PointPillars,
-    CenterPoint, Part-A2, PV-RCNN and PointRCNN: a synthetic
+    CenterPoint, the Lyft CenterPoint (five head groups, 5 point features),
+    Part-A2, PV-RCNN and PointRCNN: a synthetic
     OpenPCDet-layout state dict (`reference_state_dict`, numpy-seeded
     values on each JAX tiny training init's structure, BN
     `num_batches_tracked` entries that no rule maps) through the JAX
@@ -110,13 +111,23 @@ def _tsm(cfg, jmodel):
         lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=True), _jax_batch("sparse"))
 
 
-def _voxel(cfg, meta):
+def _voxel(cfg, meta, batch=None):
     """A voxel detector of the JAX package built on the port's tiny config
-    and geometry; its init's shapes on the tiny SECOND's batch."""
+    and geometry; its init's shapes on `batch`, by default the tiny SECOND's."""
     jmodel = jbuild(cfg, num_class=len(meta.class_names),
                     dataset=JDatasetMeta(**dataclasses.asdict(meta)))
     return cfg, jax.eval_shape(
-        lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=True), dict(synthetic_batch()))
+        lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=True),
+        dict(synthetic_batch()) if batch is None else batch)
+
+
+def _lyft_batch():
+    """The tiny Lyft CenterPoint's training batch: 5 point features, one car
+    a scan."""
+    gt = np.zeros((2, 1, 8), np.float32)
+    gt[:, 0] = [2, 1, -1, 4.76, 1.93, 1.72, 0.3, 1]
+    return {"points": tiny.nusc_points(2), "points_mask": np.ones((2, 512), bool),
+            "batch_size": 2, "gt_boxes": gt, "gt_boxes_mask": np.ones((2, 1), bool)}
 
 
 MODELS = {
@@ -125,6 +136,8 @@ MODELS = {
     "second": lambda: _voxel(tiny.second_model_cfg(), tiny.SECOND_META),
     "pointpillar": lambda: _voxel(tiny.pointpillar_model_cfg(), tiny.POINTPILLAR_META),
     "centerpoint": lambda: _voxel(tiny.centerpoint_model_cfg(), tiny.CENTERPOINT_META),
+    "centerpoint_lyft": lambda: _voxel(tiny.centerpoint_lyft_model_cfg(),
+                                       tiny.CENTERPOINT_LYFT_META, _lyft_batch()),
     "parta2": lambda: _voxel(*tiny.two_stage_model("parta2")),
     "pvrcnn": lambda: _voxel(*tiny.two_stage_model("pvrcnn")),
     "pointrcnn": lambda: _voxel(*tiny.two_stage_model("pointrcnn")),
@@ -171,8 +184,8 @@ def _jax_side(init, ref):
 def _without_three_tap_kernels(name, ref):
     """SECOND's and CenterPoint's state dicts without conv_out's kernel,
     which neither side converts (test_three_tap_spconv_kernel_raises_like_jax)."""
-    if name not in ("second", "centerpoint", "parta2", "pvrcnn", "voxelrcnn", "secondnetiou",
-                    "pvrcnnplusplus"):
+    if name not in ("second", "centerpoint", "centerpoint_lyft", "parta2", "pvrcnn",
+                    "voxelrcnn", "secondnetiou", "pvrcnnplusplus"):
         return ref
     with pytest.raises(ValueError):
         jtool.convert_state_dict(ref)
@@ -210,6 +223,10 @@ EXPECTED = {
     "second": dict(unmatched=[], misplaced=[], unplaced=ANCHOR_HEAD_UNPLACED),
     "pointpillar": dict(unmatched=[], misplaced=[], unplaced=ANCHOR_HEAD_UNPLACED),
     "centerpoint": dict(unmatched=[], misplaced=[], unplaced=[
+        "backbone_2d/deblock0/kernel", "backbone_2d/deblock1/kernel"]),
+    # the tiny Lyft CenterPoint's five-group head (the port's names, not
+    # OpenPCDet's): each group's branches land on the group's own leaves
+    "centerpoint_lyft": dict(unmatched=[], misplaced=[], unplaced=[
         "backbone_2d/deblock0/kernel", "backbone_2d/deblock1/kernel"]),
     # the two-stage tiny models: the anchor head's 1x1 convs as SECOND's; the
     # RoI head's cls_fc / cls_out tie in leaf name and shape with the point

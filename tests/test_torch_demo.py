@@ -33,7 +33,11 @@ out of range, so that the range mask and sample_points' draw both work):
     (torch_nuscenes_cases.tiny_dataset_cfg) over `.npy` scans of 5 columns:
     its detections and the entry point; `.bin` scans of the same points are
     read as 4 columns on both sides (the JAX tool's reading, which this
-    config cannot take: ROADMAP §C), and the port logs a warning.
+    config cannot take: ROADMAP §C), and the port logs a warning;
+  * the tiny Lyft CenterPoint (tiny.centerpoint_lyft_state(): five head
+    groups) on the Lyft config's data section on its geometry
+    (torch_lyft_cases.tiny_dataset_cfg) over `.npy` scans of 5 columns over
+    the +-80 m range: its detections and the entry point.
 """
 import importlib.util
 
@@ -42,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_lyft_cases as lyft
 from tests import torch_nuscenes_cases as nusc
 from tests.test_torch_kitti_data import assert_same
 from tests.torch_kitti_cases import (CLASSES, tiny_dataset_cfg, tiny_pointpillar_dataset_cfg,
@@ -298,6 +303,47 @@ def test_nuscenes_entry_point_on_cpu(nusc_scans, tmp_path, capsys):
     torch.save({"model_state": tiny.centerpoint_nusc_state(), "optimizer_state": {},
                 "epoch": 1, "it": 3}, ckpt)
     preds, rate = demo.main(["--cfg_file", str(cfg), "--data_path", str(nusc_scans / "npy"),
+                             "--ext", ".npy", "--ckpt", str(ckpt), "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "Total number of samples: \t2" in err and f"Loaded checkpoint {ckpt}" in err
+    assert sum(len(p["pred_labels"]) for p in preds) == err.count("  label=") > 0
+    assert all(p["pred_boxes"].shape[-1] == 7 for p in preds) and rate > 0
+
+
+def test_lyft_npy_detections_equal_jax_and_entry_point(tmp_path, capsys):
+    """Two Lyft-like 5-column scans of 800 points over the +-80 m range and
+    past it, each with a car-like cluster: the tiny Lyft CenterPoint's
+    detections equal the JAX tool's, and the entry point runs on them."""
+    rng = np.random.RandomState(2)
+    (tmp_path / "npy").mkdir()
+    for i in range(2):
+        pts = np.zeros((800, 5), np.float32)
+        pts[:, 0:2] = rng.uniform(-84, 84, (800, 2))
+        pts[:, 2] = rng.uniform(-1.8, 1.0, 800)
+        pts[:, 3] = rng.uniform(0, 100, 800)
+        pts[:, 4] = rng.randint(0, 5, 800) * 0.1
+        pts[:200, 0] = rng.uniform(10 + i, 14.7 + i, 200)
+        pts[:200, 1] = rng.uniform(-3, -1, 200)
+        pts[:200, 2] = rng.uniform(-1.8, -0.2, 200)
+        np.save(tmp_path / "npy" / f"{i:06d}.npy", pts)
+    cfg = lyft.tiny_dataset_cfg(tmp_path)
+    jds = jdemo.DemoDataset(cfg, lyft.CLASSES, tmp_path / "npy", ext=".npy")
+    pds = demo.DemoDataset(cfg, lyft.CLASSES, tmp_path / "npy", ext=".npy")
+    state = tiny.centerpoint_lyft_state()
+    want = _jax_detections(jds, to_flax_variables(state), tiny.centerpoint_lyft_model_cfg(), 9)
+    model = build_network(tiny.centerpoint_lyft_model_cfg(), 9, pds, device="cpu")
+    model.load_state_dict(state, strict=True)
+    got = demo.run_demo(model, pds, create_logger())
+    assert sum(len(p["pred_labels"]) for p in want) > 0, "no detections to compare"
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g["pred_labels"], w["pred_labels"], err_msg=f"scan {i}")
+        np.testing.assert_allclose(g["pred_scores"], w["pred_scores"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g["pred_boxes"], w["pred_boxes"], rtol=1e-4, atol=1e-4)
+    cfg_file = lyft.write_tiny_yaml(tmp_path / "tiny_lyft.yaml", tmp_path)
+    ckpt = tmp_path / "tiny_lyft.pth"
+    torch.save({"model_state": state, "optimizer_state": {}, "epoch": 1, "it": 3}, ckpt)
+    capsys.readouterr()
+    preds, rate = demo.main(["--cfg_file", str(cfg_file), "--data_path", str(tmp_path / "npy"),
                              "--ext", ".npy", "--ckpt", str(ckpt), "--device", "cpu"])
     err = capsys.readouterr().err
     assert "Total number of samples: \t2" in err and f"Loaded checkpoint {ckpt}" in err

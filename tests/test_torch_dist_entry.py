@@ -21,6 +21,9 @@ gloo) on the tiny TSM over tests/torch_kitti_cases.py's root of 6 frames.
   over a synthetic nuScenes root (cbgs_voxel01_res3d_centerpoint.yaml's data
   section: CBGS, gt sampling, 10 sweeps): rank 0 writes the checkpoint,
   which loads; `--point_axis 2` refuses it;
+* `train --launcher pytorch` for one epoch on the tiny Lyft CenterPoint over
+  a synthetic Lyft root (the Lyft config's data section: 5 of 9 sweeps, gt
+  sampling): rank 0 writes the checkpoint, which loads;
 * `--launcher pytorch` without torchrun's environment raises, and so does
   `--point_axis 2` in one process (the world is not a multiple of 2; for a
   two-stage config, which has no point-sharded layer, whatever the world),
@@ -34,6 +37,7 @@ import sys
 import numpy as np
 import pytest
 
+from tests import torch_lyft_cases as lyft
 from tests import torch_nuscenes_cases as nusc
 from tests.torch_dist_cases import (JOIN_TIMEOUT, free_port, rank_env, run_ranks,
                                     shared_memory_case)
@@ -234,6 +238,25 @@ def test_nuscenes_centerpoint_refuses_point_axis(nusc_setup):
     with pytest.raises(ValueError, match="CenterPoint has no such layer"):
         train.main(["--cfg_file", str(cfg), "--data_root", str(root), "--device", "cpu",
                     "--workers", "0", "--point_axis", "2", "--output_dir", str(base / "pax2")])
+
+
+def test_lyft_centerpoint_trains_over_two_ranks(tmp_path):
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.runtime.checkpoint import load_model_state
+
+    root = lyft.port_infos(lyft.make_base(tmp_path / "base") / "trainval")
+    cfg = lyft.write_tiny_yaml(tmp_path / "tiny_lyft.yaml", root, batch=1, epochs=1)
+    rank0, rank1 = _launch("train", ["--cfg_file", str(cfg), "--data_root", str(root),
+                                     "--device", "cpu", "--workers", "0", "--launcher",
+                                     "pytorch", "--output_dir", str(tmp_path / "run")])
+    assert "epoch 1/1: mean loss" in rank0 and "epoch 1/1" not in rank1
+    model = build_network(tiny.centerpoint_lyft_model_cfg(), 9, tiny.CENTERPOINT_LYFT_META,
+                          device="cpu")
+    model.load_state_dict(load_model_state(tmp_path / "run" / "ckpt" / "checkpoint_epoch_1.pth"),
+                          strict=True)
+    assert all(torch.isfinite(t).all() for t in model.state_dict().values())
 
 
 def test_synthetic_mode_stays_single_process():

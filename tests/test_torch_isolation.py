@@ -328,3 +328,51 @@ def test_launcher_refuses_cuda_without_card(monkeypatch, tmp_path):
         train.main(["--data_root", str(tmp_path), "--output_dir", str(tmp_path),
                     "--launcher", "slurm"])
     assert comm.get_world_size() == 1
+
+
+def test_lyft_pandaset_modules_are_covered():
+    """The Lyft and PandaSet modules (datasets, writers, the Lyft mAP and the
+    pseudo-KITTI annos) are among those imported without JAX above and
+    scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("datasets.lyft.lyft_dataset", "datasets.lyft.lyft_tables",
+                 "datasets.lyft.synthetic", "datasets.pandaset.pandaset_dataset",
+                 "datasets.pandaset.synthetic", "datasets.kitti.kitti_format",
+                 "eval.lyft_eval"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_dataset_registry_imports_without_pandas():
+    """PandaSet's frames are pandas pickles, but the registry, the loader and
+    both new datasets import on a host without pandas."""
+    code = ("import sys\n"
+            "sys.modules['pandas'] = None\n"
+            "import tsm_det_pointcloud_tpu_torch.datasets as d\n"
+            "from tsm_det_pointcloud_tpu_torch.datasets.pandaset import synthetic\n"
+            "assert {'LyftDataset', 'PandasetDataset'} <= set(d.__all__)\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("cfg_name", ["lyft_models/centerpoint_voxel01_res3d.yaml",
+                                      "pandaset_models/centerpoint.yaml"])
+def test_lyft_pandaset_entry_points_refuse_cuda_without_card(monkeypatch, tmp_path, cfg_name):
+    """`evaluate`, `train --data_root`, `infer` and `train` on the Lyft and
+    PandaSet configs default to the card too, and refuse a host without one
+    before they read any data."""
+    from tsm_det_pointcloud_tpu_torch import evaluate, infer, train
+
+    cfg = str(ROOT / "tools/cfgs" / cfg_name)
+    flags = ["--cfg_file", cfg, "--data_root", str(tmp_path), "--output_dir", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: evaluate.main(flags), lambda: train.main(flags),
+                lambda: infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64",
+                                    "--iters", "1"]),
+                lambda: train.main(["--cfg_file", cfg, "--batch", "1", "--points", "64",
+                                    "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()

@@ -50,7 +50,7 @@ from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import (
     KittiDataset,
     create_kitti_infos,
 )
-from tsm_det_pointcloud_tpu_torch.infer import ROOT
+from tsm_det_pointcloud_tpu_torch.infer import ROOT, load_cfg
 from tsm_det_pointcloud_tpu_torch.models import meta_from_dataset
 
 BASE_CFG = "tools/cfgs/dataset_configs/kitti_dataset.yaml"
@@ -356,11 +356,20 @@ def test_loader_shards_are_disjoint(roots):
     assert sorted(frames[0] + frames[1]) == [f"{i:06d}" for i in range(6)]
 
 
-def test_other_datasets_raise(roots):
+def test_other_datasets_raise(roots, tmp_path):
+    """No dataset of the JAX registry is left unported: an unknown DATASET
+    name raises, and build_dataloader builds LyftDataset and PandasetDataset
+    (on empty roots: no infos, no samples)."""
     cfg = dataset_cfg(FAST_CPC, roots[1])
-    cfg.DATASET = "LyftDataset"
-    with pytest.raises(NotImplementedError, match="LyftDataset"):
+    cfg.DATASET = "ArgoverseDataset"
+    with pytest.raises(NotImplementedError, match="ArgoverseDataset"):
         build_dataloader(cfg, CLASSES, 2, workers=0)
+    for cfg_name, name in (("lyft_models/centerpoint_voxel01_res3d.yaml", "LyftDataset"),
+                           ("pandaset_models/centerpoint.yaml", "PandasetDataset")):
+        cfg = load_cfg(ROOT / "tools/cfgs" / cfg_name)
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2,
+                                         root_path=tmp_path, workers=0, training=False)
+        assert type(ds).__name__ == name and len(ds) == len(loader) == 0
 
 
 @pytest.mark.parametrize("cfg_file", [FAST_CPC, TEACHER, SECOND, POINTPILLAR, CENTERPOINT,

@@ -24,8 +24,10 @@ So that NMS keeps boxes: the teacher's cls output biases are 1.0 and its
 SCORE_THRESH 0.05 for every class (tests/test_torch_teacher.py's), SECOND's
 and PointPillars' conv_cls bias 0. Tolerances, those
 of tests/test_torch_eval_loop.py:
-  * `eval_one_ckpt` (6 val frames in batches of 4): the same detections a
-    frame, names equal, scores and lidar boxes rtol 1e-4 (atol 1e-4 on boxes);
+  * `eval_one_ckpt` (6 val frames in batches of 4; `run_dataset_eval`, which
+    the Lyft and PandaSet cases of tests/test_torch_lyft_eval.py and
+    test_torch_pandaset_data.py share): the same detections a frame, names
+    equal, scores and lidar boxes rtol 1e-4 (atol 1e-4 on boxes);
   * the port's AP dict equal to the JAX `get_official_eval_result` on the
     port's own detections;
   * the loss on the first train-loader batch (seed 0, epoch 0) within
@@ -143,22 +145,12 @@ def run_case(name, roots, tmp_path_factory):
     configs, the state, the dataset config maker, the classes)."""
     cfg, jcfg, state, data, classes = MODELS[name]()
     jroot, proot = roots
-    out = tmp_path_factory.mktemp(f"eval_{name}")
-    logger = logging.getLogger("torch_eval_loop_cases")
     jds = JKittiDataset(data(jroot), classes, training=False, root_path=jroot)
-    jmodel = jbuild(jcfg, num_class=len(classes), dataset=jds)
-    jeval_one_ckpt(jmodel, to_flax_variables(state), JDataLoader(jds, 4, prefetch=0), jds,
-                   EDict({"CLASS_NAMES": classes}), logger, out / "jax")
     pds = KittiDataset(data(proot), classes, training=False, root_path=proot)
-    model = build_network(cfg, len(classes), pds, device="cpu")
-    model.load_state_dict(state, strict=True)
-    pres = eval_one_ckpt(model, DataLoader(pds, 4), pds, EDict({"CLASS_NAMES": classes}),
-                         logger, out / "port")
-    annos = []
-    for side in ("jax", "port"):
-        with open(out / side / "result.pkl", "rb") as f:
-            annos.append(pickle.load(f))
-    return dict(name=name, pres=pres, jannos=annos[0], pannos=annos[1], pds=pds,
+    pres, jannos, pannos = run_dataset_eval(jds, pds, cfg, state, classes,
+                                            tmp_path_factory.mktemp(f"eval_{name}"), batch=4,
+                                            jax_cfg=jcfg)
+    return dict(name=name, pres=pres, jannos=jannos, pannos=pannos, pds=pds,
                 cfg=cfg, jcfg=jcfg, state=state, data=data, classes=classes)
 
 
@@ -186,21 +178,47 @@ def check_ap_dict_is_the_jax_eval(case):
 
 
 def check_first_loader_batch_loss_matches_jax(case, roots):
-    _, proot = roots
-    classes = case["classes"]
-    ds, loader, _ = build_dataloader(case["data"](proot), classes, 2, workers=0, seed=0,
-                                     training=True)
+    got, want = first_batch_loss(case["cfg"], case["state"], case["data"](roots[1]),
+                                 case["classes"], jax_cfg=case["jcfg"])
+    assert np.isfinite(want)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * max(1.0, abs(want)))
+
+
+def run_dataset_eval(jds, pds, model_cfg, state, classes, out, batch=2, jax_cfg=None):
+    """`eval_one_ckpt` of one tiny model and state on a dataset's val split,
+    the JAX loop on `jds` (its model built from jax_cfg, by default
+    model_cfg) and the port's on `pds`: (the port's result dict, the JAX
+    side's result.pkl annos, the port's)."""
+    logger = logging.getLogger("torch_eval_loop_cases")
+    cfg = EDict({"CLASS_NAMES": classes})
+    jmodel = jbuild(model_cfg if jax_cfg is None else jax_cfg, num_class=len(classes),
+                    dataset=jds)
+    jeval_one_ckpt(jmodel, to_flax_variables(state), JDataLoader(jds, batch, prefetch=0), jds,
+                   cfg, logger, out / "jax")
+    model = build_network(model_cfg, len(classes), pds, device="cpu")
+    model.load_state_dict(state, strict=True)
+    pres = eval_one_ckpt(model, DataLoader(pds, batch), pds, cfg, logger, out / "port")
+    annos = []
+    for side in ("jax", "port"):
+        with open(out / side / "result.pkl", "rb") as f:
+            annos.append(pickle.load(f))
+    return pres, annos[0], annos[1]
+
+
+def first_batch_loss(model_cfg, state, dataset_cfg, classes, jax_cfg=None):
+    """(the port's loss, the JAX forward's) on the first train-loader batch
+    (seed 0, epoch 0) of `dataset_cfg`."""
+    ds, loader, _ = build_dataloader(dataset_cfg, classes, 2, workers=0, seed=0, training=True)
     loader.set_epoch(0)
     batch = next(iter(loader))
     jbatch = device_batch({k: (v.numpy() if isinstance(v, torch.Tensor) else v)
                            for k, v in batch.items()})
-    variables = to_flax_variables(case["state"])
-    jmodel = jbuild(case["jcfg"], num_class=len(classes), dataset=ds)
+    variables = to_flax_variables(state)
+    jmodel = jbuild(model_cfg if jax_cfg is None else jax_cfg, num_class=len(classes),
+                    dataset=ds)
     mutable = [k for k in variables if k != "params"]
     want = float(jax.jit(lambda v, b: jmodel.apply(v, b, training=True, mutable=mutable)[0][
         "loss"])(variables, jbatch))
-    model = build_network(case["cfg"], len(classes), ds, device="cpu")
-    model.load_state_dict(case["state"], strict=True)
-    got = float(model.train()(dict(batch))["loss"].detach())
-    assert np.isfinite(want)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * max(1.0, abs(want)))
+    model = build_network(model_cfg, len(classes), ds, device="cpu")
+    model.load_state_dict(state, strict=True)
+    return float(model.train()(dict(batch))["loss"].detach()), want

@@ -30,8 +30,11 @@ no process behind (the fork server, left to notice its caller's exit, tears
 down its torch import for about a second after). `forkserver_context()`
 gives that fork server to other process pools (`create_waymo_infos`).
 
-`KittiDataset`, `WaymoDataset` and `NuScenesDataset` are ported; the other
-datasets of the JAX registry (Lyft, Pandaset) raise.
+Every dataset of the JAX registry is ported: `KittiDataset`,
+`WaymoDataset`, `NuScenesDataset`, `LyftDataset` and `PandasetDataset`; an
+unknown DATASET name raises. PandaSet's frames are pandas pickles: its module
+imports pandas where it reads or writes one, so this package imports
+without it.
 """
 from __future__ import annotations
 
@@ -47,7 +50,9 @@ import torch
 
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
+from .lyft.lyft_dataset import LyftDataset
 from .nuscenes.nuscenes_dataset import NuScenesDataset
+from .pandaset.pandaset_dataset import PandasetDataset
 from .waymo.waymo_dataset import WaymoDataset
 
 __all__ = {
@@ -55,10 +60,16 @@ __all__ = {
     "KittiDataset": KittiDataset,
     "WaymoDataset": WaymoDataset,
     "NuScenesDataset": NuScenesDataset,
+    "LyftDataset": LyftDataset,
+    "PandasetDataset": PandasetDataset,
 }
 # batch entries that stay on the host (the JAX device_batch / the
-# reference's load_data_to_gpu skip them too, image_shape aside)
-HOST_KEYS = ("frame_id", "metadata", "calib", "image_shape", "use_lead_xyz", "batch_size")
+# reference's load_data_to_gpu skip them too, image_shape aside), PandaSet's
+# frame keys and pose among them: they go back to generate_prediction_dicts
+# as the collate made them (the pose and zrot_world_to_ego float64: world
+# coordinates hundreds of metres out lose ~1e-4 m in float32)
+HOST_KEYS = ("frame_id", "metadata", "calib", "image_shape", "use_lead_xyz", "batch_size",
+             "sequence", "frame_idx", "pose", "zrot_world_to_ego")
 
 
 def seed_for_sample(ds, seed, epoch, index):

@@ -10,21 +10,28 @@
     python -m tsm_det_pointcloud_tpu_torch.evaluate \\
         --cfg_file tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml \\
         --data_root DIR
+    python -m tsm_det_pointcloud_tpu_torch.evaluate \\
+        --cfg_file tools/cfgs/lyft_models/centerpoint_voxel01_res3d.yaml --data_root DIR
+    python -m tsm_det_pointcloud_tpu_torch.evaluate \\
+        --cfg_file tools/cfgs/pandaset_models/centerpoint.yaml --data_root DIR
 
 Builds the config's test-split loader (the dataset at --data_root, else the
-config's DATA_PATH: a KITTI, a Waymo or a nuScenes root) and the detector on it, loads
+config's DATA_PATH: a KITTI, a Waymo, a nuScenes, a Lyft or a PandaSet root) and the
+detector on it, loads
 --ckpt (else the newest checkpoint under <output_dir>/ckpt; with none, the
 seeded random init, with a warning), builds the kernels on the card while
 the loader's workers start, and runs `runtime.eval_utils.eval_one_ckpt`: the
 eval forward and post-processing per batch, the prediction dicts (KITTI:
 written as label files with --save_to_file), result.pkl and the dataset's
-eval (the official KITTI eval, the Waymo metric or nuScenes' NDS), all under
+eval (the official KITTI eval, the Waymo metric, nuScenes' NDS or the Lyft
+mAP; PandaSet has no official one and returns an empty result), all under
 <output_dir>/eval/<eval_tag>, whose metrics.jsonl gets the result dict and
 whose log file the config and the eval's table. <output_dir> is the JAX
 tools/test.py's, output/<EXP_GROUP_PATH>/<TAG>/<extra_tag> under the
 repository (`train.default_output_dir`), unless --output_dir names
 another. Prints the APs (KITTI: 3D R40; Waymo: AP and APH at
-L1 and L2; nuScenes: NDS, mAP and the five TP errors), sec_per_example, the loop's scans/s (loader included) and its
+L1 and L2; nuScenes: NDS, mAP and the five TP errors; Lyft: the mAP and
+each class's AP), sec_per_example, the loop's scans/s (loader included) and its
 wait on the loader a batch. `--set` overrides config keys
 (`config.cfg_from_list`). --eval_all instead watches <output_dir>/ckpt and
 evaluates each new checkpoint, until none has come for --max_waiting_mins.
@@ -63,11 +70,17 @@ from .utils.common_utils import create_logger
 
 def ap_line(res, class_names):
     """The result dict's headline APs: KITTI's 3D R40 easy / moderate /
-    hard a class, nuScenes' NDS, mAP and mean TP errors, else (Waymo) every
-    AP and APH entry."""
+    hard a class, nuScenes' NDS, mAP and mean TP errors, Lyft's mAP and
+    its AP a class, else (Waymo) every AP and APH entry; PandaSet's
+    evaluation has no metric to give."""
     if "NDS" in res:
         return "; ".join(f"{k} {float(res[k]):.4f}" for k in (
             "NDS", "mAP", "mATE", "mASE", "mAOE", "mAVE", "mAAE"))
+    if "mAP" in res and all(c in res for c in class_names):
+        return f"Lyft mAP {float(res['mAP']):.4f}; AP over the IoUs: " + "; ".join(
+            f"{c} {float(res[c]):.4f}" for c in class_names)
+    if not any("/AP" in k or "_R40" in k for k in res):
+        return "no detection metric: the dataset has no official one (PandaSet)"
     if all(f"{c}_3d/moderate_R40" in res for c in class_names):
         return "AP (3d, R40) easy / moderate / hard: " + "; ".join(
             f"{c} " + " / ".join(f"{float(res[f'{c}_3d/{d}_R40']):.4f}"

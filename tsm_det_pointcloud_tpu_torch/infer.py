@@ -30,11 +30,18 @@ scans.
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml \
         --batch 4 --points 300000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/lyft_models/centerpoint_voxel01_res3d.yaml \
+        --batch 4 --points 300000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/pandaset_models/centerpoint.yaml --batch 4 --points 115200
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
-features), Waymo (5 point features, a +-75.2 m range) or nuScenes (5 point
-features: x, y, z, intensity, a sweep's time lag; a +-51.2 m range). Prints
+features), Waymo (5 point features, a +-75.2 m range), nuScenes (5 point
+features: x, y, z, intensity, a sweep's time lag; a +-51.2 m range), Lyft
+(the same 5 features, a +-80 m range) or PandaSet (4 point features,
+KITTI's range and its mirror behind the ego). Prints
 the detections per scan of the last batch (for a CenterHead with a
 velocity branch also the speed of its decoded boxes over SCORE_THRESH,
 which the detector's post-processing drops, as the JAX one does) and the
@@ -99,6 +106,15 @@ SCAN_RECIPES = {
     (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0): ScanRecipe(
         (-51, -51, -1.9), (51, 51, 1.5), 16, (-45, -45), (45, 45), (-1.8, -0.2),
         (-1.0, 4.6, 1.95, 1.73)),
+    # Lyft (the roof lidar 1.8 m up, +-80 m): sixteen car-like clusters
+    (-80.0, -80.0, -5.0, 80.0, 80.0, 3.0): ScanRecipe(
+        (-79, -79, -1.9), (79, 79, 1.5), 16, (-70, -70), (70, 70), (-1.8, -0.2),
+        (-1.0, 4.76, 1.93, 1.72)),
+    # PandaSet (the Pandar64 1.8 m up; KITTI's range and its mirror behind the
+    # ego): sixteen car-like clusters
+    (-70.4, -40, -3, 70.4, 40, 1): ScanRecipe(
+        (-70, -39.5, -1.9), (70, 39.5, 0.9), 16, (-60, -32), (60, 32), (-1.7, -0.2),
+        (-1.0, 4.6, 1.9, 1.6)),
 }
 KITTI_RANGE, WAYMO_RANGE = list(SCAN_RECIPES)[:2]
 
@@ -189,9 +205,16 @@ CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
 # scans. The nuScenes config's six groups' seeded logits lie apart (at gain
 # 20 and bias 0 a group's 50th best is 2.5 to 10.7, stable over scans and
 # from 100k to 300k points on the CPU): each group's bias puts its 50th best
-# at SCORE_THRESH, ~300 of a scan's 3000 decoded boxes (infer prints the count)
+# at SCORE_THRESH, ~300 of a scan's 3000 decoded boxes (infer prints the count).
+# The Lyft config's five groups and the PandaSet config's one were set the
+# same way on the CPU, at gain 20 and bias 0 on two synthetic scans of
+# 100,000 points: a group's 50th best local peak of the heatmap logits is
+# 2.58, 5.93, -0.01, 7.17 and 1.34 (Lyft) and 4.48 (PandaSet, its 100th
+# 4.45)
 CENTERPOINT_HM = {"KittiDataset": (20.0, -6.5),
-                  "NuScenesDataset": (20.0, (-4.75, -12.1, -4.65, -12.9, -7.1, -7.6))}
+                  "NuScenesDataset": (20.0, (-4.75, -12.1, -4.65, -12.9, -7.1, -7.6)),
+                  "LyftDataset": (20.0, (-4.78, -8.12, -2.18, -9.37, -3.54)),
+                  "PandasetDataset": (20.0, -6.66)}
 
 
 @torch.no_grad()

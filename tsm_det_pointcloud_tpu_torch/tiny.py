@@ -56,7 +56,14 @@ No init is committed: its checks run on `centerpoint_nusc_state()`, every
 entry of the port model's state dict drawn from a numpy seed
 (`redraw_state`), its hm_out kernels as `centerpoint_eval_state` sets them;
 `data/centerpoint_nusc_tiny_forward.npz` holds the JAX package's eval
-outputs and post-processed predictions with it.
+outputs and post-processed predictions with it. The tiny Lyft CenterPoint
+(`centerpoint_lyft_model_cfg`, `CENTERPOINT_LYFT_META`) is the tiny
+CenterPoint on the same range and point features with the Lyft config's
+head layout: Lyft's nine classes in five groups, no `vel` head (7-column
+boxes); its state is `centerpoint_lyft_state()`, drawn the same way, and
+`data/centerpoint_lyft_tiny_forward.npz` holds the JAX package's eval
+outputs and predictions with it on `nusc_points(2)`. The PandaSet config
+runs the KITTI CenterPoint's model: its tiny model is the tiny CenterPoint.
 
 The tiny two-stage detectors are copies of the JAX package's test models
 (`model_cfg` and `META` of tests/test_parta2_e2e.py and
@@ -651,23 +658,58 @@ def centerpoint_nusc_gt(batch_size):
 CENTERPOINT_NUSC_HM_BIAS = -3.0
 
 
-def centerpoint_nusc_state(seed=3):
-    """The tiny nuScenes CenterPoint's state for its checks: every entry of
-    the port model's state dict redrawn (`redraw_state`), the hm_out
-    kernels times CENTERPOINT_EVAL_HM_GAIN and their biases at
-    CENTERPOINT_NUSC_HM_BIAS."""
+def _drawn_centerpoint_state(model_cfg, meta, seed, hm_bias):
+    """Every entry of the port model's state dict redrawn (`redraw_state`),
+    the hm_out kernels times CENTERPOINT_EVAL_HM_GAIN and their biases at
+    hm_bias."""
     from .models import build_network
 
-    model = build_network(centerpoint_nusc_model_cfg(), len(CENTERPOINT_NUSC_META.class_names),
-                          CENTERPOINT_NUSC_META, device="cpu", seed=0)
+    model = build_network(model_cfg, len(meta.class_names), meta, device="cpu", seed=0)
     out = {}
     for key, v in redraw_state(model.state_dict(), seed).items():
         if key.endswith("hm_out.weight"):
             v = v * CENTERPOINT_EVAL_HM_GAIN
         elif key.endswith("hm_out.bias"):
-            v = np.full(v.shape, CENTERPOINT_NUSC_HM_BIAS)
+            v = np.full(v.shape, hm_bias)
         out[key] = torch.from_numpy(v.astype(np.float32))
     return out
+
+
+def centerpoint_nusc_state(seed=3):
+    """The tiny nuScenes CenterPoint's state for its checks
+    (`_drawn_centerpoint_state`, hm_out biases at CENTERPOINT_NUSC_HM_BIAS)."""
+    return _drawn_centerpoint_state(centerpoint_nusc_model_cfg(), CENTERPOINT_NUSC_META, seed,
+                                    CENTERPOINT_NUSC_HM_BIAS)
+
+
+LYFT_CLASSES = ("car", "truck", "bus", "emergency_vehicle", "other_vehicle", "motorcycle",
+                "bicycle", "pedestrian", "animal")
+CENTERPOINT_LYFT_META = dataclasses.replace(CENTERPOINT_NUSC_META, class_names=LYFT_CLASSES)
+CENTERPOINT_LYFT_FORWARD_PATH = STATE_PATH.parent / "centerpoint_lyft_tiny_forward.npz"
+
+
+def centerpoint_lyft_model_cfg():
+    """The tiny CenterPoint with the Lyft config's head layout: Lyft's nine
+    classes in its five groups, no velocity, nms_gpu post-processing."""
+    cfg = centerpoint_model_cfg()
+    head = cfg.DENSE_HEAD
+    head.CLASS_NAMES_EACH_HEAD = [["car"], ["truck", "other_vehicle"], ["bus", "emergency_vehicle"],
+                                  ["motorcycle", "bicycle"], ["pedestrian", "animal"]]
+    head.LOSS_CONFIG.LOSS_WEIGHTS = {"cls_weight": 1.0, "loc_weight": 0.25,
+                                     "code_weights": [1.0] * 8}
+    cfg.POST_PROCESSING.NMS_CONFIG = {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.2,
+                                      "NMS_PRE_MAXSIZE": 48, "NMS_POST_MAXSIZE": 16}
+    return cfg
+
+
+def centerpoint_lyft_state(seed=6):
+    """The tiny Lyft CenterPoint's state for its checks
+    (`_drawn_centerpoint_state`, hm_out biases at CENTERPOINT_NUSC_HM_BIAS;
+    the seed spreads the scores: a group's decoded ones lie at least 3e-5
+    apart on `nusc_points(2)`, and 4 to all 64 of a group's pass
+    SCORE_THRESH)."""
+    return _drawn_centerpoint_state(centerpoint_lyft_model_cfg(), CENTERPOINT_LYFT_META, seed,
+                                    CENTERPOINT_NUSC_HM_BIAS)
 
 
 def _two_stage_dense_head():

@@ -1,8 +1,8 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
 step or the step of another detector of the KITTI zoo (SECOND, PointPillars,
 CenterPoint, Part-A2, PV-RCNN, PV-RCNN++, PointRCNN, Voxel R-CNN,
-SECONDNetIoU) or of nuScenes' CenterPoint, on synthetic scans or on a
-dataset (KITTI, Waymo or nuScenes).
+SECONDNetIoU) or of the CenterPoints of nuScenes, Lyft and PandaSet, on
+synthetic scans or on a dataset (KITTI, Waymo, nuScenes, Lyft or PandaSet).
 
 Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -40,6 +40,10 @@ the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
         --cfg_file tools/cfgs/waymo_models/waymo_fast_cpc.yaml --data_root DIR \\
         [--set DATA_CONFIG.SAMPLED_INTERVAL.train 1]
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/lyft_models/centerpoint_voxel01_res3d.yaml --data_root DIR
+    python -m tsm_det_pointcloud_tpu_torch.train \\
+        --cfg_file tools/cfgs/pandaset_models/centerpoint.yaml --data_root DIR
 Multi-process (dataset mode only; the synthetic-scan mode runs in one
 process), as the JAX tools/train.py --launcher:
     torchrun --nproc_per_node N -m tsm_det_pointcloud_tpu_torch.train \
