@@ -526,6 +526,28 @@ Phases (any failure exits non-zero before the result line):
      `train --data_root` for an epoch, then `evaluate` of its checkpoint
      (the empty result, as the reference's; result.pkl holds a cuboid
      DataFrame a frame), each first step or forward recorded and held.
+ 65. CaDDN reference: the tiny CaDDN of both depth networks (CompactDDN and
+     the DDNDeepLabV3 plan LAYERS [1, 1, 1, 1], WIDTH 8; tiny.caddn_state)
+     reproduces data/caddn_tiny_forward.npz on the card: eval outputs at
+     the golden tolerance, labels and counts exact, the training loss and
+     tb terms within 1e-4;
+ 66. CaDDN.yaml (OpenPCDet's CaDDN: ResNet-101 + ASPP DDN at output stride
+     8, Conv2DCollapse of a 280 x 376 x 25 frustum volume of 64 features,
+     BaseBEVBackbone [10, 10, 10], 157,920 anchors a scan) eval at b2 on
+     synthetic camera batches (375 x 1242 noise images, KITTI's
+     P2 R0 Tr_velo_to_cam): the first batch timed apart, 3 timed batches,
+     the frustum's voxels and the anchors over SCORE_THRESH a scan, peak
+     memory, and one scan held against the port's CPU forward;
+ 67. CaDDN.yaml's training step at b2 (depth targets from the points, the
+     fg / bg balancer on the boxes' image extents): the first step timed
+     apart, every gradient present and finite, 2 timed steps, peak memory;
+ 68. the JAX registry's module variants on the tiny SECOND / PointPillars
+     (tiny.VARIANTS), each on the card against the port's CPU forward:
+     eval outputs, the training loss and its tb terms;
+ 69. CaDDN's profile, after every timed path: one eval batch of phase 66
+     traced (busy share, top kernels, post-processing alone).
+     Phases 65-69 run no hand-written kernel: no row of the kernels line
+     is theirs.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -741,7 +763,13 @@ LYFT_TRAIN_SCENES, LYFT_VAL_SCENES, LYFT_KEYFRAMES, LYFT_SWEEP_POINTS = 2, 2, 4,
 # config's SEQUENCES name), frames a sequence, Pandar64 points a frame (64
 # beams x 1800 azimuths, single return), the config's batch
 PANDASET_TRAIN_SEQ, PANDASET_VAL_SEQ = ("001", "002"), ("004", "007")
-PANDASET_FRAMES, PANDASET_POINTS, PANDASET_BATCH = 4, 115200, 4
+# b2, not b4: the first training step's cuDNN autotune of the 2816 x 1600
+# grid's BEV convs takes 49-70 s at b4, 24 s at b2
+PANDASET_FRAMES, PANDASET_POINTS, PANDASET_BATCH = 4, 115200, 2
+# phases 65-69: CaDDN.yaml at b2 on synthetic camera batches (KITTI's 375 x
+# 1242 images; the points feed the depth targets in training alone)
+CADDN_CFG = "CaDDN.yaml"
+CADDN_BATCH, CADDN_POINTS, CADDN_ITERS, CADDN_TRAIN_ITERS = 2, 16384, 3, 2
 # OpenPCDet's names of CenterHead's shared conv and SeparateHead where the
 # port's (the flax ones) differ
 CENTER_HEAD_OPENPCDET_NAMES = (
@@ -4725,8 +4753,8 @@ def pandaset_data_phases(dev, base):
           f"world cuboids within {worst:.2e} m")
 
     # training first: its first step's cuDNN autotune of the 2816 x 1600 grid's
-    # BEV convs (the widest the port runs, ~50 s on the card) covers the eval
-    # forward's shapes too, which evaluate then finds tuned
+    # BEV convs (the widest the port runs: tens of seconds on the card) covers
+    # the eval forward's shapes too, which evaluate then finds tuned
     common = ["--cfg_file", str(cfg_file), "--data_root", str(root), "--workers",
               str(KITTI_WORKERS), "--device", str(dev)]
     out_dir = base / "run"
@@ -4762,6 +4790,287 @@ def pandaset_data_phases(dev, base):
     report_eval = compare_recorded(rec.calls, "centerpoint_pandaset data eval")
     del rec
     return report_eval, launches_eval, report_train, launches_train
+
+
+# ---------------------------------------------------------------------------
+# phases 65-69: CaDDN (CaDDN.yaml) and the JAX registry's module variants
+# ---------------------------------------------------------------------------
+
+def caddn_golden_phase(dev):
+    """Phase 65: the tiny CaDDN of both depth networks (tiny.caddn_state)
+    reproduces data/caddn_tiny_forward.npz on the card: eval outputs at the
+    golden tolerance, predictions' labels and counts exact, the training
+    loss and tb terms within 1e-4 (`close_scalar`); no hand-written kernel
+    launches."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import detect
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    with np.load(tiny.CADDN_FORWARD_PATH) as z:
+        golden = {k: z[k] for k in z.files}
+    cam_keys = ("images", "trans_lidar_to_cam_img")
+    for which in tiny.CADDN_DDNS:
+        model = build_network(tiny.caddn_model_cfg(which), 1, tiny.CADDN_META, device=dev)
+        model.load_state_dict(tiny.caddn_state(which), strict=True)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in tiny.caddn_batch().items()}
+        _kernels.reset_launches()
+        out, pred = detect(model, b["points"], b["points_mask"], {k: b[k] for k in cam_keys})
+        worst = 0.0
+        for key in ("batch_cls_preds", "batch_box_preds", "pred_boxes", "pred_scores",
+                    "pred_labels", "count"):
+            want = golden[f"{which}/{key}"]
+            got = (out[key] if key in out else pred[key]).cpu().numpy()
+            if want.dtype.kind in "iu":
+                check(np.array_equal(got, want), f"tiny CaDDN ({which}) {key}: {got} against "
+                      f"the golden {want}")
+                continue
+            scale = max(1.0, float(np.abs(want).max()))
+            diff = float(np.abs(got - want).max())
+            check(got.shape == want.shape
+                  and np.allclose(got, want, atol=1e-3 * scale, rtol=1e-3),
+                  f"tiny CaDDN ({which}) {key} differs from the golden: max abs diff {diff}")
+            worst = max(worst, diff / scale)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in tiny.caddn_train_batch(which).items()}
+        tout = model.train()(dict(tb, batch_size=2))
+        terms = {"loss": tout["loss"], **{f"tb/{k}": v for k, v in tout["tb_dict"].items()}}
+        for key, v in terms.items():
+            got, want = float(v.detach()), float(golden[f"{which}/{key}"])
+            check(close_scalar(got, want),
+                  f"tiny CaDDN ({which}) training {key} {got} differs from the golden {want}")
+        torch.cuda.synchronize()
+        check(not any(_kernels.LAUNCHES.values()),
+              f"tiny CaDDN launched hand-written kernels: {dict(_kernels.LAUNCHES)}")
+        print(f"CaDDN reference: tiny CaDDN ({which}) eval outputs within {worst:.3g} x "
+              f"max(1, max|want|) of the golden, {int(pred['count'].sum())} detections equal; "
+              f"training loss {float(terms['loss'].detach()):.6f} (golden "
+              f"{float(golden[f'{which}/loss']):.6f}), depth_loss "
+              f"{float(terms['tb/depth_loss'].detach()):.6f}")
+        del model, out, pred, tout
+
+
+def caddn_phases(dev):
+    """Phases 66-67: CaDDN.yaml at full width (a ResNet-101 DDN at output
+    stride 8 on 375 x 1242 images, a 280 x 376 x 25 frustum volume of 64
+    features, 157,920 anchors a scan) on synthetic camera batches, seeded
+    weights and eval state, conv_cls's bias at infer.CLS_BIAS. 66: eval b2,
+    the first batch (cuDNN's autotune) timed apart, then CADDN_ITERS timed
+    batches; the voxels in the camera frustum and the anchors over
+    SCORE_THRESH a scan, peak memory; one scan's cls_preds / box_preds held
+    against the port's CPU forward with the same weights (atol 1e-3 *
+    max(1, max|cpu|), rtol 1e-3: the projection and its pixel and bin
+    indices are elementwise and round alike on both; cuDNN's convs sum in
+    another order than the CPU's). 67: a training step b2 (gt_boxes2d from
+    the boxes' image extents), the first step timed apart, its loss, its
+    depth_loss term and every gradient checked finite and present, then
+    CADDN_TRAIN_ITERS timed steps, peak memory. Neither launches a
+    hand-written kernel. Returns the eval model and one batch's inputs, for
+    phase 69's profile."""
+    import copy
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_camera,
+                                                    synth_scans, voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import add_camera, build_trainer, synth_train_batch
+
+    cfg_file = cfg_path(CADDN_CFG)
+    cfg, cpu_model = build_detector(cfg_file, "cpu", seed=0, n_points=CADDN_POINTS)
+    model = copy.deepcopy(cpu_model).to(dev)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max, pre = int(post.NMS_CONFIG.NMS_POST_MAXSIZE), int(post.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    meta = model.dataset_meta
+
+    def inputs(seed):
+        pts = torch.from_numpy(synth_scans(meta, CADDN_BATCH, CADDN_POINTS, seed)).to(dev)
+        cam = {k: torch.from_numpy(v).to(dev) for k, v in synth_camera(CADDN_BATCH, seed).items()}
+        return pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev), cam
+
+    batches = [inputs(s) for s in range(CADDN_ITERS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, _ = detect(model, *batches[0])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    frustum, over = voxel_anchor_counts(model, out)
+    n_anchors = out["batch_cls_preds"].shape[1]
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds = [detect(model, *b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(_kernels.LAUNCHES.values()), f"CaDDN launched {dict(_kernels.LAUNCHES)}")
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(out[key]).all()), f"CaDDN: non-finite {key}")
+        check(tuple(out["batch_box_preds"].shape) == (CADDN_BATCH, 157920, 7),
+              f"CaDDN box preds shape {tuple(out['batch_box_preds'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"CaDDN: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()), "CaDDN: count > NMS_POST_MAXSIZE")
+    check(min(frustum) > 0 and min(over) > 0, f"CaDDN: frustum voxels {frustum}, anchors over "
+          f"SCORE_THRESH {over}")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    print(f"CaDDN eval: first batch {first:.3f} s (cuDNN's autotune; peak memory "
+          f"{first_peak:.2f} GiB with its workspaces); {CADDN_ITERS} batches x "
+          f"{CADDN_BATCH} scans x 375x1242 images in {dt:.3f} s = "
+          f"{CADDN_ITERS * CADDN_BATCH / dt:.3f} scans/s; voxels in the camera frustum a scan "
+          f"{frustum} of {int(np.prod(meta.grid_size))}; anchors over SCORE_THRESH "
+          f"{post.SCORE_THRESH} a scan {over} of {n_anchors}; boxes into NMS a scan "
+          f"{[min(o, pre) for o in over]}; detections a scan (last batch) {counts}; peak "
+          f"memory of the timed batches {peak:.2f} GiB; no hand-written kernel called or "
+          f"launched")
+    del preds
+
+    pts, mask, cam = batches[0]
+    one = {"points": pts[:1], "points_mask": mask[:1], "batch_size": 1,
+           **{k: v[:1] for k, v in cam.items()}}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model({k: v.cpu() if torch.is_tensor(v) else v for k, v in one.items()})
+        got = model(dict(one))
+    cpu_s = time.perf_counter() - t0
+    for key in ("voxels_in_frustum",):
+        check(torch.equal(got[key].cpu(), want[key]), f"CaDDN {key}: card {got[key].tolist()} "
+              f"against the CPU's {want[key].tolist()}")
+    diffs = []
+    for key in ("cls_preds", "box_preds"):
+        w, g = want[key].numpy(), got[key].cpu().numpy()
+        scale = max(1.0, float(np.abs(w).max()))
+        diff = float(np.abs(g - w).max())
+        check(np.allclose(g, w, atol=1e-3 * scale, rtol=1e-3),
+              f"CaDDN {key}: card against CPU max abs diff {diff} (max |cpu| {scale})")
+        diffs.append(f"{key} max abs diff {diff:.3g} (max |cpu| {float(np.abs(w).max()):.3g})")
+    print(f"CaDDN eval: one scan on the card against the port's CPU forward with the same "
+          f"weights ({cpu_s:.1f} s): {'; '.join(diffs)}; frustum voxels equal")
+    del cpu_model, want, got
+
+    _, tmodel, opt = build_trainer(cfg_file, dev, seed=0, n_points=CADDN_POINTS,
+                                   total_steps=CADDN_TRAIN_ITERS + 1)
+    tbatches = [add_camera(synth_train_batch(CADDN_BATCH, CADDN_POINTS, s, dev,
+                                             meta.point_cloud_range, meta.num_point_features), s)
+                for s in range(CADDN_TRAIN_ITERS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    opt.zero_grad(set_to_none=True)
+    out = tmodel(dict(tbatches[0]))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    missing = [n for n, p in tmodel.named_parameters() if p.grad is None]
+    bad = [n for n, p in tmodel.named_parameters()
+           if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    check(not missing and not bad, f"CaDDN training: no gradient {missing}; non-finite {bad}")
+    opt.step()
+    loss = float(out["loss"].detach())
+    tb = {k: float(v.detach()) for k, v in out["tb_dict"].items()}
+    check(np.isfinite(loss) and tb["depth_loss"] > 0, f"CaDDN training loss {loss}, {tb}")
+    n_boxes2d = int((tbatches[0]["gt_boxes2d"] != 0).any(-1).sum())
+    del out
+    torch.cuda.synchronize()
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [train_step(tmodel, opt, b)[0] for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(_kernels.LAUNCHES.values()), f"CaDDN launched {dict(_kernels.LAUNCHES)}")
+    for i, l in enumerate(losses):
+        check(bool(torch.isfinite(l)), f"CaDDN training step {i} loss is not finite")
+    n_params = sum(1 for _ in tmodel.parameters())
+    print(f"CaDDN training: first step {first:.3f} s (cuDNN's autotune; peak memory "
+          f"{first_peak:.2f} GiB with its workspaces), loss {loss:.4f} "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in tb.items())}); every one of {n_params} "
+          f"gradients present and finite; {n_boxes2d} 2D gt boxes in the image; "
+          f"{CADDN_TRAIN_ITERS} steps x {CADDN_BATCH} scans in {dt:.3f} s = "
+          f"{CADDN_TRAIN_ITERS * CADDN_BATCH / dt:.3f} train scans/s "
+          f"({1e3 * dt / CADDN_TRAIN_ITERS:.1f} ms/step); losses "
+          f"{[round(float(v), 4) for v in losses]}; peak memory of the timed steps "
+          f"{peak:.2f} GiB; no hand-written kernel called or launched")
+    del tmodel, opt, tbatches, losses
+    torch.cuda.empty_cache()
+    return model, batches[0]
+
+
+def variant_phases(dev):
+    """Phase 68: each module variant of tiny.VARIANTS (the VFEs
+    DynamicMeanVFE, MeanDensityVFE, SPVFE, VPCVFE, DynamicPillarVFE, the
+    trunk SpaceVoxelBackBone8x, the heads AnchorHeadMulti, AnchorHeadSingleCls,
+    AnchorHeadMultiCls) on its tiny SECOND / PointPillars topology on the
+    card against the port's CPU forward with the same seeded weights: the
+    eval outputs (cls_preds; the box heads' box_preds and decoded boxes too)
+    at the golden tolerance, the voxel coordinates exact, the training loss
+    and its tb terms (the cls-only heads' rpn_loss_cls) within 1e-4."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    pts = torch.from_numpy(tiny.second_points(2))
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    for name in tiny.VARIANTS:
+        cfg, meta = tiny.variant_model(name)
+        cpu = build_network(cfg, len(meta.class_names), meta, device="cpu", seed=3)
+        card = build_network(cfg, len(meta.class_names), meta, device=dev, seed=3)
+        card.load_state_dict(cpu.state_dict(), strict=True)
+        batch = {"points": pts, "points_mask": mask, "batch_size": 2}
+        with torch.no_grad():
+            want = cpu(dict(batch))
+            got = card({k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()})
+        check(torch.equal(got["voxel_coords"].cpu(), want["voxel_coords"]),
+              f"variant {name}: voxel coordinates differ")
+        worst = 0.0
+        for key in ("cls_preds", "box_preds", "batch_box_preds"):
+            if key not in want:
+                continue
+            w, g = want[key].numpy(), got[key].cpu().numpy()
+            scale = max(1.0, float(np.abs(w).max()))
+            check(np.allclose(g, w, atol=1e-3 * scale, rtol=1e-3),
+                  f"variant {name} {key}: max abs diff {float(np.abs(g - w).max())}")
+            worst = max(worst, float(np.abs(g - w).max()) / scale)
+        gt, gmask = tiny.variant_gt(meta)
+        tbatch = dict(batch, gt_boxes=torch.from_numpy(gt), gt_boxes_mask=torch.from_numpy(gmask))
+        tw = cpu.train()(dict(tbatch))
+        tg = card.train()({k: v.to(dev) if torch.is_tensor(v) else v for k, v in tbatch.items()})
+        terms = {"loss": (tg["loss"], tw["loss"]),
+                 **{k: (tg["tb_dict"][k], v) for k, v in tw["tb_dict"].items()}}
+        for key, (g, w) in terms.items():
+            g, w = float(g.detach()), float(w.detach())
+            check(close_scalar(g, w), f"variant {name} training {key}: card {g} against CPU {w}")
+        print(f"variant {name} ({' -> '.join(type(m).__name__ for m in card.module_list)}): "
+              f"eval outputs within {worst:.3g} x max(1, max|cpu|) of the CPU's; training loss "
+              f"{float(tg['loss'].detach()):.5f} (CPU {float(tw['loss'].detach()):.5f}), tb "
+              f"terms {sorted(tw['tb_dict'])} within 1e-4")
+        del cpu, card, want, got, tw, tg
+
+
+def caddn_profile(model, inputs):
+    """Phase 69, after every timed path (a profiler window slows the later
+    launches of its process): one CaDDN eval batch of phase 66's model and
+    inputs traced with torch.profiler (`infer.profile_batch`): the device's
+    busy share, the top device kernels (the DDN's convs, the frustum gather,
+    the BEV convs, the NMS) and the post-processing alone; lists any cuDNN
+    FFT kernel (`fft` / `cgemm`) that ran."""
+    from tsm_det_pointcloud_tpu_torch.infer import profile_batch
+
+    pts, mask, cam = inputs
+    (wall, busy, names), (pwall, pbusy, _) = profile_batch(model, pts, mask, camera=cam)
+    fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
+    print(f"CaDDN profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
+          f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
+          f"{len(names)} kernels; cuDNN FFT kernels: {fft or 'none'}")
 
 
 def main():
@@ -5167,6 +5476,10 @@ def main():
     nusc["centerpoint_pandaset_data"] = (rep_e, lau_e)
     nusc["centerpoint_pandaset_data_train"] = (rep_t, lau_t)
     mark("61-64")
+    caddn_golden_phase(dev)
+    caddn_model, caddn_inputs = caddn_phases(dev)
+    variant_phases(dev)
+    mark("65-68")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -5192,6 +5505,9 @@ def main():
     mark("the proposal NMS's device times (44, 48, 52, 56)")
     nusc_profiles(dev, profiles)
     mark("the nuScenes profiles (60)")
+    caddn_profile(caddn_model, caddn_inputs)
+    del caddn_model, caddn_inputs
+    mark("the CaDDN profile (69)")
     from tsm_det_pointcloud_tpu_torch.datasets import stop_workers
     started = descendants()
     stop_workers()

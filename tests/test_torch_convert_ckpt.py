@@ -7,7 +7,7 @@ is exact: both sides run the same numpy on the same arrays.
     3-tap sparse kernel, which both reject alike;
   * the graft on the tiny student, teacher, SECOND, PointPillars,
     CenterPoint, the Lyft CenterPoint (five head groups, 5 point features),
-    Part-A2, PV-RCNN and PointRCNN: a synthetic
+    Part-A2, PV-RCNN, PointRCNN and CaDDN (the DDNDeepLabV3 plan): a synthetic
     OpenPCDet-layout state dict (`reference_state_dict`, numpy-seeded
     values on each JAX tiny training init's structure, BN
     `num_batches_tracked` entries that no rule maps) through the JAX
@@ -144,6 +144,8 @@ MODELS = {
     "voxelrcnn": lambda: _voxel(*tiny.two_stage_model("voxelrcnn")),
     "secondnetiou": lambda: _voxel(*tiny.two_stage_model("secondnetiou")),
     "pvrcnnplusplus": lambda: _voxel(*tiny.two_stage_model("pvrcnnplusplus")),
+    "caddn": lambda: _voxel(tiny.caddn_model_cfg("deeplab"), tiny.CADDN_META,
+                            dict(tiny.caddn_batch(), batch_size=2)),
 }
 
 
@@ -260,6 +262,36 @@ EXPECTED = {
                           "running_mean", "running_var", "bias", "weight")]
                       + ["roi_head.cls_out.bias", "roi_head.cls_out.weight"]),
 }
+
+
+def _caddn_unplaced():
+    """The tiny CaDDN's leaves no reference tensor lands on (ROADMAP §C, the
+    JAX tool's name rules): every _ConvBN's BN scale, whose `.weight` the
+    tool names a conv kernel, every 1x1 conv of the depth network (the
+    classifier's too), the collapse's, and the anchor head's and 1x1
+    deblock's, in flax order."""
+    ddn = []
+    one_by_one = {"ASPP_0": (0, 4, 5), **{f"Bottleneck_{k}": (0, 2, 3) for k in range(4)},
+                  "": (2,)}
+    for scope, n in (("ASPP_0", 6), *((f"Bottleneck_{k}", 4) for k in range(4)), ("", 3)):
+        for i in range(n):
+            path = f"vfe/ddn/{scope + '/' if scope else ''}_ConvBN_{i}"
+            ddn.append(f"{path}/BatchNorm_0/kernel")
+            if i in one_by_one[scope]:
+                ddn.append(f"{path}/Conv_0/kernel")
+    return ddn + ["vfe/ddn/classifier/kernel", "map_to_bev_module/collapse/kernel",
+                  "backbone_2d/deblock0/kernel"] + ANCHOR_HEAD_UNPLACED[2:]
+
+
+# the tiny CaDDN: every reference tensor is matched by name; the stem's and
+# the logits' _ConvBN (8 and 256 channels) tie in leaf name and shape with
+# earlier leaves in flax order (a bottleneck's BN, an ASPP conv) and go there
+EXPECTED["caddn"] = dict(
+    unmatched=[], unplaced=_caddn_unplaced(),
+    misplaced=[f"vfe.ddn._ConvBN_{i}.BatchNorm_0.running_{k}" for i in (0, 1)
+               for k in ("mean", "var")]
+    + ["vfe.ddn._ConvBN_0.BatchNorm_0.bias", "vfe.ddn._ConvBN_1.BatchNorm_0.bias",
+       "vfe.ddn._ConvBN_1.Conv_0.weight"])
 
 
 def test_round_trip_placements(case):

@@ -121,7 +121,7 @@ def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     cfg = tiny.tiny_model_cfg()
-    cfg["NAME"] = "CaDDN"
+    cfg["NAME"] = "DSASNet"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
     # train mode is ported, and asks for the gt boxes it trains on
@@ -160,7 +160,7 @@ def test_converter_consumes_every_eval_leaf():
 
 def test_second_trains_and_unported_topologies_raise():
     """SECOND builds on the CPU and its training forward returns a finite
-    loss with its tb terms; an unported detector (CaDDN) raises, and so does
+    loss with its tb terms; an unported detector (DSASNet) raises, and so does
     a module that the SECOND topology does not take."""
     from tsm_det_pointcloud_tpu_torch import tiny
     from tsm_det_pointcloud_tpu_torch.models import build_network
@@ -177,8 +177,8 @@ def test_second_trains_and_unported_topologies_raise():
     assert torch.isfinite(out["loss"])
     assert set(out["tb_dict"]) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}
     cfg = tiny.second_model_cfg()
-    cfg["NAME"] = "CaDDN"
-    with pytest.raises(NotImplementedError, match="CaDDN"):
+    cfg["NAME"] = "DSASNet"
+    with pytest.raises(NotImplementedError, match="DSASNet"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
     cfg = tiny.second_model_cfg()
     cfg["VFE"] = {"NAME": "PillarVFE"}
@@ -276,14 +276,14 @@ def test_two_stage_entry_points_refuse_cuda_without_card(monkeypatch):
     """`infer` and `train` on PartA2.yaml, pvrcnn.yaml, pointrcnn.yaml,
     voxel_rcnn_car.yaml, second_iou.yaml and pv_rcnn_plusplus.yaml default to
     the card too, and refuse a host without one; a detector still unported
-    (CaDDN, on the PV-RCNN modules and on SECONDHead's) raises in
+    (PVSSDA, on the PV-RCNN modules and on SECONDHead's) raises in
     build_network."""
     from tsm_det_pointcloud_tpu_torch import infer, tiny, train
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     for cfg in (tiny.pvrcnn_model_cfg(), tiny.secondnetiou_model_cfg()):
-        cfg["NAME"] = "CaDDN"
-        with pytest.raises(NotImplementedError, match="CaDDN"):
+        cfg["NAME"] = "PVSSDA"
+        with pytest.raises(NotImplementedError, match="PVSSDA"):
             build_network(cfg, 1, tiny.PVRCNN_META, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("PartA2", "pvrcnn", "pointrcnn", "voxel_rcnn_car", "second_iou",
@@ -376,3 +376,76 @@ def test_lyft_pandaset_entry_points_refuse_cuda_without_card(monkeypatch, tmp_pa
                                     "--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
+
+
+def test_caddn_modules_are_covered():
+    """CaDDN's modules (the depth networks, ImageVFE, its detector) and the
+    variants' modules are among those imported without JAX above and
+    scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("models.backbones_3d.ddn", "models.backbones_3d.image_vfe",
+                 "models.detectors.caddn", "models.backbones_2d.map_to_bev",
+                 "models.backbones_3d.vfe", "models.dense_heads.anchor_head",
+                 "datasets.processor.data_processor", "ops.box_coder_utils", "ops.loss_utils"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def _reduced_caddn_yaml(path):
+    """CaDDN.yaml with a CompactDDN of 16 features and 16 bins, a one-level
+    BEV backbone and a 70 x 94 x 5 grid of its range, for the CPU."""
+    import yaml
+
+    from tsm_det_pointcloud_tpu_torch import infer
+
+    cfg = infer.load_cfg(ROOT / "tools/cfgs/kitti_models/CaDDN.yaml")
+    model = cfg.MODEL
+    model.VFE.DDN = {"NAME": "CompactDDN"}
+    model.VFE.NUM_OUTPUT_FEATURES = model.VFE.NUM_DEPTH_BINS = 16
+    model.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    model.BACKBONE_2D.update(LAYER_NUMS=[1], LAYER_STRIDES=[2], NUM_FILTERS=[16],
+                             UPSAMPLE_STRIDES=[1], NUM_UPSAMPLE_FILTERS=[16])
+    model.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 256
+    for step in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if step.NAME == "calculate_grid_size":
+            step.VOXEL_SIZE = [0.64, 0.64, 0.8]
+
+    def plain(d):
+        if isinstance(d, dict):
+            return {k: plain(v) for k, v in d.items()}
+        return [plain(v) for v in d] if isinstance(d, (list, tuple)) else d
+
+    doc = {k: plain(cfg[k]) for k in ("CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION")}
+    path.write_text(yaml.safe_dump(doc))
+    return path
+
+
+def test_caddn_entry_points(monkeypatch, tmp_path, capsys):
+    """`infer` and `train` run a reduced CaDDN.yaml on the CPU on synthetic
+    camera batches (KITTI's 375 x 1242 images and projection); `evaluate`,
+    `train --data_root` and `demo` refuse a camera config, naming it; on a
+    host without a card `infer` and `train` refuse cuda."""
+    from tsm_det_pointcloud_tpu_torch import demo, evaluate, infer, train
+
+    cfg = str(_reduced_caddn_yaml(tmp_path / "caddn_cpu.yaml"))
+    monkeypatch.chdir(tmp_path)
+    infer.main(["--cfg_file", cfg, "--device", "cpu", "--batch", "1", "--points", "2048",
+                "--iters", "1"])
+    out = capsys.readouterr().out
+    assert "voxels in the camera frustum" in out and "375x1242 images" in out
+    train.main(["--cfg_file", cfg, "--device", "cpu", "--batch", "1", "--points", "2048",
+                "--steps", "1"])
+    assert "train scans/s on cpu" in capsys.readouterr().out
+    flags = ["--cfg_file", cfg, "--data_root", str(tmp_path), "--output_dir", str(tmp_path),
+             "--device", "cpu"]
+    for entry in (evaluate.main, train.main):
+        with pytest.raises(NotImplementedError, match="CaDDN"):
+            entry(flags)
+    with pytest.raises(NotImplementedError, match="CaDDN"):
+        demo.main(["--cfg_file", cfg, "--data_path", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    full = str(ROOT / "tools/cfgs/kitti_models/CaDDN.yaml")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer.main(["--cfg_file", full, "--batch", "1", "--iters", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--cfg_file", full, "--batch", "1", "--steps", "1"])

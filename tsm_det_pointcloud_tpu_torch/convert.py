@@ -10,7 +10,7 @@ that `model.init(..., training=True)` returns (collections `params`,
   * BatchNorm `scale` / `bias` become `weight` / `bias`, `batch_stats`
     `mean` / `var` become `running_mean` / `running_var` (each BN's eps and
     momentum are fixed by the layer it belongs to: 1e-3 / 0.99, and 1e-5 /
-    0.9 for the teacher head's gate BNs);
+    0.9 for the teacher head's gate BNs and CaDDN's `_ConvBN`s);
   * sparse-conv kernels (K, Cin, Cout) keep their layout as `weight`;
   * a 2D `nn.Conv` kernel (kh, kw, Cin, Cout) becomes the `nn.Conv2d`
     `weight` (Cout, Cin, kh, kw);
@@ -22,8 +22,10 @@ that `model.init(..., training=True)` returns (collections `params`,
   * the teacher head's `reg_weight` (1, 1, 64, code) is copied;
   * `statistics/*` become buffers of the head.
 
-Every leaf of a TSM training init and of a SECOND init is consumed; a leaf
-that no rule consumes raises.
+Every leaf of a TSM training init, of a SECOND init and of a CaDDN init
+(its depth network's convs, the `classifier` / `depth_head` biases, the
+collapse's 1 x 1 kernel over the z-major channels) is consumed; a leaf that
+no rule consumes raises.
 
 `flax_view(state_dict)` is the inverse: each entry of a port state dict as
 the flax leaf it comes from (collection, path, value in the flax layout), in
@@ -145,7 +147,7 @@ def from_flax_variables(variables_np):
             key, val = _convert_leaf(collection, path, arr)
             if key in state:
                 raise ValueError(f"two flax leaves map to {key}")
-            state[key] = torch.tensor(np.array(val, np.float32, order="C"))
+            state[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
     other = set(variables_np) - {"params", "batch_stats", "statistics"}
     if other:
         raise ValueError(f"unknown flax collections {sorted(other)}")

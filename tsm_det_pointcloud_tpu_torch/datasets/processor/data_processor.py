@@ -6,7 +6,9 @@ models voxelize on the card (ops/voxel.py, the TSM backbone's centroids), so
 the host ships a fixed-size point tensor and these steps record the grid
 geometry (grid_size, voxel_size, voxel limits) the model builder reads
 (`models.meta_from_dataset`). `sample_points` splits the points at 40 m
-depth and keeps every far point it can (:76 of the JAX module).
+depth and keeps every far point it can (:76 of the JAX module). CaDDN's
+steps: `calculate_grid_size` records its grid, and `downsample_depth_map`
+block-averages a sample's `depth_maps` (no ported dataset writes one yet).
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ from ...utils.common_utils import mask_points_by_range_np
 
 
 class DataProcessor:
-    # the steps of the KITTI configs (kitti_dataset.yaml, fast_cpc*.yaml,
-    # second.yaml); the JAX module's CaDDN depth-map step is not ported
+    # the steps of the configs (kitti_dataset.yaml, fast_cpc*.yaml, second.yaml,
+    # CaDDN.yaml, ...): every step of the JAX module
     PORTED = ("mask_points_and_boxes_outside_range", "shuffle_points",
-              "transform_points_to_voxels", "sample_points", "repository_info")
+              "transform_points_to_voxels", "sample_points", "repository_info",
+              "downsample_depth_map", "calculate_grid_size")
 
     def __init__(self, processor_configs, point_cloud_range, training,
                  num_point_features):
@@ -34,6 +37,7 @@ class DataProcessor:
         self.max_voxels = None
         self.max_points_per_voxel = None
         self.num_sampled_points = None
+        self.depth_downsample_factor = None
         self.data_processor_queue = []
         for cur_cfg in processor_configs:
             if cur_cfg.NAME not in self.PORTED:
@@ -124,6 +128,31 @@ class DataProcessor:
             )
             self.grid_size = np.round(gsz).astype(np.int64)
             return partial(self.repository_info, config=config)
+        return data_dict
+
+    def downsample_depth_map(self, data_dict=None, config=None, rng=None):
+        """The mean of each DOWNSAMPLE_FACTOR x DOWNSAMPLE_FACTOR block of the
+        (H, W) depth map, edge blocks zero-padded (skimage's
+        downscale_local_mean, as the JAX step computes it)."""
+        if data_dict is None:
+            self.depth_downsample_factor = int(config.DOWNSAMPLE_FACTOR)
+            return partial(self.downsample_depth_map, config=config)
+        f = self.depth_downsample_factor
+        dm = np.asarray(data_dict["depth_maps"], np.float32)
+        h, w = dm.shape[:2]
+        ph, pw = (-h) % f, (-w) % f
+        if ph or pw:
+            dm = np.pad(dm, ((0, ph), (0, pw)))
+        data_dict["depth_maps"] = dm.reshape((h + ph) // f, f, (w + pw) // f, f).mean(axis=(1, 3))
+        return data_dict
+
+    def calculate_grid_size(self, data_dict=None, config=None, rng=None):
+        """Records the grid of VOXEL_SIZE over the range; changes no sample."""
+        if data_dict is None:
+            self.voxel_size = np.asarray(config.VOXEL_SIZE, np.float32)
+            gsz = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) / self.voxel_size
+            self.grid_size = np.round(gsz).astype(np.int64)
+            return partial(self.calculate_grid_size, config=config)
         return data_dict
 
     def forward(self, data_dict, rng=None):

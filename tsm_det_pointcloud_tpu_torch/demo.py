@@ -31,7 +31,7 @@ import torch
 
 from .datasets import load_data_to_device, to_torch_batch
 from .datasets.dataset import DatasetTemplate
-from .infer import ROOT, detect, load_cfg
+from .infer import ROOT, detect, load_cfg, refuse_camera_data
 from .models import build_network
 from .ops import _kernels
 from .runtime.checkpoint import restore_checkpoint
@@ -105,6 +105,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = load_cfg(args.cfg_file)
+    refuse_camera_data(cfg, "demo")
     logger = create_logger()
     logger.info("-----------------Demo of tsm_det_pointcloud_tpu_torch-----------------")
     dataset = DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, args.data_path, args.ext, logger)

@@ -57,7 +57,7 @@ from pathlib import Path
 
 from .config import log_config_to_file
 from .datasets import build_dataloader
-from .infer import ROOT, load_cfg
+from .infer import ROOT, load_cfg, refuse_camera_data
 from .models import build_network
 from .ops import _kernels
 from .parallel import comm, point_sharding
@@ -125,6 +125,7 @@ def evaluate(args, dev):
     """`main`'s evaluation on `dev`, in this process's part of the group."""
     main_rank = comm.is_main()
     cfg = load_cfg(args.cfg_file, args.set_cfgs)
+    refuse_camera_data(cfg, "evaluate")
     batch = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
     eval_dir = output_dir / "eval" / args.eval_tag

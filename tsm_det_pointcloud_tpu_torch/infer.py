@@ -35,13 +35,19 @@ scans.
         --batch 4 --points 300000
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/pandaset_models/centerpoint.yaml --batch 4 --points 115200
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/CaDDN.yaml --batch 2
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
 features), Waymo (5 point features, a +-75.2 m range), nuScenes (5 point
 features: x, y, z, intensity, a sweep's time lag; a +-51.2 m range), Lyft
 (the same 5 features, a +-80 m range) or PandaSet (4 point features,
-KITTI's range and its mirror behind the ego). Prints
+KITTI's range and its mirror behind the ego). A camera config (CaDDN, its
+VFE an ImageVFE) also gets synthetic camera inputs (`synth_camera`): noise
+images of KITTI's 375 x 1242 and KITTI's lidar-to-image projection
+P2 R0 Tr_velo_to_cam (`KITTI_LIDAR_TO_IMAGE`); it prints the voxels inside
+the camera frustum a scan too. Prints
 the detections per scan of the last batch (for a CenterHead with a
 velocity branch also the speed of its decoded boxes over SCORE_THRESH,
 which the detector's post-processing drops, as the JAX one does) and the
@@ -115,6 +121,11 @@ SCAN_RECIPES = {
     (-70.4, -40, -3, 70.4, 40, 1): ScanRecipe(
         (-70, -39.5, -1.9), (70, 39.5, 0.9), 16, (-60, -32), (60, 32), (-1.7, -0.2),
         (-1.0, 4.6, 1.9, 1.6)),
+    # CaDDN's range (KITTI's camera frustum out to 46.8 m): eight car-like
+    # clusters in the camera's view
+    (2, -30.08, -3.0, 46.8, 30.08, 1.0): ScanRecipe(
+        (2.5, -29.5, -2.0), (46.0, 29.5, 0.5), 8, (8, -6), (44, 6), (-1.6, -0.2),
+        (-0.9, 4.2, 2.2, 1.6)),
 }
 KITTI_RANGE, WAYMO_RANGE = list(SCAN_RECIPES)[:2]
 
@@ -169,6 +180,68 @@ def synth_scans(meta, batch, n, seed=0):
     return synth_scene(batch, n, seed, meta.point_cloud_range, meta.num_point_features)[0]
 
 
+# KITTI's calibration of training frame 000000: P2 (3 x 4), R0_rect and
+# Tr_velo_to_cam (3 x 4 each, padded to 4 x 4); the lidar-to-image matrix is
+# their product, as CaDDN's trans_lidar_to_cam_img
+KITTI_IMAGE_SIZE = (375, 1242)
+_KITTI_P2 = np.array([[7.215377e+02, 0.0, 6.095593e+02, 4.485728e+01],
+                      [0.0, 7.215377e+02, 1.728540e+02, 2.163791e-01],
+                      [0.0, 0.0, 1.0, 2.745884e-03]])
+_KITTI_R0 = np.array([[9.999239e-01, 9.837760e-03, -7.445048e-03],
+                      [-9.869795e-03, 9.999421e-01, -4.278459e-03],
+                      [7.402527e-03, 4.351614e-03, 9.999631e-01]])
+_KITTI_TR = np.array([[7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03],
+                      [1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02],
+                      [9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01]])
+KITTI_LIDAR_TO_IMAGE = (_KITTI_P2 @ np.block([[_KITTI_R0, np.zeros((3, 1))],
+                                              [np.zeros((1, 3)), np.ones((1, 1))]])
+                        @ np.vstack([_KITTI_TR, [0.0, 0.0, 0.0, 1.0]])).astype(np.float32)
+
+
+def uses_images(model_cfg):
+    """Whether a model config reads camera images (its VFE an ImageVFE)."""
+    return (model_cfg.get("VFE") or {}).get("NAME") == "ImageVFE"
+
+
+def refuse_camera_data(cfg, entry):
+    """Raise for a camera config in an entry point that reads a dataset: no
+    ported dataset loads images or their projections (nor does the JAX
+    package's), so CaDDN runs on synthetic camera batches alone."""
+    if uses_images(cfg.MODEL):
+        raise NotImplementedError(
+            f"{entry}: {cfg.MODEL.NAME} reads camera images and their lidar-to-image "
+            f"projections, which no ported dataset loads; run it on synthetic camera "
+            f"batches through infer or train")
+
+
+def synth_camera(batch, seed=0):
+    """Synthetic camera inputs: images (B, H, W, 3) uniform in [0, 1) from
+    the seed and KITTI's lidar-to-image matrix (B, 3, 4)."""
+    images = np.random.RandomState(seed).uniform(0, 1, (batch, *KITTI_IMAGE_SIZE, 3)).astype(np.float32)
+    return {"images": images,
+            "trans_lidar_to_cam_img": np.repeat(KITTI_LIDAR_TO_IMAGE[None], batch, 0)}
+
+
+def boxes_to_image(gt_boxes, lidar_to_img):
+    """2D gt boxes (B, M, 4) u1 v1 u2 v2: the image extent of each 3D box's
+    eight corners (in front of the camera), clipped to the image; all zero
+    for a box behind it."""
+    from .ops.boxes import boxes_to_corners_3d_np
+
+    B, M = gt_boxes.shape[:2]
+    corners = boxes_to_corners_3d_np(gt_boxes[..., :7].reshape(-1, 7)).reshape(B, M, 8, 3)
+    hom = np.concatenate([corners, np.ones((B, M, 8, 1), corners.dtype)], -1)
+    uvw = np.einsum("bmkj,bij->bmki", hom, lidar_to_img)
+    depth = uvw[..., 2]
+    front = (depth > 0.1).all(-1)
+    uv = uvw[..., :2] / np.maximum(depth, 0.1)[..., None]
+    h, w = KITTI_IMAGE_SIZE
+    out = np.stack([uv[..., 0].min(-1), uv[..., 1].min(-1), uv[..., 0].max(-1),
+                    uv[..., 1].max(-1)], -1)
+    out = np.clip(out, 0, [w, h, w, h])
+    return np.where(front[..., None], out, 0.0).astype(np.float32)
+
+
 def load_cfg(cfg_file, set_cfgs=None):
     """The config of `cfg_file`, then the `--set KEY VALUE ...` overrides
     (`config.cfg_from_list`)."""
@@ -193,10 +266,13 @@ def load_cfg(cfg_file, set_cfgs=None):
 # state, so it takes SECOND's value; Voxel R-CNN's (one class, a narrower BEV
 # backbone) was set on the card. PV-RCNN++'s seeded first stage is another
 # draw than PV-RCNN's (its PFE's weights come first in the generator): at
-# -2.5 ~116,000 anchors a scan pass, at -2.855 ~230 (set on one scan)
+# -2.5 ~116,000 anchors a scan pass, at -2.855 ~230 (set on one scan).
+# CaDDN's seeded anchor logits on noise images lie within 0.15 of each other
+# (before the bias: the 100th best of a scan 0.2505, the 300th 0.2489, the
+# 3000th 0.2298, on the card at b2): at -2.447 a few hundred pass
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
             "PVRCNN": -2.5, "PVRCNNPlusPlus": -2.855, "SECONDNetIoU": -2.575,
-            "VoxelRCNN": -1.25}
+            "VoxelRCNN": -1.25, "CaDDN": -2.447}
 # CenterPoint's hm_out by the config's dataset: a gain on its seeded kernel
 # and a bias in place of the -2.19 init, one for every class group or one
 # for all. The seeded heatmap logits lie within 0.5 of each other, so at the
@@ -300,25 +376,28 @@ def build_detector(cfg_file, device="cuda", seed=0, n_points=16384):
 
 
 @torch.no_grad()
-def detect(model, points, mask):
-    """points (B, N, C), mask (B, N) on the model's device -> (batch_dict,
-    pred) with fixed-size detections."""
+def detect(model, points, mask, camera=None):
+    """points (B, N, C), mask (B, N) on the model's device, and a camera
+    model's images and projections (`camera`, tensors on that device) ->
+    (batch_dict, pred) with fixed-size detections."""
     out = model({"points": points, "points_mask": mask,
-                 "batch_size": points.shape[0]})
+                 "batch_size": points.shape[0], **(camera or {})})
     pred, _ = model.post_processing(out)
     return out, pred
 
 
 def voxel_anchor_counts(model, out):
-    """Per scan, the voxels (or pillars) a voxel-based detector kept and the
-    predictions that reach NMS: the anchors whose best class score reaches a
+    """Per scan, the voxels (or pillars) a voxel-based detector kept, or the
+    voxels inside a camera detector's frustum, and the predictions that
+    reach NMS: the anchors whose best class score reaches a
     scalar SCORE_THRESH, or CenterPoint's decoded boxes scoring above it;
     None where the model or the config has neither. A two-stage detector's
     first-stage boxes are counted by the dense head's scores (`cls_preds`),
     or PointRCNN's point head's (`point_cls_preds`, a box a point): the
     final NMS takes its RoI head's boxes, which `rois_over` counts."""
     post = model.model_cfg["POST_PROCESSING"]
-    voxels = out["voxel_mask"].sum(1).tolist() if "voxel_mask" in out else None
+    voxels = (out["voxel_mask"].sum(1).tolist() if "voxel_mask" in out
+              else out["voxels_in_frustum"].tolist() if "voxels_in_frustum" in out else None)
     thresh = post.get("SCORE_THRESH", 0.1)
     over = None
     if "final_scores" in out:
@@ -370,13 +449,14 @@ def self_device_us(evt):
     return 0.0
 
 
-def profile_batch(model, points, mask, top=20):
+def profile_batch(model, points, mask, top=20, camera=None):
     """Trace one batch on the card; print the device busy share and the
     kernels with the most device time. Then trace the batch's
     post-processing (NMS) alone, to show its share of the batch. Returns
     both traces' `profile_call` results."""
     traced = {}
-    whole = profile_call(lambda: traced.update(out=detect(model, points, mask)[0]), top)
+    whole = profile_call(
+        lambda: traced.update(out=detect(model, points, mask, camera)[0]), top)
     out = traced["out"]   # the traced batch's forward, for its post-processing
     print("post-processing alone:")
     return whole, profile_call(lambda: model.post_processing(out), top=5)
@@ -433,12 +513,16 @@ def main(argv=None):
     cfg, model = build_detector(args.cfg_file, dev, args.seed, args.points)
     pts = torch.from_numpy(synth_scans(model.dataset_meta, args.batch, args.points, args.seed)).to(dev)
     mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
-    out, pred = detect(model, pts, mask)  # warm-up: builds the kernels
+    camera = ({k: torch.from_numpy(v).to(dev) for k, v in synth_camera(args.batch, args.seed).items()}
+              if uses_images(cfg.MODEL) else None)
+    t0 = time.perf_counter()
+    out, pred = detect(model, pts, mask, camera)  # warm-up: builds the kernels
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    warm = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        out, pred = detect(model, pts, mask)
+        out, pred = detect(model, pts, mask, camera)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -446,7 +530,8 @@ def main(argv=None):
     rois = rois_over(model, out)
     vels = velocities_over(model, out)
     for b, c in enumerate(pred["count"].tolist()):
-        extra = "" if voxels is None else f", {voxels[b]} voxels"
+        extra = "" if voxels is None else (
+            f", {voxels[b]} voxels" + (" in the camera frustum" if camera else ""))
         extra += "" if over is None else f", {over[b]} predictions over SCORE_THRESH"
         if rois is not None:
             extra += (f" (first stage); {rois[b][0]} proposals kept, {rois[b][1]} RoI boxes "
@@ -456,13 +541,16 @@ def main(argv=None):
             extra += (f"; their velocities {'finite' if finite else 'NOT finite'}, speed mean "
                       f"{mean:.3f} max {top:.3f} m/s")
         print(f"scan {b}: {c} detections{extra}")
+    print(f"warm-up batch {warm:.3f} s (the kernels' and cuDNN's first calls)")
     if args.iters:   # --iters 0: the warm-up batch's detections alone (a --profile run)
+        what = (f"{'x'.join(map(str, camera['images'].shape[1:3]))} images"
+                if camera else f"{args.points} points")
         print(f"{args.batch * args.iters / dt:.3f} scans/s on {dev} "
-              f"(batch {args.batch} x {args.points} points, {args.iters} batches)")
+              f"(batch {args.batch} x {what}, {args.iters} batches)")
     if args.profile:
         if dev.type != "cuda":
             raise RuntimeError("--profile measures the card: run with --device cuda")
-        return profile_batch(model, pts, mask)
+        return profile_batch(model, pts, mask, camera=camera)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,16 @@ JAX models/__init__.py:14-29):
     forward (target assignment and the head's losses);
   * NAME PointPillar: PillarVFE, PointPillarScatter, BaseBEVBackbone,
     AnchorHeadSingle; training as SECONDNet's;
+  * on these two topologies the JAX registry's variants: the VFEs
+    DynamicMeanVFE, MeanDensityVFE, SPVFE and VPCVFE (and MeanVFE on
+    PointPillars' scatter, DynamicPillarVFE on its own), SECOND's trunk
+    under the name SpaceVoxelBackBone8x, and the dense heads AnchorHeadMulti
+    and the classification-only AnchorHeadMultiCls and (SECOND only: it
+    reads the sparse x_conv4) AnchorHeadSingleCls, which give cls_preds and
+    a cls-only training loss and no boxes to post-process;
+  * NAME CaDDN: ImageVFE (a DDNDeepLabV3 or CompactDDN depth network and
+    the frustum-to-voxel gather), Conv2DCollapse, BaseBEVBackbone,
+    AnchorHeadSingle; `.train()` adds the depth loss;
   * NAME CenterPoint: MeanVFE, VoxelResBackBone8x, HeightCompression,
     BaseBEVBackbone, CenterHead; `.train()` turns on the head's heatmap
     targets and losses;
@@ -33,7 +43,8 @@ JAX models/__init__.py:14-29):
   * NAME VoxelRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
     BaseBEVBackbone, AnchorHeadSingle, VoxelRCNNHead; NAME SECONDNetIoU: the
     same with SECONDHead; for both `.train()` turns on the anchor head's
-    decode in training, the RoI head's targets (VoxelRCNN) and the losses.
+    decode in training, the RoI head's targets (VoxelRCNN) and the losses;
+    the detectors on VoxelBackBone8x also take it as SpaceVoxelBackBone8x.
 Any other configuration raises. Matmuls and convolutions run in full
 float32: TF32 is switched off here. cuDNN times its algorithms for each
 convolution shape at first use (`cudnn.benchmark`): left to its heuristics,
@@ -48,18 +59,29 @@ from torch import nn
 
 from ..utils.common_utils import resolve_device
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
-from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
+from .backbones_2d.map_to_bev import Conv2DCollapse, HeightCompression, PointPillarScatter
 from .backbones_3d.pointnet2_modules import BatchNorm
 from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from .backbones_3d.pointnet2_backbone import PointNet2MSG
-from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x, _ConvBase
+from .backbones_3d.image_vfe import ImageVFE
+from .backbones_3d.spconv_backbone import (
+    SpaceVoxelBackBone8x,
+    VoxelBackBone8x,
+    VoxelResBackBone8x,
+    _ConvBase,
+)
 from .backbones_3d.spconv_unet import UNetV2
-from .backbones_3d.vfe import MeanVFE, PillarVFE
+from .backbones_3d.vfe import PILLAR_VFES, VOXEL_VFES, MeanVFE
 from .backbones_3d.voxel_pointnet2_backbone import (
     VoxelPointNet2FSMSG,
     VoxelPointNet2FSMSGDistillation,
 )
-from .dense_heads.anchor_head import AnchorHeadSingle
+from .dense_heads.anchor_head import (
+    AnchorHeadMulti,
+    AnchorHeadMultiCls,
+    AnchorHeadSingle,
+    AnchorHeadSingleCls,
+)
 from .dense_heads.center_head import HM_INIT_BIAS, CenterHead
 from .dense_heads.point_head_box import PointHeadBox
 from .dense_heads.point_head_simple import PointHeadSimple
@@ -77,17 +99,25 @@ from .roi_heads.second_head import SECONDHead
 from .roi_heads.voxelrcnn_head import VoxelRCNNHead
 
 _NEG_LOG99 = -float(np.log(99.0))
+_SECOND_TRUNKS = {"VoxelBackBone8x": VoxelBackBone8x,
+                  "SpaceVoxelBackBone8x": SpaceVoxelBackBone8x}
+_ANCHOR_HEADS = {"AnchorHeadSingle": AnchorHeadSingle, "AnchorHeadMulti": AnchorHeadMulti,
+                 "AnchorHeadMultiCls": AnchorHeadMultiCls,
+                 "AnchorHeadSingleCls": AnchorHeadSingleCls}
 # the sections each ported detector reads, and the module NAMEs each may give
 # (3DSSD's backbone and head come in pairs: `_TSM_PAIRS`)
 _PORTED = {
     "3DSSD": {"BACKBONE_3D": ("VoxelPointNet2FSMSGDistillation", "VoxelPointNet2FSMSG"),
               "POINT_HEAD": ("PointHeadVoteSASAStatisticDistillation",
                              "PointHeadVoteSASAStatistic")},
-    "SECONDNet": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+    "SECONDNet": {"VFE": tuple(VOXEL_VFES), "BACKBONE_3D": tuple(_SECOND_TRUNKS),
                   "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
-                  "DENSE_HEAD": ("AnchorHeadSingle",)},
-    "PointPillar": {"VFE": ("PillarVFE",), "MAP_TO_BEV": ("PointPillarScatter",),
-                    "BACKBONE_2D": ("BaseBEVBackbone",), "DENSE_HEAD": ("AnchorHeadSingle",)},
+                  "DENSE_HEAD": tuple(_ANCHOR_HEADS)},
+    "PointPillar": {"VFE": tuple(PILLAR_VFES) + tuple(VOXEL_VFES),
+                    "MAP_TO_BEV": ("PointPillarScatter",), "BACKBONE_2D": ("BaseBEVBackbone",),
+                    "DENSE_HEAD": tuple(n for n in _ANCHOR_HEADS if n != "AnchorHeadSingleCls")},
+    "CaDDN": {"VFE": ("ImageVFE",), "MAP_TO_BEV": ("Conv2DCollapse",),
+              "BACKBONE_2D": ("BaseBEVBackbone",), "DENSE_HEAD": ("AnchorHeadSingle",)},
     "CenterPoint": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelResBackBone8x",),
                     "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                     "DENSE_HEAD": ("CenterHead",)},
@@ -95,16 +125,16 @@ _PORTED = {
                   "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                   "DENSE_HEAD": ("AnchorHeadSingle",),
                   "POINT_HEAD": ("PointIntraPartOffsetHead",), "ROI_HEAD": ("PartA2FCHead",)},
-    "PVRCNN": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+    "PVRCNN": {"VFE": ("MeanVFE",), "BACKBONE_3D": tuple(_SECOND_TRUNKS),
                "MAP_TO_BEV": ("HeightCompression",), "PFE": ("VoxelSetAbstraction",),
                "BACKBONE_2D": ("BaseBEVBackbone",), "DENSE_HEAD": ("AnchorHeadSingle",),
                "POINT_HEAD": ("PointHeadSimple",), "ROI_HEAD": ("PVRCNNHead",)},
     "PointRCNN": {"BACKBONE_3D": ("PointNet2MSG",), "POINT_HEAD": ("PointHeadBox",),
                   "ROI_HEAD": ("PointRCNNHead",)},
-    "VoxelRCNN": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+    "VoxelRCNN": {"VFE": ("MeanVFE",), "BACKBONE_3D": tuple(_SECOND_TRUNKS),
                   "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                   "DENSE_HEAD": ("AnchorHeadSingle",), "ROI_HEAD": ("VoxelRCNNHead",)},
-    "SECONDNetIoU": {"VFE": ("MeanVFE",), "BACKBONE_3D": ("VoxelBackBone8x",),
+    "SECONDNetIoU": {"VFE": ("MeanVFE",), "BACKBONE_3D": tuple(_SECOND_TRUNKS),
                      "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                      "DENSE_HEAD": ("AnchorHeadSingle",), "ROI_HEAD": ("SECONDHead",)},
 }
@@ -125,12 +155,14 @@ def init_weights(model, seed=0):
     kernels lecun normal, sparse-conv kernels N(0, 2 / (K * Cin)), the
     teacher's dynamic regression weight N(0, 2 / 64), biases 0 except the
     confidence / cls output biases at -log(99) (the TSM heads' `cls*_out`,
-    the anchor heads' `conv_cls`, and Part-A2's and PointRCNN's point
+    the anchor heads' `conv_cls` and `conv_cls_g<i>`, and Part-A2's and PointRCNN's point
     heads' `cls_out`, set after the loop, since a module comes before its
     layers in `named_modules`; the other `cls_out`, PV-RCNN's point head's
     and the RoI heads', and SECONDHead's `iou_out` start at 0, as flax's
     Dense), CenterPoint's heatmap
-    output bias at HM_INIT_BIAS, BN at the identity."""
+    output bias at HM_INIT_BIAS, BN at the identity. CaDDN's depth
+    networks take the 2D conv and BN rules (their `classifier` /
+    `depth_head` biases 0, as flax's)."""
     g = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
@@ -149,7 +181,7 @@ def init_weights(model, seed=0):
             m.weight.data.copy_(torch.randn(m.weight.shape, generator=g) / np.sqrt(fan_in))
             if m.bias is not None:
                 tail = name.rsplit(".", 1)[-1]
-                m.bias.data.fill_(_NEG_LOG99 if tail == "conv_cls"
+                m.bias.data.fill_(_NEG_LOG99 if tail.startswith("conv_cls")
                                   else HM_INIT_BIAS if tail == "hm_out" else 0.0)
         elif isinstance(m, _ConvBase):
             K, cin, _ = m.weight.shape
@@ -214,6 +246,7 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
                 f"{section} {model_cfg[section]['NAME']} is not ported")
     dataset = meta_from_dataset(dataset)
     build = {"SECONDNet": _second_modules, "PointPillar": _pointpillar_modules,
+             "CaDDN": _caddn_modules,
              "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
              "PVRCNN": _two_stage_modules, "PVRCNNPlusPlus": _two_stage_modules,
              "PointRCNN": _pointrcnn_modules,
@@ -239,35 +272,60 @@ def _tsm_modules(model_cfg, num_class, meta):
     return [backbone, head]
 
 
+def _vfe(model_cfg, meta):
+    """The point VFE the config names (`vfe.VOXEL_VFES`, `vfe.PILLAR_VFES`)."""
+    cls = {**VOXEL_VFES, **PILLAR_VFES}[model_cfg["VFE"]["NAME"]]
+    return cls(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
+               meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
+
+
+def _anchor_head(model_cfg, num_class, meta, input_channels):
+    cfg = dict(model_cfg["DENSE_HEAD"])
+    return _ANCHOR_HEADS[cfg["NAME"]](cfg, input_channels, num_class,
+                                      tuple(meta.class_names), meta.grid_size,
+                                      meta.point_cloud_range)
+
+
 def _second_modules(model_cfg, num_class, meta):
     """The SECOND topology, in the JAX package's module order (its flax
-    module_list_0..4): VFE, BACKBONE_3D, MAP_TO_BEV, BACKBONE_2D, DENSE_HEAD."""
-    vfe = MeanVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
-                  meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
-    b3d = VoxelBackBone8x(dict(model_cfg["BACKBONE_3D"]), vfe.get_output_feature_dim(),
-                          meta)
+    module_list_0..4): VFE, BACKBONE_3D, MAP_TO_BEV, BACKBONE_2D, DENSE_HEAD.
+    AnchorHeadSingleCls reads the trunk's x_conv4 (64 channels a z cell)."""
+    vfe = _vfe(model_cfg, meta)
+    b3d = _SECOND_TRUNKS[model_cfg["BACKBONE_3D"]["NAME"]](
+        dict(model_cfg["BACKBONE_3D"]), vfe.get_output_feature_dim(), meta)
     map_cfg = dict(model_cfg["MAP_TO_BEV"])
     to_bev = HeightCompression(map_cfg)
     b2d = BaseBEVBackbone(dict(model_cfg["BACKBONE_2D"]), map_cfg["NUM_BEV_FEATURES"])
-    head = AnchorHeadSingle(dict(model_cfg["DENSE_HEAD"]), b2d.get_output_feature_dim(),
-                            num_class, tuple(meta.class_names), meta.grid_size,
-                            meta.point_cloud_range)
-    return [vfe, b3d, to_bev, b2d, head]
+    head_in = (b3d.x_conv4_grid[0] * 64
+               if model_cfg["DENSE_HEAD"]["NAME"] == "AnchorHeadSingleCls"
+               else b2d.get_output_feature_dim())
+    return [vfe, b3d, to_bev, b2d, _anchor_head(model_cfg, num_class, meta, head_in)]
 
 
 def _pointpillar_modules(model_cfg, num_class, meta):
     """The PointPillars topology in the JAX package's module order: VFE,
     MAP_TO_BEV, BACKBONE_2D, DENSE_HEAD (flax module_list_0..3)."""
-    vfe = PillarVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
-                    meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
+    vfe = _vfe(model_cfg, meta)
     map_cfg = dict(model_cfg["MAP_TO_BEV"])
     to_bev = PointPillarScatter(map_cfg, meta.grid_size)
     b2d = BaseBEVBackbone(dict(model_cfg["BACKBONE_2D"]),
                           map_cfg.get("NUM_BEV_FEATURES", vfe.get_output_feature_dim()))
-    head = AnchorHeadSingle(dict(model_cfg["DENSE_HEAD"]), b2d.get_output_feature_dim(),
-                            num_class, tuple(meta.class_names), meta.grid_size,
-                            meta.point_cloud_range)
-    return [vfe, to_bev, b2d, head]
+    return [vfe, to_bev, b2d,
+            _anchor_head(model_cfg, num_class, meta, b2d.get_output_feature_dim())]
+
+
+def _caddn_modules(model_cfg, num_class, meta):
+    """CaDDN's topology in the JAX package's module order (its
+    models/__init__.py:156-166): VFE (ImageVFE at the depth network's
+    stride, meta.depth_downsample_factor or 8), MAP_TO_BEV, BACKBONE_2D,
+    DENSE_HEAD (flax module_list_0..3)."""
+    vfe = ImageVFE(dict(model_cfg["VFE"]), meta.grid_size, meta.point_cloud_range,
+                   meta.voxel_size, int(meta.depth_downsample_factor or 8))
+    map_cfg = dict(model_cfg["MAP_TO_BEV"])
+    to_bev = Conv2DCollapse(map_cfg, vfe.get_output_feature_dim(), meta.grid_size)
+    b2d = BaseBEVBackbone(dict(model_cfg["BACKBONE_2D"]), map_cfg.get("NUM_BEV_FEATURES", 64))
+    return [vfe, to_bev, b2d,
+            _anchor_head(model_cfg, num_class, meta, b2d.get_output_feature_dim())]
 
 
 def _centerpoint_modules(model_cfg, num_class, meta):
@@ -296,8 +354,7 @@ def _two_stage_modules(model_cfg, num_class, meta):
     SECONDNetIoU)."""
     vfe = MeanVFE(dict(model_cfg["VFE"]), meta.num_point_features, meta.voxel_size,
                   meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
-    b3d_cls = {"UNetV2": UNetV2, "VoxelBackBone8x": VoxelBackBone8x}[
-        model_cfg["BACKBONE_3D"]["NAME"]]
+    b3d_cls = {"UNetV2": UNetV2, **_SECOND_TRUNKS}[model_cfg["BACKBONE_3D"]["NAME"]]
     b3d = b3d_cls(dict(model_cfg["BACKBONE_3D"]), vfe.get_output_feature_dim(), meta)
     map_cfg = dict(model_cfg["MAP_TO_BEV"])
     modules = [vfe, b3d, HeightCompression(map_cfg)]

@@ -22,24 +22,27 @@ from ...parallel import comm
 
 
 class _BatchNorm2d(nn.BatchNorm2d):
-    """flax's BatchNorm(epsilon=1e-3, momentum=0.99) in torch's terms,
-    without torch's update counter: flax keeps none, so a converted state
-    has none to load. In train mode it normalises by the batch's statistics
-    over (N, H, W) and moves the running ones as flax's `batch_stats` move:
-    `running = 0.99 * running + 0.01 * batch`, with the biased batch
-    variance (torch's own update takes the unbiased one). In a multi-process
-    run the statistics are the global batch's (`comm.global_sum` of the
-    sums, squared sums and count, flax's fast variance), so this is not
+    """flax's BatchNorm(epsilon=eps, momentum=momentum) in torch's terms (by
+    default the BEV layers' 1e-3 / 0.99), without torch's update counter:
+    flax keeps none, so a converted state has none to load. In train mode it
+    normalises by the batch's statistics over (N, H, W) and moves the
+    running ones as flax's `batch_stats` move: `running = momentum * running
+    + (1 - momentum) * batch`, with the biased batch variance (torch's own
+    update takes the unbiased one). One value per channel (CaDDN's ASPP
+    pooling branch at batch 1) has variance 0 and normalises to the bias,
+    as flax does, where `F.batch_norm` raises. In a multi-process run the
+    statistics are the global batch's (`comm.global_sum` of the sums,
+    squared sums and count, flax's fast variance), so this is not
     `nn.SyncBatchNorm`, which stores the unbiased variance."""
 
-    def __init__(self, c):
-        super().__init__(int(c), eps=1e-3, momentum=0.01)
+    def __init__(self, c, eps=1e-3, momentum=0.99):
+        super().__init__(int(c), eps=float(eps), momentum=1.0 - float(momentum))
         self.register_buffer("num_batches_tracked", None)
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if comm.data_world_size() > 1:
+        if comm.data_world_size() > 1 or x.numel() == x.shape[1]:
             return self._global_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)

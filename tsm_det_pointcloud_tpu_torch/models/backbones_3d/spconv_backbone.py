@@ -149,6 +149,10 @@ class VoxelBackBone8x(nn.Module):
         self.conv4_b = SubMConv(64, 64)
         self.conv_out = SparseConv(64, 128, kernel_size=(3, 1, 1), stride=(2, 1, 1),
                                    padding=0)
+        grid = self.grid0
+        for conv in (self.conv2_down, self.conv3_down, self.conv4_down):
+            grid = _out_grid(grid, conv.kernel_size, conv.stride, conv.padding)
+        self.x_conv4_grid = grid     # (gz, gy, gx) of multi_scale_3d_features' x_conv4
 
     @staticmethod
     def _down(conv, st, capacity):
@@ -186,6 +190,12 @@ class VoxelBackBone8x(nn.Module):
         batch_dict["multi_scale_3d_strides"] = {
             "x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
         return batch_dict
+
+
+class SpaceVoxelBackBone8x(VoxelBackBone8x):
+    """The JAX registry's name for VoxelBackBone8x's trunk (JAX
+    spconv_backbone.py:318-321; the reference's spatial-attention blocks are
+    not in the JAX package either)."""
 
 
 class SparseBasicBlock(nn.Module):

@@ -1,8 +1,12 @@
 """Voxel feature encoders (counterpart of
-tsm_det_pointcloud_tpu/models/backbones_3d/vfe.py:23-150): each voxelises
-the (B, N, C) points on the device. `MeanVFE` averages each voxel's
-points; `PillarVFE` (PointPillars) runs a Linear + BN + ReLU over each
-pillar's decorated points and max-pools them.
+tsm_det_pointcloud_tpu/models/backbones_3d/vfe.py): each voxelises the
+(B, N, C) points on the device. `MeanVFE` averages each voxel's points;
+`PillarVFE` (PointPillars) runs a Linear + BN + ReLU over each pillar's
+decorated points and max-pools them. The JAX registry's variants:
+`DynamicMeanVFE` and `DynamicPillarVFE` (the reference's scatter-based
+VFEs, the same computation here, as in the JAX package), `MeanDensityVFE`
+(the mean and the voxel's point count) and `SPVFE` / `VPCVFE` (the mean
+refined by a per-voxel Dense -> masked BN -> ReLU stack).
 
 batch_dict in: points (B, N, C), points_mask (B, N) bool; out:
 voxel_features (B, V, C'), voxel_coords (B, V, 3) int32 zyx sorted by key
@@ -115,3 +119,70 @@ class PillarVFE(nn.Module):
         batch_dict["voxel_coords"] = coords
         batch_dict["voxel_mask"] = vmask
         return batch_dict
+
+
+class DynamicMeanVFE(MeanVFE):
+    """The reference's scatter-mean VFE: MeanVFE's computation (JAX
+    vfe.py:153-156)."""
+
+
+class DynamicPillarVFE(PillarVFE):
+    """The reference's scatter-based pillar VFE: PillarVFE's computation
+    (JAX vfe.py:159-161)."""
+
+
+class MeanDensityVFE(MeanVFE):
+    """MeanVFE's features followed by the voxel's point count as a float
+    channel (JAX vfe.py:164-184)."""
+
+    def get_output_feature_dim(self):
+        return self.num_point_features + 1
+
+    def forward(self, batch_dict):
+        batch_dict = super().forward(batch_dict)
+        feats = batch_dict["voxel_features"]
+        batch_dict["voxel_features"] = torch.cat(
+            [feats, batch_dict["voxel_num_points"][..., None].to(feats.dtype)], -1)
+        return batch_dict
+
+
+class SPVFE(MeanVFE):
+    """The voxel means refined by a per-voxel stack (JAX vfe.py:187-208):
+    for each NUM_FILTERS entry (default [32]) a bias-free Linear `spv_fc<i>`,
+    a BN `spv_bn<i>` (1e-3 / 0.99) whose training statistics count the
+    valid voxels only, and a ReLU; invalid voxels then give 0."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size, point_cloud_range,
+                 max_voxels, max_points_per_voxel):
+        super().__init__(model_cfg, num_point_features, voxel_size, point_cloud_range,
+                         max_voxels, max_points_per_voxel)
+        self.filters = [int(c) for c in model_cfg.get("NUM_FILTERS", [32])]
+        cin = self.num_point_features
+        for i, c in enumerate(self.filters):
+            self.add_module(f"spv_fc{i}", nn.Linear(cin, c, bias=False))
+            self.add_module(f"spv_bn{i}", BatchNorm(c, eps=1e-3))
+            cin = c
+
+    def get_output_feature_dim(self):
+        return self.filters[-1]
+
+    def forward(self, batch_dict):
+        batch_dict = super().forward(batch_dict)
+        feats, vmask = batch_dict["voxel_features"], batch_dict["voxel_mask"]
+        for i in range(len(self.filters)):
+            feats = torch.relu(getattr(self, f"spv_bn{i}")(getattr(self, f"spv_fc{i}")(feats),
+                                                           vmask))
+        batch_dict["voxel_features"] = torch.where(vmask[..., None], feats,
+                                                   torch.zeros_like(feats))
+        return batch_dict
+
+
+class VPCVFE(SPVFE):
+    """The reference's voxel-wise point-conv VFE: SPVFE's computation (JAX
+    vfe.py:211-213)."""
+
+
+VOXEL_VFES = {"MeanVFE": MeanVFE, "DynamicMeanVFE": DynamicMeanVFE, "DynMeanVFE": DynamicMeanVFE,
+              "MeanDensityVFE": MeanDensityVFE, "SPVFE": SPVFE, "VPCVFE": VPCVFE}
+PILLAR_VFES = {"PillarVFE": PillarVFE, "DynamicPillarVFE": DynamicPillarVFE,
+               "DynPillarVFE": DynamicPillarVFE}

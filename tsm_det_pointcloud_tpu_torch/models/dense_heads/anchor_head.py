@@ -11,6 +11,14 @@ boxes; the decode keeps its gradient to the box regression), and
 `loss` assigns the targets (`assign_targets`, vectorised over anchors and
 boxes, a loop over the scans) and computes the focal cls, smooth-L1 box
 (with the sine difference on the heading) and direction losses.
+
+The JAX registry's variants (its anchor_head.py:316-520): `AnchorHeadMulti`
+(AnchorHeadSingle behind an optional 3x3 `shared_conv` + ReLU), the
+classification-only `AnchorHeadSingleCls` (over the stride-8 sparse level
+`x_conv4`, densified, z folded into channels) and `AnchorHeadMultiCls`
+(one cls conv a class group, each group's logits written at its classes'
+columns, zero elsewhere), both with `loss` the focal cls term alone; and
+`atss_assign_targets`, the ATSS target assignment.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import box_coder_utils, loss_utils
+from ...ops import spconv as sp
 from ...ops.iou3d import boxes_iou3d
 from ...utils.common_utils import limit_period
 
@@ -115,6 +124,58 @@ def assign_targets(anchors, gt_boxes, gt_valid, anchor_class_ids, matched_thresh
             "reg_weights": torch.stack(weights)}
 
 
+def atss_assign_targets(anchors, gt_boxes, gt_valid, class_ids, anchor_class_ids,
+                        box_coder, topk=9):
+    """ATSS target assignment (JAX anchor_head.py:316-381), each scan in
+    turn: a gt box's candidates are its `topk` anchors of its class nearest
+    by centre (ties to the lower index, as lax.top_k); its IoU threshold is
+    the mean + (population) std of their 3D IoUs; a candidate above it whose
+    centre lies inside the box is positive. An anchor positive for several
+    boxes takes the one of highest IoU, and of equal IoUs the last
+    (candidate order, box-major), as the JAX scatter writes. `class_ids` is
+    unused, as in the JAX function. Returns box_cls_labels (B, A) int32,
+    box_reg_targets (B, A, code) and reg_weights (B, A)."""
+    labels, targets, weights = [], [], []
+    A = anchors.shape[0]
+    for gts, valid in zip(gt_boxes, gt_valid):
+        gt_cls = gts[:, 7].to(torch.int32)
+        mask = (anchor_class_ids[:, None] == gt_cls[None, :]) & valid[None, :]
+        iou = torch.where(mask, boxes_iou3d(anchors, gts[:, :7]), torch.zeros((), device=gts.device))
+        d2 = torch.sum((anchors[:, None, :3] - gts[None, :, :3]) ** 2, -1)
+        d2 = torch.where(mask, d2, torch.full((), 1e10, device=gts.device))
+        cand = torch.sort(d2.T, dim=1, stable=True)[1][:, :topk]            # (M, k)
+        cand_iou = torch.gather(iou.T, 1, cand)
+        thr = cand_iou.mean(1) + cand_iou.std(1, unbiased=False)
+        rel = anchors[:, :3][cand] - gts[:, None, :3]                        # (M, k, 3)
+        cosa = torch.cos(-gts[:, 6])[:, None]
+        sina = torch.sin(-gts[:, 6])[:, None]
+        lx = rel[..., 0] * cosa - rel[..., 1] * sina
+        ly = rel[..., 0] * sina + rel[..., 1] * cosa
+        inside = ((lx.abs() < gts[:, None, 3] / 2) & (ly.abs() < gts[:, None, 4] / 2)
+                  & (rel[..., 2].abs() < gts[:, None, 5] / 2))
+        is_pos = (cand_iou >= thr[:, None]) & inside & valid[:, None]
+        M, K = cand.shape
+        flat_c = cand.reshape(-1)
+        flat_i = torch.where(is_pos, cand_iou, torch.full((), -1.0, device=gts.device)).reshape(-1)
+        best = torch.full((A,), float("-inf"), device=gts.device).scatter_reduce(
+            0, flat_c, flat_i, "amax")
+        chosen = (flat_i == best[flat_c]) & (flat_i > 0)
+        slot = torch.where(chosen, torch.arange(M * K, device=gts.device),
+                           torch.full((), -1, device=gts.device))
+        winner = torch.full((A,), -1, dtype=slot.dtype, device=gts.device).scatter_reduce(
+            0, flat_c, slot, "amax")
+        fg = winner >= 0
+        gt_idx = torch.where(fg, winner // K, torch.zeros_like(winner))
+        lab = torch.where(fg, gt_cls[gt_idx], torch.zeros_like(gt_cls[gt_idx]))
+        fg = lab > 0
+        reg = box_coder.encode(gts[gt_idx][:, :7], anchors)
+        labels.append(lab)
+        targets.append(torch.where(fg[:, None], reg, torch.zeros_like(reg)))
+        weights.append(fg.to(anchors.dtype))
+    return {"box_cls_labels": torch.stack(labels), "box_reg_targets": torch.stack(targets),
+            "reg_weights": torch.stack(weights)}
+
+
 class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, class_names,
                  grid_size, point_cloud_range, predict_boxes_when_training=False):
@@ -150,8 +211,11 @@ class AnchorHeadSingle(nn.Module):
         self.num_dir_bins = cfg.get("NUM_DIR_BINS", 2)
         self.dir_offset = cfg.get("DIR_OFFSET", 0.78539)
         self.dir_limit_offset = cfg.get("DIR_LIMIT_OFFSET", 0.0)
+        self.class_names = tuple(class_names)
+        self._make_convs(int(input_channels))
+
+    def _make_convs(self, c):
         A = self.num_anchors_per_location
-        c = int(input_channels)
         self.conv_cls = nn.Conv2d(c, A * self.num_class, 1)
         self.conv_box = nn.Conv2d(c, A * self.box_coder.code_size, 1)
         if self.use_dir:
@@ -260,3 +324,108 @@ class AnchorHeadSingle(nn.Module):
         b1 = torch.cat([boxes1[..., :6], rad_pred, boxes1[..., 7:]], -1)
         b2 = torch.cat([boxes2[..., :6], rad_tg, boxes2[..., 7:]], -1)
         return b1, b2
+
+
+class AnchorHeadMulti(AnchorHeadSingle):
+    """AnchorHeadSingle behind an optional 3x3 SAME conv `shared_conv` (with
+    bias) of SHARED_CONV_NUM_FILTER channels and a ReLU, whose output
+    replaces spatial_features_2d (JAX anchor_head.py:384-412)."""
+
+    def _make_convs(self, c):
+        shared = int(self.model_cfg.get("SHARED_CONV_NUM_FILTER", 0) or 0)
+        self.shared_conv = nn.Conv2d(c, shared, 3, padding=1) if shared else None
+        super()._make_convs(shared or c)
+
+    def forward(self, batch_dict):
+        if self.shared_conv is not None:
+            x = batch_dict["spatial_features_2d"].permute(0, 3, 1, 2)
+            batch_dict = dict(batch_dict)
+            batch_dict["spatial_features_2d"] = torch.relu(self.shared_conv(x)).permute(0, 2, 3, 1)
+        return super().forward(batch_dict)
+
+
+def cls_only_loss(head, batch_dict):
+    """The focal classification term alone of the cls-only heads (JAX
+    anchor_head.py:415-433): over the cared anchors, each scan normalised by
+    its positives, the sum over the batch / batch_size times cls_weight
+    (1.0 where LOSS_CONFIG states none). Returns (loss, {rpn_loss_cls,
+    rpn_loss})."""
+    targets = head.assign(batch_dict["gt_boxes"], batch_dict["gt_boxes_mask"])
+    cls_labels = targets["box_cls_labels"]
+    cls_preds = batch_dict["cls_preds"]
+    positives = (cls_labels > 0).to(cls_preds.dtype)
+    negatives = (cls_labels == 0).to(cls_preds.dtype)
+    cls_weights = (negatives + positives) / torch.clamp(positives.sum(1, keepdim=True), min=1.0)
+    cls_targets = torch.where(cls_labels >= 0, cls_labels, torch.zeros_like(cls_labels))
+    one_hot = F.one_hot(cls_targets.long(), head.num_class + 1)[..., 1:].to(cls_preds.dtype)
+    lw = head.model_cfg.get("LOSS_CONFIG", {}).get("LOSS_WEIGHTS", {})
+    cls_loss = (loss_utils.sigmoid_focal_loss(cls_preds, one_hot, cls_weights).sum()
+                / batch_dict["batch_size"] * lw.get("cls_weight", 1.0))
+    return cls_loss, {"rpn_loss_cls": cls_loss, "rpn_loss": cls_loss}
+
+
+class AnchorHeadSingleCls(AnchorHeadSingle):
+    """Classification-only RPN over the stride-8 sparse level (JAX
+    anchor_head.py:436-466): `x_conv4` of multi_scale_3d_features densified
+    (ops.spconv.sparse_to_dense), z folded into channels (z * C + c), one
+    1x1 `conv_cls`; input_channels is that fold's width (nz * C). Out:
+    cls_preds only, in eval too; the anchors' feature_map_stride must be
+    x_conv4's. `loss` is `cls_only_loss`."""
+
+    def _make_convs(self, c):
+        self.conv_cls = nn.Conv2d(c, self.num_anchors_per_location * self.num_class, 1)
+
+    def forward(self, batch_dict):
+        t = batch_dict["multi_scale_3d_features"]["x_conv4"]
+        dense = sp.sparse_to_dense(t.features, t.coords, t.valid, t.grid)
+        B, nz, ny, nx, C = dense.shape
+        x = dense.permute(0, 1, 4, 2, 3).reshape(B, nz * C, ny, nx)   # channel z * C + c
+        batch_dict["cls_preds"] = self._nhwc(self.conv_cls, x).reshape(B, -1, self.num_class)
+        return batch_dict
+
+    def loss(self, batch_dict):
+        return cls_only_loss(self, batch_dict)
+
+
+class AnchorHeadMultiCls(AnchorHeadSingle):
+    """Classification-only grouped RPN (JAX anchor_head.py:469-520): the
+    class groups of RPN_HEAD_CFGS' HEAD_CLS_NAME (else one a class) must
+    partition CLASS_NAMES in order (else ValueError); an optional 3x3
+    `shared_conv` + ReLU, then a 1x1 `conv_cls_g<i>` a group (its bias at
+    the -log(99) prior) whose (anchor, class) logits land in the group's
+    classes' columns of the per-anchor logits, zero in the others. Out:
+    cls_preds only; `loss` is `cls_only_loss`."""
+
+    def _make_convs(self, c):
+        cfg = self.model_cfg
+        head_cfgs = cfg.get("RPN_HEAD_CFGS")
+        self.group_classes = ([list(h["HEAD_CLS_NAME"]) for h in head_cfgs] if head_cfgs
+                              else [[n] for n in self.class_names])
+        if [n for g in self.group_classes for n in g] != list(self.class_names):
+            raise ValueError("RPN_HEAD_CFGS must partition CLASS_NAMES in order")
+        shared = int(cfg.get("SHARED_CONV_NUM_FILTER", 0) or 0)
+        self.shared_conv = nn.Conv2d(c, shared, 3, padding=1) if shared else None
+        self.a_per_class = self.num_anchors_per_location // self.num_class
+        for gi, names in enumerate(self.group_classes):
+            self.add_module(f"conv_cls_g{gi}",
+                            nn.Conv2d(shared or c, self.a_per_class * len(names), 1))
+
+    def forward(self, batch_dict):
+        x = batch_dict["spatial_features_2d"].permute(0, 3, 1, 2)
+        if self.shared_conv is not None:
+            x = torch.relu(self.shared_conv(x))
+        B, _, H, W = x.shape
+        a, col, per_loc = self.a_per_class, 0, []
+        for gi, names in enumerate(self.group_classes):
+            n_g = len(names)
+            g = self._nhwc(getattr(self, f"conv_cls_g{gi}"), x).reshape(B, H * W, n_g * a)
+            full = g.new_zeros(B, H * W, n_g * a, self.num_class)
+            cols = col + torch.arange(n_g, device=g.device).repeat_interleave(a)
+            full[:, :, torch.arange(n_g * a, device=g.device), cols] = g
+            per_loc.append(full)
+            col += n_g
+        batch_dict["cls_preds"] = torch.cat(per_loc, 2).reshape(B, -1, self.num_class)
+        return batch_dict
+
+    def loss(self, batch_dict):
+        return cls_only_loss(self, batch_dict)

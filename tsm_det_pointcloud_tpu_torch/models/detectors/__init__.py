@@ -1,6 +1,7 @@
 """Detector registry: the ported detectors by config NAME."""
 from __future__ import annotations
 
+from .caddn import CaDDN
 from .centerpoint import CenterPoint
 from .detector3d_template import DatasetMeta, Detector3DTemplate
 from .point_3dssd import Point3DSSD
@@ -21,4 +22,5 @@ __all__ = {
     "PointRCNN": PointRCNN,
     "VoxelRCNN": VoxelRCNN,
     "SECONDNetIoU": SECONDNetIoU,
+    "CaDDN": CaDDN,
 }

@@ -10,7 +10,10 @@ Counterpart of tsm_det_pointcloud_tpu/ops/box_coder_utils.py:
     and sine (code size 8);
   * `PointBinResidualCoder` (:144): xyz offsets + log sizes + a binned
     angle (bin one-hot / logits + residuals normalised to [-0.5, 0.5)
-    within the bin); decode is (bin + residual) * delta.
+    within the bin); decode is (bin + residual) * delta;
+  * `PreviousResidualDecoder` (:224) and `PreviousResidualRoIDecoder`
+    (:250): the reference's legacy decoders, whose size residuals come in
+    (w, l, h) order; the RoI one wraps the heading to [-pi, pi).
 Decoded log sizes are clamped to [-4, 4] before exp, as in the JAX package.
 """
 from __future__ import annotations
@@ -156,3 +159,32 @@ class PointBinResidualCoder:
         nb = self.angle_bin_num
         rg = self.decode_angle(e[..., 6:6 + nb], e[..., 6 + nb:6 + 2 * nb])
         return torch.cat([xyz, size, rg], dim=-1)
+
+
+class PreviousResidualDecoder:
+    """The legacy anchor decoder: size residuals in (w, l, h) order, so the
+    box's dx takes the exp of the code's 5th channel and dy of its 4th."""
+
+    def __init__(self, code_size=7, **kwargs):
+        self.code_size = code_size
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, dim=-1)
+        xt, yt, zt, wt, lt, ht, rt = torch.split(box_encodings[..., :7], 1, dim=-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        extra_t = box_encodings[..., 7:]
+        extra_a = anchors[..., 7:7 + extra_t.shape[-1]]
+        return torch.cat([xt * diagonal + xa, yt * diagonal + ya, zt * dza + za,
+                          _safe_exp(lt) * dxa, _safe_exp(wt) * dya, _safe_exp(ht) * dza,
+                          rt + ra, extra_t + extra_a], dim=-1)
+
+
+class PreviousResidualRoIDecoder(PreviousResidualDecoder):
+    """PreviousResidualDecoder with the heading wrapped to [-pi, pi)."""
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        out = PreviousResidualDecoder.decode(box_encodings, anchors)
+        rg = torch.remainder(out[..., 6:7] + np.pi, 2 * np.pi) - np.pi
+        return torch.cat([out[..., :6], rg, out[..., 7:]], dim=-1)

@@ -58,6 +58,18 @@ def weighted_cross_entropy(logits, one_hot_targets, weights=None):
     return loss if weights is None else loss * weights
 
 
+def softmax_focal_loss(logits, target_idx, weights=None, gamma=2.0, alpha=0.25,
+                       num_classes=None):
+    """Per-element softmax focal cross-entropy over the last axis (JAX
+    loss_utils.py:264): -alpha (1 - pt)^gamma log pt of each element's
+    integer target, times its weight."""
+    logp = torch.log_softmax(logits, dim=-1)
+    one_hot = F.one_hot(target_idx.long(), num_classes or logits.shape[-1]).to(logits.dtype)
+    lp = torch.sum(logp * one_hot, dim=-1)
+    loss = -alpha * (1.0 - torch.exp(lp)) ** gamma * lp
+    return loss if weights is None else loss * weights
+
+
 def centerness_label(point_xyz, point_box_labels, pos_mask, epsilon=1e-6):
     """Per-point centerness in [0, 1] against its assigned box, 0 for
     background. point_xyz (..., 3), point_box_labels (..., 7), pos_mask

@@ -109,6 +109,19 @@ PV-RCNN's names and shapes are PV-RCNN's draws (`SHARED_DRAWS`), so that
 its proposals and training RoIs are PV-RCNN's and it trains on PV-RCNN's
 gt boxes; `data/pvrcnnplusplus_tiny_forward.npz` holds the JAX package's
 eval outputs and predictions with it.
+
+The tiny CaDDN is the JAX package's test model (`model_cfg`, `META` and
+`batch` of tests/test_caddn_e2e.py): ImageVFE at 16 features and 16 depth
+bins over 1-20 m, Conv2DCollapse, a one-level BEV backbone and a one-class
+anchor head, on a 32 x 32 x 16 grid of a 16 x 16 x 4 m range, fed 64 x 96
+noise images under a pinhole looking down +x (`caddn_batch`). Its two depth
+networks: `caddn_model_cfg("compact")` (CompactDDN) and
+`caddn_model_cfg("deeplab")` (the DDNDeepLabV3 plan LAYERS [1, 1, 1, 1],
+WIDTH 8, with the fg / bg balancer's weights). Their checks run on
+`caddn_state(which)`, every entry drawn from a numpy seed (`redraw_state`);
+`data/caddn_tiny_forward.npz` holds the JAX package's eval outputs,
+post-processed predictions and training loss terms with it, the deeplab
+model's training batch with `caddn_boxes2d`.
 """
 from __future__ import annotations
 
@@ -1178,6 +1191,153 @@ def gt_roi_proposals(gt, gmask, n_boxes, seed=0):
             boxes[b, j] = box
             logits[b, j] = 4.0 - 0.1 * j
     return logits, boxes
+
+
+CADDN_PCR = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
+CADDN_META = DatasetMeta(
+    class_names=("Car",), point_cloud_range=CADDN_PCR, voxel_size=(0.5, 0.5, 0.25),
+    grid_size=(32, 32, 16), max_voxels=256, max_points_per_voxel=5, num_point_features=4,
+    max_points=128, depth_downsample_factor=8)
+CADDN_FORWARD_PATH = STATE_PATH.parent / "caddn_tiny_forward.npz"
+CADDN_DDNS = {"compact": None,
+              "deeplab": {"NAME": "DDNDeepLabV3", "LAYERS": [1, 1, 1, 1], "WIDTH": 8}}
+
+
+def caddn_model_cfg(which="compact"):
+    """The JAX package's tiny CaDDN (tests/test_caddn_e2e.py `model_cfg`);
+    "deeplab" selects the tiny DDNDeepLabV3 plan and the balancer's weights
+    (its `test_caddn_deeplab_vfe_and_balancer`)."""
+    cfg = EDict({
+        "NAME": "CaDDN",
+        "VFE": {"NAME": "ImageVFE", "NUM_OUTPUT_FEATURES": 16, "NUM_DEPTH_BINS": 16,
+                "DEPTH_RANGE": [1.0, 20.0], "LOSS_CONFIG": {"WEIGHTS": {"ddn_loss": 3.0}}},
+        "MAP_TO_BEV": {"NAME": "Conv2DCollapse", "NUM_BEV_FEATURES": 16},
+        "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [1], "LAYER_STRIDES": [1],
+                        "NUM_FILTERS": [16], "UPSAMPLE_STRIDES": [1],
+                        "NUM_UPSAMPLE_FILTERS": [16]},
+        "DENSE_HEAD": {
+            "NAME": "AnchorHeadSingle", "CLASS_AGNOSTIC": False,
+            "USE_DIRECTION_CLASSIFIER": True, "DIR_OFFSET": 0.78539,
+            "DIR_LIMIT_OFFSET": 0.0, "NUM_DIR_BINS": 2,
+            "ANCHOR_GENERATOR_CONFIG": [{
+                "class_name": "Car", "anchor_sizes": [[3.9, 1.6, 1.56]],
+                "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-1.78],
+                "align_center": False, "feature_map_stride": 1,
+                "matched_threshold": 0.6, "unmatched_threshold": 0.45}],
+            "TARGET_ASSIGNER_CONFIG": {"MATCH_HEIGHT": False},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"cls_weight": 1.0, "loc_weight": 2.0,
+                                             "dir_weight": 0.2,
+                                             "code_weights": [1.0] * 7}}},
+        "POST_PROCESSING": {
+            "RECALL_THRESH_LIST": [0.3, 0.5, 0.7], "SCORE_THRESH": 0.1, "EVAL_METRIC": "kitti",
+            "NMS_CONFIG": {"MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu",
+                           "NMS_THRESH": 0.1, "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 8}},
+    })
+    if CADDN_DDNS[which] is not None:
+        cfg.VFE.DDN = dict(CADDN_DDNS[which])
+        cfg.VFE.FG_WEIGHT = 13.0
+        cfg.VFE.BG_WEIGHT = 1.0
+    return cfg
+
+
+def caddn_batch(b=2):
+    """The JAX test's batch (numpy): 64 x 96 images in [0, 1), a pinhole
+    (fx 50, principal point (48, 32)) whose depth axis is lidar +x, 128 points
+    a scan in front of it and one car box a scan."""
+    rng = np.random.RandomState(0)
+    images = rng.rand(b, 64, 96, 3).astype(np.float32)
+    P = np.repeat(np.asarray([[0, -50.0, 0, 48.0], [0, 0, -50.0, 32.0], [1, 0, 0, 0]],
+                             np.float32)[None], b, 0)
+    pts = np.zeros((b, 128, 4), np.float32)
+    pts[..., 0] = rng.uniform(2, 15, (b, 128))
+    pts[..., 1] = rng.uniform(-5, 5, (b, 128))
+    pts[..., 2] = rng.uniform(-2, 0.5, (b, 128))
+    gt = np.zeros((b, 2, 8), np.float32)
+    gv = np.zeros((b, 2), bool)
+    gt[:, 0] = [8, 0, -1, 3.9, 1.6, 1.56, 0.3, 1]
+    gv[:, 0] = True
+    return {"images": images, "trans_lidar_to_cam_img": P, "points": pts,
+            "points_mask": np.ones((b, 128), bool), "gt_boxes": gt, "gt_boxes_mask": gv}
+
+
+def caddn_boxes2d(b=2):
+    """2D gt boxes for the balancer (u1 v1 u2 v2): a scan's first box takes
+    the image's middle third, its second is an all-zero (invalid) row."""
+    out = np.zeros((b, 2, 4), np.float32)
+    out[:, 0] = [32.0, 0.0, 64.0, 64.0]
+    return out
+
+
+def caddn_train_batch(which="compact"):
+    """The tiny CaDDN's training batch: `caddn_batch`, and for the deeplab
+    model `caddn_boxes2d`."""
+    b = caddn_batch()
+    if which == "deeplab":
+        b["gt_boxes2d"] = caddn_boxes2d()
+    return b
+
+
+def caddn_state(which="compact", seed=11):
+    """The tiny CaDDN's state for its checks: every entry of the port model's
+    state dict drawn from numpy's RandomState(seed) (`redraw_state`; the
+    anchors' scores then all pass SCORE_THRESH, and NMS keeps its 8 a scan)."""
+    from .models import build_network
+
+    model = build_network(caddn_model_cfg(which), 1, CADDN_META, device="cpu", seed=0)
+    return {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in redraw_state(model.state_dict(), seed).items()}
+
+
+# the JAX registry's module variants on the tiny SECOND and PointPillars:
+# name -> (topology, {section: overrides}); "pp2" is the tiny PointPillars with
+# a second class (Pedestrian), so that the grouped cls head has two groups
+VARIANTS = {
+    "DynamicMeanVFE": ("second", {"VFE": {"NAME": "DynamicMeanVFE"}}),
+    "MeanDensityVFE": ("second", {"VFE": {"NAME": "MeanDensityVFE"}}),
+    "SPVFE": ("second", {"VFE": {"NAME": "SPVFE", "NUM_FILTERS": [16, 8]}}),
+    "VPCVFE": ("pointpillar", {"VFE": {"NAME": "VPCVFE", "NUM_FILTERS": [16]}}),
+    "DynamicPillarVFE": ("pointpillar", {"VFE": {"NAME": "DynamicPillarVFE"}}),
+    "SpaceVoxelBackBone8x": ("second", {"BACKBONE_3D": {"NAME": "SpaceVoxelBackBone8x"}}),
+    "AnchorHeadMulti": ("pointpillar", {"DENSE_HEAD": {"NAME": "AnchorHeadMulti",
+                                                       "SHARED_CONV_NUM_FILTER": 16}}),
+    "AnchorHeadSingleCls": ("second", {"DENSE_HEAD": {"NAME": "AnchorHeadSingleCls"}}),
+    "AnchorHeadMultiCls": ("pp2", {"DENSE_HEAD": {
+        "NAME": "AnchorHeadMultiCls", "SHARED_CONV_NUM_FILTER": 16,
+        "RPN_HEAD_CFGS": [{"HEAD_CLS_NAME": ["Car"]}, {"HEAD_CLS_NAME": ["Pedestrian"]}]}}),
+}
+PEDESTRIAN_ANCHORS = {"class_name": "Pedestrian", "anchor_sizes": [[0.8, 0.6, 1.73]],
+                      "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-0.6],
+                      "align_center": False, "feature_map_stride": 2,
+                      "matched_threshold": 0.5, "unmatched_threshold": 0.35}
+
+
+def variant_model(name):
+    """(model cfg, DatasetMeta) of a module variant on its tiny topology
+    (`VARIANTS`)."""
+    topology, overrides = VARIANTS[name]
+    if topology == "second":
+        cfg, meta = second_model_cfg(), SECOND_META
+    else:
+        cfg, meta = pointpillar_model_cfg(), POINTPILLAR_META
+    if topology == "pp2":
+        cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG = list(cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG) + [
+            dict(PEDESTRIAN_ANCHORS)]
+        meta = dataclasses.replace(meta, class_names=("Car", "Pedestrian"))
+    for section, values in overrides.items():
+        cfg[section] = EDict({**cfg[section], **values})
+    return cfg, meta
+
+
+def variant_gt(meta, batch_size=2):
+    """Training boxes of the variants' batches: `second_gt`'s anchored cars,
+    and for a two-class meta a pedestrian a scan."""
+    gt, mask = second_gt(batch_size)
+    if len(meta.class_names) > 1:
+        ped = np.zeros((batch_size, 1, 8), np.float32)
+        ped[:, 0] = [6.0, 2.0, -0.9, 0.8, 0.6, 1.73, 0.4, 2]
+        gt = np.concatenate([gt, ped], 1)
+        mask = np.concatenate([mask, np.ones((batch_size, 1), bool)], 1)
+    return gt, mask
 
 
 def load_state(path=STATE_PATH):

@@ -1,8 +1,9 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
 step or the step of another detector of the KITTI zoo (SECOND, PointPillars,
 CenterPoint, Part-A2, PV-RCNN, PV-RCNN++, PointRCNN, Voxel R-CNN,
-SECONDNetIoU) or of the CenterPoints of nuScenes, Lyft and PandaSet, on
-synthetic scans or on a dataset (KITTI, Waymo, nuScenes, Lyft or PandaSet).
+SECONDNetIoU, CaDDN) or of the CenterPoints of nuScenes, Lyft and PandaSet,
+on synthetic scans or on a dataset (KITTI, Waymo, nuScenes, Lyft or
+PandaSet; CaDDN, a camera detector, on synthetic camera batches alone).
 
 Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -29,6 +30,8 @@ Synthetic-scan mode:
     python -m tsm_det_pointcloud_tpu_torch.train \
         --cfg_file tools/cfgs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml \
         --batch 4 --points 300000
+    python -m tsm_det_pointcloud_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/CaDDN.yaml --batch 2
 Dataset mode (`--data_root DIR`, or `--dataset` for the config's DATA_PATH;
 the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -71,7 +74,9 @@ synthetic scan batch with one class-1 box (a car) around each of the scan's
 eight point clusters (KITTI-range configs) or one vehicle box around each of
 its sixteen (Waymo and nuScenes configs; a nuScenes box also has a
 velocity, and its classes cycle through the config's ten, so that every
-head group has targets). Prints the losses, the train scans/s over the
+head group has targets). A camera config's batches also carry
+`infer.synth_camera`'s images and projection and the boxes' 2D extents in
+the image (`infer.boxes_to_image`) as gt_boxes2d. Prints the losses, the train scans/s over the
 timed steps (host clock around work that ends in a synchronize) and the peak
 device memory; with --ckpt_dir it then writes a checkpoint. --profile then
 traces one more step with torch.profiler and prints the device's busy share
@@ -122,8 +127,9 @@ import numpy as np
 import torch
 
 from .config import log_config_to_file
-from .infer import (KITTI_RANGE, ROOT, dataset_meta, load_cfg, profile_call, scan_recipe,
-                    seed_statistics, synth_scene)
+from .infer import (KITTI_RANGE, ROOT, boxes_to_image, dataset_meta, load_cfg, profile_call,
+                    refuse_camera_data, scan_recipe, seed_statistics, synth_camera,
+                    synth_scene, uses_images)
 from .models import build_network
 from .ops import _kernels
 from .parallel import comm, point_sharding
@@ -159,6 +165,17 @@ def synth_train_batch(batch, n, seed=0, device="cpu", point_cloud_range=KITTI_RA
             "batch_size": batch,
             "gt_boxes": torch.from_numpy(gt).to(dev),
             "gt_boxes_mask": torch.ones((batch, n_box), dtype=torch.bool, device=dev)}
+
+
+def add_camera(batch, seed=0):
+    """A synthetic training batch (`synth_train_batch`) with camera inputs:
+    `infer.synth_camera`'s images and projection and gt_boxes2d, the image
+    extents of its gt boxes, on the batch's device."""
+    gt = batch["gt_boxes"].cpu().numpy()
+    cam = synth_camera(gt.shape[0], seed)
+    cam["gt_boxes2d"] = boxes_to_image(gt, cam["trans_lidar_to_cam_img"])
+    dev = batch["gt_boxes"].device
+    return {**batch, **{k: torch.from_numpy(v).to(dev) for k, v in cam.items()}}
 
 
 def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1,
@@ -224,6 +241,7 @@ def train_on_dataset(args, dev):
     from .runtime.metrics import MetricsWriter
 
     cfg = load_cfg(args.cfg_file, args.set_cfgs)
+    refuse_camera_data(cfg, "train --data_root")
     batch = args.batch or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
     output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
@@ -397,8 +415,14 @@ def main(argv=None):
                                  meta.point_cloud_range, meta.num_point_features, velocity,
                                  len(cfg.CLASS_NAMES) if velocity else 1)
                for i in range(total)]
+    if uses_images(cfg.MODEL):
+        batches = [add_camera(b, args.seed + i) for i, b in enumerate(batches)]
+    t0 = time.perf_counter()
     loss, _ = train_step(model, opt, batches[0])  # warm-up: builds the kernels
-    print(f"warm-up step: loss {float(loss):.4f}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"warm-up step: loss {float(loss):.4f}, {time.perf_counter() - t0:.3f} s (the "
+          f"kernels' and cuDNN's first calls)")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
