@@ -548,6 +548,33 @@ Phases (any failure exits non-zero before the result line):
      traced (busy share, top kernels, post-processing alone).
      Phases 65-69 run no hand-written kernel: no row of the kernels line
      is theirs.
+ 70. PVSSDA reference: the tiny PVSSDA on PointNet2FSMSG (tiny.pvssda_state:
+     d-fps, f-fps, s-fps, a 40-sample dilated annulus, confidence scores)
+     reproduces tsm_det_pointcloud_tpu_torch/data/pvssda_tiny_forward.npz on
+     the card through three K1 launches, K2's two-entry kernel and K2
+     (golden tolerance; labels and counts exact);
+ 71. pvssda_3dssd.yaml (3DSSD's fusion-sampling backbone under a per-point
+     box head) at full width on synthetic scans: one recorded eval batch at
+     b16 x 16384 (three d-fps on K1; layers 0 and 1's three-scale queries,
+     64 samples in the widest ball, on K2's two-entry kernel, layer 2's on
+     K2), every call held against its plain version (indices exact, K2's
+     layer-0 call on a stride of queries as in phase 10) and timed; 3
+     counted batches (outputs finite, (16, 512, 7) boxes, count <= 500,
+     launches 3 / 1 / 2 a forward; scans/s, peak memory), and one more batch
+     with the two f-fps calls (plain PyTorch) timed apart: their share;
+ 72. its training step at the largest of b16 / b8 / b4 that fits: every
+     parameter a finite gradient, then 2 counted steps (losses finite, the
+     kernels launched; train scans/s, peak memory);
+ 73. K6's weighted instantiation (s-fps past K1's 16384 points a row, which
+     no config reaches) at b4 x 65536 and b8 x 122880 with random weights
+     and a tenth of the points invalid, 4096 picks: index-equal to the
+     plain s-fps, timed with its bound, plan and latency floor as K6 is;
+     then the same inputs through `furthest_point_sample_weights`, counted;
+ 74. pvssda_3dssd.yaml's `evaluate` on phase 22's root over phase 29's
+     val frames at b4, its first forward recorded and every K1 / K2 call
+     held; the AP dict holds every class's 3d / bev / image AP at each
+     difficulty, R11 and R40 (aos where computed), finite; and (with phase 39's
+     fresh process) its `infer --profile` at b16 x 16384.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -601,10 +628,15 @@ those of phase 58 and `centerpoint_nusc_data` and
 `centerpoint_lyft_data` and `centerpoint_lyft_data_train` those of phase
 63's evaluate and train, and `centerpoint_pandaset_data` and
 `centerpoint_pandaset_data_train` those of phase 64's (null but for K3 and
-K7). K6 is on no KITTI path of
+K7), `pvssda` that of phase 71 and `pvssda_data` that of phase 74 (null
+but for K1, K2 and K2's two-entry kernel, `query_group_wide`) and
+`weighted_fps` that of phase 73 (null but for K6's weighted instantiation,
+`fps_block_weighted`, whose `launches` come from phase 73's counted calls:
+no config's path reaches it). K6 is on no KITTI path of
 synthetic scans (only on those of 20000-point test scans: the data evals and
 the demo): its row's own numbers are the Waymo eval path's; K7 is on
-SECOND's paths alone, and its row's own numbers are SECOND's eval path's
+SECOND's paths alone, and its row's own numbers are SECOND's eval path's;
+`query_group_wide`'s are phase 71's and `fps_block_weighted`'s phase 73's
 (`path` says which path a row's own numbers are from).
 K6's and K2's `ms` is their launch alone; `prep_ms` beside it is the
 PyTorch prep (Morton sort, gathers, boxes) that precedes each launch (K2's
@@ -766,6 +798,21 @@ PANDASET_TRAIN_SEQ, PANDASET_VAL_SEQ = ("001", "002"), ("004", "007")
 # b2, not b4: the first training step's cuDNN autotune of the 2816 x 1600
 # grid's BEV convs takes 49-70 s at b4, 24 s at b2
 PANDASET_FRAMES, PANDASET_POINTS, PANDASET_BATCH = 4, 115200, 2
+# phases 70-74: PVSSDA on 3DSSD's fusion-sampling backbone (pvssda_3dssd.yaml)
+# at b16 x 16384 (pointrcnn.yaml's sample_points, the main path's scans) and
+# its counted batches; its hand-written kernel calls a forward: three d-fps
+# on K1 (16384 -> 4096, 4096 -> 512, and 512 -> 256 over points 512-1023;
+# its two f-fps are plain PyTorch), layers 0 and 1's three-scale queries on
+# K2's two-entry kernel (64 samples in the widest ball) and layer 2's on K2;
+# its training batches, the largest that fits first, and counted steps
+PVSSDA_CFG = "pvssda_3dssd.yaml"
+PVSSDA_BATCH, PVSSDA_POINTS, PVSSDA_ITERS = 16, 16384, 3
+PVSSDA_CALLS = {"fps": 3, "query_group": 1, "query_group_wide": 2}
+PVSSDA_TRAIN_BATCHES, PVSSDA_TRAIN_ITERS = (16, 8, 4), 2
+PVSSDA_DATA_BATCH = 4
+# phase 73: K6's weighted rows (batch, points a row) with random weights,
+# their picks and the share of points marked invalid
+WEIGHTED_ROWS, WEIGHTED_NPOINT, WEIGHTED_INVALID = ((4, 65536), (8, 122880)), 4096, 0.1
 # phases 65-69: CaDDN.yaml at b2 on synthetic camera batches (KITTI's 375 x
 # 1242 images; the points feed the depth targets in training alone)
 CADDN_CFG = "CaDDN.yaml"
@@ -829,6 +876,11 @@ KERNELS = {
                   "tsm_det_pointcloud_tpu/ops/fps_pallas.py:197 (and :490, :633)"),
     "query_group": ("tsm_det_pointcloud_tpu_torch/csrc/group.cu",
                     "tsm_det_pointcloud_tpu/ops/group_pallas.py:108"),
+    "query_group_wide": ("tsm_det_pointcloud_tpu_torch/csrc/group.cu",
+                         "tsm_det_pointcloud_tpu/ops/group_pallas.py:108 (nsample 33-64)"),
+    "fps_block_weighted": ("tsm_det_pointcloud_tpu_torch/csrc/fps_block.cu",
+                           "tsm_det_pointcloud_tpu/ops/fps_pallas.py:67 (weighted, rows past "
+                           "16384 points)"),
     "probe": ("tsm_det_pointcloud_tpu_torch/csrc/probe.cu",
               "tsm_det_pointcloud_tpu/ops/searchsorted_pallas.py:55"),
     "spconv_bykey": ("tsm_det_pointcloud_tpu_torch/csrc/spconv_bykey.cu",
@@ -1066,6 +1118,46 @@ def compare_fps_block(args):
             None, ops, nbytes, reps, 0)
 
 
+def compare_fps_block_weighted(args):
+    """K6's weighted instantiation (s-fps past K1's rows) against the plain
+    lockstep s-fps, index for index; timed as K6 is, with its prep apart,
+    its bound (the visited blocks' 10 operations a point: d2, min, the
+    weight's product) and its latency floor."""
+    from tsm_det_pointcloud_tpu_torch.ops import sampling
+
+    xyz, npoint, valid, weights = args
+    got, visits = sampling._fps_block_kernel(xyz, npoint, valid, weights)
+    want, plain_ms = timed_once(
+        lambda: sampling.furthest_point_sample_plain(xyz, npoint, valid, weights))
+    n_diff = int((got != want).sum())
+    check(n_diff == 0, f"K6 weighted differs from the plain s-fps at {tuple(xyz.shape)}: "
+                       f"{n_diff} of {got.numel()} picks")
+    B, N, _ = xyz.shape
+    nb = -(-N // sampling.FPS_BLOCK)
+    n_visits = int(visits.sum())
+    ops = n_visits * sampling.FPS_BLOCK * 10
+    nbytes = B * N * (12 + 4) + B * npoint * 4 + (B * N if valid is not None else 0)
+    reps = 3
+    xyz = xyz.detach().contiguous().float()
+    prep_ms = cuda_time_ms(lambda: sampling.block_prep(xyz, valid, weights), reps)
+    state = sampling.block_prep(xyz, valid, weights)
+    plan = sampling.fps_block_plan(nb, True)
+    round_us = exchange_round_us(min(B, plan["active_clusters"]), plan["cluster_size"])
+    waves = -(-B // plan["active_clusters"])
+    floor_ms = waves * (npoint - 1) * round_us / 1e3
+    EXTRAS["fps_block_weighted"] = {"prep_ms": prep_ms, "floor_ms": floor_ms,
+                                    "steps": npoint - 1}
+    print(f"  K6 weighted at b{B} x {N} -> {npoint}: visited {n_visits} of "
+          f"{(npoint - 1) * nb * B} (step, block) pairs "
+          f"({100 * n_visits / ((npoint - 1) * nb * B):.2f}%); the prep alone {prep_ms:.4f} ms; "
+          f"plan: cluster size {plan['cluster_size']}, cudaOccupancyMaxActiveClusters "
+          f"{plan['active_clusters']} ({waves} wave{'s' if waves > 1 else ''}), "
+          f"{plan['smem_bytes']} B shared memory a CTA; one exchange round {round_us:.4f} us, "
+          f"so a latency floor of {floor_ms:.4f} ms for {waves} x {npoint - 1} steps")
+    return (0.0, lambda: sampling._fps_block_launch(xyz, state, npoint), plain_ms,
+            None, ops, nbytes, reps, 0)
+
+
 def exchange_round_us(clusters, cluster_size, rounds=16384):
     """Time of one FPS exchange round (csrc/cluster_exchange.cuh
     `round_kernel`, launched by csrc/fps.cu's `fps_round_probe`: every
@@ -1093,6 +1185,7 @@ def compare_query_group(args):
     from tsm_det_pointcloud_tpu_torch.ops import grouping
 
     src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coords, tiles = args
+    kname = "query_group_wide" if max(int(sc[2]) for sc in scales) > 32 else "query_group"
     gi, gc, gg = grouping._query_group_kernel(*args)
     # the plain version materialises every (query, source) pair: above
     # PAIR_TESTS_PLAIN pairs it runs on every `stride`-th query (all sources)
@@ -1100,9 +1193,9 @@ def compare_query_group(args):
     stride = -(-src_xyz.shape[0] * src_xyz.shape[1] * q_xyz.shape[1] // PAIR_TESTS_PLAIN)
     plain_args = args[:7]
     if stride > 1:
-        PLAIN_NOTES["query_group"] = (f"plain version run and timed on every {stride}th "
-                                      f"query of the {q_xyz.shape[1]}-query call")
-        print(f"  K2 {PLAIN_NOTES['query_group']}")
+        PLAIN_NOTES[kname] = (f"plain version run and timed on every {stride}th "
+                              f"query of the {q_xyz.shape[1]}-query call")
+        print(f"  K2 {PLAIN_NOTES[kname]}")
         plain_args = (src_xyz, src_valid, q_xyz[:, ::stride].contiguous(), scales, payload,
                       src_coords,
                       None if q_coords is None else q_coords[:, ::stride].contiguous())
@@ -1147,7 +1240,7 @@ def compare_query_group(args):
     prep_fn, prep_args = ((grouping.query_order, (qx,)) if shared
                           else (grouping.group_prep, (sx, sv, qx, scc)))
     prep_ms = cuda_time_ms(lambda: prep_fn(*prep_args), 5)
-    EXTRAS["query_group"] = {"prep_ms": prep_ms,
+    EXTRAS[kname] = {"prep_ms": prep_ms,
                              "prep_device_ms": deferred(prep_fn, prep_args, 5),
                              "sweep_ms": sweep_ms, "visits": n_visits, "tile_pairs": B * M * nt}
     print(f"  K2 tested {n_visits} of {B * M * nt} (query, tile) pairs "
@@ -1297,7 +1390,8 @@ def compare_gather(args):
 
 
 COMPARE = {"fps": compare_fps, "fps_block": compare_fps_block,
-           "query_group": compare_query_group,
+           "fps_block_weighted": compare_fps_block_weighted,
+           "query_group": compare_query_group, "query_group_wide": compare_query_group,
            "probe": compare_probe, "spconv_bykey": compare_bykey,
            "spconv_bykey_bwd": compare_bykey_bwd, "spconv_gather": compare_gather}
 
@@ -1392,8 +1486,29 @@ def record_kernels(names):
              "spconv_gather": (spconv, "gather_matmul")}
     rec = Recorder(names)
     for name in names:
-        rec.wrap(*where[name], name)
+        if name not in SECOND_KERNELS_OF:   # those are recorded by their source's wrapper
+            rec.wrap(*where[name], name)
     return rec
+
+
+# the second kernels of two sources: each is launched through its source's
+# wrapper, and `split_calls` sorts the recorded calls to it
+SECOND_KERNELS_OF = {"query_group_wide": "query_group", "fps_block_weighted": "fps_block"}
+
+
+def split_calls(calls):
+    """Recorded calls by the kernel they launch: a K2 call with a scale of
+    more than 32 samples runs K2's two-entry kernel, a K6 call with weights
+    its weighted instantiation."""
+    wide = lambda args: max(int(sc[2]) for sc in args[3]) > 32
+    weighted = lambda args: len(args) > 3 and args[3] is not None
+    out = {k: list(v) for k, v in calls.items()}
+    for name, test in (("query_group_wide", wide), ("fps_block_weighted", weighted)):
+        src = SECOND_KERNELS_OF[name]
+        if src in out:
+            out[name] = [a for a in out[src] if test(a)]
+            out[src] = [a for a in out[src] if not test(a)]
+    return {k: v for k, v in out.items() if v}
 
 
 @contextmanager
@@ -3520,7 +3635,7 @@ PROFILES = (("pointpillar.yaml", PILLAR_PROFILE_BATCH, ZOO_POINTS),
             *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in PVRCNN_PP.values()),
-            (NUSC_CFG, NUSC_BATCH, NUSC_POINTS))
+            (NUSC_CFG, NUSC_BATCH, NUSC_POINTS), (PVSSDA_CFG, PVSSDA_BATCH, PVSSDA_POINTS))
 
 
 def zoo_profiles(profiles):
@@ -5073,6 +5188,292 @@ def caddn_profile(model, inputs):
           f"{len(names)} kernels; cuDNN FFT kernels: {fft or 'none'}")
 
 
+# ---------------------------------------------------------------------------
+# phases 70-74: PVSSDA on 3DSSD's fusion-sampling backbone (pvssda_3dssd.yaml)
+# ---------------------------------------------------------------------------
+
+def pvssda_golden_phase(dev):
+    """Phase 70: the tiny PVSSDA on PointNet2FSMSG (tiny.pvssda_state)
+    reproduces data/pvssda_tiny_forward.npz on the card through three K1
+    launches (d-fps, s-fps, d-fps), K2's two-entry kernel (layer 0's 40-sample
+    annulus) and K2 (golden tolerance; labels and counts exact)."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import tiny
+    from tsm_det_pointcloud_tpu_torch.infer import detect
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    pts = torch.from_numpy(tiny.pvssda_points(2)).to(dev)
+    model = build_network(tiny.pvssda_model_cfg("fsmsg"), 1, tiny.PVSSDA_META, device=dev)
+    model.load_state_dict(tiny.pvssda_state("fsmsg"), strict=True)
+    _kernels.reset_launches()
+    out, pred = detect(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+    got = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    check(got == {"fps": 3, "query_group": 1, "query_group_wide": 1},
+          f"tiny pvssda launches {got}")
+    hold_golden("pvssda reference: tiny pvssda", out, pred, tiny.PVSSDA_FORWARD_PATH)
+
+
+def _pvssda_first_step(cfg_file, dev, tbatch, meta):
+    """build_trainer and one forward + backward of pvssda_3dssd.yaml at
+    `tbatch`: (model, optimizer, batches, output), or None where the step
+    does not fit on the card."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    try:
+        _, model, opt = build_trainer(cfg_file, dev, seed=0, n_points=PVSSDA_POINTS,
+                                      total_steps=PVSSDA_TRAIN_ITERS + 1)
+        tbatches = [synth_train_batch(tbatch, PVSSDA_POINTS, s, dev, meta.point_cloud_range,
+                                      meta.num_point_features)
+                    for s in range(PVSSDA_TRAIN_ITERS + 1)]
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        out = model(dict(tbatches[0]))
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        return model, opt, tbatches, out
+    except torch.cuda.OutOfMemoryError:
+        return None
+
+
+def pvssda_phases(dev):
+    """Phases 71-72: pvssda_3dssd.yaml at full width on synthetic scans. 71:
+    one recorded eval batch at b16 x 16384 (PVSSDA_CALLS), every K1 and K2
+    call held against its plain version (indices exact) and timed, K2's
+    two-entry calls at 64 samples among them; 3 counted batches of forward +
+    NMS (outputs finite, (16, 512, 7) boxes, count <= NMS_POST_MAXSIZE, K1,
+    K2 and K2's two-entry kernel launched PVSSDA_CALLS a forward), scans/s,
+    peak memory, and the two f-fps calls' share of a forward (one more batch
+    with them timed apart, the card synchronised around each). 72: a
+    training step at the largest of PVSSDA_TRAIN_BATCHES that fits, every
+    parameter a finite gradient, then PVSSDA_TRAIN_ITERS counted steps
+    (losses finite, the kernels launched). Returns phase 71's report and
+    launch counts."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels, sampling
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+
+    cfg_file = cfg_path(PVSSDA_CFG)
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=PVSSDA_POINTS)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+    n_head = sum(cfg.MODEL.BACKBONE_3D.SA_CONFIG.NPOINT_LIST[-1])
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, PVSSDA_BATCH, PVSSDA_POINTS, seed=s)).to(dev)
+               for s in range(PVSSDA_ITERS)]
+    mask = torch.ones((PVSSDA_BATCH, PVSSDA_POINTS), dtype=torch.bool, device=dev)
+    rec = record_kernels(("fps", "query_group"))
+    out, _ = detect(model, batches[0], mask)
+    torch.cuda.synchronize()
+    rec.restore()
+    calls = split_calls(rec.calls)
+    del rec
+    for name, n in PVSSDA_CALLS.items():
+        check(len(calls.get(name, [])) == n, f"the pvssda capture forward made "
+              f"{len(calls.get(name, []))} {name} calls, not {n}")
+    wide_ns = [max(int(sc[2]) for sc in a[3]) for a in calls["query_group_wide"]]
+    check(wide_ns == [64, 64], f"pvssda: K2's two-entry calls take {wide_ns} samples")
+    _, over = voxel_anchor_counts(model, out)
+    print(f"pvssda capture: {out['point_coords'].shape[1]} points a scan reach the head; "
+          f"boxes over SCORE_THRESH {post.SCORE_THRESH} a scan {over}; K2 calls' samples a "
+          f"ball {[[int(sc[2]) for sc in a[3]] for a in calls['query_group'] + calls['query_group_wide']]}")
+    del out
+    report = compare_recorded(calls, "pvssda")
+    del calls
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = [detect(model, pts, mask) for pts in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for out, pred in preds:
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(out[key]).all()), f"pvssda: non-finite {key}")
+        check(tuple(out["batch_box_preds"].shape) == (PVSSDA_BATCH, n_head, 7),
+              f"pvssda box preds shape {tuple(out['batch_box_preds'].shape)}")
+        for key in ("pred_boxes", "pred_scores"):
+            check(bool(torch.isfinite(pred[key]).all()), f"pvssda: non-finite {key}")
+        check(bool((pred["count"] <= post_max).all()), "pvssda: count > NMS_POST_MAXSIZE")
+    for name, n in PVSSDA_CALLS.items():
+        check(launches[name] == n * PVSSDA_ITERS, f"kernel {name} launched {launches[name]} "
+              f"times on the pvssda path, not {n} a forward")
+    counts = [int(c) for c in preds[-1][1]["count"]]
+    del preds, out, pred
+    # the f-fps calls' share of a forward: one more batch, each f-fps call
+    # timed on the host clock between two synchronisations
+    ffps = []
+    orig = sampling.furthest_point_sample_feature
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        ffps.append(1e3 * (time.perf_counter() - t))
+        return idx
+
+    sampling.furthest_point_sample_feature = timed
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        detect(model, batches[0], mask)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t1)
+    finally:
+        sampling.furthest_point_sample_feature = orig
+    print(f"pvssda eval: {PVSSDA_ITERS} batches x {PVSSDA_BATCH} scans x {PVSSDA_POINTS} "
+          f"points in {dt:.3f} s = {PVSSDA_ITERS * PVSSDA_BATCH / dt:.3f} scans/s "
+          f"({1e3 * dt / PVSSDA_ITERS:.1f} ms a batch); detections a scan (last batch) "
+          f"{counts}; launches {launches}; peak memory {peak:.2f} GiB; f-fps (plain PyTorch, "
+          f"{len(ffps)} calls: {[round(v, 3) for v in ffps]} ms) {sum(ffps):.3f} of "
+          f"{fwd_ms:.3f} ms of a forward + NMS batch timed apart "
+          f"({100 * sum(ffps) / fwd_ms:.1f}%)")
+    del model, batches
+    torch.cuda.empty_cache()
+
+    step = None
+    for tbatch in PVSSDA_TRAIN_BATCHES:
+        step = _pvssda_first_step(cfg_file, dev, tbatch, meta)
+        if step is not None:
+            break
+        torch.cuda.empty_cache()
+        print(f"pvssda training: a step at b{tbatch} does not fit on the card")
+    check(step is not None, f"pvssda: no training batch of {PVSSDA_TRAIN_BATCHES} fits")
+    model, opt, tbatches, out = step
+    del step
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    for n, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"pvssda parameter {n} got no finite gradient")
+    opt.step()
+    check(bool(torch.isfinite(out["loss"])) and "point_loss" in out["tb_dict"],
+          f"pvssda warm-up step: loss {float(out['loss'].detach())}")
+    print(f"pvssda training capture at b{tbatch}: loss {float(out['loss'].detach()):.4f}; every "
+          f"one of {sum(1 for _ in model.parameters())} parameters a finite gradient; peak "
+          f"memory {first_peak:.2f} GiB")
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = [train_step(model, opt, b) for b in tbatches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_train = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, tb) in enumerate(steps):
+        check(bool(torch.isfinite(loss)), f"pvssda training step {i}: loss {float(loss)}")
+    for name, n in PVSSDA_CALLS.items():
+        check(launches_train[name] == n * PVSSDA_TRAIN_ITERS, f"kernel {name} launched "
+              f"{launches_train[name]} times on the pvssda training path, not {n} a step")
+    print(f"pvssda training: {PVSSDA_TRAIN_ITERS} steps x {tbatch} scans x {PVSSDA_POINTS} "
+          f"points in {dt:.3f} s = {PVSSDA_TRAIN_ITERS * tbatch / dt:.3f} train scans/s "
+          f"({1e3 * dt / PVSSDA_TRAIN_ITERS:.1f} ms/step); losses "
+          f"{[round(float(loss), 4) for loss, _ in steps]}; launches {launches_train}; peak "
+          f"memory {peak:.2f} GiB")
+    del model, opt, tbatches, steps
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def weighted_fps_phase(dev):
+    """Phase 73: K6's weighted instantiation (s-fps past K1's 16384 points a
+    row; no config reaches it) on WEIGHTED_ROWS synthetic scans
+    (infer.synth_waymo's clusters) with uniform random weights and
+    WEIGHTED_INVALID of the points invalid, WEIGHTED_NPOINT picks: each held
+    index for index against the plain lockstep s-fps, timed with its bound
+    and latency floor (compare_fps_block_weighted); then the same inputs
+    through `sampling.furthest_point_sample_weights`, the s-fps entry, with
+    the launch counts zeroed before and read after: one weighted K6 launch
+    a call, no K1 and no d-fps K6. Returns the report and those counts."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.infer import synth_waymo
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels, sampling
+
+    inputs = []
+    for b, n in WEIGHTED_ROWS:
+        g = torch.Generator().manual_seed(n)
+        xyz = torch.from_numpy(np.ascontiguousarray(synth_waymo(b, n, seed=b)[..., :3])).to(dev)
+        valid = (torch.rand((b, n), generator=g) >= WEIGHTED_INVALID).to(dev)
+        weights = torch.rand((b, n), generator=g).to(dev)
+        inputs.append((xyz, WEIGHTED_NPOINT, valid, weights))
+    report = compare_recorded({"fps_block_weighted": inputs}, "weighted fps")
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for xyz, npoint, valid, weights in inputs:
+        sampling.furthest_point_sample_weights(xyz, weights, npoint, valid)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    check(launches["fps_block_weighted"] == len(inputs) and launches["fps"] == 0
+          and launches["fps_block"] == 0, f"weighted s-fps launches {launches}")
+    print(f"weighted fps: s-fps over {[n for _, n in WEIGHTED_ROWS]} points a row through "
+          f"furthest_point_sample_weights: launches {launches}")
+    del inputs
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def pvssda_data_phase(dev, root):
+    """Phase 74: pvssda_3dssd.yaml's `evaluate` on phase 22's KITTI root over
+    phase 29's SECOND_DATA_FRAMES val frames at b4 (pointrcnn.yaml's data
+    path: sample_points, no shuffle), its first forward recorded and each K1
+    / K2 call held against its plain version; the AP dict holds the 3d, bev
+    and image APs of the three classes at every difficulty, R11 and R40
+    (aos ones only where the eval computes orientation), all finite.
+    Returns the report and launch counts."""
+    from tsm_det_pointcloud_tpu_torch import evaluate
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import PVSSDA
+
+    n = SECOND_DATA_FRAMES
+    cfg_file = cfg_path(PVSSDA_CFG)
+    classes = list(load_cfg(cfg_file).CLASS_NAMES)
+    res, launches, peak, rec, _ = run_recorded(
+        "pvssda data eval", evaluate,
+        ["--cfg_file", str(cfg_file), "--batch_size", str(PVSSDA_DATA_BATCH), "--output_dir",
+         str(root.parent / "pvssda"), "--data_root", str(root), "--workers", str(KITTI_WORKERS),
+         "--device", str(dev), "--set", "DATA_CONFIG.INFO_PATH.test",
+         f"['kitti_infos_val_{n}.pkl']"], PVSSDA, "forward", ("fps", "query_group"))
+    aps = check_kitti_aps(res, classes, "pvssda evaluate")
+    # every class's 3d / bev / image AP at each difficulty, R11 and R40 (the
+    # aos ones only where the eval computes orientation)
+    want = {f"{c}_{m}/{d}{r}" for c in classes for m in ("3d", "bev", "image")
+            for d in ("easy", "moderate", "hard") for r in ("", "_R40")}
+    extra = set(aps) - want
+    check(want <= set(aps) and all(k.split("/")[0].endswith("_aos") for k in extra),
+          f"pvssda evaluate: AP keys {sorted(aps)}")
+    calls = split_calls(rec.calls)
+    del rec
+    for name, k in PVSSDA_CALLS.items():
+        check(len(calls.get(name, [])) == k and launches[name] == k * (n // PVSSDA_DATA_BATCH),
+              f"pvssda data eval: {len(calls.get(name, []))} {name} calls a forward, "
+              f"{launches[name]} in all")
+    print(f"pvssda data eval (evaluate, seeded weights): {n} scans at b{PVSSDA_DATA_BATCH}: "
+          f"{len(aps)} APs ({len(extra)} aos), all finite; {eval_line(res)}; launches {launches}; peak memory "
+          f"{peak:.2f} GiB")
+    return compare_recorded(calls, "pvssda data eval"), launches
+
+
+def pvssda_profile(profiles):
+    """pvssda_3dssd.yaml's `infer --profile` at b16 x 16384, in phase 39's
+    fresh process, after every timed path: busy share, post-processing alone."""
+    (wall, busy, names), (pwall, pbusy, _) = profiles[PVSSDA_CFG]
+    print(f"pvssda profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
+          f"post-processing alone {pbusy:.3f} ms device time of {pwall:.3f} ms; "
+          f"{len(names)} kernels; top {names[:6]}")
+
+
 def main():
     import torch
 
@@ -5480,6 +5881,11 @@ def main():
     caddn_model, caddn_inputs = caddn_phases(dev)
     variant_phases(dev)
     mark("65-68")
+    pvssda_golden_phase(dev)
+    report_pvssda, launches_pvssda = pvssda_phases(dev)
+    report_weighted, launches_weighted = weighted_fps_phase(dev)
+    report_pvdata, launches_pvdata = pvssda_data_phase(dev, kitti_root)
+    mark("70-74")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -5491,7 +5897,9 @@ def main():
                        "centerpoint": report_cp, "centerpoint train": report_cptrain,
                        **{k: rep for k, (rep, _) in zoo_data.items()},
                        **{k: rep for k, (rep, _) in two_stage.items()},
-                       **{k: rep for k, (rep, _) in nusc.items()}})
+                       **{k: rep for k, (rep, _) in nusc.items()},
+                       "pvssda": report_pvssda, "weighted fps": report_weighted,
+                       "pvssda data eval": report_pvdata})
     mark("the deferred device times")
     profile_kdata()
     profile_wdata()
@@ -5504,7 +5912,8 @@ def main():
     two_stage_profiles(dev, profiles, PVRCNN_PP)
     mark("the proposal NMS's device times (44, 48, 52, 56)")
     nusc_profiles(dev, profiles)
-    mark("the nuScenes profiles (60)")
+    pvssda_profile(profiles)
+    mark("the nuScenes and PVSSDA profiles (60, 74)")
     caddn_profile(caddn_model, caddn_inputs)
     del caddn_model, caddn_inputs
     mark("the CaDDN profile (69)")
@@ -5561,13 +5970,20 @@ def main():
                                   ("centerpoint_train", report_cptrain, launches_cptrain),
                                   *((k, rep, lau) for k, (rep, lau) in zoo_data.items()),
                                   *((k, rep, lau) for k, (rep, lau) in two_stage.items()),
-                                  *((k, rep, lau) for k, (rep, lau) in nusc.items()))}
+                                  *((k, rep, lau) for k, (rep, lau) in nusc.items()),
+                                  ("pvssda", report_pvssda, launches_pvssda),
+                                  ("pvssda_data", report_pvdata, launches_pvdata),
+                                  ("weighted_fps", report_weighted, launches_weighted))}
         if name in report:
             own, path = numbers(report[name], launches[name]), "kitti_train"
         elif waymo is not None:
             own, path = waymo, "waymo_eval"
-        else:
+        elif second is not None:
             own, path = second, "second_eval"
+        elif name in report_pvssda:
+            own, path = new_paths["pvssda"], "pvssda_eval"
+        else:
+            own, path = new_paths["weighted_fps"], "weighted_fps"
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "path": path, **own,

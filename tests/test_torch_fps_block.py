@@ -191,9 +191,15 @@ def test_dispatch_on_cpu():
 
 
 def test_sfps_above_k1_limit_raises_on_the_kernel_path():
+    """K1's wrapper refuses rows past its 16384 points (s-fps over longer
+    rows goes to K6's weighted instantiation); on a CPU tensor s-fps takes
+    any N through the plain version."""
     xyz = torch.zeros((1, sampling.FPS_MAX_POINTS + 1, 3))
-    with pytest.raises(NotImplementedError, match="s-fps"):
-        sampling._fps_kernel(xyz, 4, None, torch.ones(xyz.shape[:2]))
+    w = torch.ones(xyz.shape[:2])
+    with pytest.raises(ValueError, match="K6"):
+        sampling._fps_kernel(xyz, 4, None, w)
+    assert torch.equal(sampling.furthest_point_sample_weights(xyz, w, 4),
+                       sampling.furthest_point_sample_plain(xyz, 4, None, w))
 
 
 def test_morton_code_matches_jax():

@@ -274,20 +274,20 @@ def test_pvrcnnplusplus_modules_are_covered():
 
 def test_two_stage_entry_points_refuse_cuda_without_card(monkeypatch):
     """`infer` and `train` on PartA2.yaml, pvrcnn.yaml, pointrcnn.yaml,
-    voxel_rcnn_car.yaml, second_iou.yaml and pv_rcnn_plusplus.yaml default to
-    the card too, and refuse a host without one; a detector still unported
-    (PVSSDA, on the PV-RCNN modules and on SECONDHead's) raises in
-    build_network."""
+    voxel_rcnn_car.yaml, second_iou.yaml, pv_rcnn_plusplus.yaml and
+    pvssda_3dssd.yaml default to the card too, and refuse a host without
+    one; a detector still unported (DSASNet, on the PV-RCNN modules and on
+    SECONDHead's) raises in build_network."""
     from tsm_det_pointcloud_tpu_torch import infer, tiny, train
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     for cfg in (tiny.pvrcnn_model_cfg(), tiny.secondnetiou_model_cfg()):
-        cfg["NAME"] = "PVSSDA"
-        with pytest.raises(NotImplementedError, match="PVSSDA"):
+        cfg["NAME"] = "DSASNet"
+        with pytest.raises(NotImplementedError, match="DSASNet"):
             build_network(cfg, 1, tiny.PVRCNN_META, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("PartA2", "pvrcnn", "pointrcnn", "voxel_rcnn_car", "second_iou",
-                 "pv_rcnn_plusplus"):
+                 "pv_rcnn_plusplus", "pvssda_3dssd"):
         cfg = str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
         with pytest.raises(RuntimeError, match="CUDA"):
             infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])

@@ -244,6 +244,74 @@ def test_fps_dispatch_above_k1_limit(dev):
     assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 300))
 
 
+def _weighted_case(name):
+    """(xyz (B, N, 3), npoint, valid or None, weights (B, N)) on the CPU for
+    K6's weighted instantiation, from numpy seeds: rows past K1's 16384."""
+    rng = np.random.RandomState(30)
+    if name == "clustered":
+        xyz = rng.uniform(-60, 60, (2, 20000, 3)).astype(np.float32)
+        for k in range(6):
+            c = rng.uniform(-50, 50, 3).astype(np.float32)
+            xyz[:, k * 2000:(k + 1) * 2000] = c + rng.uniform(-2, 2, (2, 2000, 3))
+        valid = rng.uniform(size=(2, 20000)) > 0.2
+        return xyz, 1024, valid, rng.uniform(size=(2, 20000)).astype(np.float32)
+    if name == "ties":   # a lattice, powers-of-two weights: keys tie across CTAs
+        g = np.stack(np.meshgrid(np.arange(40), np.arange(32), np.arange(16), indexing="ij"),
+                     -1).reshape(-1, 3).astype(np.float32) - [20, 16, 8]
+        xyz = np.stack([g[rng.permutation(len(g))] for _ in range(2)])
+        xyz[:, 0] = 0.0
+        xyz[:, -4096:] = xyz[:, 1:4097]
+        w = (2.0 ** rng.randint(-1, 2, xyz.shape[:2])).astype(np.float32)
+        return xyz, 1024, None, w
+    if name == "dim":   # a block's largest key far below its largest min-distance
+        xyz = rng.uniform(-60, 60, (2, 20000, 3)).astype(np.float32)
+        return xyz, 512, None, rng.uniform(0.01, 0.2, (2, 20000)).astype(np.float32)
+    if name == "empty_and_short":
+        xyz = rng.uniform(-20, 20, (3, 17000, 3)).astype(np.float32)
+        valid = np.ones((3, 17000), bool)
+        valid[0] = False
+        valid[1, 100:] = False
+        w = rng.uniform(size=(3, 17000)).astype(np.float32)
+        w[2, ::7] = 0.0                      # zero weights: keys 0 beside valid ones
+        return xyz, 256, valid, w
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["clustered", "ties", "dim", "empty_and_short"])
+def test_fps_block_weighted_kernel(dev, name):
+    """K6's weighted instantiation (s-fps past K1's rows) index-equal to the
+    plain lockstep s-fps, visiting the (step, block) pairs of the plain
+    block-pruned s-fps."""
+    xyz, npoint, valid, w = _weighted_case(name)
+    xyz, w = torch.from_numpy(xyz).to(dev), torch.from_numpy(w).to(dev)
+    valid = None if valid is None else torch.from_numpy(valid).to(dev)
+    got = _counted("fps_block_weighted", lambda: sampling.furthest_point_sample_weights(
+        xyz, w, npoint, valid))
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, npoint, valid, w))
+    _, visits = sampling._fps_block_kernel(xyz, npoint, valid, w)
+    _, want_visits = sampling._block_pruned_plain(xyz, npoint, valid, w)
+    assert torch.equal(visits, want_visits)
+
+
+@pytest.mark.parametrize("batch, n", [(4, 65536), (2, 131073), (1, sampling.FPS_BLOCK_MAX_POINTS)])
+def test_fps_block_weighted_long_rows(dev, batch, n):
+    """Weighted rows on both cluster layouts, up to K6's cap, with random
+    weights and whole Morton blocks masked out; d-fps launches on the same
+    rows are not counted as weighted ones."""
+    from tsm_det_pointcloud_tpu_torch.infer import synth_waymo
+    xyz = torch.from_numpy(np.ascontiguousarray(synth_waymo(batch, n, seed=n)[..., :3])).to(dev)
+    plan = sampling.fps_block_plan(-(-n // sampling.FPS_BLOCK), True)
+    assert plan["active_clusters"] > 0
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    valid[:, 40000:] = xyz[:, 40000:, 0] > 0
+    w = torch.rand(xyz.shape[:2], generator=torch.Generator().manual_seed(n)).to(dev)
+    before = _kernels.LAUNCHES["fps_block"]
+    got = _counted("fps_block_weighted", lambda: sampling.furthest_point_sample_weights(
+        xyz, w, 2048, valid))
+    assert _kernels.LAUNCHES["fps_block"] == before
+    assert torch.equal(got, sampling.furthest_point_sample_plain(xyz, 2048, valid, w))
+
+
 @pytest.mark.parametrize("window", [False, True])
 def test_query_group_kernel(dev, window):
     rng = np.random.RandomState(1)
@@ -322,6 +390,47 @@ def _pruned_case(name):
     coords = np.floor(xyz / 0.2).astype(np.int32)[..., ::-1].copy()
     qc = np.floor(q / 0.2).astype(np.int32)[..., ::-1].copy()
     return xyz, valid, q, [(0.0, 0.8, 16, (2, 3, 3)), (0.4, 1.6, 32, (4, 6, 6))], coords, qc
+
+
+@pytest.mark.parametrize("scales", [
+    [(0.0, 0.2, 32), (0.2, 0.4, 32), (0.4, 0.8, 64)],     # 3DSSD's layer 0, dilated
+    [(0.0, 1.6, 64)],
+    [(0.0, 0.8, 40), (0.8, 1.6, 33), (0.0, 2.4, 64), (0.4, 1.2, 8)],
+])
+def test_query_group_kernel_wide(dev, scales):
+    """K2 with a scale of 33-64 samples (its two-entry kernel) equals the
+    plain version exactly (idx, cnt, gathered rows) on every point twice
+    (d2 ties), and tests the (query, tile) pairs of the plain visit rule."""
+    rng = np.random.RandomState(31)
+    B, N, M = 2, 6000, 700
+    xyz = on_grid(rng.uniform((-3, -3, -0.5), (3, 3, 0.5), (B, N, 3)))
+    xyz[:, 3000:] = xyz[:, :3000]
+    valid = rng.uniform(size=(B, N)) > 0.1
+    q = on_grid(xyz[:, rng.choice(N, M, replace=False)] + rng.normal(0, 0.1, (B, M, 3)))
+    payload = np.concatenate([xyz, rng.randn(B, N, 7).astype(np.float32)], -1)
+    cpu = [torch.from_numpy(a) for a in (xyz, valid, q, payload)]
+    args = tuple(a.to(dev) for a in cpu[:3]) + (scales, cpu[3].to(dev), None, None)
+    before = _kernels.LAUNCHES["query_group"]
+    got = _counted("query_group_wide", lambda: grouping._query_group_kernel(*args))
+    assert _kernels.LAUNCHES["query_group"] == before
+    want = grouping.query_group_plain(*args)
+    for g, w in zip(got, want):   # idx, cnt, grouped
+        assert torch.equal(g, w)
+    cnt = want[1]        # every scale finds hits; a wide one more than its samples
+    assert all(int(cnt[..., s].max()) > (ns if ns > 32 else 0)
+               for s, (_, _, ns) in enumerate(scales))
+    scales_n, sx, sv, qx, pl, scc, qcc = grouping._kernel_inputs(*args)
+    visits = grouping._query_group_launch(grouping.group_prep(sx, sv, qx), qx, scales_n, pl,
+                                          qcc)[3]
+    want_visits = grouping.query_group_pruned_plain(cpu[0], cpu[1], cpu[2], scales)[3]
+    assert torch.equal(visits.cpu(), want_visits)
+
+
+def test_query_group_above_cap_raises(dev):
+    xyz = torch.zeros((1, 100, 3), device=dev)
+    valid = torch.ones((1, 100), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="nsample in"):
+        grouping._query_group_kernel(xyz, valid, xyz[:, :4], [(0.0, 1.0, 65)], None, None, None)
 
 
 @pytest.mark.parametrize("name", ["adversarial", "duplicates", "window"])

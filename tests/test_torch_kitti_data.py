@@ -60,6 +60,7 @@ SECOND = "tools/cfgs/kitti_models/second.yaml"
 POINTPILLAR = "tools/cfgs/kitti_models/pointpillar.yaml"
 CENTERPOINT = "tools/cfgs/kitti_models/centerpoint.yaml"
 POINTRCNN = "tools/cfgs/kitti_models/pointrcnn.yaml"
+PVSSDA = "tools/cfgs/kitti_models/pvssda_3dssd.yaml"
 
 
 @pytest.fixture(scope="module")
@@ -131,9 +132,9 @@ def _datasets(roots, cfg_file, training, edit=None):
 
 @pytest.mark.parametrize("training", [True, False], ids=["train", "test"])
 @pytest.mark.parametrize("cfg_file", [BASE_CFG, FAST_CPC, TEACHER, SECOND, POINTPILLAR,
-                                      CENTERPOINT, POINTRCNN],
+                                      CENTERPOINT, POINTRCNN, PVSSDA],
                          ids=["kitti_dataset", "fast_cpc", "teacher", "second", "pointpillar",
-                              "centerpoint", "pointrcnn"])
+                              "centerpoint", "pointrcnn", "pvssda"])
 def test_getitem_and_collate_equal_jax(roots, cfg_file, training):
     jds, pds = _datasets(roots, cfg_file, training)
     if training:

@@ -194,8 +194,8 @@ def test_three_nn_and_interpolate():
 
 def test_point_residual_coder():
     """Encode with three mean sizes (class 0 reads the last, as the JAX index
-    -1 does), decode, and the round trip; without mean sizes (no ported
-    config) it raises."""
+    -1 does), decode, and the round trip; without mean sizes (the tiny
+    PVSSDA's head) encode and decode as the JAX coder's."""
     rng = np.random.RandomState(2)
     sizes = [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]
     boxes = np.concatenate([rng.uniform(-20, 20, (50, 3)), rng.uniform(0.3, 5, (50, 3)),
@@ -212,8 +212,14 @@ def test_point_residual_coder():
     np.testing.assert_allclose(dec.numpy(), dec_want, rtol=1e-6, atol=1e-5)
     np.testing.assert_allclose(dec.numpy()[:, :6], boxes[:, :6], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.cos(dec.numpy()[:, 6]), np.cos(boxes[:, 6]), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        box_coder_utils.PointResidualCoder(use_mean_size=False)
+    jc = jcoder.PointResidualCoder(use_mean_size=False)
+    pc = box_coder_utils.PointResidualCoder(use_mean_size=False)
+    want = np.asarray(jc.encode(jnp.asarray(boxes), jnp.asarray(pts), jnp.asarray(cls)))
+    got = pc.encode(t(boxes), t(pts), t(cls))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    dec_want = np.asarray(jc.decode(jnp.asarray(want), jnp.asarray(pts), jnp.asarray(cls)))
+    np.testing.assert_allclose(pc.decode(got, t(pts), t(cls)).numpy(), dec_want, rtol=1e-6,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ points a pillar, gt sampling on road planes), the tiny CenterPoint
 (centerpoint.yaml's), the tiny Part-A2, PV-RCNN, PV-RCNN++, Voxel R-CNN
 and SECONDNetIoU (PartA2.yaml's, pvrcnn.yaml's, pv_rcnn_plusplus.yaml's,
 voxel_rcnn_car.yaml's and second_iou.yaml's: road planes, two-stage
-post-processing) and the tiny
-PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels).
+post-processing), the tiny
+PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels)
+and the tiny PVSSDA on PointNet2FSMSG (pvssda_3dssd.yaml's, the same).
 The cases are spread over tests/test_torch_eval_loop_*.py, so that
 `--dist loadfile` runs them on several workers.
 
@@ -114,7 +115,8 @@ MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
           "pvrcnn": lambda: _two_stage("pvrcnn"), "pointrcnn": lambda: _two_stage("pointrcnn"),
           "pvrcnnplusplus": lambda: _two_stage("pvrcnnplusplus"),
           "voxelrcnn": lambda: _two_stage("voxelrcnn"),
-          "secondnetiou": lambda: _two_stage("secondnetiou")}
+          "secondnetiou": lambda: _two_stage("secondnetiou"),
+          "pvssda": lambda: _two_stage("pvssda")}
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,4 +1,5 @@
-// K6: block-pruned exact d-fps for rows of more than 16384 points.
+// K6: block-pruned exact d-fps, and weighted s-fps, for rows of more than
+// 16384 points.
 //
 // Replaces the three Pallas TPU kernels `_fps_block_kernel`,
 // `_fps_block_kernel_2row` and `_fps_block_kernel_nrow`
@@ -10,6 +11,16 @@
 //   step i: mind = min(mind, (dx*dx + dy*dy) + dz*dz)   on valid points
 //           pick = the first maximum of mind in the ORIGINAL order
 // with the seed pick at index 0 and invalid points pinned at -1.
+//
+// Weighted (s-fps), replacing the Pallas `_fps_kernel` with weights
+// (ops/fps_pallas.py:67, pallas_call at :153) past K1's 16384 points a row:
+// the same mind, and the pick is the first maximum of
+//   key = w * mind on valid points, -1 on invalid ones
+// (K1's weighted key). mind only falls and a skipped block's mind does not
+// change, so neither do its keys: a block keeps the largest mind of its
+// points for the skip test (gap^2 < max mind) and, apart, its largest key
+// and the least original index that attains it for the pick. The weights
+// ride in registers beside mind and the indices (the `W` instantiation).
 //
 // The points arrive Morton-sorted in blocks of 128 (ops/sampling.py
 // `block_prep`): SoA x, y, z, original index and the initial mind, and per
@@ -75,21 +86,40 @@ __device__ __forceinline__ float gap(float lo, float hi, float q) {
   return fmaxf(fmaxf(__fsub_rn(lo, q), __fsub_rn(q, hi)), 0.f);
 }
 
-__device__ __forceinline__ void visit(float x, float y, float z, int oi, float& m,
-                                      float qx, float qy, float qz, Cand& best) {
+// the point's key: its mind, or w * mind on a valid point when weighted
+template <bool W>
+__device__ __forceinline__ float key_of(float m, float w) {
+  if constexpr (W) return m >= 0.f ? __fmul_rn(w, m) : m;
+  return m;
+}
+
+template <bool W>
+__device__ __forceinline__ void visit(float x, float y, float z, int oi, float& m, float w,
+                                      float qx, float qy, float qz, Cand& best, float& mmax) {
   // valid points hold mind >= 0; invalid (-1) and pad (-2) lanes stay pinned
   if (m >= 0.f)
     m = fminf(m, sq3(__fsub_rn(x, qx), __fsub_rn(y, qy), __fsub_rn(z, qz)));
-  take_better(best, Cand{m, oi, x, y, z});
+  take_better(best, Cand{key_of<W>(m, w), oi, x, y, z});
+  if constexpr (W) mmax = fmaxf(mmax, m);
 }
 
-template <int CL>
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// W: weighted. ws (the weights in Morton order) and bmind0 (each block's
+// largest mind) are read only then; bmax0 / barg0 hold the blocks' largest
+// keys and their least indices
+template <int CL, bool W>
 __global__ void __launch_bounds__(kThreads)
 fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
                    const float* __restrict__ ys, const float* __restrict__ zs,
                    const int32_t* __restrict__ ois, const float* __restrict__ mind0,
-                   const float* __restrict__ bbox, const float* __restrict__ bmax0,
-                   const int32_t* __restrict__ barg0, int n, int nb, int npoint,
+                   const float* __restrict__ ws, const float* __restrict__ bbox,
+                   const float* __restrict__ bmax0, const int32_t* __restrict__ barg0,
+                   const float* __restrict__ bmind0, int n, int nb, int npoint,
                    int32_t* __restrict__ out, unsigned long long* __restrict__ visits) {
   constexpr int kClusterWarps = CL * kWarps;  // candidates a step
   extern __shared__ __align__(16) float smem[];
@@ -113,6 +143,7 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
   float* s_z = s_y + (size_t)cap * kBlock;
   float mind[kMaxLocal][kPer];
   int oi[kMaxLocal][kPer];
+  float wt[W ? kMaxLocal : 1][kPer] = {};
 #pragma unroll
   for (int j = 0; j < kMaxLocal; ++j) {
 #pragma unroll
@@ -130,12 +161,17 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
       const int4 o = *reinterpret_cast<const int4*>(ois + src);
       mind[j][0] = m.x, mind[j][1] = m.y, mind[j][2] = m.z, mind[j][3] = m.w;
       oi[j][0] = o.x, oi[j][1] = o.y, oi[j][2] = o.z, oi[j][3] = o.w;
+      if constexpr (W) {
+        const float4 w = *reinterpret_cast<const float4*>(ws + src);
+        wt[j][0] = w.x, wt[j][1] = w.y, wt[j][2] = w.z, wt[j][3] = w.w;
+      }
     }
   }
 
   // lane j keeps block j's box, max, its index and point
   float lox = 0.f, hix = 0.f, loy = 0.f, hiy = 0.f, loz = 0.f, hiz = 0.f;
   Cand blk = none();
+  float bmind = -2.f;  // weighted: the block's largest mind (else blk.v is)
   if (lane < nbw) {
     const int gb = gwarp + lane * kClusterWarps;
     const float* bb = bbox + (size_t)b * 6 * nb + gb;
@@ -148,6 +184,7 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
     const int arg = barg0[(size_t)b * nb + gb];  // a real point: no block is all pad
     blk = Cand{bmax0[(size_t)b * nb + gb], arg, xyz[3 * arg], xyz[3 * arg + 1],
                xyz[3 * arg + 2]};
+    if constexpr (W) bmind = bmind0[(size_t)b * nb + gb];
   }
   if (rank == 0 && t == 0) out[(size_t)b * npoint] = 0;
   init_exchange<kClusterWarps>(s_mbar, t);
@@ -159,7 +196,7 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
   for (int step = 1; step < npoint; ++step) {
     bool act = false;
     if (lane < nbw)
-      act = sq3(gap(lox, hix, px), gap(loy, hiy, py), gap(loz, hiz, pz)) < blk.v;
+      act = sq3(gap(lox, hix, px), gap(loy, hiy, py), gap(loz, hiz, pz)) < (W ? bmind : blk.v);
     const unsigned vis = __ballot_sync(kFull, act);
     n_visits += __popc(vis);
     // this warp's candidate: the blocks left alone, then the visited ones
@@ -172,12 +209,18 @@ fps_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ xs,
         const float4 y = *reinterpret_cast<const float4*>(s_y + off);
         const float4 z = *reinterpret_cast<const float4*>(s_z + off);
         Cand best = none();
-        visit(x.x, y.x, z.x, oi[j][0], mind[j][0], px, py, pz, best);
-        visit(x.y, y.y, z.y, oi[j][1], mind[j][1], px, py, pz, best);
-        visit(x.z, y.z, z.z, oi[j][2], mind[j][2], px, py, pz, best);
-        visit(x.w, y.w, z.w, oi[j][3], mind[j][3], px, py, pz, best);
+        float mmax = -2.f;
+        const int jw = W ? j : 0;
+        visit<W>(x.x, y.x, z.x, oi[j][0], mind[j][0], wt[jw][0], px, py, pz, best, mmax);
+        visit<W>(x.y, y.y, z.y, oi[j][1], mind[j][1], wt[jw][1], px, py, pz, best, mmax);
+        visit<W>(x.z, y.z, z.z, oi[j][2], mind[j][2], wt[jw][2], px, py, pz, best, mmax);
+        visit<W>(x.w, y.w, z.w, oi[j][3], mind[j][3], wt[jw][3], px, py, pz, best, mmax);
         best = warp_best(best);
-        if (lane == j) blk = best;
+        if constexpr (W) mmax = warp_max(mmax);
+        if (lane == j) {
+          blk = best;
+          if constexpr (W) bmind = mmax;
+        }
         take_better(mine, best);
       }
     }
@@ -197,26 +240,28 @@ int coord_smem(int nb) {
   return kWarps * 3 * ((nb + nc - 1) / nc) * kBlock * (int)sizeof(float);
 }
 
-// f(kernel, cluster size) for the layout of rows of nb blocks
+// f(kernel, cluster size) for the layout of rows of nb blocks, weighted or not
 template <class F>
-cudaError_t with_layout(int nb, F f) {
+cudaError_t with_layout(int nb, bool weighted, F f) {
   switch (cluster_for(nb)) {
     case kSmallCluster:
-      return f(fps_cluster_kernel<kSmallCluster>, kSmallCluster);
+      return weighted ? f(fps_cluster_kernel<kSmallCluster, true>, kSmallCluster)
+                      : f(fps_cluster_kernel<kSmallCluster, false>, kSmallCluster);
     case kWideCluster:
-      return f(fps_cluster_kernel<kWideCluster>, kWideCluster);
+      return weighted ? f(fps_cluster_kernel<kWideCluster, true>, kWideCluster)
+                      : f(fps_cluster_kernel<kWideCluster, false>, kWideCluster);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The plan for rows of nb Morton blocks: out3 = cluster size, the most
-// clusters resident at once (cudaOccupancyMaxActiveClusters), dynamic
-// shared memory bytes a CTA.
-extern "C" int fps_block_plan(int nb, void* out3) {
+// The plan for rows of nb Morton blocks, weighted or not: out3 = cluster
+// size, the most clusters resident at once (cudaOccupancyMaxActiveClusters),
+// dynamic shared memory bytes a CTA.
+extern "C" int fps_block_plan(int nb, int weighted, void* out3) {
   if (nb <= 0) return cudaErrorInvalidValue;
-  return with_layout(nb, [&](auto kernel, int cl) {
+  return with_layout(nb, weighted != 0, [&](auto kernel, int cl) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     cudaError_t err = cluster_config(reinterpret_cast<const void*>(kernel), cl, 1, kThreads,
@@ -234,18 +279,21 @@ extern "C" int fps_block_plan(int nb, void* out3) {
 }
 
 // xyz (b, n, 3) f32 in the original order; xs, ys, zs, mind (b, nb*128) f32
-// and ois (b, nb*128) i32 in Morton order (mind is read, not written); bbox
-// (b, 6, nb) f32; bmax (b, nb) f32; barg (b, nb) i32; out (b, npoint) i32;
-// visits (b,) i64, zero on entry. nb <= kMaxBlocks. Returns the launch's
-// cudaError_t.
+// and ois (b, nb*128) i32 in Morton order (mind is read, not written); ws
+// (b, nb*128) f32 in Morton order, or null for d-fps; bbox (b, 6, nb) f32;
+// bmax (b, nb) f32 (the blocks' largest keys); barg (b, nb) i32; bmind (b,
+// nb) f32 (the blocks' largest mind; read when weighted); out (b, npoint)
+// i32; visits (b,) i64, zero on entry. nb <= kMaxBlocks. Returns the
+// launch's cudaError_t.
 extern "C" int fps_block_launch(const void* xyz, const void* xs, const void* ys,
                                 const void* zs, const void* ois, const void* mind,
-                                const void* bbox, const void* bmax, const void* barg,
-                                int b, int n, int nb, int npoint, void* out,
-                                void* visits, void* stream) {
-  if (b <= 0 || n <= 0 || npoint <= 0 || nb <= 0 || (long long)nb * kBlock < n)
+                                const void* ws, const void* bbox, const void* bmax,
+                                const void* barg, const void* bmind, int b, int n, int nb,
+                                int npoint, void* out, void* visits, void* stream) {
+  if (b <= 0 || n <= 0 || npoint <= 0 || nb <= 0 || (long long)nb * kBlock < n ||
+      (ws != nullptr && bmind == nullptr))
     return cudaErrorInvalidValue;
-  return with_layout(nb, [&](auto kernel, int cl) {
+  return with_layout(nb, ws != nullptr, [&](auto kernel, int cl) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     cudaError_t err = cluster_config(reinterpret_cast<const void*>(kernel), cl, b, kThreads,
@@ -255,9 +303,11 @@ extern "C" int fps_block_launch(const void* xyz, const void* xs, const void* ys,
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(xyz),
                              static_cast<const float*>(xs), static_cast<const float*>(ys),
                              static_cast<const float*>(zs), static_cast<const int32_t*>(ois),
-                             static_cast<const float*>(mind), static_cast<const float*>(bbox),
-                             static_cast<const float*>(bmax), static_cast<const int32_t*>(barg),
-                             n, nb, npoint, static_cast<int32_t*>(out),
+                             static_cast<const float*>(mind), static_cast<const float*>(ws),
+                             static_cast<const float*>(bbox), static_cast<const float*>(bmax),
+                             static_cast<const int32_t*>(barg),
+                             static_cast<const float*>(bmind), n, nb, npoint,
+                             static_cast<int32_t*>(out),
                              static_cast<unsigned long long*>(visits));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();

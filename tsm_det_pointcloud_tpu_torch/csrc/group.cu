@@ -59,10 +59,14 @@
 //
 // Bound: the pair tests of the visited tiles — operations — or the bytes of
 // the prepared sources, queries and outputs. One warp owns one query; its
-// per-scale top-k list lives one entry per lane in registers, and a
-// candidate that beats the k-th by (d2, original index) is inserted at its
-// rank by that same order, so the result does not depend on the order the
-// sources arrive in.
+// per-scale top-k list lives in registers, kSlots entries a lane (rank
+// 32 h + lane in entry h), and a candidate that beats the k-th by (d2,
+// original index) is inserted at its rank by that same order, so the result
+// does not depend on the order the sources arrive in. A call whose scales
+// all take at most 32 samples runs the one-entry kernel; a call with a
+// scale of 33-64 samples (3DSSD's widest balls) runs the two-entry one, in
+// which an insertion also moves the entry at rank 31 up into lane 0's
+// second entry. Both compute the same function.
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +74,7 @@
 namespace {
 
 constexpr int kMaxScales = 4;
+constexpr int kMaxSlots = 2;     // top-k entries a lane: nsample up to 32 * kMaxSlots
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = kThreads;  // one source row a thread when staging
@@ -126,6 +131,7 @@ __device__ __forceinline__ bool before(float d1, int i1, float d2, int i2) {
   return d1 < d2 || (d1 == d2 && i1 < i2);
 }
 
+template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
 query_group_kernel(const float4* __restrict__ pts, const int32_t* __restrict__ oi,
                    const int4* __restrict__ crd, const float* __restrict__ tbox,
@@ -199,13 +205,17 @@ query_group_kernel(const float4* __restrict__ pts, const int32_t* __restrict__ o
     bchi = make_int3(max(bchi.x, oc.x), max(bchi.y, oc.y), max(bchi.z, oc.z));
   }
 
-  float lkey[kMaxScales], wd[kMaxScales];
-  int lidx[kMaxScales], wi[kMaxScales], fill[kMaxScales], hits[kMaxScales];
+  // lane l's entry h holds rank 32 h + l of scale s's list
+  float lkey[kMaxScales][kSlots], wd[kMaxScales];
+  int lidx[kMaxScales][kSlots], wi[kMaxScales], fill[kMaxScales], hits[kMaxScales];
 #pragma unroll
   for (int s = 0; s < kMaxScales; ++s) {
-    lkey[s] = inf();
+#pragma unroll
+    for (int h = 0; h < kSlots; ++h) {
+      lkey[s][h] = inf();
+      lidx[s][h] = 0;
+    }
     wd[s] = inf();
-    lidx[s] = 0;
     wi[s] = INT_MAX;
     fill[s] = 0;
     hits[s] = 0;
@@ -287,21 +297,43 @@ query_group_kernel(const float4* __restrict__ pts, const int32_t* __restrict__ o
               const float cd = __shfl_sync(kFull, d2, src);
               const int ci = __shfl_sync(kFull, oj, src);
               if (fill[s] >= ns && !before(cd, ci, wd[s], wi[s])) continue;
-              // entries before (cd, ci) stay; the rest move up one lane
-              const int pos = __popc(
-                  __ballot_sync(kFull, lane < fill[s] && before(lkey[s], lidx[s], cd, ci)));
-              const float up_key = __shfl_up_sync(kFull, lkey[s], 1);
-              const int up_idx = __shfl_up_sync(kFull, lidx[s], 1);
-              if (lane == pos) {
-                lkey[s] = cd;
-                lidx[s] = ci;
-              } else if (lane > pos) {
-                lkey[s] = up_key;
-                lidx[s] = up_idx;
+              // entries before (cd, ci) stay; the rest move up one rank
+              int pos = 0;
+#pragma unroll
+              for (int h = 0; h < kSlots; ++h)
+                pos += __popc(__ballot_sync(
+                    kFull, 32 * h + lane < fill[s] && before(lkey[s][h], lidx[s][h], cd, ci)));
+              // rank 32 h - 1 (lane 31 of entry h - 1) moves up into lane 0 of entry h
+              float carry_key = 0.f;
+              int carry_idx = 0;
+#pragma unroll
+              for (int h = 0; h < kSlots; ++h) {
+                const float up_key = __shfl_up_sync(kFull, lkey[s][h], 1);
+                const int up_idx = __shfl_up_sync(kFull, lidx[s][h], 1);
+                const float top_key = __shfl_sync(kFull, lkey[s][h], 31);
+                const int top_idx = __shfl_sync(kFull, lidx[s][h], 31);
+                const int rank = 32 * h + lane;
+                if (rank == pos) {
+                  lkey[s][h] = cd;
+                  lidx[s][h] = ci;
+                } else if (rank > pos) {
+                  lkey[s][h] = lane == 0 ? carry_key : up_key;
+                  lidx[s][h] = lane == 0 ? carry_idx : up_idx;
+                }
+                carry_key = top_key;
+                carry_idx = top_idx;
               }
               if (fill[s] < ns) ++fill[s];
-              wd[s] = __shfl_sync(kFull, lkey[s], ns - 1);
-              wi[s] = __shfl_sync(kFull, lidx[s], ns - 1);
+              // the k-th entry: rank ns - 1
+#pragma unroll
+              for (int h = 0; h < kSlots; ++h) {
+                const float k_key = __shfl_sync(kFull, lkey[s][h], (ns - 1) & 31);
+                const int k_idx = __shfl_sync(kFull, lidx[s][h], (ns - 1) & 31);
+                if ((ns - 1) >> 5 == h) {
+                  wd[s] = k_key;
+                  wi[s] = k_idx;
+                }
+              }
             }
           }
         }
@@ -325,16 +357,24 @@ query_group_kernel(const float4* __restrict__ pts, const int32_t* __restrict__ o
   for (int s = 0; s < kMaxScales; ++s) {
     if (s >= sc.n_scales) continue;
     const int ns = sc.ns[s];
-    const int first = fill[s] > 0 ? __shfl_sync(kFull, lidx[s], 0) : 0;
-    const int mine = lane < fill[s] ? lidx[s] : first;
-    if (lane < ns) idx_out[qrow * total_ns + sc.offset[s] + lane] = mine;
+    const int first = fill[s] > 0 ? __shfl_sync(kFull, lidx[s][0], 0) : 0;
+    int mine[kSlots];
+#pragma unroll
+    for (int h = 0; h < kSlots; ++h) {
+      const int rank = 32 * h + lane;
+      mine[h] = rank < fill[s] ? lidx[s][h] : first;
+      if (rank < ns) idx_out[qrow * total_ns + sc.offset[s] + rank] = mine[h];
+    }
     if (lane == 0) cnt_out[qrow * sc.n_scales + s] = hits[s];
     if (grouped_out != nullptr) {
-      for (int l = 0; l < ns; ++l) {
-        const int r = __shfl_sync(kFull, mine, l);
-        const float* src = payload + ((size_t)b * n + r) * d;
-        float* dst = grouped_out + (qrow * total_ns + sc.offset[s] + l) * d;
-        for (int c = lane; c < d; c += 32) dst[c] = src[c];
+#pragma unroll
+      for (int h = 0; h < kSlots; ++h) {
+        for (int l = 32 * h; l < ns && l < 32 * (h + 1); ++l) {
+          const int r = __shfl_sync(kFull, mine[h], l & 31);
+          const float* src = payload + ((size_t)b * n + r) * d;
+          float* dst = grouped_out + (qrow * total_ns + sc.offset[s] + l) * d;
+          for (int c = lane; c < d; c += 32) dst[c] = src[c];
+        }
       }
     }
   }
@@ -356,12 +396,16 @@ extern "C" int query_group_launch(const void* pts, const void* oi, const void* c
                                   void* grouped_out, void* visits_out, void* stream) {
   if (sc.n_scales < 1 || sc.n_scales > kMaxScales || n <= 0 || m <= 0 || b <= 0 || nt <= 0)
     return cudaErrorInvalidValue;
-  for (int s = 0; s < sc.n_scales; ++s)
-    if (sc.ns[s] < 1 || sc.ns[s] > 32) return cudaErrorInvalidValue;
+  int ns_max = 0;
+  for (int s = 0; s < sc.n_scales; ++s) {
+    if (sc.ns[s] < 1 || sc.ns[s] > 32 * kMaxSlots) return cudaErrorInvalidValue;
+    ns_max = sc.ns[s] > ns_max ? sc.ns[s] : ns_max;
+  }
   if (sc.use_window && (crd == nullptr || cbox == nullptr || q_coords == nullptr))
     return cudaErrorInvalidValue;
   dim3 grid((m + kWarps - 1) / kWarps, b);
-  query_group_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = ns_max > 32 ? query_group_kernel<2> : query_group_kernel<1>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pts), static_cast<const int32_t*>(oi),
       static_cast<const int4*>(crd), static_cast<const float*>(tbox),
       static_cast<const int32_t*>(cbox), nt, static_cast<const float*>(payload), n, d,

@@ -273,6 +273,11 @@ def load_cfg(cfg_file, set_cfgs=None):
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
             "PVRCNN": -2.5, "PVRCNNPlusPlus": -2.855, "SECONDNetIoU": -2.575,
             "VoxelRCNN": -1.25, "CaDDN": -2.447}
+# the point head's cls_out bias of a one-stage point detector (PVSSDA, a box
+# a point): pvssda_3dssd.yaml's seeded logits at bias 0 lie within 0.38-0.53
+# over a scan's 512 points (the 100th best ~0.495, on the CPU at b1 x 16384
+# on two synthetic scans), so at this bias ~100 of them pass SCORE_THRESH
+POINT_CLS_BIAS = {"PVSSDA": -2.69}
 # CenterPoint's hm_out by the config's dataset: a gain on its seeded kernel
 # and a bias in place of the -2.19 init, one for every class group or one
 # for all. The seeded heatmap logits lie within 0.5 of each other, so at the
@@ -298,7 +303,8 @@ def randomize_eval_state(model, seed, dataset="KittiDataset"):
     """Seeded non-trivial BN running stats and, for TSM, statistics buffers
     (a real deployment loads them from a checkpoint), and cls output biases
     lifted from the -log(99) prior so that boxes reach NMS: TSM's cls heads
-    at 1.0, an anchor head's conv_cls at CLS_BIAS of its detector,
+    at 1.0, an anchor head's conv_cls at CLS_BIAS of its detector, a point
+    detector's cls_out at POINT_CLS_BIAS,
     CenterPoint's hm_out kernel times the gain and its bias at the bias of
     CENTERPOINT_HM[dataset]."""
     from .models.backbones_3d.pointnet2_modules import BatchNorm
@@ -315,6 +321,8 @@ def randomize_eval_state(model, seed, dataset="KittiDataset"):
             m.bias.fill_(1.0)
         elif tail == "conv_cls":
             m.bias.fill_(CLS_BIAS[type(model).__name__])
+        elif tail == "cls_out" and type(model).__name__ in POINT_CLS_BIAS:
+            m.bias.fill_(POINT_CLS_BIAS[type(model).__name__])
         elif tail == "hm_out":
             gain, bias = CENTERPOINT_HM[dataset]
             if isinstance(bias, tuple):   # by group: ...head_<g>.hm_out

@@ -40,6 +40,10 @@ JAX models/__init__.py:14-29):
     sources; training as PV-RCNN's;
   * NAME PointRCNN: PointNet2MSG, PointHeadBox, PointRCNNHead; `.train()`
     turns on the point head's and the RoI head's targets and losses;
+  * NAME PVSSDA on its point topology: PointNet2MSG or PointNet2FSMSG
+    (3DSSD's fusion-sampling backbone, pvssda_3dssd.yaml), then
+    PointHeadBox or its aliases PVSSDAHead, VPCNetHead, DSASNetHead, a box
+    a point; `.train()` turns on the point head's targets and loss;
   * NAME VoxelRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
     BaseBEVBackbone, AnchorHeadSingle, VoxelRCNNHead; NAME SECONDNetIoU: the
     same with SECONDHead; for both `.train()` turns on the anchor head's
@@ -62,7 +66,7 @@ from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev import Conv2DCollapse, HeightCompression, PointPillarScatter
 from .backbones_3d.pointnet2_modules import BatchNorm
 from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
-from .backbones_3d.pointnet2_backbone import PointNet2MSG
+from .backbones_3d.pointnet2_backbone import PointNet2FSMSG, PointNet2MSG
 from .backbones_3d.image_vfe import ImageVFE
 from .backbones_3d.spconv_backbone import (
     SpaceVoxelBackBone8x,
@@ -83,7 +87,7 @@ from .dense_heads.anchor_head import (
     AnchorHeadSingleCls,
 )
 from .dense_heads.center_head import HM_INIT_BIAS, CenterHead
-from .dense_heads.point_head_box import PointHeadBox
+from .dense_heads.point_head_box import POINT_BOX_HEADS, PointHeadBox
 from .dense_heads.point_head_simple import PointHeadSimple
 from .dense_heads.point_intra_part_head import CLS_PRIOR_BIAS, PointIntraPartOffsetHead
 from .dense_heads.point_head_vote import (
@@ -137,7 +141,10 @@ _PORTED = {
     "SECONDNetIoU": {"VFE": ("MeanVFE",), "BACKBONE_3D": tuple(_SECOND_TRUNKS),
                      "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                      "DENSE_HEAD": ("AnchorHeadSingle",), "ROI_HEAD": ("SECONDHead",)},
+    "PVSSDA": {"BACKBONE_3D": ("PointNet2MSG", "PointNet2FSMSG"),
+               "POINT_HEAD": tuple(POINT_BOX_HEADS)},
 }
+_POINT_BACKBONES = {"PointNet2MSG": PointNet2MSG, "PointNet2FSMSG": PointNet2FSMSG}
 # (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
 _TSM_PAIRS = {
     ("VoxelPointNet2FSMSGDistillation", "PointHeadVoteSASAStatisticDistillation"):
@@ -155,7 +162,8 @@ def init_weights(model, seed=0):
     kernels lecun normal, sparse-conv kernels N(0, 2 / (K * Cin)), the
     teacher's dynamic regression weight N(0, 2 / 64), biases 0 except the
     confidence / cls output biases at -log(99) (the TSM heads' `cls*_out`,
-    the anchor heads' `conv_cls` and `conv_cls_g<i>`, and Part-A2's and PointRCNN's point
+    the anchor heads' `conv_cls` and `conv_cls_g<i>`, the PointNet2FSMSG levels'
+    `confidence_out`, and Part-A2's, PointRCNN's and PVSSDA's point
     heads' `cls_out`, set after the loop, since a module comes before its
     layers in `named_modules`; the other `cls_out`, PV-RCNN's point head's
     and the RoI heads', and SECONDHead's `iou_out` start at 0, as flax's
@@ -249,7 +257,7 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
              "CaDDN": _caddn_modules,
              "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
              "PVRCNN": _two_stage_modules, "PVRCNNPlusPlus": _two_stage_modules,
-             "PointRCNN": _pointrcnn_modules,
+             "PointRCNN": _pointrcnn_modules, "PVSSDA": _pvssda_modules,
              "VoxelRCNN": _two_stage_modules, "SECONDNetIoU": _two_stage_modules}.get(
                  name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
@@ -396,3 +404,13 @@ def _pointrcnn_modules(model_cfg, num_class, meta):
     point = PointHeadBox(dict(model_cfg["POINT_HEAD"]), num_class, c, meta)
     roi = PointRCNNHead(dict(model_cfg["ROI_HEAD"]), c, num_class)
     return [backbone, point, roi]
+
+
+def _pvssda_modules(model_cfg, num_class, meta):
+    """PVSSDA's point topology in the JAX package's module order:
+    BACKBONE_3D, POINT_HEAD (flax module_list_0..1)."""
+    backbone = _POINT_BACKBONES[model_cfg["BACKBONE_3D"]["NAME"]](
+        dict(model_cfg["BACKBONE_3D"]), meta.num_point_features, meta)
+    cfg = dict(model_cfg["POINT_HEAD"])
+    return [backbone, POINT_BOX_HEADS[cfg["NAME"]](cfg, num_class, backbone.num_point_features,
+                                                   meta)]

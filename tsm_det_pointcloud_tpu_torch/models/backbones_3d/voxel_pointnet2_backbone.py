@@ -8,6 +8,11 @@ tsm_det_pointcloud_tpu/models/backbones_3d/voxel_pointnet2_backbone.py.
    1..2  : s-fps, voxel query against the centroid tensor, point + position
            MLPs, the 3-level sparse mini U-Net and the confidence;
    >= 3  : voxel-query aggregation only (the head's VSA, new_xyz given).
+A layer's SAMPLE_METHOD_LIST takes d-fps (at layers > 0 the first npoint
+points, as the reference), s-fps, f-fps (this backbone's own distance,
+d_xyz + WEIGHT_GAMMA * d_feat over the layer's input features, which
+differs from PointNet2FSMSG's d_xyz + d_feat) and s-topk (the npoint best
+point scores, ties to the lower index).
 Layers are built with explicit channel counts (flax infers them); the
 parameter names follow the flax module names. In train mode every BN takes
 its batch stats over the elements the JAX call masks (`mask=`).
@@ -178,7 +183,7 @@ class VoxelSAModule(nn.Module):
             self.confidence_out = nn.Linear(int(confidence_mlp[-1]), num_class)
 
     # ---- sampling ----
-    def _sample(self, xyz, scores_point, valid, psh=None):
+    def _sample(self, xyz, features, scores_point, valid, psh=None):
         out = []
         for npoint, (lo, hi), method in zip(
                 self.npoint_list, self.sample_range_list, self.sample_method_list):
@@ -200,11 +205,21 @@ class VoxelSAModule(nn.Module):
                     # layers > 0 reuse the previous ordering: take the first N
                     idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device
                                        ).expand(xyz.shape[0], npoint)
+            elif method in ("f-fps", "F-FPS"):
+                # this backbone's own f-fps distance: d_xyz + weight_gamma * d_feat
+                idx = sampling.furthest_point_sample_feature(
+                    sub_xyz.detach(), features[:, lo:hi].detach(), npoint, sub_valid,
+                    gamma=self.weight_gamma)
             elif method in ("s-fps", "S-FPS"):
                 w = torch.sigmoid(scores_point[:, lo:hi]) ** self.weight_gamma
                 idx = sampling.furthest_point_sample_weights(sub_xyz, w, npoint, sub_valid)
+            elif method == "s-topk":
+                # the npoint best scores, ties to the lower index (lax.top_k's order)
+                sub = scores_point[:, lo:hi].detach()
+                idx = torch.sort(sub, dim=-1, descending=True, stable=True).indices[
+                    :, :npoint].to(torch.int32)
             else:
-                raise NotImplementedError(f"sample method {method} is not ported")
+                raise NotImplementedError(f"sample method {method}")
             out.append(idx + lo)
         return torch.cat(out, dim=1)
 
@@ -233,7 +248,7 @@ class VoxelSAModule(nn.Module):
         # ---- sampling ----
         psh = point_sharding.active() if self.sa_layer_idx == 0 else None
         if new_xyz is None:
-            idx_s = self._sample(xyz, scores_point, valid, psh)
+            idx_s = self._sample(xyz, features, scores_point, valid, psh)
             if psh is not None:
                 got = point_sharding.gather_from_sharded(
                     torch.cat([xyz, valid[..., None].to(xyz.dtype)], -1), idx_s, psh)

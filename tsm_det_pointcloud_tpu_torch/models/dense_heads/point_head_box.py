@@ -1,6 +1,7 @@
 """PointRCNN's point head (counterpart of
 tsm_det_pointcloud_tpu/models/dense_heads/point_head_box.py:17,
-`PointHeadBox`).
+`PointHeadBox`), and the TSM project's `VPCNetHead`, `DSASNetHead` and
+`PVSSDAHead`, the same head under three names (:102-113).
 
 Per point: the CLS_FC SharedMLP and `cls_out` (num_class logits, bias
 -log(99) at init; -1e9 at invalid points), the REG_FC SharedMLP and
@@ -91,3 +92,19 @@ class PointHeadBox(nn.Module):
         lw = self.model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
         return (cls_loss * float(lw.get("point_cls_weight", 1.0))
                 + reg_loss * float(lw.get("point_box_weight", 1.0)))
+
+
+class VPCNetHead(PointHeadBox):
+    """PointHeadBox under the TSM project's VPCNet name."""
+
+
+class DSASNetHead(PointHeadBox):
+    """PointHeadBox under the TSM project's DSASNet name."""
+
+
+class PVSSDAHead(PointHeadBox):
+    """PointHeadBox under the TSM project's PVSSDA name."""
+
+
+POINT_BOX_HEADS = {"PointHeadBox": PointHeadBox, "PVSSDAHead": PVSSDAHead,
+                   "VPCNetHead": VPCNetHead, "DSASNetHead": DSASNetHead}

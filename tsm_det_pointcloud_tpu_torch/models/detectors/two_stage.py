@@ -63,3 +63,17 @@ class SECONDNetIoU(TwoStageBase):
     """SECOND's modules -> SECONDHead, the IoU branch over BEV-pooled RoIs
     (module_list 0-5): its scores are rectified as cls^(1-a) * iou^a before
     the final NMS. Its training loss is the RPN's and `rcnn_iou_loss`."""
+
+
+class PVSSDA(TwoStageBase):
+    """The TSM project's PVSSDA on its point topology: a PointNet++ backbone
+    (PointNet2MSG or 3DSSD's PointNet2FSMSG) -> a PointHeadBox-family head,
+    a box a point (module_list 0-1, the flax indices); no RoI head, so the
+    template's post-processing takes the point head's boxes. Its training
+    loss is `loss_point`, tb_dict `point_loss`. No loss reads a
+    PointNet2FSMSG level's confidence scores: their MLPs get no gradient
+    (the JAX package's is zero) and `unused_parameters` says so, for DDP."""
+
+    @property
+    def unused_parameters(self):
+        return any(getattr(m, "has_confidence", False) for m in self.module_list[0].modules())

@@ -41,7 +41,10 @@ SOURCES = {
     "spconv_gather": "spconv_gather.cu",
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
+# launches per kernel: each source's, and the second kernels of two sources
+# (K6's weighted s-fps instantiation, K2's with 33-64 samples a ball),
+# counted apart
+LAUNCHES = {name: 0 for name in (*SOURCES, "fps_block_weighted", "query_group_wide")}
 
 _MAX_SCALES = 4
 
@@ -65,7 +68,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fps": ("fps_launch", [_P, _P, _P, _I, _I, _I, _P, _P]),
     "fps_block": ("fps_block_launch",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "query_group": ("query_group_launch",
                     [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, GroupScales,
                      _I, _P, _P, _P, _P, _P]),
@@ -84,7 +87,11 @@ _ENTRIES = {
     "fps_plan": ("fps", "fps_plan", [_I, _I, _P]),
     "fps_round_probe": ("fps", "fps_round_probe", [_I, _I, _I, _P, _P]),
     "spconv_bykey_bwd_plan": ("spconv_bykey_bwd", "bykey_bwd_plan", [_I, _I, _I, _I, _I, _P]),
-    "fps_block_plan": ("fps_block", "fps_block_plan", [_I, _P]),
+    "fps_block_plan": ("fps_block", "fps_block_plan", [_I, _I, _P]),
+    # the second kernels of two sources, launched through their source's
+    # entry, which picks the kernel from its arguments
+    "fps_block_weighted": ("fps_block", *_SIGNATURES["fps_block"]),
+    "query_group_wide": ("query_group", *_SIGNATURES["query_group"]),
 }
 
 _lock = threading.Lock()

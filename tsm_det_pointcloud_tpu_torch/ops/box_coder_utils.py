@@ -4,10 +4,10 @@ Counterpart of tsm_det_pointcloud_tpu/ops/box_coder_utils.py:
   * `ResidualCoder` (:31-90), the anchor head's: xyz residuals over the
     anchor's BEV diagonal / height, log size ratios, the heading residual
     (encode for the training targets, decode for the boxes);
-  * `PointResidualCoder` (:93), PointRCNN's point head's, with
-    `use_mean_size` (pointrcnn.yaml's): xyz offsets over the class's mean
-    size (BEV diagonal, height), log size ratios, the heading as its cosine
-    and sine (code size 8);
+  * `PointResidualCoder` (:93), PointRCNN's point head's: with
+    `use_mean_size` (pointrcnn.yaml's) xyz offsets over the class's mean
+    size (BEV diagonal, height) and log size ratios, without it plain xyz
+    offsets and log sizes; the heading as its cosine and sine (code size 8);
   * `PointBinResidualCoder` (:144): xyz offsets + log sizes + a binned
     angle (bin one-hot / logits + residuals normalised to [-0.5, 0.5)
     within the bin); decode is (bin + residual) * delta;
@@ -71,11 +71,10 @@ class ResidualCoder:
 
 class PointResidualCoder:
     def __init__(self, code_size=8, use_mean_size=True, **kwargs):
-        if not use_mean_size:
-            raise NotImplementedError("PointResidualCoder without use_mean_size is not on a "
-                                      "ported path")
         self.code_size = code_size
-        self.mean_size = torch.tensor(kwargs["mean_size"], dtype=torch.float32)
+        self.use_mean_size = use_mean_size
+        if use_mean_size:
+            self.mean_size = torch.tensor(kwargs["mean_size"], dtype=torch.float32)
 
     def _mean_size(self, classes, like):
         """(..., 3) mean sizes of the 1-based classes (class 0 reads the
@@ -90,14 +89,18 @@ class PointResidualCoder:
         dxg, dyg, dzg = torch.split(sizes, 1, dim=-1)
         rg = gt_boxes[..., 6:7]
         xa, ya, za = torch.split(points[..., 0:3], 1, dim=-1)
-        dxa, dya, dza = torch.split(self._mean_size(gt_classes, gt_boxes), 1, dim=-1)
-        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
-        xt = (xg - xa) / diagonal
-        yt = (yg - ya) / diagonal
-        zt = (zg - za) / dza
-        dxt = torch.log(dxg / dxa)
-        dyt = torch.log(dyg / dya)
-        dzt = torch.log(dzg / dza)
+        if self.use_mean_size:
+            dxa, dya, dza = torch.split(self._mean_size(gt_classes, gt_boxes), 1, dim=-1)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            xt = (xg - xa) / diagonal
+            yt = (yg - ya) / diagonal
+            zt = (zg - za) / dza
+            dxt = torch.log(dxg / dxa)
+            dyt = torch.log(dyg / dya)
+            dzt = torch.log(dzg / dza)
+        else:
+            xt, yt, zt = xg - xa, yg - ya, zg - za
+            dxt, dyt, dzt = torch.log(dxg), torch.log(dyg), torch.log(dzg)
         return torch.cat([xt, yt, zt, dxt, dyt, dzt, torch.cos(rg), torch.sin(rg),
                           gt_boxes[..., 7:]], dim=-1)
 
@@ -106,14 +109,18 @@ class PointResidualCoder:
         1-based -> boxes (..., 7 + extra); log sizes clamped before exp."""
         xt, yt, zt, dxt, dyt, dzt, cost, sint = torch.split(box_encodings[..., :8], 1, dim=-1)
         xa, ya, za = torch.split(points[..., 0:3], 1, dim=-1)
-        dxa, dya, dza = torch.split(self._mean_size(pred_classes, box_encodings), 1, dim=-1)
-        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
-        xg = xt * diagonal + xa
-        yg = yt * diagonal + ya
-        zg = zt * dza + za
-        dxg = _safe_exp(dxt) * dxa
-        dyg = _safe_exp(dyt) * dya
-        dzg = _safe_exp(dzt) * dza
+        if self.use_mean_size:
+            dxa, dya, dza = torch.split(self._mean_size(pred_classes, box_encodings), 1, dim=-1)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            xg = xt * diagonal + xa
+            yg = yt * diagonal + ya
+            zg = zt * dza + za
+            dxg = _safe_exp(dxt) * dxa
+            dyg = _safe_exp(dyt) * dya
+            dzg = _safe_exp(dzt) * dza
+        else:
+            xg, yg, zg = xt + xa, yt + ya, zt + za
+            dxg, dyg, dzg = _safe_exp(dxt), _safe_exp(dyt), _safe_exp(dzt)
         rg = torch.atan2(sint, cost)
         return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, box_encodings[..., 8:]], dim=-1)
 

@@ -17,7 +17,10 @@ Counterpart of tsm_det_pointcloud_tpu/ops/grouping.py (`ball_query_multi`
 
 On a CUDA tensor `query_group` launches kernel K2 (csrc/group.cu, replacing
 the Pallas `_kernel` of ops/group_pallas.py:108), which also gathers the
-payload rows (xyz and features, exact f32) of the chosen slots. K2 visits
+payload rows (xyz and features, exact f32) of the chosen slots. K2 takes 1-4
+scales of 1-64 samples a call: a call whose scales take at most 32 launches
+its one-entry-a-lane kernel, one with a scale of 33-64 (3DSSD's widest
+balls) its two-entry kernel (counted as "query_group_wide"). K2 visits
 only the sources that can be hit, as the Pallas kernel does. Its prep is
 PyTorch, on any device: `tile_sources` Morton-sorts each scan's sources
 into tiles of `GROUP_TILE` rows with per-tile boxes (xyz of the valid rows,
@@ -52,6 +55,7 @@ from .sampling import morton_code, morton_tiles, pad_rows, tile_boxes
 _INF_BITS = 0x7F800000
 GROUP_TILE = 256       # sources per Morton tile: kTile of csrc/group.cu
 GROUP_QBLOCK = 8       # sorted queries per K2 thread block: its kWarps
+GROUP_MAX_NSAMPLE = 64  # K2's largest nsample: 32 * its kMaxSlots
 _MARGIN_SCALE = 2.0 ** -19   # the pruning margin's factor: its kMarginScale
 _EMPTY = 1e30          # box of an all-invalid tile: never within reach
 _EMPTY_COORD = 1 << 29
@@ -377,8 +381,9 @@ def _query_group_launch(prep, q_xyz, scales, payload=None, q_coords=None):
         N, D, q_xyz.data_ptr(), _kernels.ptr(q_coords), prep.qperm.data_ptr(), M, sc,
         total, idx.data_ptr(), cnt.data_ptr(), _kernels.ptr(grouped), visits.data_ptr(),
         _kernels.stream_ptr(dev))
-    _kernels.check(err, "query_group")
-    _kernels.count("query_group")
+    name = "query_group_wide" if max(ns for _, _, ns, _ in scales) > 32 else "query_group"
+    _kernels.check(err, name)
+    _kernels.count(name)
     return idx, cnt, grouped, visits
 
 
@@ -389,8 +394,8 @@ def _kernel_inputs(src_xyz, src_valid, q_xyz, scales, payload, src_coords, q_coo
     scales = _norm_scales(scales)
     if not 1 <= len(scales) <= 4:
         raise ValueError("K2 takes 1 to 4 scales per call")
-    if any(not 1 <= ns <= 32 for _, _, ns, _ in scales):
-        raise ValueError("K2 takes nsample in [1, 32]")
+    if any(not 1 <= ns <= GROUP_MAX_NSAMPLE for _, _, ns, _ in scales):
+        raise ValueError(f"K2 takes nsample in [1, {GROUP_MAX_NSAMPLE}]")
     window = any(qr is not None for *_, qr in scales)
     if window and (src_coords is None or q_coords is None):
         raise ValueError("window queries need src_coords and q_coords")

@@ -21,12 +21,15 @@ from . import comm
 
 
 def wrap_data_parallel(model, device):
-    """DDP over the process group; the model itself at one process."""
+    """DDP over the process group; the model itself at one process. A model
+    whose `unused_parameters` is true (parameters no loss reads: PVSSDA's
+    confidence MLPs) has DDP find them each step."""
     if comm.get_world_size() == 1:
         return model
     return DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
-        broadcast_buffers=False)
+        broadcast_buffers=False,
+        find_unused_parameters=bool(getattr(model, "unused_parameters", False)))
 
 
 def unwrap(model):

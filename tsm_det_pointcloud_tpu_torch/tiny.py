@@ -110,6 +110,18 @@ its proposals and training RoIs are PV-RCNN's and it trains on PV-RCNN's
 gt boxes; `data/pvrcnnplusplus_tiny_forward.npz` holds the JAX package's
 eval outputs and predictions with it.
 
+The tiny PVSSDAs (`pvssda_model_cfg(which)`, `PVSSDA_META`, on
+`pvssda_points(2)`: 512 points a scan, 150 of them in a car-sized box) are
+the TSM project's point detector on both PointNet++ backbones: "fsmsg" on
+PointNet2FSMSG with every branch of it (layer 0: d-fps and three dilated
+scales, the widest of 40 samples; layer 1: f-fps, s-fps on layer 0's
+confidence scores and d-fps over the range [64, 128), confidence scores at
+both layers) under PVSSDAHead with mean sizes, "msg" on the JAX package's
+test topology (`test_experimental_variants.py`'s PN2 and its
+`use_mean_size: False` head). Their checks run on `pvssda_state(which)`,
+every entry drawn from a numpy seed; `data/pvssda_tiny_forward.npz` holds
+the JAX package's eval outputs and predictions of the "fsmsg" one.
+
 The tiny CaDDN is the JAX package's test model (`model_cfg`, `META` and
 `batch` of tests/test_caddn_e2e.py): ImageVFE at 16 features and 16 depth
 bins over 1-20 m, Conv2DCollapse, a one-level BEV backbone and a one-class
@@ -961,8 +973,10 @@ TWO_STAGE_CLS_BIAS = -2.0
 def two_stage_model(which):
     """(model config, DatasetMeta) of the tiny Part-A2 ("parta2"), PV-RCNN
     ("pvrcnn"), PV-RCNN++ ("pvrcnnplusplus"), PointRCNN ("pointrcnn"), Voxel
-    R-CNN ("voxelrcnn") or SECONDNetIoU ("secondnetiou")."""
+    R-CNN ("voxelrcnn"), SECONDNetIoU ("secondnetiou") or PVSSDA on
+    PointNet2FSMSG ("pvssda", TwoStageBase's detector with no RoI head)."""
     cfg, meta = {"parta2": (parta2_model_cfg, PARTA2_META),
+                 "pvssda": (pvssda_model_cfg, PVSSDA_META),
                  "pvrcnn": (pvrcnn_model_cfg, PVRCNN_META),
                  "pvrcnnplusplus": (pvrcnnplusplus_model_cfg, PVRCNN_META),
                  "pointrcnn": (pointrcnn_model_cfg, POINTRCNN_META),
@@ -1016,9 +1030,11 @@ def two_stage_state(which, seed=4, train=False):
     `redraw_state` draws it (PV-RCNN++'s entries of PV-RCNN's names and
     shapes as PV-RCNN's: SHARED_DRAWS), the anchor head's conv_cls bias at
     TWO_STAGE_CLS_BIAS; with `train` the channels-last BN biases raised by
-    TWO_STAGE_TRAIN_BN_LIFT."""
+    TWO_STAGE_TRAIN_BN_LIFT. PVSSDA's is `pvssda_state`."""
     from .models.backbones_3d.pointnet2_modules import BatchNorm
 
+    if which == "pvssda":
+        return pvssda_state(train=train)
     drawn, model = _drawn(which, seed)
     if which in SHARED_DRAWS:
         shared = _drawn(SHARED_DRAWS[which], seed)[0]
@@ -1191,6 +1207,91 @@ def gt_roi_proposals(gt, gmask, n_boxes, seed=0):
             boxes[b, j] = box
             logits[b, j] = 4.0 - 0.1 * j
     return logits, boxes
+
+
+PVSSDA_META = PARTA2_META
+PVSSDA_FORWARD_PATH = STATE_PATH.parent / "pvssda_tiny_forward.npz"
+# the tiny PVSSDAs' training gt box (the car-sized box of `pvssda_points`'
+# cluster) and a masked copy of it, a scan
+PVSSDA_GT = [[8.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1], [8.05, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1]]
+
+
+def pvssda_points(batch_size=2, n=512, seed=0):
+    """(B, n, 4) float32 points of the tiny PVSSDAs: `second_points`'
+    recipe with 150 points a scan in the car-sized box at (8, 0, -1), dense
+    enough that layer 0's widest annulus (1-3 m) holds more than its 40
+    samples."""
+    rng = np.random.RandomState(seed)
+    pts = second_points(batch_size, n, seed)
+    for b in range(batch_size):
+        pts[b, :150, 0] = rng.uniform(6.5, 9.5, 150)
+        pts[b, :150, 1] = rng.uniform(-0.7, 0.7, 150)
+        pts[b, :150, 2] = rng.uniform(-1.7, -0.3, 150)
+    return pts
+
+
+def pvssda_gt(batch_size=2):
+    """gt_boxes (B, 2, 8) and gt_boxes_mask (B, 2) of the tiny PVSSDAs'
+    training batches: PVSSDA_GT a scan, its second box masked."""
+    gt = np.tile(np.asarray(PVSSDA_GT, np.float32)[None], (batch_size, 1, 1))
+    mask = np.zeros((batch_size, 2), bool)
+    mask[:, 0] = True
+    return gt, mask
+
+
+def _pvssda_head(use_mean_size):
+    coder = ({"use_mean_size": True, "mean_size": [[3.9, 1.6, 1.56]]} if use_mean_size
+             else {"use_mean_size": False})
+    return {"CLS_FC": [16], "REG_FC": [16], "CLASS_AGNOSTIC": False,
+            "TARGET_CONFIG": {"GT_EXTRA_WIDTH": [0.2, 0.2, 0.2],
+                              "BOX_CODER": "PointResidualCoder", "BOX_CODER_CONFIG": coder},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"point_cls_weight": 1.0,
+                                             "point_box_weight": 1.0}}}
+
+
+def pvssda_model_cfg(which="fsmsg"):
+    """The tiny PVSSDA on PointNet2FSMSG ("fsmsg") or PointNet2MSG ("msg")."""
+    if which == "msg":
+        backbone = {"NAME": "PointNet2MSG",
+                    "SA_CONFIG": {"NPOINTS": [64], "RADIUS": [[0.5, 1.0]], "NSAMPLE": [[8, 8]],
+                                  "MLPS": [[[8, 8], [8, 8]]]},
+                    "FP_MLPS": [[16]]}
+        head = dict(_pvssda_head(False), NAME="PVSSDAHead")
+    else:
+        backbone = {"NAME": "PointNet2FSMSG", "SA_CONFIG": {
+            "NPOINT_LIST": [[128], [24, 24, 16]],
+            "SAMPLE_RANGE_LIST": [[[0, 512]], [[0, 128], [0, 128], [64, 128]]],
+            "SAMPLE_METHOD_LIST": [["d-fps"], ["f-fps", "s-fps", "d-fps"]],
+            "RADIUS": [[0.5, 1.0, 3.0], [1.0, 2.0]],
+            "NSAMPLE": [[8, 16, 40], [16, 32]],
+            "MLPS": [[[8], [8, 8], [8, 16]], [[16], [16, 16]]],
+            "AGGREGATION_MLPS": [[16], [32]],
+            "CONFIDENCE_MLPS": [[8], [8]],
+            "NUM_CLASS": 1, "WEIGHT_GAMMA": 1.0, "DILATED_RADIUS_GROUP": True}}
+        head = dict(_pvssda_head(True), NAME="PVSSDAHead")
+    return EDict({"NAME": "PVSSDA", "BACKBONE_3D": backbone, "POINT_HEAD": head,
+                  "POST_PROCESSING": _two_stage_post(nms_pre=32)})
+
+
+def pvssda_state(which="fsmsg", seed=12, train=False):
+    """The tiny PVSSDA's state for its checks: every entry of the port
+    model's state dict drawn from numpy's RandomState(seed)
+    (`redraw_state`); with `train` the channels-last BN biases raised by
+    TWO_STAGE_TRAIN_BN_LIFT and the point head's output layers times
+    POINTRCNN_TRAIN_GAIN, as the tiny PointRCNN's training state."""
+    from .models import build_network
+    from .models.backbones_3d.pointnet2_modules import BatchNorm
+
+    model = build_network(pvssda_model_cfg(which), 1, PVSSDA_META, device="cpu", seed=0)
+    lifted = {f"{name}.bias" for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    out = {}
+    for key, v in redraw_state(model.state_dict(), seed).items():
+        if train and key in lifted:
+            v = v + TWO_STAGE_TRAIN_BN_LIFT
+        elif train and key.startswith(("module_list.1.cls_out.", "module_list.1.box_out.")):
+            v = v * POINTRCNN_TRAIN_GAIN
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
 
 
 CADDN_PCR = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
