@@ -574,7 +574,46 @@ Phases (any failure exits non-zero before the result line):
      val frames at b4, its first forward recorded and every K1 / K2 call
      held; the AP dict holds every class's 3d / bev / image AP at each
      difficulty, R11 and R40 (aos where computed), finite; and (with phase 39's
-     fresh process) its `infer --profile` at b16 x 16384.
+     fresh process) its `infer --profile` at b4 x 16384.
+ 75. DSASNet reference: the tiny DSASNet on SparsePointBackbone
+     (tiny.dsasnet_state) reproduces
+     tsm_det_pointcloud_tpu_torch/data/dsasnet_tiny_forward.npz on the card
+     through 3 K1, 5 K2, 10 K3 and 12 K7 launches (golden tolerance;
+     labels, counts and RoI labels exact);
+ 76. dsasnet.yaml (VoxelBackBone8x, the hybrid SparsePointBackbone,
+     DSASNetHead, DSASNetRoIHead) at full width on synthetic scans, as phase
+     42: one recorded eval batch at b4 x 20000 (d-fps 20000 -> 4096 on K6,
+     the two s-fps stages on K1, four window queries and the RoI grid on
+     K2, 8 + 2 probes on K3, 12 convs on K7), every call held against its
+     plain version and timed, the second s-fps stage again with its weights
+     left on 100 points a row and none on row 0 (all-zero ties); 3 counted
+     batches (outputs finite, (4, 100, 7) RoIs, count <= 500, the launches a
+     forward), scans/s, peak memory;
+ 77. its training step at b2 (pvrcnn.yaml's BATCH_SIZE_PER_GPU; the
+     hybrid's fg prior at 0, so that its key points reach the statistics'
+     0.3): recorded and held; every parameter a finite gradient but the
+     hybrid's fg, cls and statistic-tag layers and the trunk's conv_out,
+     which no loss reads (none, as the JAX package's are zero); the class
+     statistics moved; 2 counted steps (train scans/s, peak memory);
+ 78. the variants (`infer.variant_cfg`): PointFromVoxel, VoxelPointCross and
+     BEVPoint in SparsePointBackbone's place, PVSSDA on its BEV topology with
+     the VoxelPointCross neck: an eval batch and a training step at b1 x 20000
+     each, BEVPoint's at b2 (finite outputs and gradients), each with its
+     kernel calls recorded, their count and the launches as `VARIANT_CALLS`,
+     and every call held against its plain version; and one scan on the card
+     against the CPU forward of the same weights (4000 points, 6000 for the
+     neck, at that voxel capacity): the hybrid's outputs before and after its
+     selections by score, the card's picks fed to the CPU once they are a top-k
+     of the CPU's scores at the golden tolerance (how many differ from the
+     CPU's own printed), the neck's PVSSDA up to its anchor head (golden
+     tolerance); the phase runs on cuDNN's heuristics: its autotune of
+     BEVPoint's backward convs took 329 s;
+ 79. dsasnet.yaml's `evaluate` on phase 22's root over phase 29's val
+     frames at b4, its first forward recorded and every K1 / K2 / K3 / K6 /
+     K7 call held; every class's 3d / bev / image AP at each difficulty, R11
+     and R40, finite;
+ 80. its `infer --profile` at b4 x 20000 (phase 39's fresh process) and its
+     proposal NMS alone at 1024 and 9000 boxes a scan.
 Before it prints its result the script stops the loaders' workers, their
 fork server and multiprocessing's resource tracker, waits for each, and
 fails if any process it started is still running; it prints its own time,
@@ -628,7 +667,11 @@ those of phase 58 and `centerpoint_nusc_data` and
 `centerpoint_lyft_data` and `centerpoint_lyft_data_train` those of phase
 63's evaluate and train, and `centerpoint_pandaset_data` and
 `centerpoint_pandaset_data_train` those of phase 64's (null but for K3 and
-K7), `pvssda` that of phase 71 and `pvssda_data` that of phase 74 (null
+K7), `dsasnet` and `dsasnet_train` those of phases 76-77, `dsasnet_data`
+that of phase 79 (null for K4, K5), `variant_pointfromvoxel`,
+`variant_voxelpointcross`, `variant_bevpoint` and `variant_neck` (each with
+its `_train`) those of phase 78's eval batches and training steps,
+`pvssda` that of phase 71 and `pvssda_data` that of phase 74 (null
 but for K1, K2 and K2's two-entry kernel, `query_group_wide`) and
 `weighted_fps` that of phase 73 (null but for K6's weighted instantiation,
 `fps_block_weighted`, whose `launches` come from phase 73's counted calls:
@@ -810,6 +853,68 @@ PVSSDA_BATCH, PVSSDA_POINTS, PVSSDA_ITERS = 16, 16384, 3
 PVSSDA_CALLS = {"fps": 3, "query_group": 1, "query_group_wide": 2}
 PVSSDA_TRAIN_BATCHES, PVSSDA_TRAIN_ITERS = (16, 8, 4), 2
 PVSSDA_DATA_BATCH = 4
+# its `infer --profile` (phase 74) at b4: at b16 the trace's events made the
+# profile ~41 s of the 1200 s budget on a slower host
+PVSSDA_PROFILE_BATCH = 4
+# phases 75-80: DSASNet (dsasnet.yaml: VoxelBackBone8x, the hybrid
+# SparsePointBackbone, DSASNetHead, DSASNetRoIHead), as TWO_STAGE: its file,
+# eval batch, training batch (pvrcnn.yaml's BATCH_SIZE_PER_GPU) and the
+# hand-written kernels a forward calls: d-fps of 4096 key-point candidates
+# over 20000 points (K6), the two s-fps stages 4096 -> 1536 and -> 512 (K1),
+# the window pool's two sources at the candidates and at the votes and the
+# RoI grid (K2), the trunk's 8 probes and the containing-voxel lookups at
+# both (K3), the trunk's 12 convs (K7)
+DSASNET = {"dsasnet": ("dsasnet.yaml", 4, 2, {"fps_block": 1, "fps": 2, "query_group": 5,
+                                              "probe": 10, "spconv_gather": 12})}
+# the parameters no loss of DSASNet reaches (the hybrid's fg, cls and
+# statistic-tag layers, the trunk's conv_out): no gradient, as the JAX
+# package's is zero
+DSASNET_IDLE = ("module_list.1.conv_out.", "module_list.3.features_fg.",
+                "module_list.3.fg_hidden.", "module_list.3.fg_pred_out.",
+                "module_list.3.temp_features.", "module_list.3.features_cls.",
+                "module_list.3.cls_block", "module_list.3.cls_out")
+# phase 78: the variants (`infer.variant_cfg`): each hybrid in dsasnet.yaml's
+# place and PVSSDA on its BEV topology with the VoxelPointCross neck, an eval
+# batch and a training step of VARIANT_BATCH x 20000, every hand-written kernel
+# call of both recorded and held against its plain version. The calls each
+# makes (`VARIANT_CALLS`, eval and training; the counts of
+# `_kernels.LAUNCHES`): under each hybrid the trunk's 8 probes (K3) and 12
+# convs (K7) and the RoI grid (K2); VoxelPointCross's ball query over its picks
+# (K2); in training PointFromVoxel's two subset d-fps over the 20000 raw points
+# (K6) and VoxelPointCross's over them (K6) and over its 1536 picks (K1); the
+# neck's PointNet2MSG: d-fps 20000 -> 4096 (K6), three more (K1) and its four
+# grouping calls (K2). Then each one's scan on the card against the CPU forward
+# of the same weights at a voxel capacity and points a scan of
+# VARIANT_CPU_POINTS (PointNet2MSG's 4096 picks need more on the neck's), which
+# keep the CPU's share of the phase in seconds, through the module list to its
+# hybrid (the neck's PVSSDA to its anchor head): `VARIANT_HELD`, the outputs
+# before and after the score-ordered selections, the card's picks fed to the
+# CPU (`top_k_fed`)
+VARIANTS = ("PointFromVoxel", "VoxelPointCross", "BEVPoint", "neck")
+_TRUNK = {"query_group": 1, "probe": 8, "spconv_gather": 12}
+VARIANT_CALLS = {
+    "PointFromVoxel": (_TRUNK, {**_TRUNK, "fps_block": 2}),
+    "VoxelPointCross": ({**_TRUNK, "query_group": 2},
+                        {**_TRUNK, "query_group": 2, "fps": 1, "fps_block": 1}),
+    "BEVPoint": (_TRUNK, _TRUNK),
+    "neck": ({"fps": 3, "fps_block": 1, "query_group": 4},) * 2}
+VARIANT_KERNELS = ("fps", "fps_block", "query_group", "probe", "spconv_gather")
+_POINTS_HELD = ("spatial_features_2d", "point_coords", "point_valid", "point_features")
+VARIANT_HELD = {"PointFromVoxel": _POINTS_HELD + (
+                    "fg_preds", "point_center_preds", "point_candidate_preds",
+                    "candidate_coords", "candidate_features"),
+                "VoxelPointCross": _POINTS_HELD + (
+                    "fg_preds", "point_corner_preds", "point_candidate_preds",
+                    "candidate_coords", "candidate_valid", "candidate_features"),
+                "BEVPoint": _POINTS_HELD + ("raw_fg_preds",),
+                "neck": ("point_coords", "point_features", "spatial_features_2d",
+                         "batch_cls_preds", "batch_box_preds")}
+# each one's batch: b1 where the memory is not the point, to keep the phase
+# short; BEVPoint at b2, whose densified 800 x 704 maps take 52 GiB in training
+VARIANT_BATCH = {"PointFromVoxel": 1, "VoxelPointCross": 1, "BEVPoint": 2, "neck": 1}
+VARIANT_POINTS = 20000
+VARIANT_CPU_POINTS = {"PointFromVoxel": 4000, "VoxelPointCross": 4000, "BEVPoint": 4000,
+                      "neck": 6000}
 # phase 73: K6's weighted rows (batch, points a row) with random weights,
 # their picks and the share of points marked invalid
 WEIGHTED_ROWS, WEIGHTED_NPOINT, WEIGHTED_INVALID = ((4, 65536), (8, 122880)), 4096, 0.1
@@ -834,7 +939,8 @@ RCNN_TERMS = {"parta2": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "
               "voxelrcnn": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss"),
               "secondnetiou": ("rcnn_iou_loss",),
               "pvrcnnplusplus": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss",
-                                 "point_loss")}
+                                 "point_loss"),
+              "dsasnet": ("rcnn_cls_loss", "rcnn_reg_loss", "rcnn_corner_loss", "point_loss")}
 
 
 # the RoI head's inputs (first-stage scores and boxes) of each two-stage
@@ -844,7 +950,7 @@ PROPOSALS = {}
 
 
 def stage_spec(which):
-    return {**TWO_STAGE, **POINTRCNN, **VOXEL_ROI, **PVRCNN_PP}[which]
+    return {**TWO_STAGE, **POINTRCNN, **VOXEL_ROI, **PVRCNN_PP, **DSASNET}[which]
 
 
 def scan_points(which):
@@ -3635,7 +3741,8 @@ PROFILES = (("pointpillar.yaml", PILLAR_PROFILE_BATCH, ZOO_POINTS),
             *((name, batch, scan_points(w)) for w, (name, batch, _, _) in POINTRCNN.items()),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in PVRCNN_PP.values()),
-            (NUSC_CFG, NUSC_BATCH, NUSC_POINTS), (PVSSDA_CFG, PVSSDA_BATCH, PVSSDA_POINTS))
+            (NUSC_CFG, NUSC_BATCH, NUSC_POINTS), (PVSSDA_CFG, PVSSDA_PROFILE_BATCH, PVSSDA_POINTS),
+            *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in DSASNET.values()))
 
 
 def zoo_profiles(profiles):
@@ -3686,12 +3793,14 @@ TINY_GOLDENS = {"parta2": ("PARTA2_FORWARD_PATH", None),
                                  {"probe": 8, "spconv_gather": 12}),
                 "pvrcnnplusplus": ("PVRCNNPLUSPLUS_FORWARD_PATH",
                                    {"fps": 1, "query_group": 6, "probe": 8,
-                                    "spconv_gather": 12})}
+                                    "spconv_gather": 12}),
+                "dsasnet": ("DSASNET_FORWARD_PATH",
+                            {"fps": 3, "query_group": 5, "probe": 10, "spconv_gather": 12})}
 
 
 def two_stage_golden_phase(dev, whiches=("parta2", "pvrcnn")):
     """Phase 40 (49 with voxelrcnn and secondnetiou, 53 with
-    pvrcnnplusplus): the tiny detectors
+    pvrcnnplusplus, 75 with dsasnet): the tiny detectors
     (tiny.two_stage_state) reproduce their JAX goldens on the card (labels,
     counts and kept RoI labels exact), through the kernels they launch."""
     import torch
@@ -3773,9 +3882,268 @@ def hold_sector_rows(which, args):
           f"(fewer than the picks)")
 
 
+def hold_zero_weight_rows(which, args):
+    """Phase 76's second s-fps stage (its 512 picks over the key-point
+    candidates outside the first stage's, weights 0 within 40 m) again on
+    its recorded rows, with weights left on only 100 points of each row and
+    none at all on the first row: the later picks are all-zero ties, which
+    K1 must break to the lowest index as the plain s-fps does."""
+    xyz, npoint, valid, weights = args
+    thinned = weights.clone()
+    thinned[:, 100:] = 0
+    thinned[0] = 0
+    zero_rows = int(((weights * valid) == 0).all(1).sum())
+    compare_fps((xyz, npoint, valid, thinned))
+    EXTRAS.pop("fps", None)
+    print(f"{which} fps (s-fps stage 2) on its recorded rows {tuple(xyz.shape)} at {npoint} "
+          f"picks: the weighted points a row {((weights > 0) & valid).sum(1).tolist()} "
+          f"({zero_rows} rows all zero); index-equal to the plain s-fps again with weights on "
+          f"100 points a row and on none of row 0")
+
+
+def _through(model, batch, n_modules):
+    """The first `n_modules` of the detector's module list on `batch`, no
+    gradient: the batch dict they write."""
+    import torch
+
+    with torch.no_grad():
+        for m in model.module_list[:n_modules]:
+            batch = m(batch)
+    return batch
+
+
+@contextmanager
+def top_k_fed(picks=None):
+    """Within the block, the hybrids' score-ordered selections
+    (`point_bev_hybrids._top_k`) either record their picks (`picks` None:
+    the yielded list gets each call's (B, k) indices, on the host) or take
+    the picks of such a record, call by call, once they are held against
+    this run's own top-k: as many valid picks a row, no pick twice, and this
+    run's scores at them, sorted, equal to its own top-k's at the golden
+    tolerance (atol 1e-3 * max(1, max|score|), rtol 1e-3). The two devices'
+    scores differ in their rounding, so near-equal scores can order apart;
+    the yielded list then gets, a call, (the picks not in this run's own
+    top-k, all picks, the largest gap of the sorted scores)."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.models.backbones_2d import point_bev_hybrids as hyb
+
+    orig = hyb._top_k
+    out = []
+
+    def record(s, k):
+        idx = orig(s, k)
+        out.append(idx.cpu())
+        return idx
+
+    def fed(s, k):
+        own = orig(s, k)
+        i = len(out)
+        check(i < len(picks), f"top-k call {i}: the card made {len(picks)}")
+        got = picks[i].to(s.device)
+        check(got.shape == own.shape, f"top-k call {i}: {tuple(got.shape)} picks on the card, "
+                                      f"{tuple(own.shape)} here")
+        srt = got.sort(1).values
+        check(bool((srt[:, 1:] != srt[:, :-1]).all()), f"top-k call {i}: a pick twice")
+        want_v = torch.gather(s, 1, own)
+        got_v = torch.gather(s, 1, got).sort(1, descending=True).values
+        fin = torch.isfinite(want_v)
+        check(torch.equal(fin, torch.isfinite(got_v)), f"top-k call {i}: the card picked "
+                                                        f"another count of valid points")
+        scale = max(1.0, float(s[torch.isfinite(s)].abs().max())) if fin.any() else 1.0
+        gap = (got_v - want_v)[fin].abs()
+        check(bool((gap <= 1e-3 * scale + 1e-3 * want_v[fin].abs()).all()),
+              f"top-k call {i}: the card's picks score up to {float(gap.max())} off the top "
+              f"{k} here")
+        differ = int((~(got[:, :, None] == own[:, None, :]).any(-1)).sum())
+        out.append((differ, got.numel(), float(gap.max()) if gap.numel() else 0.0))
+        return got
+
+    hyb._top_k = record if picks is None else fed
+    try:
+        yield out
+    finally:
+        hyb._top_k = orig
+    if picks is not None:
+        check(len(out) == len(picks), f"{len(out)} top-k calls here, {len(picks)} on the card")
+
+
+def check_variant_calls(label, calls, launches, want):
+    """The recorded calls of a pass (`split_calls`) and its launch counts
+    both as `want`, kernel by kernel."""
+    got = {k: len(v) for k, v in calls.items()}
+    ran = {k: v for k, v in launches.items() if v}
+    check(got == want and ran == want,
+          f"{label}: recorded kernel calls {got}, launches {ran}, not {want}")
+
+
+def _held_within(name, res):
+    """The card's outputs of `VARIANT_HELD[name]` against the CPU's at the
+    golden tolerance (bool outputs equal); the worst difference in units of
+    max(1, max|want|)."""
+    import torch
+
+    worst = 0.0
+    for k in VARIANT_HELD[name]:
+        g, w = res["cuda"][k], res["cpu"][k]
+        if w.dtype == torch.bool:
+            check(torch.equal(g, w), f"{name}: {k} on the card differs from the CPU's")
+            continue
+        scale = max(1.0, float(w.abs().max()))
+        diff = float((g - w).abs().max())
+        check(bool(torch.allclose(g, w, rtol=1e-3, atol=1e-3 * scale)),
+              f"{name}: {k} on the card differs from the CPU's by {diff}")
+        worst = max(worst, diff / scale)
+    return worst
+
+
+def dsasnet_variant_phases(dev):
+    """Phase 78: each of VARIANTS (`infer.variant_cfg`) at full width on
+    synthetic scans, on cuDNN's heuristics (its first-use autotune of these
+    maps' backward convs took 329.0 s for BEVPoint's 800 x 704 ones, 25.2 s
+    for VoxelPointCross's and 14.9 s for the neck's on the card, PERF.md):
+    one eval batch and one training step of VARIANT_BATCH x VARIANT_POINTS
+    (seeded weights; outputs, detections and the loss finite, the
+    gradients finite, no parameter without one but those no loss reads),
+    each with every kernel call recorded, its calls and launches as
+    VARIANT_CALLS, and each call held against its plain version; then one
+    scan of VARIANT_CPU_POINTS points through the same weights at that voxel
+    capacity on the card and on the CPU, the module list up to
+    VARIANT_HELD's outputs (the hybrid; the neck's PVSSDA up to its anchor
+    head, before NMS), the card's score-ordered picks fed to the CPU and held
+    there (`top_k_fed`), the outputs at the golden tolerance (atol 1e-3 *
+    max(1, max|want|), rtol 1e-3). Returns {"variant_<name>[_train]": (the
+    per-kernel report, the launch counts)}."""
+    import dataclasses
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import infer
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    keys = ("point_features", "batch_cls_preds", "batch_box_preds", "spatial_features_2d")
+    reports = {}
+    try:
+        for name in VARIANTS:
+            t_v = time.perf_counter()
+            cfg = infer.variant_cfg(name)
+            want_eval, want_train = VARIANT_CALLS[name]
+            batch = VARIANT_BATCH[name]
+            _, model = infer.build_detector(cfg, dev, seed=0, n_points=VARIANT_POINTS)
+            torch.backends.cudnn.benchmark = False      # build_network turns it on
+            meta = model.dataset_meta
+            pts = torch.from_numpy(infer.synth_scans(meta, batch, VARIANT_POINTS,
+                                                     seed=0)).to(dev)
+            mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launches()
+            rec = record_kernels(VARIANT_KERNELS)
+            t0 = time.perf_counter()
+            out, pred = infer.detect(model, pts, mask)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec.restore()
+            launches = dict(_kernels.LAUNCHES)
+            calls = split_calls(rec.calls)
+            check_variant_calls(f"variant {name} eval", calls, launches, want_eval)
+            post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+            for key in keys:
+                check(bool(torch.isfinite(out[key]).all()), f"{name}: non-finite {key}")
+            check(bool((pred["count"] <= post_max).all()) and all(
+                bool(torch.isfinite(pred[k]).all()) for k in ("pred_boxes", "pred_scores")),
+                f"{name}: detections {pred['count'].tolist()}")
+            print(f"variant {name} eval: b{batch} x {VARIANT_POINTS}, the first batch "
+                  f"(its kernel calls recorded), {1e3 * dt:.1f} ms; points to the heads "
+                  f"{tuple(out['point_features'].shape)}, map "
+                  f"{tuple(out['spatial_features_2d'].shape)}; detections "
+                  f"{pred['count'].tolist()}; launches {want_eval}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            del model, out, pred, rec
+            torch.cuda.empty_cache()
+            slug = f"variant_{name.lower()}"
+            reports[slug] = (compare_recorded(calls, f"variant {name}"), launches)
+            del calls
+            t_eval = time.perf_counter() - t_v
+
+            _, tmodel, opt = build_trainer(cfg, dev, seed=0, n_points=VARIANT_POINTS)
+            torch.backends.cudnn.benchmark = False
+            tb = synth_train_batch(batch, VARIANT_POINTS, 0, dev,
+                                   meta.point_cloud_range, meta.num_point_features)
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launches()
+            rec = record_kernels(VARIANT_KERNELS)
+            t0 = time.perf_counter()
+            tout = tmodel(dict(tb, accumulated_iter=0))
+            tout["loss"].backward()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec.restore()
+            launches = dict(_kernels.LAUNCHES)
+            calls = split_calls(rec.calls)
+            check_variant_calls(f"variant {name} training step", calls, launches, want_train)
+            idle = [n for n, p in tmodel.named_parameters() if p.grad is None]
+            for n, p in tmodel.named_parameters():
+                check(p.grad is None or bool(torch.isfinite(p.grad).all()),
+                      f"{name}: parameter {n} got a non-finite gradient")
+            check(bool(torch.isfinite(tout["loss"])) and tmodel.unused_parameters == bool(idle),
+                  f"{name} training step: loss {float(tout['loss'].detach())}, {len(idle)} "
+                  f"parameters without a gradient")
+            print(f"variant {name} training step: b{batch}, loss "
+                  f"{float(tout['loss'].detach()):.4f}, {1e3 * dt:.1f} ms (the first, its kernel "
+                  f"calls recorded); {len(idle)} of {sum(1 for _ in tmodel.parameters())} "
+                  f"parameters without a gradient (no loss reads them: "
+                  f"{sorted({'.'.join(n.split('.')[:3]) for n in idle})[:8]}); launches "
+                  f"{want_train}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del tmodel, opt, tb, tout, rec
+            torch.cuda.empty_cache()
+            reports[f"{slug}_train"] = (compare_recorded(calls, f"variant {name} train"),
+                                        launches)
+            del calls
+            t_train = time.perf_counter() - t_v - t_eval
+
+            n = VARIANT_CPU_POINTS[name]
+            small = dataclasses.replace(meta, max_voxels=n, max_points=n)
+            scan = torch.from_numpy(infer.synth_scans(small, 1, n, seed=1))
+            upto = 6 if name == "neck" else 4
+            res, picks = {}, None
+            for where in (dev, torch.device("cpu")):
+                m = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), small, device=where)
+                torch.backends.cudnn.benchmark = False
+                m.load_state_dict(state, strict=True)
+                with top_k_fed(picks) as seen:
+                    o = _through(m, {"points": scan.to(where), "batch_size": 1,
+                                     "points_mask": torch.ones(1, n, dtype=torch.bool,
+                                                               device=where)}, upto)
+                if picks is None:
+                    picks = seen
+                res[where.type] = {k: o[k].cpu() for k in VARIANT_HELD[name]}
+                del m, o
+            worst = _held_within(name, res)
+            fed = "; ".join(f"{d} of {p} differ from the CPU's own top-k, their scores within "
+                            f"{g:.3g}" for d, p, g in seen) or "none"
+            print(f"variant {name}: a scan of {n} points on the card against the CPU (voxel "
+                  f"capacity {n}, modules 0-{upto - 1}): {', '.join(VARIANT_HELD[name])} within "
+                  f"{worst:.3g} x max(1, max|want|); the card's score-ordered picks fed to the "
+                  f"CPU: {fed}; seconds: eval and its calls held {t_eval:.1f}, training step "
+                  f"and its calls held {t_train:.1f}, card against CPU "
+                  f"{time.perf_counter() - t_v - t_eval - t_train:.1f}")
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = True
+    return reports
+
+
 def two_stage_phases(dev, which):
     """Phase 41 (which "parta2"), 42 ("pvrcnn"), 46 ("pointrcnn"), 50
-    ("voxelrcnn", "secondnetiou") or 54 ("pvrcnnplusplus"): the
+    ("voxelrcnn", "secondnetiou"), 54 ("pvrcnnplusplus") or 76-77
+    ("dsasnet": its second s-fps stage again on rows of zero weights,
+    `hold_zero_weight_rows`; in training the layers no loss reads without a
+    gradient and the hybrid's class statistics moved): the
     config's eval and training step at full width on synthetic scans, every
     hand-written kernel call of one recorded eval batch and of one recorded
     training step held against its plain version. PointRCNN's recorded eval
@@ -3821,6 +4189,8 @@ def two_stage_phases(dev, which):
     report_eval = compare_recorded(rec.calls, which)
     if which in PVRCNN_PP:
         hold_sector_rows(which, rec.calls["fps_block"][0])
+    if which in DSASNET:
+        hold_zero_weight_rows(which, rec.calls["fps"][-1])
     if which == "pointrcnn":
         # the in-RoI encoder's first d-fps (B * R rows of 512 slots) again,
         # with whole rows emptied and rows of one valid slot, as padded RoIs
@@ -3907,10 +4277,18 @@ def two_stage_phases(dev, which):
     tbatches = [synth_train_batch(tbatch, n_pts, s, dev, meta.point_cloud_range,
                                   meta.num_point_features)
                 for s in range(TWO_STAGE_TRAIN_ITERS + 1)]
+    idle_want, stats_before = (), None
+    if which in DSASNET:
+        # the hybrid's fg prior at 0: its key points score 0.5, over the
+        # statistics' 0.3, so that the first step (accumulated_iter 0, its
+        # STAT_START_ITER) replaces them
+        model.module_list[3].fg_pred_out.bias.data.zero_()
+        idle_want = DSASNET_IDLE
+        stats_before = model.module_list[3].object_statistics.object_statistic_features.clone()
     rec = record_kernels(names + (("spconv_bykey_bwd",) if which == "parta2" else ()))
     opt.zero_grad(set_to_none=True)
     torch.cuda.reset_peak_memory_stats()
-    out = model(dict(tbatches[0]))
+    out = model(dict(tbatches[0], accumulated_iter=opt.state["count"]))
     out["loss"].backward()
     torch.cuda.synchronize()
     rec.restore()
@@ -3919,10 +4297,23 @@ def two_stage_phases(dev, which):
               f"{len(rec.calls[name])} {name} calls, not {n}")
     if which == "parta2":
         check(len(rec.calls["spconv_bykey_bwd"]) > 0, "the parta2 training step made no K5 call")
+    idle = []
     for n, p in model.named_parameters():
-        check(p.grad is not None, f"{which} parameter {n} got no gradient")
+        if n.startswith(idle_want):
+            check(p.grad is None, f"{which} parameter {n}, which no loss reads, got a gradient")
+            idle.append(n)
+            continue
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"{which} parameter {n} got no finite gradient")
         if p.dim() == 3:
             check(bool(p.grad.abs().sum() > 0), f"sparse-conv weight {n} got a zero gradient")
+    if stats_before is not None:
+        stats = model.module_list[3].object_statistics.object_statistic_features
+        check(not torch.equal(stats, stats_before) and bool(torch.isfinite(stats).all()),
+              f"{which}: the class statistics did not move in the first step")
+        print(f"{which} training capture: {len(idle)} parameters without a gradient, as in the "
+              f"JAX package ({sorted({n.split('.')[2] for n in idle})}); the class statistics "
+              f"moved: row norms {[round(float(v), 4) for v in stats.norm(dim=1)]}")
     opt.step()
     tb = out["tb_dict"]
     terms = RCNN_TERMS[which]
@@ -5465,8 +5856,48 @@ def pvssda_data_phase(dev, root):
     return compare_recorded(calls, "pvssda data eval"), launches
 
 
+def dsasnet_data_phase(dev, root):
+    """Phase 79: dsasnet.yaml's `evaluate` on phase 22's KITTI root over
+    phase 29's SECOND_DATA_FRAMES val frames at its eval batch (pvrcnn.yaml's
+    data path), its first forward recorded and each K1 / K2 / K3 / K6 / K7
+    call held against its plain version, the launches a forward DSASNET's;
+    the AP dict holds the 3d, bev and image APs of the three classes at
+    every difficulty, R11 and R40 (aos ones only where the eval computes
+    orientation), all finite. Returns the report and launch counts."""
+    from tsm_det_pointcloud_tpu_torch import evaluate
+    from tsm_det_pointcloud_tpu_torch.infer import load_cfg
+    from tsm_det_pointcloud_tpu_torch.models.detectors import DSASNet
+
+    (cfg_name, batch, _, calls), = DSASNET.values()
+    n = SECOND_DATA_FRAMES
+    cfg_file = cfg_path(cfg_name)
+    classes = list(load_cfg(cfg_file).CLASS_NAMES)
+    res, launches, peak, rec, first_out = run_recorded(
+        "dsasnet data eval", evaluate,
+        ["--cfg_file", str(cfg_file), "--batch_size", str(batch), "--output_dir",
+         str(root.parent / "dsasnet"), "--data_root", str(root), "--workers", str(KITTI_WORKERS),
+         "--device", str(dev), "--set", "DATA_CONFIG.INFO_PATH.test",
+         f"['kitti_infos_val_{n}.pkl']"], DSASNet, "forward", tuple(calls))
+    voxels = first_out["voxel_mask"].sum(1).tolist()
+    del first_out
+    aps = check_kitti_aps(res, classes, "dsasnet evaluate")
+    want = {f"{c}_{m}/{d}{r}" for c in classes for m in ("3d", "bev", "image")
+            for d in ("easy", "moderate", "hard") for r in ("", "_R40")}
+    extra = set(aps) - want
+    check(want <= set(aps) and all(k.split("/")[0].endswith("_aos") for k in extra),
+          f"dsasnet evaluate: AP keys {sorted(aps)}")
+    for name, k in calls.items():
+        check(len(rec.calls[name]) == k and launches[name] == k * (n // batch),
+              f"dsasnet data eval: {len(rec.calls[name])} {name} calls a forward, "
+              f"{launches[name]} in all")
+    print(f"dsasnet data eval (evaluate, seeded weights): {n} scans at b{batch}: voxels a scan "
+          f"of the first batch {voxels}; {len(aps)} APs ({len(extra)} aos), all finite; "
+          f"{eval_line(res)}; launches {launches}; peak memory {peak:.2f} GiB")
+    return compare_recorded(rec.calls, "dsasnet data eval"), launches
+
+
 def pvssda_profile(profiles):
-    """pvssda_3dssd.yaml's `infer --profile` at b16 x 16384, in phase 39's
+    """pvssda_3dssd.yaml's `infer --profile` at b4 x 16384, in phase 39's
     fresh process, after every timed path: busy share, post-processing alone."""
     (wall, busy, names), (pwall, pbusy, _) = profiles[PVSSDA_CFG]
     print(f"pvssda profile: busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), "
@@ -5886,6 +6317,14 @@ def main():
     report_weighted, launches_weighted = weighted_fps_phase(dev)
     report_pvdata, launches_pvdata = pvssda_data_phase(dev, kitti_root)
     mark("70-74")
+    two_stage_golden_phase(dev, tuple(DSASNET))
+    for which in DSASNET:
+        rep_e, lau_e, rep_t, lau_t = two_stage_phases(dev, which)
+        two_stage[which] = (rep_e, lau_e)
+        two_stage[f"{which}_train"] = (rep_t, lau_t)
+    two_stage.update(dsasnet_variant_phases(dev))
+    two_stage["dsasnet_data"] = dsasnet_data_phase(dev, kitti_root)
+    mark("75-79")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -5910,7 +6349,8 @@ def main():
     two_stage_profiles(dev, profiles, POINTRCNN)
     two_stage_profiles(dev, profiles, VOXEL_ROI)
     two_stage_profiles(dev, profiles, PVRCNN_PP)
-    mark("the proposal NMS's device times (44, 48, 52, 56)")
+    two_stage_profiles(dev, profiles, DSASNET)
+    mark("the proposal NMS's device times (44, 48, 52, 56, 80)")
     nusc_profiles(dev, profiles)
     pvssda_profile(profiles)
     mark("the nuScenes and PVSSDA profiles (60, 74)")

@@ -137,6 +137,13 @@ def _pvssda_batch():
             "batch_size": 2, "gt_boxes": gt, "gt_boxes_mask": mask}
 
 
+def _dsasnet_batch():
+    """The tiny DSASNet's training batch (256 points a scan, a car box)."""
+    gt, mask = tiny.pvssda_gt()
+    return {"points": tiny.second_points(2, 256), "points_mask": np.ones((2, 256), bool),
+            "batch_size": 2, "gt_boxes": gt, "gt_boxes_mask": mask}
+
+
 MODELS = {
     "student": lambda: _tsm(tiny.tiny_model_cfg(), ge._tsm_model()),
     "teacher": lambda: _tsm(tiny.tiny_teacher_model_cfg(), _JTEACHER),
@@ -155,6 +162,7 @@ MODELS = {
                             dict(tiny.caddn_batch(), batch_size=2)),
     "pvssda": lambda: _voxel(tiny.pvssda_model_cfg("fsmsg"), tiny.PVSSDA_META,
                              _pvssda_batch()),
+    "dsasnet": lambda: _voxel(*tiny.two_stage_model("dsasnet"), _dsasnet_batch()),
 }
 
 
@@ -196,7 +204,7 @@ def _without_three_tap_kernels(name, ref):
     """SECOND's and CenterPoint's state dicts without conv_out's kernel,
     which neither side converts (test_three_tap_spconv_kernel_raises_like_jax)."""
     if name not in ("second", "centerpoint", "centerpoint_lyft", "parta2", "pvrcnn",
-                    "voxelrcnn", "secondnetiou", "pvrcnnplusplus"):
+                    "voxelrcnn", "secondnetiou", "pvrcnnplusplus", "dsasnet"):
         return ref
     with pytest.raises(ValueError):
         jtool.convert_state_dict(ref)
@@ -276,6 +284,12 @@ EXPECTED = {
 # the tiny PVSSDA on PointNet2FSMSG: no leaf name and shape ties across its
 # modules, so every tensor lands home
 EXPECTED["pvssda"] = dict(unmatched=[], unplaced=[], misplaced=[])
+# the tiny DSASNet on SparsePointBackbone: the RoI head's cls_out ties in
+# leaf name and shape with the point head's (a (16, 1) output) and goes there,
+# as PV-RCNN's; every other tensor, the hybrid's statistics buffer and its
+# window-pool MLPs included, lands home
+EXPECTED["dsasnet"] = dict(unmatched=[], unplaced=[],
+                           misplaced=["roi_head.cls_out.bias", "roi_head.cls_out.weight"])
 
 
 def _caddn_unplaced():

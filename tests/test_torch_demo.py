@@ -25,7 +25,9 @@ out of range, so that the range mask and sample_points' draw both work):
     no voxels), from tiny.two_stage_state("pointrcnn"); on the tiny PV-RCNN++
     with pv_rcnn_plusplus.yaml's, from tiny.two_stage_state("pvrcnnplusplus");
     on the tiny PVSSDA (PointNet2FSMSG) with pvssda_3dssd.yaml's (sample_points
-    at 256), from tiny.two_stage_state("pvssda");
+    at 256), from tiny.two_stage_state("pvssda"); on the tiny DSASNet
+    (SparsePointBackbone) with dsasnet.yaml's, from
+    tiny.two_stage_state("dsasnet");
     and the entry point alone on the tiny Voxel R-CNN and SECONDNetIoU with
     voxel_rcnn_car.yaml's and second_iou.yaml's data sections (their
     detections are held against the JAX package through the eval loop,
@@ -210,7 +212,8 @@ def test_pointpillar_entry_point_on_cpu(scans, pp_state, tmp_path, capsys):
     assert rate > 0
 
 
-@pytest.mark.parametrize("which", ["parta2", "pointrcnn", "pvrcnnplusplus", "pvssda"])
+@pytest.mark.parametrize("which", ["parta2", "pointrcnn", "pvrcnnplusplus", "pvssda",
+                                   "dsasnet"])
 def test_parta2_detections_equal_jax(scans, which):
     cfg = tiny_two_stage_dataset_cfg(which, scans)
     state = tiny.two_stage_state(which)
@@ -231,7 +234,7 @@ def test_parta2_detections_equal_jax(scans, which):
 
 
 @pytest.mark.parametrize("which", ["parta2", "pointrcnn", "voxelrcnn", "secondnetiou",
-                                   "pvrcnnplusplus", "pvssda"])
+                                   "pvrcnnplusplus", "pvssda", "dsasnet"])
 def test_parta2_entry_point_on_cpu(scans, tmp_path, capsys, which):
     cfg = write_tiny_yaml(tmp_path / f"tiny_{which}.yaml", scans,
                           model=tiny.two_stage_model(which)[0],

@@ -163,7 +163,7 @@ def _two_stage_yaml(setup, which):
 
 
 @pytest.mark.parametrize("which", ["parta2", "pvrcnn", "pointrcnn", "voxelrcnn", "secondnetiou",
-                                   "pvrcnnplusplus", "pvssda"])
+                                   "pvrcnnplusplus", "pvssda", "dsasnet"])
 def test_two_stage_trains_over_two_ranks(setup, which):
     import torch
 

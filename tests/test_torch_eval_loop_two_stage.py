@@ -1,5 +1,5 @@
-"""The dataset-driven eval loop and first-batch training loss of the tiny Part-A2, PointRCNN
-and PVSSDA (on PointNet2FSMSG) against the JAX package (tests/torch_eval_loop_cases.py: the states, data
+"""The dataset-driven eval loop and first-batch training loss of the tiny Part-A2, PointRCNN,
+PVSSDA (on PointNet2FSMSG) and DSASNet (on SparsePointBackbone) against the JAX package (tests/torch_eval_loop_cases.py: the states, data
 sections and tolerances)."""
 import pytest
 
@@ -12,7 +12,7 @@ def roots(tmp_path_factory):
     return cases.make_roots(tmp_path_factory)
 
 
-@pytest.fixture(scope="module", params=['parta2', 'pointrcnn', 'pvssda'])
+@pytest.fixture(scope="module", params=['parta2', 'pointrcnn', 'pvssda', 'dsasnet'])
 def case(request, roots, tmp_path_factory):
     return cases.run_case(request.param, roots, tmp_path_factory)
 

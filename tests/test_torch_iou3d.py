@@ -71,3 +71,18 @@ def test_class_agnostic_nms():
     n = int(wc)
     assert int(gc) == n and n > 0
     np.testing.assert_array_equal(gi.numpy()[:n], np.asarray(wi)[:n])
+
+
+def test_fixpoint_iterations_counted():
+    """`FIXPOINT_ITERS` counts the keep fixpoint's passes (each ends in one
+    host sync): a chain of four boxes, each overlapping its neighbours
+    alone, in falling score order, settles on the first and third after
+    four passes (all kept, the first alone, three, two, two)."""
+    boxes = np.zeros((4, 7), np.float32)
+    boxes[:, 0] = [0.0, 1.5, 3.0, 4.5]
+    boxes[:, 3:6] = 2.0
+    scores = np.array([0.9, 0.8, 0.7, 0.6], np.float32)
+    tiou.FIXPOINT_ITERS[0] = 0
+    idx, count, _ = tiou.nms_bev(torch.from_numpy(boxes), torch.from_numpy(scores), 0.1)
+    assert int(count) == 2 and idx[:2].tolist() == [0, 2]
+    assert tiou.FIXPOINT_ITERS[0] == 4

@@ -121,9 +121,11 @@ def test_other_models_raise():
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     cfg = tiny.tiny_model_cfg()
-    cfg["NAME"] = "DSASNet"
+    cfg["NAME"] = "NoSuchDetector"           # a NAME missing from the JAX registry
     with pytest.raises(NotImplementedError):
         build_network(cfg, 3, tiny.META, device="cpu")
+    assert type(build_network(tiny.dsasnet_model_cfg(), 1, tiny.DSASNET_META,
+                              device="cpu")).__name__ == "DSASNet"
     # train mode is ported, and asks for the gt boxes it trains on
     model = build_network(tiny.tiny_model_cfg(), 3, tiny.META, device="cpu")
     model.train()
@@ -177,9 +179,11 @@ def test_second_trains_and_unported_topologies_raise():
     assert torch.isfinite(out["loss"])
     assert set(out["tb_dict"]) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}
     cfg = tiny.second_model_cfg()
-    cfg["NAME"] = "DSASNet"
-    with pytest.raises(NotImplementedError, match="DSASNet"):
+    cfg["NAME"] = "NoSuchDetector"
+    with pytest.raises(NotImplementedError, match="NoSuchDetector"):
         build_network(cfg, 1, tiny.SECOND_META, device="cpu")
+    cfg["NAME"] = "DSASNet"          # DSASNet's generic topology takes SECOND's modules
+    assert type(build_network(cfg, 1, tiny.SECOND_META, device="cpu")).__name__ == "DSASNet"
     cfg = tiny.second_model_cfg()
     cfg["VFE"] = {"NAME": "PillarVFE"}
     with pytest.raises(NotImplementedError, match="PillarVFE"):
@@ -274,20 +278,23 @@ def test_pvrcnnplusplus_modules_are_covered():
 
 def test_two_stage_entry_points_refuse_cuda_without_card(monkeypatch):
     """`infer` and `train` on PartA2.yaml, pvrcnn.yaml, pointrcnn.yaml,
-    voxel_rcnn_car.yaml, second_iou.yaml, pv_rcnn_plusplus.yaml and
-    pvssda_3dssd.yaml default to the card too, and refuse a host without
-    one; a detector still unported (DSASNet, on the PV-RCNN modules and on
-    SECONDHead's) raises in build_network."""
+    voxel_rcnn_car.yaml, second_iou.yaml, pv_rcnn_plusplus.yaml,
+    pvssda_3dssd.yaml and dsasnet.yaml default to the card too, and refuse a
+    host without one; a detector NAME missing from the JAX registry (on the
+    PV-RCNN modules and on SECONDHead's) raises in build_network, and
+    DSASNet builds."""
     from tsm_det_pointcloud_tpu_torch import infer, tiny, train
     from tsm_det_pointcloud_tpu_torch.models import build_network
 
     for cfg in (tiny.pvrcnn_model_cfg(), tiny.secondnetiou_model_cfg()):
-        cfg["NAME"] = "DSASNet"
-        with pytest.raises(NotImplementedError, match="DSASNet"):
+        cfg["NAME"] = "NoSuchDetector"
+        with pytest.raises(NotImplementedError, match="NoSuchDetector"):
             build_network(cfg, 1, tiny.PVRCNN_META, device="cpu")
+    assert type(build_network(tiny.dsasnet_model_cfg(), 1, tiny.DSASNET_META,
+                              device="cpu")).__name__ == "DSASNet"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("PartA2", "pvrcnn", "pointrcnn", "voxel_rcnn_car", "second_iou",
-                 "pv_rcnn_plusplus", "pvssda_3dssd"):
+                 "pv_rcnn_plusplus", "pvssda_3dssd", "dsasnet"):
         cfg = str(ROOT / f"tools/cfgs/kitti_models/{name}.yaml")
         with pytest.raises(RuntimeError, match="CUDA"):
             infer.main(["--cfg_file", cfg, "--batch", "1", "--points", "64", "--iters", "1"])
@@ -449,3 +456,98 @@ def test_caddn_entry_points(monkeypatch, tmp_path, capsys):
         infer.main(["--cfg_file", full, "--batch", "1", "--iters", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--cfg_file", full, "--batch", "1", "--steps", "1"])
+
+
+def test_dsasnet_modules_are_covered():
+    """The hybrids, the neck and DSASNet's detector are among the modules
+    imported without JAX above and scanned for JAX imports."""
+    mods = _port_modules()
+    for name in ("models.backbones_2d.point_bev_hybrids", "models.neck.voxel_point_cross",
+                 "models.detectors.two_stage", "models.roi_heads.pvrcnn_head"):
+        assert f"tsm_det_pointcloud_tpu_torch.{name}" in mods
+        assert (PORT / (name.replace(".", "/") + ".py")).exists()
+
+
+def _reduced_dsasnet_yaml(path):
+    """dsasnet.yaml with 4000 voxels a level, 512 key-point candidates of
+    which 128 + 64 are picked, narrow heads and a 64-box proposal NMS, for
+    the CPU."""
+    import yaml
+
+    from tsm_det_pointcloud_tpu_torch import infer
+
+    cfg = infer.load_cfg(ROOT / "tools/cfgs/kitti_models/dsasnet.yaml")
+    for step in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if step.NAME == "transform_points_to_voxels":
+            step.MAX_NUMBER_OF_VOXELS = {"train": 4000, "test": 4000}
+    model = cfg.MODEL
+    model.BACKBONE_2D.update(FG_CORNER_POINTS=[512, 192], PTS_NUM_SAMPLE=[128, 64],
+                             NUM_POINT_FEATURES=32)
+    model.POINT_HEAD.CLS_FC = model.POINT_HEAD.REG_FC = [16]
+    model.ROI_HEAD.update(SHARED_FC=[32], CLS_FC=[16], REG_FC=[16])
+    model.ROI_HEAD.ROI_GRID_POOL.update(GRID_SIZE=3, MLPS=[[8], [8]])
+    for mode, post in (("TRAIN", 32), ("TEST", 16)):
+        model.ROI_HEAD.NMS_CONFIG[mode].update(NMS_PRE_MAXSIZE=64, NMS_POST_MAXSIZE=post)
+    model.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE = 16
+
+    def plain(d):
+        if isinstance(d, dict):
+            return {k: plain(v) for k, v in d.items()}
+        return [plain(v) for v in d] if isinstance(d, (list, tuple)) else d
+
+    doc = {k: plain(cfg[k]) for k in ("CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION")}
+    path.write_text(yaml.safe_dump(doc))
+    return path
+
+
+def test_dsasnet_entry_points(monkeypatch, tmp_path, capsys):
+    """`infer` and `train` run a reduced dsasnet.yaml on the CPU on synthetic
+    scans (the training step passes `accumulated_iter`, from which the
+    hybrid's statistics move); on a host without a card they refuse cuda,
+    and so do `evaluate` and `train --data_root`."""
+    from tsm_det_pointcloud_tpu_torch import evaluate, infer, train
+
+    cfg = str(_reduced_dsasnet_yaml(tmp_path / "dsasnet_cpu.yaml"))
+    monkeypatch.chdir(tmp_path)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # beside the other workers' pools (tests/torch_threads.py)
+    try:
+        infer.main(["--cfg_file", cfg, "--device", "cpu", "--batch", "1", "--points", "4000",
+                    "--iters", "1"])
+        out = capsys.readouterr().out
+        assert "proposals kept" in out and "scans/s on cpu" in out
+        train.main(["--cfg_file", cfg, "--device", "cpu", "--batch", "1", "--points", "4000",
+                    "--steps", "1"])
+        assert "train scans/s on cpu" in capsys.readouterr().out
+    finally:
+        torch.set_num_threads(n_threads)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = ["--cfg_file", cfg, "--data_root", str(tmp_path), "--output_dir", str(tmp_path)]
+    for run in (lambda: evaluate.main(flags), lambda: train.main(flags),
+                lambda: infer.main(["--cfg_file", cfg, "--batch", "1", "--iters", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+
+
+@pytest.mark.parametrize("variant", ["PointFromVoxel", "VoxelPointCross", "BEVPoint", "neck"])
+def test_dsasnet_variants_build_at_full_width(variant):
+    """The variants of `infer.variant_cfg` build at full width on the CPU:
+    each hybrid in dsasnet.yaml's place (Z_GROUPS 8 divides the trunk's 256
+    channels), PVSSDA on its BEV topology with the neck, each module's
+    input width the one it is given."""
+    from tsm_det_pointcloud_tpu_torch import infer
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+
+    cfg = infer.variant_cfg(variant)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), infer.dataset_meta(cfg, 20000),
+                          device="cpu")
+    names = [type(m).__name__ for m in model.module_list]
+    if variant == "neck":
+        assert names == ["PillarVFE", "PointNet2MSG", "PointPillarScatter", "BaseBEVBackbone",
+                         "VoxelPointCross", "AnchorHeadSingle"]
+        assert model.module_list[4].pooled_channels == 128 and model.unused_parameters
+    else:
+        assert names[3] == variant and names[4:] == ["DSASNetHead", "DSASNetRoIHead"]
+        width = model.module_list[3].point_channels
+        assert width == {"PointFromVoxel": 128, "VoxelPointCross": 256, "BEVPoint": 384}[variant]
+        assert model.module_list[4].cls_fc.fc0.in_features == width

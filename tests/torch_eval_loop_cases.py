@@ -10,7 +10,8 @@ and SECONDNetIoU (PartA2.yaml's, pvrcnn.yaml's, pv_rcnn_plusplus.yaml's,
 voxel_rcnn_car.yaml's and second_iou.yaml's: road planes, two-stage
 post-processing), the tiny
 PointRCNN (pointrcnn.yaml's: sample_points and shuffle_points, no voxels)
-and the tiny PVSSDA on PointNet2FSMSG (pvssda_3dssd.yaml's, the same).
+the tiny PVSSDA on PointNet2FSMSG (pvssda_3dssd.yaml's, the same) and the
+tiny DSASNet on SparsePointBackbone (dsasnet.yaml's: pvrcnn.yaml's).
 The cases are spread over tests/test_torch_eval_loop_*.py, so that
 `--dist loadfile` runs them on several workers.
 
@@ -116,7 +117,7 @@ MODELS = {"teacher": _teacher, "second": _second, "pointpillar": _pointpillar,
           "pvrcnnplusplus": lambda: _two_stage("pvrcnnplusplus"),
           "voxelrcnn": lambda: _two_stage("voxelrcnn"),
           "secondnetiou": lambda: _two_stage("secondnetiou"),
-          "pvssda": lambda: _two_stage("pvssda")}
+          "pvssda": lambda: _two_stage("pvssda"), "dsasnet": lambda: _two_stage("dsasnet")}
 
 
 @pytest.fixture(scope="module", autouse=True)

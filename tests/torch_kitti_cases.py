@@ -145,7 +145,8 @@ def tiny_two_stage_dataset_cfg(which, root):
     """PartA2.yaml's ("parta2"), pvrcnn.yaml's ("pvrcnn"),
     pv_rcnn_plusplus.yaml's ("pvrcnnplusplus"), pointrcnn.yaml's
     ("pointrcnn"), voxel_rcnn_car.yaml's ("voxelrcnn") or second_iou.yaml's
-    ("secondnetiou") or pvssda_3dssd.yaml's ("pvssda") DATA_CONFIG (gt
+    ("secondnetiou"), pvssda_3dssd.yaml's ("pvssda") or dsasnet.yaml's
+    ("dsasnet", pvrcnn.yaml's) DATA_CONFIG (gt
     sampling on road planes) on the tiny detector's geometry
     (tiny.two_stage_model(which); pointrcnn.yaml's and pvssda_3dssd.yaml's
     sample_points takes its MAX_POINTS in both modes), gt sampling of its one
@@ -153,7 +154,8 @@ def tiny_two_stage_dataset_cfg(which, root):
     cfg_file = {"parta2": "PartA2.yaml", "pvrcnn": "pvrcnn.yaml",
                 "pvrcnnplusplus": "pv_rcnn_plusplus.yaml",
                 "pointrcnn": "pointrcnn.yaml", "voxelrcnn": "voxel_rcnn_car.yaml",
-                "secondnetiou": "second_iou.yaml", "pvssda": "pvssda_3dssd.yaml"}[which]
+                "secondnetiou": "second_iou.yaml", "pvssda": "pvssda_3dssd.yaml",
+                "dsasnet": "dsasnet.yaml"}[which]
     meta = tiny.two_stage_model(which)[1]
     data = _tiny_voxel_dataset_cfg(f"tools/cfgs/kitti_models/{cfg_file}", root, meta,
                                    ["Car:15"])

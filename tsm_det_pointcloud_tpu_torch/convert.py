@@ -14,13 +14,15 @@ that `model.init(..., training=True)` returns (collections `params`,
   * sparse-conv kernels (K, Cin, Cout) keep their layout as `weight`;
   * a 2D `nn.Conv` kernel (kh, kw, Cin, Cout) becomes the `nn.Conv2d`
     `weight` (Cout, Cin, kh, kw);
-  * a 2D `nn.ConvTranspose` kernel (the BEV backbone's `deblock*`),
-    (kh, kw, Cin, Cout), becomes the `nn.ConvTranspose2d` `weight`
-    (Cin, Cout, kh, kw) flipped in both spatial axes: flax's default
-    `transpose_kernel=False` does not flip the kernel, torch's transposed
-    convolution does;
+  * a 2D `nn.ConvTranspose` kernel (the BEV backbone's `deblock*`,
+    BEVPoint's strided `scale{i}_deconv`: `_DECONV`), (kh, kw, Cin, Cout),
+    becomes the `nn.ConvTranspose2d` `weight` (Cin, Cout, kh, kw) flipped in
+    both spatial axes: flax's default `transpose_kernel=False` does not flip
+    the kernel, torch's transposed convolution does (a 1 x 1
+    `scale{i}_deconv` is a ConvBlock, its kernel one level further down);
   * the teacher head's `reg_weight` (1, 1, 64, code) is copied;
-  * `statistics/*` become buffers of the head.
+  * `statistics/*` become buffers of the module that holds them (the TSM
+    heads', the hybrids' `object_statistics`).
 
 Every leaf of a TSM training init, of a SECOND init and of a CaDDN init
 (its depth network's convs, the `classifier` / `depth_head` biases, the
@@ -41,6 +43,10 @@ import numpy as np
 import torch
 
 from .models.dense_heads.point_head_vote import STATISTIC_BUFFERS
+
+
+# the flax modules whose 4-D kernel is a ConvTranspose's
+_DECONV = re.compile(r"deblock(\d+|_final)|scale\d+_deconv")
 
 
 def _flatten(tree, prefix=""):
@@ -65,7 +71,7 @@ def _convert_leaf(collection, path, arr):
         if leaf == "kernel" and arr.ndim == 3:
             return f"{tmod}.weight", arr
         if leaf == "kernel" and arr.ndim == 4:
-            if re.fullmatch(r"deblock(\d+|_final)", mod.rpartition("/")[2]):
+            if _DECONV.fullmatch(mod.rpartition("/")[2]):
                 return f"{tmod}.weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
             return f"{tmod}.weight", arr.transpose(3, 2, 0, 1)
         if leaf == "scale" and arr.ndim == 1:
@@ -103,7 +109,7 @@ def _flax_leaf(key, arr):
     if leaf == "weight" and arr.ndim == 3:
         return "params", f"{fmod}/kernel", arr
     if leaf == "weight" and arr.ndim == 4:
-        if re.fullmatch(r"deblock(\d+|_final)", fmod.rpartition("/")[2]):
+        if _DECONV.fullmatch(fmod.rpartition("/")[2]):
             return "params", f"{fmod}/kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         return "params", f"{fmod}/kernel", arr.transpose(2, 3, 1, 0)
     raise ValueError(f"no flax leaf for port entry {key} {arr.shape}")

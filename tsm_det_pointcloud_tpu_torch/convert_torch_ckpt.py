@@ -45,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .convert import _convert_leaf, flax_view
+from .convert import _DECONV, _convert_leaf, flax_view
 
 
 def convert_weight(name, arr):
@@ -163,7 +163,7 @@ def convert_checkpoint(ref_state, template_state):
 # config section that makes each (OpenPCDet's module topology)
 MODULE_NAMES = (("VFE", "vfe"), ("BACKBONE_3D", "backbone_3d"),
                 ("MAP_TO_BEV", "map_to_bev_module"), ("PFE", "pfe"),
-                ("BACKBONE_2D", "backbone_2d"), ("DENSE_HEAD", "dense_head"),
+                ("BACKBONE_2D", "backbone_2d"), ("NECK", "neck"), ("DENSE_HEAD", "dense_head"),
                 ("POINT_HEAD", "point_head"), ("ROI_HEAD", "roi_head"))
 
 
@@ -177,7 +177,8 @@ def reference_state_dict(state, model_cfg):
     1x1 and Conv2d 1x1 weights; sparse-conv kernels in turn as
     (Cout, kz, ky, kx, Cin) and (kz, ky, kx, Cin, Cout) (a 3-tap kernel as
     (3, 1, 1)); 2D conv kernels as Conv2d's (Cout, Cin, kh, kw), the BEV
-    deblocks as ConvTranspose2d's (Cin, Cout, kh, kw) of the same function.
+    deblocks and BEVPoint's strided scale deconvs as ConvTranspose2d's (Cin,
+    Cout, kh, kw) of the same function.
     Each BN also gets the int64 `num_batches_tracked` the reference's
     carries (a name no rule maps). Returns (the state dict, {reference name:
     the port key its value came from})."""
@@ -208,7 +209,7 @@ def reference_state_dict(state, model_cfg):
             val = tap_major.transpose(4, 0, 1, 2, 3) if n_sparse % 2 == 0 else tap_major
             n_sparse += 1
         elif leaf == "kernel" and arr.ndim == 4:
-            if re.fullmatch(r"deblock(\d+|_final)", parts[-2]):
+            if _DECONV.fullmatch(parts[-2]):
                 val = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 val = arr.transpose(3, 2, 0, 1)

@@ -37,6 +37,8 @@ scans.
         --cfg_file tools/cfgs/pandaset_models/centerpoint.yaml --batch 4 --points 115200
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/CaDDN.yaml --batch 2
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/kitti_models/dsasnet.yaml --batch 4 --points 20000
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
@@ -75,6 +77,7 @@ from .config import cfg_from_list, cfg_from_yaml_file
 from .models import build_network
 from .models.dense_heads.point_head_vote import STATISTIC_BUFFERS
 from .models.detectors import DatasetMeta
+from .ops import iou3d
 from .utils.common_utils import resolve_device
 from .utils.edict import EDict
 
@@ -269,10 +272,13 @@ def load_cfg(cfg_file, set_cfgs=None):
 # -2.5 ~116,000 anchors a scan pass, at -2.855 ~230 (set on one scan).
 # CaDDN's seeded anchor logits on noise images lie within 0.15 of each other
 # (before the bias: the 100th best of a scan 0.2505, the 300th 0.2489, the
-# 3000th 0.2298, on the card at b2): at -2.447 a few hundred pass
+# 3000th 0.2298, on the card at b2): at -2.447 a few hundred pass. PVSSDA's
+# anchor head on the VoxelPointCross neck (`variant_cfg("neck")`): before the
+# bias the 1000th best of a scan's 321,408 anchors 0.369, the 2800th 0.360,
+# the 10000th 0.356 (two synthetic scans of 20000 points, on the CPU)
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
             "PVRCNN": -2.5, "PVRCNNPlusPlus": -2.855, "SECONDNetIoU": -2.575,
-            "VoxelRCNN": -1.25, "CaDDN": -2.447}
+            "VoxelRCNN": -1.25, "CaDDN": -2.447, "PVSSDA": -2.56}
 # the point head's cls_out bias of a one-stage point detector (PVSSDA, a box
 # a point): pvssda_3dssd.yaml's seeded logits at bias 0 lie within 0.38-0.53
 # over a scan's 512 points (the 100th best ~0.495, on the CPU at b1 x 16384
@@ -335,14 +341,17 @@ def randomize_eval_state(model, seed, dataset="KittiDataset"):
 @torch.no_grad()
 def seed_statistics(model, g):
     """The class-statistics buffers N(0, 0.25) from generator g, wherever
-    the head keeps them (the distillation head at its own scope, the
-    teacher head in its branch); a real run transfers them from the teacher
-    checkpoint or, for the teacher, accumulates them in training."""
+    a module keeps them (the distillation head at its own scope, the
+    teacher head in its branch, a hybrid 2D backbone's `object_statistics`,
+    which holds the first of them alone); a real run transfers them from the
+    teacher checkpoint or accumulates them in training."""
     for m in model.modules():
-        if "object_statistic_features" in dict(m.named_buffers(recurse=False)):
+        own = dict(m.named_buffers(recurse=False))
+        if "object_statistic_features" in own:
             for buf in STATISTIC_BUFFERS:
-                t = getattr(m, buf)
-                t.copy_((torch.randn(t.shape, generator=g) * 0.5).to(t.device))
+                if buf in own:
+                    own[buf].copy_((torch.randn(own[buf].shape, generator=g) * 0.5)
+                                   .to(own[buf].device))
 
 
 def dataset_meta(cfg, n_points, mode="test"):
@@ -372,10 +381,46 @@ def dataset_meta(cfg, n_points, mode="test"):
         max_points=n_points, **limits)
 
 
+# DSASNet's other hybrid 2D backbones, BACKBONE_2D swaps of dsasnet.yaml at
+# their modules' defaults where the trunk allows: Z_GROUPS must divide
+# HeightCompression's 256 channels (the defaults 10 and 5 do not), so 8
+HYBRID_VARIANTS = {
+    "PointFromVoxel": {"NAME": "PointFromVoxel", "Z_GROUPS": 8, "LOCAL_CH": 32, "GLOBAL_CH": 32,
+                       "FG_CORNER_POINTS": [[2048, 1024], [512, 256]]},
+    "VoxelPointCross": {"NAME": "VoxelPointCross", "Z_GROUPS": 8, "TRUNK_CH": 256,
+                        "N_BLOCK": [2, 2], "FG_CORNER_POINTS": [[1024, 512], [512, 256]]},
+    "BEVPoint": {"NAME": "BEVPoint", "NUM_FILTERS": 128, "N_BLOCK": [1, 1, 1],
+                 "NUM_RAW_KEYPOINTS": 1000},
+}
+
+
+def variant_cfg(name):
+    """The config of a DSASNet variant: dsasnet.yaml with BACKBONE_2D one of
+    HYBRID_VARIANTS; or ("neck") PVSSDA on its BEV topology,
+    pointpillar.yaml's data, PillarVFE, scatter, BEV backbone, anchor head and
+    post-processing with pointrcnn.yaml's PointNet2MSG and the
+    VoxelPointCross neck at NUM_FILTERS 128, trained with pointpillar.yaml's
+    optimisation."""
+    kitti = ROOT / "tools/cfgs/kitti_models"
+    if name != "neck":
+        cfg = load_cfg(kitti / "dsasnet.yaml")
+        cfg.MODEL.BACKBONE_2D = EDict(HYBRID_VARIANTS[name])
+        return cfg
+    cfg = load_cfg(kitti / "pointpillar.yaml")
+    m = cfg.MODEL
+    cfg.MODEL = EDict({"NAME": "PVSSDA", "VFE": m.VFE,
+                       "BACKBONE_3D": load_cfg(kitti / "pointrcnn.yaml").MODEL.BACKBONE_3D,
+                       "MAP_TO_BEV": m.MAP_TO_BEV, "BACKBONE_2D": m.BACKBONE_2D,
+                       "NECK": EDict({"NAME": "VoxelPointCross", "NUM_FILTERS": 128}),
+                       "DENSE_HEAD": m.DENSE_HEAD, "POST_PROCESSING": m.POST_PROCESSING})
+    return cfg
+
+
 def build_detector(cfg_file, device="cuda", seed=0, n_points=16384):
-    """The detector of `cfg_file` with seeded random weights and eval state;
-    its dataset's geometry is `model.dataset_meta`."""
-    cfg = load_cfg(cfg_file)
+    """The detector of `cfg_file` (or of a loaded config) with seeded random
+    weights and eval state; its dataset's geometry is
+    `model.dataset_meta`."""
+    cfg = cfg_file if isinstance(cfg_file, dict) else load_cfg(cfg_file)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                           dataset=dataset_meta(cfg, n_points), device=device,
                           seed=seed)
@@ -473,32 +518,31 @@ def profile_batch(model, points, mask, top=20, camera=None):
 def profile_call(fn, top=20):
     """Trace one call of `fn` on the card; print the device busy share of
     its wall time and the kernels with the most device time. Returns
-    (wall ms, device busy ms, the names of the kernels that ran)."""
+    (wall ms, device busy ms, the names of the kernels that ran). The trace
+    holds the device's events alone: the host's op events slowed the traced
+    call's host path and doubled key_averages' seconds on a traced forward."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    iou3d.FIXPOINT_ITERS[0] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side kernel events only: an aten op's device time is also its
-    # kernels' time, and a user annotation's (Optimizer.step) spans its
-    # kernels' too, so counting either would count them twice. key_averages
+    n_iters = iou3d.FIXPOINT_ITERS[0]
+    # kernel events only: a user annotation's (Optimizer.step) span covers
+    # its kernels', so counting it would count them twice. key_averages
     # takes seconds on a traced forward: it is built once
-    averages = prof.key_averages()
-    events = [e for e in averages
+    events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)
               and self_device_us(e) > 0]
     busy_us = sum(self_device_us(e) for e in events)
     print(f"profile: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}%), idle {100 - 100 * busy_us / wall_us:.1f}%")
-    # each iteration of an NMS keep fixpoint (nms_bev's or the suppression
-    # matrix route's) ends in one torch.equal, which the host waits for
-    n_equal = sum(e.count for e in averages if e.key == "aten::equal")
-    if n_equal:
-        print(f"profile: {n_equal} aten::equal calls (NMS keep-fixpoint iterations, one "
+    if n_iters:
+        print(f"profile: {n_iters} NMS keep-fixpoint iterations (`iou3d.FIXPOINT_ITERS`, one "
               f"host sync each)")
     events.sort(key=self_device_us, reverse=True)
     for e in events[:top]:

@@ -40,10 +40,26 @@ JAX models/__init__.py:14-29):
     sources; training as PV-RCNN's;
   * NAME PointRCNN: PointNet2MSG, PointHeadBox, PointRCNNHead; `.train()`
     turns on the point head's and the RoI head's targets and losses;
-  * NAME PVSSDA on its point topology: PointNet2MSG or PointNet2FSMSG
-    (3DSSD's fusion-sampling backbone, pvssda_3dssd.yaml), then
-    PointHeadBox or its aliases PVSSDAHead, VPCNetHead, DSASNetHead, a box
-    a point; `.train()` turns on the point head's targets and loss;
+  * NAME DSASNet and NAME PVSSDA (the TSM project's detectors) on the
+    module list their config wires, in the JAX `build_module_list`'s
+    sections and order (VFE, BACKBONE_3D, MAP_TO_BEV, BACKBONE_2D, NECK,
+    DENSE_HEAD, POINT_HEAD, ROI_HEAD; `_generic_modules`): DSASNet's
+    dsasnet.yaml (MeanVFE, DSASNetVoxelBackBone8x, HeightCompression, the
+    hybrid SparsePointBackbone, DSASNetHead, DSASNetRoIHead) and its 2D
+    backbone swapped for the hybrids PointFromVoxel, VoxelPointCross or
+    BEVPoint; PVSSDA on its point topology (PointNet2MSG or 3DSSD's
+    PointNet2FSMSG, pvssda_3dssd.yaml, then PointHeadBox or its aliases
+    PVSSDAHead, VPCNetHead, DSASNetHead, a box a point) and on its BEV
+    topology (PillarVFE, PointNet2MSG, PointPillarScatter, BaseBEVBackbone,
+    the VoxelPointCross neck, an anchor head). Each section takes the
+    ported modules of its JAX registry (`_GENERIC_SECTIONS`: the voxel and
+    pillar VFEs, the VoxelBackBone8x trunk under its three names and
+    VoxelResBackBone8x, the PointNet++ backbones, the RoI head PVRCNNHead
+    and its aliases EPointRoIHead, EPointRoIHeadV2, DSASNetRoIHead); each
+    module's input width is that of the tensor it is given, as flax infers
+    it; `.train()` turns on the heads' targets and losses; NAME
+    Detector3DTemplate, the JAX registry's base detector, runs such a module
+    list and sums no loss;
   * NAME VoxelRCNN: MeanVFE, VoxelBackBone8x, HeightCompression,
     BaseBEVBackbone, AnchorHeadSingle, VoxelRCNNHead; NAME SECONDNetIoU: the
     same with SECONDHead; for both `.train()` turns on the anchor head's
@@ -63,12 +79,14 @@ from torch import nn
 
 from ..utils.common_utils import resolve_device
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
+from .backbones_2d.point_bev_hybrids import HYBRIDS
 from .backbones_2d.map_to_bev import Conv2DCollapse, HeightCompression, PointPillarScatter
 from .backbones_3d.pointnet2_modules import BatchNorm
 from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from .backbones_3d.pointnet2_backbone import PointNet2FSMSG, PointNet2MSG
 from .backbones_3d.image_vfe import ImageVFE
 from .backbones_3d.spconv_backbone import (
+    DSASNetVoxelBackBone8x,
     SpaceVoxelBackBone8x,
     VoxelBackBone8x,
     VoxelResBackBone8x,
@@ -98,7 +116,8 @@ from .dense_heads.point_head_vote import (
 from .detectors import DatasetMeta, __all__ as detector_registry
 from .roi_heads.partA2_head import PartA2FCHead
 from .roi_heads.pointrcnn_head import PointRCNNHead
-from .roi_heads.pvrcnn_head import PVRCNNHead
+from .neck.voxel_point_cross import NECKS
+from .roi_heads.pvrcnn_head import PVRCNN_HEADS, PVRCNNHead
 from .roi_heads.second_head import SECONDHead
 from .roi_heads.voxelrcnn_head import VoxelRCNNHead
 
@@ -141,10 +160,23 @@ _PORTED = {
     "SECONDNetIoU": {"VFE": ("MeanVFE",), "BACKBONE_3D": tuple(_SECOND_TRUNKS),
                      "MAP_TO_BEV": ("HeightCompression",), "BACKBONE_2D": ("BaseBEVBackbone",),
                      "DENSE_HEAD": ("AnchorHeadSingle",), "ROI_HEAD": ("SECONDHead",)},
-    "PVSSDA": {"BACKBONE_3D": ("PointNet2MSG", "PointNet2FSMSG"),
-               "POINT_HEAD": tuple(POINT_BOX_HEADS)},
 }
 _POINT_BACKBONES = {"PointNet2MSG": PointNet2MSG, "PointNet2FSMSG": PointNet2FSMSG}
+_VOXEL_TRUNKS = {**_SECOND_TRUNKS, "DSASNetVoxelBackBone8x": DSASNetVoxelBackBone8x,
+                 "VoxelResBackBone8x": VoxelResBackBone8x}
+# the module NAMEs each section of DSASNet and PVSSDA may give (the JAX
+# registries' ported modules on the topologies `_generic_modules` wires)
+_GENERIC_SECTIONS = {
+    "VFE": tuple(VOXEL_VFES) + tuple(PILLAR_VFES),
+    "BACKBONE_3D": tuple(_VOXEL_TRUNKS) + tuple(_POINT_BACKBONES),
+    "MAP_TO_BEV": ("HeightCompression", "PointPillarScatter"),
+    "BACKBONE_2D": ("BaseBEVBackbone",) + tuple(HYBRIDS),
+    "NECK": tuple(NECKS),
+    "DENSE_HEAD": tuple(n for n in _ANCHOR_HEADS if n != "AnchorHeadSingleCls"),
+    "POINT_HEAD": tuple(POINT_BOX_HEADS),
+    "ROI_HEAD": tuple(PVRCNN_HEADS),
+}
+_PORTED["PVSSDA"] = _PORTED["DSASNet"] = _PORTED["Detector3DTemplate"] = _GENERIC_SECTIONS
 # (backbone, head) NAMEs -> classes: the distillation pair and the teacher's
 _TSM_PAIRS = {
     ("VoxelPointNet2FSMSGDistillation", "PointHeadVoteSASAStatisticDistillation"):
@@ -163,7 +195,8 @@ def init_weights(model, seed=0):
     teacher's dynamic regression weight N(0, 2 / 64), biases 0 except the
     confidence / cls output biases at -log(99) (the TSM heads' `cls*_out`,
     the anchor heads' `conv_cls` and `conv_cls_g<i>`, the PointNet2FSMSG levels'
-    `confidence_out`, and Part-A2's, PointRCNN's and PVSSDA's point
+    `confidence_out`, the hybrids' `fg_pred_out` and `candidate_out`, and
+    Part-A2's, PointRCNN's, PVSSDA's and DSASNet's point
     heads' `cls_out`, set after the loop, since a module comes before its
     layers in `named_modules`; the other `cls_out`, PV-RCNN's point head's
     and the RoI heads', and SECONDHead's `iou_out` start at 0, as flax's
@@ -179,7 +212,7 @@ def init_weights(model, seed=0):
             m.weight.data.copy_(w)
             if m.bias is not None:
                 tail = name.rsplit(".", 1)[-1]
-                prior = tail == "confidence_out" or (
+                prior = tail in ("confidence_out", "fg_pred_out", "candidate_out") or (
                     tail.startswith("cls") and tail.endswith("_out") and tail != "cls_out")
                 m.bias.data.fill_(_NEG_LOG99 if prior else 0.0)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -249,7 +282,7 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
     if extra:
         raise NotImplementedError(f"model sections {sorted(extra)} are not ported")
     for section, modules in sections.items():
-        if model_cfg[section]["NAME"] not in modules:
+        if model_cfg.get(section) is not None and model_cfg[section]["NAME"] not in modules:
             raise NotImplementedError(
                 f"{section} {model_cfg[section]['NAME']} is not ported")
     dataset = meta_from_dataset(dataset)
@@ -257,7 +290,8 @@ def build_network(model_cfg, num_class, dataset, device="cuda", seed=0):
              "CaDDN": _caddn_modules,
              "CenterPoint": _centerpoint_modules, "PartA2Net": _two_stage_modules,
              "PVRCNN": _two_stage_modules, "PVRCNNPlusPlus": _two_stage_modules,
-             "PointRCNN": _pointrcnn_modules, "PVSSDA": _pvssda_modules,
+             "PointRCNN": _pointrcnn_modules, "PVSSDA": _generic_modules,
+             "DSASNet": _generic_modules, "Detector3DTemplate": _generic_modules,
              "VoxelRCNN": _two_stage_modules, "SECONDNetIoU": _two_stage_modules}.get(
                  name, _tsm_modules)
     model = detector_registry[name](model_cfg, num_class, dataset,
@@ -287,11 +321,11 @@ def _vfe(model_cfg, meta):
                meta.point_cloud_range, meta.max_voxels, meta.max_points_per_voxel)
 
 
-def _anchor_head(model_cfg, num_class, meta, input_channels):
+def _anchor_head(model_cfg, num_class, meta, input_channels, **kwargs):
     cfg = dict(model_cfg["DENSE_HEAD"])
     return _ANCHOR_HEADS[cfg["NAME"]](cfg, input_channels, num_class,
                                       tuple(meta.class_names), meta.grid_size,
-                                      meta.point_cloud_range)
+                                      meta.point_cloud_range, **kwargs)
 
 
 def _second_modules(model_cfg, num_class, meta):
@@ -406,11 +440,65 @@ def _pointrcnn_modules(model_cfg, num_class, meta):
     return [backbone, point, roi]
 
 
-def _pvssda_modules(model_cfg, num_class, meta):
-    """PVSSDA's point topology in the JAX package's module order:
-    BACKBONE_3D, POINT_HEAD (flax module_list_0..1)."""
-    backbone = _POINT_BACKBONES[model_cfg["BACKBONE_3D"]["NAME"]](
-        dict(model_cfg["BACKBONE_3D"]), meta.num_point_features, meta)
-    cfg = dict(model_cfg["POINT_HEAD"])
-    return [backbone, POINT_BOX_HEADS[cfg["NAME"]](cfg, num_class, backbone.num_point_features,
-                                                   meta)]
+def _generic_modules(model_cfg, num_class, meta):
+    """DSASNet's and PVSSDA's module list: the sections the config has, in
+    the JAX `build_module_list`'s order (VFE, BACKBONE_3D, MAP_TO_BEV,
+    BACKBONE_2D, NECK, DENSE_HEAD, POINT_HEAD, ROI_HEAD; flax
+    module_list_0.. in turn). Each module is built for the width of the
+    tensor it will be given: a PointNet++ backbone the raw points', the
+    hybrids the trunk's pyramid and the BEV map's, the neck the BEV map's
+    and the point features', the heads the width of the map or the point
+    features the module before them writes (PointFromVoxel reports 256 in
+    the JAX package and writes 128-wide point features)."""
+    sec = lambda name: dict(model_cfg[name]) if model_cfg.get(name) is not None else None
+    geometry = dict(voxel_size=meta.voxel_size, point_cloud_range=meta.point_cloud_range)
+    modules, pyramid = [], None
+    width = meta.num_point_features                   # the VFE's output width
+    bev_ch = point_ch = None
+    if sec("VFE"):
+        vfe = _vfe(model_cfg, meta)
+        modules.append(vfe)
+        width = vfe.get_output_feature_dim()
+    if cfg := sec("BACKBONE_3D"):
+        if cfg["NAME"] in _POINT_BACKBONES:
+            b3d = _POINT_BACKBONES[cfg["NAME"]](cfg, meta.num_point_features, meta)
+            point_ch = b3d.num_point_features
+        else:
+            b3d = _VOXEL_TRUNKS[cfg["NAME"]](cfg, width, meta)
+            pyramid = b3d.pyramid
+        modules.append(b3d)
+    if cfg := sec("MAP_TO_BEV"):
+        if cfg["NAME"] == "HeightCompression":
+            modules.append(HeightCompression(cfg))
+            bev_ch = int(cfg["NUM_BEV_FEATURES"])
+        else:
+            modules.append(PointPillarScatter(cfg, meta.grid_size))
+            bev_ch = width
+    if cfg := sec("BACKBONE_2D"):
+        if cfg["NAME"] == "BaseBEVBackbone":
+            b2d = BaseBEVBackbone(cfg, bev_ch)
+            bev_ch = b2d.get_output_feature_dim()
+        elif pyramid is None:
+            raise NotImplementedError(f"BACKBONE_2D {cfg['NAME']} needs a sparse trunk's pyramid")
+        elif cfg["NAME"] in ("SparsePointBackbone", "BEVPoint"):
+            b2d = HYBRIDS[cfg["NAME"]](cfg, pyramid=pyramid, **geometry)
+        else:
+            b2d = HYBRIDS[cfg["NAME"]](cfg, bev_ch, raw_channels=max(meta.num_point_features - 3, 1),
+                                       **geometry)
+        bev_ch = getattr(b2d, "bev_channels", None) or bev_ch
+        point_ch = getattr(b2d, "point_channels", point_ch)
+        modules.append(b2d)
+    if cfg := sec("NECK"):
+        neck = NECKS[cfg["NAME"]](cfg, bev_channels=bev_ch, point_channels=point_ch,
+                                  source_channels=pyramid and {s: v[0] for s, v in pyramid.items()},
+                                  **geometry)
+        bev_ch = point_ch = neck.ch
+        modules.append(neck)
+    if sec("DENSE_HEAD"):
+        modules.append(_anchor_head(model_cfg, num_class, meta, bev_ch,
+                                    predict_boxes_when_training=sec("ROI_HEAD") is not None))
+    if cfg := sec("POINT_HEAD"):
+        modules.append(POINT_BOX_HEADS[cfg["NAME"]](cfg, num_class, point_ch, meta))
+    if cfg := sec("ROI_HEAD"):
+        modules.append(PVRCNN_HEADS[cfg["NAME"]](cfg, point_ch, num_class))
+    return modules

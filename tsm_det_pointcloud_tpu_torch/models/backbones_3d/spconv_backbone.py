@@ -112,6 +112,19 @@ class SparseInverseConv(_ConvBase):
                             fine.valid, fine.grid, fine.stride)
 
 
+def _pyramid(grid0, channels, downs):
+    """{x_conv1..4: (channels, grid (gz, gy, gx), stride)} of a trunk whose
+    levels start at `grid0` and step down through the strided convs
+    `downs`: what `multi_scale_3d_features` holds."""
+    out, grid = {}, grid0
+    for i, c in enumerate(channels):
+        if i:
+            conv = downs[i - 1]
+            grid = _out_grid(grid, conv.kernel_size, conv.stride, conv.padding)
+        out[f"x_conv{i + 1}"] = (int(c), grid, 2 ** i)
+    return out
+
+
 def sparse_shape_from_meta(meta):
     """The reference adds +1 on z: sparse_shape = grid_size[::-1] + [1, 0, 0]."""
     nx, ny, nz = meta.grid_size
@@ -149,10 +162,9 @@ class VoxelBackBone8x(nn.Module):
         self.conv4_b = SubMConv(64, 64)
         self.conv_out = SparseConv(64, 128, kernel_size=(3, 1, 1), stride=(2, 1, 1),
                                    padding=0)
-        grid = self.grid0
-        for conv in (self.conv2_down, self.conv3_down, self.conv4_down):
-            grid = _out_grid(grid, conv.kernel_size, conv.stride, conv.padding)
-        self.x_conv4_grid = grid     # (gz, gy, gx) of multi_scale_3d_features' x_conv4
+        self.pyramid = _pyramid(self.grid0, (16, 32, 64, 64),
+                                (self.conv2_down, self.conv3_down, self.conv4_down))
+        self.x_conv4_grid = self.pyramid["x_conv4"][1]
 
     @staticmethod
     def _down(conv, st, capacity):
@@ -198,6 +210,11 @@ class SpaceVoxelBackBone8x(VoxelBackBone8x):
     not in the JAX package either)."""
 
 
+class DSASNetVoxelBackBone8x(VoxelBackBone8x):
+    """The JAX registry's name for VoxelBackBone8x's trunk under DSASNet
+    (JAX spconv_backbone.py:312-315: the same trunk and pyramid)."""
+
+
 class SparseBasicBlock(nn.Module):
     """Residual pair of submanifold convs on one position set: `conv1`
     (BN, ReLU), `conv2` (BN, no ReLU), then relu(out + identity) masked to
@@ -239,6 +256,8 @@ class VoxelResBackBone8x(nn.Module):
         self.res4_a, self.res4_b = SparseBasicBlock(128), SparseBasicBlock(128)
         self.conv_out = SparseConv(128, 128, kernel_size=(3, 1, 1), stride=(2, 1, 1),
                                    padding=0)
+        self.pyramid = _pyramid(self.grid0, (16, 32, 64, 128),
+                                (self.conv2_down, self.conv3_down, self.conv4_down))
 
     @staticmethod
     def _blocks(st, *convs):

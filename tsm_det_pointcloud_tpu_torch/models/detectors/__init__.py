@@ -8,7 +8,7 @@ from .point_3dssd import Point3DSSD
 from .pointpillar import PointPillar
 from .pv_rcnn import PVRCNN, PVRCNNPlusPlus
 from .second_net import SECONDNet
-from .two_stage import PVSSDA, PartA2Net, PointRCNN, SECONDNetIoU, VoxelRCNN
+from .two_stage import PVSSDA, DSASNet, PartA2Net, PointRCNN, SECONDNetIoU, VoxelRCNN
 
 __all__ = {
     "3DSSD": Point3DSSD,
@@ -24,4 +24,6 @@ __all__ = {
     "SECONDNetIoU": SECONDNetIoU,
     "CaDDN": CaDDN,
     "PVSSDA": PVSSDA,
+    "DSASNet": DSASNet,
+    "Detector3DTemplate": Detector3DTemplate,
 }

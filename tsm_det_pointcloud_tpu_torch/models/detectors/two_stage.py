@@ -66,14 +66,38 @@ class SECONDNetIoU(TwoStageBase):
 
 
 class PVSSDA(TwoStageBase):
-    """The TSM project's PVSSDA on its point topology: a PointNet++ backbone
-    (PointNet2MSG or 3DSSD's PointNet2FSMSG) -> a PointHeadBox-family head,
-    a box a point (module_list 0-1, the flax indices); no RoI head, so the
-    template's post-processing takes the point head's boxes. Its training
-    loss is `loss_point`, tb_dict `point_loss`. No loss reads a
-    PointNet2FSMSG level's confidence scores: their MLPs get no gradient
-    (the JAX package's is zero) and `unused_parameters` says so, for DDP."""
+    """The TSM project's PVSSDA, the module list its config wires
+    (`models.build_network`'s generic topology). On its point topology: a
+    PointNet++ backbone (PointNet2MSG or 3DSSD's PointNet2FSMSG) -> a
+    PointHeadBox-family head, a box a point (module_list 0-1, the flax
+    indices); no RoI head, so the template's post-processing takes the
+    point head's boxes; training loss `loss_point`, tb_dict `point_loss`.
+    On its BEV topology: PillarVFE, PointNet2MSG, the pillar scatter, the
+    BEV backbone, the VoxelPointCross neck and an anchor head (module_list
+    0-5), whose loss is the anchor head's. No loss reads a PointNet2FSMSG
+    level's confidence scores, nor the neck's point branch (nor, through
+    it, the PointNet++ backbone): their parameters get no gradient (the
+    JAX package's is zero) and `unused_parameters` says so, for DDP."""
 
     @property
     def unused_parameters(self):
-        return any(getattr(m, "has_confidence", False) for m in self.module_list[0].modules())
+        from ..neck.voxel_point_cross import VoxelPointCross
+
+        return any(getattr(m, "has_confidence", False) or isinstance(m, VoxelPointCross)
+                   for m in self.modules())
+
+
+class DSASNet(TwoStageBase):
+    """The TSM project's DSASNet, `TwoStageBase` under another name (JAX
+    two_stage.py:54-57), on the module list its config wires: dsasnet.yaml's
+    MeanVFE -> DSASNetVoxelBackBone8x -> HeightCompression -> a BEV / point
+    hybrid 2D backbone -> DSASNetHead (a box a key point) -> DSASNetRoIHead
+    (PV-RCNN's RoI grid over the hybrid's points), module_list 0-5. Its
+    training loss is `loss_point` plus the RoI head's. No loss reads the
+    hybrid's own fg, cls and statistic-tag layers (SparsePointBackbone's
+    `point_cls_preds` are overwritten by the point head's), nor the trunk's
+    `conv_out` where no module reads the BEV map: their parameters get no
+    gradient, as the JAX package's are zero, and `unused_parameters` says
+    so, for DDP."""
+
+    unused_parameters = True

@@ -87,3 +87,20 @@ class PVRCNNHead(tmpl.RoIHeadTemplate):
         hc = tmpl.run_fc_stack(self, "cls", self.n_fc["cls"], h, roi_valid)
         hr = tmpl.run_fc_stack(self, "reg", self.n_fc["reg"], h, roi_valid)
         return self.cls_out(hc)[..., 0], self.reg_out(hr)
+
+
+class EPointRoIHead(PVRCNNHead):
+    """PVRCNNHead under the TSM project's EPointRoIHead name (JAX
+    pvrcnn_head.py:139-150: the same head under three names)."""
+
+
+class EPointRoIHeadV2(PVRCNNHead):
+    """PVRCNNHead under the TSM project's EPointRoIHeadV2 name."""
+
+
+class DSASNetRoIHead(PVRCNNHead):
+    """PVRCNNHead under the TSM project's DSASNetRoIHead name."""
+
+
+PVRCNN_HEADS = {"PVRCNNHead": PVRCNNHead, "EPointRoIHead": EPointRoIHead,
+                "EPointRoIHeadV2": EPointRoIHeadV2, "DSASNetRoIHead": DSASNetRoIHead}

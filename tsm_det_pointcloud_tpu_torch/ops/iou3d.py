@@ -16,6 +16,10 @@ import torch
 
 from .boxes import boxes_to_corners_bev
 
+# iterations of the keep fixpoint (`_suppression_fixpoint`) since the last
+# reset: each ends in one host sync (`infer.profile_call` reads it)
+FIXPOINT_ITERS = [0]
+
 
 def stable_top_k(x, k):
     """(N,) -> (values (k,), int64 indices (k,)), descending; ties keep the
@@ -111,6 +115,7 @@ def _suppression_fixpoint(S, valid):
     which equals greedy NMS in rank order."""
     keep = valid
     while True:
+        FIXPOINT_ITERS[0] += 1
         suppressed = (S & keep[:, None]).any(dim=0)
         new = valid & ~suppressed
         if torch.equal(new, keep):

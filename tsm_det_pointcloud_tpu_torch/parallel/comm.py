@@ -12,8 +12,9 @@ CPU gloo; `backend=` overrides (two processes on one card need gloo).
 
 The host-side helpers (`all_gather_object`, `all_reduce_mean`,
 `reduce_dict`, `merge_results_dist`) order and trim as the JAX versions do.
-The model code calls two more: `global_sum` (an all-reduce whose backward
-all-reduces the gradient, as XLA's psum transposes) and `global_any`. They
+The model code calls three more: `global_sum` (an all-reduce whose backward
+all-reduces the gradient, as XLA's psum transposes), `global_any` and
+`global_max` (the hybrids' class statistics, no gradient). They
 reduce over the data group: every process, or under point-axis sharding
 the processes that hold the same points shard of other samples
 (`set_data_group`). Losses that sum over the batch take a rank's partial
@@ -225,6 +226,15 @@ def all_gather_cat(t, dim, group):
     differentiable: the backward sums the ranks' gradients and takes this
     rank's part (XLA's all_gather transposes to a psum_scatter)."""
     return _GatherCat.apply(t, dim, group)
+
+
+def global_max(t):
+    """`t`'s elementwise maximum over the data group (no gradient)."""
+    if data_world_size() == 1:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_DATA["group"])
+    return out
 
 
 def global_any(mask):

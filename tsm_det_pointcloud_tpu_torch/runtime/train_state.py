@@ -48,11 +48,13 @@ def freeze_teacher(model):
 
 def train_step(model, optimizer, batch):
     """One step on `batch` (a dict of device tensors with gt_boxes and
-    gt_boxes_mask): train-mode forward, backward, optimizer update. Returns
-    the loss and the tb_dict as device tensors; nothing is synchronised."""
+    gt_boxes_mask): train-mode forward, backward, optimizer update. The
+    forward gets `accumulated_iter`, the optimizer's steps so far (the
+    hybrids' class statistics start at their STAT_START_ITER). Returns the
+    loss and the tb_dict as device tensors; nothing is synchronised."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    out = model(dict(batch))
+    out = model(dict(batch, accumulated_iter=optimizer.state["count"]))
     loss = out["loss"]
     loss.backward()
     optimizer.step()

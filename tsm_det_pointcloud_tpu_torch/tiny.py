@@ -973,10 +973,12 @@ TWO_STAGE_CLS_BIAS = -2.0
 def two_stage_model(which):
     """(model config, DatasetMeta) of the tiny Part-A2 ("parta2"), PV-RCNN
     ("pvrcnn"), PV-RCNN++ ("pvrcnnplusplus"), PointRCNN ("pointrcnn"), Voxel
-    R-CNN ("voxelrcnn"), SECONDNetIoU ("secondnetiou") or PVSSDA on
-    PointNet2FSMSG ("pvssda", TwoStageBase's detector with no RoI head)."""
+    R-CNN ("voxelrcnn"), SECONDNetIoU ("secondnetiou"), PVSSDA on
+    PointNet2FSMSG ("pvssda", TwoStageBase's detector with no RoI head) or
+    DSASNet on SparsePointBackbone ("dsasnet")."""
     cfg, meta = {"parta2": (parta2_model_cfg, PARTA2_META),
                  "pvssda": (pvssda_model_cfg, PVSSDA_META),
+                 "dsasnet": (dsasnet_model_cfg, DSASNET_META),
                  "pvrcnn": (pvrcnn_model_cfg, PVRCNN_META),
                  "pvrcnnplusplus": (pvrcnnplusplus_model_cfg, PVRCNN_META),
                  "pointrcnn": (pointrcnn_model_cfg, POINTRCNN_META),
@@ -1030,11 +1032,14 @@ def two_stage_state(which, seed=4, train=False):
     `redraw_state` draws it (PV-RCNN++'s entries of PV-RCNN's names and
     shapes as PV-RCNN's: SHARED_DRAWS), the anchor head's conv_cls bias at
     TWO_STAGE_CLS_BIAS; with `train` the channels-last BN biases raised by
-    TWO_STAGE_TRAIN_BN_LIFT. PVSSDA's is `pvssda_state`."""
+    TWO_STAGE_TRAIN_BN_LIFT. PVSSDA's is `pvssda_state`, DSASNet's
+    `dsasnet_state`."""
     from .models.backbones_3d.pointnet2_modules import BatchNorm
 
     if which == "pvssda":
         return pvssda_state(train=train)
+    if which == "dsasnet":
+        return dsasnet_state(train=train)
     drawn, model = _drawn(which, seed)
     if which in SHARED_DRAWS:
         shared = _drawn(SHARED_DRAWS[which], seed)[0]
@@ -1289,6 +1294,125 @@ def pvssda_state(which="fsmsg", seed=12, train=False):
         if train and key in lifted:
             v = v + TWO_STAGE_TRAIN_BN_LIFT
         elif train and key.startswith(("module_list.1.cls_out.", "module_list.1.box_out.")):
+            v = v * POINTRCNN_TRAIN_GAIN
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+# the tiny DSASNets (the TSM project's two-stage detector over a BEV / point
+# hybrid 2D backbone) on the tiny PV-RCNN's geometry: VoxelBackBone8x's
+# pyramid of a 32 x 32 x 41 grid (x_conv4 5 x 4 x 4, a 4 x 4 BEV map of 256
+# channels), on `second_points(2, 256)` (the 50-point car cluster at (8, 0,
+# -1); `pvssda_gt` its training boxes); a hybrid each, at narrow widths
+DSASNET_META = PVRCNN_META
+DSASNET_FORWARD_PATH = STATE_PATH.parent / "dsasnet_tiny_forward.npz"
+DSASNET_POOL = {
+    "FEATURES_SOURCE": ["x_conv3", "x_conv4"],
+    "POOL_LAYERS": {
+        "x_conv3": {"MLPS": [[8, 8]], "POOL_RADIUS": [1.2], "NSAMPLE": [8],
+                    "QUERY_RANGES": [[2, 2, 2]]},
+        "x_conv4": {"MLPS": [[8, 8]], "POOL_RADIUS": [2.4], "NSAMPLE": [8],
+                    "QUERY_RANGES": [[2, 2, 2]]},
+    },
+}
+# SparsePointBackbone ("spb"): 128 key-point candidates, 48 + 16 picked, the
+# second stage's weights 0 within 8 m (so that some of its rows run out of
+# weighted points and pick ties); PointFromVoxel ("pfv") and VoxelPointCross
+# ("vpc") on 8 z-groups of the 256 channels; BEVPoint ("bevpoint") over
+# x_conv2-4 at stride 2, 32 raw key points
+DSASNET_HYBRIDS = {
+    "spb": {"NAME": "SparsePointBackbone", "FG_CORNER_POINTS": [128, 64],
+            "PTS_NUM_SAMPLE": [48, 16], "MAX_TRANSLATION_RANGE": [3.0, 3.0, 2.0], "N_CLS": 3,
+            "NUM_POINT_FEATURES": 32, "SP_SOURCE": "x_conv4", "NEAR_RADIUS": 8.0,
+            "STAT_START_ITER": 0, "POINT_GRID_POOL": DSASNET_POOL},
+    "pfv": {"NAME": "PointFromVoxel", "Z_GROUPS": 8, "LOCAL_CH": 4, "GLOBAL_CH": 8,
+            "FG_CORNER_POINTS": [[64, 32], [16, 8]], "SAMPLE_FPS": True, "STAT_START_ITER": 0},
+    "vpc": {"NAME": "VoxelPointCross", "Z_GROUPS": 8, "TRUNK_CH": 32, "N_BLOCK": [1, 1],
+            "FG_CORNER_POINTS": [[32, 32], [24, 8]], "SAMPLE_FPS": True,
+            "SA_CONFIG": {"RADIUS": [1.6], "NSAMPLE": [8], "MLPS": [[16, 16]]}},
+    "bevpoint": {"NAME": "BEVPoint", "NUM_FILTERS": 8, "N_BLOCK": [1, 1, 1],
+                 "NUM_RAW_KEYPOINTS": 32},
+}
+
+
+def dsasnet_model_cfg(which="spb"):
+    """The tiny DSASNet on the hybrid `which` (DSASNET_HYBRIDS): MeanVFE,
+    DSASNetVoxelBackBone8x, HeightCompression, the hybrid, DSASNetHead (the
+    tiny PVSSDA's point head) and, on SparsePointBackbone, DSASNetRoIHead
+    (the tiny PV-RCNN's RoI head). The other hybrids' tiny DSASNets stop at
+    the point head: the RoI head reads their point features as it reads
+    SparsePointBackbone's, and the JAX compile of its training step is two
+    thirds of a tiny model's. Their NMS takes scores from 0.01: the point
+    head's seeded logits on VoxelPointCross lie around -3.4, where none
+    passes 0.1."""
+    cfg = EDict({
+        "NAME": "DSASNet",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "DSASNetVoxelBackBone8x"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": dict(DSASNET_HYBRIDS[which]),
+        "POINT_HEAD": dict(_pvssda_head(True), NAME="DSASNetHead"),
+        "POST_PROCESSING": _two_stage_post(nms_pre=32),
+    })
+    if which == "spb":
+        cfg["ROI_HEAD"] = EDict(pvrcnn_model_cfg().ROI_HEAD, NAME="DSASNetRoIHead")
+    else:
+        cfg.POST_PROCESSING.SCORE_THRESH = 0.01
+    return cfg
+
+
+# the tiny PVSSDA on its BEV topology (the JAX package's
+# test_voxel_point_cross_neck_in_detector): PillarVFE, PointNet2MSG, the
+# pillar scatter, a one-level BEV backbone at stride 2, the VoxelPointCross
+# neck, an anchor head, on the tiny PointPillars' pillars
+PVSSDA_NECK_META = POINTPILLAR_META
+
+
+def pvssda_neck_model_cfg():
+    pp = pointpillar_model_cfg()
+    return EDict({
+        "NAME": "PVSSDA",
+        "VFE": pp.VFE,
+        "BACKBONE_3D": pvssda_model_cfg("msg").BACKBONE_3D,
+        "MAP_TO_BEV": pp.MAP_TO_BEV,
+        "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [1], "LAYER_STRIDES": [2],
+                        "NUM_FILTERS": [16], "UPSAMPLE_STRIDES": [1],
+                        "NUM_UPSAMPLE_FILTERS": [16]},
+        "NECK": {"NAME": "VoxelPointCross", "NUM_FILTERS": 16},
+        "DENSE_HEAD": pp.DENSE_HEAD,
+        "POST_PROCESSING": pp.POST_PROCESSING,
+    })
+
+
+def dsasnet_model(which):
+    """(model config, DatasetMeta) of a tiny DSASNet (DSASNET_HYBRIDS) or of
+    the tiny PVSSDA on its BEV topology ("neck")."""
+    if which == "neck":
+        return pvssda_neck_model_cfg(), PVSSDA_NECK_META
+    return dsasnet_model_cfg(which), DSASNET_META
+
+
+def dsasnet_state(which="spb", seed=13, train=False):
+    """The tiny DSASNet's (or the neck PVSSDA's) state for its checks: every
+    entry of the port model's state dict drawn from numpy's
+    RandomState(seed) (`redraw_state`: the hybrids' statistics buffers
+    non-zero, so that their class conditioning is not constant); with
+    `train` the channels-last BN biases raised by TWO_STAGE_TRAIN_BN_LIFT
+    and the point head's output layers times POINTRCNN_TRAIN_GAIN, as the
+    tiny PVSSDA's training state."""
+    from .models import build_network
+    from .models.backbones_3d.pointnet2_modules import BatchNorm
+
+    cfg, meta = dsasnet_model(which)
+    model = build_network(cfg, 1, meta, device="cpu", seed=0)
+    lifted = {f"{name}.bias" for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    heads = tuple(f"module_list.{i}.{n}." for i, m in enumerate(model.module_list)
+                  if type(m).__name__ == "DSASNetHead" for n in ("cls_out", "box_out"))
+    out = {}
+    for key, v in redraw_state(model.state_dict(), seed).items():
+        if train and key in lifted:
+            v = v + TWO_STAGE_TRAIN_BN_LIFT
+        elif train and heads and key.startswith(heads):
             v = v * POINTRCNN_TRAIN_GAIN
         out[key] = torch.from_numpy(v.astype(np.float32))
     return out

@@ -1,7 +1,7 @@
 """Training entry point: the fast_cpc distillation step, the TSM teacher's
 step or the step of another detector of the KITTI zoo (SECOND, PointPillars,
 CenterPoint, Part-A2, PV-RCNN, PV-RCNN++, PointRCNN, Voxel R-CNN,
-SECONDNetIoU, CaDDN) or of the CenterPoints of nuScenes, Lyft and PandaSet,
+SECONDNetIoU, CaDDN, PVSSDA, DSASNet) or of the CenterPoints of nuScenes, Lyft and PandaSet,
 on synthetic scans or on a dataset (KITTI, Waymo, nuScenes, Lyft or
 PandaSet; CaDDN, a camera detector, on synthetic camera batches alone).
 
@@ -32,6 +32,8 @@ Synthetic-scan mode:
         --batch 4 --points 300000
     python -m tsm_det_pointcloud_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/CaDDN.yaml --batch 2
+    python -m tsm_det_pointcloud_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/dsasnet.yaml --batch 2 --points 20000
 Dataset mode (`--data_root DIR`, or `--dataset` for the config's DATA_PATH;
 the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -181,12 +183,19 @@ def add_camera(batch, seed=0):
 def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1,
                   pretrained_model=None, dataset=None, set_cfgs=None):
     """(cfg, model in train mode, optimizer over the parameters that train:
-    the student's for a distillation config, else all of them).
+    the student's for a distillation config, else all of them); `cfg_file`
+    may be a loaded config.
     pretrained_model: a checkpoint file whose weights and class statistics
     are loaded first (as the JAX tools/train.py:161-171 does). dataset: the
     training dataset whose geometry the model takes, else the config's
-    (`infer.dataset_meta` at n_points). set_cfgs: `--set` overrides."""
-    cfg = load_cfg(cfg_file, set_cfgs)
+    (`infer.dataset_meta` at n_points). set_cfgs: `--set` overrides of the
+    config file (a loaded config takes none: it is not copied)."""
+    if isinstance(cfg_file, dict):
+        if set_cfgs:
+            raise ValueError("set_cfgs apply to a config file, not to a loaded config")
+        cfg = cfg_file
+    else:
+        cfg = load_cfg(cfg_file, set_cfgs)
     if dataset is None:
         dataset = dataset_meta(cfg, n_points, "train")
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=dataset,
