@@ -818,6 +818,30 @@ NUSC_POINTS, NUSC_BATCH, NUSC_ITERS, NUSC_TRAIN_ITERS = 300000, 4, 3, 2
 # .npy scans (each a val keyframe's 10-sweep cloud)
 NUSC_TRAIN_SCENES, NUSC_VAL_SCENES, NUSC_KEYFRAMES, NUSC_SWEEP_POINTS = 1, 1, 4, 34720
 NUSC_DEMO_SCANS = 2
+# phases 81-85 (below): the last options of the JAX package
+PP_MULTIHEAD_CFG = "nuscenes_models/cbgs_pp_multihead.yaml"
+# its BATCH_SIZE_PER_GPU (the eval batch too), counted batches; the scans are
+# phase 58's (NUSC_POINTS)
+PP_MULTIHEAD_BATCH, PP_MULTIHEAD_ITERS = 4, 3
+# pillar_options: pointpillar.yaml's BATCH_SIZE_PER_GPU, counted batches, steps
+# an optimizer and of its train --data_root run (on as many train frames of
+# phase 22's root as that takes: the synthetic steps' shapes, whose cuDNN
+# choices are made then)
+PILLAR_OPTIONS_BATCH, PILLAR_OPTIONS_ITERS, PILLAR_OPTIONS_STEPS = 4, 3, 2
+# a pass's kernel calls of the variants (eval, training step); the teacher3
+# eval's are fast_cpc.yaml's plus teacher layer 1's s-fps, voxel query, probes
+# and U-Net, its step's plus layer 2's; the RoI head's SA stack without the
+# group-all layer makes the same calls as pointrcnn.yaml's
+OPTION_CALLS = {
+    "teacher3": ({"fps": 3, "query_group": 4, "probe": 4, "spconv_bykey": 20},
+                 {"fps": 4, "query_group": 6, "probe": 6, "spconv_bykey": 30,
+                  "spconv_bykey_bwd": 10}),
+    "pointrcnn_pool_last": ({"fps": 6, "query_group": 6}, {"fps": 6, "query_group": 6})}
+OPTION_BATCH = {"teacher3": (16, 16), "pointrcnn_pool_last": (4, 2)}   # eval, training
+OPTION_POINTS = 16384
+OPTION_KERNELS = ("fps", "query_group", "probe", "spconv_bykey", "spconv_bykey_bwd")
+OPTION_HELD = {"teacher3": ("s_point_features", "s_point_coords", "batch_cls_preds",
+                            "batch_box_preds")}
 # what its converter makes of the OpenPCDet-named reference checkpoint of the
 # seeded full-width detector: (unplaced, placed on their own leaf, placed on
 # another leaf); the groups' branches share their shapes (ROADMAP §C)
@@ -3742,6 +3766,7 @@ PROFILES = (("pointpillar.yaml", PILLAR_PROFILE_BATCH, ZOO_POINTS),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in VOXEL_ROI.values()),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in PVRCNN_PP.values()),
             (NUSC_CFG, NUSC_BATCH, NUSC_POINTS), (PVSSDA_CFG, PVSSDA_PROFILE_BATCH, PVSSDA_POINTS),
+            (PP_MULTIHEAD_CFG, PP_MULTIHEAD_BATCH, NUSC_POINTS),
             *((name, batch, TWO_STAGE_POINTS) for name, batch, _, _ in DSASNET.values()))
 
 
@@ -3977,24 +4002,30 @@ def check_variant_calls(label, calls, launches, want):
           f"{label}: recorded kernel calls {got}, launches {ran}, not {want}")
 
 
-def _held_within(name, res):
-    """The card's outputs of `VARIANT_HELD[name]` against the CPU's at the
-    golden tolerance (bool outputs equal); the worst difference in units of
-    max(1, max|want|)."""
+def _hold_close(label, got, want):
+    """Each tensor of `want` (CPU) against `got` (the card's) at the golden
+    tolerance (bool and integer tensors equal); the worst difference in units
+    of max(1, max|want|)."""
     import torch
 
     worst = 0.0
-    for k in VARIANT_HELD[name]:
-        g, w = res["cuda"][k], res["cpu"][k]
-        if w.dtype == torch.bool:
-            check(torch.equal(g, w), f"{name}: {k} on the card differs from the CPU's")
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.dtype in (torch.bool, torch.int32, torch.int64):
+            check(torch.equal(g, w), f"{label}: {k} on the card differs from the CPU's")
             continue
         scale = max(1.0, float(w.abs().max()))
         diff = float((g - w).abs().max())
-        check(bool(torch.allclose(g, w, rtol=1e-3, atol=1e-3 * scale)),
-              f"{name}: {k} on the card differs from the CPU's by {diff}")
+        check(g.shape == w.shape and bool(torch.allclose(g, w, rtol=1e-3, atol=1e-3 * scale)),
+              f"{label}: {k} on the card differs from the CPU's by {diff}")
         worst = max(worst, diff / scale)
     return worst
+
+
+def _held_within(name, res):
+    """The card's outputs of `VARIANT_HELD[name]` against the CPU's
+    (`_hold_close`); the worst difference in units of max(1, max|want|)."""
+    return _hold_close(name, res["cuda"], {k: res["cpu"][k] for k in VARIANT_HELD[name]})
 
 
 def dsasnet_variant_phases(dev):
@@ -5905,6 +5936,536 @@ def pvssda_profile(profiles):
           f"{len(names)} kernels; top {names[:6]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 81-85: the JAX package's last options: OpenPCDet's
+# cbgs_pp_multihead.yaml and the variants of `infer.variant_cfg` that are the
+# first users of the others (pillar_options, teacher3, pointrcnn_pool_last)
+# ---------------------------------------------------------------------------
+
+def pp_multihead_phases(dev, nusc_root):
+    """Phases 81-82: OpenPCDet's cbgs_pp_multihead.yaml. 81: the tiny
+    multi-head's JAX golden (`tiny.pp_multihead_state()`) on the card. 82:
+    eval at b4 on phase 58's 10-sweep synthetic scans (warm-up, then
+    PP_MULTIHEAD_ITERS counted batches: scans/s, peak memory, pillars and
+    anchors over SCORE_THRESH a scan), one scan on the card against the CPU,
+    a training step at the published batch after a warm-up step, and
+    `evaluate` (seeded weights) on phase 59's synthetic nuScenes root, the
+    val keyframes: a finite NDS dict. PointPillars runs no hand-written
+    kernel: none may be called or launched."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import evaluate, tiny
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    def no_kernel(label):
+        check(not any(_kernels.LAUNCHES.values()),
+              f"{label} launched hand-written kernels: {dict(_kernels.LAUNCHES)}")
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    m = build_network(tiny.pp_multihead_model_cfg(), 10, tiny.PP_MULTIHEAD_META, device=dev)
+    m.load_state_dict(tiny.pp_multihead_state(), strict=True)
+    pts = torch.from_numpy(tiny.nusc_points(2)).to(dev)
+    out, pred = detect(m, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+    hold_golden("pp_multihead tiny", out, pred, tiny.PP_MULTIHEAD_FORWARD_PATH)
+    no_kernel("the tiny multi-head")
+    del m, out, pred
+    print(f"phase 81: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg_file = cfg_path(PP_MULTIHEAD_CFG)
+    cfg, model = build_detector(cfg_file, dev, seed=0, n_points=NUSC_POINTS)
+    post = cfg.MODEL.POST_PROCESSING
+    post_max = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, PP_MULTIHEAD_BATCH, NUSC_POINTS, seed=s))
+               .to(dev) for s in range(PP_MULTIHEAD_ITERS)]
+    mask = torch.ones(batches[0].shape[:2], dtype=torch.bool, device=dev)
+    _kernels.reset_launches()
+    t_w = time.perf_counter()
+    detect(model, batches[0], mask)      # warm-up: cuDNN times its algorithms
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t_w
+    torch.cuda.reset_peak_memory_stats()
+    t_e = time.perf_counter()
+    preds = [detect(model, b, mask) for b in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_e
+    no_kernel("cbgs_pp_multihead eval")
+    for o, p in preds:
+        # spatial_features_2d: the shared conv's 64 channels over the 128 x 128 x 384 map
+        check(tuple(o["batch_box_preds"].shape) == (PP_MULTIHEAD_BATCH, 327680, 7)
+              and tuple(o["box_preds"].shape)[-1] == 8
+              and tuple(o["spatial_features_2d"].shape[1:]) == (128, 128, 64)
+              and model.module_list[2].get_output_feature_dim() == 384,
+              f"cbgs_pp_multihead shapes {tuple(o['batch_box_preds'].shape)}, "
+              f"{tuple(o['spatial_features_2d'].shape)}")
+        for key in ("batch_cls_preds", "batch_box_preds"):
+            check(bool(torch.isfinite(o[key]).all()), f"cbgs_pp_multihead: non-finite {key}")
+        check(bool((p["count"] <= post_max).all()) and all(
+            bool(torch.isfinite(p[k]).all()) for k in ("pred_boxes", "pred_scores")),
+            f"cbgs_pp_multihead detections {p['count'].tolist()}")
+    pillars, over = voxel_anchor_counts(model, preds[-1][0])
+    print(f"cbgs_pp_multihead eval: {PP_MULTIHEAD_ITERS} batches x {PP_MULTIHEAD_BATCH} scans x "
+          f"{NUSC_POINTS} points in {dt:.3f} s = {PP_MULTIHEAD_ITERS * PP_MULTIHEAD_BATCH / dt:.3f} "
+          f"scans/s (warm-up batch {warm:.3f} s); pillars a scan (capacity {meta.max_voxels}, "
+          f"{meta.max_points_per_voxel} points a pillar) {pillars}; anchors over SCORE_THRESH "
+          f"{post.SCORE_THRESH} a scan {over} of 327680; detections (last batch) "
+          f"{preds[-1][1]['count'].tolist()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no hand-written kernel")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    scan = batches[0][:1]
+    with torch.no_grad():
+        got = model({"points": scan, "points_mask": mask[:1], "batch_size": 1})
+    cpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device="cpu").eval()
+    cpu.load_state_dict(state, strict=True)
+    with torch.no_grad():
+        want = cpu({"points": scan.cpu(), "points_mask": mask[:1].cpu(), "batch_size": 1})
+    keys = ("voxel_coords", "spatial_features_2d", "batch_cls_preds", "batch_box_preds")
+    worst = _hold_close("cbgs_pp_multihead scan", got, {k: want[k] for k in keys})
+    print(f"cbgs_pp_multihead: a scan of {NUSC_POINTS} points on the card against the CPU: "
+          f"{', '.join(keys)} within {worst:.3g} x max(1, max|want|)")
+    del model, preds, batches, cpu, got, want, o, p
+    torch.cuda.empty_cache()
+
+    _, tmodel, opt = build_trainer(cfg_file, dev, seed=0, n_points=NUSC_POINTS, total_steps=2)
+    tmeta = tmodel.dataset_meta
+    tb = [synth_train_batch(PP_MULTIHEAD_BATCH, NUSC_POINTS, s, dev, tmeta.point_cloud_range,
+                            tmeta.num_point_features, n_classes=10) for s in range(2)]
+    t_w = time.perf_counter()
+    warm_loss, _ = train_step(tmodel, opt, tb[0])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t_w
+    before = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t_s = time.perf_counter()
+    loss, tbd = train_step(tmodel, opt, tb[1])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_s
+    no_kernel("cbgs_pp_multihead training")
+    check(bool(torch.isfinite(warm_loss)) and bool(torch.isfinite(loss)),
+          f"cbgs_pp_multihead training losses {float(warm_loss)}, {float(loss)}")
+    for n, p in tmodel.named_parameters():
+        check(not torch.equal(p, before[n]), f"cbgs_pp_multihead parameter {n} did not change")
+    print(f"cbgs_pp_multihead training: b{PP_MULTIHEAD_BATCH} x {NUSC_POINTS} points, gt boxes of "
+          f"the ten classes; warm-up step {warm:.3f} s (cuDNN's first calls), loss "
+          f"{float(warm_loss):.4f}; the counted step {1e3 * dt:.1f} ms = "
+          f"{PP_MULTIHEAD_BATCH / dt:.3f} train scans/s, loss {float(loss):.4f} ("
+          + ", ".join(f"{k} {float(v):.4f}" for k, v in tbd.items())
+          + f"); {len(before)} parameters changed; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tmodel, opt, tb, before
+    torch.cuda.empty_cache()
+
+    _kernels.reset_launches()
+    res = evaluate.main(["--cfg_file", str(cfg_file), "--data_root", str(nusc_root),
+                         "--workers", str(KITTI_WORKERS), "--device", str(dev),
+                         "--batch_size", str(PP_MULTIHEAD_BATCH), "--output_dir",
+                         str(nusc_root.parent / "pp_multihead")])
+    no_kernel("cbgs_pp_multihead evaluate")
+    summary = {k: res[k] for k in ("NDS", "mAP", "mATE", "mASE", "mAOE", "mAVE", "mAAE")}
+    check(all(np.isfinite(v) for v in summary.values()),
+          f"cbgs_pp_multihead evaluate: {summary}")
+    print(f"cbgs_pp_multihead evaluate (seeded weights) on phase 59's val keyframes: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in summary.items()) + f"; {eval_line(res)}")
+    print(f"phase 82: {time.perf_counter() - t0:.1f} s")
+
+
+def pp_multihead_profile(profiles):
+    """Phase 82's profile: `infer --profile` of cbgs_pp_multihead.yaml at
+    b4 x NUSC_POINTS (`profiles`, from `infer_profiles`): the device-only
+    busy share of an eval batch and of its post-processing alone; no cuDNN
+    FFT (`fft` / `cgemm`) kernel may run."""
+    (wall, busy, names), (pwall, pbusy, _) = profiles[PP_MULTIHEAD_CFG]
+    fft = [k for k in names if "fft" in k.lower() or "cgemm" in k.lower()]
+    check(not fft, f"cbgs_pp_multihead: cuDNN ran FFT convolutions: {fft}")
+    print(f"cbgs_pp_multihead profile: busy {busy:.3f} of {wall:.3f} ms "
+          f"({100 * busy / wall:.1f}%), post-processing alone {pbusy:.3f} ms device time of "
+          f"{pwall:.3f} ms; {len(names)} kernels, none an FFT")
+
+
+def _multi_thresh_inputs(model, out, b):
+    """Scan b's (max class score, boxes, 1-based labels) as the detector's
+    post-processing hands them to `multi_thresh_nms`."""
+    import torch
+
+    scores, labels = torch.sigmoid(out["batch_cls_preds"][b]).max(-1)
+    return scores, out["batch_box_preds"][b, :, :7], (labels + 1).to(torch.int32)
+
+
+def pillar_options_phases(dev, kitti_root):
+    """Phase 83: `infer.variant_cfg("pillar_options")` (pointpillar.yaml
+    with a two-layer PFN on the distance, no absolute xyz, a strided-conv
+    deblock0 and a deblock_final, per-class SCORE_THRESH with nms_normal, the
+    frustum dropout, adam) at full width: eval b4 x 20000 (warm-up, then
+    PILLAR_OPTIONS_ITERS counted batches: scans/s, the boxes the per-pass
+    nms_normal keeps a scan); on the last batch's first scan the
+    post-processing alone, device time, through the per-pass route with
+    nms_normal and with nms_gpu over the 321,408 boxes and the matrix route
+    over the best 4096 of them; one scan on the card against the CPU;
+    PILLAR_OPTIONS_STEPS training steps under adam and as many under sgd,
+    each step's lr printed; then `train --data_root` on phase 22's root, its
+    first 8 train frames at b4 (2 steps) with the frustum dropout on. The JAX augmentor cuts the gt boxes a dropout drops but not their
+    names nor gt_boxes_mask, so a sample that drops a box fails the mask at
+    the end of the augmentor queue (IndexError; ROADMAP §C), in the port as
+    in the JAX package: the phase first draws each train sample in this
+    process as the loader draws it ((seed, epoch, index)), and the run must
+    fail with that error when one of them does, else train its 2 steps."""
+    import pickle
+
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import train
+    from tsm_det_pointcloud_tpu_torch.config import cfg_from_list
+    from tsm_det_pointcloud_tpu_torch.datasets import seed_for_sample
+    from tsm_det_pointcloud_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset
+    from tsm_det_pointcloud_tpu_torch.infer import (build_detector, detect, synth_scans,
+                                                    variant_cfg, voxel_anchor_counts)
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.models.model_utils import model_nms_utils
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    t0 = time.perf_counter()
+    cfg, model = build_detector(None, dev, seed=0, n_points=ZOO_POINTS, variant="pillar_options")
+    post = cfg.MODEL.POST_PROCESSING
+    nms_cfg = dict(post.NMS_CONFIG)
+    meta = model.dataset_meta
+    batches = [torch.from_numpy(synth_scans(meta, PILLAR_OPTIONS_BATCH, ZOO_POINTS, seed=s))
+               .to(dev) for s in range(PILLAR_OPTIONS_ITERS)]
+    mask = torch.ones(batches[0].shape[:2], dtype=torch.bool, device=dev)
+    _kernels.reset_launches()
+    detect(model, batches[0], mask)      # warm-up: cuDNN times its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_e = time.perf_counter()
+    preds = [detect(model, b, mask) for b in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_e
+    check(not any(_kernels.LAUNCHES.values()), f"pillar_options launched {dict(_kernels.LAUNCHES)}")
+    out, pred = preds[-1]
+    check(tuple(out["spatial_features_2d"].shape[1:]) == (248, 216, 384)
+          and tuple(out["batch_box_preds"].shape) == (PILLAR_OPTIONS_BATCH, 321408, 7),
+          f"pillar_options shapes {tuple(out['spatial_features_2d'].shape)}")
+    for o, p in preds:
+        check(all(bool(torch.isfinite(o[k]).all()) for k in ("batch_cls_preds",
+                                                             "batch_box_preds"))
+              and bool((p["count"] <= int(nms_cfg["NMS_POST_MAXSIZE"])).all()),
+              f"pillar_options detections {p['count'].tolist()}")
+    pillars, over = voxel_anchor_counts(model, out)
+    print(f"pillar_options eval: {PILLAR_OPTIONS_ITERS} batches x {PILLAR_OPTIONS_BATCH} scans x "
+          f"{ZOO_POINTS} points in {dt:.3f} s = {PILLAR_OPTIONS_ITERS * PILLAR_OPTIONS_BATCH / dt:.3f} "
+          f"scans/s; pillars a scan {pillars}; anchors over their class's SCORE_THRESH a scan "
+          f"{over} of 321408; boxes the per-pass nms_normal kept a scan (last batch) "
+          f"{pred['count'].tolist()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no hand-written kernel")
+
+    # the post-processing of one scan alone: the per-pass route (n > max(pre,
+    # 4096)) with either NMS, and the matrix route over the same scan's best
+    # 4096 boxes (n = 4096 takes it)
+    scores, boxes, labels = _multi_thresh_inputs(model, out, 0)
+    thresh = list(post.SCORE_THRESH)
+    top = torch.sort(scores, descending=True, stable=True).indices[:4096]
+    runs, nms_report = {}, {}
+    for label, nms_type, sel in (("per-pass nms_normal", "nms_normal", None),
+                                 ("per-pass nms_gpu", "nms_gpu", None),
+                                 ("matrix nms_normal, best 4096", "nms_normal", top),
+                                 ("matrix nms_gpu, best 4096", "nms_gpu", top)):
+        args = ((scores, boxes, labels) if sel is None else
+                (scores[sel], boxes[sel], labels[sel])) + (dict(nms_cfg, NMS_TYPE=nms_type),
+                                                           thresh)
+        _, cnt, _ = model_nms_utils.multi_thresh_nms(*args)
+        runs[label] = (int(cnt), cuda_time_ms(lambda: model_nms_utils.multi_thresh_nms(*args), 3))
+        # its device time alone after every timed path (Deferred)
+        nms_report[label] = {"deferred": [("device_ms", deferred(
+            model_nms_utils.multi_thresh_nms, args, 3))]}
+    print("pillar_options post-processing of one scan alone (ms between CUDA events, boxes "
+          "kept; the device time alone comes with the deferred ones): "
+          + "; ".join(f"{k} {w:.3f} ms, {n}" for k, (n, w) in runs.items()))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    scan = batches[0][:1]
+    with torch.no_grad():
+        got = model({"points": scan, "points_mask": mask[:1], "batch_size": 1})
+    cpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device="cpu").eval()
+    cpu.load_state_dict(state, strict=True)
+    with torch.no_grad():
+        want = cpu({"points": scan.cpu(), "points_mask": mask[:1].cpu(), "batch_size": 1})
+    keys = ("voxel_coords", "pillar_features", "spatial_features_2d", "batch_cls_preds",
+            "batch_box_preds")
+    worst = _hold_close("pillar_options scan", got, {k: want[k] for k in keys})
+    print(f"pillar_options: a scan on the card against the CPU: {', '.join(keys)} within "
+          f"{worst:.3g} x max(1, max|want|)")
+    del model, preds, batches, out, pred, cpu, got, want
+    torch.cuda.empty_cache()
+
+    for optimizer in ("adam", "sgd"):
+        tcfg = variant_cfg("pillar_options")
+        tcfg.OPTIMIZATION.OPTIMIZER = optimizer
+        _, tmodel, opt = build_trainer(tcfg, dev, seed=0, n_points=ZOO_POINTS,
+                                       total_steps=PILLAR_OPTIONS_STEPS)
+        tmeta = tmodel.dataset_meta
+        before = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for s in range(PILLAR_OPTIONS_STEPS):
+            b = synth_train_batch(PILLAR_OPTIONS_BATCH, ZOO_POINTS, s, dev,
+                                  tmeta.point_cloud_range, tmeta.num_point_features)
+            lr = opt.lr_fn(opt.state["count"])
+            t_s = time.perf_counter()
+            loss, _ = train_step(tmodel, opt, b)
+            torch.cuda.synchronize()
+            steps.append((lr, float(loss), time.perf_counter() - t_s))
+        check(all(np.isfinite(l) for _, l, _ in steps), f"pillar_options {optimizer}: {steps}")
+        for n, p in tmodel.named_parameters():
+            check(not torch.equal(p, before[n]),
+                  f"pillar_options {optimizer}: parameter {n} did not change")
+        print(f"pillar_options training under {optimizer} (LR {tcfg.OPTIMIZATION.LR}, "
+              f"DECAY_STEP_LIST {tcfg.OPTIMIZATION.DECAY_STEP_LIST} epochs of 1000 steps): "
+              f"b{PILLAR_OPTIONS_BATCH}; (lr, loss, s) a step "
+              f"{[(lr, round(l, 4), round(t, 3)) for lr, l, t in steps]} (the first with "
+              f"cuDNN's first calls); {len(before)} parameters changed; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del tmodel, opt, before
+        torch.cuda.empty_cache()
+
+    n = PILLAR_OPTIONS_STEPS * PILLAR_OPTIONS_BATCH
+    with open(kitti_root / "kitti_infos_train.pkl", "rb") as f:
+        infos = pickle.load(f)[:n]
+    with open(kitti_root / f"kitti_infos_train_{n}.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    sets = ["DATA_CONFIG.INFO_PATH.train", f"['kitti_infos_train_{n}.pkl']"]
+    dcfg = variant_cfg("pillar_options")
+    cfg_from_list(list(sets), dcfg)
+    classes = list(dcfg.CLASS_NAMES)
+    ds = KittiDataset(dcfg.DATA_CONFIG, classes, training=True, root_path=kitti_root)
+    failing = []
+    for i in range(len(ds)):
+        seed_for_sample(ds, 0, 0, i)
+        try:
+            ds[i]
+        except IndexError as e:
+            failing.append(i)
+            reason = str(e)
+    t_d = time.perf_counter()
+    argv = ["--variant", "pillar_options", "--data_root", str(kitti_root), "--workers", "0",
+            "--device", str(dev), "--epochs", "1", "--batch", str(PILLAR_OPTIONS_BATCH),
+            "--output_dir", str(kitti_root.parent / "pillar_options"), "--set", *sets]
+    if failing:
+        try:
+            train.main(argv)
+            raised = None
+        except IndexError as e:
+            raised = str(e)
+        check(raised is not None and "boolean index did not match" in raised,
+              f"pillar_options train --data_root: samples {failing} drop a gt box, yet the run "
+              f"raised {raised!r}")
+        print(f"pillar_options train --data_root (frustum dropout top and left on, "
+              f"{len(ds)} frames at b{PILLAR_OPTIONS_BATCH}): samples {failing} of the epoch "
+              f"drop a gt box, and the run fails on the first, as the JAX package does "
+              f"(ROADMAP §C): {raised} ({time.perf_counter() - t_d:.1f} s)")
+    else:
+        _, epochs = train.main(argv)
+        print(f"pillar_options train --data_root (frustum dropout top and left on): no sample "
+              f"drops a gt box; {epochs_line(epochs)}")
+    print(f"phase 83: {time.perf_counter() - t0:.1f} s")
+    return nms_report
+
+
+def _option_pass(label, run, want):
+    """One recorded pass (`run()`, eval forward or training step) of a
+    variant: its kernel calls and launches as `want`. Returns (the run's
+    result, the calls, the launches, its ms)."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.ops import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    rec = record_kernels(OPTION_KERNELS)
+    t0 = time.perf_counter()
+    try:
+        result = run()
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    calls = split_calls(rec.calls)
+    check_variant_calls(label, calls, launches, want)
+    return result, calls, launches, ms
+
+
+def _hold_rcnn_branches(cfg, model, scan, mask, state):
+    """pointrcnn_pool_last's RCNN stage on the card's RoIs of one scan
+    (backbone, point head and proposal layer on the card), on the card
+    against the CPU; then a PointRCNNHead of the same settings without an
+    SA_CONFIG (pooling the RoI's points; seeded weights) the same way."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.models.roi_heads import roi_head_template as tmpl
+    from tsm_det_pointcloud_tpu_torch.models.roi_heads.pointrcnn_head import PointRCNNHead
+    from tsm_det_pointcloud_tpu_torch.utils.edict import EDict
+
+    head = model.module_list[2]
+    c_in = head.xyz_up.fc0.in_features - 5     # [canonical xyz, score, depth, features]
+    with torch.no_grad():
+        bd = _through(model, {"points": scan, "points_mask": mask, "batch_size": 1}, 2)
+        rois, _, _, roi_valid = tmpl.proposal_layer(
+            bd["batch_cls_preds"], bd["batch_box_preds"], head.model_cfg["NMS_CONFIG"]["TEST"],
+            score_normalized=bool(bd.get("cls_preds_normalized", False)))
+    cpu_bd = {k: bd[k].cpu() for k in ("point_coords", "point_features", "point_valid",
+                                        "point_cls_scores")}
+    cpu_head = PointRCNNHead(head.model_cfg, c_in, 1).eval()
+    cpu_head.load_state_dict({k[len("module_list.2."):]: v for k, v in state.items()
+                              if k.startswith("module_list.2.")}, strict=True)
+    torch.manual_seed(0)
+    bare_cpu = PointRCNNHead(EDict({k: v for k, v in head.model_cfg.items()
+                                    if k != "SA_CONFIG"}), c_in, 1).eval()
+    bare = PointRCNNHead(bare_cpu.model_cfg, c_in, 1).to(scan.device).eval()
+    bare.load_state_dict(bare_cpu.state_dict(), strict=True)
+    lines = []
+    for label, card_head, host_head in (("the last SA level pooled", head.eval(), cpu_head),
+                                        ("no SA_CONFIG", bare, bare_cpu)):
+        with torch.no_grad():
+            got = card_head.rcnn(bd, rois, roi_valid)
+            want = host_head.rcnn(cpu_bd, rois.cpu(), roi_valid.cpu())
+        worst = _hold_close(f"pointrcnn_pool_last RCNN stage, {label}",
+                            {"cls": got[0], "reg": got[1]}, {"cls": want[0], "reg": want[1]})
+        lines.append(f"{label} within {worst:.3g} x max(1, max|want|)")
+    print(f"pointrcnn_pool_last: the RCNN stage on the {int(roi_valid.sum())} RoIs of a scan, "
+          f"card against CPU: {'; '.join(lines)}")
+
+
+def _teacher_layer_cost(model, pts, mask, batch_ms):
+    """What the eval pays for the teacher layers past 0, which no eval output
+    reads (the JAX jit drops them): the backbone's teacher run through its
+    eval layers and through layer 0 alone, ms between CUDA events over 3
+    calls each."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch.ops import grouping
+
+    bb = model.module_list[0]
+    bd = {"points": pts, "points_mask": mask}
+    with torch.no_grad():
+        t = {n: cuda_time_ms(lambda: bb._run_layers("SA_CONFIG", bd, n,
+                                                     cache=grouping.TileCache()), 3)
+             for n in (1, bb.n_teacher - 1)}
+    extra = t[bb.n_teacher - 1] - t[1]
+    return (f"the teacher's eval layers 0-{bb.n_teacher - 2} {t[bb.n_teacher - 1]:.1f} ms, layer "
+            f"0 alone {t[1]:.1f} ms: the later ones, which no eval output reads, cost "
+            f"{extra:.1f} ms ({100 * extra / batch_ms:.1f}% of the counted batch)")
+
+
+def option_variant_phases(dev):
+    """Phases 84-85: `infer.variant_cfg` "teacher3" (fast_cpc.yaml with a
+    third teacher SA layer) and "pointrcnn_pool_last" (pointrcnn.yaml's RoI
+    head pooling its last SA level, no group-all layer) at full width on
+    synthetic scans of OPTION_POINTS points: an eval batch and a training
+    step at OPTION_BATCH, each with every K1-K5 call recorded, its calls and
+    launches as OPTION_CALLS and each call held against its plain version;
+    then one counted eval batch and (teacher3) one counted training step.
+    teacher3: one scan on the card against the CPU (OPTION_HELD), and what
+    teacher layer 1, which no eval output reads, costs a batch
+    (`_teacher_layer_cost`). pointrcnn_pool_last: its RoI head's RCNN stage (pool, xyz_up, the
+    SA stack, the last level's masked max, the FC stack) on the card's RoIs
+    of one scan, on the card against the CPU, and so a head without an
+    SA_CONFIG (pooling the RoI's points), seeded. Returns {"<name>[_train]":
+    (the per-kernel report, the launch counts)}."""
+    import torch
+
+    from tsm_det_pointcloud_tpu_torch import infer
+    from tsm_det_pointcloud_tpu_torch.models import build_network
+    from tsm_det_pointcloud_tpu_torch.runtime.train_state import train_step
+    from tsm_det_pointcloud_tpu_torch.train import build_trainer, synth_train_batch
+
+    reports = {}
+    for name, (want_eval, want_train) in OPTION_CALLS.items():
+        t_v = time.perf_counter()
+        eb, tb = OPTION_BATCH[name]
+        cfg, model = infer.build_detector(None, dev, seed=0, n_points=OPTION_POINTS,
+                                          variant=name)
+        meta = model.dataset_meta
+        pts = [torch.from_numpy(infer.synth_scans(meta, eb, OPTION_POINTS, seed=s)).to(dev)
+               for s in range(2)]
+        mask = torch.ones(pts[0].shape[:2], dtype=torch.bool, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        (out, pred), calls, launches, first_ms = _option_pass(
+            f"{name} eval", lambda: infer.detect(model, pts[0], mask), want_eval)
+        post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+        check(all(bool(torch.isfinite(out[k]).all()) for k in ("batch_cls_preds",
+                                                              "batch_box_preds"))
+              and bool((pred["count"] <= post_max).all()), f"{name}: detections "
+              f"{pred['count'].tolist()}")
+        del out, pred
+        reports[name] = (compare_recorded(calls, name), launches)
+        del calls
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        out, pred = infer.detect(model, pts[1], mask)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t_e)
+        extra = ""
+        if name == "teacher3":
+            extra = f"; {_teacher_layer_cost(model, pts[1], mask, ms)}"
+        print(f"{name} eval: b{eb} x {OPTION_POINTS}; the first batch (its calls recorded) "
+              f"{first_ms:.1f} ms, a counted batch {ms:.1f} ms = {1e3 * eb / ms:.3f} scans/s"
+              f"{extra}; detections {pred['count'].tolist()}; launches a batch {want_eval}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if name == "teacher3":
+            scan = pts[1][:1]
+            with torch.no_grad():
+                got = model({"points": scan, "points_mask": mask[:1], "batch_size": 1})
+            cpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device="cpu").eval()
+            cpu.load_state_dict(state, strict=True)
+            with torch.no_grad():
+                want = cpu({"points": scan.cpu(), "points_mask": mask[:1].cpu(),
+                            "batch_size": 1})
+            worst = _hold_close("teacher3 scan", got,
+                                {k: want[k] for k in OPTION_HELD[name]})
+            print(f"teacher3: a scan on the card against the CPU: "
+                  f"{', '.join(OPTION_HELD[name])} within {worst:.3g} x max(1, max|want|)")
+            del cpu, got, want
+        else:
+            _hold_rcnn_branches(cfg, model, pts[1][:1], mask[:1], state)
+        del model, out, pred
+        torch.cuda.empty_cache()
+        t_eval = time.perf_counter() - t_v
+
+        _, tmodel, opt = build_trainer(infer.variant_cfg(name), dev, seed=0,
+                                       n_points=OPTION_POINTS, total_steps=2)
+        tbs = [synth_train_batch(tb, OPTION_POINTS, s, dev, meta.point_cloud_range,
+                                 meta.num_point_features) for s in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), calls, launches, first_ms = _option_pass(
+            f"{name} training step", lambda: train_step(tmodel, opt, tbs[0]), want_train)
+        check(bool(torch.isfinite(loss)), f"{name} training step loss {float(loss)}")
+        reports[f"{name}_train"] = (compare_recorded(calls, f"{name} train"), launches)
+        del calls
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        loss2, _ = train_step(tmodel, opt, tbs[1])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t_s)
+        check(bool(torch.isfinite(loss2)), f"{name} counted step loss {float(loss2)}")
+        print(f"{name} training: b{tb}; the first step (its calls recorded) {first_ms:.1f} ms, "
+              f"loss {float(loss):.4f}; a counted step {ms:.1f} ms = {1e3 * tb / ms:.3f} "
+              f"train scans/s, loss {float(loss2):.4f}; launches a step {want_train}; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del tmodel, opt, tbs
+        torch.cuda.empty_cache()
+        print(f"{name}: eval {t_eval:.1f} s, training {time.perf_counter() - t_v - t_eval:.1f} s")
+    return reports
+
+
 def main():
     import torch
 
@@ -6325,6 +6886,10 @@ def main():
     two_stage.update(dsasnet_variant_phases(dev))
     two_stage["dsasnet_data"] = dsasnet_data_phase(dev, kitti_root)
     mark("75-79")
+    pp_multihead_phases(dev, kitti_root.parent / "nuscenes" / "root")
+    report_nms_options = pillar_options_phases(dev, kitti_root)
+    two_stage.update(option_variant_phases(dev))
+    mark("81-85")
     take_device_times({"eval": report_eval, "train": report, "waymo": report_waymo,
                        "waymo train": report_wtrain, "second": report_second,
                        "second train": report_strain, "teacher eval": report_teval,
@@ -6338,7 +6903,8 @@ def main():
                        **{k: rep for k, (rep, _) in two_stage.items()},
                        **{k: rep for k, (rep, _) in nusc.items()},
                        "pvssda": report_pvssda, "weighted fps": report_weighted,
-                       "pvssda data eval": report_pvdata})
+                       "pvssda data eval": report_pvdata,
+                       "pillar_options post-processing": report_nms_options})
     mark("the deferred device times")
     profile_kdata()
     profile_wdata()
@@ -6353,7 +6919,8 @@ def main():
     mark("the proposal NMS's device times (44, 48, 52, 56, 80)")
     nusc_profiles(dev, profiles)
     pvssda_profile(profiles)
-    mark("the nuScenes and PVSSDA profiles (60, 74)")
+    pp_multihead_profile(profiles)
+    mark("the nuScenes, PVSSDA and cbgs_pp_multihead profiles (60, 74, 82)")
     caddn_profile(caddn_model, caddn_inputs)
     del caddn_model, caddn_inputs
     mark("the CaDDN profile (69)")

@@ -144,6 +144,24 @@ def _dsasnet_batch():
             "batch_size": 2, "gt_boxes": gt, "gt_boxes_mask": mask}
 
 
+def _pp_multihead_cfg():
+    """The tiny cbgs_pp_multihead model with a deblock_final added (an
+    UPSAMPLE_STRIDES one longer), so that its BEV backbone has a strided
+    plain conv (deblock0), 1 x 1 and 2 x 2 transposed ones and a transposed
+    deblock_final over the concatenation (the anchors then at stride 2)."""
+    cfg = tiny.pp_multihead_model_cfg()
+    cfg.BACKBONE_2D.UPSAMPLE_STRIDES = [0.5, 1, 2, 2]
+    for a in cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG:
+        a["feature_map_stride"] = 2
+    return cfg
+
+
+def _pp_multihead_batch():
+    gt, mask = tiny.pp_multihead_gt(2)
+    return {"points": tiny.nusc_points(2), "points_mask": np.ones((2, 512), bool),
+            "batch_size": 2, "gt_boxes": gt, "gt_boxes_mask": mask}
+
+
 MODELS = {
     "student": lambda: _tsm(tiny.tiny_model_cfg(), ge._tsm_model()),
     "teacher": lambda: _tsm(tiny.tiny_teacher_model_cfg(), _JTEACHER),
@@ -163,7 +181,13 @@ MODELS = {
     "pvssda": lambda: _voxel(tiny.pvssda_model_cfg("fsmsg"), tiny.PVSSDA_META,
                              _pvssda_batch()),
     "dsasnet": lambda: _voxel(*tiny.two_stage_model("dsasnet"), _dsasnet_batch()),
+    "cbgs_pp_multihead": lambda: _voxel(_pp_multihead_cfg(), tiny.PP_MULTIHEAD_META,
+                                        _pp_multihead_batch()),
 }
+# the cases whose 4-D kernels need the port model to tell a strided plain
+# conv from a transposed one (`convert.transposed_convs`)
+PORT_MODELS = {"cbgs_pp_multihead": lambda cfg: build_network(cfg, 10, tiny.PP_MULTIHEAD_META,
+                                                              device="cpu")}
 
 
 def _fill(shapes, rng):
@@ -180,16 +204,18 @@ def case(request):
     """(name, port model cfg, the target: a JAX tiny training init's tree
     with numpy-seeded values, a synthetic reference state dict of other
     numpy-seeded values on the same structure, the port key each reference
-    tensor came from, and those values as a port state dict)."""
+    tensor came from, those values as a port state dict, and the port model
+    where the layouts need it, else None)."""
     cfg, shapes = MODELS[request.param]()
+    model = PORT_MODELS[request.param](cfg) if request.param in PORT_MODELS else None
     rng = np.random.RandomState(sorted(MODELS).index(request.param))
     init = _fill(shapes, rng)
-    src = from_flax_variables(_fill(shapes, rng))
-    ref, source = port.reference_state_dict(src, cfg)
-    return request.param, cfg, init, ref, source, src
+    src = from_flax_variables(_fill(shapes, rng), model)
+    ref, source = port.reference_state_dict(src, cfg, model)
+    return request.param, cfg, init, ref, source, src, model
 
 
-def _jax_side(init, ref):
+def _jax_side(init, ref, model=None):
     converted, unmatched = jtool.convert_state_dict(ref)
     trees, unplaced = {}, []
     for coll in ("params", "batch_stats", "statistics"):
@@ -197,7 +223,7 @@ def _jax_side(init, ref):
                                                      logger=lambda *a: None)
         unplaced += skipped
     trees = jax.tree_util.tree_map(np.asarray, trees)
-    return from_flax_variables(trees), unmatched, unplaced
+    return from_flax_variables(trees, model), unmatched, unplaced
 
 
 def _without_three_tap_kernels(name, ref):
@@ -214,10 +240,10 @@ def _without_three_tap_kernels(name, ref):
 
 
 def test_graft_equals_jax(case):
-    name, _, init, ref, _, _ = case
+    name, _, init, ref, _, _, model = case
     ref = _without_three_tap_kernels(name, ref)
-    want, want_unmatched, want_unplaced = _jax_side(init, ref)
-    got, report = port.convert_checkpoint(ref, from_flax_variables(init))
+    want, want_unmatched, want_unplaced = _jax_side(init, ref, model)
+    got, report = port.convert_checkpoint(ref, from_flax_variables(init, model), model)
     assert list(got) == list(want)
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
@@ -292,6 +318,20 @@ EXPECTED["dsasnet"] = dict(unmatched=[], unplaced=[],
                            misplaced=["roi_head.cls_out.bias", "roi_head.cls_out.weight"])
 
 
+# the tiny multi-head with a deblock_final: its 1x1 head convs and 1x1
+# deblock1 and its 2x2 deblock2 (ConvTranspose2d (8, 8) -> (32, 8): read as a
+# Conv2d it becomes (2, 2, 8, 32), which no leaf has) as PointPillars'; the
+# strided plain conv deblock0 is a Conv2d in both layouts and lands home
+# unflipped; deblock_final's square (24, 24) ConvTranspose2d weight, read as
+# a Conv2d, fits its own leaf: it lands home with its two channel axes
+# swapped and unflipped (ROADMAP §C)
+EXPECTED["cbgs_pp_multihead"] = dict(
+    unmatched=[], misplaced=[],
+    unplaced=["backbone_2d/deblock1/kernel", "backbone_2d/deblock2/kernel",
+              "dense_head/conv_box/kernel", "dense_head/conv_cls/kernel"],
+    mislaid=["module_list.2.deblock_final.weight"])
+
+
 def _caddn_unplaced():
     """The tiny CaDDN's leaves no reference tensor lands on (ROADMAP §C, the
     JAX tool's name rules): every _ConvBN's BN scale, whose `.weight` the
@@ -328,10 +368,10 @@ def test_round_trip_placements(case):
     (ROADMAP §C: faults of the JAX tool, which the port keeps): a leaf no
     tensor lands on keeps the template's value, and a leaf a misplaced tensor
     lands on is not held."""
-    name, _, init, ref, source, src = case
+    name, _, init, ref, source, src, model = case
     ref = _without_three_tap_kernels(name, ref)
-    template = from_flax_variables(init)
-    got, report = port.convert_checkpoint(ref, template)
+    template = from_flax_variables(init, model)
+    got, report = port.convert_checkpoint(ref, template, model)
     misplaced, lost, taken = [], set(), set()
     for ref_name, key in source.items():
         coll, path = port.map_name(ref_name)
@@ -345,10 +385,25 @@ def test_round_trip_placements(case):
     assert unmatched == EXPECTED[name]["unmatched"]
     assert report["unplaced"] == EXPECTED[name]["unplaced"]
     assert misplaced == EXPECTED[name]["misplaced"]
+    mislaid = EXPECTED[name].get("mislaid", [])
     for key, t in got.items():
         if key in taken:      # a misplaced tensor went here too (ROADMAP §C)
             continue
+        if key in mislaid:    # its own leaf in the JAX tool's layout (ROADMAP §C)
+            assert torch.equal(t, src[key].transpose(0, 1).flip(2, 3)), key
+            continue
         assert torch.equal(t, template[key] if key in lost else src[key]), key
+    if name == "cbgs_pp_multihead":
+        # a plain strided conv: the reference's Conv2d weight is the port's
+        # own layout and lands unflipped; the transposed convs' port weights
+        # are the kernels flax keeps flipped in both spatial axes
+        deblock0 = "module_list.2.deblock0.weight"
+        assert torch.equal(ref["backbone_2d.deblock0.weight"], src[deblock0])
+        assert torch.equal(got[deblock0], src[deblock0])
+        flax = {k: a for _, _, k, a in port.flax_view(src, model)}
+        for k in (deblock0, "module_list.2.deblock_final.weight"):
+            plain = np.ascontiguousarray(flax[k].transpose(3, 2, 0, 1))
+            assert np.array_equal(src[k].numpy(), plain) == (k == deblock0), k
 
 
 # OpenPCDet's own module names where the port's (the flax ones) differ:

@@ -1,7 +1,8 @@
 """The port's PointPillars against the JAX package on the CPU.
 
 Modules: PillarVFE (eval and train-mode BN, 32 points a pillar, scans that
-overflow both the points a pillar and the pillars a scan), PointPillarScatter
+overflow both the points a pillar and the pillars a scan; the PFN options no
+shipped config takes, with gradients), PointPillarScatter
 (and its gradient), and the tiny model's VFE, scatter, BEV backbone and
 anchor head each fed the JAX module's own input, with random weights carried
 across by convert.from_flax_variables. Whole: the tiny model's eval outputs
@@ -268,11 +269,43 @@ def test_pillar_vfe_keeps_the_first_32_points():
 @pytest.mark.parametrize("override", [{"NUM_FILTERS": [32, 64]}, {"USE_NORM": False},
                                       {"USE_ABSLOTE_XYZ": False}, {"WITH_DISTANCE": True}])
 def test_pillar_vfe_options_no_config_takes_raise(override):
-    """pointpillar.yaml's PFN (one layer, BN, absolute xyz, no distance) is
-    the one ported; the other settings raise."""
-    cfg = dict({"NUM_FILTERS": [64]}, **override)
-    with pytest.raises(NotImplementedError, match="PillarVFE"):
-        PillarVFE(cfg, **PILLAR_GEOMETRY)
+    """The PFN options no shipped config takes (two layers, no BN, no
+    absolute xyz, the distance), each on pointpillar.yaml's others: the
+    train-mode pooled features and the gradient of a fixed weighting of them
+    with respect to every weight equal the flax module's (jax.grad), at the
+    golden tolerance; a two-layer PFN reads twice the first layer's width,
+    as the JAX package's does."""
+    pts, mask = _pillar_points()
+    cfg = dict({"WITH_DISTANCE": False, "USE_ABSLOTE_XYZ": True, "USE_NORM": True,
+                "NUM_FILTERS": [64]}, **override)
+    jm = JPillarVFE(model_cfg=cfg, **PILLAR_GEOMETRY)
+    batch = {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask)}
+    init = jax.tree_util.tree_map(np.asarray, dict(jm.init(jax.random.PRNGKey(1), batch)))
+    rng = np.random.RandomState(3)
+    v = jax.tree_util.tree_map(
+        lambda a: (rng.randn(*a.shape) * 0.3 + (1.0 if a.ndim == 1 else 0.0)).astype(
+            np.float32), init)
+    out_w = rng.randn(2, 64, cfg["NUM_FILTERS"][-1]).astype(np.float32)
+
+    def jloss(params):
+        out, _ = jm.apply({**v, "params": params}, dict(batch), training=True,
+                          mutable=["batch_stats"])
+        return jnp.sum(out["voxel_features"] * out_w), out["voxel_features"]
+
+    (_, jfeat), jgrad = jax.value_and_grad(jloss, has_aux=True)(v["params"])
+    port = PillarVFE(cfg, **PILLAR_GEOMETRY)
+    port.load_state_dict(from_flax_variables(v), strict=True)
+    if len(cfg["NUM_FILTERS"]) > 1:
+        assert port.pfn_1.in_features == 2 * cfg["NUM_FILTERS"][0]
+    port.train()
+    tout = port({"points": _t(pts), "points_mask": _t(mask)})
+    (tout["voxel_features"] * _t(out_w)).sum().backward()
+    _golden_close(tout["voxel_features"].detach().numpy(), jfeat, "pooled")
+    want = from_flax_variables({"params": jax.tree_util.tree_map(np.asarray, jgrad)})
+    params = dict(port.named_parameters())
+    assert set(want) == set(params)
+    for k, w in want.items():
+        _golden_close(params[k].grad.numpy(), w.numpy(), f"d/d {k}")
 
 
 def test_pointpillar_scatter_and_its_gradient():

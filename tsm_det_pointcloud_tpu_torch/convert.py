@@ -14,12 +14,19 @@ that `model.init(..., training=True)` returns (collections `params`,
   * sparse-conv kernels (K, Cin, Cout) keep their layout as `weight`;
   * a 2D `nn.Conv` kernel (kh, kw, Cin, Cout) becomes the `nn.Conv2d`
     `weight` (Cout, Cin, kh, kw);
-  * a 2D `nn.ConvTranspose` kernel (the BEV backbone's `deblock*`,
-    BEVPoint's strided `scale{i}_deconv`: `_DECONV`), (kh, kw, Cin, Cout),
-    becomes the `nn.ConvTranspose2d` `weight` (Cin, Cout, kh, kw) flipped in
-    both spatial axes: flax's default `transpose_kernel=False` does not flip
-    the kernel, torch's transposed convolution does (a 1 x 1
-    `scale{i}_deconv` is a ConvBlock, its kernel one level further down);
+  * a 2D `nn.ConvTranspose` kernel (kh, kw, Cin, Cout) becomes the
+    `nn.ConvTranspose2d` `weight` (Cin, Cout, kh, kw) flipped in both
+    spatial axes: flax's default `transpose_kernel=False` does not flip the
+    kernel, torch's transposed convolution does. Which 4-D kernels are
+    transposed convs is the port module's type: given the port model
+    (`model=`), every `nn.ConvTranspose2d` of it and nothing else
+    (`transposed_convs`); without one, the module names of `_DECONV` (the
+    BEV backbone's `deblock*`, BEVPoint's strided `scale{i}_deconv`; a 1 x 1
+    `scale{i}_deconv` is a ConvBlock, its kernel one level further down),
+    which holds for every upsample stride >= 1. A BEV backbone with an
+    upsample stride below 1 (OpenPCDet's cbgs_pp_multihead.yaml) has a
+    strided plain `nn.Conv` named `deblock{i}`, so its conversions take the
+    model;
   * the teacher head's `reg_weight` (1, 1, 64, code) is copied;
   * `statistics/*` become buffers of the module that holds them (the TSM
     heads', the hybrids' `object_statistics`).
@@ -62,7 +69,22 @@ def _torch_path(path):
     return re.sub(r"module_list_(\d+)", r"module_list.\1", path).replace("/", ".")
 
 
-def _convert_leaf(collection, path, arr):
+def transposed_convs(model):
+    """The port module paths (dotted, as state dict keys) of every
+    `nn.ConvTranspose2d` of `model`."""
+    return frozenset(name for name, m in model.named_modules()
+                     if isinstance(m, torch.nn.ConvTranspose2d))
+
+
+def _is_deconv(tmod, deconvs):
+    if deconvs is None:
+        return bool(_DECONV.fullmatch(tmod.rpartition(".")[2]))
+    return tmod in deconvs
+
+
+def _convert_leaf(collection, path, arr, deconvs=None):
+    """(port key, value in the port layout) of one flax leaf; `deconvs`:
+    `transposed_convs` of the port model, else None (the name rule)."""
     mod, _, leaf = path.rpartition("/")
     tmod = _torch_path(mod)
     if collection == "params":
@@ -71,7 +93,7 @@ def _convert_leaf(collection, path, arr):
         if leaf == "kernel" and arr.ndim == 3:
             return f"{tmod}.weight", arr
         if leaf == "kernel" and arr.ndim == 4:
-            if _DECONV.fullmatch(mod.rpartition("/")[2]):
+            if _is_deconv(tmod, deconvs):
                 return f"{tmod}.weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
             return f"{tmod}.weight", arr.transpose(3, 2, 0, 1)
         if leaf == "scale" and arr.ndim == 1:
@@ -91,7 +113,7 @@ def _convert_leaf(collection, path, arr):
                      f"{arr.shape}")
 
 
-def _flax_leaf(key, arr):
+def _flax_leaf(key, arr, deconvs=None):
     """(collection, flax path, value in the flax layout) of a port state
     dict entry: the inverse of _convert_leaf."""
     mod, _, leaf = key.rpartition(".")
@@ -109,33 +131,39 @@ def _flax_leaf(key, arr):
     if leaf == "weight" and arr.ndim == 3:
         return "params", f"{fmod}/kernel", arr
     if leaf == "weight" and arr.ndim == 4:
-        if _DECONV.fullmatch(fmod.rpartition("/")[2]):
+        if _is_deconv(mod, deconvs):
             return "params", f"{fmod}/kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         return "params", f"{fmod}/kernel", arr.transpose(2, 3, 1, 0)
     raise ValueError(f"no flax leaf for port entry {key} {arr.shape}")
 
 
-def flax_view(state):
+def _deconvs(model):
+    return None if model is None else transposed_convs(model)
+
+
+def flax_view(state, model=None):
     """[(collection, flax path, torch key, numpy value in the flax layout)]
     for every entry of a port state dict, sorted as jax.tree_util flattens
     the flax variables (collection, then path components); each round-trips
-    through _convert_leaf to its own key and value."""
+    through _convert_leaf to its own key and value. model: the port model
+    whose module types decide the 4-D layouts (see the module docstring)."""
+    deconvs = _deconvs(model)
     out = []
     for key, t in state.items():
         arr = t.detach().cpu().numpy()
-        coll, path, flax_arr = _flax_leaf(key, arr)
-        back_key, back = _convert_leaf(coll, path, flax_arr)
+        coll, path, flax_arr = _flax_leaf(key, arr, deconvs)
+        back_key, back = _convert_leaf(coll, path, flax_arr, deconvs)
         if back_key != key or back.shape != arr.shape or not np.array_equal(back, arr):
             raise ValueError(f"port entry {key} does not round-trip through {coll}/{path}")
         out.append((coll, path, key, flax_arr))
     return sorted(out, key=lambda e: (e[0], tuple(e[1].split("/"))))
 
 
-def to_flax_variables(state):
+def to_flax_variables(state, model=None):
     """A port state dict as flax variables: {collection: nested dict of
     numpy leaves}, the inverse of from_flax_variables."""
     tree = {}
-    for coll, path, _, arr in flax_view(state):
+    for coll, path, _, arr in flax_view(state, model):
         d = tree.setdefault(coll, {})
         *mods, leaf = path.split("/")
         for m in mods:
@@ -144,13 +172,16 @@ def to_flax_variables(state):
     return tree
 
 
-def from_flax_variables(variables_np):
-    """flax variables (numpy leaves) -> torch state_dict."""
+def from_flax_variables(variables_np, model=None):
+    """flax variables (numpy leaves) -> torch state_dict. model: the port
+    model the state is for, whose module types decide the 4-D layouts (see
+    the module docstring)."""
+    deconvs = _deconvs(model)
     state = OrderedDict()
     for collection in ("params", "batch_stats", "statistics"):
         tree = variables_np.get(collection, {})
         for path, arr in _flatten(tree):
-            key, val = _convert_leaf(collection, path, arr)
+            key, val = _convert_leaf(collection, path, arr, deconvs)
             if key in state:
                 raise ValueError(f"two flax leaves map to {key}")
             state[key] = torch.from_numpy(np.array(val, np.float32, order="C"))

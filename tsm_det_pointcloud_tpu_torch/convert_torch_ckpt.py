@@ -45,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .convert import _DECONV, _convert_leaf, flax_view
+from .convert import _convert_leaf, _deconvs, _is_deconv, flax_view
 
 
 def convert_weight(name, arr):
@@ -112,13 +112,16 @@ def convert_state_dict(state_dict):
     return out, unmatched
 
 
-def graft(template_state, converted):
+def graft(template_state, converted, model=None):
     """Place `converted` ({collection: {path: flax-layout array}}) onto the
     port state dict `template_state` by the JAX graft's rule (see the module
-    docstring). Returns (the new state dict, {collection: {source path:
-    port key}} of the placements, the unplaced source paths, the source
-    paths placed among more than one candidate)."""
-    view = flax_view(template_state)
+    docstring); `model`, the port model of that state, decides which 4-D
+    kernels are transposed convs (`convert.transposed_convs`). Returns (the
+    new state dict, {collection: {source path: port key}} of the
+    placements, the unplaced source paths, the source paths placed among
+    more than one candidate)."""
+    deconvs = _deconvs(model)
+    view = flax_view(template_state, model)
     key_of = {(c, path): key for c, path, key, _ in view}
     state = OrderedDict((k, v.detach().clone()) for k, v in template_state.items())
     placements, unplaced, tied = {}, [], []
@@ -142,18 +145,18 @@ def graft(template_state, converted):
             else:
                 unplaced.append(src_path)
         for path, arr in placed.items():
-            key, val = _convert_leaf(coll, path, arr)
+            key, val = _convert_leaf(coll, path, arr, deconvs)
             state[key] = torch.tensor(np.array(val, np.float32, order="C"))
         placements[coll] = {src: key_of[coll, path] for src, path in where.items()}
     return state, placements, unplaced, tied
 
 
-def convert_checkpoint(ref_state, template_state):
-    """A reference state dict onto a port state dict: (the new state dict, a
-    report dict: `converted`, `unmatched`, `unplaced`, `tied` and the
-    `placements` of `graft`)."""
+def convert_checkpoint(ref_state, template_state, model=None):
+    """A reference state dict onto a port state dict (of `model`): (the new
+    state dict, a report dict: `converted`, `unmatched`, `unplaced`, `tied`
+    and the `placements` of `graft`)."""
     converted, unmatched = convert_state_dict(ref_state)
-    state, placements, unplaced, tied = graft(template_state, converted)
+    state, placements, unplaced, tied = graft(template_state, converted, model)
     report = dict(converted=sum(len(v) for v in converted.values()), unmatched=unmatched,
                   unplaced=unplaced, tied=tied, placements=placements)
     return state, report
@@ -167,7 +170,7 @@ MODULE_NAMES = (("VFE", "vfe"), ("BACKBONE_3D", "backbone_3d"),
                 ("POINT_HEAD", "point_head"), ("ROI_HEAD", "roi_head"))
 
 
-def reference_state_dict(state, model_cfg):
+def reference_state_dict(state, model_cfg, model=None):
     """A synthetic reference checkpoint's state dict in OpenPCDet's layouts
     from a port state dict: each flax leaf (`convert.flax_view`) under its
     flax path with module_list.<i> renamed to the reference module that
@@ -178,14 +181,16 @@ def reference_state_dict(state, model_cfg):
     (Cout, kz, ky, kx, Cin) and (kz, ky, kx, Cin, Cout) (a 3-tap kernel as
     (3, 1, 1)); 2D conv kernels as Conv2d's (Cout, Cin, kh, kw), the BEV
     deblocks and BEVPoint's strided scale deconvs as ConvTranspose2d's (Cin,
-    Cout, kh, kw) of the same function.
+    Cout, kh, kw) of the same function (the transposed convs of `model`
+    when it is given, `convert.transposed_convs`; else by name).
     Each BN also gets the int64 `num_batches_tracked` the reference's
     carries (a name no rule maps). Returns (the state dict, {reference name:
     the port key its value came from})."""
     modules = [name for section, name in MODULE_NAMES if section in model_cfg]
     ref, source = OrderedDict(), {}
     n_dense = n_sparse = 0
-    for coll, path, key, arr in flax_view(state):
+    deconvs = _deconvs(model)
+    for coll, path, key, arr in flax_view(state, model):
         parts = path.split("/")
         if parts[0].startswith("module_list_"):
             parts[0] = modules[int(parts[0][len("module_list_"):])]
@@ -209,7 +214,7 @@ def reference_state_dict(state, model_cfg):
             val = tap_major.transpose(4, 0, 1, 2, 3) if n_sparse % 2 == 0 else tap_major
             n_sparse += 1
         elif leaf == "kernel" and arr.ndim == 4:
-            if _DECONV.fullmatch(parts[-2]):
+            if _is_deconv(key.rpartition(".")[0], deconvs):
                 val = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 val = arr.transpose(3, 2, 0, 1)
@@ -235,7 +240,7 @@ def main(argv=None):
     cfg = load_cfg(args.cfg_file)
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset_meta(cfg, 16384, "train"),
                           device="cpu")
-    state, report = convert_checkpoint(ref_state, model.state_dict())
+    state, report = convert_checkpoint(ref_state, model.state_dict(), model)
     print(f"converted {report['converted']} tensors, {len(report['unmatched'])} unmatched: "
           f"{report['unmatched'][:5]}")
     print(f"unplaced tensors ({len(report['unplaced'])}): {report['unplaced'][:10]}")

@@ -242,3 +242,40 @@ def _swap_pyramid_points(points, boxes, k, j, mask_k, mask_j, max_num, rng):
     points[sel_j, :3] = to_global(loc_k[: len(sel_j)] if len(loc_k) >= len(sel_j)
                                   else np.resize(loc_k, (len(sel_j), 3)), boxes[j])
     return points
+
+
+# ---------------------------------------------------------------------------
+# frustum dropout (JAX augmentor_utils.py:248-288): every point and gt box
+# beyond a threshold along z (top / bottom) or y (left / right) goes; the
+# threshold sits an intensity drawn from the sample's generator of the
+# points' extent along that axis in from its high or low end. The gt names
+# and gt_boxes_mask are not cut with the boxes, as in the JAX package: a
+# dropped box then fails the mask at the end of `DataAugmentor.forward`
+# ---------------------------------------------------------------------------
+
+def _frustum_threshold(vals, intensity, side):
+    lo, hi = float(np.min(vals)), float(np.max(vals))
+    span = hi - lo
+    if side == "high":
+        return hi - intensity * span
+    return lo + intensity * span
+
+
+def global_frustum_dropout_top(gt_boxes, points, rng, intensity_range):
+    t = _frustum_threshold(points[:, 2], rng.uniform(*intensity_range), "high")
+    return gt_boxes[gt_boxes[:, 2] < t], points[points[:, 2] < t]
+
+
+def global_frustum_dropout_bottom(gt_boxes, points, rng, intensity_range):
+    t = _frustum_threshold(points[:, 2], rng.uniform(*intensity_range), "low")
+    return gt_boxes[gt_boxes[:, 2] > t], points[points[:, 2] > t]
+
+
+def global_frustum_dropout_left(gt_boxes, points, rng, intensity_range):
+    t = _frustum_threshold(points[:, 1], rng.uniform(*intensity_range), "high")
+    return gt_boxes[gt_boxes[:, 1] < t], points[points[:, 1] < t]
+
+
+def global_frustum_dropout_right(gt_boxes, points, rng, intensity_range):
+    t = _frustum_threshold(points[:, 1], rng.uniform(*intensity_range), "low")
+    return gt_boxes[gt_boxes[:, 1] > t], points[points[:, 1] > t]

@@ -16,12 +16,6 @@ from .database_sampler import DataBaseSampler
 
 
 class DataAugmentor:
-    # the augmentors of kitti_dataset.yaml, fast_cpc.yaml, fast_cpc_teacher.yaml
-    # and second.yaml; the JAX module's frustum dropout is not ported
-    PORTED = ("gt_sampling", "random_world_flip", "random_world_rotation",
-              "random_world_scaling", "random_box_noise", "random_local_rotation",
-              "random_local_translation", "random_local_scaling", "random_local_pyramid_aug")
-
     def __init__(self, root_path, augmentor_configs, class_names, logger=None):
         self.root_path = root_path
         self.class_names = class_names
@@ -44,8 +38,6 @@ class DataAugmentor:
         for cur_cfg in aug_config_list:
             if cur_cfg.NAME in disable_list:
                 continue
-            if cur_cfg.NAME not in self.PORTED:
-                raise NotImplementedError(f"augmentor {cur_cfg.NAME} is not ported")
             cur_augmentor = getattr(self, cur_cfg.NAME)(config=cur_cfg)
             self.data_augmentor_queue.append(cur_augmentor)
 
@@ -153,6 +145,17 @@ class DataAugmentor:
                 data_dict["gt_boxes"], data_dict["points"], rng,
                 config["LOCAL_SCALE_RANGE"],
             )
+            return data_dict
+
+        return fn
+
+    def random_world_frustum_dropout(self, config=None):
+        def fn(data_dict, rng):
+            for direction in config.get("DIRECTION", ["top"]):
+                rng_range = config.get("INTENSITY_RANGE", [0.0, 0.2])
+                data_dict["gt_boxes"], data_dict["points"] = getattr(
+                    augmentor_utils, f"global_frustum_dropout_{direction}")(
+                    data_dict["gt_boxes"], data_dict["points"], rng, rng_range)
             return data_dict
 
         return fn

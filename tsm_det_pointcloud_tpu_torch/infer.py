@@ -39,6 +39,14 @@ scans.
         --cfg_file tools/cfgs/kitti_models/CaDDN.yaml --batch 2
     python -m tsm_det_pointcloud_tpu_torch.infer \
         --cfg_file tools/cfgs/kitti_models/dsasnet.yaml --batch 4 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.infer \
+        --cfg_file tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml \
+        --batch 4 --points 300000
+    python -m tsm_det_pointcloud_tpu_torch.infer --variant pillar_options \
+        --batch 4 --points 20000
+--variant NAME takes a variant of a shipped config (`variant_cfg`:
+pillar_options, teacher3, pointrcnn_pool_last, neck, or a DSASNet hybrid) in
+place of --cfg_file.
 
 The dataset's geometry is read from the config's DATA_CONFIG (voxel limits
 of the test mode) and the synthetic scans follow it: KITTI (4 point
@@ -279,6 +287,14 @@ def load_cfg(cfg_file, set_cfgs=None):
 CLS_BIAS = {"SECONDNet": -2.575, "PointPillar": -3.25, "PartA2Net": -2.575,
             "PVRCNN": -2.5, "PVRCNNPlusPlus": -2.855, "SECONDNetIoU": -2.575,
             "VoxelRCNN": -1.25, "CaDDN": -2.447, "PVSSDA": -2.56}
+# the same by detector on another dataset, and by variant (`variant_cfg`),
+# where the seeded logits lie elsewhere: each value puts a scan's 2800th
+# best anchor at SCORE_THRESH 0.1 (set on the CPU on two synthetic scans,
+# before the bias the 2800th best logit 1.757 and 1.770 of
+# cbgs_pp_multihead.yaml's 327,680 anchors at 300,000 points, 0.377 and
+# 0.379 of pillar_options' 321,408 at 20,000)
+DATASET_CLS_BIAS = {("PointPillar", "NuScenesDataset"): -3.96}
+VARIANT_CLS_BIAS = {"pillar_options": -2.575}
 # the point head's cls_out bias of a one-stage point detector (PVSSDA, a box
 # a point): pvssda_3dssd.yaml's seeded logits at bias 0 lie within 0.38-0.53
 # over a scan's 512 points (the 100th best ~0.495, on the CPU at b1 x 16384
@@ -305,11 +321,13 @@ CENTERPOINT_HM = {"KittiDataset": (20.0, -6.5),
 
 
 @torch.no_grad()
-def randomize_eval_state(model, seed, dataset="KittiDataset"):
+def randomize_eval_state(model, seed, dataset="KittiDataset", variant=None):
     """Seeded non-trivial BN running stats and, for TSM, statistics buffers
     (a real deployment loads them from a checkpoint), and cls output biases
     lifted from the -log(99) prior so that boxes reach NMS: TSM's cls heads
-    at 1.0, an anchor head's conv_cls at CLS_BIAS of its detector, a point
+    at 1.0, an anchor head's conv_cls at VARIANT_CLS_BIAS of the variant,
+    else DATASET_CLS_BIAS of its detector and dataset, else CLS_BIAS of its
+    detector, a point
     detector's cls_out at POINT_CLS_BIAS,
     CenterPoint's hm_out kernel times the gain and its bias at the bias of
     CENTERPOINT_HM[dataset]."""
@@ -317,6 +335,9 @@ def randomize_eval_state(model, seed, dataset="KittiDataset"):
 
     g = torch.Generator().manual_seed(int(seed))
     dev = next(model.parameters()).device
+    kind = type(model).__name__
+    cls_bias = VARIANT_CLS_BIAS.get(variant, DATASET_CLS_BIAS.get((kind, dataset),
+                                                                  CLS_BIAS.get(kind)))
     for name, m in model.named_modules():
         if isinstance(m, (BatchNorm, torch.nn.BatchNorm2d)):
             n = m.running_mean.shape[0]
@@ -326,7 +347,7 @@ def randomize_eval_state(model, seed, dataset="KittiDataset"):
         if tail in ("cls0_out", "cls1_out", "cls2_out"):
             m.bias.fill_(1.0)
         elif tail == "conv_cls":
-            m.bias.fill_(CLS_BIAS[type(model).__name__])
+            m.bias.fill_(cls_bias)
         elif tail == "cls_out" and type(model).__name__ in POINT_CLS_BIAS:
             m.bias.fill_(POINT_CLS_BIAS[type(model).__name__])
         elif tail == "hm_out":
@@ -394,14 +415,72 @@ HYBRID_VARIANTS = {
 }
 
 
+# the variants of shipped configs that are the first users of the JAX
+# package's options no shipped config takes (`variant_cfg`)
+OPTION_VARIANTS = ("pillar_options", "teacher3", "pointrcnn_pool_last")
+
+
+def _third_teacher_layer(sa):
+    """SA_CONFIG with a third layer: s-fps 512 of layer 1's 512 points over
+    [0, 512] at layer 1's query ranges, radii, nsample and MLP widths. It
+    keeps 512 points because the distillation loss pairs the teacher's last
+    layer point for point with the student's (a JAX teacher of 256 fails its
+    training init on the shapes)."""
+    for key in ("POOL_METHOD", "QUERY_RANGE", "STRIDE", "RADIUS", "NSAMPLE", "MLPS",
+                "SPCONV_MLPS_PRE", "AGGREGATION_MLPS", "CONFIDENCE_MLPS"):
+        sa[key] = list(sa[key]) + [sa[key][1]]
+    sa.NPOINT_LIST = list(sa.NPOINT_LIST) + [[512]]
+    sa.SAMPLE_RANGE_LIST = list(sa.SAMPLE_RANGE_LIST) + [[[0, 512]]]
+    sa.SAMPLE_METHOD_LIST = list(sa.SAMPLE_METHOD_LIST) + [["s-fps"]]
+
+
 def variant_cfg(name):
-    """The config of a DSASNet variant: dsasnet.yaml with BACKBONE_2D one of
-    HYBRID_VARIANTS; or ("neck") PVSSDA on its BEV topology,
-    pointpillar.yaml's data, PillarVFE, scatter, BEV backbone, anchor head and
-    post-processing with pointrcnn.yaml's PointNet2MSG and the
-    VoxelPointCross neck at NUM_FILTERS 128, trained with pointpillar.yaml's
-    optimisation."""
+    """The config of a variant of a shipped config:
+      * a DSASNet variant: dsasnet.yaml with BACKBONE_2D one of
+        HYBRID_VARIANTS; or ("neck") PVSSDA on its BEV topology,
+        pointpillar.yaml's data, PillarVFE, scatter, BEV backbone, anchor
+        head and post-processing with pointrcnn.yaml's PointNet2MSG and the
+        VoxelPointCross neck at NUM_FILTERS 128, trained with
+        pointpillar.yaml's optimisation;
+      * "pillar_options": pointpillar.yaml with a two-layer PFN (64, 64) on
+        the distance and without absolute xyz; UPSAMPLE_STRIDES
+        [0.5, 1, 2, 2] (a strided-conv deblock0 and a deblock_final that
+        brings the stride-4 concatenation back to stride 2 and its 384
+        channels: the 321,408 anchors stay); per-class SCORE_THRESH
+        [0.1, 0.1, 0.1] with nms_normal, so that post-processing takes the
+        per-pass route over the 321,408 boxes with axis-aligned NMS;
+        random_world_frustum_dropout (top, left; intensity [0, 0.2]) after
+        its augmentors; and OPTIMIZER adam (its own LR, WEIGHT_DECAY,
+        MOMENTUM, DECAY_STEP_LIST, LR_DECAY and LR_CLIP; sgd by setting
+        OPTIMIZATION.OPTIMIZER);
+      * "teacher3": fast_cpc.yaml with a third teacher SA layer
+        (`_third_teacher_layer`);
+      * "pointrcnn_pool_last": pointrcnn.yaml with the RoI head's SA_CONFIG
+        NPOINTS [128, 32] and no group-all layer, so the head max-pools the
+        last SA level."""
     kitti = ROOT / "tools/cfgs/kitti_models"
+    if name == "pillar_options":
+        cfg = load_cfg(kitti / "pointpillar.yaml")
+        cfg.MODEL.VFE.update(NUM_FILTERS=[64, 64], WITH_DISTANCE=True, USE_ABSLOTE_XYZ=False)
+        cfg.MODEL.BACKBONE_2D.update(UPSAMPLE_STRIDES=[0.5, 1, 2, 2],
+                                     NUM_UPSAMPLE_FILTERS=[128, 128, 128])
+        cfg.MODEL.POST_PROCESSING.SCORE_THRESH = [0.1, 0.1, 0.1]
+        cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_TYPE = "nms_normal"
+        augs = cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST
+        augs.append(EDict({"NAME": "random_world_frustum_dropout",
+                           "DIRECTION": ["top", "left"], "INTENSITY_RANGE": [0.0, 0.2]}))
+        cfg.OPTIMIZATION.OPTIMIZER = "adam"
+        return cfg
+    if name == "teacher3":
+        cfg = load_cfg(kitti / "fast_cpc.yaml")
+        _third_teacher_layer(cfg.MODEL.BACKBONE_3D.SA_CONFIG)
+        return cfg
+    if name == "pointrcnn_pool_last":
+        cfg = load_cfg(kitti / "pointrcnn.yaml")
+        sa = cfg.MODEL.ROI_HEAD.SA_CONFIG
+        for key in ("NPOINTS", "RADIUS", "NSAMPLE", "MLPS"):
+            sa[key] = list(sa[key])[:2]
+        return cfg
     if name != "neck":
         cfg = load_cfg(kitti / "dsasnet.yaml")
         cfg.MODEL.BACKBONE_2D = EDict(HYBRID_VARIANTS[name])
@@ -416,15 +495,17 @@ def variant_cfg(name):
     return cfg
 
 
-def build_detector(cfg_file, device="cuda", seed=0, n_points=16384):
-    """The detector of `cfg_file` (or of a loaded config) with seeded random
-    weights and eval state; its dataset's geometry is
-    `model.dataset_meta`."""
+def build_detector(cfg_file, device="cuda", seed=0, n_points=16384, variant=None):
+    """The detector of `cfg_file` (or of a loaded config), or of the variant
+    `variant` (`variant_cfg`), with seeded random weights and eval state;
+    its dataset's geometry is `model.dataset_meta`."""
+    if variant is not None:
+        cfg_file = variant_cfg(variant)
     cfg = cfg_file if isinstance(cfg_file, dict) else load_cfg(cfg_file)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                           dataset=dataset_meta(cfg, n_points), device=device,
                           seed=seed)
-    randomize_eval_state(model, seed + 1, cfg.DATA_CONFIG.DATASET)
+    randomize_eval_state(model, seed + 1, cfg.DATA_CONFIG.DATASET, variant)
     return cfg, model
 
 
@@ -443,7 +524,8 @@ def voxel_anchor_counts(model, out):
     """Per scan, the voxels (or pillars) a voxel-based detector kept, or the
     voxels inside a camera detector's frustum, and the predictions that
     reach NMS: the anchors whose best class score reaches a
-    scalar SCORE_THRESH, or CenterPoint's decoded boxes scoring above it;
+    scalar SCORE_THRESH (or that class's of a per-class one), or
+    CenterPoint's decoded boxes scoring above it;
     None where the model or the config has neither. A two-stage detector's
     first-stage boxes are counted by the dense head's scores (`cls_preds`),
     or PointRCNN's point head's (`point_cls_preds`, a box a point): the
@@ -459,6 +541,12 @@ def voxel_anchor_counts(model, out):
         logits = (out["cls_preds"] if "cls_preds" in out else out["point_cls_preds"]) \
             if "roi_labels" in out else out["batch_cls_preds"]
         over = (torch.sigmoid(logits).amax(-1) >= float(thresh)).sum(1).tolist()
+    elif "cls_preds" in out and "roi_labels" not in out:
+        # an anchor head under per-class thresholds (multi_thresh_nms): each
+        # anchor's best class score against that class's threshold
+        scores, labels = torch.sigmoid(out["batch_cls_preds"]).max(-1)
+        thr = torch.tensor(list(thresh), dtype=scores.dtype, device=scores.device)[labels]
+        over = (scores >= thr).sum(1).tolist()
     return voxels, over
 
 
@@ -559,10 +647,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--variant", default=None,
+                    choices=OPTION_VARIANTS + ("neck",) + tuple(HYBRID_VARIANTS),
+                    help="a variant of a shipped config (`variant_cfg`) in place of "
+                         "--cfg_file")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg, model = build_detector(args.cfg_file, dev, args.seed, args.points)
+    cfg, model = build_detector(args.cfg_file, dev, args.seed, args.points, args.variant)
     pts = torch.from_numpy(synth_scans(model.dataset_meta, args.batch, args.points, args.seed)).to(dev)
     mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
     camera = ({k: torch.from_numpy(v).to(dev) for k, v in synth_camera(args.batch, args.seed).items()}

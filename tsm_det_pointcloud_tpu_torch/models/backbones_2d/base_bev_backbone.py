@@ -9,9 +9,12 @@ and once out (`permute`, which PyTorch's convolutions take as channels-last
 memory without a copy). Convs are `nn.Conv2d` / `nn.ConvTranspose2d`
 without bias and `nn.BatchNorm2d` (eps 1e-3, flax's batch statistics in
 train mode); `build_network` keeps TF32 off, so they run in full float32.
-The JAX package leaves these convs to XLA, outside any Pallas kernel. The
-`s < 1` deblock and the `deblock_final` branch are not on a ported path and
-raise.
+The JAX package leaves these convs to XLA, outside any Pallas kernel. An
+upsample stride s < 1 makes `deblock{i}` a strided `nn.Conv2d` (kernel and
+stride round(1 / s), no bias) where s >= 1 makes it a transposed conv; an
+UPSAMPLE_STRIDES one longer than LAYER_NUMS adds `deblock_final`, a
+transposed conv of its last stride over the concatenated map, keeping its
+channels, then `deblock_final_bn` and a ReLU.
 """
 from __future__ import annotations
 
@@ -81,11 +84,6 @@ class BaseBEVBackbone(nn.Module):
         num_filters = list(cfg.get("NUM_FILTERS", []))
         self.upsample_strides = list(cfg.get("UPSAMPLE_STRIDES", []))
         num_up = list(cfg.get("NUM_UPSAMPLE_FILTERS", []))
-        if len(self.upsample_strides) > len(self.layer_nums):
-            raise NotImplementedError("BaseBEVBackbone: deblock_final is not ported")
-        if any(s < 1 for s in self.upsample_strides):
-            raise NotImplementedError("BaseBEVBackbone: strided (s < 1) deblocks are "
-                                      "not ported")
         c_in = int(input_channels)
         for i, n_layers in enumerate(self.layer_nums):
             c = int(num_filters[i])
@@ -98,12 +96,26 @@ class BaseBEVBackbone(nn.Module):
                                                                bias=False))
                 self.add_module(f"block{i}_bn{j}", _BatchNorm2d(c))
             if i < len(self.upsample_strides):
-                u = int(self.upsample_strides[i])
-                self.add_module(f"deblock{i}", nn.ConvTranspose2d(
-                    c, int(num_up[i]), u, stride=u, bias=False))
+                u = self.upsample_strides[i]
+                if u >= 1:
+                    deblock = nn.ConvTranspose2d(c, int(num_up[i]), int(u), stride=int(u),
+                                                 bias=False)
+                else:
+                    k = int(round(1 / u))
+                    deblock = nn.Conv2d(c, int(num_up[i]), k, stride=k, bias=False)
+                self.add_module(f"deblock{i}", deblock)
                 self.add_module(f"deblock{i}_bn", _BatchNorm2d(num_up[i]))
             c_in = c
         self.num_bev_features = sum(int(n) for n in num_up) if num_up else c_in
+        self.has_final = len(self.upsample_strides) > len(self.layer_nums)
+        if self.has_final:
+            # the JAX get_output_feature_dim says twice these channels; the
+            # flax conv keeps the concatenation's, as this one does
+            u = int(self.upsample_strides[-1])
+            self.deblock_final = nn.ConvTranspose2d(self.num_bev_features,
+                                                    self.num_bev_features, u, stride=u,
+                                                    bias=False)
+            self.deblock_final_bn = _BatchNorm2d(self.num_bev_features)
 
     def forward(self, batch_dict):
         x = batch_dict["spatial_features"].permute(0, 3, 1, 2)   # NHWC -> NCHW
@@ -120,6 +132,8 @@ class BaseBEVBackbone(nn.Module):
             else:
                 ups.append(x)
         x = torch.cat(ups, 1) if len(ups) > 1 else ups[0]
+        if self.has_final:
+            x = torch.relu(self.deblock_final_bn(self.deblock_final(x)))
         batch_dict["spatial_features_2d"] = x.permute(0, 2, 3, 1)   # NCHW -> NHWC
         return batch_dict
 

@@ -1,8 +1,8 @@
 """Voxel feature encoders (counterpart of
 tsm_det_pointcloud_tpu/models/backbones_3d/vfe.py): each voxelises the
 (B, N, C) points on the device. `MeanVFE` averages each voxel's points;
-`PillarVFE` (PointPillars) runs a Linear + BN + ReLU over each pillar's
-decorated points and max-pools them. The JAX registry's variants:
+`PillarVFE` (PointPillars) runs a stack of Linear (+ BN) + ReLU layers over
+each pillar's decorated points and max-pools them. The JAX registry's variants:
 `DynamicMeanVFE` and `DynamicPillarVFE` (the reference's scatter-based
 VFEs, the same computation here, as in the JAX package), `MeanDensityVFE`
 (the mean and the voxel's point count) and `SPVFE` / `VPCVFE` (the mean
@@ -55,39 +55,46 @@ class MeanVFE(nn.Module):
 
 
 class PillarVFE(nn.Module):
-    """PointPillars' feature net, as pointpillar.yaml configures it: one PFN
-    layer (NUM_FILTERS of one entry) with BN, absolute xyz, no distance; any
-    other USE_NORM, USE_ABSLOTE_XYZ, WITH_DISTANCE or a second layer raises
-    (no config takes them). Each pillar keeps its first
-    `max_points_per_voxel` points in scan order (`voxelize`); a point's
-    features are followed by the xyz offsets from its pillar's mean (divided
-    by max(n, 1)) and from its pillar's centre, z included, and the padded
-    slots are zeroed. Then a bias-free Linear `pfn_0`, a BN `pfn_bn_0` (eps
-    1e-3, momentum 0.99) and a ReLU, and a max over the pillar's points with
-    -1e9 at padded slots; an empty pillar gives 0. The BN has no mask, as in
-    the JAX package: its training statistics count all B x V x P rows, padded
-    slots and empty pillars included (their Linear outputs are 0). Module
-    names follow the flax ones, so `convert.from_flax_variables` maps a JAX
-    state onto it."""
+    """PointPillars' feature net (JAX vfe.py:61-150). Each pillar keeps its
+    first `max_points_per_voxel` points in scan order (`voxelize`); a
+    point's features (without x, y, z under USE_ABSLOTE_XYZ False) are
+    followed by the xyz offsets from its pillar's mean (divided by
+    max(n, 1)) and from its pillar's centre, z included, and with
+    WITH_DISTANCE by its xyz norm; the padded slots are zeroed. Then for
+    each NUM_FILTERS entry k a Linear `pfn_{k}` (bias-free under USE_NORM,
+    then a BN `pfn_bn_{k}`, eps 1e-3, momentum 0.99; with a bias and no BN
+    otherwise), a ReLU and a max over the pillar's points with -1e9 at
+    padded slots. A layer before the last concatenates that max back onto
+    each point, whose own features are zeroed at padded slots, so the next
+    layer reads twice NUM_FILTERS[k] inputs (the JAX package's widths:
+    OpenPCDet's PFNLayer halves a non-last layer's width instead). An empty
+    pillar gives 0. The BN has no mask, as in the JAX package: its training
+    statistics count all B x V x P rows, padded slots and empty pillars
+    included. Module names follow the flax ones, so
+    `convert.from_flax_variables` maps a JAX state onto it."""
 
     def __init__(self, model_cfg, num_point_features, voxel_size,
                  point_cloud_range, max_voxels, max_points_per_voxel):
         super().__init__()
         cfg = model_cfg
-        filters = [int(n) for n in cfg["NUM_FILTERS"]]
-        if (len(filters) != 1 or not cfg.get("USE_NORM", True)
-                or not cfg.get("USE_ABSLOTE_XYZ", True) or cfg.get("WITH_DISTANCE", False)):
-            raise NotImplementedError(
-                "PillarVFE: only one PFN layer with BN, absolute xyz and no distance is ported")
+        self.filters = [int(n) for n in cfg["NUM_FILTERS"]]
+        self.use_norm = bool(cfg.get("USE_NORM", True))
+        self.with_distance = bool(cfg.get("WITH_DISTANCE", False))
+        self.use_abs_xyz = bool(cfg.get("USE_ABSLOTE_XYZ", True))
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.max_voxels = int(max_voxels)
         self.max_points_per_voxel = int(max_points_per_voxel)
-        self.pfn_0 = nn.Linear(int(num_point_features) + 6, filters[0], bias=False)
-        self.pfn_bn_0 = BatchNorm(filters[0], eps=1e-3)
+        c = (int(num_point_features) - (0 if self.use_abs_xyz else 3) + 6
+             + int(self.with_distance))
+        for k, n in enumerate(self.filters):
+            self.add_module(f"pfn_{k}", nn.Linear(c, n, bias=not self.use_norm))
+            if self.use_norm:
+                self.add_module(f"pfn_bn_{k}", BatchNorm(n, eps=1e-3))
+            c = 2 * n
 
     def get_output_feature_dim(self):
-        return self.pfn_0.out_features
+        return self.filters[-1]
 
     def forward(self, batch_dict):
         points, mask = batch_dict["points"], batch_dict["points_mask"]
@@ -108,10 +115,20 @@ class PillarVFE(nn.Module):
         c = coords.to(xyz.dtype)
         center = torch.stack([(c[..., 2] + 0.5) * vx + x0, (c[..., 1] + 0.5) * vy + y0,
                               (c[..., 0] + 0.5) * vz + z0], -1)[:, :, None, :]
-        x = torch.cat([voxels, f_cluster, xyz - center], -1) * pt_valid.to(xyz.dtype)
-        x = torch.relu(self.pfn_bn_0(self.pfn_0(x)))
-        pooled = torch.where(pt_valid, x, torch.full((), -1e9, dtype=x.dtype,
-                                                     device=x.device)).amax(2)
+        feats = [voxels if self.use_abs_xyz else voxels[..., 3:], f_cluster, xyz - center]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+        x = torch.cat(feats, -1) * pt_valid.to(xyz.dtype)
+        neg = torch.full((), -1e9, dtype=x.dtype, device=x.device)
+        for k in range(len(self.filters)):
+            x = getattr(self, f"pfn_{k}")(x)
+            if self.use_norm:
+                x = getattr(self, f"pfn_bn_{k}")(x)
+            x = torch.where(pt_valid, torch.relu(x), neg)
+            pooled = x.amax(2)
+            if k < len(self.filters) - 1:
+                x = torch.cat([torch.where(pt_valid, x, torch.zeros_like(x)),
+                               pooled[:, :, None, :].expand_as(x)], -1)
         vmask = npts > 0
         pooled = torch.where(vmask[..., None], pooled, torch.zeros_like(pooled))
         batch_dict["pillar_features"] = pooled

@@ -535,20 +535,24 @@ class VoxelPointNet2FSMSG(_VoxelFSBase):
 
 
 class VoxelPointNet2FSMSGDistillation(_VoxelFSBase):
-    """Frozen-teacher / student backbone. Eval: the teacher runs its first
+    """Frozen-teacher / student backbone, for a teacher of any number >= 2
+    of SA layers. Eval: the teacher runs its first
     len(SA_CONFIG.NPOINT_LIST) - 1 layers (layer 0 for the TSM configs),
-    then the student layer `s_sa1` runs on teacher layer 0's outputs.
-    Train: the teacher runs all its layers in train mode (batch-stat BN,
-    running stats updated) under `torch.no_grad()` — the counterpart of the
-    JAX `stop_gradient` (voxel_pointnet2_backbone.py:734-738) — and
-    `s_sa1` reuses the teacher's U-Net plan."""
+    then the student layer `s_sa1` runs on teacher layer 0's outputs; the
+    later teacher layers' outputs reach only the SASA pyramid lists, which
+    no eval output reads (the JAX jit drops them; here they run). Train:
+    the teacher runs all its layers in train mode (batch-stat BN, running
+    stats updated) under `torch.no_grad()` — the counterpart of the JAX
+    `stop_gradient` (voxel_pointnet2_backbone.py:734-738) — and `s_sa1`
+    reuses the teacher's U-Net plan (built at layer 1 and shared by layers
+    1 and 2, as the JAX `_run_layers` shares it)."""
 
     def __init__(self, model_cfg, input_channels, meta=None):
         super().__init__(model_cfg, input_channels, meta)
         self.n_teacher = len(model_cfg["SA_CONFIG"]["NPOINT_LIST"])
-        if self.n_teacher != 2:
-            raise NotImplementedError(
-                "only configs whose eval teacher is SA layer 0 alone are ported")
+        if self.n_teacher < 2:
+            raise ValueError("the distillation backbone's teacher needs two SA layers "
+                             "or more (the student reads layer 0, the heads the last)")
         self._build_layers("SA_CONFIG", self.n_teacher)
         cfg = model_cfg["S_SA_CONFIG"]
         capacity = sum(int(n) for n in cfg["NPOINT_LIST"][0])

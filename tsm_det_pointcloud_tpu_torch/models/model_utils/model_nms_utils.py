@@ -2,11 +2,13 @@
 tsm_det_pointcloud_tpu/models/model_utils/model_nms_utils.py).
 
 Scores below threshold are masked to -inf so they never enter the kept set;
-`count` reports real detections. Rotated (nms_gpu) NMS only. The
-class-agnostic route takes the top NMS_PRE_MAXSIZE first and clips only
-their pairs (`iou3d.nms_bev`); the multi-threshold route builds the
-polygon-clip IoU grid once per sample and replays the per-class and global
-keep fixpoints on it.
+`count` reports real detections. NMS_TYPE `nms_gpu` is rotated NMS
+(`iou3d.nms_bev`), any other axis-aligned (`iou3d.nms_normal`), as in the
+JAX package. The class-agnostic route takes the top NMS_PRE_MAXSIZE first
+and compares only their pairs; the multi-threshold route builds the IoU grid
+once per sample and replays the per-class and global keep fixpoints on it,
+unless the sample has more than max(NMS_PRE_MAXSIZE, 4096) boxes: then each
+pass takes its own top NMS_PRE_MAXSIZE (the per-pass route).
 """
 from __future__ import annotations
 
@@ -22,9 +24,8 @@ def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None):
     if score_thresh is not None:
         scores = torch.where(box_scores >= score_thresh, box_scores,
                              torch.full_like(box_scores, -float("inf")))
-    if nms_config["NMS_TYPE"] != "nms_gpu":
-        raise NotImplementedError("only the rotated (nms_gpu) NMS is ported")
-    return iou3d.nms_bev(
+    nms_fn = iou3d.nms_bev if nms_config["NMS_TYPE"] == "nms_gpu" else iou3d.nms_normal
+    return nms_fn(
         box_preds, scores, thresh=float(nms_config["NMS_THRESH"]),
         pre_maxsize=int(nms_config["NMS_PRE_MAXSIZE"]),
         post_maxsize=int(nms_config["NMS_POST_MAXSIZE"]))
@@ -32,8 +33,9 @@ def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None):
 
 def multi_thresh_nms(cls_scores, box_preds, labels, nms_config,
                      score_thresh_list):
-    """Per-class score gating + per-class NMS + a global second NMS, on the
-    sequential per-class route. cls_scores (N,), labels (N,) 1-based."""
+    """Per-class score gating + per-class NMS + a global second NMS over
+    the union of the classes' kept boxes (JAX model_nms_utils.py:46-128).
+    cls_scores (N,), labels (N,) 1-based."""
     num_class = len(score_thresh_list)
     thr = torch.tensor(score_thresh_list, dtype=cls_scores.dtype,
                        device=cls_scores.device)
@@ -47,9 +49,18 @@ def multi_thresh_nms(cls_scores, box_preds, labels, nms_config,
     rotated = nms_config["NMS_TYPE"] == "nms_gpu"
     n = int(gated.shape[0])
     if n > max(pre, 4096):
-        raise NotImplementedError(
-            "multi_thresh_nms: the per-pass top-k route (n > max(pre, 4096)) "
-            "is not ported")
+        # far more candidates than the NMS working set: each pass takes its
+        # own top-k, where the matrix route would build an (n, n) grid
+        nms_fn = iou3d.nms_bev if rotated else iou3d.nms_normal
+        kept = torch.zeros_like(gated, dtype=torch.bool)
+        for c in range(1, num_class + 1):
+            idx, cnt, _ = nms_fn(box_preds, torch.where(labels == c, gated, neg),
+                                 thresh=nms_thresh, pre_maxsize=pre, post_maxsize=post)
+            slot_ok = torch.arange(idx.shape[0], device=idx.device) < cnt
+            kept[idx[slot_ok]] = True   # an OR: no scatter of duplicate indices
+        survivors = torch.where(kept, gated, neg)
+        return nms_fn(box_preds, survivors, thresh=nms_thresh, pre_maxsize=pre,
+                      post_maxsize=post)
     s_mat = iou3d.suppression_matrix(box_preds, nms_thresh, rotated=rotated)
     kept = torch.zeros_like(gated, dtype=torch.bool)
     for c in range(1, num_class + 1):

@@ -16,8 +16,10 @@ NUM_SAMPLED_POINTS) rows, the valid slots those filled in a non-empty RoI:
 SA_CONFIG's single-scale `roi_sa{i}` PointnetSAModuleMSG layers (d-fps on
 K1, the ball query on K2) and, for NPOINTS -1, the JAX package's GroupAll
 terminal: `roi_sa{i}` a SharedMLP over [xyz, features] and a masked max over
-the row (0 for a row with no valid point); an SA_CONFIG without that
-terminal (none under tools/cfgs/) raises. An empty RoI's feature is 0. Then
+the row (0 for a row with no valid point). An SA_CONFIG without that
+terminal max-pools its last SA level the same way (JAX :129-133); without an
+SA_CONFIG the head max-pools `xyz_up`'s features over the RoI's filled slots
+(JAX :135-136). An empty RoI's feature is 0. Then
 the SHARED_FC Dense + BN + ReLU stack (`shared_fc{k}` / `shared_bn{k}`),
 the CLS_FC and REG_FC SharedMLPs (`cls_fc`, `reg_fc`) masked by the RoIs'
 validity, and `cls_out` (1) / `reg_out` (7). Every SharedMLP has BN, so
@@ -71,20 +73,21 @@ class PointRCNNHead(tmpl.RoIHeadTemplate):
         self.depth_normalizer = float(pool.get("DEPTH_NORMALIZER", 70.0))
         self.xyz_up = SharedMLP(3 + 2 + int(input_channels), model_cfg["XYZ_UP_LAYER"])
         c = self.xyz_up.channels[-1]
-        sa = model_cfg.get("SA_CONFIG") or {"NPOINTS": []}
-        npoints = [int(n) for n in sa["NPOINTS"]]
-        if -1 not in npoints:
-            raise NotImplementedError("PointRCNNHead without an SA_CONFIG ending in the "
-                                      "group-all layer (NPOINTS -1) is not ported")
-        self.n_sa = npoints.index(-1)          # the JAX head stops at the group-all layer
+        sa = model_cfg.get("SA_CONFIG")
+        self.has_sa = bool(sa)
+        npoints = [int(n) for n in sa["NPOINTS"]] if sa else []
+        # the JAX head stops at the group-all layer; without one it runs them all
+        self.n_sa = npoints.index(-1) if -1 in npoints else len(npoints)
+        self.group_all = -1 in npoints
         for i in range(self.n_sa):
             m = PointnetSAModuleMSG(npoints[i], [sa["RADIUS"][i]], [sa["NSAMPLE"][i]],
                                     [sa["MLPS"][i]], c)
             setattr(self, f"roi_sa{i}", m)
             c = m.out_channels
-        group_all = SharedMLP(3 + c, sa["MLPS"][self.n_sa])
-        setattr(self, f"roi_sa{self.n_sa}", group_all)
-        c = group_all.channels[-1]
+        if self.group_all:
+            group_all = SharedMLP(3 + c, sa["MLPS"][self.n_sa])
+            setattr(self, f"roi_sa{self.n_sa}", group_all)
+            c = group_all.channels[-1]
         self.n_shared = len(model_cfg["SHARED_FC"])
         for k, w in enumerate(model_cfg["SHARED_FC"]):
             setattr(self, f"shared_fc{k}", nn.Linear(c, int(w), bias=False))
@@ -112,13 +115,17 @@ class PointRCNNHead(tmpl.RoIHeadTemplate):
     def encode(self, canon, h_pts, empty, slot_ok):
         """The in-RoI encoder: (B, R, C) features of each RoI."""
         B, R, S = slot_ok.shape
+        if not self.has_sa:
+            return _masked_row_max(h_pts.reshape(B * R, S, -1),
+                                   slot_ok.reshape(B * R, S)).reshape(B, R, -1)
         xyz = canon.reshape(B * R, S, 3)
         f = h_pts.reshape(B * R, S, -1)
         v = (slot_ok & ~empty[..., None]).reshape(B * R, S)
         for i in range(self.n_sa):
             xyz, f, v = getattr(self, f"roi_sa{i}")(xyz, f, v)
-        g = getattr(self, f"roi_sa{self.n_sa}")(torch.cat([xyz, f], -1), v)
-        return _masked_row_max(g, v).reshape(B, R, -1)
+        if self.group_all:
+            f = getattr(self, f"roi_sa{self.n_sa}")(torch.cat([xyz, f], -1), v)
+        return _masked_row_max(f, v).reshape(B, R, -1)
 
     def rcnn(self, batch_dict, rois, roi_valid):
         canon, g_feat, empty, slot_ok = self.pool(batch_dict, rois)

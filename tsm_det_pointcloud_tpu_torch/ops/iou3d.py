@@ -3,12 +3,16 @@
 Counterpart of tsm_det_pointcloud_tpu/ops/iou3d.py: the intersection area of
 two convex quads is a boundary integral (each edge of A clipped to B plus
 each edge of B clipped to A), pure elementwise math on the (N, M) pair
-grid. Two NMS routes, as in the JAX package: `nms_bev` takes the top
-`pre_maxsize` boxes first and clips only their k x k pairs (class-agnostic
-NMS over SECOND's 211,200 anchors a scan); the suppression-matrix route
-builds the N x N grid once and replays keep fixpoints on it
-(`multi_thresh_nms`, whose passes share one set of boxes). Top-k selections
-are stable sorts, so ties go to the lower index, as `jax.lax.top_k`.
+grid. `nms_normal` and `suppression_matrix(rotated=False)` are the
+axis-aligned forms: each box becomes x +- dx/2, y +- dy/2 with the heading
+ignored, and the IoU is the product of the two overlaps over the union.
+Two NMS routes, as in the JAX package: `nms_bev` / `nms_normal` take the
+top `pre_maxsize` boxes first and compare only their k x k pairs
+(class-agnostic NMS over SECOND's 211,200 anchors a scan); the
+suppression-matrix route builds the N x N grid once and replays keep
+fixpoints on it (`multi_thresh_nms`, whose passes share one set of boxes).
+Top-k selections are stable sorts, so ties go to the lower index, as
+`jax.lax.top_k`.
 """
 from __future__ import annotations
 
@@ -99,15 +103,31 @@ def boxes_iou3d(boxes_a, boxes_b):
     return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)
 
 
-def suppression_matrix(boxes, thresh, rotated=True):
-    """(N, 7) boxes -> (N, N) bool: IoU(i, j) > thresh, original order."""
-    if not rotated:
-        raise NotImplementedError("only the rotated (nms_gpu) route is ported")
+def _aabb(boxes):
+    """(N, 7+) -> (N, 4) BEV extents (x0, y0, x1, y1), the heading ignored."""
+    return torch.cat([boxes[:, 0:2] - boxes[:, 3:5] / 2,
+                      boxes[:, 0:2] + boxes[:, 3:5] / 2], -1)
+
+
+def _iou_grid(boxes, rotated):
+    """(N, 7+) -> (N, N) BEV IoU of every pair (JAX `_iou_grid_fn`):
+    rotated quads, or axis-aligned extents."""
     areas = boxes[:, 3] * boxes[:, 4]
-    geom = boxes_to_corners_bev(boxes)
-    inter = _pair_intersection_area_grid(geom, geom)
-    iou = inter / torch.clamp(areas[:, None] + areas[None, :] - inter, min=1e-6)
-    return iou > thresh
+    if rotated:
+        geom = boxes_to_corners_bev(boxes)
+        inter = _pair_intersection_area_grid(geom, geom)
+    else:
+        geom = _aabb(boxes)
+        inter = torch.clamp(torch.minimum(geom[:, None, 2:], geom[None, :, 2:])
+                            - torch.maximum(geom[:, None, :2], geom[None, :, :2]),
+                            min=0.0).prod(-1)
+    return inter / torch.clamp(areas[:, None] + areas[None, :] - inter, min=1e-6)
+
+
+def suppression_matrix(boxes, thresh, rotated=True):
+    """(N, 7) boxes -> (N, N) bool: IoU(i, j) > thresh, original order;
+    rotated (nms_gpu) or axis-aligned (nms_normal)."""
+    return _iou_grid(boxes, rotated) > thresh
 
 
 def _suppression_fixpoint(S, valid):
@@ -154,27 +174,36 @@ def _select_kept(order, top_scores, keep, post_maxsize):
     return keep_idx, keep_count, kept_scores
 
 
-def nms_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=512,
-            score_thresh=None):
-    """Rotated BEV NMS over the top `pre_maxsize` scores (JAX
-    ops/iou3d.py:227-244): the k x k suppression grid of the score-sorted
-    boxes, the keep fixpoint, fixed-size outputs. Returns (keep_idx (post,),
-    keep_count, kept scores (post,))."""
+def _nms_top_k(boxes, scores, thresh, pre_maxsize, post_maxsize, score_thresh,
+               rotated):
+    """NMS over the top `pre_maxsize` scores: the k x k suppression grid of
+    the score-sorted boxes, the keep fixpoint, fixed-size outputs."""
     n = scores.shape[0]
     k = min(pre_maxsize, n)
     top_scores, order = stable_top_k(scores, k)
-    boxes_s = boxes[order]
     floor = -float("inf") if score_thresh is None else score_thresh
     valid = torch.isfinite(top_scores) & (top_scores > floor)
-    areas = boxes_s[:, 3] * boxes_s[:, 4]
-    corners = boxes_to_corners_bev(boxes_s)
-    inter = _pair_intersection_area_grid(corners, corners)
-    iou = inter / torch.clamp(areas[:, None] + areas[None, :] - inter, min=1e-6)
     rank = torch.arange(k, device=scores.device)
-    S = ((iou > thresh) & (rank[:, None] < rank[None, :])
+    S = ((_iou_grid(boxes[order], rotated) > thresh) & (rank[:, None] < rank[None, :])
          & valid[:, None] & valid[None, :])
     keep = _suppression_fixpoint(S, valid)
     return _select_kept(order, top_scores, keep, post_maxsize)
+
+
+def nms_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=512,
+            score_thresh=None):
+    """Rotated BEV NMS (JAX ops/iou3d.py:227-244). Returns (keep_idx (post,),
+    keep_count, kept scores (post,))."""
+    return _nms_top_k(boxes, scores, thresh, pre_maxsize, post_maxsize, score_thresh,
+                      rotated=True)
+
+
+def nms_normal(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=512,
+               score_thresh=None):
+    """Axis-aligned BEV NMS, the heading ignored (JAX ops/iou3d.py:247-262);
+    `nms_bev`'s outputs."""
+    return _nms_top_k(boxes, scores, thresh, pre_maxsize, post_maxsize, score_thresh,
+                      rotated=False)
 
 
 def nms_from_matrix(s_mat, scores, pre_maxsize=4096, post_maxsize=512):

@@ -61,34 +61,32 @@ def _sq_dist(xyz, sel):
 
 
 def furthest_point_sample_plain(xyz, npoint, valid_mask=None, weights=None):
-    """Plain PyTorch FPS (d-fps, or s-fps when `weights` is given)."""
+    """Plain PyTorch FPS (d-fps, or s-fps when `weights` is given). Ties go
+    to the lowest index (`argmax` returns the first maximum). A step is
+    about ten launches on the card, so the loop there is launch-bound; the
+    picks stay on the device until the end."""
     B, N, _ = xyz.shape
     mind = torch.full((B, N), 1e10, dtype=xyz.dtype, device=xyz.device)
     if valid_mask is not None:
         mind = torch.where(valid_mask, mind, torch.full_like(mind, -1.0))
-    idxs = torch.zeros((B, npoint), dtype=torch.int32, device=xyz.device)
-    last = torch.zeros((B,), dtype=torch.long, device=xyz.device)
-    rows = torch.arange(B, device=xyz.device)
+    idxs = torch.zeros((B, npoint), dtype=torch.long, device=xyz.device)
+    last = torch.zeros((B, 1, 1), dtype=torch.long, device=xyz.device).expand(B, 1, 3)
     neg = torch.full_like(mind, -1.0)
     for i in range(1, npoint):
-        sel = xyz[rows, last][:, None, :]
-        d2 = _sq_dist(xyz, sel)
+        d2 = _sq_dist(xyz, torch.gather(xyz, 1, last))
+        mind = torch.minimum(mind, d2)
         if weights is None:
-            mind = torch.minimum(mind, d2)
             if valid_mask is not None:
                 mind = torch.where(valid_mask, mind, neg)
             key = mind
         else:
-            mind = torch.minimum(mind, d2)
             key = weights * mind
             if valid_mask is not None:
                 key = torch.where(valid_mask, key, neg)
-        # first maximum: argmax over (key, -index) made explicit
-        kmax = key.max(dim=-1, keepdim=True).values
-        lanes = torch.arange(N, device=xyz.device).expand(B, N)
-        last = torch.where(key == kmax, lanes, N).min(dim=-1).values
-        idxs[:, i] = last.to(torch.int32)
-    return idxs
+        pick = key.argmax(dim=-1, keepdim=True)
+        idxs[:, i:i + 1] = pick
+        last = pick[..., None].expand(B, 1, 3)
+    return idxs.to(torch.int32)
 
 
 def furthest_point_sample_feature(xyz, features, npoint, valid_mask=None, gamma=1.0):

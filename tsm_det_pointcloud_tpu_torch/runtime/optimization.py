@@ -1,5 +1,9 @@
-"""adam_onecycle, the optimizer of the TSM configs (counterpart of
-tsm_det_pointcloud_tpu/runtime/optimization.py:20-46, 65-122).
+"""The optimizers of the JAX package (counterpart of
+tsm_det_pointcloud_tpu/runtime/optimization.py): adam_onecycle, the
+optimizer of every config under tools/cfgs/, and adam / sgd on a step-decay
+learning rate (`decay_step_lr_fn`: LR times LR_DECAY at each
+DECAY_STEP_LIST epoch, counted in steps of `steps_per_epoch`, floored at
+LR_CLIP * LR).
 
 The JAX package builds it with optax as
     chain(clip_by_global_norm(GRAD_NORM_CLIP),
@@ -15,11 +19,19 @@ and `AdamOneCycle` repeats that arithmetic step for step:
   * AdamW: eps 1e-8 outside the square root, the weight decay added to the
     Adam direction before the learning rate scales it (decoupled).
 The norm and the clip stay on the device: a step does not synchronise.
+`adam` is the same class with b1 0.9 for every step and b2 0.999 (optax's
+adamw defaults); `sgd` is `SGDMomentum`, optax's
+    chain(clip_by_global_norm(GRAD_NORM_CLIP),
+          inject_hyperparams(chain(add_decayed_weights(WEIGHT_DECAY),
+                                   sgd(lr_fn, momentum=MOMENTUM))))
+step for step: the decayed weights are added to the clipped gradient, the
+trace is g + MOMENTUM * trace (zeros at first), the update -lr * trace.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -54,16 +66,31 @@ def onecycle_lr_fn(lr_max, total_steps, moms, div_factor, pct_start):
     return lr_fn, mom_fn
 
 
-class AdamOneCycle(torch.optim.Optimizer):
-    """Clipped AdamW with a scheduled learning rate and b1 (see the module
-    docstring). `lr_fn` / `mom_fn` map the step count to lr / b1."""
+def decay_step_lr_fn(lr, decay_step_list, lr_decay, lr_clip, steps_per_epoch):
+    """lr_fn of adam / sgd: LR multiplied by LR_DECAY at each boundary
+    DECAY_STEP_LIST[i] * steps_per_epoch reached, floored at LR_CLIP * LR;
+    float32 arithmetic, as the JAX package's jnp schedule."""
+    boundaries = [int(e * steps_per_epoch) for e in decay_step_list]
 
-    def __init__(self, params, lr_fn, mom_fn, b2=0.99, eps=1e-8,
-                 weight_decay=0.0, max_grad_norm=0.0):
-        super().__init__(params, dict(b2=float(b2), eps=float(eps),
-                                      weight_decay=float(weight_decay)))
+    def lr_fn(step):
+        cur = np.float32(lr)
+        for b in boundaries:
+            if step >= b:
+                cur = np.float32(cur * np.float32(lr_decay))
+        return float(max(cur, np.float32(lr_clip * lr)))
+
+    return lr_fn
+
+
+class _Scheduled(torch.optim.Optimizer):
+    """The plumbing adam_onecycle, adam and sgd share: the step count in the
+    state, every parameter without a gradient stepped as gradient zero
+    (optax updates every leaf it was given; weight decay moves it still),
+    and optax's global-norm clip of the gradients first."""
+
+    def __init__(self, params, defaults, lr_fn, max_grad_norm):
+        super().__init__(params, defaults)
         self.lr_fn = lr_fn
-        self.mom_fn = mom_fn
         self.max_grad_norm = float(max_grad_norm)
         # the step count rides in the state (a non-parameter key, which
         # torch's state_dict / load_state_dict carry as it is)
@@ -75,27 +102,70 @@ class AdamOneCycle(torch.optim.Optimizer):
         mx = self.max_grad_norm
         return torch.where(norm < mx, torch.ones_like(norm), mx / norm)
 
+    def _clipped_grads(self):
+        params = [p for grp in self.param_groups for p in grp["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.max_grad_norm <= 0:
+            return {p: p.grad for p in params}
+        factor = self._clip_factor([p.grad for p in params])
+        return {p: p.grad * factor for p in params}
+
+
+class SGDMomentum(_Scheduled):
+    """Clipped SGD with decoupled-by-addition weight decay and momentum on a
+    scheduled learning rate (see the module docstring)."""
+
+    def __init__(self, params, lr_fn, momentum=0.9, weight_decay=0.0, max_grad_norm=0.0):
+        super().__init__(params, dict(momentum=float(momentum),
+                                      weight_decay=float(weight_decay)),
+                         lr_fn, max_grad_norm)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("SGDMomentum takes no closure")
+        grads = self._clipped_grads()
+        count = self.state["count"]
+        lr = float(self.lr_fn(count))
+        self.state["count"] = count + 1
+        for grp in self.param_groups:
+            m, wd = grp["momentum"], grp["weight_decay"]
+            for p in grp["params"]:
+                g = grads[p] + wd * p if wd else grads[p]
+                st = self.state[p]
+                if not st:
+                    st["trace"] = torch.zeros_like(p)
+                st["trace"].mul_(m).add_(g)
+                p.add_(st["trace"], alpha=-lr)
+        return None
+
+
+class AdamOneCycle(_Scheduled):
+    """Clipped AdamW with a scheduled learning rate and b1 (see the module
+    docstring). `lr_fn` / `mom_fn` map the step count to lr / b1."""
+
+    def __init__(self, params, lr_fn, mom_fn, b2=0.99, eps=1e-8,
+                 weight_decay=0.0, max_grad_norm=0.0):
+        super().__init__(params, dict(b2=float(b2), eps=float(eps),
+                                      weight_decay=float(weight_decay)),
+                         lr_fn, max_grad_norm)
+        self.mom_fn = mom_fn
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamOneCycle takes no closure")
-        # a parameter without a gradient counts as gradient zero: optax
-        # updates every leaf it was given (weight decay moves it still)
-        for grp in self.param_groups:
-            for p in grp["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        grads = self._clipped_grads()
         count = self.state["count"]
         lr, b1 = float(self.lr_fn(count)), float(self.mom_fn(count))
         count += 1
         self.state["count"] = count
-        factor = self._clip_factor(
-            [p.grad for grp in self.param_groups for p in grp["params"]]) \
-            if self.max_grad_norm > 0 else None
         for grp in self.param_groups:
             b2, eps, wd = grp["b2"], grp["eps"], grp["weight_decay"]
             for p in grp["params"]:
-                g = p.grad if factor is None else p.grad * factor
+                g = grads[p]
                 st = self.state[p]
                 if not st:
                     st["mu"] = torch.zeros_like(p)
@@ -112,17 +182,31 @@ class AdamOneCycle(torch.optim.Optimizer):
         return None
 
 
-def build_optimizer(optim_cfg, params, total_steps):
-    """The OPTIMIZATION section -> AdamOneCycle over `params`. Only
-    adam_onecycle, the optimizer of the ported configs, is ported."""
+def build_optimizer(optim_cfg, params, total_steps, steps_per_epoch=1000):
+    """The OPTIMIZATION section -> its optimizer over `params`:
+    adam_onecycle (`AdamOneCycle` on the one-cycle schedules of
+    `total_steps`), adam (`AdamOneCycle` with b1 0.9, b2 0.999) or sgd
+    (`SGDMomentum`), those two on `decay_step_lr_fn` with `steps_per_epoch`
+    (the loader's length; the JAX build_optimizer's default otherwise)."""
     name = optim_cfg["OPTIMIZER"]
-    if name != "adam_onecycle":
-        raise NotImplementedError(f"optimizer {name} is not ported")
-    lr_fn, mom_fn = onecycle_lr_fn(
-        float(optim_cfg["LR"]), int(total_steps),
-        tuple(optim_cfg.get("MOMS", [0.95, 0.85])),
-        float(optim_cfg.get("DIV_FACTOR", 10.0)),
-        float(optim_cfg.get("PCT_START", 0.3)))
-    return AdamOneCycle(params, lr_fn, mom_fn, b2=0.99,
-                        weight_decay=float(optim_cfg.get("WEIGHT_DECAY", 0.0)),
-                        max_grad_norm=float(optim_cfg.get("GRAD_NORM_CLIP", 0.0)))
+    wd = float(optim_cfg.get("WEIGHT_DECAY", 0.0))
+    clip = float(optim_cfg.get("GRAD_NORM_CLIP", 0.0))
+    if name == "adam_onecycle":
+        lr_fn, mom_fn = onecycle_lr_fn(
+            float(optim_cfg["LR"]), int(total_steps),
+            tuple(optim_cfg.get("MOMS", [0.95, 0.85])),
+            float(optim_cfg.get("DIV_FACTOR", 10.0)),
+            float(optim_cfg.get("PCT_START", 0.3)))
+        return AdamOneCycle(params, lr_fn, mom_fn, b2=0.99, weight_decay=wd,
+                            max_grad_norm=clip)
+    if name not in ("adam", "sgd"):
+        raise NotImplementedError(name)   # as the JAX build_optimizer
+    lr_fn = decay_step_lr_fn(
+        float(optim_cfg["LR"]), optim_cfg.get("DECAY_STEP_LIST", []),
+        float(optim_cfg.get("LR_DECAY", 0.1)), float(optim_cfg.get("LR_CLIP", 1e-7)),
+        steps_per_epoch)
+    if name == "adam":
+        return AdamOneCycle(params, lr_fn, lambda step: 0.9, b2=0.999, weight_decay=wd,
+                            max_grad_norm=clip)
+    return SGDMomentum(params, lr_fn, momentum=float(optim_cfg.get("MOMENTUM", 0.9)),
+                       weight_decay=wd, max_grad_norm=clip)

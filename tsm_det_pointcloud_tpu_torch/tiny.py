@@ -707,6 +707,68 @@ def centerpoint_nusc_state(seed=3):
                                     CENTERPOINT_NUSC_HM_BIAS)
 
 
+PP_MULTIHEAD_META = DatasetMeta(
+    class_names=("car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                 "motorcycle", "bicycle", "pedestrian", "traffic_cone"),
+    point_cloud_range=(-8.0, -8.0, -5.0, 8.0, 8.0, 3.0),
+    voxel_size=(0.5, 0.5, 8.0), grid_size=(32, 32, 1), max_voxels=192,
+    max_points_per_voxel=8, num_point_features=5, max_points=512,
+)
+PP_MULTIHEAD_FORWARD_PATH = STATE_PATH.parent / "pp_multihead_tiny_forward.npz"
+
+
+def pp_multihead_model_cfg():
+    """cbgs_pp_multihead.yaml's model at tiny widths: its ten anchor
+    classes, thresholds, sin / cos coder, strided first deblock (0.5) and
+    shared conv, on one BEV layer a level (16 / 16 / 32 filters, 8 upsample
+    filters each), a 16-wide PFN, an 8 x 8 anchor map (1280 anchors) and an
+    NMS of pre 64, post 16."""
+    from .infer import ROOT, load_cfg
+
+    cfg = load_cfg(ROOT / "tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml").MODEL
+    cfg.VFE.NUM_FILTERS = [16]
+    cfg.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    cfg.BACKBONE_2D.update(LAYER_NUMS=[1, 1, 1], NUM_FILTERS=[16, 16, 32],
+                           NUM_UPSAMPLE_FILTERS=[8, 8, 8])
+    cfg.DENSE_HEAD.SHARED_CONV_NUM_FILTER = 8
+    cfg.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=64, NMS_POST_MAXSIZE=16)
+    return cfg
+
+
+# the tiny multi-head's conv_cls bias in its checks: with the redrawn
+# weights ~300 of a scan's 1280 anchors then pass SCORE_THRESH 0.1
+PP_MULTIHEAD_CLS_BIAS = -3.0
+
+
+def pp_multihead_state(seed=3):
+    """The tiny multi-head's state for its checks: every entry of the port
+    model's state redrawn (`redraw_state`), the conv_cls bias at
+    PP_MULTIHEAD_CLS_BIAS."""
+    from .models import build_network
+
+    model = build_network(pp_multihead_model_cfg(), 10, PP_MULTIHEAD_META, device="cpu")
+    out = {}
+    for key, v in redraw_state(model.state_dict(), seed).items():
+        if key.endswith("conv_cls.bias"):
+            v = np.full(v.shape, PP_MULTIHEAD_CLS_BIAS)
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+def pp_multihead_gt(batch_size):
+    """gt_boxes (B, 5, 8) and gt_boxes_mask (B, 5) of the tiny multi-head's
+    training batches, per scan: a car, a bus, a pedestrian and a traffic
+    cone on the map, then a masked slot."""
+    gt = np.zeros((batch_size, 5, 8), np.float32)
+    gt[:, 0] = [2, 1, -0.1, 4.6, 1.9, 1.7, 0.3, 1]
+    gt[:, 1] = [-4, -3, 0.7, 10.5, 2.9, 3.5, 1.4, 4]
+    gt[:, 2] = [-4, 4, 0.0, 0.7, 0.7, 1.8, -0.5, 9]
+    gt[:, 3] = [5, -5, -0.8, 0.4, 0.4, 1.1, 0.0, 10]
+    mask = np.zeros((batch_size, 5), bool)
+    mask[:, :4] = True
+    return gt, mask
+
+
 LYFT_CLASSES = ("car", "truck", "bus", "emergency_vehicle", "other_vehicle", "motorcycle",
                 "bicycle", "pedestrian", "animal")
 CENTERPOINT_LYFT_META = dataclasses.replace(CENTERPOINT_NUSC_META, class_names=LYFT_CLASSES)

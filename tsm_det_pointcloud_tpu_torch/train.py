@@ -34,6 +34,11 @@ Synthetic-scan mode:
         --cfg_file tools/cfgs/kitti_models/CaDDN.yaml --batch 2
     python -m tsm_det_pointcloud_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/dsasnet.yaml --batch 2 --points 20000
+    python -m tsm_det_pointcloud_tpu_torch.train \
+        --cfg_file tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml --batch 4 \
+        --points 300000
+    python -m tsm_det_pointcloud_tpu_torch.train --variant pillar_options --batch 4 \
+        --points 20000 [--set OPTIMIZATION.OPTIMIZER sgd]
 Dataset mode (`--data_root DIR`, or `--dataset` for the config's DATA_PATH;
 the counterpart of the JAX tools/train.py):
     python -m tsm_det_pointcloud_tpu_torch.train \\
@@ -55,6 +60,9 @@ process), as the JAX tools/train.py --launcher:
         --launcher pytorch --cfg_file CFG --data_root DIR [--point_axis P]
     srun ... python -m tsm_det_pointcloud_tpu_torch.train --launcher slurm ...
 The two modes are chosen by these flags; neither falls back to the other.
+--variant NAME (both modes) takes a variant of a shipped config
+(`infer.variant_cfg`: pillar_options, teacher3, pointrcnn_pool_last, neck, or
+a DSASNet hybrid) in place of --cfg_file.
 `--set KEY VALUE ...` overrides config keys in both (`config.cfg_from_list`,
 as the JAX tools/train.py's --set).
 
@@ -67,7 +75,9 @@ TSM recipe; without it a distillation config
 instead. A distillation config then freezes the teacher and trains the
 student; any other config (the TSM teacher, whose statistics start at zeros
 and accumulate in training, and SECOND) trains every parameter. The
-optimizer is the config's adam_onecycle.
+optimizer is the config's: adam_onecycle, or adam / sgd, whose step-decay
+epochs count the loader's steps in dataset mode (1000 steps an epoch in the
+synthetic mode, the JAX build_optimizer's default).
 
 Synthetic-scan mode runs one warm-up step (which builds the kernels) plus
 --steps timed steps (`runtime.train_loop.train_one_epoch`, which reads the
@@ -129,9 +139,10 @@ import numpy as np
 import torch
 
 from .config import log_config_to_file
-from .infer import (KITTI_RANGE, ROOT, boxes_to_image, dataset_meta, load_cfg, profile_call,
-                    refuse_camera_data, scan_recipe, seed_statistics, synth_camera,
-                    synth_scene, uses_images)
+from .config import cfg_from_list
+from .infer import (HYBRID_VARIANTS, KITTI_RANGE, OPTION_VARIANTS, ROOT, boxes_to_image,
+                    dataset_meta, load_cfg, profile_call, refuse_camera_data, scan_recipe,
+                    seed_statistics, synth_camera, synth_scene, uses_images, variant_cfg)
 from .models import build_network
 from .ops import _kernels
 from .parallel import comm, point_sharding
@@ -181,7 +192,7 @@ def add_camera(batch, seed=0):
 
 
 def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1,
-                  pretrained_model=None, dataset=None, set_cfgs=None):
+                  pretrained_model=None, dataset=None, set_cfgs=None, steps_per_epoch=1000):
     """(cfg, model in train mode, optimizer over the parameters that train:
     the student's for a distillation config, else all of them); `cfg_file`
     may be a loaded config.
@@ -189,7 +200,10 @@ def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1
     are loaded first (as the JAX tools/train.py:161-171 does). dataset: the
     training dataset whose geometry the model takes, else the config's
     (`infer.dataset_meta` at n_points). set_cfgs: `--set` overrides of the
-    config file (a loaded config takes none: it is not copied)."""
+    config file (a loaded config takes none: it is not copied).
+    steps_per_epoch: the epoch length adam / sgd count DECAY_STEP_LIST in
+    (the loader's in dataset mode; the JAX build_optimizer's default,
+    1000, else)."""
     if isinstance(cfg_file, dict):
         if set_cfgs:
             raise ValueError("set_cfgs apply to a config file, not to a loaded config")
@@ -212,7 +226,7 @@ def build_trainer(cfg_file, device="cuda", seed=0, n_points=16384, total_steps=1
         params = freeze_teacher(model)
     else:
         params = list(model.parameters())
-    opt = build_optimizer(cfg.OPTIMIZATION, params, total_steps)
+    opt = build_optimizer(cfg.OPTIMIZATION, params, total_steps, steps_per_epoch)
     return cfg, model.train(), opt
 
 
@@ -249,18 +263,21 @@ def train_on_dataset(args, dev):
     from .runtime.eval_utils import repeat_eval_ckpts
     from .runtime.metrics import MetricsWriter
 
-    cfg = load_cfg(args.cfg_file, args.set_cfgs)
+    cfg = run_cfg(args)
     refuse_camera_data(cfg, "train --data_root")
     batch = args.batch or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
-    output_dir = Path(args.output_dir or default_output_dir(args.cfg_file, args.extra_tag))
+    # a variant's runs go to output/cfgs/variants/<name>/<extra_tag>
+    cfg_name = f"tools/cfgs/variants/{args.variant}.yaml" if args.variant else args.cfg_file
+    output_dir = Path(args.output_dir or default_output_dir(cfg_name, args.extra_tag))
     ckpt_dir = output_dir / "ckpt"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     rank, main_rank = comm.get_rank(), comm.is_main()
     logger = create_logger(
         output_dir / f"log_train_{time.strftime('%Y%m%d-%H%M%S')}.txt" if main_rank else None,
         rank=rank)
-    logger.info("training %s on %s, output %s", args.cfg_file, dev, output_dir)
+    logger.info("training %s on %s, output %s",
+                f"the variant {args.variant}" if args.variant else args.cfg_file, dev, output_dir)
     psh, num_shards, shard_id = shard_plan(args, cfg, dev)
     logger.info("%d process(es), %d data shard(s)%s; batch %d a process", comm.get_world_size(),
                 num_shards, f", points over {psh.size}" if psh else "", batch)
@@ -280,9 +297,9 @@ def train_on_dataset(args, dev):
     if steps == 0:
         raise ValueError(f"the train split holds {len(train_set)} samples: no full "
                          f"batch of {batch}")
-    _, model, opt = build_trainer(args.cfg_file, dev, args.seed, total_steps=steps * epochs,
+    _, model, opt = build_trainer(cfg, dev, args.seed, total_steps=steps * epochs,
                                   pretrained_model=args.pretrained_model, dataset=train_set,
-                                  set_cfgs=args.set_cfgs)
+                                  steps_per_epoch=steps)
     stepper = wrap_data_parallel(model, dev)
     start_epoch = 0
     resume_from = args.ckpt or latest_checkpoint(ckpt_dir)
@@ -334,6 +351,17 @@ def train_on_dataset(args, dev):
     return ckpt_dir, epochs_done
 
 
+def run_cfg(args):
+    """The config of the run: --variant's (`infer.variant_cfg`), else
+    --cfg_file's, then the --set overrides."""
+    if args.variant is None:
+        return load_cfg(args.cfg_file, args.set_cfgs)
+    cfg = variant_cfg(args.variant)
+    if args.set_cfgs:
+        cfg_from_list(list(args.set_cfgs), cfg)
+    return cfg
+
+
 def shard_plan(args, cfg, dev):
     """(the point-axis context or None, the loader's shard count, this
     rank's shard): the ranks, or under --point_axis P (else the config's
@@ -369,6 +397,10 @@ def main(argv=None):
                          "distillation config) to start from")
     ap.add_argument("--set", dest="set_cfgs", nargs="+", default=None, metavar="KEY VALUE",
                     help="config overrides, key value pairs")
+    ap.add_argument("--variant", default=None,
+                    choices=OPTION_VARIANTS + ("neck",) + tuple(HYBRID_VARIANTS),
+                    help="a variant of a shipped config (`infer.variant_cfg`) in place of "
+                         "--cfg_file")
     synth = ap.add_argument_group("synthetic-scan mode")
     synth.add_argument("--points", type=int, default=None, help="default 16384")
     synth.add_argument("--steps", type=int, default=None, help="default 3")
@@ -416,8 +448,8 @@ def main(argv=None):
     args.steps = 3 if args.steps is None else args.steps
     dev = resolve_device(args.device)
     total = args.steps + 1 + int(args.profile)
-    cfg, model, opt = build_trainer(args.cfg_file, dev, args.seed, args.points, total,
-                                    args.pretrained_model, set_cfgs=args.set_cfgs)
+    cfg, model, opt = build_trainer(run_cfg(args), dev, args.seed, args.points, total,
+                                    args.pretrained_model)
     meta = model.dataset_meta
     velocity = predicts_velocity(model)
     batches = [synth_train_batch(args.batch, args.points, args.seed + i, dev,
